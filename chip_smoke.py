@@ -1,0 +1,485 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (paddle_tpu_torch) on one H100.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc``
+into the git-ignored ``paddle_tpu_torch/_build``, then runs, in order
+(any failure raises and the script exits non-zero):
+
+1. device: the card's name and power limit, torch/CUDA versions, the
+   kernel build time; TF32 off for f32 matmuls and convolutions;
+2. B1, the flash-prefill kernel, against its plain version at Llama-3-8B
+   head shapes (Hq=32, Hkv=8, D=128; B=2; S in 128/1000/1024; causal and
+   not; bf16 and f32; D=64 once);
+3. B4, the ragged paged-decode kernel, against its plain version on
+   [L=4, NB=512, BS=64, Hkv=8, D=128] pools with lengths 0, 1, 64, 2000
+   and more;
+4. the main path: ``LLMEngine`` serving 16 greedy requests (prompts of
+   64-1000 tokens, 64 new tokens each) on Llama-3-8B with random bf16
+   weights, with both kernels' launch counts read around the run; then
+   one more decode call traced with torch.profiler (the device's busy
+   share of its wall time), and each kernel timed at the run's own
+   shapes beside its plain version (and, for B1, beside SDPA);
+5. cross-device streams: Llama-3-8B widths cut to 2 layers and a 32768
+   vocabulary, f32, two prompts of 130 and 200 tokens for 8 greedy
+   tokens through the engine on the card and on the CPU (plain versions)
+   with the same numpy-made weights — the streams must be equal.
+
+Before its last line it prints one JSON object with every ported kernel
+(launches on the main path, max error, and times in ms beside the bound),
+and the card's name and power limit; the last line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
+Without a CUDA device, or without the repository beside it, it exits 1
+and prints no result.
+"""
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and dense bf16 rate
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+SEED = 0
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def nvidia_smi() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters):
+    """Mean device time of ``fn()`` in ms over ``iters`` calls (CUDA
+    events, after one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# phase 2: B1, flash prefill
+# ---------------------------------------------------------------------------
+def check_flash(tfa, dev):
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cases = [(S, causal, dtype, 128) for S in (128, 1000, 1024)
+             for causal in (True, False)
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases.append((1000, True, torch.bfloat16, 64))
+    for S, causal, dtype, D in cases:
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                   for shape in ((2, S, 32, D), (2, S, 8, D), (2, S, 8, D)))
+        out, lse = tfa.flash_attention_fwd(q, k, v, causal)
+        ref, ref_lse = tfa.flash_attention_fwd_plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        eo, el = max_err(out, ref), max_err(lse, ref_lse)
+        log(f"  B1 S={S} causal={causal} {str(dtype)[6:]} D={D}: "
+            f"max|dO|={eo:.3g} max|dLSE|={el:.3g} (tol {tol})")
+        if not (eo <= tol and el <= tol):
+            raise AssertionError(f"B1 disagrees with its plain version at "
+                                 f"S={S} causal={causal} {dtype} D={D}")
+
+
+def time_flash(tfa, dev, B, S):
+    """B1 at the serving run's largest prefill wave: [B, S, 32, 128] bf16,
+    causal. Returns the kernels-line entry fields."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    Hq, Hkv, D = 32, 8, 128
+    q, k, v = (torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+               for shape in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    out, _ = tfa.flash_attention_fwd(q, k, v, True)
+    ref, _ = tfa.flash_attention_fwd_plain(q, k, v, True)
+    err = max_err(out, ref)
+    if err > 2e-2:
+        raise AssertionError(f"B1 disagrees at the serving shape: {err}")
+    del ref
+    ms = time_ms(lambda i=0: tfa.flash_attention_fwd(q, k, v, True), 10)
+    plain_ms = time_ms(
+        lambda i=0: tfa.flash_attention_fwd_plain(q, k, v, True), 3)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_ms(
+        lambda i=0: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+    flops = 2.0 * B * Hq * S * S * D                     # causal QK + PV
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) \
+        + 4 * B * Hq * S
+    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms, "shape": f"B={B} S={S} Hq=32 Hkv=8 "
+            "D=128 bf16 causal"}
+
+
+# ---------------------------------------------------------------------------
+# phase 3: B4, ragged paged decode
+# ---------------------------------------------------------------------------
+def check_ragged(tpa, dev):
+    L, NB, BS, Hkv, D, N, G = 4, 512, 64, 8, 128, 8, 4
+    MB = 2048 // BS
+    rng = np.random.default_rng(SEED)
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    table = torch.as_tensor(rng.permutation(np.arange(1, NB))[:N * MB]
+                            .reshape(N, MB).astype(np.int32), device=dev)
+    lens = torch.tensor([0, 1, 64, 2000, 777, 128, 1500, 33],
+                        dtype=torch.int32, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        kp = torch.randn(L, NB, BS, Hkv, D, generator=g, device=dev).to(dtype)
+        vp = torch.randn(L, NB, BS, Hkv, D, generator=g, device=dev).to(dtype)
+        q = torch.randn(N, Hkv * G, D, generator=g, device=dev).to(dtype)
+        for layer in (0, 3):
+            got = tpa.ragged_decode_partial(q, kp, vp, table, lens,
+                                            layer=layer)
+            want = tpa.ragged_decode_partial_plain(q, kp, vp, table, lens,
+                                                   layer)
+            torch.cuda.synchronize()
+            if not (torch.all(got[0][0] == 0) and torch.all(got[2][0] == 0)
+                    and torch.all(got[1][0] == -1e30)):
+                raise AssertionError("B4: a length-0 slot must emit "
+                                     "(0, -1e30, 0)")
+            out = got[0][1:] / got[2][1:, ..., None]
+            ref = want[0][1:] / want[2][1:, ..., None]
+            rel = max_err(out, ref) / ref.abs().max().item()
+            # f32: acc, m and l each within 1e-5 of the plain version,
+            # relative to their largest magnitude (abs below 1)
+            errs = [max_err(a, b) / max(1.0, b.abs().max().item())
+                    for a, b in zip(got, want)]
+            log(f"  B4 {str(dtype)[6:]} layer={layer}: rel|dOut|={rel:.3g} "
+                f"acc/m/l rel err={[f'{e:.3g}' for e in errs]}")
+            if dtype == torch.bfloat16 and rel > 1e-2:
+                raise AssertionError(f"B4 bf16 disagrees: {rel}")
+            if dtype == torch.float32 and max(errs) > 1e-5:
+                raise AssertionError(f"B4 f32 disagrees: {errs}")
+        del kp, vp
+
+
+def time_ragged(tpa, dev, lengths, num_blocks, Lc=32):
+    """B4 at the serving run's decode shape: q [8, 32, 128] bf16 over a
+    [32, num_blocks, 64, 8, 128] pool, one launch per layer in turn (each
+    layer's blocks are cold in L2, as on the main path)."""
+    N, Hkv, G, D, BS, MB = len(lengths), 8, 4, 128, 64, 2048 // 64
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rng = np.random.default_rng(SEED + 3)
+    kp = torch.randn(Lc, num_blocks, BS, Hkv, D, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    vp = torch.randn_like(kp)
+    q = torch.randn(N, Hkv * G, D, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    table = torch.as_tensor(rng.permutation(np.arange(1, num_blocks))
+                            [:N * MB].reshape(N, MB).astype(np.int32),
+                            device=dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got = tpa.ragged_decode_partial(q, kp, vp, table, lens, layer=5)
+    want = tpa.ragged_decode_partial_plain(q, kp, vp, table, lens, 5)
+    out = got[0] / got[2][..., None]
+    ref = want[0] / want[2][..., None]
+    err = max_err(out, ref)
+    if err > 1e-2 * ref.abs().max().item():
+        raise AssertionError(f"B4 disagrees at the serving shape: {err}")
+    ms = time_ms(lambda i=0: tpa.ragged_decode_partial(
+        q, kp, vp, table, lens, layer=i % Lc), 4 * Lc)
+    plain_ms = time_ms(lambda i=0: tpa.ragged_decode_partial_plain(
+        q, kp, vp, table, lens, i % Lc), Lc)
+    tokens = int(sum(lengths))
+    nbytes = 2 * tokens * Hkv * D * 2 + q.numel() * 2 \
+        + N * Hkv * G * (D + 2) * 4 + table.numel() * 4 + N * 4
+    flops = 4.0 * tokens * Hkv * G * D
+    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "library_ms": None,
+            "shape": f"N={N} sum(len)={tokens} Hq=32 Hkv=8 D=128 bf16"}
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path
+# ---------------------------------------------------------------------------
+class CallTimer:
+    """Counts an engine method's calls and times each on the host clock up
+    to a device synchronize (a decode call ends in a readback anyway; a
+    prefill wave is otherwise left in flight for the next decode call)."""
+
+    def __init__(self, obj, name):
+        self.args = []
+        self.seconds = []
+        inner = getattr(obj, name)
+
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            res = inner(*a, **k)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            self.args.append(a)
+            return res
+
+        setattr(obj, name, wrapped)
+
+    @property
+    def n(self):
+        return len(self.seconds)
+
+
+def serve_llama3_8b(llama, LLMEngine, build, dev, card):
+    cfg = llama.llama3_8b()
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, seed=SEED, device=dev,
+                               dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"  Llama-3-8B random bf16 weights: {llama.num_params(params)} "
+        f"params in {time.perf_counter() - t0:.1f} s")
+    eng = LLMEngine(params, cfg, max_slots=8, block_size=64,
+                    max_model_len=2048, prompt_buckets=[128, 512, 1024],
+                    decode_steps=16, seed=SEED, device=dev)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 1001, size=16)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in lens]
+    ids = [eng.add_request(p, max_new_tokens=64) for p in prompts]
+    prefills = CallTimer(eng, "_dispatch_prefill")
+    decodes = CallTimer(eng, "_dispatch_decode")
+    torch.cuda.reset_peak_memory_stats(dev)
+    build.launch_counts.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    n_tok = sum(len(out[i]) for i in ids)
+    for i in ids:
+        toks = out[i]
+        if len(toks) != 64 or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"request {i}: {len(toks)} tokens, "
+                                 f"range [{min(toks)}, {max(toks)}]")
+    acct = eng.block_accounting()
+    if acct["free"] != acct["total"] or acct["backed"] != 0:
+        raise AssertionError(f"block ledger unbalanced after drain: {acct}")
+    L = cfg.num_layers
+    if launches.get("flash_fwd", 0) < L * prefills.n:
+        raise AssertionError(f"flash_fwd launched {launches} for "
+                             f"{prefills.n} prefill waves")
+    if launches.get("ragged_decode", 0) < L * 16 * decodes.n:
+        raise AssertionError(f"ragged_decode launched {launches} for "
+                             f"{decodes.n} decode calls")
+    peak = torch.cuda.max_memory_allocated(dev)
+    # each prefill wave's (rows, bucket): B=1 alone, else max_slots rows
+    waves = [(1 if len(rows) == 1 else eng.N,
+              eng._bucket_for(max(len(ctx) for _s, _r, ctx in rows)))
+             for (rows,) in prefills.args]
+    log(f"  served {len(ids)} requests, {n_tok} tokens in {wall:.2f} s: "
+        f"{n_tok / wall:.1f} output tok/s; prefill waves {waves} took "
+        f"{prefills.seconds} s; {decodes.n} decode calls of 16 steps took "
+        f"{decodes.seconds} s; launches {launches}; peak memory "
+        f"{peak / 2**30:.2f} GiB; card: {card}")
+    summary = {"requests": len(ids), "output_tokens": n_tok,
+               "wall_s": wall, "output_tok_per_s": n_tok / wall,
+               "prefill_waves": waves, "prefill_s": list(prefills.seconds),
+               "decode_calls": decodes.n, "decode_s": list(decodes.seconds),
+               "peak_mem_gib": peak / 2**30, "prompt_lens": lens.tolist()}
+    summary["traced_decode_call"] = trace_decode_call(eng, prompts[:eng.N])
+    return launches, summary, eng.nb
+
+
+def trace_decode_call(eng, prompts):
+    """Where one steady decode call's time goes: admit a full wave, run
+    its first decode call, then trace the next one with torch.profiler
+    (device activity only) and report the device's busy share of the
+    call's wall time, its kernel launches and the kernels that took the
+    most device time. The engine is drained afterwards."""
+    from torch.profiler import ProfilerActivity, profile
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=48)
+    eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    eng.run()
+    acct = eng.block_accounting()
+    if acct["free"] != acct["total"]:
+        raise AssertionError(f"block ledger unbalanced after drain: {acct}")
+    if not kern:
+        log("  traced decode call: the trace holds no device activity; "
+            "busy share not measured")
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    busy, (s0, e0) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > e0:
+            busy, s0, e0 = busy + e0 - s0, s, e
+        else:
+            e0 = max(e0, e)
+    busy += e0 - s0
+    by_name = {}
+    for e in kern:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    res = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+           "device_busy_share": busy / wall_us, "kernel_launches": len(kern),
+           "top_kernels_ms": [(name[:60], t / 1e3, n)
+                              for name, (t, n) in top]}
+    log(f"  traced decode call ({eng.decode_steps} steps): {res}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 5: card vs CPU streams
+# ---------------------------------------------------------------------------
+def numpy_params(cfg, seed):
+    """f32 weights made with numpy, scaled as llama.init_params does."""
+    rng = np.random.default_rng(seed)
+    h, f, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    nq, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    s = 1.0 / math.sqrt(h)
+
+    def rnd(shape, scale):
+        a = rng.standard_normal(shape, dtype=np.float32)
+        a *= scale
+        return a
+
+    return {
+        "embed": rnd((cfg.vocab_size, h), s),
+        "layers": {
+            "attn_norm": np.ones((L, h), np.float32),
+            "wq": rnd((L, h, nq * d), s), "wk": rnd((L, h, nkv * d), s),
+            "wv": rnd((L, h, nkv * d), s),
+            "wo": rnd((L, nq * d, h), s / math.sqrt(2 * L)),
+            "mlp_norm": np.ones((L, h), np.float32),
+            "w_gate": rnd((L, h, f), s), "w_up": rnd((L, h, f), s),
+            "w_down": rnd((L, f, h), 1 / math.sqrt(f) / math.sqrt(2 * L)),
+        },
+        "final_norm": np.ones((h,), np.float32),
+        "lm_head": rnd((h, cfg.vocab_size), s),
+    }
+
+
+def cross_device_streams(llama, LLMEngine, dev):
+    import dataclasses
+    cfg = dataclasses.replace(llama.llama3_8b(), num_layers=2,
+                              vocab_size=32768, dtype=torch.float32)
+    tree = numpy_params(cfg, SEED)
+    rng = np.random.default_rng(SEED + 5)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in (130, 200)]
+    streams = {}
+    for where in (dev, "cpu"):
+        params = llama.params_from_numpy(tree, device=where)
+        eng = LLMEngine(params, cfg, max_slots=2, block_size=64,
+                        max_model_len=512, prompt_buckets=[256],
+                        decode_steps=4, device=where)
+        ids = [eng.add_request(p, max_new_tokens=8) for p in prompts]
+        t0 = time.perf_counter()
+        out = eng.run()
+        streams[str(where)] = [out[i] for i in ids]
+        log(f"  {where}: {streams[str(where)]} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        del params, eng
+    if streams[str(dev)] != streams["cpu"]:
+        raise AssertionError(f"card and CPU streams differ: {streams}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    try:
+        from paddle_tpu_torch.kernels import _build as build
+        from paddle_tpu_torch.kernels import paged_attention as tpa
+        from paddle_tpu_torch.kernels import pallas_attention as tfa
+        from paddle_tpu_torch.models import llama
+        from paddle_tpu_torch.serving import LLMEngine
+    except ImportError as exc:
+        print(f"chip_smoke: run from the root of a repository checkout "
+              f"({exc})", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+
+    log("phase 1: device")
+    card = nvidia_smi()
+    log(f"  {card}")
+    log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.library()
+    log(f"  kernels built in {build.build_seconds:.1f} s")
+
+    log("phase 2: B1 flash prefill vs plain")
+    check_flash(tfa, dev)
+
+    log("phase 3: B4 ragged paged decode vs plain")
+    check_ragged(tpa, dev)
+
+    log("phase 4: LLMEngine serves Llama-3-8B")
+    launches, serving, num_blocks = serve_llama3_8b(llama, LLMEngine, build,
+                                                    dev, card)
+    torch.cuda.empty_cache()
+    # the kernels timed at the run's own shapes: its largest prefill wave,
+    # and its first wave's decode lengths halfway through their tokens
+    B, S = max(serving["prefill_waves"], key=lambda w: w[0] * w[1] ** 2)
+    b1 = time_flash(tfa, dev, B=B, S=S)
+    log(f"  B1 timing: {b1}")
+    torch.cuda.empty_cache()
+    lens = [n + 32 for n in serving["prompt_lens"][:8]]
+    b4 = time_ragged(tpa, dev, lens, num_blocks)
+    log(f"  B4 timing: {b4}")
+    torch.cuda.empty_cache()
+
+    log("phase 5: card vs CPU greedy streams")
+    cross_device_streams(llama, LLMEngine, dev)
+
+    kernels = [
+        dict(name="flash_fwd", route="cuda",
+             source="paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
+             replaces="paddle_tpu/kernels/pallas_attention.py:107",
+             launches=launches.get("flash_fwd", 0), **b1),
+        dict(name="ragged_decode", route="cuda",
+             source="paddle_tpu_torch/kernels/csrc/ragged_decode.cu",
+             replaces="paddle_tpu/kernels/paged_attention.py:578",
+             launches=launches.get("ragged_decode", 0), **b4),
+    ]
+    log(f"serving: {json.dumps(serving)}")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,14 @@
+"""The port's kernels: each wrapper launches its hand-written CUDA kernel
+on CUDA tensors and runs its plain PyTorch version on CPU tensors.
+Kernel sources live in ``csrc/`` and build on first use (``_build``, which
+also holds the per-kernel ``launch_counts``).
+
+- ``pallas_attention.flash_attention_fwd`` — FlashAttention-2 forward
+  (``csrc/flash_fwd.cu``);
+- ``paged_attention.ragged_decode_partial`` — the ragged paged-decode
+  walk (``csrc/ragged_decode.cu``);
+- ``quant_matmul.weight_only_matmul`` — the dense weight matmul.
+
+Functions are imported from their modules (a re-export here would shadow
+the ``paged_attention`` module with its function of the same name).
+"""

@@ -1,0 +1,73 @@
+// Shared helpers of the port's CUDA kernels: element conversion to and
+// from the f32 working type, warp reductions, and asynchronous copies
+// from global to shared memory.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace ptt {
+
+constexpr float kNegInf = -1e30f;   // the JAX kernels' masking value
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// dtype codes shared with the Python wrappers
+enum DType : int { kF32 = 0, kBF16 = 1 };
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// x rounded to T and back: the TPU kernels cast the probabilities to the
+// value dtype before the PV product; the port does the same.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// reductions over groups of `width` consecutive lanes (width a power of 2)
+template <int width>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int o = width / 2; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(kFullMask, v, o));
+  return v;
+}
+
+template <int width>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = width / 2; o > 0; o >>= 1)
+    v += __shfl_xor_sync(kFullMask, v, o);
+  return v;
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int src_bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending));
+}
+
+}  // namespace ptt

@@ -1,0 +1,671 @@
+"""Continuous-batching paged-KV serving engine — the port of
+paddle_tpu/serving/engine.py (greedy/sampled core, ragged decode path).
+
+Design, as in the JAX engine:
+
+- A fixed batch of ``max_slots`` sequence slots; requests come and go.
+  Idle slots write their K/V to the trash block (physical block 0) and
+  are masked out of sampling.
+- Bucketed prefill: a wave of admissions pads to the smallest prompt
+  bucket covering its longest prompt and to ``max_slots`` rows (a single
+  admission runs at B=1); K/V land in the slots' pool blocks and each
+  request's first token is sampled on the device.
+- Ragged decode: ``decode_steps`` tokens per call; per layer the
+  hand-written kernel (``kernels.paged_attention.ragged_decode_partial``)
+  walks each slot's pool prefix at its true length, and its partial
+  softmax state merges with the call's in-flight ring of new K/V by the
+  flash-decoding combine. The ring is written back to the pools once, at
+  the end of the call.
+- A host-side block allocator over ``[L, num_blocks, block_size, Hkv, D]``
+  pools: admission reserves the prompt's blocks, decode backs the blocks
+  the next call can touch, and when the pool runs dry the newest
+  admission is preempted and re-queued for a fresh prefill of
+  prompt + generated (recompute preemption).
+
+Differences from the JAX engine: PyTorch runs eagerly, so nothing is
+compiled and the pools are updated in place rather than donated. Each
+decode call ends in one synchronous readback (the JAX engine chains the
+next call before reading the previous one); the first tokens of a
+prefill wave stay on the device until that readback. The observability
+hooks are not ported. Prefix caching, chunked prefill, swap/offload,
+admission control, speculative decoding, the mega kernel, int8 and
+tensor parallelism are not ported yet (ROADMAP queue A); their
+constructor arguments raise ``NotImplementedError`` when set.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from collections import deque
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..kernels.paged_attention import ragged_decode_partial
+from ..kernels.quant_matmul import weight_only_matmul as _wo_mm
+from ..models.llama import (LAYER_KEYS, LlamaConfig, _apply_rope,
+                            _attention, _rms_norm, _rope_tables, _rotate)
+
+__all__ = ["LLMEngine", "Request"]
+
+NEG_INF = -1e30
+
+# JAX constructor arguments not ported yet -> (default, ROADMAP queue)
+_UNPORTED = {
+    "mesh": (None, "A10"), "kv_dtype": (None, "A4"),
+    "admission": (None, "A5"), "kv_swap_bytes": (0, "A5"),
+    "injector": (None, "A8"), "prefix_cache": (False, "A5"),
+    "prefill_chunk": (0, "A5"), "prefix_cache_host_bytes": (0, "A5"),
+    "kv_offload": ("auto", "A5"), "draft_params": (None, "A6"),
+    "draft_config": (None, "A6"), "spec_tokens": (4, "A6"),
+    "spec": (True, "A6"), "role": ("both", "A7"), "relay": (None, "A7"),
+}
+
+
+@dataclasses.dataclass
+class Request:
+    req_id: int
+    prompt: List[int]
+    max_new_tokens: int = 64
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    eos_token_id: Optional[int] = None
+    # tokens generated before a preemption; a re-admission prefills
+    # prompt+generated so already-streamed tokens are never re-emitted
+    generated: List[int] = dataclasses.field(default_factory=list)
+
+
+# ---------------------------------------------------------------------------
+# device programs
+# ---------------------------------------------------------------------------
+def _filter_logits(logits, temps, top_ks, top_ps, use_top_k=True,
+                   use_top_p=True):
+    """Temperature-scaled logits with the top-k and top-p masks applied
+    (masked entries -1e30). top_k<=0 and top_p>=1 disable a row's mask."""
+    N, vocab = logits.shape
+    lg = logits / temps.clamp_min(1e-6)[:, None]
+    if use_top_k:
+        eff_k = torch.where(top_ks > 0, top_ks, torch.full_like(top_ks, vocab))
+        srt = torch.sort(lg, dim=-1).values                    # ascending
+        kth_idx = (vocab - eff_k).clamp(0, vocab - 1).long()
+        kth = srt.gather(-1, kth_idx[:, None])
+        lg = torch.where(lg < kth, torch.full_like(lg, NEG_INF), lg)
+    if use_top_p:
+        sort_idx = torch.argsort(-lg, dim=-1, stable=True)
+        sort_p = torch.softmax(lg, dim=-1).gather(-1, sort_idx)
+        cum = torch.cumsum(sort_p, dim=-1)
+        # rows with top_p >= 1 drop nothing: an f32 cumsum can reach 1.0
+        # before the tail, which would mask the tail's tiny probabilities
+        drop_sorted = (cum - sort_p >= top_ps[:, None]) \
+            & (top_ps < 1.0)[:, None]
+        drop = torch.zeros_like(drop_sorted).scatter(-1, sort_idx,
+                                                     drop_sorted)
+        lg = torch.where(drop, torch.full_like(lg, NEG_INF), lg)
+    return lg
+
+
+def _sample_rows(logits, generator, temps, top_ks, top_ps, any_sampled=True,
+                 use_top_k=True, use_top_p=True):
+    """Per-row sampling over [N, vocab] f32 logits with per-row knobs
+    (temps<=0 -> greedy). The three flags prune work the slot mix cannot
+    need: an all-greedy batch is a bare argmax. Sampled rows draw by
+    Gumbel-max from ``generator``."""
+    greedy = logits.argmax(dim=-1)
+    if not any_sampled:
+        return greedy.int()
+    lg = _filter_logits(logits, temps, top_ks, top_ps, use_top_k, use_top_p)
+    u = torch.rand(lg.shape, generator=generator, device=lg.device)
+    gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
+    sampled = (lg + gumbel).argmax(dim=-1)
+    return torch.where(temps > 0, sampled, greedy).int()
+
+
+def _apply_admissions(c_last, c_len, c_done, c_rem, wave_toks, slot_of_row,
+                      lens_new, rems_new, upd_mask):
+    """Scatter one prefill wave's device-resident first tokens into the
+    decode carry (pad rows carry slot_of_row == N and are dropped)."""
+    N = c_last.shape[0]
+    scattered = torch.zeros(N + 1, dtype=c_last.dtype, device=c_last.device)
+    scattered[slot_of_row.long()] = wave_toks.to(c_last.dtype)
+    c_last = torch.where(upd_mask, scattered[:N], c_last)
+    c_len = torch.where(upd_mask, lens_new.to(c_len.dtype), c_len)
+    c_done = c_done & ~upd_mask
+    c_rem = torch.where(upd_mask, rems_new.to(c_rem.dtype), c_rem)
+    return c_last, c_len, c_done, c_rem
+
+
+def _layer(params, l):
+    return {k: params["layers"][k][l] for k in LAYER_KEYS}
+
+
+def _mlp(x, p, c: LlamaConfig):
+    dt = c.dtype
+    hn = _rms_norm(x, p["mlp_norm"], c.rms_eps)
+    gate = torch.nn.functional.silu(_wo_mm(hn, p["w_gate"], dt))
+    return x + _wo_mm(gate * _wo_mm(hn, p["w_up"], dt), p["w_down"], dt)
+
+
+def _paged_prefill(params, tokens, blk_ids, true_len, pools, temps, top_ks,
+                   top_ps, generator, *, config: LlamaConfig,
+                   sample_flags=(True, True, True)):
+    """Prefill a wave of admissions: causal forward over the padded prompt
+    batch, each layer's K/V written into the rows' pool blocks (in place;
+    pad rows and the bucket's pad tail point at the trash block 0), and
+    each row's first token sampled from its last true position.
+
+    tokens [B, S_bucket]; blk_ids [B, S_bucket // bs] int; true_len [B];
+    temps/top_ks/top_ps [B]; pools {"k", "v"} [L, NB, bs, Hkv, D].
+    Returns the first tokens [B] int32 (on the device)."""
+    c = config
+    dt = c.dtype
+    B, S = tokens.shape
+    bs = pools["k"].shape[2]
+    Hq, Hkv, D = c.num_heads, c.num_kv_heads, c.head_dim
+    flat = blk_ids.reshape(-1).long()
+    x = params["embed"][tokens.long()].to(dt)
+    cos, sin = _rope_tables(S, D, c.rope_theta, tokens.device)
+    for l in range(c.num_layers):
+        p = _layer(params, l)
+        hn = _rms_norm(x, p["attn_norm"], c.rms_eps)
+        q = _apply_rope(_wo_mm(hn, p["wq"], dt).reshape(B, S, Hq, D),
+                        cos, sin)
+        k = _apply_rope(_wo_mm(hn, p["wk"], dt).reshape(B, S, Hkv, D),
+                        cos, sin)
+        v = _wo_mm(hn, p["wv"], dt).reshape(B, S, Hkv, D)
+        pools["k"][l, flat] = k.reshape(-1, bs, Hkv, D).to(pools["k"].dtype)
+        pools["v"][l, flat] = v.reshape(-1, bs, Hkv, D).to(pools["v"].dtype)
+        att = _attention(q, k, v, c).reshape(B, S, Hq * D)
+        x = _mlp(x + _wo_mm(att, p["wo"], dt), p, c)
+    x = _rms_norm(x, params["final_norm"], c.rms_eps)
+    rows = torch.arange(B, device=x.device)
+    last_h = x[rows, (true_len.long() - 1).clamp_min(0)]
+    logits = _wo_mm(last_h, params["lm_head"], dt).float()
+    return _sample_rows(logits, generator, temps, top_ks, top_ps,
+                        *sample_flags)
+
+
+def _rope1(t, ang):
+    """Rotate-half RoPE of one position per row: t [N, H, D], ang [N, D/2]
+    f32 angles (cos/sin cast to t's dtype before the multiply)."""
+    return _rotate(t, torch.cos(ang)[:, None, :].to(t.dtype),
+                   torch.sin(ang)[:, None, :].to(t.dtype))
+
+
+def _paged_decode(params, last_tokens, lengths, done0, budgets, generator,
+                  active, block_table, pools, temps, top_ks, top_ps, eos_ids,
+                  *, config: LlamaConfig, n_steps: int,
+                  sample_flags=(True, True, True)):
+    """``n_steps`` decode iterations over all slots (the ragged path).
+
+    The slot prefixes ``[0, lengths)`` are frozen for the call: every step
+    and layer the ragged kernel walks them at their true lengths (slots
+    outside ``active`` walk zero blocks) and returns its partial softmax
+    state, which merges with the call's ring of new K/V by the
+    flash-decoding combine — one softmax over [prefix ; ring]. Slots that
+    hit their eos or budget flip to done and emit -1 from then on. The
+    ring's valid entries are written back to the pools (in place) at the
+    end of the call.
+
+    Returns (emitted [n_steps, N] int32 with -1 padding, last, lengths,
+    done, budgets)."""
+    c = config
+    dt = c.dtype
+    Lc, N, S = c.num_layers, block_table.shape[0], n_steps
+    bs = pools["k"].shape[2]
+    Hkv, D = c.num_kv_heads, c.head_dim
+    G = c.num_heads // Hkv
+    P = block_table.shape[1] * bs
+    scale = 1.0 / math.sqrt(D)
+    dev = last_tokens.device
+    lens0 = lengths
+    walk_lens = torch.where(active, lens0, torch.zeros_like(lens0)).int()
+    freq = c.rope_theta ** (-torch.arange(0, D, 2, dtype=torch.float32,
+                                          device=dev) / D)
+    head_w = params["lm_head"].to(dt)
+    ring_k = torch.zeros((Lc, N, S, Hkv, D), dtype=dt, device=dev)
+    ring_v = torch.zeros_like(ring_k)
+    last, lens, done, rem = last_tokens, lengths, done0, budgets
+    emitted = []
+    for t in range(S):
+        act = active & ~done
+        x = params["embed"][last.long()].to(dt)[:, None]     # [N, 1, h]
+        ang = lens.float()[:, None] * freq[None, :]
+        ring_live = (torch.arange(S, device=dev) <= t)[None, None, None, :]
+        for l in range(Lc):
+            p = _layer(params, l)
+            hn = _rms_norm(x, p["attn_norm"], c.rms_eps)[:, 0]
+            q = _rope1(_wo_mm(hn, p["wq"], dt).reshape(N, Hkv * G, D), ang)
+            kk = _rope1(_wo_mm(hn, p["wk"], dt).reshape(N, Hkv, D), ang)
+            vv = _wo_mm(hn, p["wv"], dt).reshape(N, Hkv, D)
+            ring_k[l, :, t] = kk
+            ring_v[l, :, t] = vv
+            qg = q.reshape(N, Hkv, G, D).float()
+            s_rng = torch.einsum("nhgd,nshd->nhgs", qg,
+                                 ring_k[l].float()) * scale
+            s_rng = torch.where(ring_live, s_rng,
+                                torch.full_like(s_rng, NEG_INF))
+            acc_p, m_p, l_p = ragged_decode_partial(
+                q, pools["k"], pools["v"], block_table, walk_lens, layer=l)
+            # the ring always holds >= 1 live position, so l_tot >= 1
+            m_tot = torch.maximum(m_p, s_rng.amax(dim=-1))
+            corr = torch.exp(m_p - m_tot)
+            p_rng = torch.exp(s_rng - m_tot[..., None])
+            l_tot = l_p * corr + p_rng.sum(dim=-1)
+            acc = acc_p * corr[..., None] + torch.einsum(
+                "nhgs,nshd->nhgd", p_rng, ring_v[l].float())
+            att = (acc / l_tot[..., None]).reshape(N, 1, Hkv * G * D).to(dt)
+            x = _mlp(x + _wo_mm(att, p["wo"], dt), p, c)
+        xf = _rms_norm(x, params["final_norm"], c.rms_eps)
+        logits = (xf[:, 0] @ head_w).float()
+        nxt = _sample_rows(logits, generator, temps, top_ks, top_ps,
+                           *sample_flags)
+        emitted.append(torch.where(act, nxt, torch.full_like(nxt, -1)))
+        lens = lens + act.to(lens.dtype)
+        rem = rem - act.to(rem.dtype)
+        done = done | (act & (eos_ids >= 0) & (nxt == eos_ids)) \
+            | (act & (rem <= 0))
+        last = torch.where(act, nxt, last)
+
+    # writeback: the ring's valid entries -> pools (trash block 0 else)
+    cnt = lens - lens0
+    j = torch.arange(S, device=dev)[None, :]
+    valid = (j < cnt[:, None]) & active[:, None]              # [N, S]
+    pos = torch.clamp(lens0.long()[:, None] + j, max=P - 1)
+    phys = block_table.long().gather(1, pos // bs)
+    phys = torch.where(valid, phys, torch.zeros_like(phys))
+    off = pos % bs
+    pools["k"][:, phys, off] = ring_k.to(pools["k"].dtype)
+    pools["v"][:, phys, off] = ring_v.to(pools["v"].dtype)
+    return torch.stack(emitted), last, lens, done, rem
+
+
+# ---------------------------------------------------------------------------
+# host engine
+# ---------------------------------------------------------------------------
+class LLMEngine:
+    """Continuous-batching serving loop.
+
+    >>> eng = LLMEngine(params, config, max_slots=4)
+    >>> eng.add_request([1, 2, 3], max_new_tokens=32)
+    >>> outputs = eng.run()          # {req_id: [generated tokens...]}
+
+    ``step()`` admits queued requests, runs one decode call and returns
+    the (req_id, token) pairs that became host-visible — the streaming
+    hook. ``params`` must live on ``device`` (``"cuda"`` by default;
+    ``"cpu"`` runs the kernels' plain versions).
+    """
+
+    def __init__(self, params, config: LlamaConfig, max_slots: int = 4,
+                 block_size: int = 16, max_model_len: int = 512,
+                 num_blocks: Optional[int] = None,
+                 prompt_buckets: Optional[List[int]] = None, seed: int = 0,
+                 decode_steps: int = 1, decode_kernel: str = "auto",
+                 device="cuda", **unported):
+        for name, value in unported.items():
+            if name not in _UNPORTED:
+                raise TypeError(f"LLMEngine got an unexpected argument "
+                                f"{name!r}")
+            default, queue = _UNPORTED[name]
+            if value is not default and value != default:
+                raise NotImplementedError(
+                    f"LLMEngine({name}=...) is not ported yet (ROADMAP "
+                    f"queue {queue})")
+        if decode_kernel in ("bucketed", "mega"):
+            raise NotImplementedError(
+                f"decode_kernel={decode_kernel!r} is not ported: the port "
+                "serves decode through the ragged kernel (ROADMAP queue B "
+                "holds the mega kernel)")
+        if decode_kernel not in ("auto", "ragged"):
+            raise ValueError(f"decode_kernel must be 'auto' or 'ragged', "
+                             f"got {decode_kernel!r}")
+        if max_model_len % block_size:
+            raise ValueError(f"max_model_len {max_model_len} is not a "
+                             f"multiple of block_size {block_size}")
+        self.device = resolve_device(device)
+        bad = [k for k, t in _tensors(params) if t.device != self.device]
+        if bad:
+            raise ValueError(f"params {bad[:3]} are not on {self.device}")
+        c = config
+        self.params = params
+        self.config = config
+        self.decode_kernel = decode_kernel
+        self.N = max_slots
+        self.bs = block_size
+        self.mb = max_model_len // block_size      # logical blocks per slot
+        self.max_model_len = max_model_len
+        # +1: physical block 0 is the trash block for idle slots
+        self.nb = (num_blocks if num_blocks is not None
+                   else max_slots * self.mb) + 1
+        self.buckets = sorted(prompt_buckets or
+                              [b for b in (64, 128, 256, 512)
+                               if b <= max_model_len] or [max_model_len])
+        if self.buckets[-1] < max_model_len:
+            # re-admission after preemption prefills prompt+generated, which
+            # can reach max_model_len — it must always have a bucket
+            self.buckets.append(max_model_len)
+        for b in self.buckets:
+            if b % block_size:
+                raise ValueError(f"prompt bucket {b} is not a multiple of "
+                                 f"block_size {block_size}")
+        pool_shape = (c.num_layers, self.nb, block_size, c.num_kv_heads,
+                      c.head_dim)
+        self.pools = {"k": torch.zeros(pool_shape, dtype=c.dtype,
+                                       device=self.device),
+                      "v": torch.zeros(pool_shape, dtype=c.dtype,
+                                       device=self.device)}
+        self.free_blocks = deque(range(1, self.nb))
+        self.table = np.zeros((self.N, self.mb), np.int32)
+        self.n_alloc = np.zeros(self.N, np.int64)  # backed logical blocks
+        self.lengths = np.zeros(self.N, np.int64)
+        self.slot_req: List[Optional[Request]] = [None] * self.N
+        self.slot_out: List[List[int]] = [[] for _ in range(self.N)]
+        self.admit_order: List[int] = []           # slots, oldest first
+        self.queue: deque = deque()
+        self.results: Dict[int, List[int]] = {}
+        self._next_id = 0
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.decode_steps = max(1, int(decode_steps))
+        self._table_dev = None       # device copy of self.table, when clean
+        # admissions whose device-sampled first token has not been read
+        # back yet: (slot, req_id, wave token array, row)
+        self._pending_adm: List = []
+
+    # -- public api ---------------------------------------------------------
+    def add_request(self, prompt: List[int], **kw) -> int:
+        req = Request(req_id=self._next_id, prompt=list(prompt), **kw)
+        if len(req.prompt) + req.max_new_tokens > self.max_model_len:
+            raise ValueError(
+                f"request {req.req_id}: prompt({len(req.prompt)}) + "
+                f"max_new_tokens({req.max_new_tokens}) exceeds "
+                f"max_model_len({self.max_model_len})")
+        if len(req.prompt) > self.buckets[-1]:
+            raise ValueError(
+                f"request {req.req_id}: prompt length {len(req.prompt)} "
+                f"exceeds the largest prompt bucket {self.buckets[-1]}")
+        self._next_id += 1
+        self.queue.append(req)
+        return req.req_id
+
+    def has_work(self) -> bool:
+        return bool(self.queue) or any(r is not None for r in self.slot_req)
+
+    def run(self) -> Dict[int, List[int]]:
+        while self.has_work():
+            self.step()
+        return self.results
+
+    def step(self):
+        """Admit queued requests, run one decode call over the active
+        slots, and return the (req_id, token) pairs emitted."""
+        self._admit()
+        if not self._decode_slots():
+            return []
+        self._back_or_preempt()
+        active = self._decode_slots()
+        if not active:
+            return []
+        return self._dispatch_decode(active)
+
+    def block_accounting(self) -> Dict[str, int]:
+        """Device block-pool ledger: ``free + backed == total`` at every
+        step boundary (``backed`` counts the blocks slots hold)."""
+        return {"total": self.nb - 1, "free": len(self.free_blocks),
+                "backed": int(self.n_alloc.sum())}
+
+    # -- internals ----------------------------------------------------------
+    def _bucket_for(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        raise ValueError(f"prompt length {n} exceeds largest bucket "
+                         f"{self.buckets[-1]}")
+
+    def _take_up_to(self, k: int) -> List[int]:
+        out: List[int] = []
+        while self.free_blocks and len(out) < k:
+            out.append(self.free_blocks.popleft())
+        return out
+
+    def _free_slot(self, slot: int, requeue: bool = False):
+        req = self.slot_req[slot]
+        out = self.slot_out[slot]
+        for j in range(int(self.n_alloc[slot])):
+            self.free_blocks.append(int(self.table[slot, j]))
+        self.table[slot, :] = 0
+        self.n_alloc[slot] = 0
+        self.lengths[slot] = 0
+        self.slot_req[slot] = None
+        if slot in self.admit_order:
+            self.admit_order.remove(slot)
+        self.slot_out[slot] = []
+        self._table_dev = None
+        # an admission whose first token was never read back dies with the
+        # slot (recompute semantics: re-admission prefills and re-samples)
+        self._pending_adm = [e for e in self._pending_adm if e[0] != slot]
+        if requeue:
+            # preemption: carry generated tokens so re-admission continues
+            # from prompt+generated — streamed tokens are never re-emitted
+            req.generated.extend(out)
+            self.queue.appendleft(req)
+        else:
+            self.results[req.req_id] = req.generated + out
+
+    def _admit(self):
+        """Admit every queued request a free slot and free blocks can
+        take, then prefill the whole wave in one call."""
+        wave = []
+        while self.queue and len(wave) < self.N:
+            slot = next((i for i in range(self.N)
+                         if self.slot_req[i] is None), None)
+            if slot is None:
+                break
+            req = self.queue[0]
+            ctx = req.prompt + req.generated   # re-admission continues
+            need = max(1, -(-len(ctx) // self.bs))
+            if len(self.free_blocks) < need:
+                if not any(r is not None for r in self.slot_req):
+                    raise RuntimeError(
+                        f"request {req.req_id}: prefill needs {need} blocks "
+                        f"but the pool only has {self.nb - 1} usable — the "
+                        "block pool is too small for this request")
+                break                        # blocks busy: wait for frees
+            self.queue.popleft()
+            blocks = self._take_up_to(need)
+            self.table[slot, :need] = blocks
+            self.n_alloc[slot] = need
+            self.slot_req[slot] = req
+            self.admit_order.append(slot)
+            self._table_dev = None
+            wave.append((slot, req, ctx))
+        if wave:
+            self._dispatch_prefill(wave)
+
+    def _dispatch_prefill(self, rows):
+        """One prefill call for a wave: B=1 for a single admission, else
+        padded to ``max_slots`` rows; pad rows point at the trash block."""
+        bucket = self._bucket_for(max(len(ctx) for _s, _r, ctx in rows))
+        B = 1 if len(rows) == 1 else self.N
+        toks = np.zeros((B, bucket), np.int32)
+        blk_ids = np.zeros((B, bucket // self.bs), np.int32)
+        true_lens = np.ones(B, np.int32)
+        temps = np.zeros(B, np.float32)
+        top_ks = np.zeros(B, np.int32)
+        top_ps = np.ones(B, np.float32)
+        for i, (slot, req, ctx) in enumerate(rows):
+            nblk = -(-len(ctx) // self.bs)
+            toks[i, :len(ctx)] = ctx
+            blk_ids[i, :nblk] = self.table[slot, :nblk]
+            true_lens[i] = len(ctx)
+            temps[i], top_ks[i], top_ps[i] = (req.temperature, req.top_k,
+                                              req.top_p)
+        flags = _sample_flags([r for _s, r, _c in rows])
+        dev = self.device
+        tok_dev = _paged_prefill(
+            self.params, torch.as_tensor(toks, device=dev),
+            torch.as_tensor(blk_ids, device=dev),
+            torch.as_tensor(true_lens, device=dev), self.pools,
+            torch.as_tensor(temps, device=dev),
+            torch.as_tensor(top_ks, device=dev),
+            torch.as_tensor(top_ps, device=dev), self._gen,
+            config=self.config, sample_flags=flags)
+        for i, (slot, req, ctx) in enumerate(rows):
+            self.lengths[slot] = len(ctx)
+            self._pending_adm.append((slot, req.req_id, tok_dev, i))
+
+    def _emit(self, slot: int, tok: int) -> bool:
+        """Record a generated token; free the slot when the request is done.
+        Returns True if the request finished."""
+        req = self.slot_req[slot]
+        self.slot_out[slot].append(tok)
+        n_gen = len(req.generated) + len(self.slot_out[slot])
+        done = (req.eos_token_id is not None and tok == req.eos_token_id) \
+            or n_gen >= req.max_new_tokens
+        if done:
+            self._free_slot(slot)
+        return done
+
+    def _ensure_backed(self, slot: int) -> bool:
+        """Back every block this slot's next decode call can write
+        (clamped to its remaining token budget). Returns False if the pool
+        is exhausted (caller preempts)."""
+        req = self.slot_req[slot]
+        remaining = req.max_new_tokens - len(req.generated) \
+            - len(self.slot_out[slot])
+        steps = max(1, min(self.decode_steps, remaining))
+        horizon = int(self.lengths[slot]) + steps - 1
+        last_blk = min(horizon, self.max_model_len - 1) // self.bs
+        need = last_blk + 1 - int(self.n_alloc[slot])
+        if need <= 0:
+            return True
+        got = self._take_up_to(need)
+        for blk in got:
+            self.table[slot, int(self.n_alloc[slot])] = blk
+            self.n_alloc[slot] += 1
+            self._table_dev = None
+        return len(got) == need
+
+    def _decode_slots(self):
+        return [i for i in range(self.N) if self.slot_req[i] is not None]
+
+    def _back_or_preempt(self):
+        """Back the next call's writes for every active slot; preempt the
+        newest admissions while the pool is short (recompute policy)."""
+        for slot in self._decode_slots():
+            if self.slot_req[slot] is None:
+                continue                      # already preempted as a victim
+            while not self._ensure_backed(slot):
+                victim = self.admit_order[-1]
+                if victim == slot and len(self.admit_order) == 1:
+                    # alone and starved: nothing else will ever free a block
+                    raise RuntimeError(
+                        f"request {self.slot_req[slot].req_id}: the block "
+                        f"pool ({self.nb - 1} usable blocks) is too small "
+                        "to decode this request any further")
+                self._free_slot(victim, requeue=True)
+                if victim == slot:
+                    break
+
+    def _dispatch_decode(self, active):
+        """Run one decode call over ``active`` and read its tokens back."""
+        dev = self.device
+        pend = {s for s, _, _, _ in self._pending_adm}
+        last = np.zeros(self.N, np.int32)
+        budgets = np.zeros(self.N, np.int32)
+        temps = np.zeros(self.N, np.float32)
+        top_ks = np.zeros(self.N, np.int32)
+        top_ps = np.ones(self.N, np.float32)
+        eos_ids = np.full(self.N, -1, np.int32)
+        act = np.zeros(self.N, bool)
+        for i in active:
+            req = self.slot_req[i]
+            # pending-admission slots get their device-sampled first token
+            # scattered in by _apply_admissions below
+            last[i] = self.slot_out[i][-1] if self.slot_out[i] else \
+                (req.generated[-1] if req.generated else req.prompt[-1])
+            budgets[i] = req.max_new_tokens - len(req.generated) \
+                - len(self.slot_out[i]) - (1 if i in pend else 0)
+            temps[i], top_ks[i], top_ps[i] = (req.temperature, req.top_k,
+                                              req.top_p)
+            if req.eos_token_id is not None:
+                eos_ids[i] = req.eos_token_id
+            act[i] = True
+        c_last = torch.as_tensor(last, device=dev)
+        c_len = torch.as_tensor(self.lengths.astype(np.int32), device=dev)
+        c_done = torch.zeros(self.N, dtype=torch.bool, device=dev)
+        c_rem = torch.as_tensor(budgets, device=dev)
+        waves: Dict = {}
+        for s, _rid, arr, i in self._pending_adm:
+            waves.setdefault(id(arr), (arr, []))[1].append((s, i))
+        for arr, items in waves.values():
+            slot_of_row = np.full(arr.shape[0], self.N, np.int32)
+            upd = np.zeros(self.N, bool)
+            for s, i in items:
+                slot_of_row[i] = s
+                upd[s] = True
+            c_last, c_len, c_done, c_rem = _apply_admissions(
+                c_last, c_len, c_done, c_rem, arr,
+                torch.as_tensor(slot_of_row, device=dev), c_len, c_rem,
+                torch.as_tensor(upd, device=dev))
+        if self._table_dev is None:
+            self._table_dev = torch.as_tensor(self.table, device=dev)
+        toks, *_carry = _paged_decode(
+            self.params, c_last, c_len, c_done, c_rem, self._gen,
+            torch.as_tensor(act, device=dev), self._table_dev, self.pools,
+            torch.as_tensor(temps, device=dev),
+            torch.as_tensor(top_ks, device=dev),
+            torch.as_tensor(top_ps, device=dev),
+            torch.as_tensor(eos_ids, device=dev), config=self.config,
+            n_steps=self.decode_steps,
+            sample_flags=_sample_flags([self.slot_req[i] for i in active]))
+        adm, self._pending_adm = self._pending_adm, []
+        return self._process(adm, toks,
+                             [(i, self.slot_req[i].req_id) for i in active])
+
+    def _process(self, adm, toks, snapshot):
+        """Read back a decode call: the first tokens of its admissions,
+        then its emitted grid [n_steps, N]. Slots whose request changed
+        since dispatch are skipped."""
+        emitted = []
+        host = {}
+        for slot, rid, arr, i in adm:
+            if id(arr) not in host:
+                host[id(arr)] = arr.cpu().numpy()
+            req = self.slot_req[slot]
+            if req is None or req.req_id != rid:
+                continue
+            tok = int(host[id(arr)][i])
+            emitted.append((rid, tok))
+            self._emit(slot, tok)
+        toks_host = toks.cpu().numpy()
+        for slot, rid in snapshot:
+            for k in range(toks_host.shape[0]):
+                req = self.slot_req[slot]
+                if req is None or req.req_id != rid:
+                    break
+                tok = int(toks_host[k, slot])
+                if tok < 0:
+                    break          # slot went done mid-call
+                self.lengths[slot] += 1     # its K/V was appended
+                emitted.append((rid, tok))
+                if self._emit(slot, tok):
+                    break
+        return emitted
+
+
+def _sample_flags(reqs):
+    """(any sampled, any sampled top-k, any sampled top-p) over ``reqs``."""
+    sampled = [r for r in reqs if r.temperature > 0]
+    return (bool(sampled), any(r.top_k > 0 for r in sampled),
+            any(r.top_p < 1.0 for r in sampled))
+
+
+def _tensors(params):
+    for k, v in params.items():
+        if isinstance(v, dict):
+            for kk, t in v.items():
+                yield f"{k}.{kk}", t
+        else:
+            yield k, v

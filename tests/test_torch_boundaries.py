@@ -1,0 +1,130 @@
+"""Boundaries of the port: paddle_tpu_torch imports neither jax nor
+paddle_tpu, its entry points default to the card and raise without one,
+and a kernel wrapper given a CUDA tensor never falls back to its plain
+version."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import paddle_tpu_torch
+from paddle_tpu_torch.kernels import paged_attention as tpa
+from paddle_tpu_torch.kernels import pallas_attention as tfa
+from paddle_tpu_torch.models import llama as tl
+from paddle_tpu_torch.serving import LLMEngine
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = Path(paddle_tpu_torch.__file__).resolve().parent
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_package_and_smoke_script_import_no_jax_ast():
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                bad += [(path.name, a.name) for a in node.names
+                        if _forbidden(a.name)]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 \
+                    and _forbidden(node.module or ""):
+                bad.append((path.name, node.module))
+    assert not bad, bad
+
+
+def test_cpu_engine_runs_without_jax_in_a_fresh_process():
+    code = """
+import sys
+import torch
+import paddle_tpu_torch
+from paddle_tpu_torch.models import llama
+from paddle_tpu_torch.serving import LLMEngine
+cfg = llama.tiny_llama(vocab=32, hidden=32, layers=1, heads=4, kv_heads=2,
+                       ffn=32)
+params = llama.init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+eng = LLMEngine(params, cfg, max_slots=2, block_size=8, max_model_len=32,
+                prompt_buckets=[8], decode_steps=2, device="cpu")
+rid = eng.add_request([1, 2, 3], max_new_tokens=4)
+assert len(eng.run()[rid]) == 4
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+assert not leaked, leaked
+print("OK")
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("OK")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a machine without CUDA")
+    cfg = tl.tiny_llama(vocab=32, hidden=32, layers=1, heads=4, kv_heads=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tl.init_params(cfg)
+    params = tl.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LLMEngine(params, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paddle_tpu_torch.resolve_device("cuda:0")
+    with pytest.raises(ValueError):
+        paddle_tpu_torch.resolve_device("meta")
+
+
+def test_kernel_library_is_keyed_by_its_sources(tmp_path, monkeypatch):
+    """An edited CUDA source names a new library, so it is rebuilt."""
+    from paddle_tpu_torch.kernels import _build
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for p in _build.SRC_DIR.iterdir():
+        (src / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "SRC_DIR", src)
+    before = _build._digest()
+    assert _build._digest() == before
+    with open(src / "flash_fwd.cu", "a") as f:
+        f.write("\n// edited\n")
+    assert _build._digest() != before
+
+
+class _CudaTyped(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: what a wrapper decides from
+    when it picks between the kernel and its plain version."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+class _PlainTaken(Exception):
+    pass
+
+
+def test_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
+    """Without a card the wrapper raises when it goes to launch; it never
+    calls its plain version instead."""
+    def no_plain(*a, **k):
+        raise _PlainTaken("plain version taken for a CUDA tensor")
+
+    monkeypatch.setattr(tfa, "flash_attention_fwd_plain", no_plain)
+    monkeypatch.setattr(tpa, "ragged_decode_partial_plain", no_plain)
+
+    def cuda(shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype).as_subclass(_CudaTyped)
+
+    q = cuda((1, 8, 4, 64))
+    kv = cuda((1, 8, 2, 64))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tfa.flash_attention_fwd(q, kv, kv, causal=True)
+    pool = cuda((1, 3, 4, 2, 64))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpa.ragged_decode_partial(cuda((2, 4, 64)), pool, pool,
+                                  cuda((2, 2), torch.int32),
+                                  cuda((2,), torch.int32))
