@@ -26,11 +26,26 @@ into the git-ignored ``paddle_tpu_torch/_build``, then runs, in order
 5. cross-device streams: Llama-3-8B widths cut to 2 layers and a 32768
    vocabulary, f32, two prompts of 130 and 200 tokens for 8 greedy
    tokens through the engine on the card and on the CPU (plain versions)
-   with the same numpy-made weights — the streams must be equal.
+   with the same numpy-made weights — the streams must be equal;
+6. B2/B3, the flash-backward kernels (dQ; dK/dV), against their plain
+   versions at llama-2.6b head shapes (Hq=24, Hkv=8, D=128; B=2; S in
+   128/1000/2048; causal and not; bf16 and f32; D=64 once), and their f32
+   gradients against torch.autograd through dense attention;
+7. the training path: ``train_step`` on llama-2.6b at full width and
+   depth (batch 8, seq 2048, full remat, adafactor, bf16 params, random
+   weights), 2 warm-up and 5 timed steps on one fixed batch — finite,
+   falling losses and, per step, 2x24 B1 and 24 B2/B3 launches; tokens/s,
+   step time, MFU, peak memory; one more step traced with torch.profiler;
+8. B2 and B3 timed at the step's shapes beside their plain versions,
+   their bounds and SDPA's backward;
+9. card vs CPU train step: llama-2.6b widths cut to 2 layers, f32, AdamW,
+   B=1, S=256, the same numpy-made weights — loss, grad norm, grads and
+   updated params must agree.
 
-Before its last line it prints one JSON object with every ported kernel
-(launches on the main path, max error, and times in ms beside the bound),
-and the card's name and power limit; the last line is
+Before its last line it prints a ``training`` line (phase 7's numbers),
+one JSON object with every ported kernel (launches on its main path, max
+error, and times in ms beside the bound), and the card's name and power
+limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 Without a CUDA device, or without the repository beside it, it exits 1
 and prints no result.
@@ -310,28 +325,37 @@ def serve_llama3_8b(llama, LLMEngine, build, dev, card):
 def trace_decode_call(eng, prompts):
     """Where one steady decode call's time goes: admit a full wave, run
     its first decode call, then trace the next one with torch.profiler
-    (device activity only) and report the device's busy share of the
-    call's wall time, its kernel launches and the kernels that took the
-    most device time. The engine is drained afterwards."""
-    from torch.profiler import ProfilerActivity, profile
+    and report the device's busy share of the call's wall time, its
+    kernel launches and the kernels that took the most device time. The
+    engine is drained afterwards."""
     for p in prompts:
         eng.add_request(p, max_new_tokens=48)
     eng.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    res = traced(eng.step)
     eng.run()
     acct = eng.block_accounting()
     if acct["free"] != acct["total"]:
         raise AssertionError(f"block ledger unbalanced after drain: {acct}")
+    log(f"  traced decode call ({eng.decode_steps} steps): {res}")
+    return res
+
+
+def traced(fn):
+    """Run ``fn()`` once under torch.profiler (device activity only), up to
+    a device synchronize, and return the device's busy share of the wall
+    time, the kernel launches and the kernels that took the most device
+    time (None when the trace holds no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kern:
-        log("  traced decode call: the trace holds no device activity; "
-            "busy share not measured")
+        log("  the trace holds no device activity; busy share not measured")
         return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
     busy, (s0, e0) = 0.0, spans[0]
@@ -346,12 +370,10 @@ def trace_decode_call(eng, prompts):
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    res = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-           "device_busy_share": busy / wall_us, "kernel_launches": len(kern),
-           "top_kernels_ms": [(name[:60], t / 1e3, n)
-                              for name, (t, n) in top]}
-    log(f"  traced decode call ({eng.decode_steps} steps): {res}")
-    return res
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / wall_us, "kernel_launches": len(kern),
+            "top_kernels_ms": [(name[:60], t / 1e3, n)
+                               for name, (t, n) in top]}
 
 
 # ---------------------------------------------------------------------------
@@ -410,6 +432,316 @@ def cross_device_streams(llama, LLMEngine, dev):
         raise AssertionError(f"card and CPU streams differ: {streams}")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: B2/B3, the flash backward
+# ---------------------------------------------------------------------------
+def rel_err(a, b):
+    """max |a - b| over max |b|."""
+    return max_err(a, b) / b.float().abs().max().item()
+
+
+def check_flash_bwd(tfa, dev):
+    """B2 (dQ) and B3 (dK/dV) against their plain versions at llama-2.6b
+    head shapes (Hq=24, Hkv=8, D=128; B=2; S in 128/1000/2048; causal and
+    not; bf16 and f32; D=64 once), each gradient within 2e-2 (bf16) or
+    1e-4 (f32) of its largest magnitude; then the kernels' f32 gradients
+    against torch.autograd through a dense f32 attention at S=256."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    cases = [(S, causal, dtype, 128) for S in (128, 1000, 2048)
+             for causal in (True, False)
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases.append((1000, True, torch.bfloat16, 64))
+    for S, causal, dtype, D in cases:
+        q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                       for shape in ((2, S, 24, D), (2, S, 8, D),
+                                     (2, S, 8, D), (2, S, 24, D)))
+        out, lse = tfa.flash_attention_fwd(q, k, v, causal)
+        got = tfa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+        want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+        torch.cuda.synchronize()
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        errs = [rel_err(a, b) for a, b in zip(got, want)]
+        log(f"  B2/B3 S={S} causal={causal} {str(dtype)[6:]} D={D}: "
+            f"rel err dq/dk/dv {[f'{e:.3g}' for e in errs]} (tol {tol})")
+        if max(errs) > tol:
+            raise AssertionError(f"B2/B3 disagree with their plain versions "
+                                 f"at S={S} causal={causal} {dtype} D={D}")
+        del q, k, v, do, out, lse, got, want
+    # the gradients are the derivative: autograd through dense attention
+    S = 256
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev)
+                   for shape in ((2, S, 24, 128), (2, S, 8, 128),
+                                 (2, S, 8, 128), (2, S, 24, 128)))
+    args = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    tfa.flash_attention.apply(*args, True).backward(do)
+    ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    kk, vv = (t.repeat_interleave(3, dim=2) for t in ref[1:])
+    s = torch.einsum("bshd,bthd->bhst", ref[0], kk) / math.sqrt(128)
+    mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+    torch.einsum("bhst,bthd->bshd", s.masked_fill(~mask, float("-inf"))
+                 .softmax(-1), vv).backward(do)
+    errs = [rel_err(a.grad, b.grad) for a, b in zip(args, ref)]
+    log(f"  f32 kernels vs autograd of dense attention, S={S}: rel err "
+        f"dq/dk/dv {[f'{e:.3g}' for e in errs]} (tol 1e-3)")
+    if max(errs) > 1e-3:
+        raise AssertionError("the flash gradients are not the derivative of "
+                             "dense attention")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the training path
+# ---------------------------------------------------------------------------
+def llama_2_6b(llama):
+    """The repo's training configuration (bench.py's llama-2.6b row)."""
+    return llama.LlamaConfig(
+        vocab_size=32768, hidden_size=3072, intermediate_size=8192,
+        num_layers=24, num_heads=24, num_kv_heads=8, head_dim=128,
+        max_seq_len=2048, remat=True)
+
+
+def train_llama_2_6b(llama, build, dev, card, warmup=2, steps=5, lr=3e-5):
+    """``train_step`` on llama-2.6b at full width and depth with bench.py's
+    recipe (batch 8, seq 2048, full remat, adafactor, bf16 params; random
+    weights and one fixed token batch from seeded generators on the card):
+    ``warmup`` steps, then ``steps`` timed ones. The step size is ``lr``
+    with adafactor's 1e-3 floor lifted: at the floor, the loss of the
+    random-init model on one batch oscillates instead of falling (PERF.md,
+    PR 2); the step time does not depend on it. The launch counts are read
+    around the whole run and per step; one more step is traced."""
+    cfg = llama_2_6b(llama)
+    B, S, L = 8, 2048, cfg.num_layers
+    t0 = time.perf_counter()
+    state = llama.init_train_state(cfg, SEED, optimizer="adafactor",
+                                   param_dtype=torch.bfloat16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                           device=dev)
+    torch.cuda.synchronize()
+    n_params = llama.num_params(state.params)
+    log(f"  llama-2.6b: {n_params} params (bf16) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def step(st):
+        return llama.train_step(st, tokens, cfg, optimizer="adafactor",
+                                lr=lr, adafactor_eps2=0.0)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, per_step = [], []
+    build.launch_counts.clear()
+    for i in range(warmup + steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        before = dict(build.launch_counts)
+        state, loss = step(state)
+        losses.append(loss)
+        per_step.append({k: v - before.get(k, 0)
+                         for k, v in build.launch_counts.items()})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [x.item() for x in losses]
+    want = {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L}
+    for i, n in enumerate(per_step):
+        if any(n.get(k, 0) != v for k, v in want.items()):
+            raise AssertionError(f"step {i} launched {n}, expected {want}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"losses {losses}: not finite or not falling")
+    tok_s = B * S * steps / wall
+    mfu = llama.flops_per_token(cfg, S) * tok_s / BF16_FLOPS
+    res = {"config": "llama-2.6b (bench.py:89-92): vocab 32768, hidden 3072, "
+           "ffn 8192, 24 layers, 24/8 heads, head_dim 128, remat full, "
+           "adafactor, bf16 params", "lr": lr, "adafactor_eps2": 0.0,
+           "batch": B, "seq": S,
+           "params": n_params, "warmup_steps": warmup, "timed_steps": steps,
+           "tokens_per_s": tok_s, "step_s": wall / steps, "mfu": mfu,
+           "flops_per_token": llama.flops_per_token(cfg, S),
+           "peak_mem_gib": peak / 2**30, "losses": losses,
+           "launches_per_step": per_step[-1], "card": card}
+    log(f"  trained {steps} steps of {B}x{S} tokens in {wall:.2f} s: "
+        f"{tok_s:.1f} tok/s, {wall / steps * 1e3:.1f} ms a step, MFU "
+        f"{mfu:.4f}, peak memory {peak / 2**30:.2f} GiB, losses {losses}; "
+        f"card: {card}")
+    res["traced_step"] = traced(lambda: step(state))
+    log(f"  traced train step: {res['traced_step']}")
+    return launches, res
+
+
+# ---------------------------------------------------------------------------
+# phase 8: B2/B3 timed at the step's shapes
+# ---------------------------------------------------------------------------
+def sdpa_backward(q, k, v, do):
+    """A function running PyTorch's SDPA backward (dq, dk, dv together) on
+    [B, S, H, D] inputs, causal, and a note of how it was asked: the flash
+    backend with ``enable_gqa``; if that backend refuses GQA, with K/V
+    repeated to Hq heads; if it refuses both, the default backend with
+    ``enable_gqa``."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    G = q.shape[2] // k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    tries = (
+        ("flash backend, enable_gqa", [SDPBackend.FLASH_ATTENTION],
+         lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)),
+        ("flash backend, K/V repeated to Hq heads (it refuses GQA)",
+         [SDPBackend.FLASH_ATTENTION],
+         lambda: sdpa(qt, kt.repeat_interleave(G, 1),
+                      vt.repeat_interleave(G, 1), is_causal=True)),
+        ("default backend, enable_gqa", None,
+         lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)))
+    for note, backends, fwd in tries:
+        try:
+            if backends is None:
+                out = fwd()
+            else:
+                with sdpa_kernel(backends):
+                    out = fwd()
+            torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+        except RuntimeError as exc:
+            log(f"  SDPA ({note}) refused: {str(exc)[:120]}")
+            continue
+        return (lambda i=0: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                retain_graph=True)), note
+    raise RuntimeError("SDPA's backward ran on no backend")
+
+
+def time_flash_bwd(tfa, dev, B=8, S=2048, Hq=24, Hkv=8, D=128):
+    """B2 and B3 at the train step's shape ([8, 2048, 24/8, 128] bf16,
+    causal): CUDA-event ms beside their plain versions, their bounds, and
+    SDPA's backward as the library yardstick for the two together."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev,
+                               dtype=torch.bfloat16)
+                   for shape in ((B, S, Hq, D), (B, S, Hkv, D),
+                                 (B, S, Hkv, D), (B, S, Hq, D)))
+    out, lse = tfa.flash_attention_fwd(q, k, v, True)
+    delta = tfa._delta(out, do)
+    dq = tfa.flash_dq(q, k, v, do, lse, delta, True)
+    dk, dv = tfa.flash_dkv(q, k, v, do, lse, delta, True)
+    want_dq = tfa.flash_dq_plain(q, k, v, do, lse, delta, True)
+    err_dq = max_err(dq, want_dq)
+    rel_dq = err_dq / want_dq.float().abs().max().item()
+    del want_dq
+    want_dk, want_dv = tfa.flash_dkv_plain(q, k, v, do, lse, delta, True)
+    err_dk, err_dv = max_err(dk, want_dk), max_err(dv, want_dv)
+    rel_dkv = max(err_dk / want_dk.float().abs().max().item(),
+                  err_dv / want_dv.float().abs().max().item())
+    del want_dk, want_dv
+    if max(rel_dq, rel_dkv) > 2e-2:
+        raise AssertionError(f"B2/B3 disagree at the step's shape: "
+                             f"{rel_dq}, {rel_dkv}")
+    ms_dq = time_ms(lambda i=0: tfa.flash_dq(q, k, v, do, lse, delta, True),
+                    10)
+    ms_dkv = time_ms(lambda i=0: tfa.flash_dkv(q, k, v, do, lse, delta,
+                                               True), 10)
+    plain_dq = time_ms(lambda i=0: tfa.flash_dq_plain(
+        q, k, v, do, lse, delta, True), 3)
+    plain_dkv = time_ms(lambda i=0: tfa.flash_dkv_plain(
+        q, k, v, do, lse, delta, True), 3)
+    fn, note = sdpa_backward(q, k, v, do)
+    library_ms = time_ms(fn, 10)
+    # each input read once, each output written once
+    qb, kvb, stats = q.numel() * 2, k.numel() * 2, 2 * B * Hq * S * 4
+    shape = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal"
+    res = {}
+    for name, err, ms, plain, n_mm, out_b in (
+            ("flash_dq", err_dq, ms_dq, plain_dq, 3, qb),
+            ("flash_dkv", max(err_dk, err_dv), ms_dkv, plain_dkv, 4,
+             2 * kvb)):
+        flops = n_mm * B * Hq * S * S * D            # causal: S^2/2 pairs
+        nbytes = 2 * qb + 2 * kvb + stats + out_b
+        t_ops, t_bytes = flops / BF16_FLOPS * 1e3, \
+            nbytes / HBM_BYTES_PER_S * 1e3
+        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes",
+                     "library_ms": library_ms,
+                     "library": f"SDPA backward, dq/dk/dv together "
+                                f"(compare with flash_dq + flash_dkv): "
+                                f"{note}",
+                     "shape": shape}
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 9: card vs CPU train step
+# ---------------------------------------------------------------------------
+def leaves(tree):
+    """(path, tensor) of every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return [(f"{k}.{p}" if p else k, t) for k, v in tree.items()
+                for p, t in leaves(v)]
+    return [("", tree)]
+
+
+def cross_device_train_step(llama, dev):
+    """One AdamW ``train_step`` of llama-2.6b widths cut to 2 layers, f32,
+    B=1, S=256, on the card and on the CPU (plain versions) from the same
+    numpy-made weights: loss within 1e-5 relative; grad norm and every
+    gradient within 1e-3 relative (each leaf against its largest
+    magnitude); every updated leaf within 1e-3 of its largest magnitude,
+    apart from elements whose gradient is f32 noise around 0 (below 1e-5
+    of its leaf's largest), whose AdamW update may take any size up to its
+    bound: those are held to 2*lr and counted."""
+    import dataclasses
+    from paddle_tpu_torch.optimizer.functional import init_moments
+    lr = 3e-4
+    cfg = dataclasses.replace(llama_2_6b(llama), num_layers=2,
+                              dtype=torch.float32)
+    tree = numpy_params(cfg, SEED)
+    tokens = np.random.default_rng(SEED + 7).integers(
+        0, cfg.vocab_size, (1, 257))
+    res = []
+    for where in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        params = llama.params_from_numpy(tree, device=where)
+        toks = torch.as_tensor(tokens, device=where)
+        loss, grads = llama.loss_and_grads(params, toks, cfg)
+        gnorm = llama.global_norm(grads)
+        mu, nu = init_moments(params, "adamw")
+        state = llama.TrainState(params, mu, nu, torch.zeros(
+            (), dtype=torch.int32, device=where))
+        new, step_loss = llama.train_step(state, toks, cfg, lr=lr)
+        res.append({
+            "loss": loss.item(), "step_loss": step_loss.item(),
+            "gnorm": gnorm.item(),
+            "grads": {p: t.cpu() for p, t in leaves(grads)},
+            "params": {p: t.cpu() for p, t in leaves(new.params)}})
+        log(f"  {where}: loss {loss.item():.7f}, grad norm "
+            f"{gnorm.item():.7f} ({time.perf_counter() - t0:.1f} s)")
+        del params, grads, state, new, mu, nu
+    card, cpu = res
+    worst = {"loss": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+             "step_loss": abs(card["step_loss"] - cpu["step_loss"])
+             / abs(cpu["step_loss"]),
+             "gnorm": abs(card["gnorm"] - cpu["gnorm"]) / cpu["gnorm"],
+             "grads": max(rel_err(card["grads"][p], g)
+                          for p, g in cpu["grads"].items())}
+    strict, noisy = 0.0, 0
+    for p, want in cpu["params"].items():
+        err = (card["params"][p] - want).abs()
+        gr = cpu["grads"][p].abs()
+        noise = (gr > 0) & (gr < 1e-5 * gr.max())
+        strict = max(strict, err[~noise].max().item()
+                     / want.abs().max().item())
+        noisy += int((err[noise] > 1e-3 * want.abs().max()).sum())
+        if err[noise].numel() and err[noise].max().item() > 2 * lr:
+            raise AssertionError(f"{p}: a noise element moved "
+                                 f"{err[noise].max().item()}")
+    worst["params"] = strict
+    log(f"  card vs CPU: relative errors {worst}; {noisy} updated elements "
+        f"whose gradient is noise around 0 differ by more than 1e-3 of "
+        f"their leaf (held to 2*lr)")
+    if worst["loss"] > 1e-5 or worst["step_loss"] > 1e-5 \
+            or max(worst["gnorm"], worst["grads"], worst["params"]) > 1e-3:
+        raise AssertionError(f"card and CPU train steps differ: {worst}")
+    return dict(worst, noise_elements=noisy)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -461,17 +793,44 @@ def main() -> int:
     log("phase 5: card vs CPU greedy streams")
     cross_device_streams(llama, LLMEngine, dev)
 
+    log("phase 6: B2/B3 flash backward vs plain")
+    check_flash_bwd(tfa, dev)
+    torch.cuda.empty_cache()
+
+    log("phase 7: train_step trains llama-2.6b")
+    train_launches, training = train_llama_2_6b(llama, build, dev, card)
+    torch.cuda.empty_cache()
+
+    log("phase 8: B2/B3 timed at the train step's shapes")
+    bwd = time_flash_bwd(tfa, dev)
+    log(f"  B2/B3 timing: {bwd}")
+    torch.cuda.empty_cache()
+
+    log("phase 9: card vs CPU train step")
+    training["card_vs_cpu"] = cross_device_train_step(llama, dev)
+
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
              replaces="paddle_tpu/kernels/pallas_attention.py:107",
-             launches=launches.get("flash_fwd", 0), **b1),
+             launches=launches.get("flash_fwd", 0),
+             train_launches=train_launches.get("flash_fwd", 0), **b1),
         dict(name="ragged_decode", route="cuda",
              source="paddle_tpu_torch/kernels/csrc/ragged_decode.cu",
              replaces="paddle_tpu/kernels/paged_attention.py:578",
              launches=launches.get("ragged_decode", 0), **b4),
+        dict(name="flash_dq", route="cuda",
+             source="paddle_tpu_torch/kernels/csrc/flash_dq.cu",
+             replaces="paddle_tpu/kernels/pallas_attention.py:232",
+             launches=train_launches.get("flash_dq", 0), **bwd["flash_dq"]),
+        dict(name="flash_dkv", route="cuda",
+             source="paddle_tpu_torch/kernels/csrc/flash_dkv.cu",
+             replaces="paddle_tpu/kernels/pallas_attention.py:253",
+             launches=train_launches.get("flash_dkv", 0),
+             **bwd["flash_dkv"]),
     ]
     log(f"serving: {json.dumps(serving)}")
+    log(f"training: {json.dumps(training)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

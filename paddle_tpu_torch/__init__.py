@@ -2,8 +2,9 @@
 
 The port mirrors the JAX package's module names (``models/llama.py``,
 ``kernels/pallas_attention.py``, ``kernels/paged_attention.py``,
-``kernels/quant_matmul.py``, ``serving/engine.py``) so each piece has an
-obvious counterpart. Every TPU kernel on a ported path is a CUDA C++
+``kernels/quant_matmul.py``, ``optimizer/functional.py``,
+``serving/engine.py``, ``examples/llama_pretrain.py``) so each piece has
+an obvious counterpart. Every TPU kernel on a ported path is a CUDA C++
 kernel for ``sm_90a`` under ``kernels/csrc/``, built with ``nvcc`` on
 first use and bound with ``ctypes``; beside each sits a plain PyTorch
 version that CPU tensors take.

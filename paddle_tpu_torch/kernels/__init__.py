@@ -5,6 +5,10 @@ also holds the per-kernel ``launch_counts``).
 
 - ``pallas_attention.flash_attention_fwd`` — FlashAttention-2 forward
   (``csrc/flash_fwd.cu``);
+- ``pallas_attention.flash_dq`` / ``flash_dkv`` — its backward, dQ
+  (``csrc/flash_dq.cu``) and dK/dV (``csrc/flash_dkv.cu``), run together
+  by ``flash_attention_bwd`` and the autograd Function
+  ``flash_attention``;
 - ``paged_attention.ragged_decode_partial`` — the ragged paged-decode
   walk (``csrc/ragged_decode.cu``);
 - ``quant_matmul.weight_only_matmul`` — the dense weight matmul.

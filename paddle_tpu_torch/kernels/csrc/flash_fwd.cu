@@ -53,37 +53,6 @@ struct MmaLayout {
   static constexpr int kSmem = 2 * 2 * kTile * 2;   // 2 stages x (K, V), bytes
 };
 
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 b16 matrices from shared memory, transposed: lane t gives the
-// row address t%8 of matrix t/8 and receives in r[i] the elements
-// (rows 2*(t%4) and 2*(t%4)+1, column t/4) of matrix i
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* smem) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // q [B, S, Hq, D], k/v [B, S, Hkv, D], o [B, S, Hq, D] (all contiguous),
 // lse [B, Hq, S] f32.
 template <int D>
@@ -227,19 +196,10 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       oacc[dt][3] *= alpha[1];
     }
 
-    // O += P V: matrices 0/1 are keys kk*16 + [0,8)/[8,16) of output
-    // n-tile dt (b0, b1), matrices 2/3 the same keys of n-tile dt + 1
-    const int mi = lane >> 3, mr = lane & 7;
+    // O += P V
 #pragma unroll
     for (int kk = 0; kk < PS; ++kk)
-#pragma unroll
-      for (int dt = 0; dt < DT; dt += 2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vs + (kk * 16 + (mi & 1) * 8 + mr) * Lay::kStride
-                                  + (dt + (mi >> 1)) * 8);
-        mma_bf16(oacc[dt], pa[kk], vf[0], vf[1]);
-        mma_bf16(oacc[dt + 1], pa[kk], vf[2], vf[3]);
-      }
+      mma_rows_times_tile<DT>(oacc, pa[kk], vs, Lay::kStride, kk * 16, lane);
     __syncthreads();           // stage it&1 is free for tile it+2
   }
 

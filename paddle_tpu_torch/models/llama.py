@@ -1,33 +1,51 @@
-"""Llama model family — the port of paddle_tpu/models/llama (forward path).
+"""Llama model family — the port of paddle_tpu/models/llama (forward,
+loss and the single-device train step).
 
 Parameters are a plain dictionary of tensors under the JAX package's keys
 and layouts: ``embed`` [vocab, h]; stacked per-layer weights under
 ``layers`` with a leading [L] axis (``attn_norm``, ``wq``, ``wk``,
 ``wv``, ``wo``, ``mlp_norm``, ``w_gate``, ``w_up``, ``w_down``) in the
 ``[in, out]`` layout, so both packages compute ``x @ w``; ``final_norm``
-and ``lm_head`` [h, vocab]. :func:`params_from_numpy` carries a JAX
-parameter tree over through numpy.
+and, unless ``tie_embeddings`` (then ``embed.T`` is the head),
+``lm_head`` [h, vocab]. :func:`params_from_numpy` carries a JAX parameter
+tree over through numpy.
 
-Attention runs through ``kernels.pallas_attention.flash_attention_fwd``:
-the CUDA kernel on CUDA tensors, its plain version on CPU tensors.
+Attention runs through ``kernels.pallas_attention.flash_attention``: the
+CUDA kernels (B1 forward, B2/B3 backward) on CUDA tensors, their plain
+versions on CPU tensors, whatever ``use_flash`` says — the kernels take
+every sequence length, so ``use_flash`` only moves where bf16
+probabilities are rounded (the JAX package's non-flash path rounds the
+normalized probabilities, the flash path the unnormalized ones).
 
-Training (loss, train step, remat, pipeline and sharding recipes) is not
-ported yet (ROADMAP queue A3).
+Training: :func:`loss_fn` (optionally chunked cross-entropy),
+:func:`loss_and_grads`, :func:`train_step` with a global-norm clip,
+gradient accumulation and the optimizers of ``optimizer/functional.py``;
+``remat`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint``; selective for the "dots" and "attn"
+policies). Context parallelism and pipeline schedules raise
+``NotImplementedError`` (ROADMAP A10).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
-from ..kernels.pallas_attention import flash_attention_fwd
+from ..kernels.pallas_attention import flash_attention
+from ..optimizer.functional import (init_moments, optimizer_update,
+                                    tree_leaves, tree_map)
 
 __all__ = ["LlamaConfig", "llama3_8b", "tiny_llama", "init_params",
-           "params_from_numpy", "num_params", "hidden_states", "forward"]
+           "params_from_numpy", "num_params", "hidden_states", "forward",
+           "loss_fn", "loss_and_grads", "global_norm", "TrainState",
+           "init_train_state", "train_step", "flops_per_token"]
 
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
               "w_up", "w_down")
@@ -45,8 +63,23 @@ class LlamaConfig:
     max_seq_len: int = 8192
     rope_theta: float = 500000.0
     rms_eps: float = 1e-5
+    # the head is embed.T and there is no lm_head
+    tie_embeddings: bool = False
     # compute dtype of the forward pass
     dtype: Any = torch.bfloat16
+    # recompute each layer in the backward pass: "full" recomputes all of
+    # it, "dots" keeps the matmul outputs, "attn" the attention outputs
+    remat: bool = True
+    remat_policy: str = "full"
+    # kept for the JAX package's configs; attention always runs through
+    # the flash kernels (module docstring)
+    use_flash: bool = True
+    # not ported (ROADMAP A10): raise NotImplementedError when set
+    context_parallel: bool = False
+    pipeline_microbatches: int = 0
+    # >1 computes the cross-entropy in sequence chunks, each recomputed in
+    # the backward pass, so [B, S, vocab] f32 logits never exist at once
+    loss_chunks: int = 1
 
 
 def llama3_8b() -> LlamaConfig:
@@ -58,7 +91,19 @@ def tiny_llama(vocab=256, hidden=64, layers=2, heads=4, kv_heads=2,
     return LlamaConfig(
         vocab_size=vocab, hidden_size=hidden, intermediate_size=ffn,
         num_layers=layers, num_heads=heads, num_kv_heads=kv_heads,
-        head_dim=hidden // heads, max_seq_len=seq)
+        head_dim=hidden // heads, max_seq_len=seq, remat=False,
+        use_flash=False)
+
+
+def _check_supported(c: LlamaConfig) -> None:
+    if c.context_parallel:
+        raise NotImplementedError(
+            "context_parallel (ring attention over an 'sp' mesh axis) is "
+            "not ported yet (ROADMAP A10)")
+    if c.pipeline_microbatches > 0:
+        raise NotImplementedError(
+            "pipeline schedules (GPipe, 1F1B, ZB) are not ported yet "
+            "(ROADMAP A10)")
 
 
 def _shapes(c: LlamaConfig):
@@ -76,20 +121,21 @@ def _shapes(c: LlamaConfig):
         "w_up": ((L, h, f), s),
         "w_down": ((L, f, h), 1.0 / math.sqrt(f) / math.sqrt(2 * L)),
     }
-    top = {"embed": ((c.vocab_size, h), s), "final_norm": ((h,), None),
-           "lm_head": ((h, c.vocab_size), s)}
+    top = {"embed": ((c.vocab_size, h), s), "final_norm": ((h,), None)}
+    if not c.tie_embeddings:
+        top["lm_head"] = ((h, c.vocab_size), s)
     return top, layers
 
 
 def init_params(config: LlamaConfig, seed: int = 0, *, device="cuda",
                 dtype=torch.float32) -> Dict[str, Any]:
     """Random parameters with the JAX package's shapes and scales (norms
-    are ones, matrices scaled normals), drawn from a ``torch.Generator``
-    seeded with ``seed`` on ``device``. ``dtype`` defaults to f32 masters;
-    serving passes bf16 to hold the weights at compute precision. The
-    JAX and torch generators differ, so the values do not match the
-    reference's ``init_params`` — weights move between the packages with
-    :func:`params_from_numpy`."""
+    are ones, matrices scaled normals; no ``lm_head`` when tied), drawn
+    from a ``torch.Generator`` seeded with ``seed`` on ``device``.
+    ``dtype`` defaults to f32 masters; serving passes bf16 to hold the
+    weights at compute precision. The JAX and torch generators differ, so
+    the values do not match the reference's ``init_params`` — weights move
+    between the packages with :func:`params_from_numpy`."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     top, layers = _shapes(config)
@@ -107,9 +153,9 @@ def init_params(config: LlamaConfig, seed: int = 0, *, device="cuda",
 
 def params_from_numpy(tree, device="cuda", dtype=None) -> Dict[str, Any]:
     """The JAX parameter tree, as numpy arrays (``embed``, stacked
-    ``layers.*`` [L, ...], ``final_norm``, ``lm_head``), as torch tensors
-    under the same keys and layouts on ``device``; ``dtype`` None keeps
-    each array's own dtype."""
+    ``layers.*`` [L, ...], ``final_norm`` and, when untied, ``lm_head``),
+    as torch tensors under the same keys and layouts on ``device``;
+    ``dtype`` None keeps each array's own dtype."""
     dev = resolve_device(device)
 
     def conv(a):
@@ -120,19 +166,25 @@ def params_from_numpy(tree, device="cuda", dtype=None) -> Dict[str, Any]:
             t = torch.from_numpy(a)
         return t.to(device=dev, dtype=dtype or t.dtype)
 
-    missing = ({"embed", "layers", "final_norm", "lm_head"} - set(tree)) \
+    missing = ({"embed", "layers", "final_norm"} - set(tree)) \
         | {"layers." + k for k in LAYER_KEYS
            if k not in tree.get("layers", {})}
     if missing:
         raise KeyError(f"parameter tree lacks {sorted(missing)}")
-    out = {k: conv(tree[k]) for k in ("embed", "final_norm", "lm_head")}
+    out = {k: conv(tree[k]) for k in ("embed", "final_norm", "lm_head")
+           if k in tree}
     out["layers"] = {k: conv(tree["layers"][k]) for k in LAYER_KEYS}
     return out
 
 
 def num_params(params) -> int:
-    return sum(t.numel() for t in params["layers"].values()) + sum(
-        params[k].numel() for k in ("embed", "final_norm", "lm_head"))
+    return sum(t.numel() for t in tree_leaves(params))
+
+
+def head_weight(params, config: LlamaConfig):
+    """The output projection [h, vocab]: ``embed.T`` when tied."""
+    return params["embed"].t() if config.tie_embeddings \
+        else params["lm_head"]
 
 
 # ---------------------------------------------------------------------------
@@ -174,9 +226,9 @@ def _apply_rope_at(x, cos, sin):
 
 
 def _attention(q, k, v, config: LlamaConfig):
-    """Causal GQA attention in the [B, S, H, D] layout: the flash kernel on
-    CUDA tensors, its plain version on CPU tensors."""
-    return flash_attention_fwd(q, k, v, causal=True)[0]
+    """Causal GQA attention in the [B, S, H, D] layout, differentiable: the
+    flash kernels on CUDA tensors, their plain versions on CPU tensors."""
+    return flash_attention.apply(q, k, v, True)
 
 
 def _layer_body(x, p, cos, sin, config: LlamaConfig):
@@ -197,20 +249,205 @@ def _layer_body(x, p, cos, sin, config: LlamaConfig):
     return x + (gate * up) @ p["w_down"].to(dt)
 
 
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default, torch.ops.aten.matmul.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The "dots" policy (jax checkpoint_dots): keep matmul outputs,
+    recompute everything else."""
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_attention(ctx, op, *args, **kwargs):
+    """The "attn" policy (jax save_only_these_names("attn_out")): keep
+    the flash forward's output and log-sum-exp, so the backward pass does
+    not run B1 again; recompute everything else."""
+    return (CheckpointPolicy.MUST_SAVE
+            if op is torch.ops.paddle_tpu_torch.flash_fwd.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(body, config: LlamaConfig):
+    """``body`` recomputed in the backward pass by the non-reentrant
+    ``torch.utils.checkpoint`` (the reentrant form carries no gradient to
+    parameters that are not its inputs)."""
+    policies = {"dots": _save_matmuls, "attn": _save_attention}
+    if config.remat_policy in policies:
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                policies[config.remat_policy])
+        return functools.partial(checkpoint, body, use_reentrant=False,
+                                 context_fn=ctx)
+    if config.remat_policy != "full":
+        raise ValueError(
+            f"remat_policy={config.remat_policy!r}: expected 'full', "
+            "'dots', or 'attn'")
+    return functools.partial(checkpoint, body, use_reentrant=False)
+
+
 def hidden_states(params, tokens, config: LlamaConfig):
     """tokens [B, S] int -> final-norm hidden states [B, S, h] (model
     dtype)."""
     c = config
+    _check_supported(c)
     S = tokens.shape[1]
     x = params["embed"].to(c.dtype)[tokens.long()]
     cos, sin = _rope_tables(S, c.head_dim, c.rope_theta, tokens.device)
+    body = _remat(_layer_body, c) if c.remat else _layer_body
+    # one unbind per stacked weight: its backward stacks the L layer
+    # gradients once (indexing [l] would scatter into a zero [L, ...]
+    # tensor per layer)
+    per_layer = {k: params["layers"][k].unbind(0) for k in LAYER_KEYS}
     for l in range(c.num_layers):
-        p = {k: params["layers"][k][l] for k in LAYER_KEYS}
-        x = _layer_body(x, p, cos, sin, c)
+        x = body(x, {k: per_layer[k][l] for k in LAYER_KEYS}, cos, sin, c)
     return _rms_norm(x, params["final_norm"], c.rms_eps)
 
 
 def forward(params, tokens, config: LlamaConfig):
     """tokens [B, S] int -> logits [B, S, vocab] (f32)."""
     x = hidden_states(params, tokens, config)
-    return (x @ params["lm_head"].to(config.dtype)).float()
+    return (x @ head_weight(params, config).to(config.dtype)).float()
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def _ce_sum(x, targets, head):
+    """Summed cross-entropy of hidden states ``x`` [B, s, h] against
+    ``targets`` [B, s] through ``head`` [h, vocab], with f32 logits."""
+    logits = (x @ head).float()
+    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).sum()
+
+
+def _chunked_ce_sum(x, targets, head, n_chunks: int):
+    """Summed next-token CE over [B, S, h] hidden states without ever
+    materializing [B, S, vocab] logits: S/n_chunks-long chunks, each
+    recomputed in the backward pass."""
+    B, S, h = x.shape
+    if S % n_chunks:
+        raise ValueError(
+            f"loss_chunks={n_chunks} must divide the next-token sequence "
+            f"length {S} (= seq - 1 of the training batch); pick a "
+            "divisor or a sequence length with small factors")
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for xi, ti in zip(x.chunk(n_chunks, dim=1),
+                      targets.chunk(n_chunks, dim=1)):
+        total = total + checkpoint(_ce_sum, xi, ti, head,
+                                   use_reentrant=False)
+    return total
+
+
+def loss_fn(params, tokens, config: LlamaConfig):
+    """Next-token cross-entropy, mean over positions (f32)."""
+    c = config
+    x = hidden_states(params, tokens[:, :-1], c)
+    head = head_weight(params, c).to(c.dtype)
+    targets = tokens[:, 1:]
+    if c.loss_chunks > 1:
+        total = _chunked_ce_sum(x, targets, head, c.loss_chunks)
+    else:
+        total = _ce_sum(x, targets, head)
+    return total / (x.shape[0] * x.shape[1])
+
+
+# ---------------------------------------------------------------------------
+# train state / step
+# ---------------------------------------------------------------------------
+
+class TrainState:
+    """Parameters, the optimizer's moments (``mu``, ``nu``) and the step
+    count, a 0-d int32 tensor on the parameters' device."""
+
+    def __init__(self, params, mu, nu, step):
+        self.params, self.mu, self.nu, self.step = params, mu, nu, step
+
+
+def init_train_state(config: LlamaConfig, seed: int = 0,
+                     optimizer: str = "adamw",
+                     moment_dtype=torch.float32,
+                     param_dtype=torch.float32,
+                     device="cuda") -> TrainState:
+    """``optimizer``/``moment_dtype``/``param_dtype`` select the memory mode
+    (optimizer/functional.py): adamw+f32 is the 16-bytes/param recipe,
+    adafactor+bf16 params about 4 bytes/param."""
+    params = init_params(config, seed, device=device, dtype=param_dtype)
+    mu, nu = init_moments(params, optimizer, moment_dtype)
+    step = torch.zeros((), dtype=torch.int32, device=params["embed"].device)
+    return TrainState(params, mu, nu, step)
+
+
+def loss_and_grads(params, tokens, config: LlamaConfig, loss_function=None):
+    """(loss, grads) of ``loss_function(params, tokens, config)`` (default
+    :func:`loss_fn`), the grads a tree like ``params`` in the parameters'
+    dtypes (``jax.value_and_grad``)."""
+    lf = loss_function or loss_fn
+    with torch.enable_grad():
+        tracked = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss = lf(tracked, tokens, config)
+        grads = iter(torch.autograd.grad(loss, tree_leaves(tracked)))
+    return loss.detach(), tree_map(lambda _: next(grads), params)
+
+
+def global_norm(grads):
+    """The f32 L2 norm over every leaf of ``grads`` (a 0-d tensor)."""
+    return torch.stack([g.float().square().sum()
+                        for g in tree_leaves(grads)]).sum().sqrt()
+
+
+def train_step(state: TrainState, tokens, config: LlamaConfig,
+               lr=3e-4, beta1=0.9, beta2=0.95, eps=1e-8, wd=0.1,
+               clip_norm=1.0, loss_function=None, optimizer="adamw",
+               accum_steps=1, adafactor_eps2=1e-3):
+    """One pretrain step: forward and backward, the global-norm clip
+    ``min(1, clip_norm / (gnorm + 1e-6))`` (kept on the device), and the
+    optimizer update (optimizer/functional.py — adamw or factored-moment
+    adafactor). ``loss_function(params, tokens, config)`` defaults to the
+    llama loss. ``accum_steps`` > 1 runs forward and backward over batch
+    slices, accumulating grads in f32. ``adafactor_eps2`` floors
+    adafactor's step size (optimizer_update). Returns (new_state, loss); the
+    state's tensors are new, the input state is left as it was."""
+    _check_supported(config)
+    if accum_steps > 1:
+        if not isinstance(tokens, torch.Tensor):
+            raise ValueError(
+                "accum_steps>1 requires an array batch; tuple batches "
+                "(e.g. bert's (ids, labels)) must pre-slice themselves")
+        B = tokens.shape[0]
+        if B % accum_steps:
+            raise ValueError(f"batch {B} is not a multiple of accum_steps "
+                             f"{accum_steps}")
+        loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                               device=p.device),
+                         state.params)
+        for mb in tokens.reshape((accum_steps, B // accum_steps)
+                                 + tuple(tokens.shape[1:])):
+            l, g = loss_and_grads(state.params, mb, config, loss_function)
+            loss = loss + l
+            tree_map(lambda a, b: a.add_(b.float()), grads, g)
+        loss = loss / accum_steps
+        grads = tree_map(lambda g: g / accum_steps, grads)
+    else:
+        loss, grads = loss_and_grads(state.params, tokens, config,
+                                     loss_function)
+
+    scale = (clip_norm / (global_norm(grads) + 1e-6)).clamp(max=1.0)
+    new_p, new_m, new_n = optimizer_update(
+        state.params, grads, state.mu, state.nu, state.step,
+        optimizer=optimizer, lr=lr, beta1=beta1, beta2=beta2, eps=eps,
+        wd=wd, scale=scale, adafactor_eps2=adafactor_eps2)
+    return TrainState(new_p, new_m, new_n, state.step + 1), loss
+
+
+def flops_per_token(config: LlamaConfig, seq_len: int) -> float:
+    """Matmul FLOPs per trained token, forward and backward: 6*N for the
+    dense weights plus the 12*L*h*S causal-attention term (PaLM appendix
+    accounting, as the JAX package counts)."""
+    c = config
+    top, layers = _shapes(c)
+    n = sum(math.prod(shape) for shape, _ in (*top.values(),
+                                              *layers.values()))
+    return 6.0 * n + 12.0 * c.num_layers * c.hidden_size * seq_len

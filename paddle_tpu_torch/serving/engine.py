@@ -44,9 +44,10 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.paged_attention import ragged_decode_partial
+from ..kernels.pallas_attention import flash_attention_fwd
 from ..kernels.quant_matmul import weight_only_matmul as _wo_mm
 from ..models.llama import (LAYER_KEYS, LlamaConfig, _apply_rope,
-                            _attention, _rms_norm, _rope_tables, _rotate)
+                            _rms_norm, _rope_tables, _rotate, head_weight)
 
 __all__ = ["LLMEngine", "Request"]
 
@@ -177,12 +178,13 @@ def _paged_prefill(params, tokens, blk_ids, true_len, pools, temps, top_ks,
         v = _wo_mm(hn, p["wv"], dt).reshape(B, S, Hkv, D)
         pools["k"][l, flat] = k.reshape(-1, bs, Hkv, D).to(pools["k"].dtype)
         pools["v"][l, flat] = v.reshape(-1, bs, Hkv, D).to(pools["v"].dtype)
-        att = _attention(q, k, v, c).reshape(B, S, Hq * D)
+        att = flash_attention_fwd(q, k, v, causal=True)[0].reshape(
+            B, S, Hq * D)
         x = _mlp(x + _wo_mm(att, p["wo"], dt), p, c)
     x = _rms_norm(x, params["final_norm"], c.rms_eps)
     rows = torch.arange(B, device=x.device)
     last_h = x[rows, (true_len.long() - 1).clamp_min(0)]
-    logits = _wo_mm(last_h, params["lm_head"], dt).float()
+    logits = _wo_mm(last_h, head_weight(params, c), dt).float()
     return _sample_rows(logits, generator, temps, top_ks, top_ps,
                         *sample_flags)
 
@@ -224,7 +226,7 @@ def _paged_decode(params, last_tokens, lengths, done0, budgets, generator,
     walk_lens = torch.where(active, lens0, torch.zeros_like(lens0)).int()
     freq = c.rope_theta ** (-torch.arange(0, D, 2, dtype=torch.float32,
                                           device=dev) / D)
-    head_w = params["lm_head"].to(dt)
+    head_w = head_weight(params, c).to(dt)
     ring_k = torch.zeros((Lc, N, S, Hkv, D), dtype=dt, device=dev)
     ring_v = torch.zeros_like(ring_k)
     last, lens, done, rem = last_tokens, lengths, done0, budgets

@@ -74,6 +74,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         LLMEngine(params, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
+        tl.init_train_state(cfg)
+    from paddle_tpu_torch.examples import llama_pretrain
+    with pytest.raises(RuntimeError, match="CUDA"):
+        llama_pretrain.main(["--size", "tiny"])
+    with pytest.raises(RuntimeError, match="CUDA"):
         paddle_tpu_torch.resolve_device("cuda:0")
     with pytest.raises(ValueError):
         paddle_tpu_torch.resolve_device("meta")
@@ -113,7 +118,9 @@ def test_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
     def no_plain(*a, **k):
         raise _PlainTaken("plain version taken for a CUDA tensor")
 
-    monkeypatch.setattr(tfa, "flash_attention_fwd_plain", no_plain)
+    for name in ("flash_attention_fwd_plain", "flash_attention_bwd_plain",
+                 "flash_dq_plain", "flash_dkv_plain"):
+        monkeypatch.setattr(tfa, name, no_plain)
     monkeypatch.setattr(tpa, "ragged_decode_partial_plain", no_plain)
 
     def cuda(shape, dtype=torch.float32):
@@ -123,6 +130,20 @@ def test_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
     kv = cuda((1, 8, 2, 64))
     with pytest.raises(RuntimeError, match="CUDA"):
         tfa.flash_attention_fwd(q, kv, kv, causal=True)
+    lse = cuda((1, 4, 8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tfa.flash_attention_bwd(q, kv, kv, q, lse, q, causal=True)
+    # the checks that come before a launch still hold for CUDA tensors
+    with pytest.raises(TypeError):
+        tfa.flash_attention_bwd(q, kv, kv, q, cuda((1, 4, 8), torch.float64),
+                                q)
+    half = cuda((1, 8, 4, 64), torch.float16)
+    hkv = cuda((1, 8, 2, 64), torch.float16)
+    with pytest.raises(TypeError):
+        tfa.flash_attention_bwd(half, hkv, hkv, half, lse, half)
+    q32, kv32 = cuda((1, 8, 4, 32)), cuda((1, 8, 2, 32))
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention_bwd(q32, kv32, kv32, q32, lse, q32)
     pool = cuda((1, 3, 4, 2, 64))
     with pytest.raises(RuntimeError, match="CUDA"):
         tpa.ragged_decode_partial(cuda((2, 4, 64)), pool, pool,

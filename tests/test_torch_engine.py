@@ -18,6 +18,7 @@ from paddle_tpu.serving import engine as jeng
 from paddle_tpu_torch.models import llama as tl
 from paddle_tpu_torch.serving import LLMEngine
 from paddle_tpu_torch.serving import engine as teng
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SIZES = dict(vocab=64, hidden=32, layers=2, heads=4, kv_heads=2, seq=128,
              ffn=64)

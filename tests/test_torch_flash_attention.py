@@ -13,6 +13,7 @@ import jax.numpy as jnp
 
 from paddle_tpu.kernels.pallas_attention import flash_attention_fwd as jflash
 from paddle_tpu_torch.kernels import pallas_attention as tpa
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _inputs(seed, B, S, Hq, Hkv, D, dtype=np.float32):

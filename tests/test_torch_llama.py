@@ -13,6 +13,7 @@ import jax.numpy as jnp
 
 from paddle_tpu.models import llama as jl
 from paddle_tpu_torch.models import llama as tl
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SIZES = dict(vocab=64, hidden=64, layers=2, heads=4, kv_heads=2, seq=128,
              ffn=128)

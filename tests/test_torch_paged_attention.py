@@ -15,6 +15,7 @@ from paddle_tpu.kernels.paged_attention import PagedKVCache as JaxCache
 from paddle_tpu.kernels.paged_attention import paged_attention as jax_paged
 from paddle_tpu.kernels.paged_attention import ragged_decode_partial as jax_ragged
 from paddle_tpu_torch.kernels import paged_attention as tpa
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 BS, HKV, G, D, MB = 4, 2, 2, 16, 4
 
