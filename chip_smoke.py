@@ -17,39 +17,52 @@ into the git-ignored ``paddle_tpu_torch/_build``, then runs, in order
 3. B4, the ragged paged-decode kernel, against its plain version on
    [L=4, NB=512, BS=64, Hkv=8, D=128] pools with lengths 0, 1, 64, 2000
    and more;
-4. the main path: ``LLMEngine`` serving 16 greedy requests (prompts of
-   64-1000 tokens, 64 new tokens each) on Llama-3-8B with random bf16
-   weights, with both kernels' launch counts read around the run; then
-   one more decode call traced with torch.profiler (the device's busy
-   share of its wall time), and each kernel timed at the run's own
-   shapes beside its plain version (and, for B1, beside SDPA);
+4. the serving path: ``LLMEngine(decode_kernel="ragged")`` serving 16
+   greedy requests (prompts of 64-1000 tokens, 64 new tokens each) on
+   Llama-3-8B with random bf16 weights, with the kernels' launch counts
+   read around the run; then one more decode call traced with
+   torch.profiler (the device's busy share of its wall time), and each
+   kernel timed at the run's own shapes beside its plain version (and,
+   for B1, beside SDPA);
 5. cross-device streams: Llama-3-8B widths cut to 2 layers and a 32768
    vocabulary, f32, two prompts of 130 and 200 tokens for 8 greedy
-   tokens through the engine on the card and on the CPU (plain versions)
-   with the same numpy-made weights — the streams must be equal;
-6. B2/B3, the flash-backward kernels (dQ; dK/dV), against their plain
+   tokens through the ragged engine on the card and on the CPU (plain
+   versions) with the same numpy-made weights — the streams must be
+   equal;
+6. the mega decode path: (a) B5, the persistent decode megakernel,
+   against its plain version for one step of Llama-3-8B at full width and
+   depth (4 slots at the serving mix's lengths): in f32 within 1e-3, in
+   bf16 no farther from the f32 result than 1.5x the plain bf16 version;
+   then timed in bf16 beside it; (b) phase 5's streams again through the mega engine on the card
+   and on the CPU — all four must be equal; (c)
+   ``LLMEngine(decode_kernel="mega", max_slots=4)`` serving 8 requests
+   of phase 4's mix on phase 4's weights, with one B5 launch a decode
+   step and no B4 launch, a traced decode call, and the same mix through
+   a ragged engine at 4 slots for comparison;
+7. B2/B3, the flash-backward kernels (dQ; dK/dV), against their plain
    versions at llama-2.6b head shapes (Hq=24, Hkv=8, D=128; B=2; S in
    128/1000/2048; causal and not; bf16 and f32; D=64 once), and their f32
    gradients against torch.autograd through dense attention;
-7. the training path: ``train_step`` on llama-2.6b at full width and
+8. the training path: ``train_step`` on llama-2.6b at full width and
    depth (batch 8, seq 2048, full remat, adafactor, bf16 params, random
    weights), 2 warm-up and 5 timed steps on one fixed batch — finite,
    falling losses and, per step, 2x24 B1 and 24 B2/B3 launches; tokens/s,
    step time, MFU, peak memory; one more step traced with torch.profiler;
-8. B2 and B3 timed at the step's shapes beside their plain versions,
+9. B2 and B3 timed at the step's shapes beside their plain versions,
    their bounds and SDPA's backward;
-9. card vs CPU train step: llama-2.6b widths cut to 2 layers, f32, AdamW,
-   B=1, S=256, the same numpy-made weights — loss, grad norm, grads and
-   updated params must agree.
+10. card vs CPU train step: llama-2.6b widths cut to 2 layers, f32,
+    AdamW, B=1, S=256, the same numpy-made weights — loss, grad norm,
+    grads and updated params must agree.
 
-Before its last line it prints a ``training`` line (phase 7's numbers),
-one JSON object with every ported kernel (launches on its main path, max
-error, and times in ms beside the bound), and the card's name and power
-limit; the last line is
+Before its last line it prints ``serving``, ``mega`` and ``training``
+lines (phases 4, 6 and 8), one JSON object with every ported kernel
+(launches on its main path, max error, and times in ms beside the
+bound), and the card's name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 Without a CUDA device, or without the repository beside it, it exits 1
 and prints no result.
 """
+import gc
 import json
 import math
 import subprocess
@@ -94,6 +107,13 @@ def time_ms(fn, iters):
 
 def max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
+
+
+def free_memory():
+    """Collect what is unreachable (a timed engine holds itself in a
+    cycle through its wrapped methods) and give the cached blocks back."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -261,7 +281,8 @@ class CallTimer:
         return len(self.seconds)
 
 
-def serve_llama3_8b(llama, LLMEngine, build, dev, card):
+def llama3_8b_bf16(llama, dev):
+    """Llama-3-8B with random bf16 weights from SEED, on the card."""
     cfg = llama.llama3_8b()
     t0 = time.perf_counter()
     params = llama.init_params(cfg, seed=SEED, device=dev,
@@ -269,13 +290,29 @@ def serve_llama3_8b(llama, LLMEngine, build, dev, card):
     torch.cuda.synchronize()
     log(f"  Llama-3-8B random bf16 weights: {llama.num_params(params)} "
         f"params in {time.perf_counter() - t0:.1f} s")
-    eng = LLMEngine(params, cfg, max_slots=8, block_size=64,
-                    max_model_len=2048, prompt_buckets=[128, 512, 1024],
-                    decode_steps=16, seed=SEED, device=dev)
+    return cfg, params
+
+
+def serving_mix(cfg, n):
+    """The first ``n`` requests of the serving mix: prompt lengths drawn
+    from 64-1000 and tokens by ``numpy.random.default_rng(0)``."""
     rng = np.random.default_rng(0)
     lens = rng.integers(64, 1001, size=16)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
                for n in lens]
+    return prompts[:n]
+
+
+def serve(LLMEngine, build, dev, card, cfg, params, prompts, max_slots,
+          decode_kernel):
+    """``LLMEngine`` on Llama-3-8B serving ``prompts`` (64 greedy tokens
+    each) through ``decode_kernel``: the run's numbers, with the kernels'
+    launch counts read around it, then one more decode call traced."""
+    eng = LLMEngine(params, cfg, max_slots=max_slots, block_size=64,
+                    max_model_len=2048, prompt_buckets=[128, 512, 1024],
+                    decode_steps=16, decode_kernel=decode_kernel, seed=SEED,
+                    device=dev)
+    lens = np.array([len(p) for p in prompts])
     ids = [eng.add_request(p, max_new_tokens=64) for p in prompts]
     prefills = CallTimer(eng, "_dispatch_prefill")
     decodes = CallTimer(eng, "_dispatch_decode")
@@ -300,26 +337,41 @@ def serve_llama3_8b(llama, LLMEngine, build, dev, card):
     if launches.get("flash_fwd", 0) < L * prefills.n:
         raise AssertionError(f"flash_fwd launched {launches} for "
                              f"{prefills.n} prefill waves")
-    if launches.get("ragged_decode", 0) < L * 16 * decodes.n:
+    if decode_kernel == "ragged" \
+            and launches.get("ragged_decode", 0) < L * 16 * decodes.n:
         raise AssertionError(f"ragged_decode launched {launches} for "
                              f"{decodes.n} decode calls")
+    if decode_kernel == "mega" and (
+            eng.mega_fallbacks
+            or launches.get("mega_decode", 0) != 16 * decodes.n
+            or launches.get("ragged_decode", 0) != 0):
+        raise AssertionError(f"the mega engine launched {launches} for "
+                             f"{decodes.n} decode calls of 16 steps "
+                             f"(fallbacks {dict(eng.mega_fallbacks)})")
     peak = torch.cuda.max_memory_allocated(dev)
     # each prefill wave's (rows, bucket): B=1 alone, else max_slots rows
     waves = [(1 if len(rows) == 1 else eng.N,
               eng._bucket_for(max(len(ctx) for _s, _r, ctx in rows)))
              for (rows,) in prefills.args]
-    log(f"  served {len(ids)} requests, {n_tok} tokens in {wall:.2f} s: "
-        f"{n_tok / wall:.1f} output tok/s; prefill waves {waves} took "
-        f"{prefills.seconds} s; {decodes.n} decode calls of 16 steps took "
-        f"{decodes.seconds} s; launches {launches}; peak memory "
-        f"{peak / 2**30:.2f} GiB; card: {card}")
-    summary = {"requests": len(ids), "output_tokens": n_tok,
+    step_ms = [1e3 * t / 16 for t in decodes.seconds]
+    log(f"  {decode_kernel} decode, {max_slots} slots: served {len(ids)} "
+        f"requests, {n_tok} tokens in {wall:.2f} s: {n_tok / wall:.1f} "
+        f"output tok/s; prefill waves {waves} took {prefills.seconds} s; "
+        f"{decodes.n} decode calls of 16 steps took {decodes.seconds} s "
+        f"(median step {float(np.median(step_ms)):.2f} ms); launches "
+        f"{launches}; peak memory {peak / 2**30:.2f} GiB; card: {card}")
+    summary = {"decode_kernel": decode_kernel, "max_slots": max_slots,
+               "requests": len(ids), "output_tokens": n_tok,
                "wall_s": wall, "output_tok_per_s": n_tok / wall,
                "prefill_waves": waves, "prefill_s": list(prefills.seconds),
                "decode_calls": decodes.n, "decode_s": list(decodes.seconds),
+               "decode_step_ms": step_ms,
+               "median_decode_step_ms": float(np.median(step_ms)),
+               "launches": launches,
                "peak_mem_gib": peak / 2**30, "prompt_lens": lens.tolist()}
+    streams = [out[i] for i in ids]
     summary["traced_decode_call"] = trace_decode_call(eng, prompts[:eng.N])
-    return launches, summary, eng.nb
+    return launches, summary, streams, eng.nb
 
 
 def trace_decode_call(eng, prompts):
@@ -333,6 +385,8 @@ def trace_decode_call(eng, prompts):
     eng.step()
     torch.cuda.synchronize()
     res = traced(eng.step)
+    if res is not None:
+        res["launches_per_step"] = res["kernel_launches"] / eng.decode_steps
     eng.run()
     acct = eng.block_accounting()
     if acct["free"] != acct["total"]:
@@ -407,7 +461,10 @@ def numpy_params(cfg, seed):
     }
 
 
-def cross_device_streams(llama, LLMEngine, dev):
+def cross_device_streams(llama, LLMEngine, dev, decode_kernel):
+    """Llama-3-8B widths cut to 2 layers and a 32768 vocabulary, f32
+    weights made with numpy: two prompts' greedy streams through
+    ``decode_kernel`` on the card and on the CPU, which must be equal."""
     import dataclasses
     cfg = dataclasses.replace(llama.llama3_8b(), num_layers=2,
                               vocab_size=32768, dtype=torch.float32)
@@ -416,24 +473,171 @@ def cross_device_streams(llama, LLMEngine, dev):
     prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
                for n in (130, 200)]
     streams = {}
-    for where in (dev, "cpu"):
+    for where in (str(dev), "cpu"):
         params = llama.params_from_numpy(tree, device=where)
         eng = LLMEngine(params, cfg, max_slots=2, block_size=64,
                         max_model_len=512, prompt_buckets=[256],
-                        decode_steps=4, device=where)
+                        decode_steps=4, decode_kernel=decode_kernel,
+                        device=where)
         ids = [eng.add_request(p, max_new_tokens=8) for p in prompts]
         t0 = time.perf_counter()
         out = eng.run()
-        streams[str(where)] = [out[i] for i in ids]
-        log(f"  {where}: {streams[str(where)]} "
+        if dict(eng.decode_paths) != {decode_kernel: eng.decode_paths[
+                decode_kernel]}:
+            raise AssertionError(f"{where}: decode paths "
+                                 f"{dict(eng.decode_paths)}")
+        streams[where] = [out[i] for i in ids]
+        log(f"  {decode_kernel} on {where}: {streams[where]} "
             f"({time.perf_counter() - t0:.1f} s)")
         del params, eng
     if streams[str(dev)] != streams["cpu"]:
         raise AssertionError(f"card and CPU streams differ: {streams}")
+    return streams[str(dev)]
 
 
 # ---------------------------------------------------------------------------
-# phase 6: B2/B3, the flash backward
+# phase 6: the mega decode path
+# ---------------------------------------------------------------------------
+def mega_inputs(cfg, dev, walk, t=8, S=16, bs=64, max_len=2048):
+    """Inputs of one mega decode step at step ``t`` of a 16-step call:
+    [L, NB, 64, Hkv, D] bf16 pools holding random K/V, each slot's table a
+    random choice of blocks, frozen prefixes ``walk`` and current lengths
+    ``walk + t``, a ring whose rows hold random K/V, and embeddings of
+    random tokens as the hidden state."""
+    N, L = len(walk), cfg.num_layers
+    Hkv, D = cfg.num_kv_heads, cfg.head_dim
+    MB = max_len // bs
+    NB = N * MB + 1
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    rng = np.random.default_rng(SEED + 8)
+    pools = [torch.randn(L, NB, bs, Hkv, D, generator=g, device=dev,
+                         dtype=torch.bfloat16) for _ in range(2)]
+    rings = [torch.randn(L, N, S, Hkv, D, generator=g, device=dev,
+                         dtype=torch.bfloat16) for _ in range(2)]
+    table = torch.as_tensor(rng.permutation(np.arange(1, NB))
+                            .reshape(N, MB).astype(np.int32), device=dev)
+    walk = torch.tensor(walk, dtype=torch.int32, device=dev)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, N), device=dev)
+    return dict(t=t, block_table=table, walk_lens=walk, lens=walk + t,
+                ring_k=rings[0], ring_v=rings[1], k_pool=pools[0],
+                v_pool=pools[1]), toks
+
+
+def check_mega(tmd, cfg, params, dev, walk):
+    """B5 against its plain version for one step of Llama-3-8B at full
+    width and depth, then both timed in bf16. Checked three ways, on the
+    hidden state and the ring rows written at step t, each error relative
+    to the largest magnitude of what it is compared with:
+
+    - f32 (weights, pools and rings widened from the bf16 ones): the
+      kernel within 1e-3 of the plain version — both round nowhere, only
+      the order of the f32 sums differs;
+    - bf16: the kernel at most 1.5x as far from the f32 plain result as
+      the bf16 plain version is (both round to bf16, a 2^-8 relative
+      step, at the same points of each of the 32 layers; which of two
+      neighbours a sum rounds to depends on its order, and the
+      differences carry through the later layers, so the two bf16
+      versions differ from each other by about as much as each differs
+      from f32);
+    - bf16 kernel against bf16 plain: printed.
+
+    cuBLAS's reduced-precision bf16 reductions are off while the plain
+    versions run, so they accumulate in f32 as the kernel does. Returns
+    the kernels-line entry fields (bf16)."""
+    import dataclasses
+    kw, toks = mega_inputs(cfg, dev, walk)
+    N, t, L = len(walk), kw["t"], cfg.num_layers
+
+    def outs(res):
+        return res[0], res[1][:, :, t], res[2][:, :, t]
+
+    def run(fn, c, p, k, fresh=True):
+        if fresh:
+            k = dict(k, ring_k=k["ring_k"].clone(), ring_v=k["ring_v"].clone())
+        return fn(p, c, x0=p["embed"][toks].to(c.dtype), **k)
+
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        got = outs(run(tmd.mega_decode_step, cfg, params, kw))
+        want = outs(run(tmd.mega_decode_step_plain, cfg, params, kw))
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        p32 = {k: ({kk: vv.float() for kk, vv in v.items()}
+                   if isinstance(v, dict) else v.float())
+               for k, v in params.items()}
+        kw32 = {k: v.float() if torch.is_tensor(v) and v.is_floating_point()
+                else v for k, v in kw.items()}
+        got32 = outs(run(tmd.mega_decode_step, cfg32, p32, kw32))
+        want32 = outs(run(tmd.mega_decode_step_plain, cfg32, p32, kw32))
+        torch.cuda.synchronize()
+        ms32 = time_ms(lambda i=0: run(tmd.mega_decode_step, cfg32, p32,
+                                       kw32, False), 3)
+        del p32, kw32
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            reduced
+    names = ("x", "ring_k", "ring_v")
+    errs = {
+        "f32_kernel_vs_plain": [rel_err(a, b) for a, b in zip(got32, want32)],
+        "bf16_kernel_vs_f32": [rel_err(a, b) for a, b in zip(got, want32)],
+        "bf16_plain_vs_f32": [rel_err(a, b) for a, b in zip(want, want32)],
+        "bf16_kernel_vs_plain": [rel_err(a, b) for a, b in zip(got, want)]}
+    log(f"  B5 vs plain, Llama-3-8B N={N} walk={walk} t={t}: relative "
+        f"errors of {names}: {errs}; f32 kernel {ms32:.2f} ms")
+    ok = all(torch.isfinite(a).all() for a in got + got32) \
+        and max(errs["f32_kernel_vs_plain"]) <= 1e-3 \
+        and all(k <= 1.5 * p for k, p in zip(errs["bf16_kernel_vs_f32"],
+                                             errs["bf16_plain_vs_f32"]))
+    if not ok:
+        raise AssertionError(f"B5 disagrees with its plain version: {errs}")
+    err = max_err(got[0], want[0])
+    del got, want, got32, want32
+    torch.cuda.empty_cache()
+    # timed in place: each launch writes the same ring rows again
+    ms = time_ms(lambda i=0: run(tmd.mega_decode_step, cfg, params, kw,
+                                 False), 10)
+    plain_ms = time_ms(lambda i=0: run(tmd.mega_decode_step_plain, cfg,
+                                       params, kw, False), 3)
+    # each input read once, each output written once: the layer weights,
+    # the walk's K/V, the ring rows j < t and the new ones, x in and out
+    lay = params["layers"]
+    w_bytes = sum(w.numel() * w.element_size() for w in lay.values())
+    Hkv, D, Hq = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
+    kv_row = Hkv * D * 2
+    walked = sum(walk)
+    nbytes = (w_bytes + 2 * L * walked * kv_row + 2 * L * N * t * kv_row
+              + 2 * L * N * kv_row + 2 * N * cfg.hidden_size * 2
+              + kw["block_table"].numel() * 4 + 2 * N * 4)
+    w_elems = sum(w.numel() for k, w in lay.items() if "norm" not in k)
+    flops = 2.0 * N * w_elems + 4.0 * L * Hq * D * (walked + N * (t + 1))
+    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    res = {"max_abs_err": err, "rel_err": errs, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops > t_bytes else "bytes",
+           "library_ms": None, "bytes": nbytes, "f32_ms": ms32,
+           "blocks_per_sm": tmd.blocks_per_sm(cfg.dtype, D, N),
+           "shape": f"L={L} h={cfg.hidden_size} F={cfg.intermediate_size} "
+                    f"Hq={Hq} Hkv={Hkv} D={D} bf16, N={N}, walk={walk}, "
+                    f"t={t}"}
+    log(f"  B5 timing: {res}")
+    del kw
+    return res
+
+
+def first_divergence(a, b):
+    """(request index, token index) where two stream lists first differ,
+    or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        for j, (u, v) in enumerate(zip(x, y)):
+            if u != v:
+                return (i, j)
+        if len(x) != len(y):
+            return (i, min(len(x), len(y)))
+    return None
+
+
+# ---------------------------------------------------------------------------
+# phase 7: B2/B3, the flash backward
 # ---------------------------------------------------------------------------
 def rel_err(a, b):
     """max |a - b| over max |b|."""
@@ -489,7 +693,7 @@ def check_flash_bwd(tfa, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the training path
+# phase 8: the training path
 # ---------------------------------------------------------------------------
 def llama_2_6b(llama):
     """The repo's training configuration (bench.py's llama-2.6b row)."""
@@ -569,7 +773,7 @@ def train_llama_2_6b(llama, build, dev, card, warmup=2, steps=5, lr=3e-5):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: B2/B3 timed at the step's shapes
+# phase 9: B2/B3 timed at the step's shapes
 # ---------------------------------------------------------------------------
 def sdpa_backward(q, k, v, do):
     """A function running PyTorch's SDPA backward (dq, dk, dv together) on
@@ -668,7 +872,7 @@ def time_flash_bwd(tfa, dev, B=8, S=2048, Hq=24, Hkv=8, D=128):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: card vs CPU train step
+# phase 10: card vs CPU train step
 # ---------------------------------------------------------------------------
 def leaves(tree):
     """(path, tensor) of every leaf of a nested dict."""
@@ -748,6 +952,7 @@ def main() -> int:
         return 1
     try:
         from paddle_tpu_torch.kernels import _build as build
+        from paddle_tpu_torch.kernels import mega_decode as tmd
         from paddle_tpu_torch.kernels import paged_attention as tpa
         from paddle_tpu_torch.kernels import pallas_attention as tfa
         from paddle_tpu_torch.models import llama
@@ -775,10 +980,12 @@ def main() -> int:
     log("phase 3: B4 ragged paged decode vs plain")
     check_ragged(tpa, dev)
 
-    log("phase 4: LLMEngine serves Llama-3-8B")
-    launches, serving, num_blocks = serve_llama3_8b(llama, LLMEngine, build,
-                                                    dev, card)
-    torch.cuda.empty_cache()
+    log("phase 4: LLMEngine serves Llama-3-8B (ragged decode)")
+    cfg8, params8 = llama3_8b_bf16(llama, dev)
+    launches, serving, _, num_blocks = serve(
+        LLMEngine, build, dev, card, cfg8, params8, serving_mix(cfg8, 16),
+        max_slots=8, decode_kernel="ragged")
+    free_memory()
     # the kernels timed at the run's own shapes: its largest prefill wave,
     # and its first wave's decode lengths halfway through their tokens
     B, S = max(serving["prefill_waves"], key=lambda w: w[0] * w[1] ** 2)
@@ -791,22 +998,48 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("phase 5: card vs CPU greedy streams")
-    cross_device_streams(llama, LLMEngine, dev)
+    ragged_streams = cross_device_streams(llama, LLMEngine, dev, "ragged")
 
-    log("phase 6: B2/B3 flash backward vs plain")
+    log("phase 6: the mega decode path (phase 4's weights)")
+    mix8 = serving_mix(cfg8, 8)
+    b5 = check_mega(tmd, cfg8, params8, dev,
+                    [len(p) + 24 for p in mix8[:4]])
+    free_memory()
+    mega_streams = cross_device_streams(llama, LLMEngine, dev, "mega")
+    if mega_streams != ragged_streams:
+        raise AssertionError(f"mega streams {mega_streams} differ from the "
+                             f"ragged ones {ragged_streams}")
+    mega_launches, mega, m_streams, _ = serve(
+        LLMEngine, build, dev, card, cfg8, params8, mix8, max_slots=4,
+        decode_kernel="mega")
+    _, ragged4, r_streams, _ = serve(
+        LLMEngine, build, dev, card, cfg8, params8, mix8, max_slots=4,
+        decode_kernel="ragged")
+    mega["ragged_same_mix"] = ragged4
+    mega["first_stream_divergence"] = first_divergence(m_streams, r_streams)
+    mega["B5"] = b5
+    log(f"  mega vs ragged at 4 slots: {mega['output_tok_per_s']:.1f} vs "
+        f"{ragged4['output_tok_per_s']:.1f} output tok/s, median step "
+        f"{mega['median_decode_step_ms']:.2f} vs "
+        f"{ragged4['median_decode_step_ms']:.2f} ms; first stream "
+        f"divergence (request, token): {mega['first_stream_divergence']}")
+    del params8
+    free_memory()
+
+    log("phase 7: B2/B3 flash backward vs plain")
     check_flash_bwd(tfa, dev)
     torch.cuda.empty_cache()
 
-    log("phase 7: train_step trains llama-2.6b")
+    log("phase 8: train_step trains llama-2.6b")
     train_launches, training = train_llama_2_6b(llama, build, dev, card)
     torch.cuda.empty_cache()
 
-    log("phase 8: B2/B3 timed at the train step's shapes")
+    log("phase 9: B2/B3 timed at the train step's shapes")
     bwd = time_flash_bwd(tfa, dev)
     log(f"  B2/B3 timing: {bwd}")
     torch.cuda.empty_cache()
 
-    log("phase 9: card vs CPU train step")
+    log("phase 10: card vs CPU train step")
     training["card_vs_cpu"] = cross_device_train_step(llama, dev)
 
     kernels = [
@@ -828,8 +1061,13 @@ def main() -> int:
              replaces="paddle_tpu/kernels/pallas_attention.py:253",
              launches=train_launches.get("flash_dkv", 0),
              **bwd["flash_dkv"]),
+        dict(name="mega_decode", route="cuda",
+             source="paddle_tpu_torch/kernels/csrc/mega_decode.cu",
+             replaces="paddle_tpu/kernels/mega_decode.py:645",
+             launches=mega_launches.get("mega_decode", 0), **b5),
     ]
     log(f"serving: {json.dumps(serving)}")
+    log(f"mega: {json.dumps(mega)}")
     log(f"training: {json.dumps(training)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

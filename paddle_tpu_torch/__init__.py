@@ -2,7 +2,7 @@
 
 The port mirrors the JAX package's module names (``models/llama.py``,
 ``kernels/pallas_attention.py``, ``kernels/paged_attention.py``,
-``kernels/quant_matmul.py``, ``optimizer/functional.py``,
+``kernels/mega_decode.py``, ``kernels/quant_matmul.py``, ``optimizer/functional.py``,
 ``serving/engine.py``, ``examples/llama_pretrain.py``) so each piece has
 an obvious counterpart. Every TPU kernel on a ported path is a CUDA C++
 kernel for ``sm_90a`` under ``kernels/csrc/``, built with ``nvcc`` on

@@ -10,7 +10,10 @@ also holds the per-kernel ``launch_counts``).
   by ``flash_attention_bwd`` and the autograd Function
   ``flash_attention``;
 - ``paged_attention.ragged_decode_partial`` — the ragged paged-decode
-  walk (``csrc/ragged_decode.cu``);
+  walk (``csrc/ragged_decode.cu``, its walk in ``csrc/ragged_walk.cuh``);
+- ``mega_decode.mega_decode_step`` — the persistent decode megakernel,
+  one launch for a decode step of every layer (``csrc/mega_decode.cu``,
+  reusing the walk), screened by ``mega_decode.mega_supported``;
 - ``quant_matmul.weight_only_matmul`` — the dense weight matmul.
 
 Functions are imported from their modules (a re-export here would shadow

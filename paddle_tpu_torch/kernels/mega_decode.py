@@ -1,0 +1,339 @@
+"""Persistent decode megakernel (B5) — the port of
+paddle_tpu/kernels/mega_decode, single-step form.
+
+:func:`mega_decode_step` runs ONE decode step through all L layers in one
+launch: per layer RMSNorm, q/k/v, rotate-half RoPE at ``lens``, the
+step's fresh K/V row appended to the in-call ring at index ``t``, the
+true-length walk over each slot's pool prefix (``walk_lens``, block table
+read on the device) merged with the ring positions ``j <= t`` by the
+flash-decoding combine, ``wo`` and the residual, then RMSNorm, SiLU(gate)
+* up and ``w_down`` with the residual. The caller owns the epilogue
+(final norm, head, sampling) and the ring -> pool writeback, shared with
+the ragged path (``serving/engine._paged_decode``).
+
+- On CUDA tensors it launches the hand-written persistent kernel
+  ``csrc/mega_decode.cu`` (a cooperative grid, five grid-wide barriers a
+  layer) and raises on any failure.
+- On CPU tensors it runs the plain version :func:`mega_decode_step_plain`:
+  :func:`decode_layers`, the ragged path's per-layer math for one step,
+  with the plain ragged partial.
+
+:func:`mega_supported` is the engine's counted-fallback screen: the CUDA
+kernel's own limits (dtype, head_dim, GQA group, slot count, widths,
+shared memory per block) in place of the JAX kernel's VMEM envelope.
+
+Not ported yet: the multi-step form ``mega_decode_loop`` (the speculative
+draft wave, ROADMAP A6) and the int8-weight and int8-KV branches (ROADMAP
+A4); the screen refuses them with reasons naming their queues.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+from .paged_attention import ragged_decode_partial, ragged_decode_partial_plain
+from .quant_matmul import weight_only_matmul as _wo_mm
+from ..models.llama import LAYER_KEYS, _rms_norm, _rotate
+
+__all__ = ["mega_supported", "mega_decode_step", "mega_decode_step_plain",
+           "decode_layers", "MAX_SLOTS"]
+
+NEG_INF = -1e30
+_MATS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# limits fixed by csrc/mega_decode.cu (kept equal to its constants)
+MAX_SLOTS = 8             # rows of the GEMVs' register accumulators
+MAX_GROUP = 8             # query heads per kv head (one warp each)
+TILE_COLS = 32            # output columns of a GEMV tile
+_CHUNK_ROWS = 4096        # GEMV input rows staged in shared memory at once
+_MAX_SPLITS = 8           # k-ranges a GEMV tile is split into
+_WALK_TILE, _WALK_STAGES = 64, 2
+_WARPS = 8
+SMEM_LIMIT = 232448       # shared memory a block may use on the H100
+
+
+def _smem_bytes(itemsize: int, D: int, n_slots: int) -> int:
+    """Dynamic shared memory of one block (csrc/mega_decode.cu
+    ``smem_bytes``): the larger of the attention walk's staging (K and V
+    tiles, double-buffered, rows padded by 16 bytes, plus the group's f32
+    queries) and the GEMVs' (staged input rows, cross-warp reduction, two
+    output tiles, the rows' norm factors) for the kernel built for 4 or 8
+    rows."""
+    ns = 4 if n_slots <= 4 else 8
+    walk = (_WALK_STAGES * 2 * _WALK_TILE * (D * itemsize + 16)
+            + MAX_GROUP * D * 4)
+    gemv = (ns * _CHUNK_ROWS * itemsize
+            + (_WARPS + 2) * ns * TILE_COLS * 4 + (ns + _WARPS) * 4)
+    return max(walk, gemv)
+
+
+def mega_supported(params, config, *, n_slots: int, n_steps: int,
+                   block_size: int, kv_int8: bool, multi_step: bool = False,
+                   mesh=None):
+    """(ok, reason) eligibility screen for the mega decode kernel — the
+    engine's counted-fallback gate (``LLMEngine.mega_fallbacks``). The
+    reasons: ``"mesh"`` (a tensor-parallel mesh: one fused launch cannot
+    be sharded), ``"mixed_weights"`` (some weights int8, some not), the
+    unported branches ``"int8_weights_A4"``, ``"kv_int8_A4"`` and
+    ``"multi_step_A6"``, and the CUDA kernel's limits: ``"dtype"`` (bf16
+    or f32, every layer weight in the model dtype), ``"head_dim"`` (64 or
+    128), ``"group"`` (at most 8 query heads per kv head), ``"slots"``
+    (1 to 8 rows), ``"width"`` (hidden and ffn widths multiples of the
+    32-column GEMV tile) and ``"smem"`` (a block's shared memory within
+    the card's 227 KB, without which no co-resident grid can launch)."""
+    if mesh is not None and dict(getattr(mesh, "shape", {})).get("tp", 1) > 1:
+        return False, "mesh"
+    lay = params["layers"]
+    quant = [isinstance(lay[k], dict) for k in _MATS]
+    if any(quant) and not all(quant):
+        return False, "mixed_weights"
+    if quant[0]:
+        return False, "int8_weights_A4"
+    if kv_int8:
+        return False, "kv_int8_A4"
+    if multi_step:
+        return False, "multi_step_A6"
+    dt = config.dtype
+    if dt not in _DTYPES or any(lay[k].dtype != dt for k in LAYER_KEYS):
+        return False, "dtype"
+    D = config.head_dim
+    if D not in (64, 128):
+        return False, "head_dim"
+    if config.num_heads % config.num_kv_heads \
+            or config.num_heads // config.num_kv_heads > MAX_GROUP:
+        return False, "group"
+    if not 1 <= n_slots <= MAX_SLOTS:
+        return False, "slots"
+    if config.hidden_size % TILE_COLS or config.intermediate_size % TILE_COLS:
+        return False, "width"
+    itemsize = torch.empty((), dtype=dt).element_size()
+    if _smem_bytes(itemsize, D, n_slots) > SMEM_LIMIT:
+        return False, "smem"
+    return True, "ok"
+
+
+# ---------------------------------------------------------------------------
+# the plain version: the ragged path's per-layer math for one step
+# ---------------------------------------------------------------------------
+def _layer(params, l):
+    return {k: params["layers"][k][l] for k in LAYER_KEYS}
+
+
+def _mlp(x, p, c):
+    dt = c.dtype
+    hn = _rms_norm(x, p["mlp_norm"], c.rms_eps)
+    gate = torch.nn.functional.silu(_wo_mm(hn, p["w_gate"], dt))
+    return x + _wo_mm(gate * _wo_mm(hn, p["w_up"], dt), p["w_down"], dt)
+
+
+def _rope1(t, ang):
+    """Rotate-half RoPE of one position per row: t [N, H, D], ang [N, D/2]
+    f32 angles (cos/sin cast to t's dtype before the multiply)."""
+    return _rotate(t, torch.cos(ang)[:, None, :].to(t.dtype),
+                   torch.sin(ang)[:, None, :].to(t.dtype))
+
+
+def decode_layers(params, config, x, *, t: int, lens, block_table,
+                  walk_lens, ring_k, ring_v, k_pool, v_pool,
+                  partial=ragged_decode_partial):
+    """One decode step of every layer for x [N, h] (model dtype), the
+    ragged path's math: per layer the fresh K/V row lands in ``ring_k``/
+    ``ring_v`` [L, N, S, Hkv, D] at index ``t`` (in place), ``partial``
+    walks each slot's pool prefix at ``walk_lens`` and its partial softmax
+    state merges with the ring positions ``j <= t`` — one softmax over
+    [prefix ; ring]. RoPE angles come from ``lens`` (f32). Returns the
+    post-layer-stack hidden state [N, h]."""
+    c = config
+    dt = c.dtype
+    N = x.shape[0]
+    S = ring_k.shape[2]
+    Hkv, D = c.num_kv_heads, c.head_dim
+    G = c.num_heads // Hkv
+    scale = 1.0 / math.sqrt(D)
+    freq = c.rope_theta ** (-torch.arange(0, D, 2, dtype=torch.float32,
+                                          device=x.device) / D)
+    ang = lens.float()[:, None] * freq[None, :]
+    ring_live = (torch.arange(S, device=x.device) <= t)[None, None, None, :]
+    for l in range(c.num_layers):
+        p = _layer(params, l)
+        hn = _rms_norm(x, p["attn_norm"], c.rms_eps)
+        q = _rope1(_wo_mm(hn, p["wq"], dt).reshape(N, Hkv * G, D), ang)
+        kk = _rope1(_wo_mm(hn, p["wk"], dt).reshape(N, Hkv, D), ang)
+        vv = _wo_mm(hn, p["wv"], dt).reshape(N, Hkv, D)
+        ring_k[l, :, t] = kk
+        ring_v[l, :, t] = vv
+        qg = q.reshape(N, Hkv, G, D).float()
+        s_rng = torch.einsum("nhgd,nshd->nhgs", qg,
+                             ring_k[l].float()) * scale
+        s_rng = torch.where(ring_live, s_rng, torch.full_like(s_rng, NEG_INF))
+        acc_p, m_p, l_p = partial(q, k_pool, v_pool, block_table, walk_lens,
+                                  layer=l)
+        # the ring always holds >= 1 live position, so l_tot >= 1
+        m_tot = torch.maximum(m_p, s_rng.amax(dim=-1))
+        corr = torch.exp(m_p - m_tot)
+        p_rng = torch.exp(s_rng - m_tot[..., None])
+        l_tot = l_p * corr + p_rng.sum(dim=-1)
+        acc = acc_p * corr[..., None] + torch.einsum(
+            "nhgs,nshd->nhgd", p_rng, ring_v[l].float())
+        att = (acc / l_tot[..., None]).reshape(N, Hkv * G * D).to(dt)
+        x = _mlp(x + _wo_mm(att, p["wo"], dt), p, c)
+    return x
+
+
+def mega_decode_step_plain(params, config, *, x0, t: int, block_table,
+                           walk_lens, lens, ring_k, ring_v, k_pool, v_pool):
+    """The plain PyTorch version of :func:`mega_decode_step`:
+    :func:`decode_layers` with the plain ragged partial."""
+    x = decode_layers(params, config, x0.to(config.dtype), t=t, lens=lens,
+                      block_table=block_table, walk_lens=walk_lens,
+                      ring_k=ring_k, ring_v=ring_v, k_pool=k_pool,
+                      v_pool=v_pool, partial=ragged_decode_partial_plain)
+    return x, ring_k, ring_v
+
+
+# ---------------------------------------------------------------------------
+# the kernel
+# ---------------------------------------------------------------------------
+_freqs = {}
+
+
+def _rope_freq(theta: float, D: int, device) -> torch.Tensor:
+    """RoPE inverse frequencies [D/2] f32 on ``device``, computed as the
+    plain version computes them, once per (theta, D, device)."""
+    key = (theta, D, device)
+    if key not in _freqs:
+        _freqs[key] = theta ** (-torch.arange(0, D, 2, dtype=torch.float32,
+                                              device=device) / D)
+    return _freqs[key]
+
+
+def _check_cuda(params, config, x0, t, block_table, walk_lens, lens, ring_k,
+                ring_v, k_pool, v_pool):
+    c = config
+    N, h = x0.shape
+    ok, reason = mega_supported(params, c, n_slots=N,
+                                n_steps=ring_k.shape[2],
+                                block_size=k_pool.shape[2],
+                                kv_int8=k_pool.dtype == torch.int8)
+    if not ok:
+        raise ValueError(f"mega_decode_step: the kernel does not take this "
+                         f"model or batch (reason {reason!r}); the engine "
+                         "screens with mega_supported first")
+    dev = x0.device
+    lay = params["layers"]
+    named = [("x0", x0), ("block_table", block_table),
+             ("walk_lens", walk_lens), ("lens", lens), ("ring_k", ring_k),
+             ("ring_v", ring_v), ("k_pool", k_pool), ("v_pool", v_pool)] \
+        + [(k, lay[k]) for k in LAYER_KEYS]
+    for name, tns in named:
+        if tns.device != dev:
+            raise ValueError(f"mega_decode_step: {name} on {tns.device}, x0 "
+                             f"on {dev}")
+        if not tns.is_contiguous():
+            raise ValueError(f"mega_decode_step: {name} is not contiguous")
+    L, Hkv, D = c.num_layers, c.num_kv_heads, c.head_dim
+    Hq, F = c.num_heads, c.intermediate_size
+    want = {"attn_norm": (L, h), "mlp_norm": (L, h), "wq": (L, h, Hq * D),
+            "wk": (L, h, Hkv * D), "wv": (L, h, Hkv * D),
+            "wo": (L, Hq * D, h), "w_gate": (L, h, F), "w_up": (L, h, F),
+            "w_down": (L, F, h)}
+    for k, shape in want.items():
+        if tuple(lay[k].shape) != shape:
+            raise ValueError(f"mega_decode_step: layers.{k} is "
+                             f"{tuple(lay[k].shape)}, expected {shape}")
+    S = ring_k.shape[2]
+    if h != c.hidden_size or tuple(ring_k.shape) != (L, N, S, Hkv, D) \
+            or ring_v.shape != ring_k.shape:
+        raise ValueError(f"mega_decode_step: x0 {tuple(x0.shape)} and rings "
+                         f"{tuple(ring_k.shape)} do not match the config")
+    if k_pool.dim() != 5 or tuple(k_pool.shape[::4]) != (L, D) \
+            or k_pool.shape[3] != Hkv or v_pool.shape != k_pool.shape:
+        raise ValueError(f"mega_decode_step: pools {tuple(k_pool.shape)} are "
+                         "not [L, NB, BS, Hkv, D]")
+    for name, tns in (("x0", x0), ("ring_k", ring_k), ("ring_v", ring_v),
+                      ("k_pool", k_pool), ("v_pool", v_pool)):
+        if tns.dtype != c.dtype:
+            raise TypeError(f"mega_decode_step: {name} is {tns.dtype}, the "
+                            f"model dtype is {c.dtype}")
+    if block_table.dtype != torch.int32 or block_table.dim() != 2 \
+            or block_table.shape[0] != N:
+        raise ValueError("block_table must be int32 [N, MB]")
+    for name, tns in (("walk_lens", walk_lens), ("lens", lens)):
+        if tns.dtype != torch.int32 or tuple(tns.shape) != (N,):
+            raise ValueError(f"{name} must be int32 [N]")
+    if not 0 <= t < S:
+        raise ValueError(f"step index t={t} outside the ring's {S} steps")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("mega_decode_step copies pool rows 16 bytes at a "
+                         "time: the pools must be 16-byte aligned")
+
+
+def mega_decode_step(params, config, *, x0, t: int, block_table, walk_lens,
+                     lens, ring_k, ring_v, k_pool, v_pool):
+    """ONE decode step of all layers in one launch: hidden state x0
+    [N, hidden] -> the post-layer-stack hidden state [N, hidden] (model
+    dtype), with the step's K/V rows written into ``ring_k``/``ring_v``
+    [L, N, S, Hkv, D] at index ``t`` (in place; both are returned).
+    ``lens`` [N] int32 are the rows' current lengths (the RoPE position);
+    ``walk_lens`` [N] int32 the frozen pool prefixes the walk reads
+    through ``block_table`` [N, MB] int32 from pools
+    [L, NB, BS, Hkv, D]. Launches ``csrc/mega_decode.cu`` on CUDA tensors
+    (or raises), runs :func:`mega_decode_step_plain` on CPU tensors."""
+    if x0.device.type == "cpu":
+        return mega_decode_step_plain(
+            params, config, x0=x0, t=t, block_table=block_table,
+            walk_lens=walk_lens, lens=lens, ring_k=ring_k, ring_v=ring_v,
+            k_pool=k_pool, v_pool=v_pool)
+    if x0.device.type != "cuda":
+        raise ValueError(f"mega_decode_step: unsupported device {x0.device}")
+    fn = _build.kernel("ptt_mega_decode", [ctypes.c_void_p] * 23
+                       + [ctypes.c_int] * 13
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    _check_cuda(params, config, x0, t, block_table, walk_lens, lens, ring_k,
+                ring_v, k_pool, v_pool)
+    c = config
+    dt = c.dtype
+    N, h = x0.shape
+    Hq, Hkv, D = c.num_heads, c.num_kv_heads, c.head_dim
+    F = c.intermediate_size
+    lay = params["layers"]
+    x = x0.clone()                      # updated in place by the kernel
+    qkv = torch.empty((N, (Hq + 2 * Hkv) * D), dtype=dt, device=x.device)
+    att = torch.empty((N, Hq * D), dtype=dt, device=x.device)
+    gu = torch.empty((N, F), dtype=dt, device=x.device)
+    # the partial sums of the GEMV tiles' k-ranges and of the walks' parts,
+    # and the counters that find the block finishing each tile or walk
+    widest = max((Hq + 2 * Hkv) * D, 2 * F, h)
+    part = torch.empty((_MAX_SPLITS, N, widest), dtype=torch.float32,
+                       device=x.device)
+    count = torch.zeros((max(widest // TILE_COLS, N * Hkv),),
+                        dtype=torch.int32, device=x.device)
+    freq = _rope_freq(c.rope_theta, D, x.device)
+    P = _build.ptr
+    with torch.cuda.device(x.device):
+        err = fn(*(P(lay[k]) for k in ("attn_norm", "mlp_norm") + _MATS),
+                 P(freq), P(block_table), P(walk_lens), P(lens), P(k_pool),
+                 P(v_pool), P(ring_k), P(ring_v), P(x), P(qkv), P(att), P(gu),
+                 P(part), P(count),
+                 c.num_layers, N, h, F, Hkv, Hq // Hkv, D, k_pool.shape[1],
+                 k_pool.shape[2], block_table.shape[1], ring_k.shape[2],
+                 int(t), _DTYPES[dt], c.rms_eps, 1.0 / math.sqrt(D),
+                 _build.stream_handle(x))
+    _build.check(err, "mega_decode")
+    _build.launch_counts["mega_decode"] += 1
+    return x, ring_k, ring_v
+
+
+def blocks_per_sm(dtype, head_dim: int, n_slots: int) -> int:
+    """How many blocks of the mega kernel one SM holds at once for
+    ``dtype``, ``head_dim`` and ``n_slots`` rows (the occupancy the
+    cooperative grid is sized from: this times the SM count)."""
+    fn = _build.kernel("ptt_mega_decode_blocks_per_sm", [ctypes.c_int] * 3)
+    n = fn(_DTYPES[dtype], head_dim, n_slots)
+    if n < 0:
+        _build.check(-n, "mega_decode occupancy")
+    return n

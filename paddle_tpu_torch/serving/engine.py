@@ -16,6 +16,13 @@ Design, as in the JAX engine:
   softmax state merges with the call's in-flight ring of new K/V by the
   flash-decoding combine. The ring is written back to the pools once, at
   the end of the call.
+- Mega decode (``decode_kernel="mega"``, or ``"auto"`` on the card at
+  ``max_slots <= 4``): the same math, but each step's whole layer stack is
+  ONE launch of the persistent kernel (``kernels.mega_decode``); the
+  embedding gather, final norm, head, sampling, bookkeeping and ring
+  writeback stay shared with the ragged path. A pick the kernel's screen
+  (``mega_supported``) refuses falls back to ragged and is counted in
+  ``LLMEngine.mega_fallbacks`` by reason — never silently.
 - A host-side block allocator over ``[L, num_blocks, block_size, Hkv, D]``
   pools: admission reserves the prompt's blocks, decode backs the blocks
   the next call can touch, and when the pool runs dry the newest
@@ -28,26 +35,27 @@ decode call ends in one synchronous readback (the JAX engine chains the
 next call before reading the previous one); the first tokens of a
 prefill wave stay on the device until that readback. The observability
 hooks are not ported. Prefix caching, chunked prefill, swap/offload,
-admission control, speculative decoding, the mega kernel, int8 and
-tensor parallelism are not ported yet (ROADMAP queue A); their
-constructor arguments raise ``NotImplementedError`` when set.
+admission control, speculative decoding, int8 and tensor parallelism
+are not ported yet (ROADMAP queue A), nor the ``"bucketed"`` dense-gather
+decode; their constructor arguments raise ``NotImplementedError`` when
+set.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
-from collections import deque
+from collections import Counter, deque
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.paged_attention import ragged_decode_partial
+from ..kernels.mega_decode import (_layer, _mlp, decode_layers,
+                                   mega_decode_step, mega_supported)
 from ..kernels.pallas_attention import flash_attention_fwd
 from ..kernels.quant_matmul import weight_only_matmul as _wo_mm
-from ..models.llama import (LAYER_KEYS, LlamaConfig, _apply_rope,
-                            _rms_norm, _rope_tables, _rotate, head_weight)
+from ..models.llama import (LlamaConfig, _apply_rope, _rms_norm,
+                            _rope_tables, head_weight)
 
 __all__ = ["LLMEngine", "Request"]
 
@@ -138,17 +146,6 @@ def _apply_admissions(c_last, c_len, c_done, c_rem, wave_toks, slot_of_row,
     return c_last, c_len, c_done, c_rem
 
 
-def _layer(params, l):
-    return {k: params["layers"][k][l] for k in LAYER_KEYS}
-
-
-def _mlp(x, p, c: LlamaConfig):
-    dt = c.dtype
-    hn = _rms_norm(x, p["mlp_norm"], c.rms_eps)
-    gate = torch.nn.functional.silu(_wo_mm(hn, p["w_gate"], dt))
-    return x + _wo_mm(gate * _wo_mm(hn, p["w_up"], dt), p["w_down"], dt)
-
-
 def _paged_prefill(params, tokens, blk_ids, true_len, pools, temps, top_ks,
                    top_ps, generator, *, config: LlamaConfig,
                    sample_flags=(True, True, True)):
@@ -189,27 +186,21 @@ def _paged_prefill(params, tokens, blk_ids, true_len, pools, temps, top_ks,
                         *sample_flags)
 
 
-def _rope1(t, ang):
-    """Rotate-half RoPE of one position per row: t [N, H, D], ang [N, D/2]
-    f32 angles (cos/sin cast to t's dtype before the multiply)."""
-    return _rotate(t, torch.cos(ang)[:, None, :].to(t.dtype),
-                   torch.sin(ang)[:, None, :].to(t.dtype))
-
-
 def _paged_decode(params, last_tokens, lengths, done0, budgets, generator,
                   active, block_table, pools, temps, top_ks, top_ps, eos_ids,
                   *, config: LlamaConfig, n_steps: int,
-                  sample_flags=(True, True, True)):
-    """``n_steps`` decode iterations over all slots (the ragged path).
+                  sample_flags=(True, True, True), mega: bool = False):
+    """``n_steps`` decode iterations over all slots.
 
     The slot prefixes ``[0, lengths)`` are frozen for the call: every step
     and layer the ragged kernel walks them at their true lengths (slots
     outside ``active`` walk zero blocks) and returns its partial softmax
     state, which merges with the call's ring of new K/V by the
-    flash-decoding combine — one softmax over [prefix ; ring]. Slots that
-    hit their eos or budget flip to done and emit -1 from then on. The
-    ring's valid entries are written back to the pools (in place) at the
-    end of the call.
+    flash-decoding combine — one softmax over [prefix ; ring]. With
+    ``mega`` each step's layer stack is one ``mega_decode_step`` launch
+    of the same math instead. Slots that hit their eos or budget flip to
+    done and emit -1 from then on. The ring's valid entries are written
+    back to the pools (in place) at the end of the call.
 
     Returns (emitted [n_steps, N] int32 with -1 padding, last, lengths,
     done, budgets)."""
@@ -218,14 +209,10 @@ def _paged_decode(params, last_tokens, lengths, done0, budgets, generator,
     Lc, N, S = c.num_layers, block_table.shape[0], n_steps
     bs = pools["k"].shape[2]
     Hkv, D = c.num_kv_heads, c.head_dim
-    G = c.num_heads // Hkv
     P = block_table.shape[1] * bs
-    scale = 1.0 / math.sqrt(D)
     dev = last_tokens.device
     lens0 = lengths
     walk_lens = torch.where(active, lens0, torch.zeros_like(lens0)).int()
-    freq = c.rope_theta ** (-torch.arange(0, D, 2, dtype=torch.float32,
-                                          device=dev) / D)
     head_w = head_weight(params, c).to(dt)
     ring_k = torch.zeros((Lc, N, S, Hkv, D), dtype=dt, device=dev)
     ring_v = torch.zeros_like(ring_k)
@@ -233,35 +220,15 @@ def _paged_decode(params, last_tokens, lengths, done0, budgets, generator,
     emitted = []
     for t in range(S):
         act = active & ~done
-        x = params["embed"][last.long()].to(dt)[:, None]     # [N, 1, h]
-        ang = lens.float()[:, None] * freq[None, :]
-        ring_live = (torch.arange(S, device=dev) <= t)[None, None, None, :]
-        for l in range(Lc):
-            p = _layer(params, l)
-            hn = _rms_norm(x, p["attn_norm"], c.rms_eps)[:, 0]
-            q = _rope1(_wo_mm(hn, p["wq"], dt).reshape(N, Hkv * G, D), ang)
-            kk = _rope1(_wo_mm(hn, p["wk"], dt).reshape(N, Hkv, D), ang)
-            vv = _wo_mm(hn, p["wv"], dt).reshape(N, Hkv, D)
-            ring_k[l, :, t] = kk
-            ring_v[l, :, t] = vv
-            qg = q.reshape(N, Hkv, G, D).float()
-            s_rng = torch.einsum("nhgd,nshd->nhgs", qg,
-                                 ring_k[l].float()) * scale
-            s_rng = torch.where(ring_live, s_rng,
-                                torch.full_like(s_rng, NEG_INF))
-            acc_p, m_p, l_p = ragged_decode_partial(
-                q, pools["k"], pools["v"], block_table, walk_lens, layer=l)
-            # the ring always holds >= 1 live position, so l_tot >= 1
-            m_tot = torch.maximum(m_p, s_rng.amax(dim=-1))
-            corr = torch.exp(m_p - m_tot)
-            p_rng = torch.exp(s_rng - m_tot[..., None])
-            l_tot = l_p * corr + p_rng.sum(dim=-1)
-            acc = acc_p * corr[..., None] + torch.einsum(
-                "nhgs,nshd->nhgd", p_rng, ring_v[l].float())
-            att = (acc / l_tot[..., None]).reshape(N, 1, Hkv * G * D).to(dt)
-            x = _mlp(x + _wo_mm(att, p["wo"], dt), p, c)
+        x0 = params["embed"][last.long()].to(dt)
+        # both write the step's K/V rows into the rings in place
+        kw = dict(t=t, block_table=block_table, walk_lens=walk_lens,
+                  lens=lens, ring_k=ring_k, ring_v=ring_v, k_pool=pools["k"],
+                  v_pool=pools["v"])
+        x = mega_decode_step(params, c, x0=x0, **kw)[0] if mega \
+            else decode_layers(params, c, x0, **kw)
         xf = _rms_norm(x, params["final_norm"], c.rms_eps)
-        logits = (xf[:, 0] @ head_w).float()
+        logits = (xf @ head_w).float()
         nxt = _sample_rows(logits, generator, temps, top_ks, top_ps,
                            *sample_flags)
         emitted.append(torch.where(act, nxt, torch.full_like(nxt, -1)))
@@ -315,14 +282,14 @@ class LLMEngine:
                 raise NotImplementedError(
                     f"LLMEngine({name}=...) is not ported yet (ROADMAP "
                     f"queue {queue})")
-        if decode_kernel in ("bucketed", "mega"):
+        if decode_kernel == "bucketed":
             raise NotImplementedError(
-                f"decode_kernel={decode_kernel!r} is not ported: the port "
-                "serves decode through the ragged kernel (ROADMAP queue B "
-                "holds the mega kernel)")
-        if decode_kernel not in ("auto", "ragged"):
-            raise ValueError(f"decode_kernel must be 'auto' or 'ragged', "
-                             f"got {decode_kernel!r}")
+                "decode_kernel='bucketed' (the dense-gather decode) is not "
+                "ported: the port decodes through the ragged or the mega "
+                "kernel")
+        if decode_kernel not in ("auto", "ragged", "mega"):
+            raise ValueError(f"decode_kernel must be 'auto', 'ragged' or "
+                             f"'mega', got {decode_kernel!r}")
         if max_model_len % block_size:
             raise ValueError(f"max_model_len {max_model_len} is not a "
                              f"multiple of block_size {block_size}")
@@ -371,6 +338,11 @@ class LLMEngine:
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.decode_steps = max(1, int(decode_steps))
         self._table_dev = None       # device copy of self.table, when clean
+        # decode dispatches by path, and mega picks the screen refused by
+        # reason (the JAX engine's serving_decode_kernel_total and
+        # serving_mega_fallback_total)
+        self.decode_paths: Counter = Counter()
+        self.mega_fallbacks: Counter = Counter()
         # admissions whose device-sampled first token has not been read
         # back yet: (slot, req_id, wave token array, row)
         self._pending_adm: List = []
@@ -570,6 +542,25 @@ class LLMEngine:
                 if victim == slot:
                     break
 
+    def _decode_path(self) -> str:
+        """Kernel path of the next decode dispatch: ``"mega"`` (the
+        persistent megakernel — forced, or picked by ``"auto"`` on the
+        card at ``max_slots <= 4``, where a step is launch-bound) when its
+        screen accepts the model and batch, else ``"ragged"``. A mega pick
+        the screen refuses is counted in ``mega_fallbacks`` by reason."""
+        want_mega = self.decode_kernel == "mega" or (
+            self.decode_kernel == "auto" and self.device.type == "cuda"
+            and self.N <= 4)
+        if want_mega:
+            ok, reason = mega_supported(
+                self.params, self.config, n_slots=self.N,
+                n_steps=self.decode_steps, block_size=self.bs,
+                kv_int8=False)
+            if ok:
+                return "mega"
+            self.mega_fallbacks[reason] += 1
+        return "ragged"
+
     def _dispatch_decode(self, active):
         """Run one decode call over ``active`` and read its tokens back."""
         dev = self.device
@@ -613,6 +604,8 @@ class LLMEngine:
                 torch.as_tensor(upd, device=dev))
         if self._table_dev is None:
             self._table_dev = torch.as_tensor(self.table, device=dev)
+        path = self._decode_path()
+        self.decode_paths[path] += 1
         toks, *_carry = _paged_decode(
             self.params, c_last, c_len, c_done, c_rem, self._gen,
             torch.as_tensor(act, device=dev), self._table_dev, self.pools,
@@ -621,7 +614,8 @@ class LLMEngine:
             torch.as_tensor(top_ps, device=dev),
             torch.as_tensor(eos_ids, device=dev), config=self.config,
             n_steps=self.decode_steps,
-            sample_flags=_sample_flags([self.slot_req[i] for i in active]))
+            sample_flags=_sample_flags([self.slot_req[i] for i in active]),
+            mega=path == "mega")
         adm, self._pending_adm = self._pending_adm, []
         return self._process(adm, toks,
                              [(i, self.slot_req[i].req_id) for i in active])

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import paddle_tpu_torch
+from paddle_tpu_torch.kernels import mega_decode as tmd
 from paddle_tpu_torch.kernels import paged_attention as tpa
 from paddle_tpu_torch.kernels import pallas_attention as tfa
 from paddle_tpu_torch.models import llama as tl
@@ -122,6 +123,8 @@ def test_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
                  "flash_dq_plain", "flash_dkv_plain"):
         monkeypatch.setattr(tfa, name, no_plain)
     monkeypatch.setattr(tpa, "ragged_decode_partial_plain", no_plain)
+    monkeypatch.setattr(tmd, "mega_decode_step_plain", no_plain)
+    monkeypatch.setattr(tmd, "decode_layers", no_plain)
 
     def cuda(shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype).as_subclass(_CudaTyped)
@@ -149,3 +152,15 @@ def test_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
         tpa.ragged_decode_partial(cuda((2, 4, 64)), pool, pool,
                                   cuda((2, 2), torch.int32),
                                   cuda((2,), torch.int32))
+    cfg = tl.tiny_llama(vocab=32, hidden=256, layers=1, heads=4, kv_heads=2,
+                        ffn=256)
+    params = {k: (cuda(v.shape) if torch.is_tensor(v)
+                  else {kk: cuda(vv.shape) for kk, vv in v.items()})
+              for k, v in tl.init_params(cfg, device="cpu").items()}
+    ring = cuda((1, 2, 4, 2, 64))
+    lens = cuda((2,), torch.int32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmd.mega_decode_step(params, cfg, x0=cuda((2, 256)), t=0,
+                             block_table=cuda((2, 2), torch.int32),
+                             walk_lens=lens, lens=lens, ring_k=ring,
+                             ring_v=ring, k_pool=pool, v_pool=pool)

@@ -150,7 +150,7 @@ def test_unported_arguments_raise(model):
                       (dict(prefix_cache=True), "A5"),
                       (dict(draft_params=tp), "A6"),
                       (dict(mesh=object()), "A10"),
-                      (dict(decode_kernel="mega"), "queue B")):
+                      (dict(decode_kernel="bucketed"), "bucketed")):
         with pytest.raises(NotImplementedError, match=queue):
             LLMEngine(tp, tcfg, device="cpu", **kw)
     LLMEngine(tp, tcfg, device="cpu", kv_dtype=None, prefix_cache=False)

@@ -160,3 +160,94 @@ def test_remat_policies_launch_b1_as_their_policy_says(dev, policy,
     for a, b in zip(tree_leaves(grads), tree_leaves(grads0)):
         assert (a.float() - b.float()).abs().max().item() \
             <= 1e-2 * b.float().abs().max().item()
+
+
+def _mega_inputs(dev, dtype, D, G, N, seed=0, L=2, hkv=2, bs=16, mb=8, S=4):
+    """A small model (hidden 1024, ffn 2048, L layers: wide enough that
+    every GEMV phase splits its tiles' rows into several k-ranges) with D
+    and G as asked, its [L, NB, bs, hkv, D] pools, a ring whose first
+    steps hold earlier rows, and walk lengths 100, 0, a full table, 37,
+    ... (the first N)."""
+    from paddle_tpu_torch.models import llama
+    cfg = llama.LlamaConfig(vocab_size=128, hidden_size=1024,
+                            intermediate_size=2048, num_layers=L,
+                            num_heads=hkv * G, num_kv_heads=hkv,
+                            head_dim=D, max_seq_len=256, dtype=dtype)
+    params = llama.init_params(cfg, seed=seed, device=dev, dtype=dtype)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    nb = N * mb + 1
+    pools = [torch.randn(L, nb, bs, hkv, D, generator=g, device=dev)
+             .to(dtype) for _ in range(2)]
+    rings = [torch.randn(L, N, S, hkv, D, generator=g, device=dev)
+             .to(dtype) for _ in range(2)]
+    table = torch.as_tensor(rng.permutation(np.arange(1, nb))
+                            .reshape(N, mb).astype(np.int32), device=dev)
+    walk = torch.as_tensor(([100, 0, mb * bs, 37] * 2)[:N],
+                           dtype=torch.int32, device=dev)
+    x0 = torch.randn(N, 1024, generator=g, device=dev).to(dtype)
+    return cfg, params, x0, table, walk, pools, rings
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("D,G,N", [(128, 4, 4), (64, 1, 1), (128, 1, 4),
+                                   (64, 4, 1), (128, 4, 8), (64, 8, 6)])
+def test_mega_kernel_matches_plain(dev, dtype, tol, D, G, N):
+    """B5, one step of all layers, against its plain version: the hidden
+    state and the ring rows it wrote, each within ``tol`` of its largest
+    magnitude (bf16: the kernel's f32 sums run in another order than
+    cuBLAS's, so a bf16 rounding may land one ulp apart); rows of other
+    steps untouched. Step 2 of a 4-step ring. N up to 4 runs the kernel
+    built for 4 rows, 5 to 8 the one built for 8."""
+    from paddle_tpu_torch.kernels import mega_decode as tmd
+    cfg, params, x0, table, walk, (kp, vp), (rk, rv) = _mega_inputs(
+        dev, dtype, D, G, N)
+    lens = walk + 2
+    t = 2
+    before = _build.launch_counts["mega_decode"]
+    xh, rk1, rv1 = tmd.mega_decode_step(
+        params, cfg, x0=x0, t=t, block_table=table, walk_lens=walk,
+        lens=lens, ring_k=rk.clone(), ring_v=rv.clone(), k_pool=kp,
+        v_pool=vp)
+    ref, rk2, rv2 = tmd.mega_decode_step_plain(
+        params, cfg, x0=x0, t=t, block_table=table, walk_lens=walk,
+        lens=lens, ring_k=rk.clone(), ring_v=rv.clone(), k_pool=kp,
+        v_pool=vp)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["mega_decode"] == before + 1
+    assert xh.dtype == dtype and xh.shape == x0.shape
+    for got, want in ((xh, ref), (rk1, rk2), (rv1, rv2)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol * want.float().abs().max().item()
+    keep = [s for s in range(rk.shape[2]) if s != t]
+    assert torch.equal(rk1[:, :, keep], rk[:, :, keep])
+    assert torch.equal(rv1[:, :, keep], rv[:, :, keep])
+
+
+def test_mega_engine_launches_once_a_step_and_streams_equal_ragged(dev):
+    """A mega engine on the card (f32, decisive argmax) emits the ragged
+    engine's greedy streams, with one mega_decode launch a decode step and
+    no ragged_decode launch."""
+    from paddle_tpu_torch.serving import LLMEngine
+    cfg, params, *_ = _mega_inputs(dev, torch.float32, 128, 4, 4)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 128, size=n).tolist() for n in (5, 40, 17)]
+    streams = {}
+    for kernel in ("ragged", "mega"):
+        eng = LLMEngine(params, cfg, max_slots=2, block_size=16,
+                        max_model_len=128, prompt_buckets=[64],
+                        decode_steps=4, decode_kernel=kernel, device=dev)
+        ids = [eng.add_request(p, max_new_tokens=9) for p in prompts]
+        _build.launch_counts.clear()
+        out = eng.run()
+        torch.cuda.synchronize()
+        streams[kernel] = [out[i] for i in ids]
+        assert sum(eng.decode_paths.values()) \
+            == eng.decode_paths[kernel] > 0
+        if kernel == "mega":
+            assert not eng.mega_fallbacks
+            assert _build.launch_counts["mega_decode"] \
+                == 4 * eng.decode_paths["mega"]
+            assert _build.launch_counts["ragged_decode"] == 0
+    assert streams["mega"] == streams["ragged"]

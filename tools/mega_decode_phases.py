@@ -1,0 +1,153 @@
+#!/usr/bin/env python3
+"""Where the mega decode kernel's time goes, phase by phase, on the card.
+
+Builds copies of ``paddle_tpu_torch/kernels/csrc/mega_decode.cu`` side by
+side (one ``nvcc`` each, all started together): the kernel as it is, and
+one copy per phase with that phase's work loop emptied (q/k/v, attention,
+wo, gate/up, down), plus one with every phase emptied (the grid barriers
+alone). Each runs one decode step of Llama-3-8B (random bf16 weights,
+seed 0) at the serving mix's walk lengths, timed with CUDA events in two
+rounds of opposite order; a phase's time is the full kernel's minus its
+knocked-out copy's. Prints, for each slot count asked for, one JSON
+object with the times, each phase's bytes and their time at the card's
+HBM rate, and the card's name and power limit.
+
+    python3 tools/mega_decode_phases.py [--slots 4 8] [--iters 10]
+
+Needs an NVIDIA Hopper card and the CUDA toolkit; run from the root of a
+checkout.
+"""
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+import chip_smoke as cs  # noqa: E402
+from paddle_tpu_torch.kernels import _build  # noqa: E402
+from paddle_tpu_torch.kernels import mega_decode as tmd  # noqa: E402
+from paddle_tpu_torch.models import llama  # noqa: E402
+
+# each phase's work loop bound, and what empties it
+PHASES = {
+    "qkv": "item < Mqkv / kTileCols * s_qkv;",
+    "attention": "item < N * Hkv * parts;",
+    "wo": "item < h / kTileCols * s_wo;",
+    "gate_up": "item < F / kTileCols * s_gu;",
+    "down": "item < h / kTileCols * s_down;",
+}
+
+
+def variants(src: str):
+    out = {"full": src}
+    for name, bound in PHASES.items():
+        if src.count(bound) != 1:
+            raise RuntimeError(f"the kernel no longer has the loop {bound!r}")
+        out[f"no_{name}"] = src.replace(bound, "item < 0;")
+    barriers = src
+    for bound in PHASES.values():
+        barriers = barriers.replace(bound, "item < 0;")
+    out["barriers_only"] = barriers
+    return out
+
+
+def build(srcs, tmp: Path):
+    """One shared library per variant, built in parallel."""
+    csrc = _build.SRC_DIR
+    procs = {}
+    for name, text in srcs.items():
+        d = tmp / name
+        d.mkdir()
+        for f in ("common.cuh", "ragged_walk.cuh", "errors.cu"):
+            (d / f).write_bytes((csrc / f).read_bytes())
+        (d / "mega_decode.cu").write_text(text)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+               str(d / "lib.so"), str(d / "mega_decode.cu"),
+               str(d / "errors.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT)
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log.decode()}")
+
+
+def use(path: Path):
+    """Route the package's kernel wrappers to the library at ``path``."""
+    lib = ctypes.CDLL(str(path))
+    lib.ptt_error_string.argtypes = [ctypes.c_int]
+    lib.ptt_error_string.restype = ctypes.c_char_p
+    _build._lib, _build._fns = lib, {}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--slots", type=int, nargs="+", default=[4])
+    ap.add_argument("--iters", type=int, default=10)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("mega_decode_phases: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    card = cs.nvidia_smi()
+    srcs = variants((_build.SRC_DIR / "mega_decode.cu").read_text())
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        build(srcs, Path(tmp))
+        build_s = time.perf_counter() - t0
+        cfg, params = cs.llama3_8b_bf16(llama, dev)
+        for slots in args.slots:
+            print(json.dumps(measure(cfg, params, dev, srcs, Path(tmp),
+                                     slots, args.iters, build_s, card)),
+                  flush=True)
+    return 0
+
+
+def measure(cfg, params, dev, srcs, tmp, slots, iters, build_s, card):
+    """Every variant's time for one step at ``slots`` rows, and the
+    phases' times, bytes and bounds."""
+    walk = [len(p) + 24 for p in cs.serving_mix(cfg, slots)]
+    kw, toks = cs.mega_inputs(cfg, dev, walk)
+    x0 = params["embed"][toks].to(cfg.dtype)
+    ms = {name: [] for name in srcs}
+    for order in (list(srcs), list(srcs)[::-1]):
+        for name in order:
+            use(tmp / name / "lib.so")
+            ms[name].append(cs.time_ms(
+                lambda i=0: tmd.mega_decode_step(params, cfg, x0=x0, **kw),
+                iters))
+    use(tmp / "full" / "lib.so")
+    per_sm = tmd.blocks_per_sm(cfg.dtype, cfg.head_dim, slots)
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    lay = params["layers"]
+    L = cfg.num_layers
+    kv_row = cfg.num_kv_heads * cfg.head_dim * 2
+    nbytes = {
+        "qkv": sum(lay[k].numel() * 2 for k in ("wq", "wk", "wv")),
+        "attention": 2 * L * (sum(walk) + slots * (kw["t"] + 1)) * kv_row,
+        "wo": lay["wo"].numel() * 2,
+        "gate_up": (lay["w_gate"].numel() + lay["w_up"].numel()) * 2,
+        "down": lay["w_down"].numel() * 2,
+    }
+    phases = {name: {"ms": mean["full"] - mean[f"no_{name}"],
+                     "bytes": nbytes[name],
+                     "bound_ms": nbytes[name] / cs.HBM_BYTES_PER_S * 1e3}
+              for name in PHASES}
+    return {"config": "Llama-3-8B bf16 (random weights, seed 0)",
+            "slots": slots, "walk": walk, "t": kw["t"],
+            "full_ms": mean["full"], "runs_ms": ms, "phases": phases,
+            "barriers_only_ms": mean["barriers_only"],
+            "barriers": 5 * L - 1, "blocks_per_sm": per_sm,
+            "build_s": build_s, "card": card}
+
+
+if __name__ == "__main__":
+    sys.exit(main())
