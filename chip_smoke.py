@@ -52,10 +52,26 @@ into the git-ignored ``paddle_tpu_torch/_build``, then runs, in order
    their bounds and SDPA's backward;
 10. card vs CPU train step: llama-2.6b widths cut to 2 layers, f32,
     AdamW, B=1, S=256, the same numpy-made weights — loss, grad norm,
-    grads and updated params must agree.
+    grads and updated params must agree;
+11. B9 (gather_gmm) and B10 (gmm, with and without transpose_rhs; tgmm)
+    against their plain versions, bf16 and f32, at small shapes with empty
+    groups, a skewed group, tiles spanning groups and tail rows, then
+    bf16 at the MoE train step's shapes;
+12. the MoE training path: ``moe.train_step`` on DeepSeekMoE-16B's
+    widths cut to 12 layers (batch 4, seq 2048, remat "outs", adafactor,
+    bf16 params, random weights), 2 warm-up and 5 timed steps — falling
+    losses and, per step, the expected launches of B1-B3, B9, gmm and
+    tgmm; tokens/s, step time, MFU, peak memory, the fused dispatch's
+    route counts; one more step traced, its device time by kernel;
+13. B9, gmm and tgmm timed at each of their calls' shapes in the step
+    beside their plain versions, their bounds and ``torch._grouped_mm``;
+    the fused and gmm dispatch forms timed forward and backward;
+14. card vs CPU MoE train step (f32, 2 layers, AdamW), and the card's gmm
+    form against its fused form.
 
-Before its last line it prints ``serving``, ``mega`` and ``training``
-lines (phases 4, 6 and 8), one JSON object with every ported kernel
+Before its last line it prints ``serving``, ``mega``, ``training`` and
+``moe_training`` lines (phases 4, 6, 8 and 12-14), one JSON object with
+every ported kernel
 (launches on its main path, max error, and times in ms beside the
 bound), and the card's name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -395,11 +411,13 @@ def trace_decode_call(eng, prompts):
     return res
 
 
-def traced(fn):
+def traced(fn, classify=None):
     """Run ``fn()`` once under torch.profiler (device activity only), up to
     a device synchronize, and return the device's busy share of the wall
     time, the kernel launches and the kernels that took the most device
-    time (None when the trace holds no device activity)."""
+    time (None when the trace holds no device activity); with
+    ``classify`` (kernel name -> bucket), also the device ms and launches
+    of each bucket."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -424,10 +442,17 @@ def traced(fn):
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-            "device_busy_share": busy / wall_us, "kernel_launches": len(kern),
-            "top_kernels_ms": [(name[:60], t / 1e3, n)
-                               for name, (t, n) in top]}
+    res = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+           "device_busy_share": busy / wall_us, "kernel_launches": len(kern),
+           "top_kernels_ms": [(name[:60], t / 1e3, n)
+                              for name, (t, n) in top]}
+    if classify is not None:
+        cats = {}
+        for name, (t, n) in by_name.items():
+            ct, cn = cats.get(classify(name), (0.0, 0))
+            cats[classify(name)] = (ct + t / 1e3, cn + n)
+        res["by_category_ms_launches"] = cats
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -946,6 +971,431 @@ def cross_device_train_step(llama, dev):
     return dict(worst, noise_elements=noisy)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: B9 (gather_gmm) and B10 (gmm, tgmm) against their plain versions
+# ---------------------------------------------------------------------------
+def deepseek_routing(tmdisp, tmf, dev, T=8192, h=2048, E=64, f=1408, k=6):
+    """The grouped GEMMs' operands at the DeepSeekMoE train step's shapes
+    (batch 4 x 2048 tokens, top-6 of 64 experts, expert FFN 1408): bf16
+    tokens and experts from ``make_moe_operands`` (seed SEED), their
+    routing and its tile-padded layout, as the fused dispatch builds them."""
+    x, rw, eg, eu, ed = tmdisp.make_moe_operands(T, h, E, f, torch.bfloat16,
+                                                 seed=SEED, device=dev)
+    r = tmdisp.fused_routing(x, rw, k)
+    inv2d = tmf._inverse_permutation(r.order).reshape(T, k)
+    ws = r.weights.reshape(-1)[r.order]
+    tok_pad, ws_pad, _, inv_pad, gs_pad = tmf._pad_layout(
+        r.gs, r.tok, ws, r.flat_e[r.order], inv2d, E)
+    return dict(x=x, rw=rw, eg=eg, eu=eu, ed=ed, r=r, tok_pad=tok_pad,
+                gs_pad=gs_pad, gid=tmf._tile_gids(gs_pad, tok_pad.shape[0],
+                                                  128),
+                Wcat=torch.cat([eg, eu], -1), T=T, h=h, E=E, f=f, k=k)
+
+
+def check_grouped(tmdisp, tmf, dev):
+    """B9, gmm (plain and transpose_rhs) and tgmm against their plain
+    versions, each within 1e-2 (bf16) or 1e-5 (f32) of the plain result's
+    largest magnitude: (a) small shapes: 300 rows in groups of
+    [0, 130, 1, 0, 100] (empty groups, a one-row group, boundaries inside
+    128-row tiles, 69 tail rows, which must come out zero), a reduction of
+    200 and 136/264-wide outputs (partial tiles), B9 over the padded layout
+    of a skewed top-3 routing of 50 tokens; (b) the train step's shapes
+    (``deepseek_routing``), bf16."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    gs = torch.tensor([0, 130, 1, 0, 100], dtype=torch.int32, device=dev)
+    errs = {}
+
+    def hold(name, got, want, tol):
+        e = rel_err(got, want)
+        errs[name] = e
+        if not e <= tol:
+            raise AssertionError(f"{name} disagrees with its plain version: "
+                                 f"{e} > {tol}")
+
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+        dn = str(dtype)[6:]
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+        lhs = rnd(300, 200)
+        for tr in (False, True):
+            rhs = rnd(5, 136, 200) if tr else rnd(5, 200, 136)
+            out = tmdisp.gmm(lhs, rhs, gs, tr)
+            if not torch.all(out[231:] == 0):
+                raise AssertionError("gmm: tail rows are not zero")
+            hold(f"gmm {dn} transpose={tr}", out,
+                 tmdisp.gmm_plain(lhs, rhs, gs, tr), tol)
+        a, b = rnd(300, 136), rnd(300, 200)
+        want = tmdisp.tgmm_plain(a.t(), b, gs)
+        for odt in dict.fromkeys((torch.float32, dtype)):
+            out = tmdisp.tgmm(a.t(), b, gs, out_dtype=odt)
+            if not (torch.all(out[0] == 0) and torch.all(out[3] == 0)):
+                raise AssertionError("tgmm: empty groups are not zero")
+            hold(f"tgmm {dn} out={str(odt)[6:]}", out, want,
+                 1e-5 if odt == torch.float32 else tol)
+        x, rhs = rnd(50, 136), rnd(4, 136, 264)
+        logits = torch.randn(50, 4, generator=g, device=dev)
+        logits[:, 0] += 3.0
+        r = tmdisp.routing_from_logits(logits, 3)
+        inv2d = tmf._inverse_permutation(r.order).reshape(50, 3)
+        tok_pad, _, _, _, gs_pad = tmf._pad_layout(
+            r.gs, r.tok, r.weights.reshape(-1)[r.order], r.flat_e[r.order],
+            inv2d, 4)
+        gid = tmf._tile_gids(gs_pad, tok_pad.shape[0], 128)
+        hold(f"gather_gmm {dn}", tmf.gather_gmm(x, tok_pad, rhs, gid),
+             tmf.gather_gmm_plain(x, tok_pad, rhs, gid), tol)
+    d = deepseek_routing(tmdisp, tmf, dev)
+    Ap, f = d["tok_pad"].shape[0], d["f"]
+    hold("step gather_gmm", tmf.gather_gmm(d["x"], d["tok_pad"], d["Wcat"],
+                                           d["gid"]),
+         tmf.gather_gmm_plain(d["x"], d["tok_pad"], d["Wcat"], d["gid"]),
+         1e-2)
+    zw = torch.randn(Ap, f, generator=g, device=dev).to(torch.bfloat16)
+    hold("step gmm", tmdisp.gmm(zw, d["ed"], d["gs_pad"]),
+         tmdisp.gmm_plain(zw, d["ed"], d["gs_pad"]), 1e-2)
+    dgu = torch.randn(Ap, 2 * f, generator=g, device=dev).to(torch.bfloat16)
+    hold("step gmm transpose", tmdisp.gmm(dgu, d["Wcat"], d["gs_pad"], True),
+         tmdisp.gmm_plain(dgu, d["Wcat"], d["gs_pad"], True), 1e-2)
+    xs = d["x"].index_select(0, d["tok_pad"])
+    hold("step tgmm", tmdisp.tgmm(xs.t(), dgu, d["gs_pad"],
+                                  out_dtype=torch.bfloat16),
+         tmdisp.tgmm_plain(xs.t(), dgu, d["gs_pad"]), 1e-2)
+    torch.cuda.synchronize()
+    log(f"  B9/gmm/tgmm vs plain, relative errors: {errs}")
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the MoE training path
+# ---------------------------------------------------------------------------
+def kernel_category(name):
+    """The device-time bucket of a traced kernel by its name."""
+    for key, cat in (("gather_gmm", "B9 gather_gmm"), ("tgmm", "B10 tgmm"),
+                     ("gmm_", "B10 gmm"), ("flash_fwd", "B1"),
+                     ("flash_dq", "B2"), ("flash_dkv", "B3")):
+        if key in name:
+            return cat
+    low = name.lower()
+    if any(k in low for k in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
+        return "cuBLAS"
+    for keys, cat in ((("index", "gather", "scatter"), "gathers, scatters"),
+                      (("sort", "radix"), "sorts"),
+                      (("reduce",), "reductions"),
+                      (("catarray", "copy"), "copies"),
+                      (("elementwise",), "elementwise")):
+        if any(k in low for k in keys):
+            return cat
+    return "other"
+
+
+def train_moe(moe, build, tmf, dev, card, layers=12, warmup=2, steps=5,
+              lr=3e-5):
+    """``moe.train_step`` on DeepSeekMoE-16B's widths (``deepseek_moe_16b``:
+    hidden 2048, 16 heads of 128, 64 routed experts of 1408, top-6, 2
+    shared, vocab 102400, layer 0 dense) cut to ``layers`` layers, as
+    bench.py's bench_moe runs it: batch 4 x seq 2048, adafactor, bf16
+    params, remat "outs"; random weights and one fixed token batch from
+    seeded generators on the card; ``warmup`` steps, then ``steps`` timed
+    ones, at lr 3e-5 with adafactor's floor lifted (as phase 8). Each step
+    must launch, per MoE layer, B9 twice (forward and recompute), gmm three
+    times (down projection; its two dgrads) and tgmm twice, and per layer
+    B1, B2 and B3 once; the losses must be finite and fall. One more step is
+    traced."""
+    import dataclasses
+    cfg = dataclasses.replace(moe.deepseek_moe_16b(), num_layers=layers,
+                              remat=True, remat_policy="outs")
+    B, S = 4, 2048
+    t0 = time.perf_counter()
+    state = moe.init_train_state(cfg, SEED, optimizer="adafactor",
+                                 param_dtype=torch.bfloat16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                           device=dev)
+    torch.cuda.synchronize()
+    n_params = moe.num_params(state.params)
+    log(f"  DeepSeekMoE-16B widths, {layers} layers: {n_params} params "
+        f"(bf16) in {time.perf_counter() - t0:.1f} s")
+
+    def step(st):
+        return moe.train_step(st, tokens, cfg, optimizer="adafactor", lr=lr,
+                              adafactor_eps2=0.0)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, per_step = [], []
+    build.launch_counts.clear()
+    tmf.fused_paths.clear()
+    for i in range(warmup + steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        before = dict(build.launch_counts)
+        state, loss = step(state)
+        losses.append(loss)
+        per_step.append({k: v - before.get(k, 0)
+                         for k, v in build.launch_counts.items()})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    fused_paths = dict(tmf.fused_paths)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [x.item() for x in losses]
+    n_moe = layers - cfg.first_dense_layers
+    want = {"flash_fwd": layers, "flash_dq": layers, "flash_dkv": layers,
+            "gather_gmm": 2 * n_moe, "gmm": 3 * n_moe, "tgmm": 2 * n_moe}
+    for i, n in enumerate(per_step):
+        if n != want:
+            raise AssertionError(f"step {i} launched {n}, expected {want}")
+    if fused_paths != {"padded": 2 * n_moe * (warmup + steps)}:
+        raise AssertionError(f"fused dispatch paths {fused_paths}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"losses {losses}: not finite or not falling")
+    tok_s = B * S * steps / wall
+    fpt = moe.flops_per_token(cfg, S)
+    mfu = fpt * tok_s / BF16_FLOPS
+    res = {"config": f"deepseek_moe_16b (models/moe.py:123) cut to {layers} "
+           "layers: hidden 2048, 16/16 heads of 128, 64 experts of 1408, "
+           "top-6, 2 shared, vocab 102400, first layer dense; remat outs, "
+           "adafactor, bf16 params, dispatch auto (fused)",
+           "lr": lr, "adafactor_eps2": 0.0, "batch": B, "seq": S,
+           "params": n_params,
+           "active_params_per_token": moe.active_params_per_token(cfg),
+           "warmup_steps": warmup, "timed_steps": steps,
+           "tokens_per_s": tok_s, "step_s": wall / steps, "mfu": mfu,
+           "flops_per_token": fpt, "peak_mem_gib": peak / 2**30,
+           "losses": losses, "launches_per_step": per_step[-1],
+           "fused_paths": fused_paths, "card": card}
+    log(f"  trained {steps} steps of {B}x{S} tokens in {wall:.2f} s: "
+        f"{tok_s:.1f} tok/s, {wall / steps * 1e3:.1f} ms a step, MFU "
+        f"{mfu:.4f}, peak memory {peak / 2**30:.2f} GiB, losses {losses}, "
+        f"fused paths {fused_paths}; card: {card}")
+    res["traced_step"] = traced(lambda: step(state), classify=kernel_category)
+    log(f"  traced MoE train step: {res['traced_step']}")
+    res["step_parts"] = step_parts(moe, state, tokens, cfg, lr)
+    log(f"  step parts: {res['step_parts']}")
+    return launches, res
+
+
+def step_parts(moe, state, tokens, cfg, lr):
+    """One more step's two halves on the host clock up to a device
+    synchronize, each traced: forward and backward (``loss_and_grads``),
+    then the clip's global norm and the adafactor update."""
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.optimizer.functional import optimizer_update
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, grads = llama.loss_and_grads(state.params, tokens, cfg, moe.loss_fn)
+    torch.cuda.synchronize()
+    out["loss_and_grads_ms"] = (time.perf_counter() - t0) * 1e3
+
+    def update():
+        scale = (1.0 / (llama.global_norm(grads) + 1e-6)).clamp(max=1.0)
+        return optimizer_update(state.params, grads, state.mu, state.nu,
+                                state.step, optimizer="adafactor", lr=lr,
+                                scale=scale, adafactor_eps2=0.0)
+
+    t0 = time.perf_counter()
+    new = update()
+    torch.cuda.synchronize()
+    out["clip_and_optimizer_ms"] = (time.perf_counter() - t0) * 1e3
+    del new
+    out["clip_and_optimizer_traced"] = traced(update, classify=kernel_category)
+    del grads
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: B9/gmm/tgmm timed at the step's shapes; the two dispatch forms
+# ---------------------------------------------------------------------------
+def grouped_mm_yardstick(a, b, offs):
+    """``torch._grouped_mm(a, b, offs=offs)`` as a timed function, or None
+    where this torch has no such call or refuses these operands."""
+    gm = getattr(torch, "_grouped_mm", None)
+    if gm is None:
+        return None
+    try:
+        gm(a, b, offs=offs)
+    except (RuntimeError, TypeError, ValueError) as exc:
+        log(f"  torch._grouped_mm refused {tuple(a.shape)} x "
+            f"{tuple(b.shape)}: {str(exc)[:120]}")
+        return None
+    return lambda i=0: gm(a, b, offs=offs)
+
+
+def time_grouped(tmdisp, tmf, dev):
+    """Each grouped-GEMM call of a MoE layer of the train step, at its
+    shapes over the padded layout (``deepseek_routing``): CUDA-event ms
+    beside the plain version, the bound (the larger of the FLOPs of the
+    rows that hold assignments or padding over 989 TFLOP/s — B9 computes
+    every padded row — and the bytes of each input read once and the
+    output written once over 3.35 TB/s) and ``torch._grouped_mm`` (for B9
+    after an index gather of the rows). Returns one kernels-line entry for
+    each kernel (its call named in "shape"; every call in "per_shape")."""
+    d = deepseek_routing(tmdisp, tmf, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    x, gs, tok, gid = d["x"], d["gs_pad"], d["tok_pad"], d["gid"]
+    Ap, h, f, E = tok.shape[0], d["h"], d["f"], d["E"]
+    rows = int(gs.sum().item())
+    offs = torch.cumsum(gs, 0).to(torch.int32)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    zw, dys, dgu = rnd(Ap, f), rnd(Ap, h), rnd(Ap, 2 * f)
+    xs = x.index_select(0, tok)
+    Wcat, Wd = d["Wcat"], d["ed"]
+
+    def gather_then_gm():
+        """torch._grouped_mm after the gather B9 fuses away."""
+        if grouped_mm_yardstick(xs, Wcat, offs) is None:
+            return None
+        return lambda i=0: torch._grouped_mm(x.index_select(0, tok), Wcat,
+                                             offs=offs)
+
+    calls = [
+        ("gather_gmm", "gate|up forward: x[8192, 2048] gathered by idx "
+         f"[{Ap}] @ Wcat[64, 2048, 2816]",
+         lambda i=0: tmf.gather_gmm(x, tok, Wcat, gid),
+         lambda i=0: tmf.gather_gmm_plain(x, tok, Wcat, gid),
+         gather_then_gm(),
+         2.0 * Ap * h * 2 * f,
+         2 * (x.numel() + Wcat.numel() + Ap * 2 * f) + 4 * (Ap + gid.numel())),
+        ("gmm", f"down forward: [{Ap}, 1408] @ [64, 1408, 2048]",
+         lambda i=0: tmdisp.gmm(zw, Wd, gs),
+         lambda i=0: tmdisp.gmm_plain(zw, Wd, gs),
+         grouped_mm_yardstick(zw, Wd, offs),
+         2.0 * rows * f * h, 2 * (zw.numel() + Wd.numel() + Ap * h) + 4 * E),
+        ("gmm", f"down dgrad: [{Ap}, 2048] @ [64, 1408, 2048]^T",
+         lambda i=0: tmdisp.gmm(dys, Wd, gs, True),
+         lambda i=0: tmdisp.gmm_plain(dys, Wd, gs, True),
+         grouped_mm_yardstick(dys, Wd.transpose(1, 2), offs),
+         2.0 * rows * h * f, 2 * (dys.numel() + Wd.numel() + Ap * f) + 4 * E),
+        ("gmm", f"gate|up dgrad: [{Ap}, 2816] @ [64, 2048, 2816]^T",
+         lambda i=0: tmdisp.gmm(dgu, Wcat, gs, True),
+         lambda i=0: tmdisp.gmm_plain(dgu, Wcat, gs, True),
+         grouped_mm_yardstick(dgu, Wcat.transpose(1, 2), offs),
+         2.0 * rows * 2 * f * h,
+         2 * (dgu.numel() + Wcat.numel() + Ap * h) + 4 * E),
+        ("tgmm", f"gate|up wgrad: xs^T[2048, {Ap}] @ [{Ap}, 2816]",
+         lambda i=0: tmdisp.tgmm(xs.t(), dgu, gs, out_dtype=torch.bfloat16),
+         lambda i=0: tmdisp.tgmm_plain(xs.t(), dgu, gs),
+         grouped_mm_yardstick(xs.t(), dgu, offs),
+         2.0 * rows * h * 2 * f,
+         2 * (xs.numel() + dgu.numel() + Wcat.numel()) + 4 * E),
+        ("tgmm", f"down wgrad: zw^T[1408, {Ap}] @ [{Ap}, 2048]",
+         lambda i=0: tmdisp.tgmm(zw.t(), dys, gs, out_dtype=torch.bfloat16),
+         lambda i=0: tmdisp.tgmm_plain(zw.t(), dys, gs),
+         grouped_mm_yardstick(zw.t(), dys, offs),
+         2.0 * rows * f * h,
+         2 * (zw.numel() + dys.numel() + Wd.numel()) + 4 * E),
+    ]
+    out = {}
+    for name, shape, kern, plain, lib, flops, nbytes in calls:
+        err = max_err(kern(), plain())
+        t_ops, t_bytes = flops / BF16_FLOPS * 1e3, \
+            nbytes / HBM_BYTES_PER_S * 1e3
+        row = {"shape": shape, "max_abs_err": err, "ms": time_ms(kern, 10),
+               "plain_ms": time_ms(plain, 3), "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "library_ms": None if lib is None else time_ms(lib, 10)}
+        row["tflops"] = flops / row["ms"] / 1e9
+        log(f"  {name}, {shape}: {row}")
+        if name not in out:
+            out[name] = dict(row, per_shape=[])
+        out[name]["per_shape"].append(row)
+    for name, entry in out.items():
+        entry["library"] = ("torch._grouped_mm on the same operands" +
+                            (" after an index gather of x's rows"
+                             if name == "gather_gmm" else ""))
+    return out, d
+
+
+def time_forms(tmdisp, d, dev):
+    """The fused and the gmm dispatch forms of the routed FFN, forward and
+    backward (gradients of x and the three expert weights), at the step's
+    routing shape (``deepseek_routing``): CUDA-event ms of each, and their
+    bf16 outputs' difference."""
+    x, rw = d["x"], d["rw"]
+    ws = [t.detach().requires_grad_(True)
+          for t in (x, d["eg"], d["eu"], d["ed"])]
+    ct = torch.randn(x.shape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(3)
+                     ).to(x.dtype)
+    r = tmdisp.fused_routing(x, rw, d["k"])
+    res = {}
+    outs = {}
+    for form, fn in (("fused", tmdisp.dropless_moe_ffn_fused),
+                     ("gmm", tmdisp.dropless_moe_ffn)):
+        def run(i=0, fn=fn):
+            y = fn(ws[0], r.weights, r.idx, *ws[1:], routing=r)
+            return y, torch.autograd.grad(y, ws, ct)
+        outs[form] = run()[0].detach()
+        res[form + "_fwd_bwd_ms"] = time_ms(run, 5)
+    res["fused_vs_gmm_rel"] = rel_err(outs["fused"], outs["gmm"])
+    log(f"  dispatch forms, forward + backward at T={x.shape[0]}: {res}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 14: card vs CPU MoE train step
+# ---------------------------------------------------------------------------
+def cross_device_moe_step(moe, llama, dev):
+    """One AdamW ``moe.train_step`` of a small MoE (hidden 256, 4 heads of
+    64, 16 experts of 128, top-4, 2 shared, 2 layers with layer 0 dense,
+    vocab 512, remat "outs"), f32, B=2, S=256, on the card (fused form:
+    B9 and B10) and on the CPU (their plain versions) from the same weights
+    (the port's seeded CPU init, through numpy): loss within 1e-5 relative, every gradient within
+    1e-3 of its leaf's largest magnitude (phase 10's bounds); then the
+    card's gmm form against its fused form, loss within 1e-5 and every
+    gradient within 1e-4."""
+    import dataclasses
+    from paddle_tpu_torch.optimizer.functional import init_moments, tree_map
+    cfg = moe.MoEConfig(vocab_size=512, hidden_size=256,
+                        moe_intermediate_size=128, num_layers=2,
+                        num_heads=4, num_kv_heads=4, head_dim=64,
+                        num_experts=16, top_k=4, n_shared_experts=2,
+                        first_dense_layers=1, max_seq_len=256,
+                        dtype=torch.float32, remat=True,
+                        remat_policy="outs")
+    tree = tree_map(lambda t: t.numpy(),
+                    moe.init_params(cfg, SEED, device="cpu"))
+    rng = np.random.default_rng(SEED + 11)
+    toks = rng.integers(0, cfg.vocab_size, (2, 257))
+    res = {}
+    for where, c in ((str(dev), cfg), ("cpu", cfg),
+                     (str(dev) + " gmm", dataclasses.replace(
+                         cfg, dispatch="gmm"))):
+        device = where.split()[0]
+        params = moe.params_from_numpy(tree, device=device)
+        t = torch.as_tensor(toks, device=device)
+        loss, grads = llama.loss_and_grads(params, t, c, moe.loss_fn)
+        state = moe.TrainState(params, *init_moments(params, "adamw"),
+                               torch.zeros((), dtype=torch.int32,
+                                           device=device))
+        _, step_loss = moe.train_step(state, t, c, lr=3e-4)
+        res[where] = {"loss": loss.item(), "step_loss": step_loss.item(),
+                      "grads": {p: g.cpu() for p, g in leaves(grads)}}
+        log(f"  {where}: loss {loss.item():.7f}")
+        del params, grads, state
+    card, cpu, gmm = res[str(dev)], res["cpu"], res[str(dev) + " gmm"]
+    worst = {}
+    for name, a, b in (("card_vs_cpu", card, cpu), ("gmm_vs_fused", gmm,
+                                                    card)):
+        worst[name] = {
+            "loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+            "step_loss": abs(a["step_loss"] - b["step_loss"])
+            / abs(b["step_loss"]),
+            "grads": max(rel_err(a["grads"][p], g)
+                         for p, g in b["grads"].items() if g.abs().max() > 0)}
+    log(f"  relative errors: {worst}")
+    cc, gf = worst["card_vs_cpu"], worst["gmm_vs_fused"]
+    if max(cc["loss"], cc["step_loss"]) > 1e-5 or cc["grads"] > 1e-3 \
+            or max(gf["loss"], gf["step_loss"]) > 1e-5 or gf["grads"] > 1e-4:
+        raise AssertionError(f"MoE train steps differ: {worst}")
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -953,9 +1403,11 @@ def main() -> int:
     try:
         from paddle_tpu_torch.kernels import _build as build
         from paddle_tpu_torch.kernels import mega_decode as tmd
+        from paddle_tpu_torch.kernels import moe_dispatch as tmdisp
+        from paddle_tpu_torch.kernels import moe_fused as tmf
         from paddle_tpu_torch.kernels import paged_attention as tpa
         from paddle_tpu_torch.kernels import pallas_attention as tfa
-        from paddle_tpu_torch.models import llama
+        from paddle_tpu_torch.models import llama, moe
         from paddle_tpu_torch.serving import LLMEngine
     except ImportError as exc:
         print(f"chip_smoke: run from the root of a repository checkout "
@@ -1041,6 +1493,25 @@ def main() -> int:
 
     log("phase 10: card vs CPU train step")
     training["card_vs_cpu"] = cross_device_train_step(llama, dev)
+    free_memory()
+
+    log("phase 11: B9 gather_gmm, B10 gmm and tgmm vs plain")
+    grouped_errs = check_grouped(tmdisp, tmf, dev)
+    free_memory()
+
+    log("phase 12: moe.train_step trains DeepSeekMoE-16B widths")
+    moe_launches, moe_training = train_moe(moe, build, tmf, dev, card)
+    free_memory()
+
+    log("phase 13: B9/gmm/tgmm and the dispatch forms at the step's shapes")
+    grouped, routing = time_grouped(tmdisp, tmf, dev)
+    moe_training["dispatch_forms"] = time_forms(tmdisp, routing, dev)
+    moe_training["kernel_checks"] = grouped_errs
+    del routing
+    free_memory()
+
+    log("phase 14: card vs CPU MoE train step")
+    moe_training["card_vs_cpu"] = cross_device_moe_step(moe, llama, dev)
 
     kernels = [
         dict(name="flash_fwd", route="cuda",
@@ -1065,10 +1536,24 @@ def main() -> int:
              source="paddle_tpu_torch/kernels/csrc/mega_decode.cu",
              replaces="paddle_tpu/kernels/mega_decode.py:645",
              launches=mega_launches.get("mega_decode", 0), **b5),
+        dict(name="gather_gmm", route="cuda",
+             source="paddle_tpu_torch/kernels/csrc/gather_gmm.cu",
+             replaces="paddle_tpu/kernels/moe_fused.py:266",
+             launches=moe_launches.get("gather_gmm", 0),
+             **grouped["gather_gmm"]),
+        dict(name="gmm", route="cuda",
+             source="paddle_tpu_torch/kernels/csrc/gmm.cu",
+             replaces="paddle_tpu/kernels/moe_dispatch.py:434",
+             launches=moe_launches.get("gmm", 0), **grouped["gmm"]),
+        dict(name="tgmm", route="cuda",
+             source="paddle_tpu_torch/kernels/csrc/tgmm.cu",
+             replaces="paddle_tpu/kernels/moe_dispatch.py:445",
+             launches=moe_launches.get("tgmm", 0), **grouped["tgmm"]),
     ]
     log(f"serving: {json.dumps(serving)}")
     log(f"mega: {json.dumps(mega)}")
     log(f"training: {json.dumps(training)}")
+    log(f"moe_training: {json.dumps(moe_training)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -14,7 +14,14 @@ also holds the per-kernel ``launch_counts``).
 - ``mega_decode.mega_decode_step`` — the persistent decode megakernel,
   one launch for a decode step of every layer (``csrc/mega_decode.cu``,
   reusing the walk), screened by ``mega_decode.mega_supported``;
-- ``quant_matmul.weight_only_matmul`` — the dense weight matmul.
+- ``quant_matmul.weight_only_matmul`` — the dense weight matmul;
+- ``moe_dispatch.gmm`` / ``tgmm`` — the grouped GEMM over expert-sorted
+  rows and its per-group weight gradient (``csrc/gmm.cu``,
+  ``csrc/tgmm.cu``), under the differentiable ``grouped_matmul``;
+- ``moe_fused.gather_gmm`` — the grouped GEMM with the expert-sort gather
+  fused into its row loads (``csrc/gather_gmm.cu``), the fused MoE
+  dispatch's gate|up projection. The three share their tiles through
+  ``csrc/grouped_gemm.cuh``.
 
 Functions are imported from their modules (a re-export here would shadow
 the ``paged_attention`` module with its function of the same name).

@@ -83,30 +83,75 @@ def adamw_update(p, g, m, n, *, lr, beta1, beta2, eps, wd, scale, bc1, bc2):
     return new_p.to(p.dtype), mf.to(m.dtype), nf.to(n.dtype)
 
 
-def adafactor_update(p, g, nu, *, lr, beta2t, eps1, eps2, clip, wd, scale):
-    """One Adafactor leaf update (Shazeer & Stern 2018): factored second
-    moment over the trailing two dims, RMS-clipped update, no first moment.
-    ``lr`` is a float. Returns (new_p, new_nu)."""
-    g = g.to(_f32) * scale
+# adafactor_update updates a stacked leaf ([L, ...]) of more than
+# _ADAFACTOR_WHOLE elements in slices of its leading axis of at most
+# _ADAFACTOR_CHUNK elements (one slice where a slice is larger)
+_ADAFACTOR_WHOLE = 1 << 30
+_ADAFACTOR_CHUNK = 1 << 27
+
+
+def _adafactor_moments(g, nu, beta2t, eps1):
+    """(v, new_nu) of one leaf or stacked slice: the decayed factored (or
+    full) second moment and its rank-1 reconstruction v."""
     g2 = g * g + eps1
     if "vr" in nu:
         vr = beta2t * nu["vr"] + (1 - beta2t) * g2.mean(dim=-1)
         vc = beta2t * nu["vc"] + (1 - beta2t) * g2.mean(dim=-2)
-        # v̂ = vr ⊗ vc / row-mean(vr)  (rank-1 reconstruction)
-        denom = vr.mean(dim=-1, keepdim=True)
-        v = (vr / denom)[..., :, None] * vc[..., None, :]
-        new_nu = {"vr": vr, "vc": vc}
-    else:
-        v = beta2t * nu["v"] + (1 - beta2t) * g2
-        new_nu = {"v": v}
-    u = g * torch.rsqrt(v + eps1)
-    # clip the update's RMS to `clip` (d=1.0 in the paper)
-    rms = torch.sqrt((u * u).mean() + 1e-30)
-    u = u / torch.clamp(rms / clip, min=1.0)
+        return _factored_v(vr, vc), {"vr": vr, "vc": vc}
+    v = beta2t * nu["v"] + (1 - beta2t) * g2
+    return v, {"v": v}
+
+
+def _factored_v(vr, vc):
+    # v̂ = vr ⊗ vc / row-mean(vr)  (rank-1 reconstruction)
+    denom = vr.mean(dim=-1, keepdim=True)
+    return (vr / denom)[..., :, None] * vc[..., None, :]
+
+
+def adafactor_update(p, g, nu, *, lr, beta2t, eps1, eps2, clip, wd, scale):
+    """One Adafactor leaf update (Shazeer & Stern 2018): factored second
+    moment over the trailing two dims, RMS-clipped update, no first moment.
+    ``lr`` is a float. Returns (new_p, new_nu).
+
+    A stacked leaf larger than ``_ADAFACTOR_WHOLE`` elements (the MoE
+    experts, [L, E, h, f]: 2.2 G elements and 8.9 GB an f32 temporary at
+    DeepSeekMoE's widths) is updated in slices of its leading axis, so
+    the f32 temporaries stay the size of a slice: one pass computes the
+    moments and the sum of u², the RMS over the whole leaf clips, and a
+    second pass recomputes u and applies the update. The math is the
+    whole-leaf update's; only the order of the f32 sum of u² differs."""
     step_size = max(eps2, lr)
-    pf = p.to(_f32)
-    new_p = pf - step_size * (u + wd * pf)
-    return new_p.to(p.dtype), new_nu
+    # leading-axis slices a pass (None: the whole leaf at once)
+    n = max(1, _ADAFACTOR_CHUNK // p[0].numel()) \
+        if p.dim() >= 3 and p.numel() > _ADAFACTOR_WHOLE else None
+    if n is None or n >= p.shape[0]:
+        gf = g.to(_f32) * scale
+        v, new_nu = _adafactor_moments(gf, nu, beta2t, eps1)
+        u = gf * torch.rsqrt(v + eps1)
+        # clip the update's RMS to `clip` (d=1.0 in the paper)
+        rms = torch.sqrt((u * u).mean() + 1e-30)
+        u = u / torch.clamp(rms / clip, min=1.0)
+        pf = p.to(_f32)
+        new_p = pf - step_size * (u + wd * pf)
+        return new_p.to(p.dtype), new_nu
+    parts, ss = [], torch.zeros((), dtype=_f32, device=p.device)
+    for i in range(0, p.shape[0], n):
+        gf = g[i:i + n].to(_f32) * scale
+        v, part = _adafactor_moments(gf, tree_map(lambda t: t[i:i + n], nu),
+                                     beta2t, eps1)
+        u = gf * torch.rsqrt(v + eps1)
+        ss = ss + (u * u).sum()
+        parts.append(part)
+    new_nu = {k: torch.cat([part[k] for part in parts]) for k in parts[0]}
+    rms = torch.sqrt(ss / p.numel() + 1e-30)
+    div = torch.clamp(rms / clip, min=1.0)
+    new_p = torch.empty_like(p)
+    for i, part in zip(range(0, p.shape[0], n), parts):
+        gf = g[i:i + n].to(_f32) * scale
+        u = gf * torch.rsqrt(_factored_v(part["vr"], part["vc"]) + eps1) / div
+        pf = p[i:i + n].to(_f32)
+        new_p[i:i + n] = pf - step_size * (u + wd * pf)
+    return new_p, new_nu
 
 
 def optimizer_update(params, grads, mu, nu, step, *, optimizer="adamw",

@@ -3,6 +3,7 @@ paddle_tpu, its entry points default to the card and raise without one,
 and a kernel wrapper given a CUDA tensor never falls back to its plain
 version."""
 import ast
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -12,9 +13,12 @@ import torch
 
 import paddle_tpu_torch
 from paddle_tpu_torch.kernels import mega_decode as tmd
+from paddle_tpu_torch.kernels import moe_dispatch as tmdisp
+from paddle_tpu_torch.kernels import moe_fused as tmf
 from paddle_tpu_torch.kernels import paged_attention as tpa
 from paddle_tpu_torch.kernels import pallas_attention as tfa
 from paddle_tpu_torch.models import llama as tl
+from paddle_tpu_torch.models import moe as tm
 from paddle_tpu_torch.serving import LLMEngine
 
 REPO = Path(__file__).resolve().parents[1]
@@ -164,3 +168,82 @@ def test_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
                              block_table=cuda((2, 2), torch.int32),
                              walk_lens=lens, lens=lens, ring_k=ring,
                              ring_v=ring, k_pool=pool, v_pool=pool)
+
+
+def test_moe_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a machine without CUDA")
+    cfg = tm.tiny_moe(vocab=32, hidden=32, layers=1, heads=4, experts=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tm.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tm.init_train_state(cfg, optimizer="adafactor")
+    from paddle_tpu_torch.examples import moe_pretrain
+    with pytest.raises(RuntimeError, match="CUDA"):
+        moe_pretrain.main(["--size", "tiny", "--steps", "1"])
+    # the example's train_step runs where its state lies: on the CPU only
+    # when asked
+    assert moe_pretrain.main(["--size", "tiny", "--steps", "1",
+                              "--batch-size", "1", "--seq", "16",
+                              "--device", "cpu"]) > 0
+
+
+def test_moe_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
+    """gather_gmm, gmm and tgmm given CUDA tensors launch or raise; they
+    never call their plain versions."""
+    def no_plain(*a, **k):
+        raise _PlainTaken("plain version taken for a CUDA tensor")
+
+    monkeypatch.setattr(tmf, "gather_gmm_plain", no_plain)
+    monkeypatch.setattr(tmdisp, "gmm_plain", no_plain)
+    monkeypatch.setattr(tmdisp, "tgmm_plain", no_plain)
+
+    def cuda(shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype).as_subclass(_CudaTyped)
+
+    gs = cuda((4,), torch.int32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmf.gather_gmm(cuda((8, 64)), cuda((256,), torch.int32),
+                       cuda((4, 64, 32)), cuda((2,), torch.int32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmdisp.gmm(cuda((256, 64)), cuda((4, 64, 32)), gs)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmdisp.gmm(cuda((256, 64)), cuda((4, 32, 64)), gs,
+                   transpose_rhs=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmdisp.tgmm(cuda((256, 64)).t(), cuda((256, 32)), gs)
+    # what the kernels do not take raises before any launch
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tmdisp.gmm(cuda((256, 60)), cuda((4, 60, 32)), gs)
+    with pytest.raises(TypeError):
+        tmdisp.gmm(cuda((256, 64), torch.float16),
+                   cuda((4, 64, 32), torch.float16), gs)
+
+
+def test_moe_unported_arguments_raise_naming_their_queue():
+    cfg = tm.tiny_moe(vocab=32, hidden=32, layers=1, heads=4, experts=4)
+    params = tm.init_params(cfg, device="cpu")
+    toks = torch.zeros((1, 9), dtype=torch.long)
+    for kw, queue in (({"expert_dtype": "int8"}, "A4"),
+                      ({"dispatch": "dense"}, "A9")):
+        with pytest.raises(NotImplementedError, match=queue):
+            tm.loss_fn(params, toks, dataclasses.replace(cfg, **kw))
+    lp = {k: v[0] for k, v in params["layers"].items()}
+    x = torch.zeros((8, 32))
+    with pytest.raises(NotImplementedError, match="A10"):
+        tm.moe_ffn(x, lp["router"], lp["e_gate"], lp["e_up"], lp["e_down"],
+                   cfg, mesh={"dp": 1, "ep": 2})
+    with pytest.raises(NotImplementedError, match="A4"):
+        tm.quantize_expert_params(params, cfg)
+    with pytest.raises(NotImplementedError, match="A4"):
+        tmf.gather_gmm(x, torch.zeros(128, dtype=torch.int32),
+                       torch.zeros((4, 32, 8), dtype=torch.int8),
+                       torch.zeros(1, dtype=torch.int32))
+    for name in ("dropless_moe_ffn_ep", "dropless_moe_ffn_a2a"):
+        with pytest.raises(NotImplementedError, match="A10"):
+            getattr(tmdisp, name)(x)
+    with pytest.raises(NotImplementedError, match="A9"):
+        tmdisp.dropless_moe_ffn_dense(x)
+    from paddle_tpu_torch.examples import moe_pretrain
+    with pytest.raises(NotImplementedError, match="A10"):
+        moe_pretrain.main(["--ep", "2", "--device", "cpu"])

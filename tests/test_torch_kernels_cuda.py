@@ -251,3 +251,135 @@ def test_mega_engine_launches_once_a_step_and_streams_equal_ragged(dev):
                 == 4 * eng.decode_paths["mega"]
             assert _build.launch_counts["ragged_decode"] == 0
     assert streams["mega"] == streams["ragged"]
+
+
+# ---------------------------------------------------------------------------
+# B9 (gather_gmm) and B10 (gmm, tgmm): the MoE grouped GEMMs
+# ---------------------------------------------------------------------------
+
+# group sizes over 300 rows: empty groups (0 and 3), a one-row group, a
+# skewed one, boundaries inside 128-row tiles, and 69 tail rows
+_GS = [0, 130, 1, 0, 100]
+
+
+def _rel(a, b):
+    return (a.float() - b.float()).abs().max().item() \
+        / max(b.float().abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("transpose_rhs", [False, True])
+def test_gmm_kernel_matches_plain(dev, dtype, tol, transpose_rhs):
+    """B10 gmm against its plain version on [300, 200] rows (a reduction
+    not a multiple of the 32-deep stage) and 136 columns (a partial
+    column tile); rows past sum(gs) come out exactly zero."""
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+    g = torch.Generator(device=dev).manual_seed(11)
+    M, K, N = 300, 200, 136
+    lhs = torch.randn(M, K, generator=g, device=dev).to(dtype)
+    rhs = torch.randn((5, N, K) if transpose_rhs else (5, K, N),
+                      generator=g, device=dev).to(dtype)
+    gs = torch.tensor(_GS, dtype=torch.int32, device=dev)
+    before = _build.launch_counts["gmm"]
+    out = md.gmm(lhs, rhs, gs, transpose_rhs)
+    ref = md.gmm_plain(lhs, rhs, gs, transpose_rhs)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["gmm"] == before + 1
+    assert out.dtype == dtype and out.shape == (M, N)
+    assert torch.all(out[sum(_GS):] == 0)
+    assert _rel(out, ref) <= tol
+
+
+@pytest.mark.parametrize("dtype,out_dtype,tol", [
+    (torch.float32, torch.float32, 1e-5),
+    (torch.bfloat16, torch.float32, 1e-5),
+    (torch.bfloat16, torch.bfloat16, 1e-2)])
+def test_tgmm_kernel_matches_plain(dev, dtype, out_dtype, tol):
+    """B10 tgmm against its plain version: lhs^T [136, 300] (the view of
+    an [m, k] tensor) and rhs [300, 200]; the empty groups' blocks are
+    exactly zero, the tail rows belong to no group."""
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+    g = torch.Generator(device=dev).manual_seed(12)
+    M, K, N = 300, 136, 200
+    lhs = torch.randn(M, K, generator=g, device=dev).to(dtype)
+    rhs = torch.randn(M, N, generator=g, device=dev).to(dtype)
+    gs = torch.tensor(_GS, dtype=torch.int32, device=dev)
+    before = _build.launch_counts["tgmm"]
+    out = md.tgmm(lhs.t(), rhs, gs, out_dtype=out_dtype)
+    ref = md.tgmm_plain(lhs.t(), rhs, gs, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["tgmm"] == before + 1
+    assert out.dtype == out_dtype and out.shape == (5, K, N)
+    assert torch.all(out[0] == 0) and torch.all(out[3] == 0)
+    assert _rel(out, ref) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("skew", [False, True])
+def test_gather_gmm_kernel_matches_plain(dev, dtype, tol, skew):
+    """B9 against its plain version over the tile-padded layout of a
+    random top-3 routing of 50 tokens to 4 experts (skewed: expert 0 takes
+    most), h = 136, n = 264: every row, padding and tail included."""
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+    from paddle_tpu_torch.kernels import moe_fused as mf
+    g = torch.Generator(device=dev).manual_seed(13)
+    T, h, n, E, k = 50, 136, 264, 4, 3
+    x = torch.randn(T, h, generator=g, device=dev).to(dtype)
+    rhs = torch.randn(E, h, n, generator=g, device=dev).to(dtype)
+    logits = torch.randn(T, E, generator=g, device=dev)
+    if skew:
+        logits[:, 0] += 3.0
+    r = md.routing_from_logits(logits, k)
+    inv2d = mf._inverse_permutation(r.order).reshape(T, k)
+    ws = r.weights.reshape(-1)[r.order]
+    tok_pad, _, _, _, gs_pad = mf._pad_layout(
+        r.gs, r.tok, ws, r.flat_e[r.order], inv2d, E)
+    gid = mf._tile_gids(gs_pad, tok_pad.shape[0], 128)
+    before = _build.launch_counts["gather_gmm"]
+    out = mf.gather_gmm(x, tok_pad, rhs, gid)
+    ref = mf.gather_gmm_plain(x, tok_pad, rhs, gid)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["gather_gmm"] == before + 1
+    assert out.dtype == dtype and out.shape == (tok_pad.shape[0], n)
+    assert _rel(out, ref) <= tol
+
+
+@pytest.mark.parametrize("dispatch", ["fused", "gmm"])
+def test_moe_ffn_on_card_matches_cpu(dev, dispatch):
+    """The routed FFN (f32, T=96, h=64, E=8, top-2, f=32) on the card and
+    on the CPU from the same inputs: values and the gradients of x, the
+    router and the three expert weights within 1e-5 of each one's largest
+    magnitude. The fused form runs its padded pipeline on both: B9 and
+    one gmm forward, two gmm and two tgmm backward on the card."""
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+    from paddle_tpu_torch.kernels import moe_fused as mf
+    rng = np.random.default_rng(5)
+    T, h, E, f, k = 96, 64, 8, 32, 2
+    arrays = [rng.standard_normal(s).astype(np.float32) * sc for s, sc in (
+        ((T, h), 1.0), ((h, E), 0.3), ((E, h, f), 0.1), ((E, h, f), 0.1),
+        ((E, f, h), 0.1), ((T, h), 1.0))]
+    fn = (md.dropless_moe_ffn_fused if dispatch == "fused"
+          else md.dropless_moe_ffn)
+    res = {}
+    for where in ("cuda", "cpu"):
+        x, rw, eg, eu, ed, ct = (torch.tensor(a, device=where)
+                                 .requires_grad_(True) for a in arrays)
+        _build.launch_counts.clear()
+        mf.fused_paths.clear()
+        r = md.fused_routing(x, rw, k)
+        y = fn(x, r.weights, r.idx, eg, eu, ed, routing=r)
+        grads = torch.autograd.grad((y * ct.detach()).sum(),
+                                    (x, rw, eg, eu, ed))
+        res[where] = [y.detach().cpu()] + [t.cpu() for t in grads]
+        if where == "cuda":
+            torch.cuda.synchronize()
+            counts = dict(_build.launch_counts)
+            if dispatch == "fused":
+                assert dict(mf.fused_paths) == {"padded": 1}
+                assert counts == {"gather_gmm": 1, "gmm": 3, "tgmm": 2}
+            else:
+                assert counts == {"gmm": 4, "tgmm": 2}
+    for a, b in zip(res["cuda"], res["cpu"]):
+        assert _rel(a, b) <= 1e-5
