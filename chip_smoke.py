@@ -69,9 +69,36 @@ into the git-ignored ``paddle_tpu_torch/_build``, then runs, in order
 14. card vs CPU MoE train step (f32, 2 layers, AdamW), and the card's gmm
     form against its fused form.
 
-Before its last line it prints ``serving``, ``mega``, ``training`` and
-``moe_training`` lines (phases 4, 6, 8 and 12-14), one JSON object with
-every ported kernel
+The int8 slice rides beside them (int8 weights from ``quantize_params``,
+int8 pools from ``kv_dtype="int8"``, int8 experts from
+``quantize_expert_params``):
+
+(a) after phase 3: B4's int8 branch against its plain version on int8
+    pools of phase 3's shapes (bf16 and f32 queries, D=64 once), acc, m
+    and l within 1e-5; timed at the serving run's shapes after (c);
+(b) after phase 6: B5's int8 branches against the plain version for one
+    Llama-3-8B step at full width and depth, 4 slots, with int8 pools,
+    int8 weights and both, by phase 6(a)'s rules, each timed;
+(c) phase 4's weights through ``quantize_params`` with int8 pools: phase
+    4's 16 requests through a ragged engine at 8 slots, the first 8
+    through a mega engine at 4 slots, with 32 B4-int8 launches a ragged
+    decode step, one B5-int8 and no B4 a mega step, no fallback, a traced
+    decode call each, the first stream divergences (int8 against bf16,
+    mega against ragged) and the prefill logits' relative error of int8
+    against bf16 on one wave;
+(d) phase 5's cut model with int8 weights and pools: ragged and mega on
+    the card and ragged on the CPU emit equal streams;
+(e) after phase 14: B9's int8 branch against its plain version at small
+    shapes (an empty and a skewed group), then at the MoE step's gate|up
+    shape, timed beside ``torch._grouped_mm`` on the widened weight;
+(f) ``moe.forward`` on DeepSeekMoE-16B at full depth (28 layers) with
+    int8 experts, batch 4 x 2048, 2 warm-up and 5 timed forwards with one
+    B9-int8 and one gmm launch a MoE layer each, and its logits against
+    the bf16 forward of the same weights at 12 layers.
+
+Before its last line it prints ``serving``, ``mega``, ``training``,
+``moe_training`` and ``int8`` lines (phases 4, 6, 8, 12-14 and (a)-(f)),
+one JSON object with every ported kernel
 (launches on its main path, max error, and times in ms beside the
 bound), and the card's name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -320,14 +347,20 @@ def serving_mix(cfg, n):
 
 
 def serve(LLMEngine, build, dev, card, cfg, params, prompts, max_slots,
-          decode_kernel):
+          decode_kernel, kv_dtype=None):
     """``LLMEngine`` on Llama-3-8B serving ``prompts`` (64 greedy tokens
-    each) through ``decode_kernel``: the run's numbers, with the kernels'
-    launch counts read around it, then one more decode call traced."""
+    each) through ``decode_kernel`` (int8 pools with ``kv_dtype="int8"``;
+    int8 weights when ``params`` hold them): the run's numbers, with the
+    kernels' launch counts read around it, then one more decode call
+    traced. The decode kernels counted are the int8 branches when the
+    weights or the pools are int8."""
     eng = LLMEngine(params, cfg, max_slots=max_slots, block_size=64,
                     max_model_len=2048, prompt_buckets=[128, 512, 1024],
                     decode_steps=16, decode_kernel=decode_kernel, seed=SEED,
-                    device=dev)
+                    kv_dtype=kv_dtype, device=dev)
+    w_int8 = isinstance(params["layers"]["wq"], dict)
+    b4 = "ragged_decode_int8" if kv_dtype else "ragged_decode"
+    b5 = "mega_decode_int8" if kv_dtype or w_int8 else "mega_decode"
     lens = np.array([len(p) for p in prompts])
     ids = [eng.add_request(p, max_new_tokens=64) for p in prompts]
     prefills = CallTimer(eng, "_dispatch_prefill")
@@ -354,13 +387,14 @@ def serve(LLMEngine, build, dev, card, cfg, params, prompts, max_slots,
         raise AssertionError(f"flash_fwd launched {launches} for "
                              f"{prefills.n} prefill waves")
     if decode_kernel == "ragged" \
-            and launches.get("ragged_decode", 0) < L * 16 * decodes.n:
-        raise AssertionError(f"ragged_decode launched {launches} for "
+            and launches.get(b4, 0) < L * 16 * decodes.n:
+        raise AssertionError(f"{b4} launched {launches} for "
                              f"{decodes.n} decode calls")
     if decode_kernel == "mega" and (
             eng.mega_fallbacks
-            or launches.get("mega_decode", 0) != 16 * decodes.n
-            or launches.get("ragged_decode", 0) != 0):
+            or launches.get(b5, 0) != 16 * decodes.n
+            or launches.get("ragged_decode", 0)
+            or launches.get("ragged_decode_int8", 0)):
         raise AssertionError(f"the mega engine launched {launches} for "
                              f"{decodes.n} decode calls of 16 steps "
                              f"(fallbacks {dict(eng.mega_fallbacks)})")
@@ -370,13 +404,16 @@ def serve(LLMEngine, build, dev, card, cfg, params, prompts, max_slots,
               eng._bucket_for(max(len(ctx) for _s, _r, ctx in rows)))
              for (rows,) in prefills.args]
     step_ms = [1e3 * t / 16 for t in decodes.seconds]
-    log(f"  {decode_kernel} decode, {max_slots} slots: served {len(ids)} "
+    log(f"  {decode_kernel} decode, {max_slots} slots, weights "
+        f"{'int8' if w_int8 else str(cfg.dtype)[6:]}, KV "
+        f"{kv_dtype or str(cfg.dtype)[6:]}: served {len(ids)} "
         f"requests, {n_tok} tokens in {wall:.2f} s: {n_tok / wall:.1f} "
         f"output tok/s; prefill waves {waves} took {prefills.seconds} s; "
         f"{decodes.n} decode calls of 16 steps took {decodes.seconds} s "
         f"(median step {float(np.median(step_ms)):.2f} ms); launches "
         f"{launches}; peak memory {peak / 2**30:.2f} GiB; card: {card}")
     summary = {"decode_kernel": decode_kernel, "max_slots": max_slots,
+               "int8_weights": w_int8, "kv_dtype": kv_dtype,
                "requests": len(ids), "output_tokens": n_tok,
                "wall_s": wall, "output_tok_per_s": n_tok / wall,
                "prefill_waves": waves, "prefill_s": list(prefills.seconds),
@@ -486,24 +523,35 @@ def numpy_params(cfg, seed):
     }
 
 
-def cross_device_streams(llama, LLMEngine, dev, decode_kernel):
+def tree_to(tree, device):
+    """A nested dict of tensors (int8 leaves included) moved to device."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def cross_device_streams(llama, LLMEngine, dev, decode_kernel, int8=False):
     """Llama-3-8B widths cut to 2 layers and a 32768 vocabulary, f32
     weights made with numpy: two prompts' greedy streams through
-    ``decode_kernel`` on the card and on the CPU, which must be equal."""
+    ``decode_kernel`` on the card and on the CPU, which must be equal.
+    With ``int8`` the weights are ``quantize_params``'d (once, on the CPU)
+    and the pools int8."""
     import dataclasses
     cfg = dataclasses.replace(llama.llama3_8b(), num_layers=2,
                               vocab_size=32768, dtype=torch.float32)
-    tree = numpy_params(cfg, SEED)
+    base = llama.params_from_numpy(numpy_params(cfg, SEED), device="cpu")
+    if int8:
+        base = llama.quantize_params(base)
     rng = np.random.default_rng(SEED + 5)
     prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
                for n in (130, 200)]
     streams = {}
     for where in (str(dev), "cpu"):
-        params = llama.params_from_numpy(tree, device=where)
+        params = tree_to(base, where)
         eng = LLMEngine(params, cfg, max_slots=2, block_size=64,
                         max_model_len=512, prompt_buckets=[256],
                         decode_steps=4, decode_kernel=decode_kernel,
-                        device=where)
+                        kv_dtype="int8" if int8 else None, device=where)
         ids = [eng.add_request(p, max_new_tokens=8) for p in prompts]
         t0 = time.perf_counter()
         out = eng.run()
@@ -548,15 +596,32 @@ def mega_inputs(cfg, dev, walk, t=8, S=16, bs=64, max_len=2048):
                 v_pool=pools[1]), toks
 
 
-def check_mega(tmd, cfg, params, dev, walk):
-    """B5 against its plain version for one step of Llama-3-8B at full
-    width and depth, then both timed in bf16. Checked three ways, on the
-    hidden state and the ring rows written at step t, each error relative
-    to the largest magnitude of what it is compared with:
+def widen_params(params):
+    """The params with every dense leaf in f32 (int8 leaves as they are:
+    an f32 model with int8 weights)."""
+    def widen(v):
+        return v if isinstance(v, dict) else v.float()
+    return {k: ({kk: widen(vv) for kk, vv in v.items()} if k == "layers"
+                else widen(v)) for k, v in params.items()}
 
-    - f32 (weights, pools and rings widened from the bf16 ones): the
-      kernel within 1e-3 of the plain version — both round nowhere, only
-      the order of the f32 sums differs;
+
+def leaf_tensors(params):
+    """Every tensor of a parameter tree (both of an int8 leaf)."""
+    return [t for _p, t in leaves(params)]
+
+
+def check_mega(tmd, cfg, params, dev, walk, kv_int8=False):
+    """B5 against its plain version for one step of Llama-3-8B at full
+    width and depth, then both timed in bf16; ``params`` may hold int8
+    weights (``quantize_params``) and with ``kv_int8`` the pools are int8
+    with f32 scales (``quantize_kv`` of the random ones). Checked three
+    ways, on the hidden state and the ring rows written at step t, each
+    error relative to the largest magnitude of what it is compared with:
+
+    - f32 (dense weights, pools and rings widened from the bf16 ones; int8
+      weights and pools as they are): the kernel within 1e-3 of the plain
+      version — both round nowhere, only the order of the f32 sums
+      differs;
     - bf16: the kernel at most 1.5x as far from the f32 plain result as
       the bf16 plain version is (both round to bf16, a 2^-8 relative
       step, at the same points of each of the 32 layers; which of two
@@ -570,8 +635,15 @@ def check_mega(tmd, cfg, params, dev, walk):
     versions run, so they accumulate in f32 as the kernel does. Returns
     the kernels-line entry fields (bf16)."""
     import dataclasses
+    from paddle_tpu_torch.kernels.quant_matmul import quantize_kv
     kw, toks = mega_inputs(cfg, dev, walk)
     N, t, L = len(walk), kw["t"], cfg.num_layers
+    w_int8 = isinstance(params["layers"]["wq"], dict)
+    if kv_int8:
+        qk, sk = quantize_kv(kw.pop("k_pool"))
+        qv, sv = quantize_kv(kw.pop("v_pool"))
+        kw.update(k_pool=qk, v_pool=qv, ks_pool=sk, vs_pool=sv)
+        del qk, qv, sk, sv
 
     def outs(res):
         return res[0], res[1][:, :, t], res[2][:, :, t]
@@ -587,9 +659,7 @@ def check_mega(tmd, cfg, params, dev, walk):
         got = outs(run(tmd.mega_decode_step, cfg, params, kw))
         want = outs(run(tmd.mega_decode_step_plain, cfg, params, kw))
         cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-        p32 = {k: ({kk: vv.float() for kk, vv in v.items()}
-                   if isinstance(v, dict) else v.float())
-               for k, v in params.items()}
+        p32 = widen_params(params)
         kw32 = {k: v.float() if torch.is_tensor(v) and v.is_floating_point()
                 else v for k, v in kw.items()}
         got32 = outs(run(tmd.mega_decode_step, cfg32, p32, kw32))
@@ -607,14 +677,17 @@ def check_mega(tmd, cfg, params, dev, walk):
         "bf16_kernel_vs_f32": [rel_err(a, b) for a, b in zip(got, want32)],
         "bf16_plain_vs_f32": [rel_err(a, b) for a, b in zip(want, want32)],
         "bf16_kernel_vs_plain": [rel_err(a, b) for a, b in zip(got, want)]}
-    log(f"  B5 vs plain, Llama-3-8B N={N} walk={walk} t={t}: relative "
-        f"errors of {names}: {errs}; f32 kernel {ms32:.2f} ms")
+    form = (f"weights {'int8' if w_int8 else 'bf16'}, KV "
+            f"{'int8' if kv_int8 else 'bf16'}")
+    log(f"  B5 vs plain, Llama-3-8B N={N} walk={walk} t={t}, {form}: "
+        f"relative errors of {names}: {errs}; f32 kernel {ms32:.2f} ms")
     ok = all(torch.isfinite(a).all() for a in got + got32) \
         and max(errs["f32_kernel_vs_plain"]) <= 1e-3 \
         and all(k <= 1.5 * p for k, p in zip(errs["bf16_kernel_vs_f32"],
                                              errs["bf16_plain_vs_f32"]))
     if not ok:
-        raise AssertionError(f"B5 disagrees with its plain version: {errs}")
+        raise AssertionError(f"B5 disagrees with its plain version ({form}):"
+                             f" {errs}")
     err = max_err(got[0], want[0])
     del got, want, got32, want32
     torch.cuda.empty_cache()
@@ -623,27 +696,30 @@ def check_mega(tmd, cfg, params, dev, walk):
                                  False), 10)
     plain_ms = time_ms(lambda i=0: run(tmd.mega_decode_step_plain, cfg,
                                        params, kw, False), 3)
-    # each input read once, each output written once: the layer weights,
-    # the walk's K/V, the ring rows j < t and the new ones, x in and out
+    # each input read once, each output written once: the layer weights
+    # (int8 matrices and their scales), the walk's K/V (int8 rows and
+    # their f32 scales), the ring rows j < t and the new ones, x in and out
     lay = params["layers"]
-    w_bytes = sum(w.numel() * w.element_size() for w in lay.values())
+    w_bytes = sum(w.numel() * w.element_size() for w in leaf_tensors(lay))
     Hkv, D, Hq = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
     kv_row = Hkv * D * 2
+    pool_row = Hkv * D + Hkv * 4 if kv_int8 else kv_row
     walked = sum(walk)
-    nbytes = (w_bytes + 2 * L * walked * kv_row + 2 * L * N * t * kv_row
+    nbytes = (w_bytes + 2 * L * walked * pool_row + 2 * L * N * t * kv_row
               + 2 * L * N * kv_row + 2 * N * cfg.hidden_size * 2
               + kw["block_table"].numel() * 4 + 2 * N * 4)
-    w_elems = sum(w.numel() for k, w in lay.items() if "norm" not in k)
+    w_elems = sum((w["q"] if isinstance(w, dict) else w).numel()
+                  for k, w in lay.items() if "norm" not in k)
     flops = 2.0 * N * w_elems + 4.0 * L * Hq * D * (walked + N * (t + 1))
     t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     res = {"max_abs_err": err, "rel_err": errs, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops > t_bytes else "bytes",
            "library_ms": None, "bytes": nbytes, "f32_ms": ms32,
-           "blocks_per_sm": tmd.blocks_per_sm(cfg.dtype, D, N),
+           "blocks_per_sm": tmd.blocks_per_sm(cfg.dtype, D, N, w_int8),
            "shape": f"L={L} h={cfg.hidden_size} F={cfg.intermediate_size} "
-                    f"Hq={Hq} Hkv={Hkv} D={D} bf16, N={N}, walk={walk}, "
-                    f"t={t}"}
+                    f"Hq={Hq} Hkv={Hkv} D={D} bf16, {form}, N={N}, "
+                    f"walk={walk}, t={t}"}
     log(f"  B5 timing: {res}")
     del kw
     return res
@@ -1396,6 +1472,326 @@ def cross_device_moe_step(moe, llama, dev):
     return worst
 
 
+# ---------------------------------------------------------------------------
+# int8 phases (a)-(f): B4-int8, B5-int8, int8 serving, int8 streams across
+# devices, B9-int8, the int8-expert MoE forward
+# ---------------------------------------------------------------------------
+def int8_pools(kp, vp):
+    """int8 pools and their f32 scale pools from dense ones."""
+    from paddle_tpu_torch.kernels.quant_matmul import quantize_kv
+    qk, sk = quantize_kv(kp)
+    qv, sv = quantize_kv(vp)
+    return qk, qv, sk, sv
+
+
+def check_ragged_int8(tpa, dev):
+    """(a) B4's int8 branch against its plain version on int8 pools
+    (``quantize_kv`` of random ones) of phase 3's shapes, [L=4, NB=512,
+    BS=64, Hkv=8, D=128], lengths 0, 1, 64, 2000 and more, bf16 and f32
+    queries, and D=64 once: acc, m and l within 1e-5 of their largest
+    magnitude (bf16 queries and int8 rows are exact in f32 and the int8
+    walk rounds no probability: only the order of the f32 sums
+    differs)."""
+    L, NB, BS, Hkv, N, G = 4, 512, 64, 8, 8, 4
+    MB = 2048 // BS
+    rng = np.random.default_rng(SEED + 12)
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    table = torch.as_tensor(rng.permutation(np.arange(1, NB))[:N * MB]
+                            .reshape(N, MB).astype(np.int32), device=dev)
+    lens = torch.tensor([0, 1, 64, 2000, 777, 128, 1500, 33],
+                        dtype=torch.int32, device=dev)
+    worst = {}
+    for dtype, D in ((torch.bfloat16, 128), (torch.float32, 128),
+                     (torch.bfloat16, 64)):
+        kp, vp, ks, vs = int8_pools(
+            torch.randn(L, NB, BS, Hkv, D, generator=g, device=dev),
+            torch.randn(L, NB, BS, Hkv, D, generator=g, device=dev))
+        q = torch.randn(N, Hkv * G, D, generator=g, device=dev).to(dtype)
+        for layer in (0, 3):
+            got = tpa.ragged_decode_partial(q, kp, vp, table, lens,
+                                            layer=layer, ks_pool=ks,
+                                            vs_pool=vs)
+            want = tpa.ragged_decode_partial_plain(q, kp, vp, table, lens,
+                                                   layer, ks, vs)
+            torch.cuda.synchronize()
+            if not (torch.all(got[0][0] == 0) and torch.all(got[2][0] == 0)
+                    and torch.all(got[1][0] == -1e30)):
+                raise AssertionError("B4-int8: a length-0 slot must emit "
+                                     "(0, -1e30, 0)")
+            errs = [max_err(a, b) / max(1.0, b.abs().max().item())
+                    for a, b in zip(got, want)]
+            key = f"{str(dtype)[6:]} D={D} layer={layer}"
+            worst[key] = max(errs)
+            log(f"  B4-int8 {key}: acc/m/l rel err "
+                f"{[f'{e:.3g}' for e in errs]} (tol 1e-5)")
+            if max(errs) > 1e-5:
+                raise AssertionError(f"B4-int8 disagrees at {key}: {errs}")
+        del kp, vp, ks, vs
+    return worst
+
+
+def time_ragged_int8(tpa, dev, lengths, num_blocks, Lc=32):
+    """(a) B4-int8 at the serving run's decode shape: q [8, 32, 128] bf16
+    over int8 [32, num_blocks, 64, 8, 128] pools with f32 scales, one
+    launch per layer in turn; its bound is the int8 K/V and f32 scale
+    bytes (and q, the partials, the table) over 3.35 TB/s."""
+    N, Hkv, G, D, BS, MB = len(lengths), 8, 4, 128, 64, 2048 // 64
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    rng = np.random.default_rng(SEED + 13)
+    kp, vp, ks, vs = int8_pools(
+        torch.randn(Lc, num_blocks, BS, Hkv, D, generator=g, device=dev,
+                    dtype=torch.bfloat16),
+        torch.randn(Lc, num_blocks, BS, Hkv, D, generator=g, device=dev,
+                    dtype=torch.bfloat16))
+    q = torch.randn(N, Hkv * G, D, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    table = torch.as_tensor(rng.permutation(np.arange(1, num_blocks))
+                            [:N * MB].reshape(N, MB).astype(np.int32),
+                            device=dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got = tpa.ragged_decode_partial(q, kp, vp, table, lens, layer=5,
+                                    ks_pool=ks, vs_pool=vs)
+    want = tpa.ragged_decode_partial_plain(q, kp, vp, table, lens, 5, ks,
+                                           vs)
+    err = max(max_err(a, b) / max(1.0, b.abs().max().item())
+              for a, b in zip(got, want))
+    if err > 1e-5:
+        raise AssertionError(f"B4-int8 disagrees at the serving shape: {err}")
+    ms = time_ms(lambda i=0: tpa.ragged_decode_partial(
+        q, kp, vp, table, lens, layer=i % Lc, ks_pool=ks, vs_pool=vs), 4 * Lc)
+    plain_ms = time_ms(lambda i=0: tpa.ragged_decode_partial_plain(
+        q, kp, vp, table, lens, i % Lc, ks, vs), Lc)
+    tokens = int(sum(lengths))
+    nbytes = 2 * tokens * Hkv * (D + 4) + q.numel() * 2 \
+        + N * Hkv * G * (D + 2) * 4 + table.numel() * 4 + N * 4
+    flops = 4.0 * tokens * Hkv * G * D
+    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"max_abs_err": max(max_err(a, b) for a, b in zip(got, want)),
+            "rel_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "library_ms": None,
+            "shape": f"N={N} sum(len)={tokens} Hq=32 Hkv=8 D=128, bf16 q, "
+                     "int8 pools + f32 scales"}
+
+
+def prefill_logits_error(teng, cfg, params16, params8, prompts, dev):
+    """(c) One prefill wave (``prompts`` padded to the 1024 bucket)
+    through the engine's prefill with bf16 weights and pools and with
+    int8 weights and pools: the relative error max |l8 - l16| / max |l16|
+    of the logits it samples from (the rows' last positions)."""
+    bs, bucket = 64, 1024
+    B, nblk = len(prompts), bucket // bs
+    toks = torch.zeros((B, bucket), dtype=torch.int32, device=dev)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p, dtype=torch.int32)
+    blk = torch.arange(1, B * nblk + 1, dtype=torch.int32,
+                       device=dev).reshape(B, nblk)
+    true_len = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                            device=dev)
+    shape = (cfg.num_layers, B * nblk + 1, bs, cfg.num_kv_heads,
+             cfg.head_dim)
+    knobs = (torch.zeros(B, device=dev), torch.zeros(B, dtype=torch.int32,
+                                                      device=dev),
+             torch.ones(B, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    captured = []
+    real = teng._sample_rows
+
+    def capture(logits, *a, **k):
+        captured.append(logits.float().clone())
+        return real(logits, *a, **k)
+
+    teng._sample_rows = capture
+    try:
+        for params, int8 in ((params16, False), (params8, True)):
+            if int8:
+                pools = {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                         "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                         "ks": torch.zeros(shape[:-1], device=dev),
+                         "vs": torch.zeros(shape[:-1], device=dev)}
+            else:
+                pools = {k: torch.zeros(shape, dtype=cfg.dtype, device=dev)
+                         for k in ("k", "v")}
+            teng._paged_prefill(params, toks, blk, true_len, pools, *knobs,
+                                gen, config=cfg)
+            del pools
+    finally:
+        teng._sample_rows = real
+    torch.cuda.synchronize()
+    l16, l8 = captured
+    return {"rows": B, "bucket": bucket, "rel_err": rel_err(l8, l16),
+            "argmax_agree": int((l8.argmax(-1) == l16.argmax(-1)).sum())}
+
+
+def check_gather_gmm_int8(tmdisp, tmf, dev):
+    """(e) B9's int8 branch against its plain version: bf16 and f32 x
+    over int8 rhs at small shapes (a top-3 routing of 50 tokens to 5
+    experts, expert 0 skewed, expert 4 empty; h = 136, n = 272), each
+    within 1e-2 (bf16) or 1e-5 (f32) of the plain result's largest
+    magnitude; then bf16 at the MoE step's gate|up shape (x [8192, 2048],
+    idx [57344], rhs int8 [64, 2048, 2816]: the step's gate|up weights
+    through quantize_grouped), timed beside its bound and beside
+    ``torch._grouped_mm`` on the widened weight after the gather, a
+    yardstick only."""
+    from paddle_tpu_torch.kernels.quant_matmul import quantize_grouped
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    errs = {}
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+        x = torch.randn(50, 136, generator=g, device=dev).to(dtype)
+        rhs = torch.randint(-127, 128, (5, 136, 272), generator=g,
+                            device=dev, dtype=torch.int8)
+        logits = torch.randn(50, 5, generator=g, device=dev)
+        logits[:, 0] += 3.0
+        logits[:, 4] -= 30.0
+        r = tmdisp.routing_from_logits(logits, 3)
+        inv2d = tmf._inverse_permutation(r.order).reshape(50, 3)
+        tok_pad, _, _, _, gs_pad = tmf._pad_layout(
+            r.gs, r.tok, r.weights.reshape(-1)[r.order], r.flat_e[r.order],
+            inv2d, 5)
+        if int(gs_pad[4]) != 0:
+            raise AssertionError(f"expert 4 was meant to be empty: {gs_pad}")
+        gid = tmf._tile_gids(gs_pad, tok_pad.shape[0], 128)
+        e = rel_err(tmf.gather_gmm(x, tok_pad, rhs, gid),
+                    tmf.gather_gmm_plain(x, tok_pad, rhs, gid))
+        errs[str(dtype)[6:]] = e
+        if not e <= tol:
+            raise AssertionError(f"B9-int8 disagrees ({dtype}): {e} > {tol}")
+    d = deepseek_routing(tmdisp, tmf, dev)
+    x, tok, gid, gs = d["x"], d["tok_pad"], d["gid"], d["gs_pad"]
+    Wq = quantize_grouped(d["Wcat"], 1)["q"]
+    Ap, h, f, E = tok.shape[0], d["h"], d["f"], d["E"]
+    out = tmf.gather_gmm(x, tok, Wq, gid)
+    ref = tmf.gather_gmm_plain(x, tok, Wq, gid)
+    errs["step"] = rel_err(out, ref)
+    if not errs["step"] <= 1e-2:
+        raise AssertionError(f"B9-int8 disagrees at the step's shape: {errs}")
+    err = max_err(out, ref)
+    del out, ref
+    W16 = Wq.to(torch.bfloat16)
+    offs = torch.cumsum(gs, 0).to(torch.int32)
+    xs = x.index_select(0, tok)
+    lib = None
+    if grouped_mm_yardstick(xs, W16, offs) is not None:
+        lib = time_ms(lambda i=0: torch._grouped_mm(x.index_select(0, tok),
+                                                    W16, offs=offs), 10)
+    del xs
+    ms = time_ms(lambda i=0: tmf.gather_gmm(x, tok, Wq, gid), 10)
+    plain_ms = time_ms(lambda i=0: tmf.gather_gmm_plain(x, tok, Wq, gid), 3)
+    flops = 2.0 * Ap * h * 2 * f
+    nbytes = 2 * x.numel() + Wq.numel() + 2 * Ap * 2 * f \
+        + 4 * (Ap + gid.numel())
+    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    res = {"max_abs_err": err, "rel_err": errs, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": lib, "tflops": flops / ms / 1e9,
+           "library": "torch._grouped_mm after an index gather of x's rows, "
+                      "on the gate|up weight widened to bf16 once",
+           "shape": f"gate|up forward: x[8192, 2048] gathered by idx "
+                    f"[{Ap}] @ int8 Wcat[64, 2048, 2816]"}
+    log(f"  B9-int8 vs plain: {errs}; step shape: {res}")
+    return res
+
+
+def moe_int8_forward(moe, build, tmf, dev, card, layers=28, cmp_layers=12,
+                     warmup=2, runs=5):
+    """(f) ``moe.forward`` on DeepSeekMoE-16B (``deepseek_moe_16b``) at
+    full depth with ``quantize_expert_params`` (int8 routed experts, f32
+    scales) and dispatch "auto" (fused), batch 4 x 2048, random bf16
+    weights and tokens from seeded generators: ``warmup`` then ``runs``
+    timed forwards (no autograd), each launching B9's int8 branch and B10
+    gmm once a MoE layer, then one more traced (device time by kernel
+    bucket). Before, the logits of the bf16 and the int8 forward of the
+    same weights cut to ``cmp_layers`` layers (both at that depth, so the
+    bf16 model fits beside the int8 one) on the batch's first sequence:
+    their relative error."""
+    import dataclasses
+    cfg = dataclasses.replace(moe.deepseek_moe_16b(), num_layers=layers,
+                              remat=False, expert_dtype="int8")
+    B, S = 4, 2048
+    t0 = time.perf_counter()
+    params = moe.init_params(cfg, SEED, device=dev, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    torch.cuda.synchronize()
+    log(f"  DeepSeekMoE-16B, {layers} layers: {moe.num_params(params)} "
+        f"params (bf16) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    q8 = moe.quantize_expert_params(params, cfg)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+
+    def cut(p, n):
+        return dict(p, layers={k: ({kk: vv[:n] for kk, vv in v.items()}
+                                   if isinstance(v, dict) else v[:n])
+                               for k, v in p["layers"].items()})
+
+    ccfg = dataclasses.replace(cfg, num_layers=cmp_layers)
+    with torch.no_grad():
+        l16 = moe.forward(cut(params, cmp_layers), tokens[:1], ccfg)
+        l8 = moe.forward(cut(q8, cmp_layers), tokens[:1], ccfg)
+    logits_rel = rel_err(l8, l16)
+    agree = float((l8.argmax(-1) == l16.argmax(-1)).float().mean())
+    del l16, l8, params
+    free_memory()
+    expert_bytes = sum(t.numel() * t.element_size() for k in
+                       ("e_gate", "e_up", "e_down")
+                       for t in q8["layers"][k].values())
+    torch.cuda.reset_peak_memory_stats(dev)
+    build.launch_counts.clear()
+    tmf.fused_paths.clear()
+    n_moe = layers - cfg.first_dense_layers
+    with torch.no_grad():
+        for i in range(warmup + runs):
+            if i == warmup:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            before = dict(build.launch_counts)
+            logits = moe.forward(q8, tokens, cfg)
+            per = {k: v - before.get(k, 0)
+                   for k, v in build.launch_counts.items()}
+            if per.get("gather_gmm_int8") != n_moe \
+                    or per.get("gmm") != n_moe or per.get("gather_gmm"):
+                raise AssertionError(f"forward {i} launched {per}, expected "
+                                     f"one B9-int8 and one gmm for each of "
+                                     f"{n_moe} MoE layers")
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not torch.isfinite(logits).all() \
+            or tuple(logits.shape) != (B, S, cfg.vocab_size):
+        raise AssertionError(f"int8-expert logits {tuple(logits.shape)} not "
+                             "finite or not [B, S, vocab]")
+    peak = torch.cuda.max_memory_allocated(dev)
+    res = {"config": f"deepseek_moe_16b (models/moe.py:123), {layers} layers "
+           "(full depth): hidden 2048, 16/16 heads of 128, 64 experts of "
+           "1408, top-6, 2 shared, vocab 102400, first layer dense; "
+           "quantize_expert_params (int8 experts, f32 scales), dispatch auto "
+           "(fused), bf16 activations, forward only", "layers": layers,
+           "batch": B, "seq": S, "warmup": warmup, "runs": runs,
+           "tokens_per_s": B * S * runs / wall, "forward_ms": wall / runs * 1e3,
+           "peak_mem_gib": peak / 2**30, "int8_expert_gb": expert_bytes / 1e9,
+           "quantize_s": quant_s, "launches_per_forward": per,
+           "fused_paths": dict(tmf.fused_paths),
+           f"logits_rel_err_vs_bf16_at_{cmp_layers}_layers": logits_rel,
+           f"argmax_agreement_vs_bf16_at_{cmp_layers}_layers": agree,
+           "card": card}
+    log(f"  int8-expert forward, {layers} layers, {B}x{S} tokens: "
+        f"{res['tokens_per_s']:.1f} tok/s, {res['forward_ms']:.1f} ms a "
+        f"forward, peak memory {peak / 2**30:.2f} GiB, launches a forward "
+        f"{per}; logits vs bf16 at {cmp_layers} layers: rel err "
+        f"{logits_rel:.4g}, argmax agreement {agree:.4f}; card: {card}")
+    launches = dict(build.launch_counts)
+    del logits
+    with torch.no_grad():
+        res["traced_forward"] = traced(lambda: moe.forward(q8, tokens, cfg),
+                                       classify=kernel_category)
+    log(f"  traced int8-expert forward: {res['traced_forward']}")
+    del q8
+    return launches, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1432,9 +1828,13 @@ def main() -> int:
     log("phase 3: B4 ragged paged decode vs plain")
     check_ragged(tpa, dev)
 
+    log("phase 3 (int8 a): B4-int8, int8 pools, vs plain")
+    int8_res = {"b4_checks": check_ragged_int8(tpa, dev)}
+    torch.cuda.empty_cache()
+
     log("phase 4: LLMEngine serves Llama-3-8B (ragged decode)")
     cfg8, params8 = llama3_8b_bf16(llama, dev)
-    launches, serving, _, num_blocks = serve(
+    launches, serving, bf16_streams, num_blocks = serve(
         LLMEngine, build, dev, card, cfg8, params8, serving_mix(cfg8, 16),
         max_slots=8, decode_kernel="ragged")
     free_memory()
@@ -1475,7 +1875,71 @@ def main() -> int:
         f"{mega['median_decode_step_ms']:.2f} vs "
         f"{ragged4['median_decode_step_ms']:.2f} ms; first stream "
         f"divergence (request, token): {mega['first_stream_divergence']}")
-    del params8
+    free_memory()
+
+    log("phase 6 (int8 b): B5-int8 vs plain, Llama-3-8B, 4 slots")
+    walk4 = [len(p) + 24 for p in mix8[:4]]
+    b5_forms = {"kv_int8": check_mega(tmd, cfg8, params8, dev, walk4,
+                                      kv_int8=True)}
+    free_memory()
+    q8 = llama.quantize_params(params8)
+    free_memory()
+    b5_forms["w_int8"] = check_mega(tmd, cfg8, q8, dev, walk4)
+    free_memory()
+    b5_int8 = check_mega(tmd, cfg8, q8, dev, walk4, kv_int8=True)
+    b5_forms["w_int8_kv_int8"] = b5_int8
+    int8_res["b5_forms"] = {k: {kk: v[kk] for kk in ("rel_err", "ms",
+                                                     "plain_ms", "bound_ms",
+                                                     "f32_ms", "bytes")}
+                            for k, v in b5_forms.items()}
+    free_memory()
+
+    log("phase 6 (int8 c): the int8 serving path, Llama-3-8B, int8 weights "
+        "and int8 pools")
+    i8_launches, i8_serving, i8_streams, _ = serve(
+        LLMEngine, build, dev, card, cfg8, q8, serving_mix(cfg8, 16),
+        max_slots=8, decode_kernel="ragged", kv_dtype="int8")
+    free_memory()
+    i8_mega_launches, i8_mega, i8_mega_streams, _ = serve(
+        LLMEngine, build, dev, card, cfg8, q8, mix8, max_slots=4,
+        decode_kernel="mega", kv_dtype="int8")
+    free_memory()
+    i8_serving["first_divergence_int8_vs_bf16"] = first_divergence(
+        i8_streams, bf16_streams)
+    i8_mega["first_divergence_mega_vs_ragged"] = first_divergence(
+        i8_mega_streams, i8_streams[:8])
+    i8_mega["first_divergence_int8_vs_bf16_mega"] = first_divergence(
+        i8_mega_streams, m_streams)
+    from paddle_tpu_torch.serving import engine as teng
+    int8_res["prefill_logits"] = prefill_logits_error(
+        teng, cfg8, params8, q8, mix8[:4], dev)
+    int8_res["serving_ragged"] = i8_serving
+    int8_res["serving_mega"] = i8_mega
+    log(f"  int8 serving: ragged 8 slots {i8_serving['output_tok_per_s']:.1f}"
+        f" tok/s (median step {i8_serving['median_decode_step_ms']:.2f} ms,"
+        f" peak {i8_serving['peak_mem_gib']:.2f} GiB; bf16 "
+        f"{serving['output_tok_per_s']:.1f}), mega 4 slots "
+        f"{i8_mega['output_tok_per_s']:.1f} tok/s (median step "
+        f"{i8_mega['median_decode_step_ms']:.2f} ms, peak "
+        f"{i8_mega['peak_mem_gib']:.2f} GiB; bf16 "
+        f"{mega['output_tok_per_s']:.1f}); first divergence int8 vs bf16 "
+        f"{i8_serving['first_divergence_int8_vs_bf16']}, mega vs ragged "
+        f"{i8_mega['first_divergence_mega_vs_ragged']}; prefill logits "
+        f"{int8_res['prefill_logits']}")
+    b4_int8 = time_ragged_int8(tpa, dev, lens, num_blocks)
+    log(f"  B4-int8 timing: {b4_int8}")
+    del params8, q8
+    free_memory()
+
+    log("phase 6 (int8 d): card vs CPU int8 streams (int8 weights and "
+        "pools)")
+    i8_ragged = cross_device_streams(llama, LLMEngine, dev, "ragged",
+                                     int8=True)
+    i8_mega_s = cross_device_streams(llama, LLMEngine, dev, "mega", int8=True)
+    if i8_mega_s != i8_ragged:
+        raise AssertionError(f"int8 mega streams {i8_mega_s} differ from the "
+                             f"ragged ones {i8_ragged}")
+    int8_res["cross_device_streams"] = i8_ragged
     free_memory()
 
     log("phase 7: B2/B3 flash backward vs plain")
@@ -1512,6 +1976,17 @@ def main() -> int:
 
     log("phase 14: card vs CPU MoE train step")
     moe_training["card_vs_cpu"] = cross_device_moe_step(moe, llama, dev)
+    free_memory()
+
+    log("phase 14 (int8 e): B9-int8 vs plain; at the MoE step's shape")
+    b9_int8 = check_gather_gmm_int8(tmdisp, tmf, dev)
+    free_memory()
+
+    log("phase 14 (int8 f): moe.forward with int8 experts, DeepSeekMoE-16B "
+        "at full depth")
+    moe8_launches, int8_res["moe_forward"] = moe_int8_forward(
+        moe, build, tmf, dev, card)
+    free_memory()
 
     kernels = [
         dict(name="flash_fwd", route="cuda",
@@ -1533,7 +2008,7 @@ def main() -> int:
              launches=train_launches.get("flash_dkv", 0),
              **bwd["flash_dkv"]),
         dict(name="mega_decode", route="cuda",
-             source="paddle_tpu_torch/kernels/csrc/mega_decode.cu",
+             source="paddle_tpu_torch/kernels/csrc/mega_decode.cuh",
              replaces="paddle_tpu/kernels/mega_decode.py:645",
              launches=mega_launches.get("mega_decode", 0), **b5),
         dict(name="gather_gmm", route="cuda",
@@ -1549,11 +2024,24 @@ def main() -> int:
              source="paddle_tpu_torch/kernels/csrc/tgmm.cu",
              replaces="paddle_tpu/kernels/moe_dispatch.py:445",
              launches=moe_launches.get("tgmm", 0), **grouped["tgmm"]),
+        dict(name="ragged_decode_int8", route="cuda",
+             source="paddle_tpu_torch/kernels/csrc/ragged_decode.cu",
+             replaces="paddle_tpu/kernels/paged_attention.py:578",
+             launches=i8_launches.get("ragged_decode_int8", 0), **b4_int8),
+        dict(name="mega_decode_int8", route="cuda",
+             source="paddle_tpu_torch/kernels/csrc/mega_decode.cuh",
+             replaces="paddle_tpu/kernels/mega_decode.py:645",
+             launches=i8_mega_launches.get("mega_decode_int8", 0), **b5_int8),
+        dict(name="gather_gmm_int8", route="cuda",
+             source="paddle_tpu_torch/kernels/csrc/gather_gmm.cu",
+             replaces="paddle_tpu/kernels/moe_fused.py:266",
+             launches=moe8_launches.get("gather_gmm_int8", 0), **b9_int8),
     ]
     log(f"serving: {json.dumps(serving)}")
     log(f"mega: {json.dumps(mega)}")
     log(f"training: {json.dumps(training)}")
     log(f"moe_training: {json.dumps(moe_training)}")
+    log(f"int8: {json.dumps(int8_res)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

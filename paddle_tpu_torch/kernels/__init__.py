@@ -10,17 +10,20 @@ also holds the per-kernel ``launch_counts``).
   by ``flash_attention_bwd`` and the autograd Function
   ``flash_attention``;
 - ``paged_attention.ragged_decode_partial`` — the ragged paged-decode
-  walk (``csrc/ragged_decode.cu``, its walk in ``csrc/ragged_walk.cuh``);
+  walk over bf16/f32 or int8 pools (``csrc/ragged_decode.cu``, its walk
+  in ``csrc/ragged_walk.cuh``);
 - ``mega_decode.mega_decode_step`` — the persistent decode megakernel,
-  one launch for a decode step of every layer (``csrc/mega_decode.cu``,
-  reusing the walk), screened by ``mega_decode.mega_supported``;
-- ``quant_matmul.weight_only_matmul`` — the dense weight matmul;
+  one launch for a decode step of every layer (``csrc/mega_decode.cuh``,
+  reusing the walk), with dense or int8 weights and pools, screened by
+  ``mega_decode.mega_supported``;
+- ``quant_matmul`` — the int8 quantizers and ``weight_only_matmul`` (plain
+  torch ops: no kernel of its own);
 - ``moe_dispatch.gmm`` / ``tgmm`` — the grouped GEMM over expert-sorted
   rows and its per-group weight gradient (``csrc/gmm.cu``,
   ``csrc/tgmm.cu``), under the differentiable ``grouped_matmul``;
 - ``moe_fused.gather_gmm`` — the grouped GEMM with the expert-sort gather
-  fused into its row loads (``csrc/gather_gmm.cu``), the fused MoE
-  dispatch's gate|up projection. The three share their tiles through
+  fused into its row loads, dense or int8 rhs (``csrc/gather_gmm.cu``),
+  the fused MoE dispatch's gate|up projection. The three share their tiles through
   ``csrc/grouped_gemm.cuh``.
 
 Functions are imported from their modules (a re-export here would shadow

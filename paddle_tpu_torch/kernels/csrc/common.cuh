@@ -13,8 +13,9 @@ namespace ptt {
 constexpr float kNegInf = -1e30f;   // the JAX kernels' masking value
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// dtype codes shared with the Python wrappers
-enum DType : int { kF32 = 0, kBF16 = 1 };
+// dtype codes shared with the Python wrappers (kPoolInt8: int8 KV pools
+// with f32 scale pools; kInt8: int8 weights with per-channel scales)
+enum DType : int { kF32 = 0, kBF16 = 1, kPoolInt8 = 2, kInt8 = 2 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {

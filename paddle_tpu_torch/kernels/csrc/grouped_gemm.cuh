@@ -22,6 +22,12 @@
 // reads. Copies of rows or columns outside the problem are zero-filled, so
 // masked rows add nothing to the sums.
 //
+// An int8 B operand (gather_gmm's int8 rhs) is copied unconverted with
+// cp.async into a raw [kBK][128] byte tile beside the stage, and a
+// conversion pass widens it (exactly) into the bf16 "cols" tile before the
+// stage's products: half the rhs bytes from device memory, the same
+// tensor-core path after.
+//
 // f32 runs on CUDA cores in full f32 (FMA) for exact parity checks, as the
 // flash kernels do: a 64 x 64 tile, 4 x 4 outputs a thread, operands read
 // element by element through the caller's accessors.
@@ -143,11 +149,18 @@ __device__ __forceinline__ void mma_stage(Acc& acc, const bf16* As,
   }
 }
 
+struct NoPrep {
+  __device__ void operator()(int) const {}
+};
+
 // The double-buffered reduction over nk stages: stage(kt, buf) issues the
-// copies of stage kt into buffer buf and commits them.
-template <bool kATrans, bool kBTrans, typename Stage>
+// copies of stage kt into buffer buf and commits them; prep(buf), after
+// they landed, may rewrite buffer buf's tiles (ending in a barrier)
+// before the stage's products.
+template <bool kATrans, bool kBTrans, typename Stage, typename Prep = NoPrep>
 __device__ __forceinline__ void mainloop(Acc& acc, Smem& sm, int nk,
-                                         Stage stage, int warp, int lane) {
+                                         Stage stage, int warp, int lane,
+                                         Prep prep = Prep()) {
   if (nk <= 0) return;
   stage(0, 0);
   for (int kt = 0; kt < nk; ++kt) {
@@ -158,10 +171,50 @@ __device__ __forceinline__ void mainloop(Acc& acc, Smem& sm, int nk,
       cp_async_wait<0>();
     }
     __syncthreads();
+    prep(kt & 1);
     mma_stage<kATrans, kBTrans>(acc, sm.t[kt & 1][0], sm.t[kt & 1][1], warp,
                                 lane);
     __syncthreads();        // buffer kt & 1 free for stage kt + 2
   }
+}
+
+// ---------------------------------------------------------------------------
+// int8 B operand: a raw [kBK][128] byte tile, widened to the bf16 "cols" tile
+// ---------------------------------------------------------------------------
+constexpr int kI8Ld = kBN + 16;   // bytes a raw row (16-byte aligned rows)
+
+// rows [r0, r0 + kBK) of the int8 `base` (row stride ld), columns
+// [c0, c0 + 128): one 16-byte copy a thread; rows outside [lo, hi) and
+// columns past ncols (a multiple of 16) are zero
+__device__ __forceinline__ void load_cols_i8(int8_t* dst, const int8_t* base,
+                                             int64_t ld, int r0, int lo,
+                                             int hi, int c0, int ncols,
+                                             int tid) {
+  const int r = tid >> 3, c = (tid & 7) * 16;
+  const int row = r0 + r;
+  const bool v = row >= lo && row < hi && c0 + c < ncols;
+  cp_async16(dst + r * kI8Ld + c, v ? base + row * ld + c0 + c : base, v);
+}
+
+// the raw tile -> the bf16 "cols" tile (int8 values are exact in bf16):
+// thread tid widens the 16 bytes it copied, then the block syncs
+__device__ __forceinline__ void widen_cols_i8(bf16* dst, const int8_t* src,
+                                              int tid) {
+  const int r = tid >> 3, c = (tid & 7) * 16;
+  const int4 v = *reinterpret_cast<const int4*>(src + r * kI8Ld + c);
+  const int w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t out[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      out[2 * i + j] =
+          pack_bf16(float(int(unsigned(w[i]) << (24 - 16 * j)) >> 24),
+                    float(int(unsigned(w[i]) << (16 - 16 * j)) >> 24));
+  uint4* d = reinterpret_cast<uint4*>(dst + r * kColsLd + c);
+  d[0] = make_uint4(out[0], out[1], out[2], out[3]);
+  d[1] = make_uint4(out[4], out[5], out[6], out[7]);
+  __syncthreads();
 }
 
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {

@@ -14,9 +14,19 @@
 // the running max, and the accumulators stay in f32 registers.
 // Probabilities are rounded to the pool dtype before the PV product, as
 // the TPU kernel does.
+//
+// int8 pools (T = int8_t) carry one f32 scale per (position, kv head) in
+// [L, NB, BS, Hkv] scale pools. Their rows are staged unconverted, D + 16
+// bytes a row (16 int8 a 16-byte copy), and each position's K and V
+// scales are staged beside them with 4-byte cp.async copies. The
+// arithmetic is the TPU kernel's int8 branch: the score is (q . k) in f32
+// times the softmax scale times the K scale; l sums the unscaled
+// probabilities; the probabilities are not rounded, and the PV product
+// takes p times the V scale against the widened V row, in f32.
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -29,11 +39,14 @@ constexpr int kStages = 2;    // tiles in shared memory: current and next
 
 template <typename T, int D>
 struct Layout {
+  static constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   // +16 bytes a row: lane t reading 16 bytes of row t is conflict-free
   static constexpr int kRowBytes = D * int(sizeof(T)) + 16;
   static constexpr int kVecs = D * int(sizeof(T)) / 16;  // 16-byte copies a row
   static constexpr int kPer = 16 / int(sizeof(T));       // elements a copy
-  static constexpr int kStageBytes = 2 * kTile * kRowBytes;  // K rows, V rows
+  // K rows, V rows, then (int8) the K and V scales of the tile's positions
+  static constexpr int kScaleBytes = kInt8 ? 2 * kTile * 4 : 0;
+  static constexpr int kStageBytes = 2 * kTile * kRowBytes + kScaleBytes;
   // the staging buffers, then the group's queries in f32
   static constexpr int kSmem = kStages * kStageBytes + kMaxGroup * D * 4;
 };
@@ -78,17 +91,55 @@ __device__ __forceinline__ void load_pairs(const __nv_bfloat16* p, float* out) {
   }
 }
 
+// int8: 16 values of one 16-byte piece, and N (2 or 4) consecutive values
+__device__ __forceinline__ void load16(const int8_t* p, float* out) {
+  const int4 v = *reinterpret_cast<const int4*>(p);
+  const int w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      out[4 * i + j] = float(static_cast<int8_t>(w[i] >> (8 * j)));
+}
+template <int N>
+__device__ __forceinline__ void load_pairs(const int8_t* p, float* out) {
+  static_assert(N == 2 || N == 4, "int8 rows give 2 or 4 values a lane");
+  if constexpr (N == 4) {
+    const char4 v = *reinterpret_cast<const char4*>(p);
+    out[0] = float(v.x);
+    out[1] = float(v.y);
+    out[2] = float(v.z);
+    out[3] = float(v.w);
+  } else {
+    const char2 v = *reinterpret_cast<const char2*>(p);
+    out[0] = float(v.x);
+    out[1] = float(v.y);
+  }
+}
+
+// 4 bytes global -> shared, asynchronously; zero-filled when !valid
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int src_bytes = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(src_bytes));
+}
+
 // The walk over positions [begin, end) of one slot for the G
 // (<= kMaxGroup) query heads of kv head `hk`. Every thread of the block takes part (the
 // copies and the barriers); warp g < G leaves its query head's state in
 // m, l and acc (lane holds columns lane*D/32 ...). `smem` holds
 // Layout::kSmem bytes with the queries (f32, [G][D]) already at offset
 // kStages * kStageBytes; `tbl` is the slot's block table (shared or
-// global memory). A walk of any tile ends with a __syncthreads(); the
-// caller syncs before it writes the queries of another walk.
+// global memory). `ks_pool`/`vs_pool` are the [L, NB, BS, Hkv] f32 scale
+// pools of int8 pools (unused otherwise). A walk of any tile ends with a
+// __syncthreads(); the caller syncs before it writes the queries of
+// another walk.
 template <typename T, int D>
 __device__ __forceinline__ void ragged_walk(
     const T* __restrict__ k_pool, const T* __restrict__ v_pool,
+    const float* __restrict__ ks_pool, const float* __restrict__ vs_pool,
     const int* tbl, int begin, int end, int layer, int NB, int BS, int Hkv,
     int hk, int G, float scale, unsigned char* smem, float& m, float& l,
     float (&acc)[D / 32]) {
@@ -102,8 +153,11 @@ __device__ __forceinline__ void ragged_walk(
   const int64_t tok_stride = int64_t(Hkv) * D;   // elements
   const int64_t blk_stride = BS * tok_stride;
   const int64_t base0 = int64_t(layer) * NB * blk_stride + int64_t(hk) * D;
+  // the scale of head hk at (layer, blk, off): ((layer*NB + blk)*BS + off)*Hkv + hk
+  const int64_t sbase0 = int64_t(layer) * NB * BS * Hkv + hk;
 
-  // copies of tile `tile` into buffer `buf`: K rows, then V rows
+  // copies of tile `tile` into buffer `buf`: K rows, then V rows, then
+  // (int8) the positions' K and V scales
   auto stage = [&](int tile, int buf) {
     unsigned char* ks = smem + buf * Lay::kStageBytes;
     unsigned char* vs = ks + kTile * Lay::kRowBytes;
@@ -117,6 +171,18 @@ __device__ __forceinline__ void ragged_walk(
       const int sm = t * Lay::kRowBytes + c * 16;
       cp_async16(ks + sm, k_pool + off + c * Lay::kPer, live);
       cp_async16(vs + sm, v_pool + off + c * Lay::kPer, live);
+    }
+    if constexpr (Lay::kInt8) {
+      float* kss = reinterpret_cast<float*>(vs + kTile * Lay::kRowBytes);
+      for (int t = tid; t < kTile; t += nthreads) {
+        const int p = begin + tile * kTile + t;
+        const bool live = p < end;
+        const int64_t so = live ? sbase0 + (int64_t(tbl[p / BS]) * BS
+                                            + p % BS) * Hkv
+                                : 0;
+        cp_async4(kss + t, ks_pool + so, live);
+        cp_async4(kss + kTile + t, vs_pool + so, live);
+      }
     }
     cp_async_commit();
   };
@@ -139,6 +205,7 @@ __device__ __forceinline__ void ragged_walk(
     if (warp < G) {
       const unsigned char* ks = smem + (i & 1) * Lay::kStageBytes;
       const unsigned char* vs = ks + kTile * Lay::kRowBytes;
+      const float* kss = reinterpret_cast<const float*>(vs + kTile * Lay::kRowBytes);
       const float* qw = Qs + warp * D;
 
       // warp = query head of the group; lane scores positions lane, lane+32
@@ -156,13 +223,23 @@ __device__ __forceinline__ void ragged_walk(
           for (int j = 0; j < Lay::kPer; ++j)
             dot = fmaf(qw[c * Lay::kPer + j], kf[j], dot);
         }
-        s[h] = (begin + i * kTile + t < end) ? dot * scale : kNegInf;
+        float sc = dot * scale;
+        if constexpr (Lay::kInt8) sc *= kss[t];
+        s[h] = (begin + i * kTile + t < end) ? sc : kNegInf;
       }
       const float m_new = fmaxf(m, group_max<32>(fmaxf(s[0], s[1])));
       const float alpha = expf(m - m_new);
       const float p0 = expf(s[0] - m_new), p1 = expf(s[1] - m_new);
       l = l * alpha + group_sum<32>(p0 + p1);
-      const float pr[2] = {round_to<T>(p0), round_to<T>(p1)};
+      float pr[2];
+      if constexpr (Lay::kInt8) {
+        // the V scale rides the (unrounded) probabilities
+        pr[0] = p0 * kss[kTile + lane];
+        pr[1] = p1 * kss[kTile + lane + 32];
+      } else {
+        pr[0] = round_to<T>(p0);
+        pr[1] = round_to<T>(p1);
+      }
 #pragma unroll
       for (int c = 0; c < DC; ++c) acc[c] *= alpha;
 #pragma unroll

@@ -12,8 +12,9 @@ flash-decoding combine, ``wo`` and the residual, then RMSNorm, SiLU(gate)
 the ragged path (``serving/engine._paged_decode``).
 
 - On CUDA tensors it launches the hand-written persistent kernel
-  ``csrc/mega_decode.cu`` (a cooperative grid, five grid-wide barriers a
-  layer) and raises on any failure.
+  (``csrc/mega_decode.cuh``, instantiated in ``csrc/mega_decode_*.cu``,
+  entry points in ``csrc/mega_decode.cu``: a cooperative grid, five
+  grid-wide barriers a layer) and raises on any failure.
 - On CPU tensors it runs the plain version :func:`mega_decode_step_plain`:
   :func:`decode_layers`, the ragged path's per-layer math for one step,
   with the plain ragged partial.
@@ -22,9 +23,16 @@ the ragged path (``serving/engine._paged_decode``).
 kernel's own limits (dtype, head_dim, GQA group, slot count, widths,
 shared memory per block) in place of the JAX kernel's VMEM envelope.
 
+int8, each form on its own or both: int8 weight-only leaves
+``{"q": int8 [L, K, M], "s": bf16 [L, M]}`` (``llama.quantize_params``)
+for all seven matrices, whose per-output-channel scale multiplies each
+column's complete f32 sum before it rounds to the model dtype; int8 pools
+with f32 scale pools ``ks_pool``/``vs_pool`` [L, NB, BS, Hkv], walked as
+the ragged kernel walks them. The in-call ring stays in the model dtype.
+
 Not ported yet: the multi-step form ``mega_decode_loop`` (the speculative
-draft wave, ROADMAP A6) and the int8-weight and int8-KV branches (ROADMAP
-A4); the screen refuses them with reasons naming their queues.
+draft wave, ROADMAP A6); the screen refuses it with a reason naming its
+queue.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ import torch
 
 from . import _build
 from .paged_attention import ragged_decode_partial, ragged_decode_partial_plain
+from .quant_matmul import is_quantized_weight
 from .quant_matmul import weight_only_matmul as _wo_mm
 from ..models.llama import LAYER_KEYS, _rms_norm, _rotate
 
@@ -45,7 +54,7 @@ NEG_INF = -1e30
 _MATS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# limits fixed by csrc/mega_decode.cu (kept equal to its constants)
+# limits fixed by csrc/mega_decode.cuh (kept equal to its constants)
 MAX_SLOTS = 8             # rows of the GEMVs' register accumulators
 MAX_GROUP = 8             # query heads per kv head (one warp each)
 TILE_COLS = 32            # output columns of a GEMV tile
@@ -56,16 +65,24 @@ _WARPS = 8
 SMEM_LIMIT = 232448       # shared memory a block may use on the H100
 
 
-def _smem_bytes(itemsize: int, D: int, n_slots: int) -> int:
-    """Dynamic shared memory of one block (csrc/mega_decode.cu
-    ``smem_bytes``): the larger of the attention walk's staging (K and V
-    tiles, double-buffered, rows padded by 16 bytes, plus the group's f32
-    queries) and the GEMVs' (staged input rows, cross-warp reduction, two
-    output tiles, the rows' norm factors) for the kernel built for 4 or 8
-    rows."""
-    ns = 4 if n_slots <= 4 else 8
-    walk = (_WALK_STAGES * 2 * _WALK_TILE * (D * itemsize + 16)
+def _walk_smem(row_bytes: int, scale_bytes: int, D: int) -> int:
+    """The walk's staging: K and V tiles of ``row_bytes`` rows (padded by
+    16 bytes) and, for int8 pools, the positions' K and V scales,
+    double-buffered, then the group's f32 queries."""
+    return (_WALK_STAGES * (2 * _WALK_TILE * (row_bytes + 16)
+                            + 2 * _WALK_TILE * scale_bytes)
             + MAX_GROUP * D * 4)
+
+
+def _smem_bytes(itemsize: int, D: int, n_slots: int) -> int:
+    """Dynamic shared memory of one block (csrc/mega_decode.cuh
+    ``smem_bytes``): the largest of the attention walk's staging over
+    pools of the model dtype and over int8 pools (rows of D + 16 bytes
+    and 4-byte scales) — the kernel takes either at run time — and the
+    GEMVs' (staged input rows, cross-warp reduction, two output tiles,
+    the rows' norm factors) for the kernel built for 4 or 8 rows."""
+    ns = 4 if n_slots <= 4 else 8
+    walk = max(_walk_smem(D * itemsize, 0, D), _walk_smem(D, 4, D))
     gemv = (ns * _CHUNK_ROWS * itemsize
             + (_WARPS + 2) * ns * TILE_COLS * 4 + (ns + _WARPS) * 4)
     return max(walk, gemv)
@@ -78,27 +95,32 @@ def mega_supported(params, config, *, n_slots: int, n_steps: int,
     engine's counted-fallback gate (``LLMEngine.mega_fallbacks``). The
     reasons: ``"mesh"`` (a tensor-parallel mesh: one fused launch cannot
     be sharded), ``"mixed_weights"`` (some weights int8, some not), the
-    unported branches ``"int8_weights_A4"``, ``"kv_int8_A4"`` and
-    ``"multi_step_A6"``, and the CUDA kernel's limits: ``"dtype"`` (bf16
-    or f32, every layer weight in the model dtype), ``"head_dim"`` (64 or
-    128), ``"group"`` (at most 8 query heads per kv head), ``"slots"``
+    unported branch ``"multi_step_A6"``, and the CUDA kernel's limits:
+    ``"dtype"`` (bf16 or f32; every dense layer weight in the model dtype,
+    every int8 leaf an int8 matrix with bf16 scales), ``"head_dim"`` (64
+    or 128), ``"group"`` (at most 8 query heads per kv head), ``"slots"``
     (1 to 8 rows), ``"width"`` (hidden and ffn widths multiples of the
     32-column GEMV tile) and ``"smem"`` (a block's shared memory within
-    the card's 227 KB, without which no co-resident grid can launch)."""
+    the card's 227 KB, without which no co-resident grid can launch).
+    int8 weights and int8 pools (``kv_int8``) are taken, each on its own
+    or both."""
     if mesh is not None and dict(getattr(mesh, "shape", {})).get("tp", 1) > 1:
         return False, "mesh"
     lay = params["layers"]
-    quant = [isinstance(lay[k], dict) for k in _MATS]
+    quant = [is_quantized_weight(lay[k]) for k in _MATS]
     if any(quant) and not all(quant):
         return False, "mixed_weights"
-    if quant[0]:
-        return False, "int8_weights_A4"
-    if kv_int8:
-        return False, "kv_int8_A4"
     if multi_step:
         return False, "multi_step_A6"
     dt = config.dtype
-    if dt not in _DTYPES or any(lay[k].dtype != dt for k in LAYER_KEYS):
+
+    def leaf_ok(k):
+        w = lay[k]
+        if is_quantized_weight(w):
+            return w["q"].dtype == torch.int8 \
+                and w["s"].dtype == torch.bfloat16
+        return w.dtype == dt
+    if dt not in _DTYPES or not all(leaf_ok(k) for k in LAYER_KEYS):
         return False, "dtype"
     D = config.head_dim
     if D not in (64, 128):
@@ -120,7 +142,11 @@ def mega_supported(params, config, *, n_slots: int, n_steps: int,
 # the plain version: the ragged path's per-layer math for one step
 # ---------------------------------------------------------------------------
 def _layer(params, l):
-    return {k: params["layers"][k][l] for k in LAYER_KEYS}
+    """Layer l's weights (both tensors of an int8 leaf sliced)."""
+    def at(w):
+        return {kk: v[l] for kk, v in w.items()} if isinstance(w, dict) \
+            else w[l]
+    return {k: at(params["layers"][k]) for k in LAYER_KEYS}
 
 
 def _mlp(x, p, c):
@@ -138,15 +164,17 @@ def _rope1(t, ang):
 
 
 def decode_layers(params, config, x, *, t: int, lens, block_table,
-                  walk_lens, ring_k, ring_v, k_pool, v_pool,
-                  partial=ragged_decode_partial):
+                  walk_lens, ring_k, ring_v, k_pool, v_pool, ks_pool=None,
+                  vs_pool=None, partial=ragged_decode_partial):
     """One decode step of every layer for x [N, h] (model dtype), the
     ragged path's math: per layer the fresh K/V row lands in ``ring_k``/
     ``ring_v`` [L, N, S, Hkv, D] at index ``t`` (in place), ``partial``
     walks each slot's pool prefix at ``walk_lens`` and its partial softmax
     state merges with the ring positions ``j <= t`` — one softmax over
-    [prefix ; ring]. RoPE angles come from ``lens`` (f32). Returns the
-    post-layer-stack hidden state [N, h]."""
+    [prefix ; ring]. RoPE angles come from ``lens`` (f32). Weights may be
+    int8 leaves (``weight_only_matmul``) and the pools int8 with their
+    scale pools ``ks_pool``/``vs_pool``; the ring stays in the model
+    dtype. Returns the post-layer-stack hidden state [N, h]."""
     c = config
     dt = c.dtype
     N = x.shape[0]
@@ -171,7 +199,7 @@ def decode_layers(params, config, x, *, t: int, lens, block_table,
                              ring_k[l].float()) * scale
         s_rng = torch.where(ring_live, s_rng, torch.full_like(s_rng, NEG_INF))
         acc_p, m_p, l_p = partial(q, k_pool, v_pool, block_table, walk_lens,
-                                  layer=l)
+                                  layer=l, ks_pool=ks_pool, vs_pool=vs_pool)
         # the ring always holds >= 1 live position, so l_tot >= 1
         m_tot = torch.maximum(m_p, s_rng.amax(dim=-1))
         corr = torch.exp(m_p - m_tot)
@@ -185,13 +213,15 @@ def decode_layers(params, config, x, *, t: int, lens, block_table,
 
 
 def mega_decode_step_plain(params, config, *, x0, t: int, block_table,
-                           walk_lens, lens, ring_k, ring_v, k_pool, v_pool):
+                           walk_lens, lens, ring_k, ring_v, k_pool, v_pool,
+                           ks_pool=None, vs_pool=None):
     """The plain PyTorch version of :func:`mega_decode_step`:
     :func:`decode_layers` with the plain ragged partial."""
     x = decode_layers(params, config, x0.to(config.dtype), t=t, lens=lens,
                       block_table=block_table, walk_lens=walk_lens,
                       ring_k=ring_k, ring_v=ring_v, k_pool=k_pool,
-                      v_pool=v_pool, partial=ragged_decode_partial_plain)
+                      v_pool=v_pool, ks_pool=ks_pool, vs_pool=vs_pool,
+                      partial=ragged_decode_partial_plain)
     return x, ring_k, ring_v
 
 
@@ -212,13 +242,13 @@ def _rope_freq(theta: float, D: int, device) -> torch.Tensor:
 
 
 def _check_cuda(params, config, x0, t, block_table, walk_lens, lens, ring_k,
-                ring_v, k_pool, v_pool):
+                ring_v, k_pool, v_pool, ks_pool, vs_pool):
     c = config
     N, h = x0.shape
+    kv_int8 = k_pool.dtype == torch.int8
     ok, reason = mega_supported(params, c, n_slots=N,
                                 n_steps=ring_k.shape[2],
-                                block_size=k_pool.shape[2],
-                                kv_int8=k_pool.dtype == torch.int8)
+                                block_size=k_pool.shape[2], kv_int8=kv_int8)
     if not ok:
         raise ValueError(f"mega_decode_step: the kernel does not take this "
                          f"model or batch (reason {reason!r}); the engine "
@@ -227,8 +257,16 @@ def _check_cuda(params, config, x0, t, block_table, walk_lens, lens, ring_k,
     lay = params["layers"]
     named = [("x0", x0), ("block_table", block_table),
              ("walk_lens", walk_lens), ("lens", lens), ("ring_k", ring_k),
-             ("ring_v", ring_v), ("k_pool", k_pool), ("v_pool", v_pool)] \
-        + [(k, lay[k]) for k in LAYER_KEYS]
+             ("ring_v", ring_v), ("k_pool", k_pool), ("v_pool", v_pool)]
+    for k in LAYER_KEYS:
+        w = lay[k]
+        named += ([(k + ".q", w["q"]), (k + ".s", w["s"])]
+                  if is_quantized_weight(w) else [(k, w)])
+    if kv_int8:
+        if ks_pool is None or vs_pool is None:
+            raise ValueError("mega_decode_step: int8 pools require "
+                             "ks_pool/vs_pool scales")
+        named += [("ks_pool", ks_pool), ("vs_pool", vs_pool)]
     for name, tns in named:
         if tns.device != dev:
             raise ValueError(f"mega_decode_step: {name} on {tns.device}, x0 "
@@ -242,9 +280,12 @@ def _check_cuda(params, config, x0, t, block_table, walk_lens, lens, ring_k,
             "wo": (L, Hq * D, h), "w_gate": (L, h, F), "w_up": (L, h, F),
             "w_down": (L, F, h)}
     for k, shape in want.items():
-        if tuple(lay[k].shape) != shape:
-            raise ValueError(f"mega_decode_step: layers.{k} is "
-                             f"{tuple(lay[k].shape)}, expected {shape}")
+        w = lay[k]
+        got = tuple((w["q"] if is_quantized_weight(w) else w).shape)
+        if got != shape or (is_quantized_weight(w) and tuple(w["s"].shape)
+                            != (shape[0], shape[2])):
+            raise ValueError(f"mega_decode_step: layers.{k} is {got}, "
+                             f"expected {shape}")
     S = ring_k.shape[2]
     if h != c.hidden_size or tuple(ring_k.shape) != (L, N, S, Hkv, D) \
             or ring_v.shape != ring_k.shape:
@@ -254,11 +295,20 @@ def _check_cuda(params, config, x0, t, block_table, walk_lens, lens, ring_k,
             or k_pool.shape[3] != Hkv or v_pool.shape != k_pool.shape:
         raise ValueError(f"mega_decode_step: pools {tuple(k_pool.shape)} are "
                          "not [L, NB, BS, Hkv, D]")
-    for name, tns in (("x0", x0), ("ring_k", ring_k), ("ring_v", ring_v),
-                      ("k_pool", k_pool), ("v_pool", v_pool)):
-        if tns.dtype != c.dtype:
-            raise TypeError(f"mega_decode_step: {name} is {tns.dtype}, the "
-                            f"model dtype is {c.dtype}")
+    pool_dt = torch.int8 if kv_int8 else c.dtype
+    for name, tns, want_dt in (("x0", x0, c.dtype), ("ring_k", ring_k, c.dtype),
+                               ("ring_v", ring_v, c.dtype),
+                               ("k_pool", k_pool, pool_dt),
+                               ("v_pool", v_pool, pool_dt)):
+        if tns.dtype != want_dt:
+            raise TypeError(f"mega_decode_step: {name} is {tns.dtype}, "
+                            f"expected {want_dt}")
+    if kv_int8 and (ks_pool.dtype != torch.float32 or tuple(ks_pool.shape)
+                    != tuple(k_pool.shape[:4])
+                    or vs_pool.shape != ks_pool.shape
+                    or vs_pool.dtype != torch.float32):
+        raise ValueError(f"mega_decode_step: scale pools must be f32 "
+                         f"{tuple(k_pool.shape[:4])}")
     if block_table.dtype != torch.int32 or block_table.dim() != 2 \
             or block_table.shape[0] != N:
         raise ValueError("block_table must be int32 [N, MB]")
@@ -273,28 +323,31 @@ def _check_cuda(params, config, x0, t, block_table, walk_lens, lens, ring_k,
 
 
 def mega_decode_step(params, config, *, x0, t: int, block_table, walk_lens,
-                     lens, ring_k, ring_v, k_pool, v_pool):
+                     lens, ring_k, ring_v, k_pool, v_pool, ks_pool=None,
+                     vs_pool=None):
     """ONE decode step of all layers in one launch: hidden state x0
     [N, hidden] -> the post-layer-stack hidden state [N, hidden] (model
     dtype), with the step's K/V rows written into ``ring_k``/``ring_v``
     [L, N, S, Hkv, D] at index ``t`` (in place; both are returned).
     ``lens`` [N] int32 are the rows' current lengths (the RoPE position);
     ``walk_lens`` [N] int32 the frozen pool prefixes the walk reads
-    through ``block_table`` [N, MB] int32 from pools
-    [L, NB, BS, Hkv, D]. Launches ``csrc/mega_decode.cu`` on CUDA tensors
-    (or raises), runs :func:`mega_decode_step_plain` on CPU tensors."""
+    through ``block_table`` [N, MB] int32 from pools [L, NB, BS, Hkv, D]
+    (int8 with f32 scale pools ``ks_pool``/``vs_pool`` [L, NB, BS, Hkv]).
+    Weights may be int8 leaves. Launches the CUDA kernel (``csrc/mega_decode*``) on CUDA
+    tensors (or raises), runs :func:`mega_decode_step_plain` on CPU
+    tensors."""
     if x0.device.type == "cpu":
         return mega_decode_step_plain(
             params, config, x0=x0, t=t, block_table=block_table,
             walk_lens=walk_lens, lens=lens, ring_k=ring_k, ring_v=ring_v,
-            k_pool=k_pool, v_pool=v_pool)
+            k_pool=k_pool, v_pool=v_pool, ks_pool=ks_pool, vs_pool=vs_pool)
     if x0.device.type != "cuda":
         raise ValueError(f"mega_decode_step: unsupported device {x0.device}")
-    fn = _build.kernel("ptt_mega_decode", [ctypes.c_void_p] * 23
-                       + [ctypes.c_int] * 13
+    fn = _build.kernel("ptt_mega_decode", [ctypes.c_void_p] * 32
+                       + [ctypes.c_int] * 15
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     _check_cuda(params, config, x0, t, block_table, walk_lens, lens, ring_k,
-                ring_v, k_pool, v_pool)
+                ring_v, k_pool, v_pool, ks_pool, vs_pool)
     c = config
     dt = c.dtype
     N, h = x0.shape
@@ -314,26 +367,37 @@ def mega_decode_step(params, config, *, x0, t: int, block_table, walk_lens,
                         dtype=torch.int32, device=x.device)
     freq = _rope_freq(c.rope_theta, D, x.device)
     P = _build.ptr
+    null = ctypes.c_void_p(0)
+    w_int8 = is_quantized_weight(lay["wq"])
+    kv_int8 = k_pool.dtype == torch.int8
+    mats = [lay[k]["q"] if w_int8 else lay[k] for k in _MATS]
+    scales = [P(lay[k]["s"]) if w_int8 else null for k in _MATS]
     with torch.cuda.device(x.device):
-        err = fn(*(P(lay[k]) for k in ("attn_norm", "mlp_norm") + _MATS),
+        err = fn(P(lay["attn_norm"]), P(lay["mlp_norm"]),
+                 *(P(w) for w in mats), *scales,
                  P(freq), P(block_table), P(walk_lens), P(lens), P(k_pool),
-                 P(v_pool), P(ring_k), P(ring_v), P(x), P(qkv), P(att), P(gu),
+                 P(v_pool), P(ks_pool) if kv_int8 else null,
+                 P(vs_pool) if kv_int8 else null,
+                 P(ring_k), P(ring_v), P(x), P(qkv), P(att), P(gu),
                  P(part), P(count),
                  c.num_layers, N, h, F, Hkv, Hq // Hkv, D, k_pool.shape[1],
                  k_pool.shape[2], block_table.shape[1], ring_k.shape[2],
-                 int(t), _DTYPES[dt], c.rms_eps, 1.0 / math.sqrt(D),
-                 _build.stream_handle(x))
-    _build.check(err, "mega_decode")
-    _build.launch_counts["mega_decode"] += 1
+                 int(t), _DTYPES[dt], int(w_int8), int(kv_int8), c.rms_eps,
+                 1.0 / math.sqrt(D), _build.stream_handle(x))
+    name = "mega_decode_int8" if w_int8 or kv_int8 else "mega_decode"
+    _build.check(err, name)
+    _build.launch_counts[name] += 1
     return x, ring_k, ring_v
 
 
-def blocks_per_sm(dtype, head_dim: int, n_slots: int) -> int:
+def blocks_per_sm(dtype, head_dim: int, n_slots: int,
+                  w_int8: bool = False) -> int:
     """How many blocks of the mega kernel one SM holds at once for
-    ``dtype``, ``head_dim`` and ``n_slots`` rows (the occupancy the
-    cooperative grid is sized from: this times the SM count)."""
-    fn = _build.kernel("ptt_mega_decode_blocks_per_sm", [ctypes.c_int] * 3)
-    n = fn(_DTYPES[dtype], head_dim, n_slots)
+    ``dtype``, ``head_dim``, ``n_slots`` rows and dense or int8 weights
+    (the occupancy the cooperative grid is sized from: this times the SM
+    count)."""
+    fn = _build.kernel("ptt_mega_decode_blocks_per_sm", [ctypes.c_int] * 4)
+    n = fn(_DTYPES[dtype], head_dim, n_slots, int(w_int8))
     if n < 0:
         _build.check(-n, "mega_decode occupancy")
     return n

@@ -207,19 +207,25 @@ def tgmm_plain(lhs_t, rhs, gs, out_dtype=_f32):
     return out
 
 
-def _check_cuda(name, tensors, widths):
-    """What the grouped-GEMM kernels take: one dtype of bf16 or f32 (int8
-    weights wait for ROADMAP A4), contiguous 16-byte-aligned tensors, and
-    widths that are multiples of 8 (16-byte rows)."""
+def _check_cuda(name, tensors, widths, int8: bool = False):
+    """What the grouped-GEMM kernels take: one dtype of bf16 or f32 (with
+    ``int8``: int8 tensors, B9's int8 rhs, widths multiples of 16),
+    contiguous 16-byte-aligned tensors, and widths that are multiples of 8
+    (16-byte rows). B10 takes no int8: callers widen an int8 weight
+    first."""
     dts = [t.dtype for t in tensors]
-    if torch.int8 in dts:
-        raise NotImplementedError(
-            f"{name}: int8 expert weights are not ported yet (ROADMAP A4)")
-    if dts[0] not in _DTYPES or any(d != dts[0] for d in dts):
+    if int8:
+        if any(d != torch.int8 for d in dts):
+            raise TypeError(f"{name}: expected int8 tensors, got {dts}")
+    elif torch.int8 in dts:
+        raise TypeError(f"{name} takes no int8 tensors ({dts}): widen an "
+                        "int8 expert weight to the rows' dtype first")
+    elif dts[0] not in _DTYPES or any(d != dts[0] for d in dts):
         raise TypeError(f"{name} takes bf16 or f32 tensors of one dtype, "
                         f"got {dts}")
-    if any(w % 8 for w in widths):
-        raise ValueError(f"{name}: widths {widths} must be multiples of 8")
+    if any(w % (16 if int8 else 8) for w in widths):
+        raise ValueError(f"{name}: widths {widths} must be multiples of "
+                         f"{16 if int8 else 8}")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
                for t in tensors):
         raise ValueError(f"{name} needs contiguous 16-byte-aligned inputs")
@@ -349,15 +355,26 @@ def grouped_matmul(xs, w, gs, full_rows: bool = False):
     return _GmmTuned.apply(xs.contiguous(), w.contiguous(), gs, full_rows)
 
 
-def _expert_ffn(xs, gs, e_gate, e_up, e_down, dt, full_rows=False):
+def _expert_ffn(xs, gs, e_gate, e_up, e_down, dt, full_rows=False,
+                esorted=None):
     """Grouped-GEMM SwiGLU over expert-sorted rows; gate and up ride one
-    grouped GEMM over the width-2f concatenation of their weights."""
-    f = e_gate.shape[-1]
-    gu = grouped_matmul(xs, torch.cat([e_gate, e_up], -1).to(dt), gs,
-                        full_rows=full_rows)
-    return grouped_matmul(
-        torch.nn.functional.silu(gu[..., :f]) * gu[..., f:],
-        e_down.to(dt), gs, full_rows=full_rows)
+    grouped GEMM over the width-2f concatenation of their weights. int8
+    leaves (``quant_matmul.quantize_grouped``) widen to ``dt`` before each
+    grouped GEMM; the gate|up scales multiply its output and the down
+    scales its input, by each row's expert ``esorted``."""
+    from .moe_fused import _gate_up, _grouped, _unpack
+
+    Wcat, s_gu = _gate_up(e_gate, e_up, dt)
+    Wd, s_down = _unpack(e_down)
+    f = Wcat.shape[-1] // 2
+    gu = _grouped(xs, Wcat, gs, full_rows)
+    if s_gu is not None:
+        gu = gu * s_gu.index_select(0, esorted).to(gu.dtype)
+    z = torch.nn.functional.silu(gu[..., :f]) * gu[..., f:]
+    if s_down is not None:
+        z = z * s_down.index_select(0, esorted).to(dt)
+    return _grouped(z, Wd if s_down is not None else Wd.to(dt), gs,
+                    full_rows)
 
 
 def _shared_swiglu(x, s_gate, s_up, s_down, dt):
@@ -373,15 +390,17 @@ def dropless_moe_ffn(x, weights, idx, e_gate, e_up, e_down,
     rows, the grouped-GEMM SwiGLU, and a weighted scatter-add combine.
     x: [T, h]; weights/idx: [T, k]; experts [E, h, f] / [E, f, h]."""
     T, h = x.shape
-    E = e_gate.shape[0]
+    E = (e_gate["q"] if isinstance(e_gate, dict) else e_gate).shape[0]
     if routing is None:
         order, tok, flat_e = sort_by_expert(idx)
         gs = torch.bincount(flat_e, minlength=E).to(torch.int32)
     else:
-        order, tok, gs = routing.order, routing.tok, routing.gs
+        order, tok, flat_e, gs = (routing.order, routing.tok, routing.flat_e,
+                                  routing.gs)
     xs = x.index_select(0, tok)                             # [T*k, h]
     # every assignment belongs to a real expert: sum(gs) == T*k
-    ys = _expert_ffn(xs, gs, e_gate, e_up, e_down, x.dtype, full_rows=True)
+    ys = _expert_ffn(xs, gs, e_gate, e_up, e_down, x.dtype, full_rows=True,
+                     esorted=flat_e[order])
     ws = weights.reshape(-1)[order].float()
     y = torch.zeros((T, h), dtype=_f32, device=x.device).index_add(
         0, tok, ys.float() * ws[:, None])

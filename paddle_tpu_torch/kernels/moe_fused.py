@@ -28,8 +28,15 @@ The route is counted in ``fused_paths`` (the JAX package's
 ``moe_gmm_fused_dispatch_total{path}``): ``"padded"``, or
 ``"unpadded:<reason>"``. No exception is caught on either route.
 
-Expert weights are dense tensors; int8 ``{"q", "s"}`` dicts and int8
-weights in B9 wait for ROADMAP A4 and raise.
+Expert weights are dense tensors or int8 ``{"q": int8, "s": f32}``
+leaves (``quant_matmul.quantize_grouped``; ``moe.quantize_expert_params``).
+int8 gate|up weights enter B9 unconverted (its int8 branch widens them in
+the kernel); their scales multiply B9's output, rounded to the model
+dtype, by each row's expert, and the down projection's input scales ride
+the combine-weight fold (:func:`_elementwise_core`, the JAX package's
+order). The int8 down weight widens to the model dtype before B10, which
+has no int8 branch. Quantized leaves are frozen: no gradient reaches
+``q`` or ``s``, while x's gradient flows through the widened weights.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ import torch
 from . import _build
 from .moe_dispatch import (_DTYPES, _check_cuda, _check_index, _wide,
                            grouped_matmul, sort_by_expert)
+from .quant_matmul import is_quantized_weight
 
 __all__ = ["fused_moe_ffn", "gather_gmm", "gather_gmm_plain",
            "gather_gmm_supported", "fused_paths"]
@@ -111,23 +119,33 @@ def _k_way_sum(rows, inv2d):
 # ---------------------------------------------------------------------------
 
 def _unpack(w):
-    """The dense expert weight; int8 {"q", "s"} dicts wait for A4."""
-    if isinstance(w, dict):
-        raise NotImplementedError(
-            "int8 expert weights (quantize_expert_params) are not ported "
-            "yet (ROADMAP A4)")
-    return w
+    """(matrix, f32 scales | None): an int8 leaf's int8 matrix and scales,
+    both detached (quantization never takes a gradient), or a dense
+    weight as it is."""
+    if is_quantized_weight(w):
+        return w["q"].detach(), w["s"].detach().float()
+    return w, None
 
 
 def _gate_up(e_gate, e_up, dt):
-    """gate|up concatenated into the one wide grouped-GEMM rhs
-    [E, h, 2f] in ``dt``."""
-    return torch.cat([_unpack(e_gate), _unpack(e_up)], -1).to(dt)
+    """gate|up concatenated into the one wide grouped-GEMM rhs: (Wcat
+    [E, h, 2f] in ``dt`` or int8, scales [E, 2f] f32 | None)."""
+    qg, sg = _unpack(e_gate)
+    qu, su = _unpack(e_up)
+    if (sg is None) != (su is None):
+        raise ValueError("e_gate/e_up must be both quantized or neither")
+    cat = torch.cat([qg, qu], -1)
+    if sg is None:
+        return cat.to(dt), None
+    return cat, torch.cat([sg, su], -1)
 
 
 def _grouped(xs, w, gs, full_rows):
-    """:func:`moe_dispatch.grouped_matmul` on dense weights."""
-    return grouped_matmul(xs, _unpack(w), gs, full_rows=full_rows)
+    """:func:`moe_dispatch.grouped_matmul`; an int8 matrix widens to the
+    rows' dtype first (exact), as the JAX package does for its B10."""
+    if w.dtype == torch.int8:
+        w = w.to(xs.dtype)
+    return grouped_matmul(xs, w, gs, full_rows=full_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -154,10 +172,10 @@ def gather_gmm_plain(x, idx, rhs, gid, tm: int = _KTM):
 
 def gather_gmm(x, idx, rhs, gid, *, tm: int = _KTM):
     """B9: ``out[i*tm + r] = x[idx[i*tm + r]] @ rhs[gid[i]]`` for x [T, h],
-    int32 idx [rows] (rows a multiple of tm), rhs [E, h, n] and int32 gid
-    [rows / tm]: out [rows, n] in x's dtype with f32 sums. Each tm-row
-    tile belongs to one group, which the caller's tile-padded layout
-    guarantees. int8 rhs waits for ROADMAP A4."""
+    int32 idx [rows] (rows a multiple of tm), rhs [E, h, n] (x's dtype, or
+    int8, widened inside the kernel) and int32 gid [rows / tm]: out
+    [rows, n] in x's dtype with f32 sums. Each tm-row tile belongs to one
+    group, which the caller's tile-padded layout guarantees."""
     rows = idx.shape[0]
     T, h = x.shape
     E, h2, n = rhs.shape
@@ -165,31 +183,33 @@ def gather_gmm(x, idx, rhs, gid, *, tm: int = _KTM):
         raise ValueError(f"gather_gmm: x {tuple(x.shape)}, idx {rows} rows, "
                          f"rhs {tuple(rhs.shape)}, gid {tuple(gid.shape)}, "
                          f"tm {tm} do not match")
-    if rhs.dtype == torch.int8:
-        raise NotImplementedError(
-            "gather_gmm: int8 expert weights (widened in registers) are not "
-            "ported yet (ROADMAP A4)")
+    rhs_int8 = rhs.dtype == torch.int8
     if x.device.type == "cpu":
         return gather_gmm_plain(x, idx, rhs, gid, tm)
     if x.device.type != "cuda":
         raise ValueError(f"gather_gmm: unsupported device {x.device}")
-    _check_cuda("gather_gmm", (x, rhs), (h, n))
+    if rhs_int8:
+        _check_cuda("gather_gmm", (x,), (h, n))
+        _check_cuda("gather_gmm", (rhs,), (n,), int8=True)
+    else:
+        _check_cuda("gather_gmm", (x, rhs), (h, n))
     _check_index("gather_gmm", idx, x.device, rows)
     _check_index("gather_gmm", gid, x.device, rows // tm)
     if tm % 128:
         raise ValueError(f"gather_gmm: tm {tm} must be a multiple of the "
                          "kernel's 128-row tile")
     fn = _build.kernel("ptt_gather_gmm", [ctypes.c_void_p] * 5
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     out = torch.empty((rows, n), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out               # an empty grid is no launch
     with torch.cuda.device(x.device):
         err = fn(_build.ptr(x), _build.ptr(idx), _build.ptr(rhs),
                  _build.ptr(gid), _build.ptr(out), rows, h, n, tm,
-                 _DTYPES[x.dtype], _build.stream_handle(x))
-    _build.check(err, "gather_gmm")
-    _build.launch_counts["gather_gmm"] += 1
+                 _DTYPES[x.dtype], int(rhs_int8), _build.stream_handle(x))
+    name = "gather_gmm_int8" if rhs_int8 else "gather_gmm"
+    _build.check(err, name)
+    _build.launch_counts[name] += 1
     return out
 
 
@@ -204,15 +224,16 @@ def gather_gmm_op(x: torch.Tensor, idx: torch.Tensor, rhs: torch.Tensor,
 def gather_gmm_supported(x, rhs, num_rows: int) -> Optional[str]:
     """None when the padded pipeline runs B9 for these operands (always on
     the CPU, where the plain versions take any shape), else the reason it
-    cannot: "dtype" (not one dtype of bf16 or f32), "width" (h or the
-    gate|up width not a multiple of 8) or "rows" (fewer assignments than
-    one tile: the padded layout would be mostly padding, the JAX package's
-    own screen)."""
+    cannot: "dtype" (x not bf16 or f32, or rhs neither x's dtype nor
+    int8), "width" (h or the gate|up width not a multiple of 8, of 16 for
+    an int8 rhs) or "rows" (fewer assignments than one tile: the padded
+    layout would be mostly padding, the JAX package's own screen)."""
     if x.device.type == "cpu":
         return None
-    if x.dtype not in _DTYPES or rhs.dtype != x.dtype:
+    if x.dtype not in _DTYPES or rhs.dtype not in (x.dtype, torch.int8):
         return "dtype"
-    if x.shape[1] % 8 or rhs.shape[-1] % 8:
+    if x.shape[1] % 8 or rhs.shape[-1] % (16 if rhs.dtype == torch.int8
+                                          else 8):
         return "width"
     if num_rows < _KTM:
         return "rows"
@@ -246,9 +267,14 @@ class _GatherGmm(torch.autograd.Function):
         from .moe_dispatch import gmm, tgmm
 
         g = g.contiguous()
-        d_xs = gmm(g, rhs, gs_pad, transpose_rhs=True)
-        xs = x.index_select(0, tok_pad)
-        d_rhs = tgmm(xs.t(), g, gs_pad, out_dtype=rhs.dtype)
+        # int8 experts are frozen: the dgrad runs on the widened weight
+        # and they get no gradient
+        w = rhs.to(x.dtype) if rhs.dtype == torch.int8 else rhs
+        d_xs = gmm(g, w, gs_pad, transpose_rhs=True)
+        d_rhs = None
+        if ctx.needs_input_grad[3]:
+            xs = x.index_select(0, tok_pad)
+            d_rhs = tgmm(xs.t(), g, gs_pad, out_dtype=rhs.dtype)
         dx = _k_way_sum(d_xs, inv2d).to(x.dtype)
         return dx, None, None, d_rhs, None
 
@@ -264,10 +290,20 @@ def _routing_meta(idx, routing):
     return routing.order, routing.tok, routing.flat_e, routing.gs
 
 
-def _elementwise_core(gu, ws, f: int, dt):
-    """silu(g) * u with the per-row combine weight folded in."""
+def _elementwise_core(gu, ws, f: int, dt, *, s_gu=None, s_down=None,
+                      esorted=None):
+    """silu(g) * u with every per-row coefficient folded in, in the JAX
+    package's order: int8 gate|up scales ``s_gu`` multiply the grouped
+    GEMM's rounded output by each row's expert (``esorted``), then the
+    combine weight ``ws``, then the int8 down projection's input scales
+    ``s_down``."""
+    if s_gu is not None:
+        gu = gu * s_gu.index_select(0, esorted).to(gu.dtype)
     z = torch.nn.functional.silu(gu[..., :f]) * gu[..., f:]
-    return z * ws.to(dt)[:, None]
+    zw = z * ws.to(dt)[:, None]
+    if s_down is not None:
+        zw = zw * s_down.index_select(0, esorted).to(dt)
+    return zw
 
 
 def _pad_layout(gs, tok, ws, esorted, inv2d, E: int, tm: int = _KTM):
@@ -297,25 +333,30 @@ def _pad_layout(gs, tok, ws, esorted, inv2d, E: int, tm: int = _KTM):
     return tok_pad, ws_pad, es_pad, inv_pad2d, gs_pad.to(torch.int32)
 
 
-def _fused_padded(x, ws, tok, esorted, gs, inv2d, Wcat, Wd, E, f, dt):
+def _fused_padded(x, ws, tok, esorted, gs, inv2d, Wcat, Wd, E, f, dt, *,
+                  s_gu=None, s_down=None):
     """The kernel pipeline over the tile-padded layout: B9 for gate|up,
-    the elementwise core, B10 ``gmm`` for the down projection, the gather
-    combine. Returns y [T, h] f32."""
-    tok_pad, ws_pad, _es, inv_pad2d, gs_pad = _pad_layout(
+    the elementwise core (with the int8 scales ``s_gu``/``s_down``), B10
+    ``gmm`` for the down projection, the gather combine. Returns y [T, h]
+    f32."""
+    tok_pad, ws_pad, es_pad, inv_pad2d, gs_pad = _pad_layout(
         gs, tok, ws, esorted, inv2d, E)
     gu = _GatherGmm.apply(x, tok_pad, inv_pad2d, Wcat, gs_pad)
-    zw = _elementwise_core(gu, ws_pad, f, dt)
+    zw = _elementwise_core(gu, ws_pad, f, dt, s_gu=s_gu, s_down=s_down,
+                           esorted=es_pad)
     ys = _grouped(zw, Wd, gs_pad, full_rows=False)
     return _CombineRows.apply(ys, inv_pad2d, tok_pad)
 
 
-def _fused_unpadded(x, ws, tok, gs, inv2d, Wcat, Wd, f, dt):
-    """The same FFN over the unpadded expert-sorted rows: the gather, B10
-    ``gmm`` for gate|up and for down, the gather combine. Returns y [T, h]
-    f32."""
+def _fused_unpadded(x, ws, tok, gs, inv2d, Wcat, Wd, f, dt, *, s_gu=None,
+                    s_down=None, esorted=None):
+    """The same FFN over the unpadded expert-sorted rows (``esorted`` their
+    experts, for the int8 scales): the gather, B10 ``gmm`` for gate|up
+    and for down, the gather combine. Returns y [T, h] f32."""
     xs = _GatherRows.apply(x, tok, inv2d)
     gu = _grouped(xs, Wcat, gs, full_rows=True)
-    zw = _elementwise_core(gu, ws, f, dt)
+    zw = _elementwise_core(gu, ws, f, dt, s_gu=s_gu, s_down=s_down,
+                           esorted=esorted)
     ys = _grouped(zw, Wd, gs, full_rows=True)
     return _CombineRows.apply(ys, inv2d, tok)
 
@@ -326,26 +367,31 @@ def fused_moe_ffn(x, weights, idx, e_gate, e_up, e_down, routing=None):
     :func:`moe_dispatch.dropless_moe_ffn`, with the combine weights folded
     into the elementwise chain before the down GEMM and gathers for the
     dispatch and the combine in both directions. x [T, h]; weights/idx
-    [T, k]; experts [E, h, f] / [E, f, h]. Returns y [T, h] in x's
-    dtype."""
+    [T, k]; experts [E, h, f] / [E, f, h], dense or int8 leaves (module
+    docstring). Returns y [T, h] in x's dtype."""
     T, h = x.shape
     k = idx.shape[1]
     A = T * k
     dt = x.dtype
-    E, f = _unpack(e_gate).shape[0], e_gate.shape[-1]
+    qg, _ = _unpack(e_gate)
+    E, f = qg.shape[0], qg.shape[-1]
     order, tok, flat_e, gs = _routing_meta(idx, routing)
     if gs is None:
         gs = torch.bincount(flat_e, minlength=E).to(torch.int32)
     esorted = flat_e[order]
     inv2d = _inverse_permutation(order).reshape(T, k)
     ws = weights.reshape(A)[order].float()
-    Wcat = _gate_up(e_gate, e_up, dt)
-    Wd = _unpack(e_down).to(dt)
+    Wcat, s_gu = _gate_up(e_gate, e_up, dt)
+    Wd, s_down = _unpack(e_down)
+    if s_down is None:
+        Wd = Wd.to(dt)
     reason = gather_gmm_supported(x, Wcat, A)
     if reason is None:
         fused_paths["padded"] += 1
-        y = _fused_padded(x, ws, tok, esorted, gs, inv2d, Wcat, Wd, E, f, dt)
+        y = _fused_padded(x, ws, tok, esorted, gs, inv2d, Wcat, Wd, E, f,
+                          dt, s_gu=s_gu, s_down=s_down)
     else:
         fused_paths[f"unpadded:{reason}"] += 1
-        y = _fused_unpadded(x, ws, tok, gs, inv2d, Wcat, Wd, f, dt)
+        y = _fused_unpadded(x, ws, tok, gs, inv2d, Wcat, Wd, f, dt,
+                            s_gu=s_gu, s_down=s_down, esorted=esorted)
     return y.to(dt)

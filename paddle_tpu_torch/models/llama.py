@@ -8,7 +8,10 @@ and layouts: ``embed`` [vocab, h]; stacked per-layer weights under
 ``[in, out]`` layout, so both packages compute ``x @ w``; ``final_norm``
 and, unless ``tie_embeddings`` (then ``embed.T`` is the head),
 ``lm_head`` [h, vocab]. :func:`params_from_numpy` carries a JAX parameter
-tree over through numpy.
+tree over through numpy. :func:`quantize_params` makes the serving
+path's int8 weight-only tree (``{"q": int8, "s": bf16}`` leaves for the
+seven matrices and the head), which the serving engine and the mega
+decode kernel consume.
 
 Attention runs through ``kernels.pallas_attention.flash_attention``: the
 CUDA kernels (B1 forward, B2/B3 backward) on CUDA tensors, their plain
@@ -39,11 +42,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..device import resolve_device
 from ..kernels.pallas_attention import flash_attention
+from ..kernels.quant_matmul import _slices, is_quantized_weight
+from ..kernels.quant_matmul import weight_only_matmul as _wo_mm
 from ..optimizer.functional import (init_moments, optimizer_update,
                                     tree_leaves, tree_map)
 
 __all__ = ["LlamaConfig", "llama3_8b", "tiny_llama", "init_params",
-           "params_from_numpy", "num_params", "hidden_states", "forward",
+           "params_from_numpy", "num_params", "quantize_params",
+           "head_weight", "hidden_states", "forward",
            "loss_fn", "loss_and_grads", "global_norm", "TrainState",
            "init_train_state", "train_step", "flops_per_token"]
 
@@ -77,6 +83,8 @@ class LlamaConfig:
     # not ported (ROADMAP A10): raise NotImplementedError when set
     context_parallel: bool = False
     pipeline_microbatches: int = 0
+    pipeline_chunks: int = 1
+    pipeline_schedule: str = "gpipe"
     # >1 computes the cross-entropy in sequence chunks, each recomputed in
     # the backward pass, so [B, S, vocab] f32 logits never exist at once
     loss_chunks: int = 1
@@ -102,10 +110,12 @@ def _check_supported(c) -> None:
         raise NotImplementedError(
             "context_parallel (ring attention over an 'sp' mesh axis) is "
             "not ported yet (ROADMAP A10)")
-    if getattr(c, "pipeline_microbatches", 0) > 0:
+    if getattr(c, "pipeline_microbatches", 0) > 0 \
+            or getattr(c, "pipeline_chunks", 1) != 1 \
+            or getattr(c, "pipeline_schedule", "gpipe") != "gpipe":
         raise NotImplementedError(
-            "pipeline schedules (GPipe, 1F1B, ZB) are not ported yet "
-            "(ROADMAP A10)")
+            "pipeline schedules (GPipe, 1F1B, ZB, VPP chunks) are not "
+            "ported yet (ROADMAP A10)")
 
 
 def _shapes(c: LlamaConfig):
@@ -153,20 +163,29 @@ def init_params(config: LlamaConfig, seed: int = 0, *, device="cuda",
     return params
 
 
+def _leaf_from_numpy(a, device, dtype=None):
+    """One leaf of a JAX tree as torch: an array as a tensor on ``device``
+    (``dtype`` None keeps its own), an int8 weight-only leaf ``{"q", "s"}``
+    as such a dict with ``q`` and ``s`` untouched in their dtypes."""
+    if isinstance(a, dict):
+        return {k: _leaf_from_numpy(v, device) for k, v in a.items()}
+    a = np.array(a)                  # a writable host copy
+    if a.dtype.name == "bfloat16":   # torch reads no numpy bf16: widen
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
 def params_from_numpy(tree, device="cuda", dtype=None) -> Dict[str, Any]:
     """The JAX parameter tree, as numpy arrays (``embed``, stacked
     ``layers.*`` [L, ...], ``final_norm`` and, when untied, ``lm_head``),
     as torch tensors under the same keys and layouts on ``device``;
-    ``dtype`` None keeps each array's own dtype."""
+    ``dtype`` None keeps each array's own dtype, and applies only to
+    dense leaves: int8 weight-only leaves ``{"q": int8, "s": bf16}``
+    (:func:`quantize_params`) come over as they are."""
     dev = resolve_device(device)
-
-    def conv(a):
-        a = np.array(a)                  # a writable host copy
-        if a.dtype.name == "bfloat16":   # torch reads no numpy bf16: widen
-            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
-        else:
-            t = torch.from_numpy(a)
-        return t.to(device=dev, dtype=dtype or t.dtype)
+    conv = functools.partial(_leaf_from_numpy, device=dev, dtype=dtype)
 
     missing = ({"embed", "layers", "final_norm"} - set(tree)) \
         | {"layers." + k for k in LAYER_KEYS
@@ -184,9 +203,62 @@ def num_params(params) -> int:
 
 
 def head_weight(params, config: LlamaConfig):
-    """The output projection [h, vocab]: ``embed.T`` when tied."""
+    """The output projection [h, vocab]: ``embed.T`` when tied, else
+    ``lm_head`` — a tensor, or an int8 weight-only leaf for
+    :func:`kernels.quant_matmul.weight_only_matmul`."""
     return params["embed"].t() if config.tie_embeddings \
         else params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# int8 weight-only quantization (the serving path's weights)
+# ---------------------------------------------------------------------------
+_QUANT_KEYS = frozenset(
+    {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"})
+
+
+def _quantize_channels(w):
+    """Per-output-channel absmax int8 of a [..., K, N] weight: ``{"q":
+    int8, "s": bf16 [..., N]}``, values clipped to [-128, 127] (the JAX
+    package's quantize_params; its KV and expert quantizers clip to
+    +-127). The int8 values come from the f32 scale, which is then stored
+    in bf16. Stacked leaves go in leading-axis slices (exact: the scale
+    reduces over K)."""
+    qs, ss = [], []
+    for part in _slices(w, -2):
+        wf = part.float()
+        scale = wf.abs().amax(dim=-2) / 127.0
+        q = torch.round(wf / scale.clamp_min(1e-9)[..., None, :])
+        qs.append(q.clamp(-128, 127).to(torch.int8))
+        ss.append(scale.to(torch.bfloat16))
+        del wf, q
+    if len(qs) == 1:
+        return {"q": qs[0], "s": ss[0]}
+    return {"q": torch.cat(qs, 0), "s": torch.cat(ss, 0)}
+
+
+def quantize_params(params, include_lm_head: bool = True):
+    """Per-output-channel absmax int8 quantization of the matmul weights
+    ([L, K, N] stacked leaves -> ``{"q": int8 [L, K, N], "s": bf16
+    [L, N]}``) and, with ``include_lm_head``, of ``lm_head``. Norms and the
+    embedding stay as they are (gathers, not matmuls)."""
+    out = dict(params)
+    out["layers"] = {k: (_quantize_channels(v) if k in _QUANT_KEYS else v)
+                     for k, v in params["layers"].items()}
+    if include_lm_head and "lm_head" in params:
+        out["lm_head"] = _quantize_channels(params["lm_head"])
+    return out
+
+
+def _wmat(p, name, dt):
+    """A weight leaf as a dense matmul operand in ``dt``: an int8 leaf
+    dequantized (``q * s`` in f32, then ``dt``). The serving path keeps
+    int8 leaves as they are (``weight_only_matmul``); this is for cold
+    paths."""
+    w = p[name] if isinstance(name, str) else name
+    if is_quantized_weight(w):
+        return (w["q"].float() * w["s"].float()[..., None, :]).to(dt)
+    return w.to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -307,9 +379,10 @@ def hidden_states(params, tokens, config: LlamaConfig):
 
 
 def forward(params, tokens, config: LlamaConfig):
-    """tokens [B, S] int -> logits [B, S, vocab] (f32)."""
+    """tokens [B, S] int -> logits [B, S, vocab] (f32); an int8 ``lm_head``
+    leaf goes through ``weight_only_matmul``."""
     x = hidden_states(params, tokens, config)
-    return (x @ head_weight(params, config).to(config.dtype)).float()
+    return _wo_mm(x, head_weight(params, config), config.dtype).float()
 
 
 # ---------------------------------------------------------------------------

@@ -20,8 +20,16 @@ The routed FFN (:func:`moe_ffn`) runs on one device: ``routing=
 "capacity"``, GShard's fixed-capacity einsum dispatch. Not ported yet,
 each raising ``NotImplementedError``: the dense-base form
 ``dispatch="dense"`` and the measured pick of "auto" on the card (ROADMAP
-A9); a mesh with ``ep > 1`` (A10); int8 experts, ``expert_dtype="int8"``
-and :func:`quantize_expert_params` (A4).
+A9); a mesh with ``ep > 1`` (A10).
+
+int8 routed experts: :func:`quantize_expert_params` turns ``e_gate``,
+``e_up`` and ``e_down`` into ``{"q": int8, "s": f32}`` leaves
+(``quant_matmul.quantize_grouped``: one scale per expert and f channel,
+shared over h — the gate/up outputs' and the down projection's inputs'),
+for ``routing="dropless"`` only. Such leaves always take the
+fused dispatch (B9 reads the int8 gate|up matrix, the scales fold into the
+elementwise chain), as in the JAX package, and are frozen: gradients reach
+the activations and every other parameter, never ``q`` or ``s``.
 
 ``remat`` recomputes each layer in the backward pass
 (``torch.utils.checkpoint``): "full" all of it; "attn" keeps the flash
@@ -48,6 +56,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..device import resolve_device
 from ..kernels import moe_dispatch as _md
+from ..kernels import quant_matmul as _qm
 from ..optimizer.functional import init_moments, tree_leaves
 from . import llama as _llama
 from .llama import (TrainState, _apply_rope, _attention, _rms_norm,
@@ -93,7 +102,7 @@ class MoEConfig:
     dense_base: bool = True
     # False: the unfused router (top_k_gating, sort metadata re-derived)
     fused_router: bool = True
-    # "int8" is not ported (A4)
+    # "int8": quantize_expert_params quantizes the routed experts
     expert_dtype: Any = None
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
@@ -131,10 +140,6 @@ def _check_supported(c: MoEConfig) -> None:
     if c.expert_dtype not in (None, "int8"):
         raise ValueError(f"expert_dtype={c.expert_dtype!r}: expected None "
                          "or 'int8'")
-    if c.expert_dtype == "int8":
-        raise NotImplementedError(
-            "int8 expert weights (expert_dtype='int8') are not ported yet "
-            "(ROADMAP A4)")
     if c.routing not in ("dropless", "capacity"):
         raise ValueError(f"routing={c.routing!r}: expected 'dropless' or "
                          "'capacity'")
@@ -203,7 +208,8 @@ def init_params(config: MoEConfig, seed: int = 0, *, device="cuda",
 def params_from_numpy(tree, device="cuda", dtype=None) -> Dict[str, Any]:
     """The JAX MoE parameter tree, as numpy arrays, as torch tensors under
     the same keys and layouts on ``device``; ``dtype`` None keeps each
-    array's own dtype."""
+    array's own dtype, and applies only to dense leaves: int8 expert
+    leaves ``{"q", "s"}`` come over as they are."""
     dev = resolve_device(device)
     missing = ({"embed", "layers", "final_norm", "lm_head"} - set(tree)) \
         | {"layers." + k for k in LAYER_KEYS
@@ -211,14 +217,8 @@ def params_from_numpy(tree, device="cuda", dtype=None) -> Dict[str, Any]:
     if missing:
         raise KeyError(f"parameter tree lacks {sorted(missing)}")
 
-    def conv(a):
-        a = np.array(a)                  # a writable host copy
-        if a.dtype.name == "bfloat16":   # torch reads no numpy bf16: widen
-            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
-        else:
-            t = torch.from_numpy(a)
-        return t.to(device=dev, dtype=dtype or t.dtype)
-
+    conv = functools.partial(_llama._leaf_from_numpy, device=dev,
+                             dtype=dtype)
     out = {k: conv(tree[k]) for k in ("embed", "final_norm", "lm_head")}
     out["layers"] = {k: conv(tree["layers"][k]) for k in LAYER_KEYS}
     return out
@@ -229,9 +229,30 @@ def num_params(params) -> int:
 
 
 def quantize_expert_params(params, config: MoEConfig = None):
-    raise NotImplementedError(
-        "quantize_expert_params (int8 routed experts) is not ported yet "
-        "(ROADMAP A4)")
+    """int8-quantize the routed-expert weights: ``layers.e_gate`` and
+    ``e_up`` [L, E, h, f] become ``quantize_grouped(w, 2)`` leaves (scales
+    [L, E, f], shared over h), ``e_down`` [L, E, f, h]
+    ``quantize_grouped(w, 3)`` (scales [L, E, f], shared over h, one per
+    input channel of the down projection); everything else stays as it
+    is. With a ``config`` whose ``expert_dtype`` is None the
+    params come back unchanged; int8 experts need ``routing="dropless"``."""
+    if config is not None and config.expert_dtype != "int8":
+        if config.expert_dtype is None:
+            return params
+        raise ValueError(f"expert_dtype={config.expert_dtype!r}: "
+                         "expected None or 'int8'")
+    if config is not None and config.routing != "dropless":
+        raise ValueError(
+            f"routing={config.routing!r}: int8 expert weights require "
+            "routing='dropless' (the capacity einsum path has no quantized "
+            "form)")
+    out = dict(params)
+    layers = dict(params["layers"])
+    layers["e_gate"] = _qm.quantize_grouped(params["layers"]["e_gate"], 2)
+    layers["e_up"] = _qm.quantize_grouped(params["layers"]["e_up"], 2)
+    layers["e_down"] = _qm.quantize_grouped(params["layers"]["e_down"], 3)
+    out["layers"] = layers
+    return out
 
 
 def active_params_per_token(config: MoEConfig) -> int:
@@ -288,10 +309,12 @@ def moe_ffn(x, router_w, e_gate, e_up, e_down, config: MoEConfig,
         raise NotImplementedError(
             "expert parallelism (a mesh with ep > 1) is not ported yet "
             "(ROADMAP A10)")
-    if isinstance(e_gate, dict):
-        raise NotImplementedError(
-            "int8 expert weights (quantize_expert_params) are not ported "
-            "yet (ROADMAP A4)")
+    quantized = _qm.is_quantized_weight(e_gate)
+    if quantized and c.routing != "dropless":
+        raise ValueError(
+            "int8 expert weights (quantize_expert_params) require "
+            "routing='dropless' — the capacity einsum path has no "
+            "quantized form")
     shared = None if shared_weights is None else _md._shared_swiglu(
         x, *shared_weights, x.dtype)
     if c.routing == "dropless":
@@ -303,6 +326,8 @@ def moe_ffn(x, router_w, e_gate, e_up, e_down, config: MoEConfig,
             weights, idx, aux = top_k_gating(x.float() @ router_w.float(),
                                              c.top_k)
         form = _FORM_STATIC if c.dispatch == "auto" else c.dispatch
+        if quantized:
+            form = "fused"     # int8 leaves live on the fused path
         ffn = (_md.dropless_moe_ffn_fused if form == "fused"
                else _md.dropless_moe_ffn)
         y = ffn(x, weights, idx, e_gate, e_up, e_down, routing=routing)
@@ -404,7 +429,7 @@ def hidden_states_with_aux(params, tokens, config: MoEConfig):
     cos, sin = _rope_tables(S, c.head_dim, c.rope_theta, tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     # one unbind per stacked weight (its backward stacks the L gradients)
-    per_layer = {k: params["layers"][k].unbind(0) for k in LAYER_KEYS}
+    per_layer = {k: _unbind(params["layers"][k]) for k in LAYER_KEYS}
     bodies = {}
     for dense in (True, False):
         body = functools.partial(_layer_body, config=c, dense=dense)
@@ -413,6 +438,15 @@ def hidden_states_with_aux(params, tokens, config: MoEConfig):
         x, aux = bodies[l < c.first_dense_layers](
             x, aux, {k: per_layer[k][l] for k in LAYER_KEYS}, cos, sin)
     return _rms_norm(x, params["final_norm"], c.rms_eps), aux
+
+
+def _unbind(w):
+    """The L per-layer slices of a stacked leaf (of both tensors of an int8
+    leaf)."""
+    if isinstance(w, dict):
+        parts = {k: v.unbind(0) for k, v in w.items()}
+        return [dict(zip(parts, vals)) for vals in zip(*parts.values())]
+    return w.unbind(0)
 
 
 def forward(params, tokens, config: MoEConfig, return_aux=False):

@@ -28,17 +28,27 @@ Design, as in the JAX engine:
   the next call can touch, and when the pool runs dry the newest
   admission is preempted and re-queued for a fresh prefill of
   prompt + generated (recompute preemption).
+- int8 everywhere (optional): int8 weight-only params
+  (``models.llama.quantize_params``) go through
+  ``kernels.quant_matmul.weight_only_matmul`` in prefill, the ragged
+  decode layers and the head, and through the mega kernel's int8 branch;
+  ``kv_dtype="int8"`` keeps the pools as int8 ``{"k", "v"}`` with f32
+  per-entry scales ``{"ks", "vs"}`` [L, NB, BS, Hkv]: prefill runs B1 on
+  the dense K/V and scatters them quantized, the decode walks read the
+  scales, and the in-call ring stays in the model dtype until the
+  writeback quantizes it.
 
 Differences from the JAX engine: PyTorch runs eagerly, so nothing is
 compiled and the pools are updated in place rather than donated. Each
 decode call ends in one synchronous readback (the JAX engine chains the
 next call before reading the previous one); the first tokens of a
 prefill wave stay on the device until that readback. The observability
-hooks are not ported. Prefix caching, chunked prefill, swap/offload,
-admission control, speculative decoding, int8 and tensor parallelism
-are not ported yet (ROADMAP queue A), nor the ``"bucketed"`` dense-gather
-decode; their constructor arguments raise ``NotImplementedError`` when
-set.
+hooks (among them the JAX engine's int8 numerics probes) are not ported.
+Prefix caching, chunked prefill, swap/offload, admission control,
+deadlines, speculative decoding, disaggregated roles and tensor
+parallelism are not ported yet (ROADMAP queue A), nor the ``"bucketed"``
+dense-gather decode; their constructor and request arguments raise
+``NotImplementedError`` naming their queue when set.
 """
 from __future__ import annotations
 
@@ -53,6 +63,7 @@ from ..device import resolve_device
 from ..kernels.mega_decode import (_layer, _mlp, decode_layers,
                                    mega_decode_step, mega_supported)
 from ..kernels.pallas_attention import flash_attention_fwd
+from ..kernels.quant_matmul import is_quantized_weight, quantize_kv
 from ..kernels.quant_matmul import weight_only_matmul as _wo_mm
 from ..models.llama import (LlamaConfig, _apply_rope, _rms_norm,
                             _rope_tables, head_weight)
@@ -63,7 +74,7 @@ NEG_INF = -1e30
 
 # JAX constructor arguments not ported yet -> (default, ROADMAP queue)
 _UNPORTED = {
-    "mesh": (None, "A10"), "kv_dtype": (None, "A4"),
+    "mesh": (None, "A10"),
     "admission": (None, "A5"), "kv_swap_bytes": (0, "A5"),
     "injector": (None, "A8"), "prefix_cache": (False, "A5"),
     "prefill_chunk": (0, "A5"), "prefix_cache_host_bytes": (0, "A5"),
@@ -82,9 +93,26 @@ class Request:
     top_k: int = 0
     top_p: float = 1.0
     eos_token_id: Optional[int] = None
+    # not ported: a latency budget (A5), the admission tenant (A5) and
+    # its stamped deadline
+    deadline_s: Optional[float] = None
+    tenant: str = "default"
+    t_deadline: Optional[float] = None
     # tokens generated before a preemption; a re-admission prefills
     # prompt+generated so already-streamed tokens are never re-emitted
     generated: List[int] = dataclasses.field(default_factory=list)
+    # not ported: the relay-pool key of disaggregated serving (A7)
+    relay_key: Optional[int] = None
+
+    def __post_init__(self):
+        for name, default, queue in (("deadline_s", None, "A5"),
+                                     ("tenant", "default", "A5"),
+                                     ("t_deadline", None, "A5"),
+                                     ("relay_key", None, "A7")):
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"Request({name}=...) is not ported yet (ROADMAP queue "
+                    f"{queue})")
 
 
 # ---------------------------------------------------------------------------
@@ -155,7 +183,9 @@ def _paged_prefill(params, tokens, blk_ids, true_len, pools, temps, top_ks,
     each row's first token sampled from its last true position.
 
     tokens [B, S_bucket]; blk_ids [B, S_bucket // bs] int; true_len [B];
-    temps/top_ks/top_ps [B]; pools {"k", "v"} [L, NB, bs, Hkv, D].
+    temps/top_ks/top_ps [B]; pools {"k", "v"} [L, NB, bs, Hkv, D], plus
+    {"ks", "vs"} [L, NB, bs, Hkv] f32 for int8 pools: attention runs on
+    the dense K/V and the pools get them quantized (``quantize_kv``).
     Returns the first tokens [B] int32 (on the device)."""
     c = config
     dt = c.dtype
@@ -173,8 +203,9 @@ def _paged_prefill(params, tokens, blk_ids, true_len, pools, temps, top_ks,
         k = _apply_rope(_wo_mm(hn, p["wk"], dt).reshape(B, S, Hkv, D),
                         cos, sin)
         v = _wo_mm(hn, p["wv"], dt).reshape(B, S, Hkv, D)
-        pools["k"][l, flat] = k.reshape(-1, bs, Hkv, D).to(pools["k"].dtype)
-        pools["v"][l, flat] = v.reshape(-1, bs, Hkv, D).to(pools["v"].dtype)
+        _write_pools(pools, (slice(l, l + 1), flat),
+                     k.reshape(1, -1, bs, Hkv, D),
+                     v.reshape(1, -1, bs, Hkv, D))
         att = flash_attention_fwd(q, k, v, causal=True)[0].reshape(
             B, S, Hq * D)
         x = _mlp(x + _wo_mm(att, p["wo"], dt), p, c)
@@ -184,6 +215,21 @@ def _paged_prefill(params, tokens, blk_ids, true_len, pools, temps, top_ks,
     logits = _wo_mm(last_h, head_weight(params, c), dt).float()
     return _sample_rows(logits, generator, temps, top_ks, top_ps,
                         *sample_flags)
+
+
+def _write_pools(pools, index, k, v):
+    """pools["k"][index] = k and the same for v — quantized, with their
+    scales into pools["ks"]/["vs"], when the pools are int8."""
+    if "ks" in pools:
+        qk, sk = quantize_kv(k)
+        qv, sv = quantize_kv(v)
+        pools["k"][index] = qk
+        pools["v"][index] = qv
+        pools["ks"][index] = sk
+        pools["vs"][index] = sv
+    else:
+        pools["k"][index] = k.to(pools["k"].dtype)
+        pools["v"][index] = v.to(pools["v"].dtype)
 
 
 def _paged_decode(params, last_tokens, lengths, done0, budgets, generator,
@@ -199,8 +245,9 @@ def _paged_decode(params, last_tokens, lengths, done0, budgets, generator,
     flash-decoding combine — one softmax over [prefix ; ring]. With
     ``mega`` each step's layer stack is one ``mega_decode_step`` launch
     of the same math instead. Slots that hit their eos or budget flip to
-    done and emit -1 from then on. The ring's valid entries are written
-    back to the pools (in place) at the end of the call.
+    done and emit -1 from then on. The ring (model dtype) holds the
+    call's new K/V; its valid entries are written back to the pools (in
+    place, quantized for int8 pools) at the end of the call.
 
     Returns (emitted [n_steps, N] int32 with -1 padding, last, lengths,
     done, budgets)."""
@@ -213,7 +260,14 @@ def _paged_decode(params, last_tokens, lengths, done0, budgets, generator,
     dev = last_tokens.device
     lens0 = lengths
     walk_lens = torch.where(active, lens0, torch.zeros_like(lens0)).int()
-    head_w = head_weight(params, c).to(dt)
+    # the head operand, hoisted out of the step loop: the dense weight in
+    # dt, or an int8 head's matrix widened to f32 once a call (exact;
+    # weight_only_matmul would widen it again every step)
+    head_w = head_weight(params, c)
+    if is_quantized_weight(head_w):
+        head_w = dict(head_w, q=head_w["q"].float())
+    else:
+        head_w = head_w.to(dt)
     ring_k = torch.zeros((Lc, N, S, Hkv, D), dtype=dt, device=dev)
     ring_v = torch.zeros_like(ring_k)
     last, lens, done, rem = last_tokens, lengths, done0, budgets
@@ -224,11 +278,12 @@ def _paged_decode(params, last_tokens, lengths, done0, budgets, generator,
         # both write the step's K/V rows into the rings in place
         kw = dict(t=t, block_table=block_table, walk_lens=walk_lens,
                   lens=lens, ring_k=ring_k, ring_v=ring_v, k_pool=pools["k"],
-                  v_pool=pools["v"])
+                  v_pool=pools["v"], ks_pool=pools.get("ks"),
+                  vs_pool=pools.get("vs"))
         x = mega_decode_step(params, c, x0=x0, **kw)[0] if mega \
             else decode_layers(params, c, x0, **kw)
         xf = _rms_norm(x, params["final_norm"], c.rms_eps)
-        logits = (xf @ head_w).float()
+        logits = _wo_mm(xf, head_w, dt).float()
         nxt = _sample_rows(logits, generator, temps, top_ks, top_ps,
                            *sample_flags)
         emitted.append(torch.where(act, nxt, torch.full_like(nxt, -1)))
@@ -246,8 +301,7 @@ def _paged_decode(params, last_tokens, lengths, done0, budgets, generator,
     phys = block_table.long().gather(1, pos // bs)
     phys = torch.where(valid, phys, torch.zeros_like(phys))
     off = pos % bs
-    pools["k"][:, phys, off] = ring_k.to(pools["k"].dtype)
-    pools["v"][:, phys, off] = ring_v.to(pools["v"].dtype)
+    _write_pools(pools, (slice(None), phys, off), ring_k, ring_v)
     return torch.stack(emitted), last, lens, done, rem
 
 
@@ -272,7 +326,7 @@ class LLMEngine:
                  num_blocks: Optional[int] = None,
                  prompt_buckets: Optional[List[int]] = None, seed: int = 0,
                  decode_steps: int = 1, decode_kernel: str = "auto",
-                 device="cuda", **unported):
+                 kv_dtype=None, device="cuda", **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"LLMEngine got an unexpected argument "
@@ -290,6 +344,9 @@ class LLMEngine:
         if decode_kernel not in ("auto", "ragged", "mega"):
             raise ValueError(f"decode_kernel must be 'auto', 'ragged' or "
                              f"'mega', got {decode_kernel!r}")
+        if kv_dtype not in (None, "int8", torch.int8):
+            raise ValueError(
+                f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
         if max_model_len % block_size:
             raise ValueError(f"max_model_len {max_model_len} is not a "
                              f"multiple of block_size {block_size}")
@@ -321,10 +378,23 @@ class LLMEngine:
                                  f"block_size {block_size}")
         pool_shape = (c.num_layers, self.nb, block_size, c.num_kv_heads,
                       c.head_dim)
-        self.pools = {"k": torch.zeros(pool_shape, dtype=c.dtype,
-                                       device=self.device),
-                      "v": torch.zeros(pool_shape, dtype=c.dtype,
-                                       device=self.device)}
+        self.kv_int8 = kv_dtype is not None
+        if self.kv_int8:
+            # int8 payload + f32 per-entry scales (~3% more at D=128)
+            self.pools = {
+                "k": torch.zeros(pool_shape, dtype=torch.int8,
+                                 device=self.device),
+                "v": torch.zeros(pool_shape, dtype=torch.int8,
+                                 device=self.device),
+                "ks": torch.zeros(pool_shape[:-1], dtype=torch.float32,
+                                  device=self.device),
+                "vs": torch.zeros(pool_shape[:-1], dtype=torch.float32,
+                                  device=self.device)}
+        else:
+            self.pools = {"k": torch.zeros(pool_shape, dtype=c.dtype,
+                                           device=self.device),
+                          "v": torch.zeros(pool_shape, dtype=c.dtype,
+                                           device=self.device)}
         self.free_blocks = deque(range(1, self.nb))
         self.table = np.zeros((self.N, self.mb), np.int32)
         self.n_alloc = np.zeros(self.N, np.int64)  # backed logical blocks
@@ -555,7 +625,7 @@ class LLMEngine:
             ok, reason = mega_supported(
                 self.params, self.config, n_slots=self.N,
                 n_steps=self.decode_steps, block_size=self.bs,
-                kv_int8=False)
+                kv_int8=self.kv_int8)
             if ok:
                 return "mega"
             self.mega_fallbacks[reason] += 1
@@ -658,10 +728,11 @@ def _sample_flags(reqs):
             any(r.top_p < 1.0 for r in sampled))
 
 
-def _tensors(params):
+def _tensors(params, prefix=""):
+    """(path, tensor) of every leaf of a nested parameter dict (both
+    tensors of an int8 leaf)."""
     for k, v in params.items():
         if isinstance(v, dict):
-            for kk, t in v.items():
-                yield f"{k}.{kk}", t
+            yield from _tensors(v, f"{prefix}{k}.")
         else:
-            yield k, v
+            yield prefix + k, v

@@ -168,6 +168,34 @@ def test_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
                              block_table=cuda((2, 2), torch.int32),
                              walk_lens=lens, lens=lens, ring_k=ring,
                              ring_v=ring, k_pool=pool, v_pool=pool)
+    # the int8 branches: int8 pools with their scales, int8 weights
+    pool8 = cuda((1, 3, 4, 2, 64), torch.int8)
+    scales = cuda((1, 3, 4, 2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpa.ragged_decode_partial(cuda((2, 4, 64)), pool8, pool8,
+                                  cuda((2, 2), torch.int32),
+                                  cuda((2,), torch.int32), ks_pool=scales,
+                                  vs_pool=scales)
+    with pytest.raises(ValueError, match="scales"):
+        tpa.ragged_decode_partial(cuda((2, 4, 64)), pool8, pool8,
+                                  cuda((2, 2), torch.int32),
+                                  cuda((2,), torch.int32))
+    q8 = tl.quantize_params(tl.init_params(cfg, device="cpu"))
+    params8 = {k: (cuda(v.shape) if torch.is_tensor(v) else
+                   {kk: ({a: cuda(b.shape, b.dtype) for a, b in vv.items()}
+                         if isinstance(vv, dict) else cuda(vv.shape))
+                    for kk, vv in v.items()})
+               for k, v in q8.items() if k != "lm_head"}
+    for p, kp, extra in ((params8, pool, {}),
+                         (params, pool8, dict(ks_pool=scales,
+                                              vs_pool=scales)),
+                         (params8, pool8, dict(ks_pool=scales,
+                                               vs_pool=scales))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tmd.mega_decode_step(p, cfg, x0=cuda((2, 256)), t=0,
+                                 block_table=cuda((2, 2), torch.int32),
+                                 walk_lens=lens, lens=lens, ring_k=ring,
+                                 ring_v=ring, k_pool=kp, v_pool=kp, **extra)
 
 
 def test_moe_entry_points_default_to_cuda_and_raise_without_it():
@@ -205,6 +233,16 @@ def test_moe_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         tmf.gather_gmm(cuda((8, 64)), cuda((256,), torch.int32),
                        cuda((4, 64, 32)), cuda((2,), torch.int32))
+    # B9's int8 branch: an int8 rhs launches or raises too, and its width
+    # must be a multiple of 16
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmf.gather_gmm(cuda((8, 64)), cuda((256,), torch.int32),
+                       cuda((4, 64, 32), torch.int8),
+                       cuda((2,), torch.int32))
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tmf.gather_gmm(cuda((8, 64)), cuda((256,), torch.int32),
+                       cuda((4, 64, 40), torch.int8),
+                       cuda((2,), torch.int32))
     with pytest.raises(RuntimeError, match="CUDA"):
         tmdisp.gmm(cuda((256, 64)), cuda((4, 64, 32)), gs)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -224,21 +262,27 @@ def test_moe_unported_arguments_raise_naming_their_queue():
     cfg = tm.tiny_moe(vocab=32, hidden=32, layers=1, heads=4, experts=4)
     params = tm.init_params(cfg, device="cpu")
     toks = torch.zeros((1, 9), dtype=torch.long)
-    for kw, queue in (({"expert_dtype": "int8"}, "A4"),
-                      ({"dispatch": "dense"}, "A9")):
-        with pytest.raises(NotImplementedError, match=queue):
+    for kw, err, match in (({"expert_dtype": "fp8"}, ValueError,
+                            "expert_dtype"),
+                           ({"dispatch": "dense"}, NotImplementedError,
+                            "A9")):
+        with pytest.raises(err, match=match):
             tm.loss_fn(params, toks, dataclasses.replace(cfg, **kw))
     lp = {k: v[0] for k, v in params["layers"].items()}
     x = torch.zeros((8, 32))
     with pytest.raises(NotImplementedError, match="A10"):
         tm.moe_ffn(x, lp["router"], lp["e_gate"], lp["e_up"], lp["e_down"],
                    cfg, mesh={"dp": 1, "ep": 2})
-    with pytest.raises(NotImplementedError, match="A4"):
-        tm.quantize_expert_params(params, cfg)
-    with pytest.raises(NotImplementedError, match="A4"):
-        tmf.gather_gmm(x, torch.zeros(128, dtype=torch.int32),
-                       torch.zeros((4, 32, 8), dtype=torch.int8),
-                       torch.zeros(1, dtype=torch.int32))
+    # int8 experts are ported: quantize_expert_params makes int8 leaves
+    # (expert_dtype None leaves the params as they are), and B9 takes an
+    # int8 rhs (its plain version on the CPU)
+    q8 = tm.quantize_expert_params(params)
+    assert q8["layers"]["e_gate"]["q"].dtype == torch.int8
+    assert tm.quantize_expert_params(params, cfg) is params
+    rhs8 = torch.ones((4, 32, 8), dtype=torch.int8)
+    out = tmf.gather_gmm(x + 1, torch.zeros(128, dtype=torch.int32), rhs8,
+                         torch.zeros(1, dtype=torch.int32))
+    assert out.shape == (128, 8) and torch.all(out == 32)
     for name in ("dropless_moe_ffn_ep", "dropless_moe_ffn_a2a"):
         with pytest.raises(NotImplementedError, match="A10"):
             getattr(tmdisp, name)(x)

@@ -146,14 +146,29 @@ def test_top_k_top_p_masks_equal_jax(monkeypatch):
 
 def test_unported_arguments_raise(model):
     _, _, tcfg, tp = model
-    for kw, queue in ((dict(kv_dtype="int8"), "A4"),
-                      (dict(prefix_cache=True), "A5"),
-                      (dict(draft_params=tp), "A6"),
-                      (dict(mesh=object()), "A10"),
-                      (dict(decode_kernel="bucketed"), "bucketed")):
-        with pytest.raises(NotImplementedError, match=queue):
+    for kw, err, match in ((dict(kv_dtype="fp8"), ValueError, "kv_dtype"),
+                           (dict(prefix_cache=True), NotImplementedError,
+                            "A5"),
+                           (dict(draft_params=tp), NotImplementedError,
+                            "A6"),
+                           (dict(mesh=object()), NotImplementedError,
+                            "A10"),
+                           (dict(decode_kernel="bucketed"),
+                            NotImplementedError, "bucketed")):
+        with pytest.raises(err, match=match):
             LLMEngine(tp, tcfg, device="cpu", **kw)
-    LLMEngine(tp, tcfg, device="cpu", kv_dtype=None, prefix_cache=False)
+    eng = LLMEngine(tp, tcfg, device="cpu", kv_dtype=None,
+                    prefix_cache=False)
+    # the reference Request's fields exist (ROADMAP fault C1) and raise
+    # naming their queue when set
+    for kw, queue in ((dict(deadline_s=1.0), "A5"),
+                      (dict(tenant="batch"), "A5"),
+                      (dict(t_deadline=5.0), "A5"),
+                      (dict(relay_key=7), "A7")):
+        with pytest.raises(NotImplementedError, match=queue):
+            eng.add_request([1, 2, 3], **kw)
+    eng.add_request([1, 2, 3], deadline_s=None, tenant="default",
+                    relay_key=None)
     with pytest.raises(TypeError):
         LLMEngine(tp, tcfg, device="cpu", no_such_argument=1)
     with pytest.raises(ValueError):

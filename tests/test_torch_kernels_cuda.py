@@ -383,3 +383,202 @@ def test_moe_ffn_on_card_matches_cpu(dev, dispatch):
                 assert counts == {"gmm": 4, "tgmm": 2}
     for a, b in zip(res["cuda"], res["cpu"]):
         assert _rel(a, b) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# int8 branches: B4 and B5 over int8 pools and int8 weights, B9's int8 rhs
+# ---------------------------------------------------------------------------
+
+def _int8_pools(kp, vp):
+    """int8 pools and their f32 scale pools from dense ones."""
+    from paddle_tpu_torch.kernels.quant_matmul import quantize_kv
+    qk, sk = quantize_kv(kp)
+    qv, sv = quantize_kv(vp)
+    return qk, qv, sk, sv
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,G,d,lens", [
+    (64, 4, 128, [0, 1, 64, 1000]),
+    (16, 8, 64, [0, 128, 63, 1024]),
+    (32, 1, 128, [0, 65, 191, 1000])])
+def test_ragged_int8_kernel_matches_plain(dev, dtype, bs, G, d, lens):
+    """B4's int8 branch against its plain version on int8 pools with f32
+    scales (``quantize_kv`` of random pools), the cases of the dense test:
+    acc, m and l within 1e-5 of their largest magnitude for bf16 and f32
+    queries alike — bf16 queries and int8 rows are exact in f32 and the
+    int8 walk rounds no probability, so only the order of the f32 sums
+    differs."""
+    rng = np.random.default_rng(8)
+    L, hkv, mb = 2, 2, 1024 // bs
+    NB = 4 * mb + 1
+    g = torch.Generator(device=dev).manual_seed(1)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    table = torch.as_tensor(rng.permutation(np.arange(1, NB))[:4 * mb]
+                            .reshape(4, mb).astype(np.int32), device=dev)
+    kp, vp, ks, vs = _int8_pools(
+        torch.randn(L, NB, bs, hkv, d, generator=g, device=dev),
+        torch.randn(L, NB, bs, hkv, d, generator=g, device=dev))
+    q = torch.randn(4, G * hkv, d, generator=g, device=dev).to(dtype)
+    before = _build.launch_counts["ragged_decode_int8"]
+    got = tpa.ragged_decode_partial(q, kp, vp, table, lens, layer=1,
+                                    ks_pool=ks, vs_pool=vs)
+    want = tpa.ragged_decode_partial_plain(q, kp, vp, table, lens, 1, ks, vs)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["ragged_decode_int8"] == before + 1
+    assert torch.all(got[0][0] == 0) and torch.all(got[2][0] == 0)
+    assert torch.all(got[1][0] == -1e30)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() \
+            <= 1e-5 * max(1.0, b.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("w_int8,kv_int8", [(True, False), (False, True),
+                                            (True, True)])
+@pytest.mark.parametrize("D,G,N", [(128, 4, 4), (64, 8, 6), (64, 1, 1)])
+def test_mega_int8_kernel_matches_plain(dev, dtype, tol, w_int8, kv_int8,
+                                        D, G, N):
+    """B5's int8 branches against its plain version: int8 weights
+    (``llama.quantize_params``; each column's scale on its complete f32
+    sum, split-K phases included at hidden 1024), int8 pools with f32
+    scales, and both; the hidden state and the ring rows written, each
+    within ``tol`` of its largest magnitude, as the dense test."""
+    from paddle_tpu_torch.kernels import mega_decode as tmd
+    from paddle_tpu_torch.models import llama
+    cfg, params, x0, table, walk, (kp, vp), (rk, rv) = _mega_inputs(
+        dev, dtype, D, G, N)
+    if w_int8:
+        params = llama.quantize_params(params)
+    pools = dict(k_pool=kp, v_pool=vp)
+    if kv_int8:
+        qk, qv, ks, vs = _int8_pools(kp, vp)
+        pools = dict(k_pool=qk, v_pool=qv, ks_pool=ks, vs_pool=vs)
+    t = 2
+    kw = dict(x0=x0, t=t, block_table=table, walk_lens=walk, lens=walk + 2,
+              **pools)
+    before = _build.launch_counts["mega_decode_int8"]
+    xh, rk1, rv1 = tmd.mega_decode_step(params, cfg, ring_k=rk.clone(),
+                                        ring_v=rv.clone(), **kw)
+    ref, rk2, rv2 = tmd.mega_decode_step_plain(params, cfg, ring_k=rk.clone(),
+                                               ring_v=rv.clone(), **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["mega_decode_int8"] == before + 1
+    assert xh.dtype == dtype and rk1.dtype == dtype
+    for got, want in ((xh, ref), (rk1, rk2), (rv1, rv2)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol * want.float().abs().max().item()
+    keep = [s for s in range(rk.shape[2]) if s != t]
+    assert torch.equal(rk1[:, :, keep], rk[:, :, keep])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("skew", [False, True])
+def test_gather_gmm_int8_kernel_matches_plain(dev, dtype, tol, skew):
+    """B9's int8 branch (int8 rhs widened inside the kernel) against its
+    plain version over the padded layout of a top-3 routing of 50 tokens
+    to 4 experts, h = 136 (a partial 32-deep stage), n = 272 (a partial
+    column tile; int8 rows need n a multiple of 16)."""
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+    from paddle_tpu_torch.kernels import moe_fused as mf
+    g = torch.Generator(device=dev).manual_seed(14)
+    T, h, n, E, k = 50, 136, 272, 4, 3
+    x = torch.randn(T, h, generator=g, device=dev).to(dtype)
+    rhs = torch.randint(-127, 128, (E, h, n), generator=g, device=dev,
+                        dtype=torch.int8)
+    logits = torch.randn(T, E, generator=g, device=dev)
+    if skew:
+        logits[:, 0] += 3.0
+    r = md.routing_from_logits(logits, k)
+    inv2d = mf._inverse_permutation(r.order).reshape(T, k)
+    tok_pad, _, _, _, gs_pad = mf._pad_layout(
+        r.gs, r.tok, r.weights.reshape(-1)[r.order], r.flat_e[r.order],
+        inv2d, E)
+    gid = mf._tile_gids(gs_pad, tok_pad.shape[0], 128)
+    before = _build.launch_counts["gather_gmm_int8"]
+    out = mf.gather_gmm(x, tok_pad, rhs, gid)
+    ref = mf.gather_gmm_plain(x, tok_pad, rhs, gid)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["gather_gmm_int8"] == before + 1
+    assert out.dtype == dtype and out.shape == (tok_pad.shape[0], n)
+    assert _rel(out, ref) <= tol
+
+
+def test_int8_engines_on_card_match_cpu(dev):
+    """int8 weights (``quantize_params``) and int8 pools: ragged and mega
+    engines on the card and a ragged engine on the CPU, from the same
+    weights (f32, D = 128), emit equal greedy streams; the ragged engine
+    launches B4's int8 branch once a layer a step, the mega engine B5's
+    once a step and no B4."""
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.serving import LLMEngine
+    cfg, params, *_ = _mega_inputs(dev, torch.float32, 128, 4, 4)
+    q = llama.quantize_params(params)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, 128, size=n).tolist() for n in (5, 40, 17)]
+    streams = {}
+    for where, kernel in (("cuda", "ragged"), ("cuda", "mega"),
+                          ("cpu", "ragged")):
+        p = {k: ({kk: ({a: b.to(where) for a, b in vv.items()}
+                       if isinstance(vv, dict) else vv.to(where))
+                  for kk, vv in v.items()} if isinstance(v, dict)
+                 else v.to(where)) for k, v in q.items()}
+        eng = LLMEngine(p, cfg, max_slots=2, block_size=16,
+                        max_model_len=128, prompt_buckets=[64],
+                        decode_steps=4, decode_kernel=kernel,
+                        kv_dtype="int8", device=where)
+        ids = [eng.add_request(pr, max_new_tokens=9) for pr in prompts]
+        _build.launch_counts.clear()
+        out = eng.run()
+        streams[(where, kernel)] = [out[i] for i in ids]
+        assert not eng.mega_fallbacks
+        assert sum(eng.decode_paths.values()) \
+            == eng.decode_paths[kernel] > 0
+        if where == "cuda":
+            torch.cuda.synchronize()
+            calls = eng.decode_paths[kernel]
+            if kernel == "mega":
+                assert _build.launch_counts["mega_decode_int8"] == 4 * calls
+                assert _build.launch_counts["ragged_decode_int8"] == 0
+            else:
+                assert _build.launch_counts["ragged_decode_int8"] \
+                    == 4 * calls * cfg.num_layers
+    assert streams[("cuda", "mega")] == streams[("cuda", "ragged")] \
+        == streams[("cpu", "ragged")]
+
+
+def test_int8_moe_ffn_on_card_matches_cpu(dev):
+    """The fused routed FFN with int8 experts (``quantize_grouped``), f32,
+    on the card (B9's int8 branch, gmm on the widened down weight) and on
+    the CPU: values and x's gradient within 1e-5 of their largest
+    magnitude; the int8 leaves get no gradient."""
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+    from paddle_tpu_torch.kernels import moe_fused as mf
+    from paddle_tpu_torch.kernels.quant_matmul import quantize_grouped
+    rng = np.random.default_rng(6)
+    T, h, E, f, k = 96, 64, 8, 32, 2
+    arrays = [rng.standard_normal(s).astype(np.float32) * sc for s, sc in (
+        ((T, h), 1.0), ((h, E), 0.3), ((E, h, f), 0.1), ((E, h, f), 0.1),
+        ((E, f, h), 0.1), ((T, h), 1.0))]
+    res = {}
+    for where in ("cuda", "cpu"):
+        x, rw, eg, eu, ed, ct = (torch.tensor(a, device=where)
+                                 for a in arrays)
+        x.requires_grad_(True)
+        qg, qu, qd = (quantize_grouped(eg, 1), quantize_grouped(eu, 1),
+                      quantize_grouped(ed, 2))
+        _build.launch_counts.clear()
+        r = md.fused_routing(x, rw, k)
+        y = md.dropless_moe_ffn_fused(x, r.weights, r.idx, qg, qu, qd,
+                                      routing=r)
+        (dx,) = torch.autograd.grad((y * ct).sum(), (x,))
+        res[where] = [y.detach().cpu(), dx.cpu()]
+        if where == "cuda":
+            torch.cuda.synchronize()
+            assert _build.launch_counts["gather_gmm_int8"] == 1
+            assert not any(t.requires_grad for w in (qg, qu, qd)
+                           for t in w.values())
+    for a, b in zip(res["cuda"], res["cpu"]):
+        assert _rel(a, b) <= 1e-5

@@ -121,9 +121,11 @@ def test_mega_supported_reasons(model):
     lay = params["layers"]
     mixed = dict(params, layers=dict(lay, wq=q8))
     assert tmd.mega_supported(mixed, cfg, **kw) == (False, "mixed_weights")
-    int8 = dict(params, layers=dict(lay, **{k: q8 for k in tmd._MATS}))
-    assert "A4" in tmd.mega_supported(int8, cfg, **kw)[1]
-    assert "A4" in tmd.mega_supported(params, cfg, **dict(kw, kv_int8=True))[1]
+    # int8 weights (quantize_params' layout) and int8 pools are taken
+    int8 = tl.quantize_params(params)
+    assert tmd.mega_supported(int8, cfg, **kw) == (True, "ok")
+    assert tmd.mega_supported(params, cfg, **dict(kw, kv_int8=True)) \
+        == (True, "ok")
     assert "A6" in tmd.mega_supported(params, cfg, multi_step=True, **kw)[1]
     assert tmd.mega_supported(params, cfg, **dict(kw, n_slots=9)) \
         == (False, "slots")

@@ -212,7 +212,7 @@ def _form_run(arrays, form, k=2):
         ws = w.reshape(-1)[tr.order].float()
         f = eg.shape[-1]
         y = tmf._fused_unpadded(tx, ws, tr.tok, tr.gs, inv2d,
-                                tmf._gate_up(teg, teu, tx.dtype), ted, f,
+                                tmf._gate_up(teg, teu, tx.dtype)[0], ted, f,
                                 tx.dtype).to(tx.dtype)
     else:
         fn = tmd.dropless_moe_ffn if form == "gmm" \
@@ -250,7 +250,7 @@ def test_padding_rows_get_exactly_zero_gradient():
     ws = r.weights.reshape(-1)[r.order]
     tok_pad, ws_pad, _, inv_pad, gs_pad = tmf._pad_layout(
         r.gs, r.tok, ws, r.flat_e[r.order], inv2d, E)
-    gu = tmf._GatherGmm.apply(x, tok_pad, inv_pad, tmf._gate_up(eg, eu, x.dtype),
+    gu = tmf._GatherGmm.apply(x, tok_pad, inv_pad, tmf._gate_up(eg, eu, x.dtype)[0],
                               gs_pad).detach().requires_grad_(True)
     zw = tmf._elementwise_core(gu, ws_pad, f, x.dtype)
     ys = tmf._grouped(zw, ed, gs_pad, full_rows=False)

@@ -92,10 +92,10 @@ def test_normalized_decode_matches_reference_paged_attention():
 def test_unported_forms_raise():
     q, kp, vp, table, lens = (torch.as_tensor(a)
                               for a in _mk(6, 2, [1, 2]))
-    with pytest.raises(NotImplementedError, match="A4"):
+    # int8 pools are ported; without their scale pools they raise
+    with pytest.raises(ValueError, match="ks_pool/vs_pool"):
         tpa.ragged_decode_partial(q, kp.to(torch.int8), vp.to(torch.int8),
-                                  table, lens, ks_pool=kp[..., 0],
-                                  vs_pool=vp[..., 0])
+                                  table, lens)
     with pytest.raises(NotImplementedError, match="A10"):
         tpa.ragged_decode_partial(q, kp, vp, table, lens, mesh=object())
     with pytest.raises(ValueError):

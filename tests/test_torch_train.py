@@ -390,6 +390,12 @@ def test_unported_training_paths_raise(small_run):
     with pytest.raises(NotImplementedError, match="A10"):
         tl.train_step(st, toks, dataclasses.replace(
             cfg, context_parallel=True))
+    # the reference config's pipeline fields exist (ROADMAP fault C1) and
+    # raise naming A10 when set
+    for kw in (dict(pipeline_chunks=2), dict(pipeline_schedule="1f1b")):
+        with pytest.raises(NotImplementedError, match="A10"):
+            tl.train_step(st, toks, dataclasses.replace(cfg, **kw))
+    tl.LlamaConfig(pipeline_chunks=1, pipeline_schedule="gpipe")
     with pytest.raises(ValueError, match="remat_policy"):
         tl.loss_fn(params, toks, dataclasses.replace(
             cfg, remat=True, remat_policy="everything"))

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where the mega decode kernel's time goes, phase by phase, on the card.
 
-Builds copies of ``paddle_tpu_torch/kernels/csrc/mega_decode.cu`` side by
-side (one ``nvcc`` each, all started together): the kernel as it is, and
+Builds copies of the kernel (``paddle_tpu_torch/kernels/csrc/mega_decode.cuh``
+and its units) side by side (one ``nvcc`` each, all started together): the
+kernel as it is, and
 one copy per phase with that phase's work loop emptied (q/k/v, attention,
 wo, gate/up, down), plus one with every phase emptied (the grid barriers
 alone). Each runs one decode step of Llama-3-8B (random bf16 weights,
@@ -10,9 +11,11 @@ seed 0) at the serving mix's walk lengths, timed with CUDA events in two
 rounds of opposite order; a phase's time is the full kernel's minus its
 knocked-out copy's. Prints, for each slot count asked for, one JSON
 object with the times, each phase's bytes and their time at the card's
-HBM rate, and the card's name and power limit.
+HBM rate, and the card's name and power limit. ``--int8`` runs the
+kernel's int8 branches: int8 weights (``llama.quantize_params``) and int8
+pools with f32 scales.
 
-    python3 tools/mega_decode_phases.py [--slots 4 8] [--iters 10]
+    python3 tools/mega_decode_phases.py [--slots 4 8] [--iters 10] [--int8]
 
 Needs an NVIDIA Hopper card and the CUDA toolkit; run from the root of a
 checkout.
@@ -62,15 +65,16 @@ def variants(src: str):
 def build(srcs, tmp: Path):
     """One shared library per variant, built in parallel."""
     csrc = _build.SRC_DIR
+    units = sorted(p.name for p in csrc.glob("mega_decode*.cu"))
     procs = {}
     for name, text in srcs.items():
         d = tmp / name
         d.mkdir()
-        for f in ("common.cuh", "ragged_walk.cuh", "errors.cu"):
+        for f in ["common.cuh", "ragged_walk.cuh", "errors.cu"] + units:
             (d / f).write_bytes((csrc / f).read_bytes())
-        (d / "mega_decode.cu").write_text(text)
+        (d / "mega_decode.cuh").write_text(text)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-               str(d / "lib.so"), str(d / "mega_decode.cu"),
+               str(d / "lib.so"), *(str(d / u) for u in units),
                str(d / "errors.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT)
@@ -92,30 +96,39 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--slots", type=int, nargs="+", default=[4])
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--int8", action="store_true",
+                    help="int8 weights and int8 pools")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("mega_decode_phases: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
     card = cs.nvidia_smi()
-    srcs = variants((_build.SRC_DIR / "mega_decode.cu").read_text())
+    srcs = variants((_build.SRC_DIR / "mega_decode.cuh").read_text())
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         build(srcs, Path(tmp))
         build_s = time.perf_counter() - t0
         cfg, params = cs.llama3_8b_bf16(llama, dev)
+        if args.int8:
+            params = llama.quantize_params(params)
+            cs.free_memory()
         for slots in args.slots:
             print(json.dumps(measure(cfg, params, dev, srcs, Path(tmp),
-                                     slots, args.iters, build_s, card)),
-                  flush=True)
+                                     slots, args.iters, build_s, card,
+                                     args.int8)), flush=True)
     return 0
 
 
-def measure(cfg, params, dev, srcs, tmp, slots, iters, build_s, card):
+def measure(cfg, params, dev, srcs, tmp, slots, iters, build_s, card,
+            int8=False):
     """Every variant's time for one step at ``slots`` rows, and the
-    phases' times, bytes and bounds."""
+    phases' times, bytes and bounds (int8 pools with ``int8``)."""
     walk = [len(p) + 24 for p in cs.serving_mix(cfg, slots)]
     kw, toks = cs.mega_inputs(cfg, dev, walk)
+    if int8:
+        qk, qv, ks, vs = cs.int8_pools(kw.pop("k_pool"), kw.pop("v_pool"))
+        kw.update(k_pool=qk, v_pool=qv, ks_pool=ks, vs_pool=vs)
     x0 = params["embed"][toks].to(cfg.dtype)
     ms = {name: [] for name in srcs}
     for order in (list(srcs), list(srcs)[::-1]):
@@ -125,23 +138,31 @@ def measure(cfg, params, dev, srcs, tmp, slots, iters, build_s, card):
                 lambda i=0: tmd.mega_decode_step(params, cfg, x0=x0, **kw),
                 iters))
     use(tmp / "full" / "lib.so")
-    per_sm = tmd.blocks_per_sm(cfg.dtype, cfg.head_dim, slots)
+    per_sm = tmd.blocks_per_sm(cfg.dtype, cfg.head_dim, slots, int8)
     mean = {k: sum(v) / len(v) for k, v in ms.items()}
     lay = params["layers"]
     L = cfg.num_layers
     kv_row = cfg.num_kv_heads * cfg.head_dim * 2
+    pool_row = cfg.num_kv_heads * (cfg.head_dim + 4) if int8 else kv_row
+
+    def wb(*keys):       # a matrix's bytes: int8 values and bf16 scales
+        return sum(t.numel() * t.element_size() for k in keys
+                   for t in (lay[k].values() if isinstance(lay[k], dict)
+                             else [lay[k]]))
     nbytes = {
-        "qkv": sum(lay[k].numel() * 2 for k in ("wq", "wk", "wv")),
-        "attention": 2 * L * (sum(walk) + slots * (kw["t"] + 1)) * kv_row,
-        "wo": lay["wo"].numel() * 2,
-        "gate_up": (lay["w_gate"].numel() + lay["w_up"].numel()) * 2,
-        "down": lay["w_down"].numel() * 2,
+        "qkv": wb("wq", "wk", "wv"),
+        "attention": 2 * L * (sum(walk) * pool_row
+                              + slots * (kw["t"] + 1) * kv_row),
+        "wo": wb("wo"),
+        "gate_up": wb("w_gate", "w_up"),
+        "down": wb("w_down"),
     }
     phases = {name: {"ms": mean["full"] - mean[f"no_{name}"],
                      "bytes": nbytes[name],
                      "bound_ms": nbytes[name] / cs.HBM_BYTES_PER_S * 1e3}
               for name in PHASES}
-    return {"config": "Llama-3-8B bf16 (random weights, seed 0)",
+    return {"config": "Llama-3-8B bf16 (random weights, seed 0)"
+            + (", int8 weights and int8 pools" if int8 else ""),
             "slots": slots, "walk": walk, "t": kw["t"],
             "full_ms": mean["full"], "runs_ms": ms, "phases": phases,
             "barriers_only_ms": mean["barriers_only"],
