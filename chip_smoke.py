@@ -96,8 +96,47 @@ int8 pools from ``kv_dtype="int8"``, int8 experts from
     B9-int8 and one gmm launch a MoE layer each, and its logits against
     the bf16 forward of the same weights at 12 layers.
 
+The speculative-decoding slice (``LLMEngine(draft_params=...)``, B5's
+multi-step form ``mega_decode_loop``) and the paged-cache API (B6-B8):
+
+(s4) after phase 3 (int8 a): B6 (``paged_decode_attention``), B7
+     (``paged_append_token``) and B8 (``paged_append_blocks``) against
+     their plain versions on phase 3's pools at Llama-3-8B's heads (G=3
+     and D=64 once each, bf16 and f32; lengths 0, 1, 64, 2000 and more):
+     B7/B8 bit-equal, B6 per slot (over the slot's largest |ref|) f32
+     within 1e-5, bf16 within 2e-2, 0 for a zero-length slot; the JAX package's chip-test path (cache init, prefill blocks,
+     decode attention, token append, block append) with its launches
+     counted; each kernel timed beside its bound, its plain version and
+     (B7, B8) ``index_put_``;
+(s1) after phase 6 (c): B5's multi-step form against its plain version
+     for one k=4 draft wave at 4 slots and the serving mix's lengths: f32
+     Llama-3-8B at full width and depth (dense head: tokens and states
+     equal, rings within 1e-3), the Llama-3.2-1B-shaped draft widened to
+     f32 (its tied head: tokens and states equal), the bf16 draft (the
+     first step's ring rows by phase 6(a)'s rule, lens/done/budgets equal,
+     the first token divergence reported), the draft with int8 weights, and a
+     2-layer f32 model at the draft's widths with an int8 head where a
+     budget and an eos end rows mid-loop beside an inactive row; each
+     timed beside its bound;
+(s2) phase 5's cut model as the target and a 1-layer ``draft_config`` of
+     it (other numpy weights) as the draft, spec_tokens=4: the draft on
+     the mega and the ragged path on the card and ragged on the CPU emit
+     phase 5's plain streams, and so does the self-draft (the target as
+     its own draft: tokens accepted, several committed a wave) on the
+     mega and the ragged path on the card; again with int8 pools;
+(s3) speculative serving on phase 4's Llama-3-8B weights with a
+     Llama-3.2-1B-shaped draft (random bf16, seed 1): phase 6(c)'s 8
+     requests through a mega engine at 4 slots (one B5-multi launch a spec
+     wave, no single-step B5 inside the waves), through the same with the
+     self-draft, and through a ragged engine at 8 slots; tokens/s, waves,
+     acceptance and tokens a verify call from a run with no timer in it,
+     then draft and verify call times from a second run of the same
+     requests, a traced spec wave and the first divergence from the plain
+     mega streams.
+
 Before its last line it prints ``serving``, ``mega``, ``training``,
-``moe_training`` and ``int8`` lines (phases 4, 6, 8, 12-14 and (a)-(f)),
+``moe_training``, ``int8`` and ``spec`` lines (phases 4, 6, 8, 12-14,
+(a)-(f) and (s1)-(s4)),
 one JSON object with every ported kernel
 (launches on its main path, max error, and times in ms beside the
 bound), and the card's name and power limit; the last line is
@@ -146,6 +185,25 @@ def time_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_device_ms(fn, iters, key):
+    """Mean device time in ms of the kernels whose name holds ``key`` over
+    ``iters`` calls of ``fn()`` (torch.profiler, after one warm-up call):
+    the kernel alone, where CUDA events around back-to-back calls of a
+    short kernel time its wrapper's host work. None when the trace holds
+    no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and key in e.name]
+    return sum(spans) / 1e3 / iters if spans else None
 
 
 def max_err(a, b):
@@ -735,6 +793,645 @@ def first_divergence(a, b):
         if len(x) != len(y):
             return (i, min(len(x), len(y)))
     return None
+
+
+# ---------------------------------------------------------------------------
+# spec phases (s1)-(s4): B5's multi-step form, speculative serving, and the
+# paged-cache kernels B6-B8
+# ---------------------------------------------------------------------------
+def llama32_1b_draft(llama, cfg, dev):
+    """The draft of Llama-3-8B at meta-llama/Llama-3.2-1B's published
+    widths (16 layers, hidden 2048, ffn 8192, 32 heads, 8 kv heads of 64,
+    tied embeddings; it shares Llama-3's 128,256-token vocabulary; its
+    llama3 RoPE scaling is not modelled), random bf16 weights from seed 1,
+    on the card."""
+    import dataclasses
+    dcfg = dataclasses.replace(llama.draft_config(
+        cfg, num_layers=16, hidden_size=2048, intermediate_size=8192,
+        num_heads=32, num_kv_heads=8, head_dim=64), tie_embeddings=True)
+    return dcfg, llama.init_params(dcfg, seed=1, device=dev,
+                                   dtype=torch.bfloat16)
+
+
+def loop_inputs(cfg, dev, walk, k=4, bs=64, max_len=2048, budgets=None,
+                eos=None, active=None):
+    """One draft wave's inputs for ``mega_decode_loop``: [L, NB, 64, Hkv,
+    D] pools of random K/V in the model dtype, a random block table, the
+    frozen prefixes ``walk`` (also the rows' lengths), random last tokens;
+    every row active with a budget of k and no eos unless given."""
+    N, L = len(walk), cfg.num_layers
+    Hkv, D = cfg.num_kv_heads, cfg.head_dim
+    MB = max_len // bs
+    NB = N * MB + 1
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    rng = np.random.default_rng(SEED + 9)
+    pools = [torch.randn(L, NB, bs, Hkv, D, generator=g, device=dev,
+                         dtype=torch.bfloat16).to(cfg.dtype)
+             for _ in range(2)]
+    walk = torch.tensor(walk, dtype=torch.int32, device=dev)
+
+    def ints(v, fill):
+        return torch.as_tensor(np.asarray(v if v is not None else [fill] * N,
+                                          np.int32), device=dev)
+    return dict(
+        n_steps=k, walk_lens=walk, lens=walk.clone(),
+        block_table=torch.as_tensor(rng.permutation(np.arange(1, NB))
+                                    .reshape(N, MB).astype(np.int32),
+                                    device=dev),
+        active=ints(active, 1).bool(),
+        last0=torch.as_tensor(rng.integers(0, cfg.vocab_size, N)
+                              .astype(np.int32), device=dev),
+        budgets=ints(budgets, k), eos_ids=ints(eos, -1), k_pool=pools[0],
+        v_pool=pools[1])
+
+
+def run_loop(fn, params, cfg, kw):
+    """``fn`` (the kernel or its plain version) on fresh zeroed rings."""
+    L, N = cfg.num_layers, kw["last0"].shape[0]
+    shape = (L, N, kw["n_steps"], cfg.num_kv_heads, cfg.head_dim)
+    rk = torch.zeros(shape, dtype=cfg.dtype, device=kw["last0"].device)
+    return fn(params, cfg,
+              x0=params["embed"][kw["last0"].long()].to(cfg.dtype),
+              ring_k=rk, ring_v=torch.zeros_like(rk), **kw)
+
+
+def loop_bound(cfg, params, kw):
+    """Bytes and operations a k-step draft wave must take: every step
+    streams the layer weights and the head again (the k steps run one
+    after another, each on the last one's token, and gigabytes of weights
+    stay in no on-chip memory between them), walks the rows' pool
+    prefixes and the ring rows written so far, and writes its ring rows;
+    the operations are the weights' and the head's products and the
+    attention's. Returns (bound ms, "bytes" or "operations", bytes)."""
+    lay = params["layers"]
+    k, N = kw["n_steps"], kw["last0"].shape[0]
+    L, Hq, Hkv, D = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    h, V = cfg.hidden_size, cfg.vocab_size
+    isz = torch.empty((), dtype=cfg.dtype).element_size()
+    w_bytes = sum(t.numel() * t.element_size() for t in leaf_tensors(lay))
+    w_elems = sum((w["q"] if isinstance(w, dict) else w).numel()
+                  for key, w in lay.items() if "norm" not in key)
+    head = {k_: v for k_, v in params.items()
+            if k_ in ("lm_head", "final_norm")}
+    head_bytes = sum(t.numel() * t.element_size()
+                     for t in leaf_tensors(head))
+    if cfg.tie_embeddings:
+        head_bytes += V * h * isz
+    act = kw["active"].cpu().numpy()
+    walked = int((kw["walk_lens"].cpu().numpy() * act).sum())
+    kv_row = Hkv * D * isz
+    nbytes = flops = 0.0
+    for s in range(k):
+        nbytes += (w_bytes + head_bytes + 2 * L * walked * kv_row
+                   + 2 * L * N * (s + 1) * kv_row + 2 * N * h * isz)
+        flops += 2.0 * N * (w_elems + h * V) \
+            + 4.0 * L * Hq * D * (walked + N * (s + 1))
+    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), \
+        "operations" if t_ops > t_bytes else "bytes", nbytes
+
+
+def check_loop(tmd, cfg, params, dev, walk, label, budgets=None, eos=None,
+               active=None, time_it=True):
+    """B5's multi-step form against mega_decode_loop_plain for one k = 4
+    wave. f32 models: the emitted tokens and the final last/lens/done/
+    budgets equal the plain version's, the rings within 1e-3 of their
+    largest magnitude. bf16 models: the first step's ring rows (which no
+    token of the wave has touched yet) by phase 6(a)'s rule against the
+    f32 plain result of the same weights (int8 leaves stay int8), and the
+    first divergence of the emitted tokens from the bf16 plain version's
+    reported (bf16 logits tie often; a flipped argmax changes the rest of
+    the row), and with no eos the final lens/done/budgets equal the plain
+    version's (they follow the steps, not the tokens). cuBLAS's reduced-precision bf16 reductions are off for the
+    plain versions. Returns the result fields, timed when ``time_it``."""
+    import dataclasses
+    kw = loop_inputs(cfg, dev, walk, budgets=budgets, eos=eos,
+                     active=active)
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        got = run_loop(tmd.mega_decode_loop, params, cfg, kw)
+        want = run_loop(tmd.mega_decode_loop_plain, params, cfg, kw)
+        torch.cuda.synchronize()
+        res = {"form": label, "N": len(walk), "walk": list(walk),
+               "emitted": got[0].t().tolist(),
+               "plain_emitted": want[0].t().tolist()}
+        names = ("emitted", "last", "lens", "done", "budgets")
+        if cfg.dtype == torch.float32:
+            diff = [n for n, a, b in zip(names, got[:5], want[:5])
+                    if not torch.equal(a.long(), b.long())]
+            errs = [rel_err(a, b) for a, b in zip(got[5:], want[5:])]
+            res.update(states_equal=not diff, ring_rel_err=errs)
+            ok = not diff and max(errs) <= 1e-3
+        else:
+            cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+            p32 = widen_params(params)
+            kw32 = {k: (v.float() if torch.is_tensor(v)
+                        and v.is_floating_point() else v)
+                    for k, v in kw.items()}
+            want32 = run_loop(tmd.mega_decode_loop_plain, p32, cfg32, kw32)
+            torch.cuda.synchronize()
+            del p32, kw32
+
+            def row0(res_):
+                return [r[:, :, 0] for r in res_[5:]]
+            kern = [rel_err(a, b) for a, b in zip(row0(got), row0(want32))]
+            plain = [rel_err(a, b) for a, b in zip(row0(want), row0(want32))]
+            diff = [] if eos is not None else [
+                n for n, a, b in zip(names[2:], got[2:5], want[2:5])
+                if not torch.equal(a.long(), b.long())]
+            res.update(step0_ring_kernel_vs_f32=kern,
+                       step0_ring_plain_vs_f32=plain,
+                       lens_done_budgets_equal=not diff,
+                       f32_emitted=want32[0].t().tolist(),
+                       first_divergence_vs_plain=first_divergence(
+                           got[0].t().tolist(), want[0].t().tolist()))
+            ok = all(torch.isfinite(r).all() for r in row0(got)) \
+                and not diff \
+                and all(a <= 1.5 * b for a, b in zip(kern, plain)) \
+                and bool(((got[0] >= -1) & (got[0] < cfg.vocab_size)).all())
+        # the rings where they are compared: every row in f32, the first
+        # step's in bf16 (later rows follow tokens that may differ)
+        res["max_abs_err"] = max(
+            max_err(a, b) if cfg.dtype == torch.float32
+            else max_err(a[:, :, 0], b[:, :, 0])
+            for a, b in zip(got[5:], want[5:]))
+        log(f"  B5-multi {label}: {res}")
+        if not ok:
+            raise AssertionError(f"B5-multi disagrees with its plain version "
+                                 f"({label}): {res}")
+        del got, want
+        torch.cuda.empty_cache()
+        if time_it:
+            res["ms"] = time_ms(lambda i=0: run_loop(tmd.mega_decode_loop,
+                                                     params, cfg, kw), 5)
+            res["device_ms"] = kernel_device_ms(
+                lambda i=0: run_loop(tmd.mega_decode_loop, params, cfg, kw),
+                3, "mega_decode_kernel")
+            res["plain_ms"] = time_ms(lambda i=0: run_loop(
+                tmd.mega_decode_loop_plain, params, cfg, kw), 1)
+            res["bound_ms"], res["bound_by"], res["bytes"] = loop_bound(
+                cfg, params, kw)
+            res["library_ms"] = None
+            res["shape"] = (f"L={cfg.num_layers} h={cfg.hidden_size} "
+                            f"F={cfg.intermediate_size} Hq={cfg.num_heads} "
+                            f"Hkv={cfg.num_kv_heads} D={cfg.head_dim} "
+                            f"V={cfg.vocab_size} {str(cfg.dtype)[6:]}, "
+                            f"{label}, N={len(walk)}, k=4, walk={walk}")
+            log(f"  B5-multi {label} timing: ms {res['ms']:.3f}, plain "
+                f"{res['plain_ms']:.2f}, bound {res['bound_ms']:.3f} "
+                f"({res['bound_by']})")
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            reduced
+    del kw
+    return res
+
+
+def check_loops(tmd, llama, cfg8, params8, dcfg, dparams, dev, walk):
+    """(s1): the f32 Llama-3-8B wave (full width and depth, dense untied
+    head), the 1B-shaped draft widened to f32 (its tied head held exactly),
+    the bf16 1B-shaped draft, the draft's int8 weights, and a cut f32 model at the draft's widths with an int8 head where
+    budget and eos end rows mid-loop and a row is inactive."""
+    import dataclasses
+    out = {}
+    cfg32 = dataclasses.replace(cfg8, dtype=torch.float32)
+    p32 = widen_params(params8)
+    out["llama3_8b_f32"] = check_loop(tmd, cfg32, p32, dev, walk,
+                                      "Llama-3-8B f32, dense head")
+    del p32
+    free_memory()
+    out["draft_1b_f32"] = check_loop(
+        tmd, dataclasses.replace(dcfg, dtype=torch.float32),
+        widen_params(dparams), dev, walk, "1B draft f32, tied head")
+    free_memory()
+    out["draft_1b_bf16"] = check_loop(tmd, dcfg, dparams, dev, walk,
+                                      "1B draft bf16, tied head")
+    free_memory()
+    q8 = llama.quantize_params(dparams)
+    out["draft_1b_int8_weights"] = check_loop(
+        tmd, dcfg, q8, dev, walk, "1B draft bf16, int8 weights, tied head")
+    del q8
+    free_memory()
+    # an f32 model at the draft's widths, 2 layers, untied, every matrix
+    # and the head int8: row 1's budget ends after 2 steps, row 2 is
+    # inactive, row 3 stops at the eos its first run emits at step 1
+    scfg = dataclasses.replace(dcfg, num_layers=2, tie_embeddings=False,
+                               dtype=torch.float32)
+    sp = llama.quantize_params(llama.init_params(scfg, seed=2, device=dev))
+    budgets, active = [4, 2, 4, 4], [1, 1, 0, 1]
+    first = run_loop(tmd.mega_decode_loop_plain, sp, scfg,
+                     loop_inputs(scfg, dev, walk, budgets=budgets,
+                                 active=active))[0]
+    eos = [-1, -1, -1, int(first[1, 3])]
+    res = check_loop(tmd, scfg, sp, dev, walk, "2-layer f32, int8 weights "
+                     "and head, budget/eos/inactive rows", budgets=budgets,
+                     eos=eos, active=active)
+    em = np.array(res["emitted"])                         # [N, k]
+    stop = int(np.argmax(em[3] == eos[3]))                # eos step, <= 1
+    if not (all(em[1, 2:] == -1) and all(em[2] == -1) and stop <= 1
+            and em[3, stop] == eos[3] and all(em[3, stop + 1:] == -1)):
+        raise AssertionError(f"B5-multi bookkeeping: emitted {em.tolist()}")
+    out["small_int8_head_mid_loop_ends"] = res
+    del sp
+    free_memory()
+    return out
+
+
+def spec_cross_device(llama, LLMEngine, build, dev, want, kv_int8=False):
+    """(s2): phase 5's cut model (f32, 2 layers, 32768 vocabulary) as the
+    target and ``draft_config(cfg, num_layers=1)`` with other numpy weights
+    as the draft, spec_tokens=4: the draft on the mega path and on the
+    ragged path on the card, ragged on the CPU; then the self-draft (draft
+    = the target's params and config) on the card through both paths,
+    where the draft's tokens are accepted (> 0) and waves commit several
+    tokens that later waves read back from the pools. Every wave
+    speculates; the streams must all be equal and equal ``want``, the plain
+    engine's (with ``kv_int8``, int8 pools everywhere and a plain card
+    engine's streams)."""
+    import dataclasses
+    cfg = dataclasses.replace(llama.llama3_8b(), num_layers=2,
+                              vocab_size=32768, dtype=torch.float32)
+    dcfg = llama.draft_config(cfg, num_layers=1)
+    base = llama.params_from_numpy(numpy_params(cfg, SEED), device="cpu")
+    dbase = llama.params_from_numpy(numpy_params(dcfg, SEED + 11),
+                                    device="cpu")
+    rng = np.random.default_rng(SEED + 5)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in (130, 200)]
+    kv = "int8" if kv_int8 else None
+    kw = dict(max_slots=2, block_size=64, max_model_len=512,
+              prompt_buckets=[256], decode_steps=4, kv_dtype=kv)
+    if want is None:
+        params = tree_to(base, dev)
+        eng = LLMEngine(params, cfg, decode_kernel="ragged", device=dev, **kw)
+        ids = [eng.add_request(p, max_new_tokens=8) for p in prompts]
+        out = eng.run()
+        want = [out[i] for i in ids]
+        del params, eng
+    streams = {}
+    for where, kernel, self_draft in (
+            (str(dev), "mega", False), (str(dev), "ragged", False),
+            ("cpu", "ragged", False), (str(dev), "mega", True),
+            (str(dev), "ragged", True)):
+        params = tree_to(base, where)
+        dparams = params if self_draft else tree_to(dbase, where)
+        eng = LLMEngine(params, cfg, decode_kernel=kernel, device=where,
+                        draft_params=dparams,
+                        draft_config=cfg if self_draft else dcfg,
+                        spec_tokens=4, **kw)
+        ids = [eng.add_request(p, max_new_tokens=8) for p in prompts]
+        build.launch_counts.clear()
+        t0 = time.perf_counter()
+        out = eng.run()
+        leg = f"{where} {kernel}" + (" self-draft" if self_draft else "")
+        if eng.decode_paths or eng.mega_fallbacks \
+                or dict(eng.spec_draft_paths) != {kernel: eng.spec_waves} \
+                or (where != "cpu" and kernel == "mega"
+                    and build.launch_counts["mega_decode_loop"]
+                    != eng.spec_waves) \
+                or (self_draft and eng.spec_accepted == 0):
+            raise AssertionError(
+                f"{leg}: decode paths {dict(eng.decode_paths)}, draft paths "
+                f"{dict(eng.spec_draft_paths)}, fallbacks "
+                f"{dict(eng.mega_fallbacks)}, launches "
+                f"{dict(build.launch_counts)}, {eng.spec_accepted} accepted "
+                f"and {eng.spec_committed} committed in {eng.spec_waves} "
+                "waves")
+        streams[leg] = [out[i] for i in ids]
+        log(f"  spec, {leg}, KV {kv or 'f32'}: {streams[leg]} "
+            f"({eng.spec_waves} waves, "
+            f"{eng.spec_accepted}/{eng.spec_proposed} accepted, "
+            f"{eng.spec_committed} committed, "
+            f"{time.perf_counter() - t0:.1f} s)")
+        del params, dparams, eng
+    if any(s != want for s in streams.values()):
+        raise AssertionError(f"spec streams differ from the plain ones "
+                             f"{want}: {streams}")
+    return want
+
+
+class FnTimer:
+    """Times a module-level function on the host clock up to a device
+    synchronize while it is installed (``with``), keeping calls whose
+    keyword arguments match ``when``."""
+
+    def __init__(self, module, name, **when):
+        self.module, self.name, self.when = module, name, when
+        self.seconds = []
+
+    def __enter__(self):
+        inner = self.inner = getattr(self.module, self.name)
+
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            res = inner(*a, **k)
+            if all(k.get(kk) == vv for kk, vv in self.when.items()):
+                torch.cuda.synchronize()
+                self.seconds.append(time.perf_counter() - t0)
+            return res
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
+
+
+def serve_spec(LLMEngine, teng, build, dev, card, cfg, params, dcfg, dparams,
+               prompts, max_slots, decode_kernel, label, want=None):
+    """(s3): ``LLMEngine`` on Llama-3-8B with the draft ``dcfg``/
+    ``dparams`` (spec_tokens=4) serving ``prompts`` (64 greedy tokens each)
+    through ``decode_kernel``: every decode wave speculates (no plain
+    decode call, no counted fallback); the mega draft launches B5's
+    multi-step form once a wave and never the single-step form. The run's
+    numbers (tokens/s from this run, which has no timer in it), then the
+    same requests again with the prefill, draft and verify calls timed
+    (each ended by a synchronize, which keeps the host from queueing the verify behind
+    the draft, so that run's wall time is not reported), one spec wave
+    traced, and the first divergence from ``want`` (the plain mega
+    engine's streams)."""
+    eng = LLMEngine(params, cfg, max_slots=max_slots, block_size=64,
+                    max_model_len=2048, prompt_buckets=[128, 512, 1024],
+                    decode_steps=16, decode_kernel=decode_kernel, seed=SEED,
+                    device=dev, draft_params=dparams, draft_config=dcfg,
+                    spec_tokens=4)
+    ids = [eng.add_request(p, max_new_tokens=64) for p in prompts]
+    torch.cuda.reset_peak_memory_stats(dev)
+    build.launch_counts.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    peak = torch.cuda.max_memory_allocated(dev)
+    streams = [out[i] for i in ids]
+    n_tok = sum(len(s) for s in streams)
+    if any(len(s) != 64 or not all(0 <= t < cfg.vocab_size for t in s)
+           for s in streams):
+        raise AssertionError(f"{label}: bad streams")
+    acct = eng.block_accounting()
+    waves = eng.spec_waves
+    acceptance = eng.spec_accepted / max(1, eng.spec_proposed)
+    per_verify = eng.spec_committed / max(1, eng.spec_verify_calls)
+    counts = {k: getattr(eng, k) for k in ("spec_committed", "spec_proposed",
+                                           "spec_accepted")}
+    bad = []
+    if acct["free"] != acct["total"] or acct["backed"] != 0:
+        bad.append(f"ledger {acct}")
+    if eng.decode_paths or eng.mega_fallbacks \
+            or dict(eng.spec_draft_paths) != {decode_kernel: waves}:
+        bad.append(f"paths {dict(eng.decode_paths)}, draft paths "
+                   f"{dict(eng.spec_draft_paths)}, fallbacks "
+                   f"{dict(eng.mega_fallbacks)}")
+    if decode_kernel == "mega" and (launches.get("mega_decode_loop", 0)
+                                    != waves
+                                    or launches.get("mega_decode", 0)):
+        bad.append(f"launches {launches} for {waves} waves")
+    if decode_kernel == "ragged" and (
+            launches.get("mega_decode_loop", 0)
+            or launches.get("ragged_decode", 0)
+            < waves * 4 * dcfg.num_layers):
+        bad.append(f"launches {launches} for {waves} waves")
+    # the same requests again, each prefill, draft and verify call timed
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=64)
+    prefills = CallTimer(eng, "_dispatch_prefill")
+    with FnTimer(teng, "_paged_decode", kv_prefix="d") as draft_t, \
+            FnTimer(teng, "_spec_verify") as verify_t:
+        eng.run()
+    timed_waves = eng.spec_waves - waves
+    if len(draft_t.seconds) != timed_waves \
+            or len(verify_t.seconds) != timed_waves:
+        bad.append(f"{len(draft_t.seconds)} draft and "
+                   f"{len(verify_t.seconds)} verify calls for {timed_waves} "
+                   "waves")
+    if bad:
+        raise AssertionError(f"{label}: {bad}")
+    res = {"label": label, "decode_kernel": decode_kernel,
+           "max_slots": max_slots, "requests": len(ids),
+           "output_tokens": n_tok, "wall_s": wall,
+           "output_tok_per_s": n_tok / wall, "spec_waves": waves,
+           "acceptance_rate": acceptance,
+           "tokens_per_verify_call": per_verify, **counts,
+           "timed_run_waves": timed_waves,
+           "draft_call_ms_median": 1e3 * float(np.median(draft_t.seconds)),
+           "verify_call_ms_median": 1e3 * float(np.median(verify_t.seconds)),
+           "draft_call_ms": [1e3 * t for t in draft_t.seconds],
+           "verify_call_ms": [1e3 * t for t in verify_t.seconds],
+           "prefill_s": list(prefills.seconds), "launches": launches,
+           "mega_fallbacks": dict(eng.mega_fallbacks),
+           "peak_mem_gib": peak / 2**30,
+           "first_divergence_vs_plain_mega": (
+               first_divergence(streams, want) if want else None)}
+    # one steady spec wave traced: admit a wave and run its first spec
+    # wave, then trace the next
+    for p in prompts[:eng.N]:
+        eng.add_request(p, max_new_tokens=48)
+    eng.step()
+    torch.cuda.synchronize()
+    res["traced_spec_wave"] = traced(eng.step)
+    eng.run()
+    log(f"  {label}: {res['output_tok_per_s']:.1f} output tok/s over "
+        f"{n_tok} tokens in {wall:.2f} s; {waves} spec waves, acceptance "
+        f"{res['acceptance_rate']:.3f}, {res['tokens_per_verify_call']:.3f} "
+        f"tokens a verify call; timed run: draft call "
+        f"{res['draft_call_ms_median']:.2f} ms, verify call "
+        f"{res['verify_call_ms_median']:.2f} ms (medians);"
+        f" launches {launches}; fallbacks {res['mega_fallbacks']}; peak "
+        f"{res['peak_mem_gib']:.2f} GiB; first divergence from the plain "
+        f"mega streams {res['first_divergence_vs_plain_mega']}; card: {card}")
+    log(f"  {label} traced spec wave: {res['traced_spec_wave']}")
+    return res, streams
+
+
+def check_paged_api(tpa, build, dev, NB=512):
+    """(s4): B6, B7 and B8 against their plain versions on phase 3's
+    [L=4, NB=512, BS=64] pools at Llama-3-8B's heads (Hq=32, Hkv=8, D=128;
+    G=3 and D=64 once each, in bf16 and f32), lengths 0, 1, 64, 2000 and
+    more: B7/B8 bit-equal; B6 per slot, its largest error over its own
+    largest |ref| (so that a long walk's small outputs are not judged by a
+    short one's large ones), f32 within 1e-5, bf16 within 2e-2 (phase 2's
+    rule), a zero-length slot exactly 0. Then the API path of the
+    JAX package's chip test (tests_tpu/test_serving_tpu.py) at its shape
+    — cache init, prefill blocks, decode attention, token append, block
+    append — with the launch counts read around it, and each kernel timed
+    at Llama-3-8B's shapes beside its bound, its plain version and (B7,
+    B8) ``index_put_``. Returns (the path's launches, the kernels-line
+    fields of B6, B7, B8)."""
+    L, BS, Hkv, N, MB = 4, 64, 8, 8, 32
+    rng = np.random.default_rng(SEED + 12)
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    table = torch.as_tensor(rng.permutation(np.arange(1, NB))[:N * MB]
+                            .reshape(N, MB).astype(np.int32), device=dev)
+    lens = torch.tensor([0, 1, 64, 2000, 777, 128, 1500, 33],
+                        dtype=torch.int32, device=dev)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for G, D in ((4, 128), (3, 128), (4, 64)):
+            kp, vp = (torch.randn(L, NB, BS, Hkv, D, generator=g,
+                                  device=dev).to(dtype) for _ in range(2))
+            q = torch.randn(N, G * Hkv, D, generator=g, device=dev).to(dtype)
+            cache = tpa.PagedKVCache(kp, vp, table, lens)
+            out = tpa.paged_decode_attention(q, cache, layer=3)
+            ref = tpa.paged_decode_attention_plain(q, cache, layer=3)
+            k_new, v_new = (torch.randn(N, Hkv, D, generator=g, device=dev)
+                            .to(dtype) for _ in range(2))
+            blk = table.gather(1, (lens.long() // BS)[:, None])[:, 0]
+            off = (lens % BS).int()
+            got = [kp.clone(), vp.clone()]
+            want = [kp.clone(), vp.clone()]
+            tpa.paged_append_token(*got, k_new, v_new, blk, off, layer=1)
+            tpa.paged_append_token_plain(*want, k_new, v_new, blk, off, 1)
+            b7 = all(torch.equal(a, b) for a, b in zip(got, want))
+            kb, vb = (torch.randn(MB, BS, Hkv, D, generator=g, device=dev)
+                      .to(dtype) for _ in range(2))
+            tpa.paged_append_blocks(*got, kb, vb, table[3], layer=2)
+            tpa.paged_append_blocks_plain(*want, kb, vb, table[3], 2)
+            b8 = all(torch.equal(a, b) for a, b in zip(got, want))
+            torch.cuda.synchronize()
+            tol = 1e-5 if dtype == torch.float32 else 2e-2
+            err = max_err(out, ref)
+            live = lens > 0
+            rel = ((out.float() - ref.float()).abs().flatten(1).amax(1)[live]
+                   / ref.float().abs().flatten(1).amax(1)[live]).max().item()
+            key = f"{str(dtype)[6:]} G={G} D={D}"
+            errs[key] = {"b6_max_abs_err": err, "b6_slot_rel": rel,
+                         "b7_equal": b7, "b8_equal": b8}
+            log(f"  B6/B7/B8 {key}: B6 max|d|={err:.3g} (per-slot rel "
+                f"{rel:.3g}, tol {tol}), B7 equal {b7}, B8 equal {b8}")
+            if not (rel <= tol and b7 and b8 and bool((out[0] == 0).all())):
+                raise AssertionError(f"B6/B7/B8 disagree at {key}: "
+                                     f"{errs[key]}")
+            del kp, vp, got, want
+    torch.cuda.empty_cache()
+
+    # the API path at the chip test's shape: N=8, BS=64, Hkv=8, G=3, D=128
+    Np, MBp, Gp, D = 8, 8, 3, 128
+    prompt_lens = rng.integers(3, MBp * BS - 1, size=Np)
+    build.launch_counts.clear()
+    cache = tpa.paged_cache_init(Np, Np * MBp + 1, BS, Hkv, D, MBp,
+                                 device=dev)
+    blocks = [torch.randn(Np * MBp, BS, Hkv, D, generator=g, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2)]
+    tpa.paged_append_blocks(cache.k_pool, cache.v_pool, *blocks,
+                            cache.block_table.reshape(-1))
+    cache = cache._replace(lengths=torch.as_tensor(
+        prompt_lens.astype(np.int32), device=dev))
+    q = torch.randn(Np, Gp * Hkv, D, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    out = tpa.paged_decode_attention(q, cache)
+    k_new, v_new = (torch.randn(Np, Hkv, D, generator=g, device=dev,
+                                dtype=torch.bfloat16) for _ in range(2))
+    bs_ = cache.block_table.gather(
+        1, (cache.lengths.long() // BS)[:, None])[:, 0]
+    kp0, vp0 = cache.k_pool.clone(), cache.v_pool.clone()
+    tpa.paged_append_token(cache.k_pool, cache.v_pool, k_new, v_new, bs_,
+                           (cache.lengths % BS).int())
+    kb = torch.randn(4, BS, Hkv, D, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    bids = torch.as_tensor(rng.permutation(np.arange(1, Np * MBp + 1))[:4]
+                           .astype(np.int32), device=dev)
+    kp1 = cache.k_pool.clone()
+    tpa.paged_append_blocks(cache.k_pool, cache.v_pool, kb, kb, bids)
+    torch.cuda.synchronize()
+    path_launches = dict(build.launch_counts)
+    ref = tpa.paged_attention(q, cache._replace(k_pool=kp0, v_pool=vp0))
+    cref = tpa.paged_append(tpa.PagedKVCache(kp0, vp0, cache.block_table,
+                                             cache.lengths), k_new, v_new)
+    kp1_want = cref.k_pool.clone()
+    kp1[bids.long()] = kb
+    kp1_want[bids.long()] = kb
+    path_ok = ((out.float() - ref.float()).abs().max().item() <= 2e-2
+               and torch.equal(kp1, kp1_want)
+               and torch.equal(cache.k_pool, kp1_want))
+    log(f"  paged-cache API path (N=8 BS=64 Hkv=8 G=3 D=128 bf16): "
+        f"launches {path_launches}, agrees with the oracles {path_ok}")
+    if not path_ok or any(path_launches.get(k, 0) < 1 for k in (
+            "paged_decode_attention", "paged_append_token",
+            "paged_append_blocks")):
+        raise AssertionError(f"paged-cache API path: {path_launches}, "
+                             f"ok {path_ok}")
+    del cache, blocks, kp0, vp0, kp1, kp1_want, cref
+    torch.cuda.empty_cache()
+
+    # timed at Llama-3-8B's heads, bf16, [L=4, NB=512, BS=64] pools
+    D, G = 128, 4
+    kp, vp = (torch.randn(L, NB, BS, Hkv, D, generator=g, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2))
+    q = torch.randn(N, G * Hkv, D, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    cache = tpa.PagedKVCache(kp, vp, table, lens)
+    out = tpa.paged_decode_attention(q, cache, layer=1)
+    ref = tpa.paged_decode_attention_plain(q, cache, layer=1)
+    tokens = int(lens.sum())
+
+    def fields(ms, plain_ms, nbytes, flops, library_ms, err, shape):
+        t_ops = flops / BF16_FLOPS * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                "library_ms": library_ms, "shape": shape}
+    b6 = fields(
+        time_ms(lambda i=0: tpa.paged_decode_attention(q, cache,
+                                                       layer=i % L), 4 * L),
+        time_ms(lambda i=0: tpa.paged_decode_attention_plain(q, cache,
+                                                             i % L), L),
+        2 * tokens * Hkv * D * 2 + 2 * q.numel() * 2 + table.numel() * 4
+        + N * 4, 4.0 * tokens * Hkv * G * D, None, max_err(out, ref),
+        f"N={N} sum(len)={tokens} Hq=32 Hkv=8 D=128 bf16")
+    k_new, v_new = (torch.randn(N, Hkv, D, generator=g, device=dev,
+                                dtype=torch.bfloat16) for _ in range(2))
+    blk = table.gather(1, (lens.long() // BS)[:, None])[:, 0]
+    off = (lens % BS).int()
+
+    def index_put_token(i=0):
+        kp[1, blk.long(), off.long()] = k_new
+        vp[1, blk.long(), off.long()] = v_new
+    b7 = fields(
+        time_ms(lambda i=0: tpa.paged_append_token(kp, vp, k_new, v_new,
+                                                   blk, off, layer=1), 50),
+        time_ms(lambda i=0: tpa.paged_append_token_plain(
+            kp, vp, k_new, v_new, blk, off, 1), 50),
+        2 * 2 * N * Hkv * D * 2 + 2 * N * 4, 0.0,
+        time_ms(index_put_token, 50), 0.0,
+        f"N={N} rows of [Hkv=8, D=128] bf16 into [L=4, NB=512, BS=64] "
+        "pools")
+    kb, vb = (torch.randn(MB, BS, Hkv, D, generator=g, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2))
+    ids = table[3]
+
+    def index_put_blocks(i=0):
+        kp[2, ids.long()] = kb
+        vp[2, ids.long()] = vb
+    b8 = fields(
+        time_ms(lambda i=0: tpa.paged_append_blocks(kp, vp, kb, vb, ids,
+                                                    layer=2), 20),
+        time_ms(lambda i=0: tpa.paged_append_blocks_plain(kp, vp, kb, vb,
+                                                          ids, 2), 20),
+        2 * 2 * kb.numel() * 2 + MB * 4, 0.0, time_ms(index_put_blocks, 20),
+        0.0, f"{MB} blocks of [BS=64, Hkv=8, D=128] bf16 (one 2048-token "
+        "prefill) into [L=4, NB=512, BS=64] pools")
+    # the kernels' own device time: B7/B8 last a few microseconds, less
+    # than their wrappers' host work between back-to-back calls
+    b6["device_ms"] = kernel_device_ms(
+        lambda i=0: tpa.paged_decode_attention(q, cache, layer=i % L),
+        4 * L, "paged_decode_kernel")
+    b7["device_ms"] = kernel_device_ms(
+        lambda i=0: tpa.paged_append_token(kp, vp, k_new, v_new, blk, off,
+                                           layer=1), 50,
+        "append_token_kernel")
+    b8["device_ms"] = kernel_device_ms(
+        lambda i=0: tpa.paged_append_blocks(kp, vp, kb, vb, ids, layer=2),
+        20, "append_blocks_kernel")
+    log(f"  B6 timing: {b6}")
+    log(f"  B7 timing: {b7}")
+    log(f"  B8 timing: {b8}")
+    del kp, vp
+    torch.cuda.empty_cache()
+    return path_launches, {"b6": b6, "b7": b7, "b8": b8, "checks": errs}
 
 
 # ---------------------------------------------------------------------------
@@ -1805,6 +2502,7 @@ def main() -> int:
         from paddle_tpu_torch.kernels import pallas_attention as tfa
         from paddle_tpu_torch.models import llama, moe
         from paddle_tpu_torch.serving import LLMEngine
+        from paddle_tpu_torch.serving import engine as teng
     except ImportError as exc:
         print(f"chip_smoke: run from the root of a repository checkout "
               f"({exc})", file=sys.stderr)
@@ -1830,6 +2528,11 @@ def main() -> int:
 
     log("phase 3 (int8 a): B4-int8, int8 pools, vs plain")
     int8_res = {"b4_checks": check_ragged_int8(tpa, dev)}
+    torch.cuda.empty_cache()
+
+    log("phase (s4): B6, B7, B8 (the paged-cache API) vs plain, and its "
+        "path")
+    paged_launches, paged = check_paged_api(tpa, build, dev)
     torch.cuda.empty_cache()
 
     log("phase 4: LLMEngine serves Llama-3-8B (ragged decode)")
@@ -1877,6 +2580,42 @@ def main() -> int:
         f"divergence (request, token): {mega['first_stream_divergence']}")
     free_memory()
 
+    log("phase (s1): B5's multi-step form vs plain, one k=4 draft wave at "
+        "4 slots")
+    walk4 = [len(p) + 24 for p in mix8[:4]]
+    dcfg, dparams = llama32_1b_draft(llama, cfg8, dev)
+    spec = {"b5_multi": check_loops(tmd, llama, cfg8, params8, dcfg,
+                                    dparams, dev, walk4)}
+    b5_multi = spec["b5_multi"]["draft_1b_bf16"]
+    free_memory()
+
+    log("phase (s2): card vs CPU speculative streams (phase 5's cut model)")
+    spec["cross_device_streams"] = spec_cross_device(
+        llama, LLMEngine, build, dev, ragged_streams)
+    spec["cross_device_streams_kv_int8"] = spec_cross_device(
+        llama, LLMEngine, build, dev, None, kv_int8=True)
+    free_memory()
+
+    log("phase (s3): speculative serving, Llama-3-8B with a "
+        "Llama-3.2-1B-shaped draft (mega at 4 slots, the self-draft, "
+        "ragged at 8 slots)")
+    spec_mega, _ = serve_spec(
+        LLMEngine, teng, build, dev, card, cfg8, params8, dcfg, dparams,
+        mix8, 4, "mega", "spec mega 4 slots, 1B draft", want=m_streams)
+    free_memory()
+    spec["serving_mega_1b_draft"] = spec_mega
+    spec["serving_mega_self_draft"], _ = serve_spec(
+        LLMEngine, teng, build, dev, card, cfg8, params8, cfg8, params8,
+        mix8, 4, "mega", "spec mega 4 slots, self-draft", want=m_streams)
+    free_memory()
+    spec["serving_ragged_1b_draft"], _ = serve_spec(
+        LLMEngine, teng, build, dev, card, cfg8, params8, dcfg, dparams,
+        mix8, 8, "ragged", "spec ragged 8 slots, 1B draft", want=m_streams)
+    spec["plain_mega_4_slots"] = {
+        k: mega[k] for k in ("output_tok_per_s", "median_decode_step_ms")}
+    del dparams
+    free_memory()
+
     log("phase 6 (int8 b): B5-int8 vs plain, Llama-3-8B, 4 slots")
     walk4 = [len(p) + 24 for p in mix8[:4]]
     b5_forms = {"kv_int8": check_mega(tmd, cfg8, params8, dev, walk4,
@@ -1910,7 +2649,6 @@ def main() -> int:
         i8_mega_streams, i8_streams[:8])
     i8_mega["first_divergence_int8_vs_bf16_mega"] = first_divergence(
         i8_mega_streams, m_streams)
-    from paddle_tpu_torch.serving import engine as teng
     int8_res["prefill_logits"] = prefill_logits_error(
         teng, cfg8, params8, q8, mix8[:4], dev)
     int8_res["serving_ragged"] = i8_serving
@@ -2036,12 +2774,36 @@ def main() -> int:
              source="paddle_tpu_torch/kernels/csrc/gather_gmm.cu",
              replaces="paddle_tpu/kernels/moe_fused.py:266",
              launches=moe8_launches.get("gather_gmm_int8", 0), **b9_int8),
+        dict(name="mega_decode_loop", route="cuda",
+             source="paddle_tpu_torch/kernels/csrc/mega_decode.cuh",
+             replaces="paddle_tpu/kernels/mega_decode.py:645",
+             launches=spec_mega["launches"].get("mega_decode_loop", 0),
+             **{k: b5_multi[k] for k in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "shape")}),
+        dict(name="paged_decode_attention", route="cuda",
+             source="paddle_tpu_torch/kernels/csrc/paged_decode.cu",
+             replaces="paddle_tpu/kernels/paged_attention.py:343",
+             launches=paged_launches.get("paged_decode_attention", 0),
+             **paged["b6"]),
+        dict(name="paged_append_token", route="cuda",
+             source="paddle_tpu_torch/kernels/csrc/paged_cache.cu",
+             replaces="paddle_tpu/kernels/paged_attention.py:167",
+             launches=paged_launches.get("paged_append_token", 0),
+             **paged["b7"]),
+        dict(name="paged_append_blocks", route="cuda",
+             source="paddle_tpu_torch/kernels/csrc/paged_cache.cu",
+             replaces="paddle_tpu/kernels/paged_attention.py:218",
+             launches=paged_launches.get("paged_append_blocks", 0),
+             **paged["b8"]),
     ]
     log(f"serving: {json.dumps(serving)}")
     log(f"mega: {json.dumps(mega)}")
     log(f"training: {json.dumps(training)}")
     log(f"moe_training: {json.dumps(moe_training)}")
     log(f"int8: {json.dumps(int8_res)}")
+    spec["paged_api_checks"] = paged["checks"]
+    log(f"spec: {json.dumps(spec)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

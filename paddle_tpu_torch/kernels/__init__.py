@@ -15,7 +15,13 @@ also holds the per-kernel ``launch_counts``).
 - ``mega_decode.mega_decode_step`` — the persistent decode megakernel,
   one launch for a decode step of every layer (``csrc/mega_decode.cuh``,
   reusing the walk), with dense or int8 weights and pools, screened by
-  ``mega_decode.mega_supported``;
+  ``mega_decode.mega_supported``; ``mega_decode.mega_decode_loop``, its
+  multi-step form (the speculative draft's k greedy steps, head and
+  argmax included, in one launch: ``csrc/mega_decode_multi_*.cu``);
+- ``paged_attention.paged_decode_attention`` (``csrc/paged_decode.cu``),
+  ``paged_append_token`` and ``paged_append_blocks``
+  (``csrc/paged_cache.cu``) — the paged-cache API's decode attention and
+  in-place appends;
 - ``quant_matmul`` — the int8 quantizers and ``weight_only_matmul`` (plain
   torch ops: no kernel of its own);
 - ``moe_dispatch.gmm`` / ``tgmm`` — the grouped GEMM over expert-sorted

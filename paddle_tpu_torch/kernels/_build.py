@@ -22,6 +22,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -47,8 +48,8 @@ def _nvcc() -> str:
                        "with the CUDA toolkit")
 
 
-def _sources():
-    return sorted(p for p in SRC_DIR.iterdir()
+def _sources(src_dir: Optional[Path] = None):
+    return sorted(p for p in (src_dir or SRC_DIR).iterdir()
                   if p.suffix in (".cu", ".cuh"))
 
 
@@ -60,12 +61,15 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _compile(out: Path) -> None:
+def _compile(out: Path, src_dir: Optional[Path] = None) -> None:
+    """Build the library ``out`` from the ``.cu`` sources in ``src_dir``
+    (default ``SRC_DIR``; another tree's kernels, for a tool that times
+    two trees side by side)."""
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
-        for src in (p for p in _sources() if p.suffix == ".cu"):
+        for src in (p for p in _sources(src_dir) if p.suffix == ".cu"):
             obj = Path(tmp) / (src.stem + ".o")
             cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
             procs.append((cmd, obj, subprocess.Popen(

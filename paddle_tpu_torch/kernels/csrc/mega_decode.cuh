@@ -62,12 +62,33 @@
 // unroll), the pools' a runtime branch; the forms build in parallel, one
 // translation unit each (mega_decode_<dtype>[_w8].cu).
 //
-// Later PRs: wgmma and TMA-fed weight tiles, and the multi-step draft
-// form (ROADMAP A6).
+// The multi-step form (the TPU kernel's `multi` branch, launched by
+// `mega_decode_loop`: the speculative draft's k greedy steps in one
+// launch) is the template parameter kMulti, so the single-step
+// instantiations carry none of it. The step loop lives inside the
+// cooperative grid: step s writes ring row t = s, and RoPE reads the
+// rows' lengths, which the kernel advances, past L1. After the last
+// layer of a step: (E1) the final RMSNorm, applied while the head's input
+// rows are staged; (E2) the head product split over the grid — 32-column
+// tiles of a dense or int8 [h, V] head (an int8 column's bf16 scale on
+// its complete f32 sum), or a warp per vocab row of the tied head's
+// contiguous embed rows — with each block keeping a running (max, first
+// index) a row over logits rounded to the model dtype, written to
+// scratch; (E3) after a grid barrier, block n reduces row n's partials
+// (larger logit, then lower index: the TPU kernel's `tmax > best` over
+// ascending tiles), updates last/lens/done/budget as the TPU kernel
+// does, writes the step's emitted token (-1 where the row is inactive or
+// done) and gathers embed[last] into x; (E4) a grid barrier, then the
+// next step. Four barriers a step on top of the layers' 5L - 1. The
+// split-K tile counters are back at zero after every use, so after every
+// step.
+//
+// Later PRs: wgmma and TMA-fed weight tiles.
 #pragma once
 
 #include <cooperative_groups.h>
 
+#include <cmath>
 #include <cstdint>
 #include <type_traits>
 
@@ -115,7 +136,22 @@ struct Args {
   int L, N, h, F, Hkv, G, NB, BS, MB, S, t;
   float eps, scale;
   bool kv_int8;
+  // the multi-step form (mega_decode_loop); unused by the single step
+  const void* final_norm;  // [h]
+  const void* embed;       // [V, h], the model dtype: gather and tied head
+  const void* head;        // [h, V] dense (model dtype) or int8; or unused
+  const void* head_scale;  // [V] bf16 column scales of an int8 head
+  const int* active;       // [N] rows that decode (0: inactive)
+  const int* eos;          // [N] end-of-sequence ids (-1: none)
+  int* state;              // [4, N] last, lens, done, budget; lens = state + N
+  int* emitted;            // [n_steps, N] greedy tokens, -1 where inactive
+  float* hmax;             // [hcap, N] each block's best logit a row
+  int* hidx;               // [hcap, N] and its first vocab index
+  int head_mode, V, n_steps, hcap;
 };
+
+// head_mode of the multi-step form
+enum HeadMode : int { kHeadDense = 0, kHeadTied = 1, kHeadInt8 = 2 };
 
 // the kernel and its launch code: internal to each translation unit (a
 // static grid size per instantiation must not be shared with another
@@ -437,21 +473,23 @@ __device__ bool sum_splits(const GemvSmem<T, NS>& sm, int* last, int nout,
   return true;
 }
 
-// Phase 2 for slot n, kv head hk of layer l, part p of P: RoPE of the
-// group's queries (and, in part 0, of the fresh k, written with v into
-// ring row t); the walk over the part's share of the pool prefix (whole
-// 64-position tiles); with P > 1 the part's (m, l, acc) go to `part` and
-// the block that finishes the slot's last part merges the P in order
-// p = 0..P-1 (the result does not depend on which block is last); then
-// the combine with ring rows j <= t and the attention output.
+// Phase 2 for slot n, kv head hk of layer l, part p of P: RoPE at `pos`
+// (the row's length) of the group's queries (and, in part 0, of the
+// fresh k, written with v into ring row t); the walk over the part's
+// share of the pool prefix (whole 64-position tiles); with P > 1 the
+// part's (m, l, acc) go to `part` and the block that finishes the slot's
+// last part merges the P in order p = 0..P-1 (the result does not depend
+// on which block is last); then the combine with ring rows j <= t and the
+// attention output.
 template <typename T, typename Pool, int D>
 __device__ void attention_item(const Args& a, int l, int n, int hk, int p,
-                               int P, int* last, unsigned char* smem) {
+                               int P, int t, float pos, int* last,
+                               unsigned char* smem) {
   using Lay = walk::Layout<Pool, D>;
   constexpr int D2 = D / 2, DC = D / 32;
   float* Qs = reinterpret_cast<float*>(smem + walk::kStages * Lay::kStageBytes);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int G = a.G, Hkv = a.Hkv, t = a.t;
+  const int G = a.G, Hkv = a.Hkv;
   const int Mq = Hkv * G * D, Mqkv = Mq + 2 * Hkv * D;
   const T* qkv = static_cast<const T*>(a.qkv) + int64_t(n) * Mqkv;
   const int64_t ring0 = (int64_t(l) * a.N + n) * a.S * Hkv * D;
@@ -459,7 +497,6 @@ __device__ void attention_item(const Args& a, int l, int n, int hk, int p,
   T* rv = static_cast<T*>(a.ring_v) + ring0;
 
   __syncthreads();   // the previous item is done with Qs
-  const float pos = float(a.lens[n]);
   const int rows = p == 0 ? G + 1 : G;   // part 0 rotates k too
   for (int e = tid; e < rows * D2; e += kThreads) {
     const int row = e / D2, i = e % D2;
@@ -566,8 +603,187 @@ __device__ void attention_item(const Args& a, int l, int n, int hk, int p,
   for (int c = 0; c < DC; ++c) out[c] = from_f32<T>(acc[c] / lsum);
 }
 
-// W: the weight matrices' type, T or int8_t
-template <typename T, int D, int NS, typename W>
+// (v, i) beats (bv, bi) as a row's greedy pick: a larger logit, or the
+// same logit at a lower vocab index (the first maximum wins)
+__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
+  return v > bv || (v == bv && i < bi);
+}
+
+// The multi-step form's E1 and E2, after the last layer of a step: the
+// final RMSNorm of x applied while the head's input rows are staged, then
+// the head product over this block's share of the vocabulary with a
+// running (max, first index) a row over the logits rounded to the model
+// dtype; the block's best goes to hmax/hidx[blockIdx.x][n]. A dense or
+// int8 [h, V] head streams in 32-column tiles (an int8 column's scale
+// multiplies its complete f32 sum); the tied head's vocab columns are
+// contiguous rows of embed [V, h], a warp each. Each block takes its
+// tiles or rows in ascending order, so a strict > keeps its first
+// maximum; commit_row reduces across blocks with `better`. Needs
+// h <= kChunkRows (the screen checks it).
+template <typename T, int NS>
+__device__ void head_argmax(const Args& a, const GemvSmem<T, NS>& sm) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int N = a.N, h = a.h, V = a.V;
+  const T* x = static_cast<const T*>(a.x);
+  const NormIn<T> in{x, static_cast<const T*>(a.final_norm), sm.rn, h};
+  rms_factors(x, N, h, a.eps, sm);
+  stage(in, 0, h, N, sm);
+  float best = -INFINITY;      // thread n < N: row n's best in this block
+  int bidx = 0x7fffffff;
+  if (a.head_mode == kHeadTied) {
+    constexpr int kV = 16 / int(sizeof(T));    // columns of a 16-byte load
+    const T* emb = static_cast<const T*>(a.embed);
+    float wb[NS];
+    int wi[NS];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      wb[n] = -INFINITY;
+      wi[n] = 0x7fffffff;
+    }
+    for (int v = blockIdx.x * kWarps + warp; v < V;
+         v += gridDim.x * kWarps) {
+      const T* row = emb + int64_t(v) * h;
+      float acc[NS];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) acc[n] = 0.f;
+      for (int k = lane * kV; k < h; k += 32 * kV) {
+        float wf[kV];
+        unpack(ld_weights(row + k), wf);
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+          if (n < N)
+#pragma unroll
+            for (int j = 0; j < kV; ++j)
+              acc[n] = fmaf(to_f32(sm.xs[n * kChunkRows + k + j]), wf[j],
+                            acc[n]);
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        if (n < N) {
+          const float lg = round_to<T>(group_sum<32>(acc[n]));
+          if (lg > wb[n]) {
+            wb[n] = lg;
+            wi[n] = v;
+          }
+        }
+      }
+    }
+    // the warps' bests meet in shared memory (sm.red is free here)
+    int* ri = reinterpret_cast<int*>(sm.red + kWarps * NS);
+    if (lane == 0)
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        sm.red[warp * NS + n] = wb[n];
+        ri[warp * NS + n] = wi[n];
+      }
+    __syncthreads();
+    if (tid < N)
+      for (int w = 0; w < kWarps; ++w)
+        if (better(sm.red[w * NS + tid], ri[w * NS + tid], best, bidx)) {
+          best = sm.red[w * NS + tid];
+          bidx = ri[w * NS + tid];
+        }
+  } else {
+    const __nv_bfloat16* hs =
+        static_cast<const __nv_bfloat16*>(a.head_scale);
+    for (int c0 = blockIdx.x * kTileCols; c0 < V;
+         c0 += gridDim.x * kTileCols) {
+      if (a.head_mode == kHeadInt8)
+        gemv_tile(static_cast<const int8_t*>(a.head), 0, h, V, c0, N, in, sm,
+                  sm.out0, true);
+      else
+        gemv_tile(static_cast<const T*>(a.head), 0, h, V, c0, N, in, sm,
+                  sm.out0, true);
+      if (tid < N)
+        for (int col = 0; col < kTileCols; ++col) {
+          float lg = sm.out0[tid * kTileCols + col];
+          if (a.head_mode == kHeadInt8)
+            lg = __fmul_rn(lg, __bfloat162float(hs[c0 + col]));
+          lg = round_to<T>(lg);
+          if (lg > best) {
+            best = lg;
+            bidx = c0 + col;
+          }
+        }
+    }
+  }
+  if (tid < N) {
+    a.hmax[int64_t(blockIdx.x) * N + tid] = best;
+    a.hidx[int64_t(blockIdx.x) * N + tid] = bidx;
+  }
+}
+
+// The multi-step form's E3 for row n, in block n after a grid barrier:
+// the row's pick over every block's best (`better`: the larger logit,
+// then the lower index), then the TPU kernel's bookkeeping — a row
+// decodes while it is active and not done; it emits its pick (-1
+// otherwise), advances its length, spends its budget and is done at its
+// eos or with its budget spent — and embed[last] as the row's next
+// input. The state is read and written past L1: other blocks read the
+// lengths after the next barrier. `smem` is free scratch here.
+template <typename T>
+__device__ void commit_row(const Args& a, int step, int n,
+                           unsigned char* smem) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int N = a.N, h = a.h;
+  float bv = -INFINITY;
+  int bi = 0x7fffffff;
+  for (int b = tid; b < int(gridDim.x); b += kThreads) {
+    const float v = __ldcg(a.hmax + int64_t(b) * N + n);
+    const int i = __ldcg(a.hidx + int64_t(b) * N + n);
+    if (better(v, i, bv, bi)) {
+      bv = v;
+      bi = i;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(kFullMask, bv, o);
+    const int oi = __shfl_xor_sync(kFullMask, bi, o);
+    if (better(ov, oi, bv, bi)) {
+      bv = ov;
+      bi = oi;
+    }
+  }
+  float* wv = reinterpret_cast<float*>(smem);       // [kWarps]
+  int* wi = reinterpret_cast<int*>(smem) + kWarps;  // [kWarps]
+  int* next = wi + kWarps;
+  if (lane == 0) {
+    wv[warp] = bv;
+    wi[warp] = bi;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 0; w < kWarps; ++w)
+      if (better(wv[w], wi[w], bv, bi)) {
+        bv = wv[w];
+        bi = wi[w];
+      }
+    int* st = a.state;
+    const int last = __ldcg(st + n), len = __ldcg(st + N + n);
+    const int done = __ldcg(st + 2 * N + n), rem = __ldcg(st + 3 * N + n);
+    const bool act = a.active[n] != 0 && done == 0;
+    const int rem2 = rem - int(act);
+    const bool done2 = done != 0 || (act && a.eos[n] >= 0 && bi == a.eos[n])
+                       || (act && rem2 <= 0);
+    const int last2 = act ? bi : last;
+    a.emitted[int64_t(step) * N + n] = act ? bi : -1;
+    __stcg(st + n, last2);
+    __stcg(st + N + n, len + int(act));
+    __stcg(st + 2 * N + n, int(done2));
+    __stcg(st + 3 * N + n, rem2);
+    *next = last2;
+  }
+  __syncthreads();
+  const T* src = static_cast<const T*>(a.embed) + int64_t(*next) * h;
+  T* dst = static_cast<T*>(a.x) + int64_t(n) * h;
+  for (int k = tid; k < h; k += kThreads) dst[k] = src[k];
+}
+
+// W: the weight matrices' type, T or int8_t; kMulti: the multi-step
+// form (mega_decode_loop: n_steps greedy steps, each ending in
+// head_argmax and commit_row), else one step at ring index t
+template <typename T, int D, int NS, typename W, bool kMulti>
 __global__ void __launch_bounds__(kThreads, 2)
 mega_decode_kernel(const Args a) {
   constexpr bool kW8 = std::is_same<W, int8_t>::value;
@@ -629,135 +845,151 @@ mega_decode_kernel(const Args a) {
   // each slot's walk splits into `parts`, so the phase fills the grid
   const int parts = max(1, min(kMaxSplits, int(gridDim.x) / (N * Hkv)));
 
-  for (int l = 0; l < a.L; ++l) {
-    const T* an = static_cast<const T*>(a.attn_norm) + int64_t(l) * h;
-    const T* mn = static_cast<const T*>(a.mlp_norm) + int64_t(l) * h;
+  const int n_steps = kMulti ? a.n_steps : 1;
+  for (int step = 0; step < n_steps; ++step) {
+    // the ring index of this step
+    const int t = kMulti ? step : a.t;
+    for (int l = 0; l < a.L; ++l) {
+      const T* an = static_cast<const T*>(a.attn_norm) + int64_t(l) * h;
+      const T* mn = static_cast<const T*>(a.mlp_norm) + int64_t(l) * h;
 
-    // 1. q, k, v of the normed rows
-    bool normed = false;
-    for (int item = blockIdx.x; item < Mqkv / kTileCols * s_qkv;
-         item += gridDim.x) {
-      if (!normed) {
-        rms_factors(x, N, h, a.eps, sm);
-        normed = true;
-      }
-      const int c0 = item / s_qkv * kTileCols, sp = item % s_qkv;
-      int kb, ke;
-      range(sp, s_qkv, h, kb, ke);
-      int m, M, cc;
-      if (c0 < Mq) {
-        m = kWq;
-        M = Mq;
-        cc = c0;
-      } else if (c0 < Mq + Mkv) {
-        m = kWk;
-        M = Mkv;
-        cc = c0 - Mq;
-      } else {
-        m = kWv;
-        M = Mkv;
-        cc = c0 - Mq - Mkv;
-      }
-      gemv(wmat(m, l, int64_t(h) * M), kb, ke, M, cc,
-           NormIn<T>{x, an, sm.rn, h}, sm.out0, false);
-      if (sum_splits(sm, &last, 1, 0, a.part, a.count + c0 / kTileCols, sp,
-                     s_qkv, N, Mqkv, c0))
-        for (int e = tid; e < N * kTileCols; e += kThreads) {
-          const int col = e % kTileCols;
-          qkv[int64_t(e / kTileCols) * Mqkv + c0 + col] = from_f32<T>(
-              __fmul_rn(sm.out0[e], wscale(m, l, M, cc + col)));
+      // 1. q, k, v of the normed rows
+      bool normed = false;
+      for (int item = blockIdx.x; item < Mqkv / kTileCols * s_qkv;
+           item += gridDim.x) {
+        if (!normed) {
+          rms_factors(x, N, h, a.eps, sm);
+          normed = true;
         }
-    }
-    grid.sync();
-
-    // 2. attention: (slot, kv head, part of the walk) a block
-    for (int item = blockIdx.x; item < N * Hkv * parts; item += gridDim.x) {
-      const int n = item / parts / Hkv, hk = item / parts % Hkv;
-      if (a.kv_int8)
-        attention_item<T, int8_t, D>(a, l, n, hk, item % parts, parts, &last,
-                                     smem);
-      else
-        attention_item<T, T, D>(a, l, n, hk, item % parts, parts, &last,
-                                smem);
-    }
-    grid.sync();
-
-    // 3. x += att @ wo
-    const void* wo = wmat(kWo, l, int64_t(Mq) * h);
-    for (int item = blockIdx.x; item < h / kTileCols * s_wo;
-         item += gridDim.x) {
-      const int c0 = item / s_wo * kTileCols, sp = item % s_wo;
-      int kb, ke;
-      range(sp, s_wo, Mq, kb, ke);
-      gemv(wo, kb, ke, h, c0, RawIn<T>{att, Mq}, sm.out0, false);
-      if (sum_splits(sm, &last, 1, 0, a.part, a.count + c0 / kTileCols, sp,
-                     s_wo, N, h, c0))
-        residual(c0, sm.out0, kWo, l, h);
-    }
-    grid.sync();
-
-    // 4. gu = SiLU(hn @ w_gate) * (hn @ w_up) of the normed rows
-    const void* wg = wmat(kWg, l, int64_t(h) * F);
-    const void* wu = wmat(kWu, l, int64_t(h) * F);
-    normed = false;
-    for (int item = blockIdx.x; item < F / kTileCols * s_gu;
-         item += gridDim.x) {
-      if (!normed) {
-        rms_factors(x, N, h, a.eps, sm);
-        normed = true;
-      }
-      const int c0 = item / s_gu * kTileCols, sp = item % s_gu;
-      int kb, ke;
-      range(sp, s_gu, h, kb, ke);
-      const NormIn<T> in{x, mn, sm.rn, h};
-      // one staging of the range serves both products when it fits
-      const bool once = ke - kb <= kChunkRows;
-      if (once) stage(in, kb, ke - kb, N, sm);
-      gemv(wg, kb, ke, F, c0, in, sm.out0, once);
-      gemv(wu, kb, ke, F, c0, in, sm.out1, once);
-      if (sum_splits(sm, &last, 2, F, a.part, a.count + c0 / kTileCols, sp,
-                     s_gu, N, 2 * F, c0))
-        for (int e = tid; e < N * kTileCols; e += kThreads) {
-          const int col = c0 + e % kTileCols;
-          const float g =
-              round_to<T>(__fmul_rn(sm.out0[e], wscale(kWg, l, F, col)));
-          const float sg = round_to<T>(__fdiv_rn(g, 1.f + expf(-g)));
-          const float u =
-              round_to<T>(__fmul_rn(sm.out1[e], wscale(kWu, l, F, col)));
-          gu[int64_t(e / kTileCols) * F + col] = from_f32<T>(__fmul_rn(sg, u));
+        const int c0 = item / s_qkv * kTileCols, sp = item % s_qkv;
+        int kb, ke;
+        range(sp, s_qkv, h, kb, ke);
+        int m, M, cc;
+        if (c0 < Mq) {
+          m = kWq;
+          M = Mq;
+          cc = c0;
+        } else if (c0 < Mq + Mkv) {
+          m = kWk;
+          M = Mkv;
+          cc = c0 - Mq;
+        } else {
+          m = kWv;
+          M = Mkv;
+          cc = c0 - Mq - Mkv;
         }
-    }
-    grid.sync();
+        gemv(wmat(m, l, int64_t(h) * M), kb, ke, M, cc,
+             NormIn<T>{x, an, sm.rn, h}, sm.out0, false);
+        if (sum_splits(sm, &last, 1, 0, a.part, a.count + c0 / kTileCols, sp,
+                       s_qkv, N, Mqkv, c0))
+          for (int e = tid; e < N * kTileCols; e += kThreads) {
+            const int col = e % kTileCols;
+            qkv[int64_t(e / kTileCols) * Mqkv + c0 + col] = from_f32<T>(
+                __fmul_rn(sm.out0[e], wscale(m, l, M, cc + col)));
+          }
+      }
+      grid.sync();
 
-    // 5. x += gu @ w_down
-    const void* wd = wmat(kWd, l, int64_t(F) * h);
-    for (int item = blockIdx.x; item < h / kTileCols * s_down;
-         item += gridDim.x) {
-      const int c0 = item / s_down * kTileCols, sp = item % s_down;
-      int kb, ke;
-      range(sp, s_down, F, kb, ke);
-      gemv(wd, kb, ke, h, c0, RawIn<T>{gu, F}, sm.out0, false);
-      if (sum_splits(sm, &last, 1, 0, a.part, a.count + c0 / kTileCols, sp,
-                     s_down, N, h, c0))
-        residual(c0, sm.out0, kWd, l, h);
+      // 2. attention: (slot, kv head, part of the walk) a block
+      for (int item = blockIdx.x; item < N * Hkv * parts; item += gridDim.x) {
+        const int n = item / parts / Hkv, hk = item / parts % Hkv;
+        // the multi-step form moves the lengths in the kernel: past L1
+        const float pos = float(kMulti ? __ldcg(a.lens + n) : a.lens[n]);
+        if (a.kv_int8)
+          attention_item<T, int8_t, D>(a, l, n, hk, item % parts, parts, t,
+                                       pos, &last, smem);
+        else
+          attention_item<T, T, D>(a, l, n, hk, item % parts, parts, t, pos,
+                                  &last, smem);
+      }
+      grid.sync();
+
+      // 3. x += att @ wo
+      const void* wo = wmat(kWo, l, int64_t(Mq) * h);
+      for (int item = blockIdx.x; item < h / kTileCols * s_wo;
+           item += gridDim.x) {
+        const int c0 = item / s_wo * kTileCols, sp = item % s_wo;
+        int kb, ke;
+        range(sp, s_wo, Mq, kb, ke);
+        gemv(wo, kb, ke, h, c0, RawIn<T>{att, Mq}, sm.out0, false);
+        if (sum_splits(sm, &last, 1, 0, a.part, a.count + c0 / kTileCols, sp,
+                       s_wo, N, h, c0))
+          residual(c0, sm.out0, kWo, l, h);
+      }
+      grid.sync();
+
+      // 4. gu = SiLU(hn @ w_gate) * (hn @ w_up) of the normed rows
+      const void* wg = wmat(kWg, l, int64_t(h) * F);
+      const void* wu = wmat(kWu, l, int64_t(h) * F);
+      normed = false;
+      for (int item = blockIdx.x; item < F / kTileCols * s_gu;
+           item += gridDim.x) {
+        if (!normed) {
+          rms_factors(x, N, h, a.eps, sm);
+          normed = true;
+        }
+        const int c0 = item / s_gu * kTileCols, sp = item % s_gu;
+        int kb, ke;
+        range(sp, s_gu, h, kb, ke);
+        const NormIn<T> in{x, mn, sm.rn, h};
+        // one staging of the range serves both products when it fits
+        const bool once = ke - kb <= kChunkRows;
+        if (once) stage(in, kb, ke - kb, N, sm);
+        gemv(wg, kb, ke, F, c0, in, sm.out0, once);
+        gemv(wu, kb, ke, F, c0, in, sm.out1, once);
+        if (sum_splits(sm, &last, 2, F, a.part, a.count + c0 / kTileCols, sp,
+                       s_gu, N, 2 * F, c0))
+          for (int e = tid; e < N * kTileCols; e += kThreads) {
+            const int col = c0 + e % kTileCols;
+            const float g =
+                round_to<T>(__fmul_rn(sm.out0[e], wscale(kWg, l, F, col)));
+            const float sg = round_to<T>(__fdiv_rn(g, 1.f + expf(-g)));
+            const float u =
+                round_to<T>(__fmul_rn(sm.out1[e], wscale(kWu, l, F, col)));
+            gu[int64_t(e / kTileCols) * F + col] =
+                from_f32<T>(__fmul_rn(sg, u));
+          }
+      }
+      grid.sync();
+
+      // 5. x += gu @ w_down
+      const void* wd = wmat(kWd, l, int64_t(F) * h);
+      for (int item = blockIdx.x; item < h / kTileCols * s_down;
+           item += gridDim.x) {
+        const int c0 = item / s_down * kTileCols, sp = item % s_down;
+        int kb, ke;
+        range(sp, s_down, F, kb, ke);
+        gemv(wd, kb, ke, h, c0, RawIn<T>{gu, F}, sm.out0, false);
+        if (sum_splits(sm, &last, 1, 0, a.part, a.count + c0 / kTileCols, sp,
+                       s_down, N, h, c0))
+          residual(c0, sm.out0, kWd, l, h);
+      }
+      if (l + 1 < a.L) grid.sync();
     }
-    if (l + 1 < a.L) grid.sync();
+    if constexpr (kMulti) {
+      grid.sync();                        // x after the last layer
+      head_argmax<T, NS>(a, sm);          // E1, E2
+      grid.sync();
+      if (int(blockIdx.x) < N)                                  // E3
+        commit_row<T>(a, step, blockIdx.x, smem);
+      if (step + 1 < n_steps) grid.sync();   // E4: the next step's input
+    }
   }
 }
 
 // blocks of the kernel one SM holds at once (0 when none fits)
-template <typename T, int D, int NS, typename W>
+template <typename T, int D, int NS, typename W, bool kMulti>
 cudaError_t blocks_per_sm(int* per_sm) {
   constexpr int smem = smem_bytes<T, D, NS>();
   cudaError_t err = cudaFuncSetAttribute(
-      mega_decode_kernel<T, D, NS, W>,
+      mega_decode_kernel<T, D, NS, W, kMulti>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, mega_decode_kernel<T, D, NS, W>, kThreads, smem);
+      per_sm, mega_decode_kernel<T, D, NS, W, kMulti>, kThreads, smem);
 }
 
-template <typename T, int D, int NS, typename W>
+template <typename T, int D, int NS, typename W, bool kMulti>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   // the grid: every block co-resident, sized once per device
   static int grid_dev = -1, grid_blocks = 0;
@@ -766,7 +998,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   if (dev != grid_dev) {
     int per_sm = 0, sms = 0;
-    err = blocks_per_sm<T, D, NS, W>(&per_sm);
+    err = blocks_per_sm<T, D, NS, W, kMulti>(&per_sm);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -774,9 +1006,13 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
     grid_dev = dev;
     grid_blocks = per_sm * sms;
   }
+  // the multi-step form's per-block scratch holds hcap blocks, and
+  // commit_row takes a block a row
+  if (kMulti && (grid_blocks > a.hcap || grid_blocks < a.N))
+    return cudaErrorInvalidValue;
   void* args[] = {const_cast<Args*>(&a)};
   err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(mega_decode_kernel<T, D, NS, W>),
+      reinterpret_cast<const void*>(mega_decode_kernel<T, D, NS, W, kMulti>),
       dim3(grid_blocks), dim3(kThreads), args, smem_bytes<T, D, NS>(),
       stream);
   if (err != cudaSuccess) return err;
@@ -784,34 +1020,37 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 }
 
 
-// launch<T, D, NS, W> for D (64, 128) and N rows (the 4- or 8-row
-// instantiation), and the occupancy of the same instantiation
-template <typename T, typename W>
+// launch<T, D, NS, W, kMulti> for D (64, 128) and N rows (the 4- or
+// 8-row instantiation), and the occupancy of the same instantiation
+template <typename T, typename W, bool kMulti>
 cudaError_t launch_shape(const Args& a, int D, int N, cudaStream_t st) {
   if (N < 1 || N > 8) return cudaErrorInvalidValue;
   if (D == 128)
-    return N <= 4 ? launch<T, 128, 4, W>(a, st) : launch<T, 128, 8, W>(a, st);
+    return N <= 4 ? launch<T, 128, 4, W, kMulti>(a, st)
+                  : launch<T, 128, 8, W, kMulti>(a, st);
   if (D == 64)
-    return N <= 4 ? launch<T, 64, 4, W>(a, st) : launch<T, 64, 8, W>(a, st);
+    return N <= 4 ? launch<T, 64, 4, W, kMulti>(a, st)
+                  : launch<T, 64, 8, W, kMulti>(a, st);
   return cudaErrorInvalidValue;
 }
 
-template <typename T, typename W>
+template <typename T, typename W, bool kMulti>
 cudaError_t occupancy_shape(int D, int N, int* per_sm) {
   if (N < 1 || N > 8) return cudaErrorInvalidValue;
   if (D == 128)
-    return N <= 4 ? blocks_per_sm<T, 128, 4, W>(per_sm)
-                  : blocks_per_sm<T, 128, 8, W>(per_sm);
+    return N <= 4 ? blocks_per_sm<T, 128, 4, W, kMulti>(per_sm)
+                  : blocks_per_sm<T, 128, 8, W, kMulti>(per_sm);
   if (D == 64)
-    return N <= 4 ? blocks_per_sm<T, 64, 4, W>(per_sm)
-                  : blocks_per_sm<T, 64, 8, W>(per_sm);
+    return N <= 4 ? blocks_per_sm<T, 64, 4, W, kMulti>(per_sm)
+                  : blocks_per_sm<T, 64, 8, W, kMulti>(per_sm);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// one translation unit each (mega_decode_<dtype>[_w8].cu), so the build
-// compiles the four weight/dtype forms in parallel
+// one translation unit each (mega_decode_<dtype>[_w8].cu, and for the
+// multi-step form mega_decode_multi_<dtype>[_w8].cu), so the build
+// compiles the eight dtype/weight/step forms in parallel
 #define PTT_MEGA_FORM(NAME)                                              \
   cudaError_t launch_##NAME(const Args& a, int D, int N, cudaStream_t st); \
   cudaError_t occupancy_##NAME(int D, int N, int* per_sm);
@@ -819,6 +1058,10 @@ PTT_MEGA_FORM(f32)
 PTT_MEGA_FORM(bf16)
 PTT_MEGA_FORM(f32_w8)
 PTT_MEGA_FORM(bf16_w8)
+PTT_MEGA_FORM(multi_f32)
+PTT_MEGA_FORM(multi_bf16)
+PTT_MEGA_FORM(multi_f32_w8)
+PTT_MEGA_FORM(multi_bf16_w8)
 #undef PTT_MEGA_FORM
 
 }  // namespace mega

@@ -6,11 +6,11 @@ namespace ptt {
 namespace mega {
 
 cudaError_t launch_bf16(const Args& a, int D, int N, cudaStream_t st) {
-  return launch_shape<__nv_bfloat16, __nv_bfloat16>(a, D, N, st);
+  return launch_shape<__nv_bfloat16, __nv_bfloat16, false>(a, D, N, st);
 }
 
 cudaError_t occupancy_bf16(int D, int N, int* per_sm) {
-  return occupancy_shape<__nv_bfloat16, __nv_bfloat16>(D, N, per_sm);
+  return occupancy_shape<__nv_bfloat16, __nv_bfloat16, false>(D, N, per_sm);
 }
 
 }  // namespace mega

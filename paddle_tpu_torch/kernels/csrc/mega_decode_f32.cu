@@ -6,11 +6,11 @@ namespace ptt {
 namespace mega {
 
 cudaError_t launch_f32(const Args& a, int D, int N, cudaStream_t st) {
-  return launch_shape<float, float>(a, D, N, st);
+  return launch_shape<float, float, false>(a, D, N, st);
 }
 
 cudaError_t occupancy_f32(int D, int N, int* per_sm) {
-  return occupancy_shape<float, float>(D, N, per_sm);
+  return occupancy_shape<float, float, false>(D, N, per_sm);
 }
 
 }  // namespace mega

@@ -1,0 +1,19 @@
+// The persistent decode megakernel (mega_decode.cuh) in its multi-step
+// form (mega_decode_loop) for f32 models with int8 weights:
+// its four (D, rows) instantiations.
+#include "mega_decode.cuh"
+
+namespace ptt {
+namespace mega {
+
+cudaError_t launch_multi_f32_w8(const Args& a, int D, int N,
+                              cudaStream_t st) {
+  return launch_shape<float, int8_t, true>(a, D, N, st);
+}
+
+cudaError_t occupancy_multi_f32_w8(int D, int N, int* per_sm) {
+  return occupancy_shape<float, int8_t, true>(D, N, per_sm);
+}
+
+}  // namespace mega
+}  // namespace ptt

@@ -1,5 +1,6 @@
 """Persistent decode megakernel (B5) — the port of
-paddle_tpu/kernels/mega_decode, single-step form.
+paddle_tpu/kernels/mega_decode: the single-step form and the multi-step
+(speculative draft) form.
 
 :func:`mega_decode_step` runs ONE decode step through all L layers in one
 launch: per layer RMSNorm, q/k/v, rotate-half RoPE at ``lens``, the
@@ -30,9 +31,16 @@ column's complete f32 sum before it rounds to the model dtype; int8 pools
 with f32 scale pools ``ks_pool``/``vs_pool`` [L, NB, BS, Hkv], walked as
 the ragged kernel walks them. The in-call ring stays in the model dtype.
 
-Not ported yet: the multi-step form ``mega_decode_loop`` (the speculative
-draft wave, ROADMAP A6); the screen refuses it with a reason naming its
-queue.
+The multi-step form :func:`mega_decode_loop` (the speculative draft
+wave): ``n_steps`` greedy steps of every layer in ONE launch, each ending
+in the final norm, the head (dense, tied to ``embed`` or int8) with the
+argmax of its logits rounded to the model dtype (the first maximum wins),
+the rows' bookkeeping (last token, length, done, budget) and the
+embedding gather of the next input row. On CUDA tensors it launches the
+kernel's multi-step instantiations (``csrc/mega_decode_multi_*.cu``, the
+entry ``ptt_mega_decode_loop``); on CPU tensors it runs
+:func:`mega_decode_loop_plain`. ``mega_supported(multi_step=True)`` is
+its screen.
 """
 from __future__ import annotations
 
@@ -45,10 +53,11 @@ from . import _build
 from .paged_attention import ragged_decode_partial, ragged_decode_partial_plain
 from .quant_matmul import is_quantized_weight
 from .quant_matmul import weight_only_matmul as _wo_mm
-from ..models.llama import LAYER_KEYS, _rms_norm, _rotate
+from ..models.llama import LAYER_KEYS, _rms_norm, _rotate, head_weight
 
 __all__ = ["mega_supported", "mega_decode_step", "mega_decode_step_plain",
-           "decode_layers", "MAX_SLOTS"]
+           "mega_decode_loop", "mega_decode_loop_plain", "decode_layers",
+           "MAX_SLOTS"]
 
 NEG_INF = -1e30
 _MATS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -63,6 +72,7 @@ _MAX_SPLITS = 8           # k-ranges a GEMV tile is split into
 _WALK_TILE, _WALK_STAGES = 64, 2
 _WARPS = 8
 SMEM_LIMIT = 232448       # shared memory a block may use on the H100
+_HEAD_MODES = {"dense": 0, "tied": 1, "int8": 2}   # csrc HeadMode
 
 
 def _walk_smem(row_bytes: int, scale_bytes: int, D: int) -> int:
@@ -88,30 +98,67 @@ def _smem_bytes(itemsize: int, D: int, n_slots: int) -> int:
     return max(walk, gemv)
 
 
+def _head_mode(params, config) -> str:
+    """The output head's form: ``"tied"`` (``embed`` is the head),
+    ``"int8"`` (an int8 weight-only ``lm_head``) or ``"dense"``."""
+    if config.tie_embeddings:
+        return "tied"
+    return "int8" if is_quantized_weight(params.get("lm_head")) else "dense"
+
+
+def _head_ok(params, config):
+    """(ok, reason) of the multi-step form's epilogue: the embedding (the
+    next input rows, and the tied head) in the model dtype; a dense head
+    [h, V] in the model dtype or an int8 one with bf16 [V] scales
+    (``"head_dtype"``); the head's input rows within the GEMVs' staging
+    and a column head's V a multiple of the 32-column tile
+    (``"head_width"``)."""
+    dt, h, V = config.dtype, config.hidden_size, config.vocab_size
+    emb = params["embed"]
+    if emb.dtype != dt or tuple(emb.shape) != (V, h) \
+            or params["final_norm"].dtype != dt:
+        return False, "head_dtype"
+    mode = _head_mode(params, config)
+    if mode == "dense":
+        head = params["lm_head"]
+        if head.dtype != dt or tuple(head.shape) != (h, V):
+            return False, "head_dtype"
+    elif mode == "int8":
+        head = params["lm_head"]
+        if head["q"].dtype != torch.int8 or tuple(head["q"].shape) != (h, V) \
+                or head["s"].dtype != torch.bfloat16 \
+                or tuple(head["s"].shape) != (V,):
+            return False, "head_dtype"
+    if h > _CHUNK_ROWS or (mode != "tied" and V % TILE_COLS):
+        return False, "head_width"
+    return True, "ok"
+
+
 def mega_supported(params, config, *, n_slots: int, n_steps: int,
                    block_size: int, kv_int8: bool, multi_step: bool = False,
                    mesh=None):
     """(ok, reason) eligibility screen for the mega decode kernel — the
-    engine's counted-fallback gate (``LLMEngine.mega_fallbacks``). The
+    engine's counted-fallback gate (``LLMEngine.mega_fallbacks``; the
+    speculative draft's refusals count as ``"draft_<reason>"``). The
     reasons: ``"mesh"`` (a tensor-parallel mesh: one fused launch cannot
-    be sharded), ``"mixed_weights"`` (some weights int8, some not), the
-    unported branch ``"multi_step_A6"``, and the CUDA kernel's limits:
-    ``"dtype"`` (bf16 or f32; every dense layer weight in the model dtype,
-    every int8 leaf an int8 matrix with bf16 scales), ``"head_dim"`` (64
-    or 128), ``"group"`` (at most 8 query heads per kv head), ``"slots"``
-    (1 to 8 rows), ``"width"`` (hidden and ffn widths multiples of the
-    32-column GEMV tile) and ``"smem"`` (a block's shared memory within
-    the card's 227 KB, without which no co-resident grid can launch).
-    int8 weights and int8 pools (``kv_int8``) are taken, each on its own
-    or both."""
+    be sharded), ``"mixed_weights"`` (some weights int8, some not), and
+    the CUDA kernel's limits: ``"dtype"`` (bf16 or f32; every dense layer
+    weight in the model dtype, every int8 leaf an int8 matrix with bf16
+    scales), ``"head_dim"`` (64 or 128), ``"group"`` (at most 8 query
+    heads per kv head), ``"slots"`` (1 to 8 rows), ``"width"`` (hidden
+    and ffn widths multiples of the 32-column GEMV tile) and ``"smem"``
+    (a block's shared memory within the card's 227 KB, without which no
+    co-resident grid can launch). int8 weights and int8 pools
+    (``kv_int8``) are taken, each on its own or both. ``multi_step``
+    screens the multi-step form (:func:`mega_decode_loop`) as well: its
+    head and embedding (``"head_dtype"``, ``"head_width"``: see
+    :func:`_head_ok`) and at least one step."""
     if mesh is not None and dict(getattr(mesh, "shape", {})).get("tp", 1) > 1:
         return False, "mesh"
     lay = params["layers"]
     quant = [is_quantized_weight(lay[k]) for k in _MATS]
     if any(quant) and not all(quant):
         return False, "mixed_weights"
-    if multi_step:
-        return False, "multi_step_A6"
     dt = config.dtype
 
     def leaf_ok(k):
@@ -135,6 +182,10 @@ def mega_supported(params, config, *, n_slots: int, n_steps: int,
     itemsize = torch.empty((), dtype=dt).element_size()
     if _smem_bytes(itemsize, D, n_slots) > SMEM_LIMIT:
         return False, "smem"
+    if multi_step:
+        if n_steps < 1:
+            return False, "steps"
+        return _head_ok(params, config)
     return True, "ok"
 
 
@@ -225,6 +276,43 @@ def mega_decode_step_plain(params, config, *, x0, t: int, block_table,
     return x, ring_k, ring_v
 
 
+def mega_decode_loop_plain(params, config, *, x0, n_steps: int, block_table,
+                           walk_lens, lens, active, last0, budgets, eos_ids,
+                           ring_k, ring_v, k_pool, v_pool, ks_pool=None,
+                           vs_pool=None):
+    """The plain PyTorch version of :func:`mega_decode_loop`: per step
+    :func:`decode_layers` (ring row t = step, RoPE at the current lengths),
+    the final norm, the head product rounded to the model dtype, the
+    argmax (the first maximum wins), then the bookkeeping — a row decodes
+    while active and not done, emits its token (-1 otherwise), advances
+    its length, spends its budget and is done at its eos or with its
+    budget spent — and ``embed[last]`` as the next input rows."""
+    c = config
+    dt = c.dtype
+    head_w = head_weight(params, c)
+    x = x0.to(dt)
+    last, lens, rem = last0.clone(), lens.clone(), budgets.clone()
+    done = torch.zeros_like(active, dtype=torch.bool)
+    emitted = []
+    for t in range(n_steps):
+        x = decode_layers(params, c, x, t=t, lens=lens,
+                          block_table=block_table, walk_lens=walk_lens,
+                          ring_k=ring_k, ring_v=ring_v, k_pool=k_pool,
+                          v_pool=v_pool, ks_pool=ks_pool, vs_pool=vs_pool,
+                          partial=ragged_decode_partial_plain)
+        xf = _rms_norm(x, params["final_norm"], c.rms_eps)
+        nxt = _wo_mm(xf, head_w, dt).float().argmax(dim=-1).to(last.dtype)
+        act = active & ~done
+        emitted.append(torch.where(act, nxt, torch.full_like(nxt, -1)))
+        lens = lens + act.to(lens.dtype)
+        rem = rem - act.to(rem.dtype)
+        done = done | (act & (eos_ids >= 0) & (nxt == eos_ids)) \
+            | (act & (rem <= 0))
+        last = torch.where(act, nxt, last)
+        x = params["embed"][last.long()].to(dt)
+    return torch.stack(emitted), last, lens, done, rem, ring_k, ring_v
+
+
 # ---------------------------------------------------------------------------
 # the kernel
 # ---------------------------------------------------------------------------
@@ -241,16 +329,52 @@ def _rope_freq(theta: float, D: int, device) -> torch.Tensor:
     return _freqs[key]
 
 
+def _buffers(config, x0):
+    """The kernel's hidden state — a copy of x0 in the model dtype, which
+    it updates in place — and its scratch: q/k/v, the attention output,
+    gate*up, the partial sums of the GEMV tiles' k-ranges and of the
+    walks' parts, and the counters (zero) that find the block finishing
+    each tile or walk."""
+    c = config
+    dt, dev = c.dtype, x0.device
+    N, h = x0.shape
+    Hq, Hkv, D = c.num_heads, c.num_kv_heads, c.head_dim
+    F = c.intermediate_size
+    widest = max((Hq + 2 * Hkv) * D, 2 * F, h)
+    return (x0.to(dt).clone(),
+            torch.empty((N, (Hq + 2 * Hkv) * D), dtype=dt, device=dev),
+            torch.empty((N, Hq * D), dtype=dt, device=dev),
+            torch.empty((N, F), dtype=dt, device=dev),
+            torch.empty((_MAX_SPLITS, N, widest), dtype=torch.float32,
+                        device=dev),
+            torch.zeros((max(widest // TILE_COLS, N * Hkv),),
+                        dtype=torch.int32, device=dev))
+
+
+def _weight_ptrs(params):
+    """The layer weights as the kernel's arguments: the two norms, the
+    seven matrices and their seven scales (null for dense weights); and
+    whether the weights are int8."""
+    lay = params["layers"]
+    w_int8 = is_quantized_weight(lay["wq"])
+    P, null = _build.ptr, ctypes.c_void_p(0)
+    return ([P(lay["attn_norm"]), P(lay["mlp_norm"])]
+            + [P(lay[k]["q"] if w_int8 else lay[k]) for k in _MATS]
+            + [P(lay[k]["s"]) if w_int8 else null for k in _MATS]), w_int8
+
+
 def _check_cuda(params, config, x0, t, block_table, walk_lens, lens, ring_k,
-                ring_v, k_pool, v_pool, ks_pool, vs_pool):
+                ring_v, k_pool, v_pool, ks_pool, vs_pool, multi_step=False):
     c = config
     N, h = x0.shape
     kv_int8 = k_pool.dtype == torch.int8
+    fn_name = "mega_decode_loop" if multi_step else "mega_decode_step"
     ok, reason = mega_supported(params, c, n_slots=N,
                                 n_steps=ring_k.shape[2],
-                                block_size=k_pool.shape[2], kv_int8=kv_int8)
+                                block_size=k_pool.shape[2], kv_int8=kv_int8,
+                                multi_step=multi_step)
     if not ok:
-        raise ValueError(f"mega_decode_step: the kernel does not take this "
+        raise ValueError(f"{fn_name}: the kernel does not take this "
                          f"model or batch (reason {reason!r}); the engine "
                          "screens with mega_supported first")
     dev = x0.device
@@ -264,15 +388,15 @@ def _check_cuda(params, config, x0, t, block_table, walk_lens, lens, ring_k,
                   if is_quantized_weight(w) else [(k, w)])
     if kv_int8:
         if ks_pool is None or vs_pool is None:
-            raise ValueError("mega_decode_step: int8 pools require "
+            raise ValueError(f"{fn_name}: int8 pools require "
                              "ks_pool/vs_pool scales")
         named += [("ks_pool", ks_pool), ("vs_pool", vs_pool)]
     for name, tns in named:
         if tns.device != dev:
-            raise ValueError(f"mega_decode_step: {name} on {tns.device}, x0 "
+            raise ValueError(f"{fn_name}: {name} on {tns.device}, x0 "
                              f"on {dev}")
         if not tns.is_contiguous():
-            raise ValueError(f"mega_decode_step: {name} is not contiguous")
+            raise ValueError(f"{fn_name}: {name} is not contiguous")
     L, Hkv, D = c.num_layers, c.num_kv_heads, c.head_dim
     Hq, F = c.num_heads, c.intermediate_size
     want = {"attn_norm": (L, h), "mlp_norm": (L, h), "wq": (L, h, Hq * D),
@@ -284,16 +408,16 @@ def _check_cuda(params, config, x0, t, block_table, walk_lens, lens, ring_k,
         got = tuple((w["q"] if is_quantized_weight(w) else w).shape)
         if got != shape or (is_quantized_weight(w) and tuple(w["s"].shape)
                             != (shape[0], shape[2])):
-            raise ValueError(f"mega_decode_step: layers.{k} is {got}, "
+            raise ValueError(f"{fn_name}: layers.{k} is {got}, "
                              f"expected {shape}")
     S = ring_k.shape[2]
     if h != c.hidden_size or tuple(ring_k.shape) != (L, N, S, Hkv, D) \
             or ring_v.shape != ring_k.shape:
-        raise ValueError(f"mega_decode_step: x0 {tuple(x0.shape)} and rings "
+        raise ValueError(f"{fn_name}: x0 {tuple(x0.shape)} and rings "
                          f"{tuple(ring_k.shape)} do not match the config")
     if k_pool.dim() != 5 or tuple(k_pool.shape[::4]) != (L, D) \
             or k_pool.shape[3] != Hkv or v_pool.shape != k_pool.shape:
-        raise ValueError(f"mega_decode_step: pools {tuple(k_pool.shape)} are "
+        raise ValueError(f"{fn_name}: pools {tuple(k_pool.shape)} are "
                          "not [L, NB, BS, Hkv, D]")
     pool_dt = torch.int8 if kv_int8 else c.dtype
     for name, tns, want_dt in (("x0", x0, c.dtype), ("ring_k", ring_k, c.dtype),
@@ -301,13 +425,13 @@ def _check_cuda(params, config, x0, t, block_table, walk_lens, lens, ring_k,
                                ("k_pool", k_pool, pool_dt),
                                ("v_pool", v_pool, pool_dt)):
         if tns.dtype != want_dt:
-            raise TypeError(f"mega_decode_step: {name} is {tns.dtype}, "
+            raise TypeError(f"{fn_name}: {name} is {tns.dtype}, "
                             f"expected {want_dt}")
     if kv_int8 and (ks_pool.dtype != torch.float32 or tuple(ks_pool.shape)
                     != tuple(k_pool.shape[:4])
                     or vs_pool.shape != ks_pool.shape
                     or vs_pool.dtype != torch.float32):
-        raise ValueError(f"mega_decode_step: scale pools must be f32 "
+        raise ValueError(f"{fn_name}: scale pools must be f32 "
                          f"{tuple(k_pool.shape[:4])}")
     if block_table.dtype != torch.int32 or block_table.dim() != 2 \
             or block_table.shape[0] != N:
@@ -318,7 +442,7 @@ def _check_cuda(params, config, x0, t, block_table, walk_lens, lens, ring_k,
     if not 0 <= t < S:
         raise ValueError(f"step index t={t} outside the ring's {S} steps")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("mega_decode_step copies pool rows 16 bytes at a "
+        raise ValueError(f"{fn_name} copies pool rows 16 bytes at a "
                          "time: the pools must be 16-byte aligned")
 
 
@@ -349,45 +473,112 @@ def mega_decode_step(params, config, *, x0, t: int, block_table, walk_lens,
     _check_cuda(params, config, x0, t, block_table, walk_lens, lens, ring_k,
                 ring_v, k_pool, v_pool, ks_pool, vs_pool)
     c = config
-    dt = c.dtype
     N, h = x0.shape
     Hq, Hkv, D = c.num_heads, c.num_kv_heads, c.head_dim
-    F = c.intermediate_size
-    lay = params["layers"]
-    x = x0.clone()                      # updated in place by the kernel
-    qkv = torch.empty((N, (Hq + 2 * Hkv) * D), dtype=dt, device=x.device)
-    att = torch.empty((N, Hq * D), dtype=dt, device=x.device)
-    gu = torch.empty((N, F), dtype=dt, device=x.device)
-    # the partial sums of the GEMV tiles' k-ranges and of the walks' parts,
-    # and the counters that find the block finishing each tile or walk
-    widest = max((Hq + 2 * Hkv) * D, 2 * F, h)
-    part = torch.empty((_MAX_SPLITS, N, widest), dtype=torch.float32,
-                       device=x.device)
-    count = torch.zeros((max(widest // TILE_COLS, N * Hkv),),
-                        dtype=torch.int32, device=x.device)
-    freq = _rope_freq(c.rope_theta, D, x.device)
+    bufs = _buffers(c, x0)
+    x = bufs[0]
+    weights, w_int8 = _weight_ptrs(params)
     P = _build.ptr
     null = ctypes.c_void_p(0)
-    w_int8 = is_quantized_weight(lay["wq"])
     kv_int8 = k_pool.dtype == torch.int8
-    mats = [lay[k]["q"] if w_int8 else lay[k] for k in _MATS]
-    scales = [P(lay[k]["s"]) if w_int8 else null for k in _MATS]
     with torch.cuda.device(x.device):
-        err = fn(P(lay["attn_norm"]), P(lay["mlp_norm"]),
-                 *(P(w) for w in mats), *scales,
-                 P(freq), P(block_table), P(walk_lens), P(lens), P(k_pool),
+        err = fn(*weights, P(_rope_freq(c.rope_theta, D, x.device)),
+                 P(block_table), P(walk_lens), P(lens), P(k_pool),
                  P(v_pool), P(ks_pool) if kv_int8 else null,
-                 P(vs_pool) if kv_int8 else null,
-                 P(ring_k), P(ring_v), P(x), P(qkv), P(att), P(gu),
-                 P(part), P(count),
-                 c.num_layers, N, h, F, Hkv, Hq // Hkv, D, k_pool.shape[1],
-                 k_pool.shape[2], block_table.shape[1], ring_k.shape[2],
-                 int(t), _DTYPES[dt], int(w_int8), int(kv_int8), c.rms_eps,
-                 1.0 / math.sqrt(D), _build.stream_handle(x))
+                 P(vs_pool) if kv_int8 else null, P(ring_k), P(ring_v),
+                 *(P(b) for b in bufs),
+                 c.num_layers, N, h, c.intermediate_size, Hkv, Hq // Hkv, D,
+                 k_pool.shape[1], k_pool.shape[2], block_table.shape[1],
+                 ring_k.shape[2], int(t), _DTYPES[c.dtype], int(w_int8),
+                 int(kv_int8), c.rms_eps, 1.0 / math.sqrt(D),
+                 _build.stream_handle(x))
     name = "mega_decode_int8" if w_int8 or kv_int8 else "mega_decode"
     _build.check(err, name)
     _build.launch_counts[name] += 1
     return x, ring_k, ring_v
+
+
+def mega_decode_loop(params, config, *, x0, n_steps: int, block_table,
+                     walk_lens, lens, active, last0, budgets, eos_ids, ring_k,
+                     ring_v, k_pool, v_pool, ks_pool=None, vs_pool=None):
+    """``n_steps`` greedy decode steps of all layers in ONE launch — the
+    speculative draft wave. ``x0`` [N, h] is ``embed[last0]``; step s
+    writes ring row s of ``ring_k``/``ring_v`` [L, N, S >= n_steps, Hkv,
+    D] (in place) and takes RoPE at the rows' current lengths (``lens``
+    [N] int32, advanced in the kernel); the walk reads the frozen pool
+    prefixes ``walk_lens`` as :func:`mega_decode_step` does. After each
+    step's last layer: the final norm, the head (dense, tied or int8 —
+    :func:`_head_mode`) and its argmax over logits rounded to the model
+    dtype, and the bookkeeping of ``active``, ``budgets`` and ``eos_ids``
+    [N] int32 (-1: none); every row starts not done. Returns (emitted
+    [n_steps, N] int32 with -1 padding, last, lens, done (bool), budgets,
+    ring_k, ring_v). Launches the CUDA kernel on CUDA tensors (or
+    raises), runs :func:`mega_decode_loop_plain` on CPU tensors."""
+    kw = dict(x0=x0, n_steps=n_steps, block_table=block_table,
+              walk_lens=walk_lens, lens=lens, active=active, last0=last0,
+              budgets=budgets, eos_ids=eos_ids, ring_k=ring_k, ring_v=ring_v,
+              k_pool=k_pool, v_pool=v_pool, ks_pool=ks_pool, vs_pool=vs_pool)
+    if x0.device.type == "cpu":
+        return mega_decode_loop_plain(params, config, **kw)
+    if x0.device.type != "cuda":
+        raise ValueError(f"mega_decode_loop: unsupported device {x0.device}")
+    c = config
+    _check_cuda(params, c, x0, 0, block_table, walk_lens, lens, ring_k,
+                ring_v, k_pool, v_pool, ks_pool, vs_pool, multi_step=True)
+    N, h = x0.shape
+    for name, tns in (("active", active), ("last0", last0),
+                      ("budgets", budgets), ("eos_ids", eos_ids)):
+        if tns.device != x0.device or tuple(tns.shape) != (N,) \
+                or tns.dtype not in (torch.int32, torch.int64, torch.bool):
+            raise ValueError(f"mega_decode_loop: {name} must be an integer "
+                             f"[{N}] tensor on {x0.device}")
+    if not 1 <= n_steps <= ring_k.shape[2]:
+        raise ValueError(f"mega_decode_loop: {n_steps} steps do not fit the "
+                         f"ring's {ring_k.shape[2]} rows")
+    fn = _build.kernel("ptt_mega_decode_loop", [ctypes.c_void_p] * 41
+                       + [ctypes.c_int] * 18
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    Hq, Hkv, D = c.num_heads, c.num_kv_heads, c.head_dim
+    dev = x0.device
+    bufs = _buffers(c, x0)
+    weights, w_int8 = _weight_ptrs(params)
+    # the rows' state [last, lens, done, budget] and the blocks' head picks
+    state = torch.stack([last0.int(), lens.int(), torch.zeros_like(lens.int()),
+                         budgets.int()]).contiguous()
+    act = active.int().contiguous()
+    eos = eos_ids.int().contiguous()
+    emitted = torch.empty((n_steps, N), dtype=torch.int32, device=dev)
+    hcap = 8 * torch.cuda.get_device_properties(dev).multi_processor_count
+    hmax = torch.empty((hcap, N), dtype=torch.float32, device=dev)
+    hidx = torch.empty((hcap, N), dtype=torch.int32, device=dev)
+    mode = _head_mode(params, c)
+    head = params.get("lm_head")
+    P = _build.ptr
+    null = ctypes.c_void_p(0)
+    kv_int8 = k_pool.dtype == torch.int8
+    with torch.cuda.device(dev):
+        err = fn(*weights, P(_rope_freq(c.rope_theta, D, dev)),
+                 P(block_table), P(walk_lens), P(k_pool), P(v_pool),
+                 P(ks_pool) if kv_int8 else null,
+                 P(vs_pool) if kv_int8 else null, P(ring_k), P(ring_v),
+                 *(P(b) for b in bufs), P(params["final_norm"]),
+                 P(params["embed"]),
+                 null if mode == "tied" else P(head["q"] if mode == "int8"
+                                               else head),
+                 P(head["s"]) if mode == "int8" else null,
+                 P(act), P(eos), P(state), P(emitted), P(hmax), P(hidx),
+                 c.num_layers, N, h, c.intermediate_size, Hkv, Hq // Hkv, D,
+                 k_pool.shape[1], k_pool.shape[2], block_table.shape[1],
+                 ring_k.shape[2], int(n_steps), c.vocab_size,
+                 _HEAD_MODES[mode], hcap, _DTYPES[c.dtype], int(w_int8),
+                 int(kv_int8), c.rms_eps, 1.0 / math.sqrt(D),
+                 _build.stream_handle(bufs[0]))
+    name = "mega_decode_loop_int8" if w_int8 or kv_int8 \
+        else "mega_decode_loop"
+    _build.check(err, name)
+    _build.launch_counts[name] += 1
+    return (emitted, state[0], state[1], state[2].bool(), state[3], ring_k,
+            ring_v)
 
 
 def blocks_per_sm(dtype, head_dim: int, n_slots: int,

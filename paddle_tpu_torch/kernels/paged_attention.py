@@ -1,4 +1,4 @@
-"""Paged KV-cache decode attention — the port of
+"""Paged KV-cache decode attention and appends — the port of
 paddle_tpu/kernels/paged_attention.
 
 The pool layout is the JAX package's: token-major ``[NB, BS, Hkv, D]``
@@ -14,6 +14,17 @@ a ``[N, MB]`` int32 block table per slot and ``[N]`` int32 lengths.
   output.
 - :func:`paged_attention` is the dense-gather reference (the JAX
   package's XLA path), kept as the plain oracle.
+- The paged-cache API (the JAX package's ``paddle_tpu.kernels`` surface):
+  :func:`paged_cache_init` and :func:`paged_append` (plain torch, as they
+  are XLA in JAX); :func:`paged_append_token` (B7, one K/V row per slot)
+  and :func:`paged_append_blocks` (B8, whole prefill blocks), in place,
+  on CUDA tensors through ``csrc/paged_cache.cu``; and
+  :func:`paged_decode_attention` (B6, the one-shot softmax over each
+  slot's first ``lengths[n]`` positions, 0 for a zero-length slot) through
+  ``csrc/paged_decode.cu``. Each runs its plain version
+  (``*_plain``) on CPU tensors. The JAX wrapper of B6 switches to the
+  dense gather above 12 MiB of TPU VMEM staging; the CUDA kernel streams
+  any length and has no such fallback.
 
 int8 pools carry per-entry f32 scale pools ``ks_pool``/``vs_pool``
 [L, NB, BS, Hkv] (``quant_matmul.quantize_kv``), required with them. The
@@ -34,6 +45,12 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ..device import resolve_device
+
+__all__ = ["PagedKVCache", "paged_cache_init", "paged_append",
+           "paged_attention", "paged_append_token", "paged_append_blocks",
+           "paged_decode_attention", "ragged_decode_partial",
+           "ragged_paged_decode"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -240,3 +257,270 @@ def paged_attention(q, cache: PagedKVCache):
     p = torch.softmax(s, dim=-1).to(v.dtype)
     out = torch.einsum("bhgk,bkhd->bhgd", p.float(), v.float())
     return out.reshape(B, Hq, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the paged-cache API: init, appends (B7, B8), decode attention (B6)
+# ---------------------------------------------------------------------------
+def paged_cache_init(batch: int, num_blocks: int, block_size: int,
+                     num_heads: int, head_dim: int, max_blocks: int,
+                     dtype=torch.bfloat16, device="cuda") -> PagedKVCache:
+    """Zeroed [num_blocks, block_size, num_heads, head_dim] pools, a block
+    table giving sequence b the blocks b*max_blocks .. (b+1)*max_blocks-1
+    (a caller doing real paging overwrites it) and zero lengths."""
+    if num_blocks < batch * max_blocks:
+        raise ValueError(f"{num_blocks} blocks cannot back {batch} "
+                         f"sequences of {max_blocks} blocks")
+    dev = resolve_device(device)
+    shape = (num_blocks, block_size, num_heads, head_dim)
+    table = torch.arange(batch * max_blocks, dtype=torch.int32,
+                         device=dev).reshape(batch, max_blocks)
+    return PagedKVCache(torch.zeros(shape, dtype=dtype, device=dev),
+                        torch.zeros(shape, dtype=dtype, device=dev), table,
+                        torch.zeros(batch, dtype=torch.int32, device=dev))
+
+
+def paged_append(cache: PagedKVCache, k_new, v_new) -> PagedKVCache:
+    """Append ONE token per sequence at its length (plain torch — the JAX
+    package's XLA path; the kernel form is :func:`paged_append_token`).
+    k_new/v_new: [B, H, D]. The pools are written in place; the returned
+    cache carries them with the lengths advanced by one."""
+    bs = cache.k_pool.shape[1]
+    pos = cache.lengths.long()
+    blk = cache.block_table.long().gather(1, (pos // bs)[:, None])[:, 0]
+    paged_append_token_plain(cache.k_pool, cache.v_pool, k_new, v_new, blk,
+                             pos % bs)
+    return PagedKVCache(cache.k_pool, cache.v_pool, cache.block_table,
+                        cache.lengths + 1)
+
+
+def _check_pools(name, kp, vp, new, lead, *, layer):
+    """Shared checks of the append kernels: 4-D or 5-D pools of one shape
+    and dtype, ``new`` [lead..., <pool's trailing dims>] on their device,
+    the layer in range, contiguous 16-byte aligned tensors whose rows are
+    whole 16-byte vectors."""
+    kp5, vp5 = _as5d(kp), _as5d(vp)
+    if kp5.dim() != 5 or vp5.shape != kp5.shape or vp5.dtype != kp5.dtype:
+        raise ValueError(f"{name}: pools {tuple(kp.shape)} / "
+                         f"{tuple(vp.shape)} must be one [L, NB, BS, Hkv, "
+                         "D] or [NB, BS, Hkv, D] shape and dtype")
+    for what, t in (("k_pool", kp5), ("v_pool", vp5), ("new rows", new)):
+        if t.device != kp.device:
+            raise ValueError(f"{name}: {what} on {t.device}, pools on "
+                             f"{kp.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must be contiguous and "
+                             "16-byte aligned")
+    if tuple(new.shape) != tuple(lead) + tuple(kp5.shape[-len(new.shape)
+                                                         + len(lead):]):
+        raise ValueError(f"{name}: new rows {tuple(new.shape)} do not match "
+                         f"pools {tuple(kp.shape)}")
+    if not 0 <= layer < kp5.shape[0]:
+        raise ValueError(f"{name}: layer {layer} out of range for "
+                         f"{kp5.shape[0]} pool layers")
+    if kp5.shape[3] * kp5.shape[4] * kp5.element_size() % 16:
+        raise ValueError(f"{name}: a pool row of Hkv*D = "
+                         f"{kp5.shape[3] * kp5.shape[4]} elements is not a "
+                         "whole number of 16-byte vectors")
+    return kp5, vp5
+
+
+def _index_check(name, idx, n, dev):
+    if idx.dtype != torch.int32 or tuple(idx.shape) != (n,) \
+            or idx.device != dev:
+        raise ValueError(f"{name}: indices must be int32 [{n}] on {dev}")
+
+
+def paged_append_token_plain(k_pool, v_pool, k_new, v_new, blk_phys, offset,
+                             layer: int = 0):
+    """The plain PyTorch version of :func:`paged_append_token`
+    (``index_put_``)."""
+    kp5, vp5 = _as5d(k_pool), _as5d(v_pool)
+    blk, off = blk_phys.long(), offset.long()
+    kp5[layer, blk, off] = k_new.to(kp5.dtype)
+    vp5[layer, blk, off] = v_new.to(vp5.dtype)
+    return k_pool, v_pool
+
+
+def paged_append_token(k_pool, v_pool, k_new, v_new, blk_phys, offset,
+                       layer: int = 0):
+    """Append ONE token per slot in place: ``k_pool[layer, blk_phys[n],
+    offset[n]] = k_new[n]`` and the same for v. Pools [L, NB, BS, Hkv, D]
+    or [NB, BS, Hkv, D] (returned as given); k_new/v_new [N, Hkv, D], cast
+    to the pools' dtype; blk_phys/offset [N] int32, read on the device.
+    Slots meant to be idle point at the trash block. Launches
+    ``csrc/paged_cache.cu`` on CUDA tensors (or raises), runs
+    :func:`paged_append_token_plain` on CPU tensors."""
+    if k_pool.device.type == "cpu":
+        return paged_append_token_plain(k_pool, v_pool, k_new, v_new,
+                                        blk_phys, offset, layer)
+    if k_pool.device.type != "cuda":
+        raise ValueError(f"paged_append_token: unsupported device "
+                         f"{k_pool.device}")
+    kn = k_new.to(k_pool.dtype).contiguous()
+    vn = v_new.to(v_pool.dtype).contiguous()
+    N = kn.shape[0]
+    kp5, vp5 = _check_pools("paged_append_token", k_pool, v_pool, kn, (N,),
+                            layer=layer)
+    if vn.shape != kn.shape:
+        raise ValueError("paged_append_token: k_new and v_new differ in "
+                         "shape")
+    _check_pools("paged_append_token", k_pool, v_pool, vn, (N,), layer=layer)
+    for idx in (blk_phys, offset):
+        _index_check("paged_append_token", idx, N, k_pool.device)
+    if N == 0:
+        return k_pool, v_pool
+    fn = _build.kernel("ptt_paged_append_token", [ctypes.c_void_p] * 6
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    P = _build.ptr
+    with torch.cuda.device(k_pool.device):
+        err = fn(P(kn), P(vn), P(kp5), P(vp5), P(blk_phys), P(offset), N,
+                 int(layer), kp5.shape[1], kp5.shape[2],
+                 kp5.shape[3] * kp5.shape[4] * kp5.element_size(),
+                 _build.stream_handle(kn))
+    _build.check(err, "paged_append_token")
+    _build.launch_counts["paged_append_token"] += 1
+    return k_pool, v_pool
+
+
+def paged_append_blocks_plain(k_pool, v_pool, k_blocks, v_blocks, blk_ids,
+                              layer: int = 0):
+    """The plain PyTorch version of :func:`paged_append_blocks`
+    (``index_put_``)."""
+    kp5, vp5 = _as5d(k_pool), _as5d(v_pool)
+    ids = blk_ids.long()
+    kp5[layer, ids] = k_blocks.to(kp5.dtype)
+    vp5[layer, ids] = v_blocks.to(vp5.dtype)
+    return k_pool, v_pool
+
+
+def paged_append_blocks(k_pool, v_pool, k_blocks, v_blocks, blk_ids,
+                        layer: int = 0):
+    """Scatter whole prefill blocks into the pools in place:
+    ``k_pool[layer, blk_ids[b]] = k_blocks[b]`` and the same for v.
+    k_blocks/v_blocks [nblk, BS, Hkv, D], cast to the pools' dtype;
+    blk_ids [nblk] int32 (duplicates only for the trash block: pad blocks
+    may all point at 0); pools and ``layer`` as in
+    :func:`paged_append_token`. Launches ``csrc/paged_cache.cu`` on CUDA
+    tensors (or raises), runs :func:`paged_append_blocks_plain` on CPU
+    tensors."""
+    if k_pool.device.type == "cpu":
+        return paged_append_blocks_plain(k_pool, v_pool, k_blocks, v_blocks,
+                                         blk_ids, layer)
+    if k_pool.device.type != "cuda":
+        raise ValueError(f"paged_append_blocks: unsupported device "
+                         f"{k_pool.device}")
+    kb = k_blocks.to(k_pool.dtype).contiguous()
+    vb = v_blocks.to(v_pool.dtype).contiguous()
+    nblk = kb.shape[0]
+    kp5, vp5 = _check_pools("paged_append_blocks", k_pool, v_pool, kb,
+                            (nblk,), layer=layer)
+    if vb.shape != kb.shape or kb.dim() != 4:
+        raise ValueError("paged_append_blocks: k_blocks and v_blocks must "
+                         "both be [nblk, BS, Hkv, D]")
+    _check_pools("paged_append_blocks", k_pool, v_pool, vb, (nblk,),
+                 layer=layer)
+    _index_check("paged_append_blocks", blk_ids, nblk, k_pool.device)
+    if nblk == 0:
+        return k_pool, v_pool
+    fn = _build.kernel("ptt_paged_append_blocks", [ctypes.c_void_p] * 5
+                       + [ctypes.c_int] * 3
+                       + [ctypes.c_int64, ctypes.c_void_p])
+    P = _build.ptr
+    with torch.cuda.device(k_pool.device):
+        err = fn(P(kb), P(vb), P(kp5), P(vp5), P(blk_ids), nblk, int(layer),
+                 kp5.shape[1], kb[0].numel() * kb.element_size(),
+                 _build.stream_handle(kb))
+    _build.check(err, "paged_append_blocks")
+    _build.launch_counts["paged_append_blocks"] += 1
+    return k_pool, v_pool
+
+
+def paged_decode_attention_plain(q, cache: PagedKVCache, layer: int = 0):
+    """The plain PyTorch version of :func:`paged_decode_attention`: every
+    slot's blocks gathered at full table width, the V rows of blocks at
+    or past the length zeroed (as the TPU kernel zeroes the blocks it
+    never copies), scores in f32 divided by sqrt(D) and masked to -1e30,
+    one softmax, p rounded to the pool dtype for the PV product, the sum
+    normalized and cast to q's dtype."""
+    N, Hq, D = q.shape
+    kp, vp = _as5d(cache.k_pool)[layer], _as5d(cache.v_pool)[layer]
+    BS, Hkv = kp.shape[1], kp.shape[2]
+    G = Hq // Hkv
+    MB = cache.block_table.shape[1]
+    tbl = cache.block_table.long()
+    lens = cache.lengths.long().to(q.device)
+    k = kp[tbl].reshape(N, MB * BS, Hkv, D).float()
+    v = vp[tbl].reshape(N, MB * BS, Hkv, D)
+    pos = torch.arange(MB * BS, device=q.device)[None, :]
+    blk_live = (pos // BS) * BS < lens[:, None]                 # [N, P]
+    v = torch.where(blk_live[:, :, None, None], v, torch.zeros_like(v))
+    qg = q.float().reshape(N, Hkv, G, D)
+    s = torch.einsum("nhgd,nthd->nhgt", qg, k) / math.sqrt(D)
+    s = torch.where((pos < lens[:, None])[:, None, None, :], s,
+                    torch.full_like(s, NEG_INF))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.einsum("nhgt,nthd->nhgd", p.to(v.dtype).float(), v.float())
+    return (o / p.sum(dim=-1)[..., None]).reshape(N, Hq, D).to(q.dtype)
+
+
+def paged_decode_attention(q, cache: PagedKVCache, layer: int = 0):
+    """Decode attention: q [N, Hq, D] -> [N, Hq, D], each slot attending
+    its first ``cache.lengths[n]`` positions of pool plane ``layer``
+    (pools [L, NB, BS, Hkv, D] or [NB, BS, Hkv, D] in q's dtype, bf16 or
+    f32; D 64 or 128; at most 8 query heads a kv head). A zero-length
+    slot returns 0. Launches ``csrc/paged_decode.cu`` on CUDA tensors (or
+    raises) — whatever the length, with no fallback to the dense gather —
+    and runs :func:`paged_decode_attention_plain` on CPU tensors."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, cache, layer)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention: unsupported device "
+                         f"{q.device}")
+    kp, vp = _as5d(cache.k_pool), _as5d(cache.v_pool)
+    table, lengths = cache.block_table, cache.lengths
+    N, Hq, D = q.shape
+    L, NB, BS, Hkv, Dk = kp.shape
+    for name, t in (("k_pool", kp), ("v_pool", vp), ("block_table", table),
+                    ("lengths", lengths)):
+        if t.device != q.device:
+            raise ValueError(f"paged_decode_attention: {name} on "
+                             f"{t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"paged_decode_attention: {name} is not "
+                             "contiguous")
+    if q.dtype not in _DTYPES or kp.dtype != q.dtype or vp.dtype != q.dtype:
+        raise TypeError(f"paged_decode_attention takes bf16 or f32 q and "
+                        f"pools of its dtype, got {q.dtype}, {kp.dtype}, "
+                        f"{vp.dtype}")
+    if vp.shape != kp.shape or Dk != D or Hq % Hkv:
+        raise ValueError(f"pools {tuple(kp.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if D not in (64, 128) or Hq // Hkv > _MAX_GROUP:
+        raise ValueError(f"paged_decode_attention takes head_dim 64 or 128 "
+                         f"and at most {_MAX_GROUP} query heads a kv head, "
+                         f"got D={D}, G={Hq // Hkv}")
+    if table.dtype != torch.int32 or lengths.dtype != torch.int32 \
+            or table.dim() != 2 or table.shape[0] != N \
+            or tuple(lengths.shape) != (N,):
+        raise ValueError("block_table must be int32 [N, MB] and lengths "
+                         "int32 [N]")
+    if kp.data_ptr() % 16 or vp.data_ptr() % 16:
+        raise ValueError("paged_decode_attention copies pool rows 16 bytes "
+                         "at a time: the pools must be 16-byte aligned")
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} out of range for {L} pool layers")
+    q = q.contiguous()
+    out = torch.empty_like(q)
+    if N == 0:
+        return out
+    fn = _build.kernel("ptt_paged_decode_attention", [ctypes.c_void_p] * 6
+                       + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    P = _build.ptr
+    with torch.cuda.device(q.device):
+        err = fn(P(q), P(kp), P(vp), P(table), P(lengths), P(out), N,
+                 int(layer), NB, BS, Hkv, Hq // Hkv, D, table.shape[1],
+                 _DTYPES[q.dtype], _build.stream_handle(q))
+    _build.check(err, "paged_decode_attention")
+    _build.launch_counts["paged_decode_attention"] += 1
+    return out

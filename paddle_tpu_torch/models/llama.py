@@ -20,6 +20,11 @@ every sequence length, so ``use_flash`` only moves where bf16
 probabilities are rounded (the JAX package's non-flash path rounds the
 normalized probabilities, the flash path the unnormalized ones).
 
+Inference: :func:`init_kv_cache` and :func:`forward_with_cache`, the
+fixed-batch cache forward (``logits_all`` scores every position of a
+piece, the verify primitive of speculative decoding);
+:func:`draft_config` shrinks a config into a draft model's.
+
 Training: :func:`loss_fn` (optionally chunked cross-entropy),
 :func:`loss_and_grads`, :func:`train_step` with a global-norm clip,
 gradient accumulation and the optimizers of ``optimizer/functional.py``;
@@ -47,10 +52,12 @@ from ..kernels.quant_matmul import weight_only_matmul as _wo_mm
 from ..optimizer.functional import (init_moments, optimizer_update,
                                     tree_leaves, tree_map)
 
-__all__ = ["LlamaConfig", "llama3_8b", "tiny_llama", "init_params",
+__all__ = ["LlamaConfig", "llama3_8b", "tiny_llama", "draft_config",
+           "init_params",
            "params_from_numpy", "num_params", "quantize_params",
            "head_weight", "hidden_states", "forward",
-           "loss_fn", "loss_and_grads", "global_norm", "TrainState",
+           "init_kv_cache", "forward_with_cache", "loss_fn",
+           "loss_and_grads", "global_norm", "TrainState",
            "init_train_state", "train_step", "flops_per_token"]
 
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
@@ -101,6 +108,31 @@ def tiny_llama(vocab=256, hidden=64, layers=2, heads=4, kv_heads=2,
         num_layers=layers, num_heads=heads, num_kv_heads=kv_heads,
         head_dim=hidden // heads, max_seq_len=seq, remat=False,
         use_flash=False)
+
+
+def draft_config(target: LlamaConfig, *, num_layers=None, hidden_size=None,
+                 intermediate_size=None, num_heads=None, num_kv_heads=None,
+                 head_dim=None) -> LlamaConfig:
+    """A draft-model config for speculative decoding
+    (``serving.LLMEngine(draft_params=..., draft_config=...)``): the
+    target's vocabulary (the engine requires it), context and dtype, with
+    the capacity knobs shrunk. Defaults halve the depth and the widths;
+    RoPE theta is the target's."""
+    t = target
+    hidden = hidden_size if hidden_size is not None else t.hidden_size // 2
+    heads = num_heads if num_heads is not None else max(1, t.num_heads // 2)
+    return dataclasses.replace(
+        t,
+        num_layers=(num_layers if num_layers is not None
+                    else max(1, t.num_layers // 2)),
+        hidden_size=hidden,
+        intermediate_size=(intermediate_size if intermediate_size
+                           is not None else t.intermediate_size // 2),
+        num_heads=heads,
+        num_kv_heads=(num_kv_heads if num_kv_heads is not None
+                      else max(1, min(t.num_kv_heads, heads))),
+        head_dim=(head_dim if head_dim is not None else hidden // heads),
+    )
 
 
 def _check_supported(c) -> None:
@@ -383,6 +415,92 @@ def forward(params, tokens, config: LlamaConfig):
     leaf goes through ``weight_only_matmul``."""
     x = hidden_states(params, tokens, config)
     return _wo_mm(x, head_weight(params, config), config.dtype).float()
+
+
+# ---------------------------------------------------------------------------
+# inference: the fixed-batch KV-cache forward (the verify primitive of
+# speculative decoding; the serving engine runs its paged-pool analogue)
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(config: LlamaConfig, batch: int, max_len: int, *,
+                  device="cuda"):
+    """An empty cache: ``k``/``v`` [L, batch, max_len, Hkv, D] in the
+    model dtype and the next write position ``pos``."""
+    c = config
+    dev = resolve_device(device)
+    shape = (c.num_layers, batch, max_len, c.num_kv_heads, c.head_dim)
+    return {"k": torch.zeros(shape, dtype=c.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=c.dtype, device=dev), "pos": 0}
+
+
+def _cached_attention(q, k_cache, v_cache, pos: int, config: LlamaConfig):
+    """q [B, S_new, Hq, D] against one layer's caches [B, max_len, Hkv,
+    D]: keys at or below each query's position ``pos + i`` (causal inside
+    the new block), GQA-grouped (the cache is never repeated), f32
+    scores, probabilities rounded to q's dtype before the PV product."""
+    c = config
+    B, S, Hq, D = q.shape
+    G = Hq // c.num_kv_heads
+    qg = q.reshape(B, S, c.num_kv_heads, G, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                     k_cache.float()) * (1.0 / math.sqrt(D))
+    key_idx = torch.arange(k_cache.shape[1], device=q.device)[None, :]
+    qry_idx = pos + torch.arange(S, device=q.device)[:, None]
+    s = torch.where((key_idx <= qry_idx)[None, None, None], s,
+                    torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v_cache)
+    return out.reshape(B, S, Hq, D)
+
+
+def forward_with_cache(params, tokens, cache, config: LlamaConfig,
+                       logits_all: bool = False):
+    """Append ``tokens`` [B, S_new] to ``cache`` and return (logits,
+    cache): the last position's logits [B, vocab] (f32), or with
+    ``logits_all`` every position's [B, S_new, vocab] — score a piece of
+    draft tokens in one forward and read the next-token distribution
+    after each. Prefill (S_new = prompt length) and decode (S_new = 1)
+    alike. The cache's ``k``/``v`` are written in place; the returned
+    cache is a new dict with ``pos`` advanced by S_new."""
+    c = config
+    dt = c.dtype
+    B, S = tokens.shape
+    pos = int(cache["pos"])
+    x = params["embed"].to(dt)[tokens.long()]
+    freq = c.rope_theta ** (-torch.arange(0, c.head_dim, 2,
+                                          dtype=torch.float32,
+                                          device=x.device) / c.head_dim)
+    ang = (pos + torch.arange(S, dtype=torch.float32,
+                              device=x.device))[:, None] * freq[None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    ck, cv = cache["k"], cache["v"]
+    for l in range(c.num_layers):
+        p = {k: (v[l] if not isinstance(v, dict)
+                 else {kk: vv[l] for kk, vv in v.items()})
+             for k, v in params["layers"].items()}
+        hn = _rms_norm(x, p["attn_norm"], c.rms_eps)
+        q = _wo_mm(hn, p["wq"], dt).reshape(B, S, c.num_heads, c.head_dim)
+        k = _wo_mm(hn, p["wk"], dt).reshape(B, S, c.num_kv_heads,
+                                             c.head_dim)
+        v = _wo_mm(hn, p["wv"], dt).reshape(B, S, c.num_kv_heads,
+                                             c.head_dim)
+        q = _apply_rope(q, cos, sin)
+        k = _apply_rope(k, cos, sin)
+        ck[l, :, pos:pos + S] = k
+        cv[l, :, pos:pos + S] = v
+        att = _cached_attention(q, ck[l], cv[l], pos, c)
+        x = x + _wo_mm(att.reshape(B, S, c.num_heads * c.head_dim),
+                       p["wo"], dt)
+        hn = _rms_norm(x, p["mlp_norm"], c.rms_eps)
+        gate = torch.nn.functional.silu(_wo_mm(hn, p["w_gate"], dt))
+        x = x + _wo_mm(gate * _wo_mm(hn, p["w_up"], dt), p["w_down"], dt)
+    x = _rms_norm(x, params["final_norm"], c.rms_eps)
+    xh = x if logits_all else x[:, -1]
+    if c.tie_embeddings:
+        logits = (xh @ params["embed"].to(dt).t()).float()
+    else:
+        logits = _wo_mm(xh, params["lm_head"], dt).float()
+    return logits, {"k": ck, "v": cv, "pos": pos + S}
 
 
 # ---------------------------------------------------------------------------

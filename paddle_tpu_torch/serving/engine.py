@@ -1,5 +1,6 @@
 """Continuous-batching paged-KV serving engine — the port of
-paddle_tpu/serving/engine.py (greedy/sampled core, ragged decode path).
+paddle_tpu/serving/engine.py (greedy/sampled core, ragged and mega
+decode, int8, speculative decoding).
 
 Design, as in the JAX engine:
 
@@ -37,6 +38,16 @@ Design, as in the JAX engine:
   the dense K/V and scatters them quantized, the decode walks read the
   scales, and the in-call ring stays in the model dtype until the
   writeback quantizes it.
+- Speculative decoding (optional): with ``draft_params``/``draft_config``
+  a greedy decode wave runs draft-then-verify. The draft (a smaller llama
+  on the target's vocabulary, its own ``dk``/``dv`` pools on the target's
+  block grid, prefilled right behind the target) proposes ``spec_tokens``
+  tokens a slot in one call — on the mega path ONE launch of the
+  multi-step kernel (``kernels.mega_decode.mega_decode_loop``), else the
+  ragged program at draft scale; the target scores all of them in one
+  prefill-shaped call (``_spec_verify``); the host commits the agreeing
+  prefix plus the target's own token, capped at ``spec_tokens``. The
+  streams are the non-speculative greedy streams.
 
 Differences from the JAX engine: PyTorch runs eagerly, so nothing is
 compiled and the pools are updated in place rather than donated. Each
@@ -44,15 +55,20 @@ decode call ends in one synchronous readback (the JAX engine chains the
 next call before reading the previous one); the first tokens of a
 prefill wave stay on the device until that readback. The observability
 hooks (among them the JAX engine's int8 numerics probes) are not ported.
-Prefix caching, chunked prefill, swap/offload, admission control,
-deadlines, speculative decoding, disaggregated roles and tensor
-parallelism are not ported yet (ROADMAP queue A), nor the ``"bucketed"``
-dense-gather decode; their constructor and request arguments raise
-``NotImplementedError`` naming their queue when set.
+The spec wave's draft prefill samples greedily (its token is discarded;
+the JAX engine draws it with the wave's flags), so a speculating engine
+draws the same random numbers for sampled requests as a plain one. The
+``serving_spec_*`` metrics wait for the observability port (A8); the
+host counters ``spec_*`` are kept. Prefix caching, chunked prefill,
+swap/offload, admission control, deadlines, disaggregated roles and
+tensor parallelism are not ported yet (ROADMAP queue A), nor the
+``"bucketed"`` dense-gather decode; their constructor and request
+arguments raise ``NotImplementedError`` naming their queue when set.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from collections import Counter, deque
 from typing import Dict, List, Optional
 
@@ -61,12 +77,13 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.mega_decode import (_layer, _mlp, decode_layers,
-                                   mega_decode_step, mega_supported)
+                                   mega_decode_loop, mega_decode_step,
+                                   mega_supported)
 from ..kernels.pallas_attention import flash_attention_fwd
 from ..kernels.quant_matmul import is_quantized_weight, quantize_kv
 from ..kernels.quant_matmul import weight_only_matmul as _wo_mm
-from ..models.llama import (LlamaConfig, _apply_rope, _rms_norm,
-                            _rope_tables, head_weight)
+from ..models.llama import (LlamaConfig, _apply_rope, _apply_rope_at,
+                            _rms_norm, _rope_tables, head_weight)
 
 __all__ = ["LLMEngine", "Request"]
 
@@ -78,9 +95,8 @@ _UNPORTED = {
     "admission": (None, "A5"), "kv_swap_bytes": (0, "A5"),
     "injector": (None, "A8"), "prefix_cache": (False, "A5"),
     "prefill_chunk": (0, "A5"), "prefix_cache_host_bytes": (0, "A5"),
-    "kv_offload": ("auto", "A5"), "draft_params": (None, "A6"),
-    "draft_config": (None, "A6"), "spec_tokens": (4, "A6"),
-    "spec": (True, "A6"), "role": ("both", "A7"), "relay": (None, "A7"),
+    "kv_offload": ("auto", "A5"), "role": ("both", "A7"),
+    "relay": (None, "A7"),
 }
 
 
@@ -176,7 +192,7 @@ def _apply_admissions(c_last, c_len, c_done, c_rem, wave_toks, slot_of_row,
 
 def _paged_prefill(params, tokens, blk_ids, true_len, pools, temps, top_ks,
                    top_ps, generator, *, config: LlamaConfig,
-                   sample_flags=(True, True, True)):
+                   sample_flags=(True, True, True), kv_prefix: str = ""):
     """Prefill a wave of admissions: causal forward over the padded prompt
     batch, each layer's K/V written into the rows' pool blocks (in place;
     pad rows and the bucket's pad tail point at the trash block 0), and
@@ -186,11 +202,13 @@ def _paged_prefill(params, tokens, blk_ids, true_len, pools, temps, top_ks,
     temps/top_ks/top_ps [B]; pools {"k", "v"} [L, NB, bs, Hkv, D], plus
     {"ks", "vs"} [L, NB, bs, Hkv] f32 for int8 pools: attention runs on
     the dense K/V and the pools get them quantized (``quantize_kv``).
+    ``kv_prefix="d"`` runs the wave through the speculative draft (its
+    params and config) into the draft's ``dk``/``dv`` pools.
     Returns the first tokens [B] int32 (on the device)."""
     c = config
     dt = c.dtype
     B, S = tokens.shape
-    bs = pools["k"].shape[2]
+    bs = pools[kv_prefix + "k"].shape[2]
     Hq, Hkv, D = c.num_heads, c.num_kv_heads, c.head_dim
     flat = blk_ids.reshape(-1).long()
     x = params["embed"][tokens.long()].to(dt)
@@ -205,7 +223,7 @@ def _paged_prefill(params, tokens, blk_ids, true_len, pools, temps, top_ks,
         v = _wo_mm(hn, p["wv"], dt).reshape(B, S, Hkv, D)
         _write_pools(pools, (slice(l, l + 1), flat),
                      k.reshape(1, -1, bs, Hkv, D),
-                     v.reshape(1, -1, bs, Hkv, D))
+                     v.reshape(1, -1, bs, Hkv, D), kv_prefix)
         att = flash_attention_fwd(q, k, v, causal=True)[0].reshape(
             B, S, Hq * D)
         x = _mlp(x + _wo_mm(att, p["wo"], dt), p, c)
@@ -217,25 +235,28 @@ def _paged_prefill(params, tokens, blk_ids, true_len, pools, temps, top_ks,
                         *sample_flags)
 
 
-def _write_pools(pools, index, k, v):
-    """pools["k"][index] = k and the same for v — quantized, with their
-    scales into pools["ks"]/["vs"], when the pools are int8."""
-    if "ks" in pools:
+def _write_pools(pools, index, k, v, prefix: str = ""):
+    """pools[prefix + "k"][index] = k and the same for v — quantized, with
+    their scales into the "ks"/"vs" entries, when those pools are int8
+    (the draft's ``dk``/``dv`` never are)."""
+    pk, pv = prefix + "k", prefix + "v"
+    if prefix + "ks" in pools:
         qk, sk = quantize_kv(k)
         qv, sv = quantize_kv(v)
-        pools["k"][index] = qk
-        pools["v"][index] = qv
-        pools["ks"][index] = sk
-        pools["vs"][index] = sv
+        pools[pk][index] = qk
+        pools[pv][index] = qv
+        pools[prefix + "ks"][index] = sk
+        pools[prefix + "vs"][index] = sv
     else:
-        pools["k"][index] = k.to(pools["k"].dtype)
-        pools["v"][index] = v.to(pools["v"].dtype)
+        pools[pk][index] = k.to(pools[pk].dtype)
+        pools[pv][index] = v.to(pools[pv].dtype)
 
 
 def _paged_decode(params, last_tokens, lengths, done0, budgets, generator,
                   active, block_table, pools, temps, top_ks, top_ps, eos_ids,
                   *, config: LlamaConfig, n_steps: int,
-                  sample_flags=(True, True, True), mega: bool = False):
+                  sample_flags=(True, True, True), mega: bool = False,
+                  mega_multistep: bool = False, kv_prefix: str = ""):
     """``n_steps`` decode iterations over all slots.
 
     The slot prefixes ``[0, lengths)`` are frozen for the call: every step
@@ -249,37 +270,57 @@ def _paged_decode(params, last_tokens, lengths, done0, budgets, generator,
     call's new K/V; its valid entries are written back to the pools (in
     place, quantized for int8 pools) at the end of the call.
 
+    ``kv_prefix="d"`` runs the call as the speculative draft's proposal
+    loop (draft params and config, greedy flags, the ``dk``/``dv`` pools).
+    ``mega_multistep`` (greedy, ``done0`` all false: the spec wave's
+    draft) moves the step loop itself into the kernel: the ``n_steps``
+    steps, argmax, bookkeeping and embedding gathers included, are ONE
+    ``mega_decode_loop`` launch; the writeback stays shared.
+
     Returns (emitted [n_steps, N] int32 with -1 padding, last, lengths,
     done, budgets)."""
     c = config
     dt = c.dtype
     Lc, N, S = c.num_layers, block_table.shape[0], n_steps
-    bs = pools["k"].shape[2]
+    pk, pv = kv_prefix + "k", kv_prefix + "v"
+    bs = pools[pk].shape[2]
     Hkv, D = c.num_kv_heads, c.head_dim
     P = block_table.shape[1] * bs
     dev = last_tokens.device
     lens0 = lengths
     walk_lens = torch.where(active, lens0, torch.zeros_like(lens0)).int()
-    # the head operand, hoisted out of the step loop: the dense weight in
-    # dt, or an int8 head's matrix widened to f32 once a call (exact;
-    # weight_only_matmul would widen it again every step)
-    head_w = head_weight(params, c)
-    if is_quantized_weight(head_w):
-        head_w = dict(head_w, q=head_w["q"].float())
-    else:
-        head_w = head_w.to(dt)
     ring_k = torch.zeros((Lc, N, S, Hkv, D), dtype=dt, device=dev)
     ring_v = torch.zeros_like(ring_k)
     last, lens, done, rem = last_tokens, lengths, done0, budgets
-    emitted = []
-    for t in range(S):
+    pools_kw = dict(k_pool=pools[pk], v_pool=pools[pv],
+                    ks_pool=pools.get(kv_prefix + "ks"),
+                    vs_pool=pools.get(kv_prefix + "vs"))
+    in_kernel = mega and mega_multistep
+    if in_kernel:
+        if any(sample_flags):
+            raise ValueError("mega_multistep is greedy-only")
+        grid, last, lens, done, rem, ring_k, ring_v = mega_decode_loop(
+            params, c, x0=params["embed"][last.long()].to(dt), n_steps=S,
+            block_table=block_table, walk_lens=walk_lens, lens=lens,
+            active=active, last0=last, budgets=rem, eos_ids=eos_ids,
+            ring_k=ring_k, ring_v=ring_v, **pools_kw)
+        emitted = list(grid)
+    else:
+        # the head operand, hoisted out of the step loop: the dense weight
+        # in dt, or an int8 head's matrix widened to f32 once a call
+        # (exact; weight_only_matmul would widen it again every step)
+        head_w = head_weight(params, c)
+        if is_quantized_weight(head_w):
+            head_w = dict(head_w, q=head_w["q"].float())
+        else:
+            head_w = head_w.to(dt)
+        emitted = []
+    for t in range(0 if in_kernel else S):
         act = active & ~done
         x0 = params["embed"][last.long()].to(dt)
         # both write the step's K/V rows into the rings in place
         kw = dict(t=t, block_table=block_table, walk_lens=walk_lens,
-                  lens=lens, ring_k=ring_k, ring_v=ring_v, k_pool=pools["k"],
-                  v_pool=pools["v"], ks_pool=pools.get("ks"),
-                  vs_pool=pools.get("vs"))
+                  lens=lens, ring_k=ring_k, ring_v=ring_v, **pools_kw)
         x = mega_decode_step(params, c, x0=x0, **kw)[0] if mega \
             else decode_layers(params, c, x0, **kw)
         xf = _rms_norm(x, params["final_norm"], c.rms_eps)
@@ -301,8 +342,122 @@ def _paged_decode(params, last_tokens, lengths, done0, budgets, generator,
     phys = block_table.long().gather(1, pos // bs)
     phys = torch.where(valid, phys, torch.zeros_like(phys))
     off = pos % bs
-    _write_pools(pools, (slice(None), phys, off), ring_k, ring_v)
+    _write_pools(pools, (slice(None), phys, off), ring_k, ring_v, kv_prefix)
     return torch.stack(emitted), last, lens, done, rem
+
+
+def _spec_verify(params, block_table, last, draft_toks, lengths, active,
+                 pools, *, config: LlamaConfig, n_spec: int,
+                 max_model_len: int):
+    """Score a speculative wave in ONE target forward: each slot's piece
+    ``[last, d_1 .. d_k]`` (k = ``n_spec``; ``draft_toks`` is the draft
+    call's [k, N] grid, -1 pads clipped into the vocabulary) runs a
+    prefill-shaped pass against the slot's resident K/V — the history
+    gathered densely through ``block_table`` [N, nbk] (a power-of-two
+    bucket covering history plus the piece), RoPE at ``lengths`` + j, one
+    softmax over [masked history ; causal piece] — and the target's
+    greedy token at each of the k+1 positions comes back: ``out[n, j]`` is
+    what the target emits after consuming piece token j. Plain torch (the
+    JAX engine leaves it to XLA).
+
+    int8 pools: the history dequantizes up front; piece K/V BELOW the
+    diagonal round-trip through ``quantize_kv`` (a step-wise decode reads
+    them from the int8 pool) while the diagonal — each position's own
+    K/V, the decode ring's — stays raw.
+
+    Writeback is decode-shaped: every position scatters to its own
+    (block, offset) at ``lengths[n] + j``, ALL k+1 of them (the host
+    commits c <= k; later positions are unreadable past the length and
+    the next wave overwrites them). Inactive rows and positions past
+    ``max_model_len`` go to trash block 0. Returns the greedy grid
+    [N, k+1] int32."""
+    c = config
+    dt = c.dtype
+    N, nbk = block_table.shape
+    S = n_spec + 1
+    bs = pools["k"].shape[2]
+    Lc, Hq, Hkv, D = c.num_layers, c.num_heads, c.num_kv_heads, c.head_dim
+    G = Hq // Hkv
+    Pp = nbk * bs
+    scale = 1.0 / math.sqrt(D)
+    kv_int8 = "ks" in pools
+    dev = last.device
+
+    tokens = torch.cat([last[:, None].int(), draft_toks.t().int()], dim=1)
+    tokens = tokens.clamp(0, c.vocab_size - 1)            # [N, S]
+    hist = torch.where(active, lengths.int(), torch.zeros_like(lengths.int()))
+    x = params["embed"].to(dt)[tokens.long()]
+    freq = c.rope_theta ** (-torch.arange(0, D, 2, dtype=torch.float32,
+                                          device=dev) / D)
+    pos = hist.float()[:, None] + torch.arange(S, dtype=torch.float32,
+                                               device=dev)[None, :]
+    ang = pos[:, :, None] * freq[None, None, :]           # [N, S, D/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    pre_mask = (torch.arange(Pp, device=dev)[None, :]
+                < hist[:, None])[:, None, None, None, :]
+    in_mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                    device=dev))[None, None, None]
+    tbl = block_table.long()
+    k_all, v_all = [], []
+    for l in range(Lc):
+        p = _layer(params, l)
+        hn = _rms_norm(x, p["attn_norm"], c.rms_eps)
+        q = _apply_rope_at(_wo_mm(hn, p["wq"], dt).reshape(N, S, Hq, D),
+                           cos, sin)
+        k = _apply_rope_at(_wo_mm(hn, p["wk"], dt).reshape(N, S, Hkv, D),
+                           cos, sin)
+        v = _wo_mm(hn, p["wv"], dt).reshape(N, S, Hkv, D)
+        k_all.append(k)
+        v_all.append(v)
+        kpre = pools["k"][l][tbl].reshape(N, Pp, Hkv, D)
+        vpre = pools["v"][l][tbl].reshape(N, Pp, Hkv, D)
+        if kv_int8:
+            ksc = pools["ks"][l][tbl].reshape(N, Pp, Hkv)
+            vsc = pools["vs"][l][tbl].reshape(N, Pp, Hkv)
+            kpre = kpre.to(dt) * ksc[..., None].to(dt)
+            vpre = vpre.to(dt) * vsc[..., None].to(dt)
+            qk_p, sk_p = quantize_kv(k)
+            qv_p, sv_p = quantize_kv(v)
+            k_rt = qk_p.to(dt) * sk_p[..., None].to(dt)
+            v_rt = qv_p.to(dt) * sv_p[..., None].to(dt)
+        else:
+            k_rt, v_rt = k, v
+        qg = q.reshape(N, S, Hkv, G, D).float()
+        s_pre = torch.einsum("bshgd,bphd->bhgsp", qg, kpre.float()) * scale
+        s_in = torch.einsum("bshgd,bthd->bhgst", qg, k_rt.float()) * scale
+        if kv_int8:
+            eye = torch.eye(S, dtype=torch.bool, device=dev)[None, None, None]
+            s_diag = torch.einsum("bshgd,bshd->bhgs", qg, k.float()) * scale
+            s_in = torch.where(eye, s_diag[..., None], s_in)
+        s_pre = torch.where(pre_mask, s_pre, torch.full_like(s_pre, NEG_INF))
+        s_in = torch.where(in_mask, s_in, torch.full_like(s_in, NEG_INF))
+        probs = torch.softmax(torch.cat([s_pre, s_in], dim=-1), dim=-1)
+        p_in = probs[..., Pp:].to(dt)
+        if kv_int8:
+            eye_f = torch.eye(S, dtype=dt, device=dev)[None, None, None]
+            att_in = (torch.einsum("bhgst,bthd->bshgd", p_in * (1 - eye_f),
+                                   v_rt)
+                      + torch.einsum("bhgs,bshd->bshgd",
+                                     (p_in * eye_f).sum(-1), v))
+        else:
+            att_in = torch.einsum("bhgst,bthd->bshgd", p_in, v)
+        att = torch.einsum("bhgsp,bphd->bshgd", probs[..., :Pp].to(dt),
+                           vpre) + att_in
+        att = att.reshape(N, S, Hq * D).to(dt)
+        x = _mlp(x + _wo_mm(att, p["wo"], dt), p, c)
+
+    # positional writeback (the decode ring's scatter at piece width)
+    j = torch.arange(S, device=dev)[None, :]
+    wpos = hist[:, None] + j                              # [N, S]
+    valid = active[:, None] & (wpos < max_model_len)
+    wposc = wpos.clamp(max=max_model_len - 1).long()
+    phys = tbl.gather(1, (wposc // bs).clamp(max=nbk - 1))
+    phys = torch.where(valid, phys, torch.zeros_like(phys))
+    _write_pools(pools, (slice(None), phys, wposc % bs), torch.stack(k_all),
+                 torch.stack(v_all))
+    x = _rms_norm(x, params["final_norm"], c.rms_eps)
+    logits = _wo_mm(x, head_weight(params, c), dt).float()
+    return logits.argmax(dim=-1).int()
 
 
 # ---------------------------------------------------------------------------
@@ -319,6 +474,21 @@ class LLMEngine:
     the (req_id, token) pairs that became host-visible — the streaming
     hook. ``params`` must live on ``device`` (``"cuda"`` by default;
     ``"cpu"`` runs the kernels' plain versions).
+
+    ``draft_params``/``draft_config``: a second, smaller llama sharing the
+    target's vocabulary (``models.llama.draft_config``), the speculative
+    draft. A decode wave whose slots are all greedy and whose draft K/V
+    cover their contexts runs draft-then-verify: ``spec_tokens`` proposals
+    a slot, one verify call, and the agreeing prefix plus the target's
+    token committed (capped at ``spec_tokens``, at least one token a
+    wave) — exactly the non-speculative greedy streams. Other waves take
+    the normal decode path (a slot advanced there stays out of spec waves
+    until it is re-prefilled). ``spec=False`` leaves the engine as it is
+    without a draft: no draft pools, no draft prefill. The counters
+    ``spec_waves``, ``spec_proposed``, ``spec_accepted``,
+    ``spec_committed``, ``spec_draft_steps`` and ``spec_verify_calls``
+    are kept on the host; ``spec_draft_paths`` counts the draft calls by
+    kernel path.
     """
 
     def __init__(self, params, config: LlamaConfig, max_slots: int = 4,
@@ -326,7 +496,9 @@ class LLMEngine:
                  num_blocks: Optional[int] = None,
                  prompt_buckets: Optional[List[int]] = None, seed: int = 0,
                  decode_steps: int = 1, decode_kernel: str = "auto",
-                 kv_dtype=None, device="cuda", **unported):
+                 kv_dtype=None, device="cuda", draft_params=None,
+                 draft_config: Optional[LlamaConfig] = None,
+                 spec_tokens: int = 4, spec: bool = True, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"LLMEngine got an unexpected argument "
@@ -395,6 +567,48 @@ class LLMEngine:
                                            device=self.device),
                           "v": torch.zeros(pool_shape, dtype=c.dtype,
                                            device=self.device)}
+        # -- speculative decoding: the optional draft model --------------
+        self._spec_on = bool(spec) and draft_params is not None
+        self.spec_k = int(spec_tokens)
+        self.draft_params = draft_params if self._spec_on else None
+        self.draft_config = draft_config if self._spec_on else None
+        if self._spec_on:
+            if draft_config is None:
+                raise ValueError("draft_params requires a draft_config")
+            if draft_config.vocab_size != c.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft_config.vocab_size} != target vocab "
+                    f"{c.vocab_size} — the two models must share a "
+                    "tokenizer")
+            if self.spec_k < 1:
+                raise ValueError(
+                    f"spec_tokens must be >= 1, got {spec_tokens}")
+            bad = [k for k, t in _tensors(draft_params)
+                   if t.device != self.device]
+            if bad:
+                raise ValueError(f"draft_params {bad[:3]} are not on "
+                                 f"{self.device}")
+            # the draft's pools share the target's block grid (one block
+            # backs both models' K/V for its positions, so the allocator
+            # needs no new bookkeeping) and stay in the draft's dtype
+            dc = draft_config
+            dshape = (dc.num_layers, self.nb, block_size, dc.num_kv_heads,
+                      dc.head_dim)
+            self.pools["dk"] = torch.zeros(dshape, dtype=dc.dtype,
+                                           device=self.device)
+            self.pools["dv"] = torch.zeros(dshape, dtype=dc.dtype,
+                                           device=self.device)
+        # per slot, the positions the draft's K/V cover: a slot joins a
+        # spec wave only while they equal its length (a slot advanced by
+        # the normal decode path goes stale, -1, until re-prefilled)
+        self._draft_len = np.zeros(self.N, np.int64)
+        self.spec_proposed = 0      # draft tokens offered to verify
+        self.spec_accepted = 0      # of those, accepted by the target
+        self.spec_committed = 0     # tokens committed by spec waves
+        self.spec_waves = 0         # draft+verify waves
+        self.spec_draft_steps = 0   # draft decode steps run (waves * k)
+        self.spec_verify_calls = 0  # batched target verify calls
+        self.spec_draft_paths: Counter = Counter()   # draft calls by path
         self.free_blocks = deque(range(1, self.nb))
         self.table = np.zeros((self.N, self.mb), np.int32)
         self.n_alloc = np.zeros(self.N, np.int64)  # backed logical blocks
@@ -442,11 +656,15 @@ class LLMEngine:
         return self.results
 
     def step(self):
-        """Admit queued requests, run one decode call over the active
-        slots, and return the (req_id, token) pairs emitted."""
+        """Admit queued requests, run one decode call (or, with a draft,
+        one draft-then-verify wave) over the active slots, and return the
+        (req_id, token) pairs emitted."""
         self._admit()
-        if not self._decode_slots():
+        active = self._decode_slots()
+        if not active:
             return []
+        if self._spec_eligible(active):
+            return self._spec_wave()
         self._back_or_preempt()
         active = self._decode_slots()
         if not active:
@@ -481,6 +699,7 @@ class LLMEngine:
         self.table[slot, :] = 0
         self.n_alloc[slot] = 0
         self.lengths[slot] = 0
+        self._draft_len[slot] = 0
         self.slot_req[slot] = None
         if slot in self.admit_order:
             self.admit_order.remove(slot)
@@ -555,8 +774,22 @@ class LLMEngine:
             torch.as_tensor(top_ks, device=dev),
             torch.as_tensor(top_ps, device=dev), self._gen,
             config=self.config, sample_flags=flags)
+        if self._spec_on:
+            # the same wave through the draft, so both models' K/V cover
+            # every prefilled position; its token is discarded (greedy:
+            # it draws nothing from the generator)
+            _paged_prefill(
+                self.draft_params, torch.as_tensor(toks, device=dev),
+                torch.as_tensor(blk_ids, device=dev),
+                torch.as_tensor(true_lens, device=dev), self.pools,
+                torch.as_tensor(temps, device=dev),
+                torch.as_tensor(top_ks, device=dev),
+                torch.as_tensor(top_ps, device=dev), self._gen,
+                config=self.draft_config, sample_flags=(False, False, False),
+                kv_prefix="d")
         for i, (slot, req, ctx) in enumerate(rows):
             self.lengths[slot] = len(ctx)
+            self._draft_len[slot] = len(ctx)
             self._pending_adm.append((slot, req.req_id, tok_dev, i))
 
     def _emit(self, slot: int, tok: int) -> bool:
@@ -571,14 +804,16 @@ class LLMEngine:
             self._free_slot(slot)
         return done
 
-    def _ensure_backed(self, slot: int) -> bool:
+    def _ensure_backed(self, slot: int, steps: Optional[int] = None) -> bool:
         """Back every block this slot's next decode call can write
-        (clamped to its remaining token budget). Returns False if the pool
-        is exhausted (caller preempts)."""
+        (clamped to its remaining token budget); ``steps`` overrides the
+        call's write horizon (a spec wave commits up to ``spec_tokens``).
+        Returns False if the pool is exhausted (caller preempts)."""
         req = self.slot_req[slot]
         remaining = req.max_new_tokens - len(req.generated) \
             - len(self.slot_out[slot])
-        steps = max(1, min(self.decode_steps, remaining))
+        base = self.decode_steps if steps is None else steps
+        steps = max(1, min(base, remaining))
         horizon = int(self.lengths[slot]) + steps - 1
         last_blk = min(horizon, self.max_model_len - 1) // self.bs
         need = last_blk + 1 - int(self.n_alloc[slot])
@@ -594,13 +829,14 @@ class LLMEngine:
     def _decode_slots(self):
         return [i for i in range(self.N) if self.slot_req[i] is not None]
 
-    def _back_or_preempt(self):
-        """Back the next call's writes for every active slot; preempt the
-        newest admissions while the pool is short (recompute policy)."""
+    def _back_or_preempt(self, steps: Optional[int] = None):
+        """Back the next call's writes for every active slot (``steps``
+        positions, default ``decode_steps``); preempt the newest
+        admissions while the pool is short (recompute policy)."""
         for slot in self._decode_slots():
             if self.slot_req[slot] is None:
                 continue                      # already preempted as a victim
-            while not self._ensure_backed(slot):
+            while not self._ensure_backed(slot, steps):
                 victim = self.admit_order[-1]
                 if victim == slot and len(self.admit_order) == 1:
                     # alone and starved: nothing else will ever free a block
@@ -690,10 +926,10 @@ class LLMEngine:
         return self._process(adm, toks,
                              [(i, self.slot_req[i].req_id) for i in active])
 
-    def _process(self, adm, toks, snapshot):
-        """Read back a decode call: the first tokens of its admissions,
-        then its emitted grid [n_steps, N]. Slots whose request changed
-        since dispatch are skipped."""
+    def _flush_adm(self, adm):
+        """Read back the first tokens of admissions ((slot, req_id, wave
+        token array, row) tuples) and emit them; slots whose request
+        changed since are skipped."""
         emitted = []
         host = {}
         for slot, rid, arr, i in adm:
@@ -705,6 +941,13 @@ class LLMEngine:
             tok = int(host[id(arr)][i])
             emitted.append((rid, tok))
             self._emit(slot, tok)
+        return emitted
+
+    def _process(self, adm, toks, snapshot):
+        """Read back a decode call: the first tokens of its admissions,
+        then its emitted grid [n_steps, N]. Slots whose request changed
+        since dispatch are skipped."""
+        emitted = self._flush_adm(adm)
         toks_host = toks.cpu().numpy()
         for slot, rid in snapshot:
             for k in range(toks_host.shape[0]):
@@ -715,9 +958,134 @@ class LLMEngine:
                 if tok < 0:
                     break          # slot went done mid-call
                 self.lengths[slot] += 1     # its K/V was appended
+                if self._spec_on:
+                    # advanced by the normal path: the draft's K/V are
+                    # behind until a re-prefill
+                    self._draft_len[slot] = -1
                 emitted.append((rid, tok))
                 if self._emit(slot, tok):
                     break
+        return emitted
+
+    # -- speculative decoding: draft-then-verify waves ----------------------
+    def _spec_eligible(self, active) -> bool:
+        """True when the next wave can run draft-then-verify: a draft is
+        configured, every decode slot is greedy (accepting the longest
+        agreeing prefix is exact for argmax only) and every slot's draft
+        K/V cover its whole context."""
+        if not self._spec_on or not active:
+            return False
+        return all(self.slot_req[i].temperature <= 0
+                   and self._draft_len[i] == self.lengths[i] for i in active)
+
+    def _spec_bucket(self, active) -> int:
+        """Power-of-two block count covering every wave slot's history
+        plus the verify piece's k+1 writes: the verify's table width."""
+        hmax = need = 0
+        for i in active:
+            hmax = max(hmax, int(self.lengths[i]))
+            need = max(need, int(self.n_alloc[i]))
+        horizon = min(hmax + self.spec_k + 1, self.max_model_len)
+        need = max(1, need, -(-horizon // self.bs))
+        return min(1 << (need - 1).bit_length(), self.mb)
+
+    def _spec_wave(self):
+        """One draft-then-verify wave: the draft proposes ``spec_k``
+        tokens a slot in one call, the target scores them all in one
+        verify call (the draft's grid feeds it on the device), and the
+        host commits each slot's agreeing prefix plus the target's token,
+        capped at ``spec_k`` — so the draft's K/V stay in lockstep with the
+        target's and a rejected suffix is rolled back by the length alone.
+        Pending admissions are read back first: the wave reads the host's
+        state."""
+        emitted = []
+        if self._pending_adm:
+            adm, self._pending_adm = self._pending_adm, []
+            emitted += self._flush_adm(adm)
+        self._back_or_preempt(steps=self.spec_k)
+        active = self._decode_slots()
+        if not active:
+            return emitted
+        k, N, dev = self.spec_k, self.N, self.device
+        path = self._decode_path()
+        if path == "mega":
+            # the draft's own screen (its widths, its head, the multi-step
+            # epilogue); a refusal is counted and the draft runs ragged
+            ok, reason = mega_supported(
+                self.draft_params, self.draft_config, n_slots=N,
+                n_steps=k, block_size=self.bs, kv_int8=False,
+                multi_step=True)
+            if not ok:
+                self.mega_fallbacks["draft_" + reason] += 1
+                path = "ragged"
+        self.spec_draft_paths[path] += 1
+        nbk = self._spec_bucket(active)
+        if self._table_dev is None:
+            self._table_dev = torch.as_tensor(self.table, device=dev)
+        last = np.zeros(N, np.int32)
+        budgets = np.zeros(N, np.int32)
+        act = np.zeros(N, bool)
+        for i in active:
+            req = self.slot_req[i]
+            out = self.slot_out[i]
+            last[i] = out[-1] if out else (
+                req.generated[-1] if req.generated else req.prompt[-1])
+            # the draft stops at the slot's remaining budget: tokens past
+            # it could never commit
+            budgets[i] = req.max_new_tokens - len(req.generated) - len(out)
+            act[i] = True
+        last_d = torch.as_tensor(last, device=dev)
+        lens_d = torch.as_tensor(self.lengths.astype(np.int32), device=dev)
+        act_d = torch.as_tensor(act, device=dev)
+        draft, *_ = _paged_decode(
+            self.draft_params, last_d, lens_d,
+            torch.zeros(N, dtype=torch.bool, device=dev),
+            torch.as_tensor(budgets, device=dev), self._gen, act_d,
+            self._table_dev, self.pools,
+            torch.zeros(N, dtype=torch.float32, device=dev),
+            torch.zeros(N, dtype=torch.int32, device=dev),
+            torch.ones(N, dtype=torch.float32, device=dev),
+            torch.full((N,), -1, dtype=torch.int32, device=dev),
+            config=self.draft_config, n_steps=k,
+            sample_flags=(False, False, False), mega=path == "mega",
+            mega_multistep=path == "mega", kv_prefix="d")
+        verified = _spec_verify(
+            self.params, self._table_dev[:, :nbk], last_d, draft, lens_d,
+            act_d, self.pools, config=self.config, n_spec=k,
+            max_model_len=self.max_model_len)
+        d_host = draft.cpu().numpy()                    # [k, N]
+        v_host = verified.cpu().numpy()                 # [N, k+1]
+        wave_prop = wave_acc = wave_commit = 0
+        for i in active:
+            req = self.slot_req[i]
+            rid = req.req_id
+            rem = req.max_new_tokens - len(req.generated) \
+                - len(self.slot_out[i])
+            prop = min(k, rem)              # what the draft really ran
+            d, g = d_host[:, i], v_host[i]
+            a = 0
+            while a < prop and d[a] == g[a]:
+                a += 1
+            # the agreeing prefix + the target's own token, capped at k
+            # (the lockstep invariant) and at the budget: a wave commits
+            # at least one token
+            c = min(a + 1, k, rem)
+            wave_prop += prop
+            wave_acc += a
+            for j in range(c):
+                tok = int(g[j])
+                self.lengths[i] += 1        # verify wrote its K/V
+                self._draft_len[i] += 1     # and the draft its own
+                wave_commit += 1
+                emitted.append((rid, tok))
+                if self._emit(i, tok):
+                    break                   # eos or budget mid-wave
+        self.spec_waves += 1
+        self.spec_verify_calls += 1
+        self.spec_draft_steps += k
+        self.spec_proposed += wave_prop
+        self.spec_accepted += wave_acc
+        self.spec_committed += wave_commit
         return emitted
 
 

@@ -198,6 +198,61 @@ def test_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
                                  ring_v=ring, k_pool=kp, v_pool=kp, **extra)
 
 
+def test_spec_and_paged_cache_cuda_tensors_never_reach_the_plain_versions(
+        monkeypatch):
+    """B5's multi-step form and the paged-cache kernels (B6-B8) given CUDA
+    tensors raise without a card when they go to launch, whatever the
+    length; they never run their plain versions. The speculative engine
+    defaults to the card like the plain one."""
+    def no_plain(*a, **k):
+        raise _PlainTaken("plain version taken for a CUDA tensor")
+
+    monkeypatch.setattr(tmd, "mega_decode_loop_plain", no_plain)
+    monkeypatch.setattr(tmd, "decode_layers", no_plain)
+    for name in ("paged_decode_attention_plain", "paged_append_token_plain",
+                 "paged_append_blocks_plain", "paged_attention"):
+        monkeypatch.setattr(tpa, name, no_plain)
+
+    def cuda(shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype).as_subclass(_CudaTyped)
+
+    cfg = dataclasses.replace(tl.tiny_llama(vocab=32, hidden=256, layers=1,
+                                            heads=4, kv_heads=2, ffn=256),
+                              dtype=torch.float32)
+    params = {k: (cuda(v.shape) if torch.is_tensor(v)
+                  else {kk: cuda(vv.shape) for kk, vv in v.items()})
+              for k, v in tl.init_params(cfg, device="cpu").items()}
+    pool = cuda((1, 3, 4, 2, 64))
+    ring = cuda((1, 2, 2, 2, 64))
+    ints = cuda((2,), torch.int32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmd.mega_decode_loop(params, cfg, x0=cuda((2, 256)), n_steps=2,
+                             block_table=cuda((2, 2), torch.int32),
+                             walk_lens=ints, lens=ints,
+                             active=cuda((2,), torch.bool), last0=ints,
+                             budgets=ints, eos_ids=ints, ring_k=ring,
+                             ring_v=ring, k_pool=pool, v_pool=pool)
+    # a table far wider than the TPU wrapper's 12 MiB of VMEM staging
+    # (where the JAX package gathers instead) takes the kernel too
+    small = cuda((1, 2, 64, 2, 64))
+    cache = tpa.PagedKVCache(small, small, cuda((2, 4096), torch.int32),
+                             cuda((2,), torch.int32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpa.paged_decode_attention(cuda((2, 4, 64)), cache)
+    rows = cuda((2, 2, 64))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpa.paged_append_token(pool, pool, rows, rows, ints, ints)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpa.paged_append_blocks(pool[0], pool[0], cuda((2, 4, 2, 64)),
+                                cuda((2, 4, 2, 64)), ints)
+    # the checks before a launch hold for CUDA tensors: no fp16 queries
+    with pytest.raises(TypeError):
+        tpa.paged_decode_attention(cuda((2, 4, 64), torch.float16), cache)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            LLMEngine(params, cfg, draft_params=params, draft_config=cfg)
+
+
 def test_moe_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("this check needs a machine without CUDA")

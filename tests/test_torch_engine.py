@@ -149,8 +149,8 @@ def test_unported_arguments_raise(model):
     for kw, err, match in ((dict(kv_dtype="fp8"), ValueError, "kv_dtype"),
                            (dict(prefix_cache=True), NotImplementedError,
                             "A5"),
-                           (dict(draft_params=tp), NotImplementedError,
-                            "A6"),
+                           (dict(prefill_chunk=16), NotImplementedError,
+                            "A5"),
                            (dict(mesh=object()), NotImplementedError,
                             "A10"),
                            (dict(decode_kernel="bucketed"),

@@ -582,3 +582,198 @@ def test_int8_moe_ffn_on_card_matches_cpu(dev):
                            for t in w.values())
     for a, b in zip(res["cuda"], res["cpu"]):
         assert _rel(a, b) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# B5's multi-step form (the speculative draft wave) and B6-B8 (the
+# paged-cache API)
+# ---------------------------------------------------------------------------
+def _loop_args(params, cfg, x0, table, walk, pools, k, budgets, eos):
+    N = x0.shape[0]
+    L, hkv, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    dev = x0.device
+    last0 = torch.arange(N, dtype=torch.int32, device=dev) * 7 + 3
+    active = torch.tensor([n != 2 for n in range(N)], device=dev)
+    return dict(x0=params["embed"][last0.long()].to(cfg.dtype), n_steps=k,
+                block_table=table, walk_lens=walk, lens=walk.clone(),
+                active=active, last0=last0,
+                budgets=torch.as_tensor(budgets, device=dev),
+                eos_ids=torch.as_tensor(eos, device=dev),
+                ring_k=torch.zeros(L, N, k, hkv, D, dtype=cfg.dtype,
+                                   device=dev),
+                ring_v=torch.zeros(L, N, k, hkv, D, dtype=cfg.dtype,
+                                   device=dev),
+                k_pool=pools[0], v_pool=pools[1])
+
+
+def _loop_model(dev, dtype, head, D, G, N):
+    """_mega_inputs' model with the head asked for: "dense", "tied" (the
+    embedding is the head) or "int8" (``quantize_params``: int8 layer
+    weights and head)."""
+    import dataclasses
+    from paddle_tpu_torch.models import llama
+    cfg, params, x0, table, walk, pools, _ = _mega_inputs(dev, dtype, D, G,
+                                                          N)
+    if head == "tied":
+        cfg = dataclasses.replace(cfg, tie_embeddings=True)
+        params = {k: v for k, v in params.items() if k != "lm_head"}
+    if head == "int8":
+        params = llama.quantize_params(params)
+    return cfg, params, x0, table, walk, pools
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head,D,G,N", [
+    ("dense", 128, 4, 4), ("tied", 64, 8, 6), ("int8", 128, 4, 4),
+    ("dense", 64, 1, 1), ("tied", 128, 4, 8)])
+def test_mega_loop_kernel_matches_plain(dev, dtype, head, D, G, N):
+    """B5's multi-step form, 4 steps, against mega_decode_loop_plain: row
+    1 spends a budget of 2 mid-loop, row 2 (where N > 2) is inactive and
+    the last row stops at an eos taken from the plain run's step 1. f32:
+    the emitted tokens and the final last/lens/done/budgets equal the
+    plain version's, the rings within 1e-4 of their largest magnitude.
+    bf16 (the logits round to bf16, where near-ties are common, so later
+    steps may take another token): the first step's ring rows within
+    2e-2 and its tokens, which the kernel feeds back, valid."""
+    from paddle_tpu_torch.kernels import mega_decode as tmd
+    cfg, params, x0, table, walk, pools = _loop_model(dev, dtype, head, D,
+                                                      G, N)
+    k = 4
+    budgets = [k, 2] + [k] * (N - 2) if N > 1 else [k]
+    eos = [-1] * N
+    first = tmd.mega_decode_loop_plain(
+        params, cfg, **_loop_args(params, cfg, x0, table, walk, pools, k,
+                                  budgets, eos))[0]
+    if N > 3:
+        eos[-1] = int(first[1, -1])
+    args = _loop_args(params, cfg, x0, table, walk, pools, k, budgets, eos)
+    name = "mega_decode_loop_int8" if head == "int8" else "mega_decode_loop"
+    before = _build.launch_counts[name]
+    got = tmd.mega_decode_loop(params, cfg, **args)
+    want = tmd.mega_decode_loop_plain(
+        params, cfg, **_loop_args(params, cfg, x0, table, walk, pools, k,
+                                  budgets, eos))
+    torch.cuda.synchronize()
+    assert _build.launch_counts[name] == before + 1
+    V = cfg.vocab_size
+    assert got[0].shape == (k, N) and got[0].dtype == torch.int32
+    assert bool(((got[0] >= -1) & (got[0] < V)).all())
+    if dtype == torch.float32:
+        for g, w in zip(got[:5], want[:5]):
+            assert torch.equal(g.long().cpu(), w.long().cpu())
+        for g, w in zip(got[5:], want[5:]):
+            assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+        if N > 1:
+            assert bool(got[3][1]) and int(got[4][1]) == 0
+    else:
+        for g, w in zip(got[5:], want[5:]):
+            err = (g[:, :, 0].float() - w[:, :, 0].float()).abs().max()
+            assert err.item() <= 2e-2 * w[:, :, 0].float().abs().max().item()
+    if N > 2:
+        assert bool((got[0][:, 2] == -1).all())      # the inactive row
+
+
+def test_spec_engine_mega_draft_on_card_matches_ragged(dev):
+    """A speculative engine on the card (f32, a 1-layer draft of the
+    target's widths) emits the plain engine's greedy streams through the
+    mega draft (one multi-step launch a spec wave, no single-step launch
+    inside the waves) and through the ragged one."""
+    import dataclasses
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.serving import LLMEngine
+    cfg, params, *_ = _mega_inputs(dev, torch.float32, 128, 4, 4)
+    dcfg = dataclasses.replace(cfg, num_layers=1)
+    dparams = llama.init_params(dcfg, seed=1, device=dev)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 128, size=n).tolist() for n in (5, 40, 17)]
+    kw = dict(max_slots=2, block_size=16, max_model_len=128,
+              prompt_buckets=[64], decode_steps=4, device=dev)
+    base = LLMEngine(params, cfg, decode_kernel="ragged", **kw)
+    ids = [base.add_request(p, max_new_tokens=9) for p in prompts]
+    out = base.run()
+    want = [out[i] for i in ids]
+    for kernel in ("mega", "ragged"):
+        eng = LLMEngine(params, cfg, decode_kernel=kernel,
+                        draft_params=dparams, draft_config=dcfg,
+                        spec_tokens=4, **kw)
+        ids = [eng.add_request(p, max_new_tokens=9) for p in prompts]
+        _build.launch_counts.clear()
+        out = eng.run()
+        torch.cuda.synchronize()
+        assert [out[i] for i in ids] == want
+        assert dict(eng.spec_draft_paths) == {kernel: eng.spec_waves}
+        assert not eng.mega_fallbacks and not eng.decode_paths
+        if kernel == "mega":
+            assert _build.launch_counts["mega_decode_loop"] \
+                == eng.spec_waves
+            assert _build.launch_counts["mega_decode"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("five_d", [False, True])
+def test_paged_append_kernels_match_plain(dev, dtype, five_d):
+    """B7 and B8 write exactly what their plain versions write (in place,
+    4-D and 5-D pools, a runtime layer), idle slots and pad blocks on the
+    trash block 0."""
+    from paddle_tpu_torch.kernels import paged_attention as tpa
+    g = torch.Generator(device=dev).manual_seed(5)
+    L, NB, BS, hkv, D, N = 3, 40, 16, 8, 128, 6
+    shape = ((L,) if five_d else ()) + (NB, BS, hkv, D)
+    layer = 2 if five_d else 0
+    kp, vp = (torch.randn(shape, generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    k_new, v_new = (torch.randn(N, hkv, D, generator=g, device=dev)
+                    for _ in range(2))      # cast to the pools' dtype
+    blk = torch.tensor([3, 0, 17, 39, 8, 0], dtype=torch.int32, device=dev)
+    off = torch.tensor([0, 5, 15, 7, 1, 5], dtype=torch.int32, device=dev)
+    k_new[5], v_new[5] = k_new[1], v_new[1]     # the trash block's writes
+    pools = [kp.clone(), vp.clone()]
+    ref = [kp.clone(), vp.clone()]
+    before = _build.launch_counts["paged_append_token"]
+    tpa.paged_append_token(*pools, k_new, v_new, blk, off, layer=layer)
+    tpa.paged_append_token_plain(*ref, k_new, v_new, blk, off, layer)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["paged_append_token"] == before + 1
+    assert torch.equal(pools[0], ref[0]) and torch.equal(pools[1], ref[1])
+    kb, vb = (torch.randn(5, BS, hkv, D, generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    ids = torch.tensor([11, 0, 2, 39, 0], dtype=torch.int32, device=dev)
+    kb[4], vb[4] = kb[1], vb[1]
+    before = _build.launch_counts["paged_append_blocks"]
+    tpa.paged_append_blocks(*pools, kb, vb, ids, layer=layer)
+    tpa.paged_append_blocks_plain(*ref, kb, vb, ids, layer)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["paged_append_blocks"] == before + 1
+    assert torch.equal(pools[0], ref[0]) and torch.equal(pools[1], ref[1])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("bs,G,D", [(64, 4, 128), (16, 3, 64), (32, 8, 128),
+                                    (64, 1, 64)])
+def test_paged_decode_kernel_matches_plain(dev, dtype, tol, bs, G, D):
+    """B6 against its plain version: lengths 0 (the result is 0), 1, one
+    exact block and long partial walks, G of 1, 3, 4 and 8, layer 1 of a
+    two-layer pool; per slot, f32 within 1e-5 of that slot's largest
+    magnitude, bf16 within 2e-2."""
+    from paddle_tpu_torch.kernels import paged_attention as tpa
+    rng = np.random.default_rng(9)
+    L, hkv, mb, N = 2, 2, 1024 // bs, 5
+    NB = N * mb + 1
+    g = torch.Generator(device=dev).manual_seed(1)
+    lens = torch.tensor([0, 1, bs, 1000, 313], dtype=torch.int32, device=dev)
+    table = torch.as_tensor(rng.permutation(np.arange(1, NB))
+                            .reshape(N, mb).astype(np.int32), device=dev)
+    kp, vp = (torch.randn(L, NB, bs, hkv, D, generator=g, device=dev)
+              .to(dtype) for _ in range(2))
+    q = torch.randn(N, G * hkv, D, generator=g, device=dev).to(dtype)
+    cache = tpa.PagedKVCache(kp, vp, table, lens)
+    before = _build.launch_counts["paged_decode_attention"]
+    out = tpa.paged_decode_attention(q, cache, layer=1)
+    ref = tpa.paged_decode_attention_plain(q, cache, layer=1)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["paged_decode_attention"] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    assert bool((out[0] == 0).all())
+    err = (out.float() - ref.float()).abs().flatten(1).amax(1)[1:]
+    assert bool((err <= tol * ref.float().abs().flatten(1).amax(1)[1:]).all())

@@ -126,7 +126,26 @@ def test_mega_supported_reasons(model):
     assert tmd.mega_supported(int8, cfg, **kw) == (True, "ok")
     assert tmd.mega_supported(params, cfg, **dict(kw, kv_int8=True)) \
         == (True, "ok")
-    assert "A6" in tmd.mega_supported(params, cfg, multi_step=True, **kw)[1]
+    # the multi-step form (the speculative draft) screens its head too
+    assert tmd.mega_supported(params, cfg, multi_step=True, **kw) \
+        == (True, "ok")
+    assert tmd.mega_supported(int8, cfg, multi_step=True, **kw) \
+        == (True, "ok")
+    tied = dataclasses.replace(cfg, tie_embeddings=True)
+    assert tmd.mega_supported(params, tied, multi_step=True, **kw) \
+        == (True, "ok")
+    half = dict(params, embed=params["embed"].to(torch.bfloat16))
+    assert tmd.mega_supported(half, cfg, multi_step=True, **kw) \
+        == (False, "head_dtype")
+    odd_vocab = dataclasses.replace(cfg, vocab_size=250)
+    odd = dict(params, embed=params["embed"][:250],
+               lm_head=params["lm_head"][:, :250])
+    assert tmd.mega_supported(odd, odd_vocab, multi_step=True, **kw) \
+        == (False, "head_width")
+    assert tmd.mega_supported(odd, dataclasses.replace(
+        odd_vocab, tie_embeddings=True), multi_step=True, **kw) == (True, "ok")
+    assert tmd.mega_supported(params, cfg, multi_step=True,
+                              **dict(kw, n_steps=0)) == (False, "steps")
     assert tmd.mega_supported(params, cfg, **dict(kw, n_slots=9)) \
         == (False, "slots")
     bf16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
