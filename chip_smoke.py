@@ -55,8 +55,11 @@ into the git-ignored ``paddle_tpu_torch/_build``, then runs, in order
     grads and updated params must agree;
 11. B9 (gather_gmm) and B10 (gmm, with and without transpose_rhs; tgmm)
     against their plain versions, bf16 and f32, at small shapes with empty
-    groups, a skewed group, tiles spanning groups and tail rows, then
-    bf16 at the MoE train step's shapes;
+    groups, a skewed group, tiles spanning groups and tail rows; the
+    Hopper kernels' edge shapes (a ragged reduction that wraps the stage
+    ring, more tiles than 2 x 132 persistent blocks, 1408 and 136 columns;
+    B9 with bf16 and int8 weights), each call equal to itself bit for bit
+    over two calls; then bf16 at the MoE train step's shapes;
 12. the MoE training path: ``moe.train_step`` on DeepSeekMoE-16B's
     widths cut to 12 layers (batch 4, seq 2048, remat "outs", adafactor,
     bf16 params, random weights), 2 warm-up and 5 timed steps — falling
@@ -64,7 +67,8 @@ into the git-ignored ``paddle_tpu_torch/_build``, then runs, in order
     tgmm; tokens/s, step time, MFU, peak memory, the fused dispatch's
     route counts; one more step traced, its device time by kernel;
 13. B9, gmm and tgmm timed at each of their calls' shapes in the step
-    beside their plain versions, their bounds and ``torch._grouped_mm``;
+    beside their plain versions, their bounds (and each call's share of
+    it) and ``torch._grouped_mm``;
     the fused and gmm dispatch forms timed forward and backward;
 14. card vs CPU MoE train step (f32, 2 layers, AdamW), and the card's gmm
     form against its fused form.
@@ -90,7 +94,8 @@ int8 pools from ``kv_dtype="int8"``, int8 experts from
     the card and ragged on the CPU emit equal streams;
 (e) after phase 14: B9's int8 branch against its plain version at small
     shapes (an empty and a skewed group), then at the MoE step's gate|up
-    shape, timed beside ``torch._grouped_mm`` on the widened weight;
+    shape, timed beside its bound (and its share of it) and
+    ``torch._grouped_mm`` on the widened weight;
 (f) ``moe.forward`` on DeepSeekMoE-16B at full depth (28 layers) with
     int8 experts, batch 4 x 2048, 2 warm-up and 5 timed forwards with one
     B9-int8 and one gmm launch a MoE layer each, and its logits against
@@ -1765,6 +1770,22 @@ def deepseek_routing(tmdisp, tmf, dev, T=8192, h=2048, E=64, f=1408, k=6):
                 Wcat=torch.cat([eg, eu], -1), T=T, h=h, E=E, f=f, k=k)
 
 
+# Edge shapes of the Hopper kernels of B9 and gmm (grouped_gemm_sm90.cuh):
+# gmm (M, K, N, group sizes), unpadded; B9 (tokens, h, n) over the padded
+# layout of a skewed top-2 routing to 8 experts. "wrap": 33 64-deep stages
+# (K not a multiple of 64: the stage ring's barriers wrap, the last stage is
+# ragged) and more output tiles than 2 x 132 persistent blocks; "n1408": a
+# multiple of 128 columns but not of 256; "n136": a 128-wide tile with 8
+# live columns and a first row tile spanning four groups around an empty
+# one. Every gmm shape has tail rows.
+SM90_GMM_EDGES = {
+    "wrap": (4096, 2056, 2816, [700, 0, 13, 1200, 87, 900, 600, 500]),
+    "n1408": (1000, 200, 1408, [3, 60, 0, 200, 5, 1, 500]),
+    "n136": (300, 136, 136, [40, 30, 0, 20, 100]),
+}
+SM90_B9_EDGES = {"wrap": (2048, 2056, 2816), "n1408": (300, 200, 1408)}
+
+
 def check_grouped(tmdisp, tmf, dev):
     """B9, gmm (plain and transpose_rhs) and tgmm against their plain
     versions, each within 1e-2 (bf16) or 1e-5 (f32) of the plain result's
@@ -1772,8 +1793,10 @@ def check_grouped(tmdisp, tmf, dev):
     [0, 130, 1, 0, 100] (empty groups, a one-row group, boundaries inside
     128-row tiles, 69 tail rows, which must come out zero), a reduction of
     200 and 136/264-wide outputs (partial tiles), B9 over the padded layout
-    of a skewed top-3 routing of 50 tokens; (b) the train step's shapes
-    (``deepseek_routing``), bf16."""
+    of a skewed top-3 routing of 50 tokens; (b) the Hopper kernels' edge
+    shapes (``SM90_GMM_EDGES``, ``SM90_B9_EDGES``; B9 with bf16 and int8
+    weights), bf16, each called twice and equal to itself bit for bit; (c)
+    the train step's shapes (``deepseek_routing``), bf16."""
     g = torch.Generator(device=dev).manual_seed(SEED + 9)
     gs = torch.tensor([0, 130, 1, 0, 100], dtype=torch.int32, device=dev)
     errs = {}
@@ -1818,6 +1841,44 @@ def check_grouped(tmdisp, tmf, dev):
         gid = tmf._tile_gids(gs_pad, tok_pad.shape[0], 128)
         hold(f"gather_gmm {dn}", tmf.gather_gmm(x, tok_pad, rhs, gid),
              tmf.gather_gmm_plain(x, tok_pad, rhs, gid), tol)
+
+    def twice(name, fn):
+        out = fn()
+        if not torch.equal(out, fn()):
+            raise AssertionError(f"{name}: two calls differ")
+        return out
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    for shape, (M, K, N, sizes) in SM90_GMM_EDGES.items():
+        gse = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        lhs = bf16(M, K)
+        for tr in (False, True):
+            rhs = bf16(len(sizes), N, K) if tr else bf16(len(sizes), K, N)
+            out = twice(f"gmm {shape}", lambda: tmdisp.gmm(lhs, rhs, gse, tr))
+            if not torch.all(out[sum(sizes):] == 0):
+                raise AssertionError(f"gmm {shape}: tail rows are not zero")
+            hold(f"gmm {shape} transpose={tr}", out,
+                 tmdisp.gmm_plain(lhs, rhs, gse, tr), 1e-2)
+    for shape, (T, h, n) in SM90_B9_EDGES.items():
+        x = bf16(T, h)
+        logits = torch.randn(T, 8, generator=g, device=dev)
+        logits[:, 0] += 2.0
+        r = tmdisp.routing_from_logits(logits, 2)
+        inv2d = tmf._inverse_permutation(r.order).reshape(T, 2)
+        tok_pad, _, _, _, gs_pad = tmf._pad_layout(
+            r.gs, r.tok, r.weights.reshape(-1)[r.order], r.flat_e[r.order],
+            inv2d, 8)
+        gid = tmf._tile_gids(gs_pad, tok_pad.shape[0], 128)
+        for kind, rhs in (("bf16", bf16(8, h, n)),
+                          ("int8", torch.randint(-127, 128, (8, h, n),
+                                                 generator=g, device=dev,
+                                                 dtype=torch.int8))):
+            hold(f"gather_gmm {shape} {kind}",
+                 twice(f"gather_gmm {shape} {kind}",
+                       lambda: tmf.gather_gmm(x, tok_pad, rhs, gid)),
+                 tmf.gather_gmm_plain(x, tok_pad, rhs, gid), 1e-2)
     d = deepseek_routing(tmdisp, tmf, dev)
     Ap, f = d["tok_pad"].shape[0], d["f"]
     hold("step gather_gmm", tmf.gather_gmm(d["x"], d["tok_pad"], d["Wcat"],
@@ -1844,6 +1905,9 @@ def check_grouped(tmdisp, tmf, dev):
 # ---------------------------------------------------------------------------
 def kernel_category(name):
     """The device-time bucket of a traced kernel by its name."""
+    if "grouped_gemm_sm90<" in name:   # <BN, kGather, ...>: B9 or B10's gmm
+        gather = name.split("grouped_gemm_sm90<", 1)[1].split(",")[1].strip()
+        return "B9 gather_gmm" if gather in ("true", "1") else "B10 gmm"
     for key, cat in (("gather_gmm", "B9 gather_gmm"), ("tgmm", "B10 tgmm"),
                      ("gmm_", "B10 gmm"), ("flash_fwd", "B1"),
                      ("flash_dq", "B2"), ("flash_dkv", "B3")):
@@ -2004,7 +2068,8 @@ def time_grouped(tmdisp, tmf, dev):
     every padded row — and the bytes of each input read once and the
     output written once over 3.35 TB/s) and ``torch._grouped_mm`` (for B9
     after an index gather of the rows). Returns one kernels-line entry for
-    each kernel (its call named in "shape"; every call in "per_shape")."""
+    each kernel (its call named in "shape"; every call in "per_shape"),
+    with each call's share of its bound (bound ms over ms)."""
     d = deepseek_routing(tmdisp, tmf, dev)
     g = torch.Generator(device=dev).manual_seed(SEED + 10)
     x, gs, tok, gid = d["x"], d["gs_pad"], d["tok_pad"], d["gid"]
@@ -2073,6 +2138,7 @@ def time_grouped(tmdisp, tmf, dev):
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "library_ms": None if lib is None else time_ms(lib, 10)}
         row["tflops"] = flops / row["ms"] / 1e9
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         log(f"  {name}, {shape}: {row}")
         if name not in out:
             out[name] = dict(row, per_shape=[])
@@ -2330,7 +2396,7 @@ def check_gather_gmm_int8(tmdisp, tmf, dev):
     idx [57344], rhs int8 [64, 2048, 2816]: the step's gate|up weights
     through quantize_grouped), timed beside its bound and beside
     ``torch._grouped_mm`` on the widened weight after the gather, a
-    yardstick only."""
+    yardstick only; "bound_share" is bound ms over ms."""
     from paddle_tpu_torch.kernels.quant_matmul import quantize_grouped
     g = torch.Generator(device=dev).manual_seed(SEED + 14)
     errs = {}
@@ -2383,6 +2449,7 @@ def check_gather_gmm_int8(tmdisp, tmf, dev):
            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "library_ms": lib, "tflops": flops / ms / 1e9,
+           "bound_share": max(t_ops, t_bytes) / ms,
            "library": "torch._grouped_mm after an index gather of x's rows, "
                       "on the gate|up weight widened to bf16 once",
            "shape": f"gate|up forward: x[8192, 2048] gathered by idx "

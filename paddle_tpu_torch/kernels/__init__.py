@@ -29,8 +29,10 @@ also holds the per-kernel ``launch_counts``).
   ``csrc/tgmm.cu``), under the differentiable ``grouped_matmul``;
 - ``moe_fused.gather_gmm`` — the grouped GEMM with the expert-sort gather
   fused into its row loads, dense or int8 rhs (``csrc/gather_gmm.cu``),
-  the fused MoE dispatch's gate|up projection. The three share their tiles through
-  ``csrc/grouped_gemm.cuh``.
+  the fused MoE dispatch's gate|up projection. In bf16 it and ``gmm`` run
+  on the persistent wgmma/TMA kernel of ``csrc/grouped_gemm_sm90.cuh``
+  (tile width from ``moe_dispatch.tile_width``); ``tgmm`` and the f32
+  forms share the mma.sync tiles of ``csrc/grouped_gemm.cuh``.
 
 Functions are imported from their modules (a re-export here would shadow
 the ``paged_attention`` module with its function of the same name).

@@ -14,85 +14,32 @@
 //
 // Design: the rows are in a per-group tile-padded layout (the caller's
 // `_pad_layout`), so every tm-row tile belongs to one group, gid[tile];
-// tm is a multiple of the block's 128 rows. A block owns a 128 x 128
-// output tile: each thread keeps the source row pointers of its two lhs
-// rows, and every 32-deep stage copies those rows' 16-byte pieces straight
-// from x (cp.async) beside the group's rhs piece (grouped_gemm.cuh).
-// Padding rows point at a real token and are computed like any other (the
-// caller gives them combine weight 0). bf16 runs on mma.sync; f32 on CUDA
-// cores for exact parity.
+// tm is a multiple of the kernel's 128-row tile. bf16 runs on the Hopper
+// kernel of grouped_gemm_sm90.cuh: a persistent block per SM, one producer
+// warpgroup and two wgmma consumer warpgroups over a ring of 64-deep
+// stages. The producer copies each tile's gathered rows straight from x as
+// 16-byte cp.async pieces (TMA has no row gather) and the group's weight
+// tile by TMA from a 3-D map of rhs. Padding rows point at a real token
+// and are computed like any other (the caller gives them combine weight
+// 0). The tile width (256 or 128 columns) is the wrapper's choice. f32
+// runs on CUDA cores (grouped_gemm.cuh) for exact parity.
 //
 // int8 rhs (the TPU kernel's int8 branch: int8 expert weights widened on
-// their way to the matrix unit): each stage copies the rhs piece
-// unconverted (cp.async, half the bytes of bf16) into a raw byte tile, and
-// a conversion pass widens it exactly into the bf16 tile the products
-// read (grouped_gemm.cuh). The output is the f32 sum rounded to x's dtype;
+// their way to the matrix unit): TMA brings the int8 tile as it is stored
+// (half the bytes of bf16) and the kernel computes the tile transposed, the
+// weights as wgmma's register operand, widened exactly in registers after
+// an ldmatrix.trans, the gathered rows as its shared-memory operand
+// (grouped_gemm_sm90.cuh). The output is the f32 sum rounded to x's dtype;
 // the per-channel scales stay outside the kernel (the caller folds them
 // into its elementwise chain). f32 x with int8 rhs widens each element on
 // the CUDA cores.
 #include "grouped_gemm.cuh"
+#include "grouped_gemm_sm90.cuh"
 
 namespace {
 
 using namespace ptt;
 using namespace ptt::gg;
-
-// x [T, K], idx [rows], rhs [E, K, N], gid [rows / tm], out [rows, N]
-__global__ void __launch_bounds__(kThreads)
-gather_gmm_bf16(const bf16* __restrict__ x, const int* __restrict__ idx,
-                const bf16* __restrict__ rhs, const int* __restrict__ gid,
-                bf16* __restrict__ out, int rows, int K, int N, int tm) {
-  __shared__ __align__(16) Smem sm;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
-  const bf16* rb = rhs + int64_t(gid[m0 / tm]) * K * N;
-  const int r = tid >> 2;
-  const bf16* const src[2] = {x + int64_t(idx[m0 + r]) * K,
-                              x + int64_t(idx[m0 + r + 64]) * K};
-  Acc acc;
-  zero(acc);
-  auto stage = [&](int kt, int buf) {
-    const int k0 = kt * kBK;
-    load_rows(sm.t[buf][0], src, k0, K, x, tid);
-    load_cols(sm.t[buf][1], rb, N, k0, 0, K, n0, N, tid);
-    cp_async_commit();
-  };
-  mainloop<false, false>(acc, sm, (K + kBK - 1) / kBK, stage, warp, lane);
-  store_tile(acc, out, N, m0, n0, rows, N, warp, lane);
-}
-
-// the bf16 kernel with an int8 rhs: the stages' tiles, then the raw int8
-// rhs tiles, in dynamic shared memory (above the 48 KB static limit)
-struct SmemI8 {
-  Smem s;
-  int8_t raw[2][kBK * kI8Ld];
-};
-
-__global__ void __launch_bounds__(kThreads)
-gather_gmm_bf16_i8(const bf16* __restrict__ x, const int* __restrict__ idx,
-                   const int8_t* __restrict__ rhs, const int* __restrict__ gid,
-                   bf16* __restrict__ out, int rows, int K, int N, int tm) {
-  extern __shared__ __align__(16) unsigned char dyn[];
-  SmemI8& sm = *reinterpret_cast<SmemI8*>(dyn);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
-  const int8_t* rb = rhs + int64_t(gid[m0 / tm]) * K * N;
-  const int r = tid >> 2;
-  const bf16* const src[2] = {x + int64_t(idx[m0 + r]) * K,
-                              x + int64_t(idx[m0 + r + 64]) * K};
-  Acc acc;
-  zero(acc);
-  auto stage = [&](int kt, int buf) {
-    const int k0 = kt * kBK;
-    load_rows(sm.s.t[buf][0], src, k0, K, x, tid);
-    load_cols_i8(sm.raw[buf], rb, N, k0, 0, K, n0, N, tid);
-    cp_async_commit();
-  };
-  auto widen = [&](int buf) { widen_cols_i8(sm.s.t[buf][1], sm.raw[buf], tid); };
-  mainloop<false, false>(acc, sm.s, (K + kBK - 1) / kBK, stage, warp, lane,
-                         widen);
-  store_tile(acc, out, N, m0, n0, rows, N, warp, lane);
-}
 
 // R: the rhs's type (float, or int8_t widened element by element)
 template <typename R>
@@ -117,30 +64,26 @@ gather_gmm_f32(const float* __restrict__ x, const int* __restrict__ idx,
 
 }  // namespace
 
-// dtype: x's and out's (0 = f32, 1 = bf16); rhs_int8: the rhs is int8
-// (else of x's dtype). rows a multiple of tm and tm a multiple of 128 (the
-// wrapper checks), K and N multiples of 8 for bf16 (N of 16 for an int8
-// rhs), 16-byte aligned operands.
+// dtype: x's and out's (0 = f32, 1 = bf16); rhs_int8: the rhs [E, K, N]
+// is int8 (else of x's dtype); bn: the bf16 kernel's tile width (256 or
+// 128). rows a multiple of tm and tm a multiple of 128 (the wrapper
+// checks), K and N multiples of 8 for bf16 (N of 16 for an int8 rhs),
+// 16-byte aligned operands.
 extern "C" int ptt_gather_gmm(const void* x, const int* idx, const void* rhs,
                               const int* gid, void* out, int rows, int K,
-                              int N, int tm, int dtype, int rhs_int8,
-                              void* stream) {
+                              int N, int E, int tm, int dtype, int rhs_int8,
+                              int bn, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16 && rhs_int8) {
-    if (N % 16) return cudaErrorInvalidValue;
-    const int smem = int(sizeof(SmemI8));
-    const cudaError_t err = cudaFuncSetAttribute(
-        gather_gmm_bf16_i8, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((N + kBN - 1) / kBN, rows / kBM);
-    gather_gmm_bf16_i8<<<grid, kThreads, smem, st>>>(
-        static_cast<const bf16*>(x), idx, static_cast<const int8_t*>(rhs), gid,
-        static_cast<bf16*>(out), rows, K, N, tm);
-  } else if (dtype == kBF16) {
-    const dim3 grid((N + kBN - 1) / kBN, rows / kBM);
-    gather_gmm_bf16<<<grid, kThreads, 0, st>>>(
-        static_cast<const bf16*>(x), idx, static_cast<const bf16*>(rhs), gid,
-        static_cast<bf16*>(out), rows, K, N, tm);
+  if (dtype == kBF16) {
+    if (K == 0)
+      return cudaMemsetAsync(out, 0, size_t(rows) * N * 2, st);
+    sm90::Args a{static_cast<const bf16*>(x), idx, gid, nullptr,
+                 static_cast<bf16*>(out), rows, K, N, E, tm};
+    if (rhs_int8) {
+      if (N % 16) return cudaErrorInvalidValue;
+      return sm90::launch_bn<true, false, true>(bn, a, nullptr, rhs, st);
+    }
+    return sm90::launch_bn<true, false, false>(bn, a, nullptr, rhs, st);
   } else if (dtype == kF32) {
     const dim3 grid((N + kFN - 1) / kFN, rows / kFM);
     if (rhs_int8)

@@ -14,60 +14,26 @@
 //
 // Design: lhs rows are sorted by group, group g holding the gs[g] rows
 // after those of groups < g; gs lives on the device and the host never
-// reads it. A block owns a 128 x 128 output tile; thread 0 walks gs to
-// list the groups that hold rows of the tile (in the unpadded form a tile
-// can span several groups), then the block runs one masked pass over the
-// reduction per such group, rows outside the group zero-filled, all
-// accumulating into the same registers. Rows at or past sum(gs) belong to
-// no group and are written as zeros (the megablox kernel leaves them
-// unwritten; the JAX package zeroes them after with `_zero_tail`). bf16 on
-// mma.sync (grouped_gemm.cuh), f32 on CUDA cores.
+// reads it. bf16 runs on the Hopper kernel of grouped_gemm_sm90.cuh: a
+// persistent block per SM, one producer thread issuing TMA loads of the
+// lhs tile ([M, K] map) and of the group's weight tile (a 3-D map of rhs,
+// N-major [E, K, N] or K-major [E, N, K] for transpose_rhs) into a ring of
+// 64-deep stages, and two wgmma consumer warpgroups. Each block lists the
+// groups that hold rows of its 128-row tile (in the unpadded form a tile
+// can span several) from prefix sums of gs in shared memory, and runs one
+// pass over the reduction per group: fresh sums from the whole tile, then
+// a store of that group's rows only. Rows at or past sum(gs) belong to no
+// group and are written as zeros (the megablox kernel leaves them
+// unwritten; the JAX package zeroes them after with `_zero_tail`). The
+// tile width (256 or 128 columns) is the wrapper's choice. f32 runs on
+// CUDA cores (grouped_gemm.cuh) for exact parity.
 #include "grouped_gemm.cuh"
+#include "grouped_gemm_sm90.cuh"
 
 namespace {
 
 using namespace ptt;
 using namespace ptt::gg;
-
-// lhs [M, K]; rhs [E, K, N], or [E, N, K] with kTrans; out [M, N]
-template <bool kTrans>
-__global__ void __launch_bounds__(kThreads)
-gmm_bf16(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
-         const int* __restrict__ gs, bf16* __restrict__ out, int M, int K,
-         int N, int E) {
-  __shared__ __align__(16) Smem sm;
-  __shared__ TileGroups tg;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
-  find_groups(tg, gs, E, m0, kBM, M, tid);
-  const int r = tid >> 2;
-  Acc acc;
-  zero(acc);
-  for (int p = 0; p < tg.n; ++p) {
-    const int lo = tg.lo[p], hi = tg.hi[p];
-    const bf16* rb = rhs + int64_t(tg.g[p]) * K * N;
-    const bf16* a_src[2];
-    const bf16* b_src[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = m0 + r + 64 * i;
-      a_src[i] = row >= lo && row < hi ? lhs + int64_t(row) * K : nullptr;
-      const int col = n0 + r + 64 * i;   // kTrans: rhs[g] rows are columns
-      b_src[i] = col < N ? rb + int64_t(col) * K : nullptr;
-    }
-    auto stage = [&](int kt, int buf) {
-      const int k0 = kt * kBK;
-      load_rows(sm.t[buf][0], a_src, k0, K, lhs, tid);
-      if (kTrans)
-        load_rows(sm.t[buf][1], b_src, k0, K, rhs, tid);
-      else
-        load_cols(sm.t[buf][1], rb, N, k0, 0, K, n0, N, tid);
-      cp_async_commit();
-    };
-    mainloop<false, kTrans>(acc, sm, (K + kBK - 1) / kBK, stage, warp, lane);
-  }
-  store_tile(acc, out, N, m0, n0, M, N, warp, lane);
-}
 
 template <bool kTrans>
 __global__ void __launch_bounds__(kThreads)
@@ -101,21 +67,20 @@ gmm_f32(const float* __restrict__ lhs, const float* __restrict__ rhs,
 
 }  // namespace
 
-// K and N multiples of 8 for bf16, 16-byte aligned operands (the wrapper
-// checks).
+// bn: the bf16 kernel's tile width (256 or 128). K and N multiples of 8
+// for bf16, 16-byte aligned operands (the wrapper checks).
 extern "C" int ptt_gmm(const void* lhs, const void* rhs, const int* gs,
                        void* out, int M, int K, int N, int E,
-                       int transpose_rhs, int dtype, void* stream) {
+                       int transpose_rhs, int dtype, int bn, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) {
-    const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-    auto* a = static_cast<const bf16*>(lhs);
-    auto* b = static_cast<const bf16*>(rhs);
-    auto* o = static_cast<bf16*>(out);
+    if (K == 0)
+      return cudaMemsetAsync(out, 0, size_t(M) * N * 2, st);
+    sm90::Args a{nullptr, nullptr, nullptr, gs, static_cast<bf16*>(out),
+                 M, K, N, E, 0};
     if (transpose_rhs)
-      gmm_bf16<true><<<grid, kThreads, 0, st>>>(a, b, gs, o, M, K, N, E);
-    else
-      gmm_bf16<false><<<grid, kThreads, 0, st>>>(a, b, gs, o, M, K, N, E);
+      return sm90::launch_bn<false, true, false>(bn, a, lhs, rhs, st);
+    return sm90::launch_bn<false, false, false>(bn, a, lhs, rhs, st);
   } else if (dtype == kF32) {
     const dim3 grid((N + kFN - 1) / kFN, (M + kFM - 1) / kFM);
     auto* a = static_cast<const float*>(lhs);

@@ -1,32 +1,24 @@
-// Shared tile machinery of the grouped GEMMs: gather_gmm.cu (B9), gmm.cu
-// and tgmm.cu (B10).
+// Shared tile machinery of the grouped GEMMs on mma.sync: tgmm.cu's bf16
+// kernel (B10) and the f32 kernels of gather_gmm.cu (B9), gmm.cu and
+// tgmm.cu. (The bf16 forms of B9 and gmm run on the Hopper kernel of
+// grouped_gemm_sm90.cuh.)
 //
 // bf16 runs on the tensor cores: a block of 8 warps owns a 128 x 128
 // output tile and walks the reduction in 32-deep steps staged in shared
 // memory by 16-byte cp.async copies, double-buffered; each warp owns a
 // 64 x 32 piece of the tile (4 x 4 mma.sync m16n8k16 products a 16-deep
-// step, f32 accumulators in registers). Two shared tile shapes cover every
-// operand layout the three kernels meet:
+// step, f32 accumulators in registers). Two shared tile shapes:
 //
 //   - a "rows" tile [128][32]: 128 rows of a row-major source, 32 columns
-//     of the reduction each (the lhs rows of gmm and gather_gmm, whose row
-//     pointers may come from a gather; the rhs of gmm with transpose_rhs,
-//     stored [n][k]);
+//     of the reduction each;
 //   - a "cols" tile [32][128]: 32 rows of the reduction, 128 columns each
-//     (the rhs [k][n] of gmm and gather_gmm; both operands of tgmm, whose
-//     reduction runs over the rows).
+//     (both operands of tgmm, whose reduction runs over the rows).
 //
 // Rows padded by 16 bytes keep the fragment reads free of bank conflicts.
 // An A operand stored reduction-major (tgmm's lhs^T) reaches its fragments
 // through ldmatrix.trans, a B operand stored [n][k] through plain 32-bit
 // reads. Copies of rows or columns outside the problem are zero-filled, so
 // masked rows add nothing to the sums.
-//
-// An int8 B operand (gather_gmm's int8 rhs) is copied unconverted with
-// cp.async into a raw [kBK][128] byte tile beside the stage, and a
-// conversion pass widens it (exactly) into the bf16 "cols" tile before the
-// stage's products: half the rhs bytes from device memory, the same
-// tensor-core path after.
 //
 // f32 runs on CUDA cores in full f32 (FMA) for exact parity checks, as the
 // flash kernels do: a 64 x 64 tile, 4 x 4 outputs a thread, operands read
@@ -67,21 +59,6 @@ __device__ __forceinline__ void zero(Acc& acc) {
     for (int j = 0; j < kNT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-}
-
-// A "rows" tile: rows r and r + 64 of this thread (r = tid / 4) come from
-// rows[0] and rows[1] (nullptr: a zero row), columns [k0, k0 + kBK) of K.
-// `any` is a valid address for the zero-filled copies.
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* const (&rows)[2],
-                                          int k0, int K, const bf16* any,
-                                          int tid) {
-  const int r = tid >> 2, c = (tid & 3) * 8;
-  const bool kin = k0 + c < K;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const bool v = rows[i] != nullptr && kin;
-    cp_async16(dst + (r + 64 * i) * kRowsLd + c, v ? rows[i] + k0 + c : any, v);
-  }
 }
 
 // A "cols" tile: rows [r0, r0 + kBK) of `base` (row stride ld), columns
@@ -176,45 +153,6 @@ __device__ __forceinline__ void mainloop(Acc& acc, Smem& sm, int nk,
                                 lane);
     __syncthreads();        // buffer kt & 1 free for stage kt + 2
   }
-}
-
-// ---------------------------------------------------------------------------
-// int8 B operand: a raw [kBK][128] byte tile, widened to the bf16 "cols" tile
-// ---------------------------------------------------------------------------
-constexpr int kI8Ld = kBN + 16;   // bytes a raw row (16-byte aligned rows)
-
-// rows [r0, r0 + kBK) of the int8 `base` (row stride ld), columns
-// [c0, c0 + 128): one 16-byte copy a thread; rows outside [lo, hi) and
-// columns past ncols (a multiple of 16) are zero
-__device__ __forceinline__ void load_cols_i8(int8_t* dst, const int8_t* base,
-                                             int64_t ld, int r0, int lo,
-                                             int hi, int c0, int ncols,
-                                             int tid) {
-  const int r = tid >> 3, c = (tid & 7) * 16;
-  const int row = r0 + r;
-  const bool v = row >= lo && row < hi && c0 + c < ncols;
-  cp_async16(dst + r * kI8Ld + c, v ? base + row * ld + c0 + c : base, v);
-}
-
-// the raw tile -> the bf16 "cols" tile (int8 values are exact in bf16):
-// thread tid widens the 16 bytes it copied, then the block syncs
-__device__ __forceinline__ void widen_cols_i8(bf16* dst, const int8_t* src,
-                                              int tid) {
-  const int r = tid >> 3, c = (tid & 7) * 16;
-  const int4 v = *reinterpret_cast<const int4*>(src + r * kI8Ld + c);
-  const int w[4] = {v.x, v.y, v.z, v.w};
-  uint32_t out[8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      out[2 * i + j] =
-          pack_bf16(float(int(unsigned(w[i]) << (24 - 16 * j)) >> 24),
-                    float(int(unsigned(w[i]) << (16 - 16 * j)) >> 24));
-  uint4* d = reinterpret_cast<uint4*>(dst + r * kColsLd + c);
-  d[0] = make_uint4(out[0], out[1], out[2], out[3]);
-  d[1] = make_uint4(out[4], out[5], out[6], out[7]);
-  __syncthreads();
 }
 
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {

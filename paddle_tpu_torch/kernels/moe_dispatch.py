@@ -13,7 +13,8 @@ paddle_tpu/kernels/moe_dispatch (its single-program forms).
   CPU tensors they run their plain versions. Group sizes stay on the
   device: the kernels read them there and the host never does. Both
   kernels write every row and group they own, so rows past ``sum(gs)``
-  and empty groups come out as zeros.
+  and empty groups come out as zeros. :func:`tile_width` picks the bf16
+  ``gmm`` and B9 kernels' output tile (256 or 128 columns) on the host.
 - :class:`_GmmTuned` is the differentiable grouped matmul (the JAX
   ``_gmm_tuned`` custom_vjp): forward ``gmm``, backward ``gmm`` with
   ``transpose_rhs`` (dgrad) and ``tgmm`` (wgrad). Its forward runs through
@@ -44,7 +45,7 @@ __all__ = [
     "dropless_moe_ffn_a2a", "dropless_moe_ffn_fused", "sort_by_expert",
     "fused_routing", "routing_from_logits", "Routing", "plan_dispatch",
     "DispatchPlan", "clear_plan_cache", "make_moe_operands", "gmm", "tgmm",
-    "gmm_plain", "tgmm_plain", "grouped_matmul",
+    "tile_width", "gmm_plain", "tgmm_plain", "grouped_matmul",
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -239,6 +240,18 @@ def _check_index(name, t, device, n):
                          f"{t.device}")
 
 
+def tile_width(n: int) -> int:
+    """Output columns of a bf16 B9/``gmm`` kernel tile for an n-wide
+    output: 256 where n is a whole number of 256-column tiles (the MoE
+    step's 2816 and 2048), else 128 (1408, 136, 264), so no more than 120
+    of a tile's columns are ever padding. Raises on an n the kernels do not
+    take (not a positive multiple of 8)."""
+    if n <= 0 or n % 8:
+        raise ValueError(f"tile_width: {n} columns is not a positive "
+                         "multiple of 8")
+    return 256 if n % 256 == 0 else 128
+
+
 def gmm(lhs, rhs, gs, transpose_rhs: bool = False):
     """B10 ``gmm``: ``out[rows of g] = lhs[rows of g] @ rhs[g]`` (or
     ``@ rhs[g].T`` with ``transpose_rhs``) for lhs [m, k] with rows sorted
@@ -258,7 +271,7 @@ def gmm(lhs, rhs, gs, transpose_rhs: bool = False):
         raise ValueError(f"gmm: unsupported device {lhs.device}")
     _check_cuda("gmm", (lhs, rhs), (K, N))
     _check_index("gmm", gs, lhs.device, E)
-    fn = _build.kernel("ptt_gmm", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    fn = _build.kernel("ptt_gmm", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p])
     out = torch.empty((M, N), dtype=lhs.dtype, device=lhs.device)
     if out.numel() == 0:
@@ -266,7 +279,8 @@ def gmm(lhs, rhs, gs, transpose_rhs: bool = False):
     with torch.cuda.device(lhs.device):
         err = fn(_build.ptr(lhs), _build.ptr(rhs), _build.ptr(gs),
                  _build.ptr(out), M, K, N, E, int(transpose_rhs),
-                 _DTYPES[lhs.dtype], _build.stream_handle(lhs))
+                 _DTYPES[lhs.dtype], tile_width(N),
+                 _build.stream_handle(lhs))
     _build.check(err, "gmm")
     _build.launch_counts["gmm"] += 1
     return out

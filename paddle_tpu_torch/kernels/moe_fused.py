@@ -48,7 +48,7 @@ import torch
 
 from . import _build
 from .moe_dispatch import (_DTYPES, _check_cuda, _check_index, _wide,
-                           grouped_matmul, sort_by_expert)
+                           grouped_matmul, sort_by_expert, tile_width)
 from .quant_matmul import is_quantized_weight
 
 __all__ = ["fused_moe_ffn", "gather_gmm", "gather_gmm_plain",
@@ -199,14 +199,15 @@ def gather_gmm(x, idx, rhs, gid, *, tm: int = _KTM):
         raise ValueError(f"gather_gmm: tm {tm} must be a multiple of the "
                          "kernel's 128-row tile")
     fn = _build.kernel("ptt_gather_gmm", [ctypes.c_void_p] * 5
-                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     out = torch.empty((rows, n), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out               # an empty grid is no launch
     with torch.cuda.device(x.device):
         err = fn(_build.ptr(x), _build.ptr(idx), _build.ptr(rhs),
-                 _build.ptr(gid), _build.ptr(out), rows, h, n, tm,
-                 _DTYPES[x.dtype], int(rhs_int8), _build.stream_handle(x))
+                 _build.ptr(gid), _build.ptr(out), rows, h, n, E, tm,
+                 _DTYPES[x.dtype], int(rhs_int8), tile_width(n),
+                 _build.stream_handle(x))
     name = "gather_gmm_int8" if rhs_int8 else "gather_gmm"
     _build.check(err, name)
     _build.launch_counts[name] += 1

@@ -313,6 +313,21 @@ def test_moe_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
                    cuda((4, 64, 32), torch.float16), gs)
 
 
+@pytest.mark.parametrize("n,want", [(2816, 256), (2048, 256), (1408, 128),
+                                    (136, 128), (264, 128), (256, 256)])
+def test_tile_width_picks_the_kernel_tile(n, want):
+    """The bf16 B9/gmm kernels' tile width, picked in Python and passed to
+    the C entry points: 256 columns for a whole number of 256-wide tiles,
+    else 128."""
+    assert tmdisp.tile_width(n) == want
+
+
+@pytest.mark.parametrize("n", [0, -8, 100, 1410])
+def test_tile_width_raises_on_widths_the_kernels_do_not_take(n):
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tmdisp.tile_width(n)
+
+
 def test_moe_unported_arguments_raise_naming_their_queue():
     cfg = tm.tiny_moe(vocab=32, hidden=32, layers=1, heads=4, experts=4)
     params = tm.init_params(cfg, device="cpu")

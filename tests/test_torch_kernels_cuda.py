@@ -346,6 +346,89 @@ def test_gather_gmm_kernel_matches_plain(dev, dtype, tol, skew):
     assert _rel(out, ref) <= tol
 
 
+# Edge shapes of the Hopper kernels (grouped_gemm_sm90.cuh): (M, K, N, gs).
+# "wrap": a reduction of 33 64-deep stages (not a multiple of 64), so the
+# stage ring's barriers wrap several times and the last stage is ragged,
+# and 32 x 11 = 352 output tiles, more than 2 x 132, so every persistent
+# block takes several; "n1408": a multiple of 128 columns but not of 256;
+# "n136": a 128-wide tile with 8 live columns, and a first row tile that
+# spans groups 0, 1, 3 and 4 around an empty group 2. Each has tail rows.
+_SM90_GMM = {
+    "wrap": (4096, 2056, 2816, [700, 0, 13, 1200, 87, 900, 600, 500]),
+    "n1408": (1000, 200, 1408, [3, 60, 0, 200, 5, 1, 500]),
+    "n136": (300, 136, 136, [40, 30, 0, 20, 100]),
+}
+
+
+@pytest.mark.parametrize("transpose_rhs", [False, True])
+@pytest.mark.parametrize("shape", list(_SM90_GMM))
+def test_gmm_sm90_edges_match_plain(dev, shape, transpose_rhs):
+    """B10 gmm's bf16 kernel against its plain version at the edge shapes
+    above, unpadded groups (tiles spanning three or more groups, an empty
+    group, tail rows written as exact zeros), within 1e-2 of the plain
+    result's largest magnitude; two calls agree bit for bit."""
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+    M, K, N, sizes = _SM90_GMM[shape]
+    g = torch.Generator(device=dev).manual_seed(21)
+    E = len(sizes)
+    lhs = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+    rhs = torch.randn((E, N, K) if transpose_rhs else (E, K, N), generator=g,
+                      device=dev).to(torch.bfloat16)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    before = _build.launch_counts["gmm"]
+    out = md.gmm(lhs, rhs, gs, transpose_rhs)
+    again = md.gmm(lhs, rhs, gs, transpose_rhs)
+    ref = md.gmm_plain(lhs, rhs, gs, transpose_rhs)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["gmm"] == before + 2
+    assert out.dtype == torch.bfloat16 and out.shape == (M, N)
+    assert torch.all(out[sum(sizes):] == 0)
+    assert _rel(out, ref) <= 1e-2
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("rhs_dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("shape", ["wrap", "n1408"])
+def test_gather_gmm_sm90_edges_match_plain(dev, shape, rhs_dtype):
+    """B9 (bf16 rhs, and int8 rhs widened in the kernel) against its plain
+    version over the tile-padded layout of a skewed top-2 routing to 8
+    experts: "wrap", 2048 tokens, h = 2056 (33 ragged 64-deep stages) and
+    n = 2816, more than 2 x 132 output tiles; "n1408", 300 tokens, h = 200,
+    n = 1408 (128-wide tiles). Within 1e-2 of the plain result's largest
+    magnitude; two calls agree bit for bit."""
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+    from paddle_tpu_torch.kernels import moe_fused as mf
+    T, h, n = {"wrap": (2048, 2056, 2816), "n1408": (300, 200, 1408)}[shape]
+    E, k = 8, 2
+    g = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randn(T, h, generator=g, device=dev).to(torch.bfloat16)
+    if rhs_dtype == torch.int8:
+        rhs = torch.randint(-127, 128, (E, h, n), generator=g, device=dev,
+                            dtype=torch.int8)
+    else:
+        rhs = torch.randn(E, h, n, generator=g, device=dev).to(rhs_dtype)
+    logits = torch.randn(T, E, generator=g, device=dev)
+    logits[:, 0] += 2.0
+    r = md.routing_from_logits(logits, k)
+    inv2d = mf._inverse_permutation(r.order).reshape(T, k)
+    tok_pad, _, _, _, gs_pad = mf._pad_layout(
+        r.gs, r.tok, r.weights.reshape(-1)[r.order], r.flat_e[r.order],
+        inv2d, E)
+    gid = mf._tile_gids(gs_pad, tok_pad.shape[0], 128)
+    name = "gather_gmm_int8" if rhs_dtype == torch.int8 else "gather_gmm"
+    before = _build.launch_counts[name]
+    out = mf.gather_gmm(x, tok_pad, rhs, gid)
+    again = mf.gather_gmm(x, tok_pad, rhs, gid)
+    ref = mf.gather_gmm_plain(x, tok_pad, rhs, gid)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[name] == before + 2
+    if shape == "wrap":
+        assert tok_pad.shape[0] // 128 * (n // 256) > 2 * 132
+    assert out.dtype == torch.bfloat16 and out.shape == (tok_pad.shape[0], n)
+    assert _rel(out, ref) <= 1e-2
+    assert torch.equal(out, again)
+
+
 @pytest.mark.parametrize("dispatch", ["fused", "gmm"])
 def test_moe_ffn_on_card_matches_cpu(dev, dispatch):
     """The routed FFN (f32, T=96, h=64, E=8, top-2, f=32) on the card and
