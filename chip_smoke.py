@@ -13,7 +13,10 @@ into the git-ignored ``paddle_tpu_torch/_build``, then runs, in order
    kernel build time; TF32 off for f32 matmuls and convolutions;
 2. B1, the flash-prefill kernel, against its plain version at Llama-3-8B
    head shapes (Hq=32, Hkv=8, D=128; B=2; S in 128/1000/1024; causal and
-   not; bf16 and f32; D=64 once);
+   not; bf16 and f32; D=64 once), then at the bf16 Hopper kernel's edge
+   shapes (S from 1 to 2048 around its 128-row tiles, GQA groups of 1, 3
+   and 4, D 64 and 128, causal and not), each equal to itself over two
+   calls;
 3. B4, the ragged paged-decode kernel, against its plain version on
    [L=4, NB=512, BS=64, Hkv=8, D=128] pools with lengths 0, 1, 64, 2000
    and more;
@@ -23,7 +26,8 @@ into the git-ignored ``paddle_tpu_torch/_build``, then runs, in order
    read around the run; then one more decode call traced with
    torch.profiler (the device's busy share of its wall time), and each
    kernel timed at the run's own shapes beside its plain version (and,
-   for B1, beside SDPA);
+   for B1, beside SDPA; B1 also at the llama-2.6b and DeepSeekMoE train
+   steps' shapes);
 5. cross-device streams: Llama-3-8B widths cut to 2 layers and a 32768
    vocabulary, f32, two prompts of 130 and 200 tokens for 8 greedy
    tokens through the ragged engine on the card and on the CPU (plain
@@ -58,8 +62,10 @@ into the git-ignored ``paddle_tpu_torch/_build``, then runs, in order
     groups, a skewed group, tiles spanning groups and tail rows; the
     Hopper kernels' edge shapes (a ragged reduction that wraps the stage
     ring, more tiles than 2 x 132 persistent blocks, 1408 and 136 columns;
-    B9 with bf16 and int8 weights), each call equal to itself bit for bit
-    over two calls; then bf16 at the MoE train step's shapes;
+    B9 with bf16 and int8 weights; tgmm with group boundaries off 64 and
+    8, empty groups, one group of every row, rows past sum(gs), bf16 and
+    f32 out), each call equal to itself bit for bit over two calls; then
+    bf16 at the MoE train step's shapes;
 12. the MoE training path: ``moe.train_step`` on DeepSeekMoE-16B's
     widths cut to 12 layers (batch 4, seq 2048, remat "outs", adafactor,
     bf16 params, random weights), 2 warm-up and 5 timed steps — falling
@@ -225,44 +231,76 @@ def free_memory():
 # ---------------------------------------------------------------------------
 # phase 2: B1, flash prefill
 # ---------------------------------------------------------------------------
+# Edge shapes of B1's Hopper kernel (128-row query and K/V tiles), bf16,
+# B=1: S below, at and past one tile, ragged in the last tile and whole;
+# GQA groups of 1, 3 and 4 (Hq, Hkv); D 64 and 128; causal and not.
+FLASH_EDGE_S = (1, 63, 64, 100, 129, 1000, 1024, 2048)
+FLASH_EDGE_HEADS = ((2, 2), (6, 2), (8, 2))
+
+
 def check_flash(tfa, dev):
+    """B1 against its plain version at Llama-3-8B head shapes (B=2, S in
+    128/1000/1024, causal and not, bf16 and f32, D=64 once), then at the
+    Hopper kernel's edge shapes (``FLASH_EDGE_S`` x ``FLASH_EDGE_HEADS``
+    x D 64/128 x causal and not), each bf16 call equal to itself bit for
+    bit over two calls. bf16 within 2e-2, f32 within 1e-4 (out and lse)."""
     g = torch.Generator(device=dev).manual_seed(SEED)
-    cases = [(S, causal, dtype, 128) for S in (128, 1000, 1024)
+    cases = [(2, S, 32, 8, causal, dtype, 128) for S in (128, 1000, 1024)
              for causal in (True, False)
              for dtype in (torch.bfloat16, torch.float32)]
-    cases.append((1000, True, torch.bfloat16, 64))
-    for S, causal, dtype, D in cases:
+    cases.append((2, 1000, 32, 8, True, torch.bfloat16, 64))
+    cases += [(1, S, hq, hkv, causal, torch.bfloat16, D)
+              for S in FLASH_EDGE_S for hq, hkv in FLASH_EDGE_HEADS
+              for D in (64, 128) for causal in (False, True)]
+    worst = {}
+    for B, S, hq, hkv, causal, dtype, D in cases:
         q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
-                   for shape in ((2, S, 32, D), (2, S, 8, D), (2, S, 8, D)))
+                   for shape in ((B, S, hq, D), (B, S, hkv, D),
+                                 (B, S, hkv, D)))
         out, lse = tfa.flash_attention_fwd(q, k, v, causal)
         ref, ref_lse = tfa.flash_attention_fwd_plain(q, k, v, causal)
         torch.cuda.synchronize()
         tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
         eo, el = max_err(out, ref), max_err(lse, ref_lse)
-        log(f"  B1 S={S} causal={causal} {str(dtype)[6:]} D={D}: "
-            f"max|dO|={eo:.3g} max|dLSE|={el:.3g} (tol {tol})")
+        label = (f"B={B} S={S} Hq={hq} Hkv={hkv} causal={causal} "
+                 f"{str(dtype)[6:]} D={D}")
+        if B == 2:
+            log(f"  B1 {label}: max|dO|={eo:.3g} max|dLSE|={el:.3g} "
+                f"(tol {tol})")
+        worst[str(dtype)[6:]] = max(worst.get(str(dtype)[6:], 0.0), eo, el)
         if not (eo <= tol and el <= tol):
             raise AssertionError(f"B1 disagrees with its plain version at "
-                                 f"S={S} causal={causal} {dtype} D={D}")
+                                 f"{label}: {eo}, {el}")
+        if dtype == torch.bfloat16:
+            again, lse2 = tfa.flash_attention_fwd(q, k, v, causal)
+            if not (torch.equal(out, again) and torch.equal(lse, lse2)):
+                raise AssertionError(f"B1: two calls differ at {label}")
+    log(f"  B1 vs plain at {len(cases)} shapes (edge shapes included), "
+        f"largest errors: {worst}")
 
 
-def time_flash(tfa, dev, B, S):
-    """B1 at the serving run's largest prefill wave: [B, S, 32, 128] bf16,
-    causal. Returns the kernels-line entry fields."""
+def time_flash(tfa, dev, B, S, Hq=32, Hkv=8, D=128):
+    """B1 at [B, S, Hq, D] bf16, causal (q, k, v from a seeded generator),
+    held to its plain version within 2e-2: CUDA-event ms beside the plain
+    version, the bound (causal FLOPs over 989 TFLOP/s, or each input read
+    once and the outputs written once over 3.35 TB/s), its share (bound
+    over ms) and SDPA's time. Returns the kernels-line fields."""
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    Hq, Hkv, D = 32, 8, 128
     q, k, v = (torch.randn(shape, generator=g, device=dev,
                            dtype=torch.bfloat16)
                for shape in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
     out, _ = tfa.flash_attention_fwd(q, k, v, True)
     ref, _ = tfa.flash_attention_fwd_plain(q, k, v, True)
     err = max_err(out, ref)
+    shape = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal"
     if err > 2e-2:
-        raise AssertionError(f"B1 disagrees at the serving shape: {err}")
-    del ref
+        raise AssertionError(f"B1 disagrees at {shape}: {err}")
+    del out, ref
+    torch.cuda.empty_cache()
     ms = time_ms(lambda i=0: tfa.flash_attention_fwd(q, k, v, True), 10)
     plain_ms = time_ms(
         lambda i=0: tfa.flash_attention_fwd_plain(q, k, v, True), 3)
+    torch.cuda.empty_cache()
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = time_ms(
@@ -271,11 +309,27 @@ def time_flash(tfa, dev, B, S):
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) \
         + 4 * B * Hq * S
     t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(t_ops, t_bytes)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
+            "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms, "shape": f"B={B} S={S} Hq=32 Hkv=8 "
-            "D=128 bf16 causal"}
+            "library_ms": library_ms, "bound_share": bound / ms,
+            "tflops": flops / ms / 1e9, "shape": shape}
+
+
+def time_flash_shapes(tfa, dev, B, S):
+    """B1 timed (``time_flash``) at the serving run's largest prefill wave
+    [B, S, 32, 128], the llama-2.6b train step's [8, 2048, 24/8, 128] and
+    the DeepSeekMoE step's [4, 2048, 16/16, 128]: the kernels-line entry
+    (the serving shape's fields, every shape in "per_shape")."""
+    rows = []
+    for args in ((B, S, 32, 8), (8, 2048, 24, 8), (4, 2048, 16, 16)):
+        rows.append(time_flash(tfa, dev, *args))
+        log(f"  B1 {rows[-1]['shape']}: {rows[-1]}")
+        torch.cuda.empty_cache()
+    return dict(rows[0], per_shape=rows,
+                library="torch.nn.functional.scaled_dot_product_attention "
+                        "(is_causal, enable_gqa) on [B, H, S, D] copies")
 
 
 # ---------------------------------------------------------------------------
@@ -1784,6 +1838,16 @@ SM90_GMM_EDGES = {
     "n136": (300, 136, 136, [40, 30, 0, 20, 100]),
 }
 SM90_B9_EDGES = {"wrap": (2048, 2056, 2816), "n1408": (300, 200, 1408)}
+# tgmm's Hopper kernel: (M, K, N, group sizes), out [E, K, N]. "ragged":
+# group boundaries off 64 and off 8 (a group's last stage holds the next
+# group's rows), empty groups, 250 rows past sum(gs), K = 136 and N = 1408;
+# "one": one group holds every row, K = 1408, N = 136; "wrap": K = N =
+# 2048, 1024 output tiles (more than 2 x 132), up to 19 stages a tile.
+SM90_TGMM_EDGES = {
+    "ragged": (1000, 136, 1408, [3, 61, 0, 77, 9, 500, 0, 100]),
+    "one": (700, 1408, 136, [0, 700, 0]),
+    "wrap": (4096, 2048, 2048, [700, 0, 13, 1200, 87, 900, 600, 500]),
+}
 
 
 def check_grouped(tmdisp, tmf, dev):
@@ -1796,7 +1860,9 @@ def check_grouped(tmdisp, tmf, dev):
     of a skewed top-3 routing of 50 tokens; (b) the Hopper kernels' edge
     shapes (``SM90_GMM_EDGES``, ``SM90_B9_EDGES``; B9 with bf16 and int8
     weights), bf16, each called twice and equal to itself bit for bit; (c)
-    the train step's shapes (``deepseek_routing``), bf16."""
+    the train step's shapes (``deepseek_routing``), bf16; tgmm's Hopper
+    kernel at ``SM90_TGMM_EDGES``, bf16 and f32 out (1e-2 and 1e-5), each
+    called twice and equal to itself, empty groups exact zeros."""
     g = torch.Generator(device=dev).manual_seed(SEED + 9)
     gs = torch.tensor([0, 130, 1, 0, 100], dtype=torch.int32, device=dev)
     errs = {}
@@ -1879,6 +1945,18 @@ def check_grouped(tmdisp, tmf, dev):
                  twice(f"gather_gmm {shape} {kind}",
                        lambda: tmf.gather_gmm(x, tok_pad, rhs, gid)),
                  tmf.gather_gmm_plain(x, tok_pad, rhs, gid), 1e-2)
+    for shape, (M, K, N, sizes) in SM90_TGMM_EDGES.items():
+        gse = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        lhs, rhs = bf16(M, K), bf16(M, N)
+        want = tmdisp.tgmm_plain(lhs.t(), rhs, gse)
+        for odt, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+            name = f"tgmm {shape} out={str(odt)[6:]}"
+            out = twice(name, lambda: tmdisp.tgmm(lhs.t(), rhs, gse,
+                                                  out_dtype=odt))
+            if not all(torch.all(out[e] == 0)
+                       for e, n in enumerate(sizes) if n == 0):
+                raise AssertionError(f"{name}: empty groups are not zero")
+            hold(name, out, want, tol)
     d = deepseek_routing(tmdisp, tmf, dev)
     Ap, f = d["tok_pad"].shape[0], d["f"]
     hold("step gather_gmm", tmf.gather_gmm(d["x"], d["tok_pad"], d["Wcat"],
@@ -2611,8 +2689,7 @@ def main() -> int:
     # the kernels timed at the run's own shapes: its largest prefill wave,
     # and its first wave's decode lengths halfway through their tokens
     B, S = max(serving["prefill_waves"], key=lambda w: w[0] * w[1] ** 2)
-    b1 = time_flash(tfa, dev, B=B, S=S)
-    log(f"  B1 timing: {b1}")
+    b1 = time_flash_shapes(tfa, dev, B=B, S=S)
     torch.cuda.empty_cache()
     lens = [n + 32 for n in serving["prompt_lens"][:8]]
     b4 = time_ragged(tpa, dev, lens, num_blocks)

@@ -40,6 +40,7 @@ namespace {
 
 using namespace ptt;
 using namespace ptt::gg;
+using ptt::sm90::bf16;
 
 // R: the rhs's type (float, or int8_t widened element by element)
 template <typename R>

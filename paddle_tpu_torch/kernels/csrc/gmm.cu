@@ -34,6 +34,7 @@ namespace {
 
 using namespace ptt;
 using namespace ptt::gg;
+using ptt::sm90::bf16;
 
 template <bool kTrans>
 __global__ void __launch_bounds__(kThreads)

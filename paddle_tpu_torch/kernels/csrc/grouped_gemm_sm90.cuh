@@ -1,10 +1,11 @@
 // Hopper (sm_90a) grouped-GEMM machinery shared by gather_gmm.cu (B9, bf16
-// and int8 rhs) and gmm.cu (B10's gmm, plain and transpose_rhs): one
-// persistent, warp-specialised kernel template built on wgmma, TMA and
-// mbarrier stages. It replaces the tiles of the TPU kernels
+// and int8 rhs), gmm.cu (B10's gmm, plain and transpose_rhs) and tgmm.cu
+// (B10's tgmm, `tgmm_sm90` below): persistent, warp-specialised kernels
+// built on wgmma, TMA and mbarrier stages (the building blocks in
+// hopper.cuh). They replace the tiles of the TPU kernels
 // paddle_tpu/kernels/moe_fused.py `gather_gmm` (pallas_call :266) and jax's
-// megablox `gmm`, which paddle_tpu/kernels/moe_dispatch.py calls from
-// `_gmm_tuned` (:434) and `_gmm_tuned_bwd` (:445).
+// megablox `gmm` and `tgmm`, which paddle_tpu/kernels/moe_dispatch.py calls
+// from `_gmm_tuned` (:434) and `_gmm_tuned_bwd` (:445).
 //
 // What bounds these products on the H100 is the tensor cores: at the
 // DeepSeekMoE step's shapes they do 330-660 GFLOP on 0.6-1.1 GB, 500-1000
@@ -67,21 +68,15 @@
 #include <algorithm>
 #include <cstdint>
 
-#include <cuda.h>   // CUtensorMap; the encoder is fetched from the driver
-
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace ptt {
 namespace sm90 {
 namespace {
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kBM = 128;        // output rows of a tile (2 warpgroups x 64)
 constexpr int kBK = 64;         // reduction depth of a stage (128-byte rows)
 constexpr int kThreads = 384;   // warpgroup 0 loads, 1 and 2 compute
-constexpr int kAlign = 1024;    // a 128-byte swizzle atom: 8 rows x 128 bytes
-constexpr int kMaxSmem = 232448;
 
 // Shapes of one instantiation. An int8 rhs is B9's only (N-major).
 template <int BN, bool kGather, bool kTransB, bool kInt8B>
@@ -121,318 +116,8 @@ struct Args {
 };
 
 // ---------------------------------------------------------------------------
-// PTX: shared addresses, mbarriers, copies, fences, register split
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// one arrival that also expects `bytes` of TMA transactions this phase
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// wait until the phase of parity `parity` has completed; a wait that never
-// ends (a fault in the stage protocol) traps, so the launch fails instead of
-// holding the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done, tries = 0;
-  do {
-    if (++tries == (1u << 28)) __trap();
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// order generic-proxy shared writes before async-proxy reads (wgmma, TMA)
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// four (two) 8 x 8 b16 matrices from shared memory, transposed: lane t
-// gives the row address t % 8 of matrix t / 8 and receives in r[i] the
-// elements (rows 2*(t%4) and 2*(t%4)+1, column t/4) of matrix i
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-template <int kRegs>
-__device__ __forceinline__ void regs_down() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
-}
-template <int kRegs>
-__device__ __forceinline__ void regs_up() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
-}
-
-// ---------------------------------------------------------------------------
-// wgmma
-// ---------------------------------------------------------------------------
-// A shared-memory matrix descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout B128.
-// K-major (8-row groups of 128-byte rows): stride 1024, leading unused.
-// N-major (64-column atoms of 8-row groups): stride 1024 between the groups
-// of 8 reduction rows, leading the distance between 64-column atoms.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lead,
-                                         uint32_t stride) {
-  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lead >> 4) << 16) |
-         (uint64_t(stride >> 4) << 32) | (uint64_t(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
-               : "memory");
-}
-
-// keep the compiler from moving accumulator accesses across the
-// asynchronous products
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d += A (64 x 16, K-major, descriptor da) * B (16 x n, descriptor db;
-// kTransB = 1: B stored N-major), bf16 in, f32 sums. Thread t of the
-// warpgroup holds, for each 8-column chunk j, d[4j..4j+1] (row 16*(t/32) +
-// (t%32)/4, columns 8j + 2*(t%4) + {0, 1}) and d[4j+2..4j+3] (8 rows down).
-template <int kTransB>
-__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
-                                          uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n"
-      "}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1), "n"(kTransB));
-}
-
-template <int kTransB>
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
-                                          uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n"
-      "}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(kTransB));
-}
-
-template <int BN, int kTransB>
-__device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t da,
-                                      uint64_t db) {
-  if constexpr (BN == 256)
-    wgmma_n256<kTransB>(d, da, db);
-  else
-    wgmma_n128<kTransB>(d, da, db);
-}
-
-// d[64] += A (64 x 16, bf16 fragments in registers: a[0..3] hold rows
-// r and r + 8 (r = 16*(t/32) + (t%32)/4), reduction pairs 2*(t%4) and
-// 2*(t%4) + 8) * B (16 x 128, K-major, descriptor db), f32 sums
-__device__ __forceinline__ void wgmma_ra_n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
-      "}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// ---------------------------------------------------------------------------
 // tiles
 // ---------------------------------------------------------------------------
-// A 4 x 4 transpose across four lanes (lane = base + stride * t, t < 4) in
-// two butterfly steps: lane t's v[i] becomes lane i's v[t]. The epilogues
-// use it to trade 4-byte pieces of four rows (or chunks) for 16 contiguous
-// bytes of one.
-template <int kStride>
-__device__ __forceinline__ void transpose4(uint32_t (&v)[4], int t) {
-#pragma unroll
-  for (int b = 1; b <= 2; b <<= 1) {
-    const bool up = t & b;
-#pragma unroll
-    for (int i0 = 0; i0 < 4; ++i0) {
-      if (i0 & b) continue;
-      const int i1 = i0 | b;
-      const uint32_t got =
-          __shfl_xor_sync(kFullMask, up ? v[i0] : v[i1], b * kStride);
-      if (up)
-        v[i0] = got;
-      else
-        v[i1] = got;
-    }
-  }
-}
-
 // Two int8 values of w -> bf16x2, exactly: bytes 0 and 2 (kOdd false) or 1
 // and 3 (kOdd true), the first in the low half. The low 7 bits of a byte
 // become the mantissa of 128 + l, and subtracting 128 (sign bit clear) or
@@ -702,7 +387,7 @@ grouped_gemm_sm90(const Args a, const __grid_constant__ CUtensorMap tmA,
           wgmma_fence();
 #pragma unroll
           for (int b = 0; b < MB; ++b)
-            wgmma_ra_n128(acc[b], f[b], desc(xs + kk * 32, 16, 1024));
+            wgmma_ra_n128<0>(acc[b], f[b], desc(xs + kk * 32, 16, 1024));
           wgmma_commit();
 #pragma unroll
           for (int b = 0; b < MB; ++b) fence_acc(acc[b]);
@@ -767,7 +452,7 @@ grouped_gemm_sm90(const Args a, const __grid_constant__ CUtensorMap tmA,
             const uint64_t db =
                 kTransB ? desc(b0 + kk * 32, 16, 1024)
                         : desc(b0 + kk * 2048, kBK * 128, 1024);
-            wgmma<BN, kTransB ? 0 : 1>(acc, da, db);
+            wgmma<BN, 0, kTransB ? 0 : 1>(acc, da, db);
           }
           wgmma_commit();
           fence_acc(acc);
@@ -824,45 +509,261 @@ grouped_gemm_sm90(const Args a, const __grid_constant__ CUtensorMap tmA,
 }
 
 // ---------------------------------------------------------------------------
-// host: tensor maps and the launch
+// tgmm: out[g] = lhs[rows of g]^T @ rhs[rows of g]
 // ---------------------------------------------------------------------------
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
+struct TArgs {
+  const int* gs;   // group sizes [E]
+  void* out;       // [E, K, N], bf16 or f32
+  int M, K, N, E;
+};
 
-// cuTensorMapEncodeTiled from the driver the runtime loaded (no -lcuda)
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
+// The reduction runs over the rows of group g, 64 a stage from offs[g]
+// (TMA coordinates are per element, so a stage may start at any row). The
+// A operand is lhs^T: a stage holds 64 rows of lhs [M, K] x 128 of its
+// columns, as two TMA boxes of 64 columns (one a consumer warpgroup: its 64
+// output rows), M-major for wgmma (transposed A). The B operand is rhs
+// [M, N] by the N-major path of gmm's rhs, a 3-D map of extent 1 in its
+// last dimension. Rows past M are TMA's zero fill; rows at or past
+// offs[g + 1] in a group's last stage hold the next group's rows, and each
+// consumer warpgroup zeroes them in its own A box (generic-proxy stores,
+// then fence.proxy.async and a barrier of the warpgroup before its wgmma):
+// the tile-padded layout of the fused dispatch never has them, the gmm
+// form's raw group sizes do, and only in one stage a tile. Zeroing one
+// operand leaves 0 x (the next group's finite rhs rows) in the sums.
+//
+// A bf16 output is staged in shared memory, 128 columns of a warpgroup's
+// 64 rows at a time (swizzled as the TMA boxes of the output's map,
+// conflict-free), and stored by TMA from one thread of each warpgroup, so
+// the consumers go on to the next tile while the bytes drain. An f32
+// output is stored from registers. The output is what holds tgmm back
+// beside gmm: [E, K, N] is 738 MB at the MoE step's gate|up wgrad, 3x
+// gmm's, and the same call with no stores took ~0.77 ms against ~1.0 with
+// them (measured on an H100, PERF.md). Neither TMA stores, nor an
+// evict-first L2 policy on them, nor clusters of two blocks multicasting
+// the rhs tile (correct, but 1.7x slower) closed that gap.
+template <int BN, typename OutT>
+struct TCfg {
+  using G = Cfg<BN, false, false, false>;   // gmm's stage shapes
+  static constexpr int kABytes = G::kABytes, kAcc = G::kAcc;
+  static constexpr int kLoadRegs = G::kLoadRegs, kMathRegs = G::kMathRegs;
+  static constexpr bool kTmaOut = sizeof(OutT) == 2;
+  static constexpr int kOutBytes = kTmaOut ? kBM * 128 * 2 : 0;
+  static constexpr int kStageBytes = G::kStageBytes;
+  // bf16 out: 4 (BN 256) or 6 stages beside it in 224 KB
+  static constexpr int kStages =
+      kTmaOut ? (229376 - kOutBytes) / kStageBytes : G::kStages;
+  static constexpr int kRingBytes = kStages * kStageBytes;
+  static constexpr int kBars = 2 * kStages;
+  static int smem_bytes(int E) {
+    return kAlign + kRingBytes + kOutBytes + 8 * kBars + 4 * (E + 1);
+  }
+};
+
+template <int BN, typename OutT>
+__global__ void __launch_bounds__(kThreads, 1)
+tgmm_sm90(const TArgs a, const __grid_constant__ CUtensorMap tmA,
+          const __grid_constant__ CUtensorMap tmB,
+          const __grid_constant__ CUtensorMap tmO) {
+  using C = TCfg<BN, OutT>;
+  extern __shared__ unsigned char dyn[];
+  unsigned char* base = dyn + ((kAlign - (smem_u32(dyn) & (kAlign - 1))) &
+                               (kAlign - 1));
+  unsigned char* obuf = base + C::kRingBytes;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(base + C::kRingBytes + C::kOutBytes);
+  uint64_t* empty = full + C::kStages;
+  int* offs = reinterpret_cast<int*>(full + C::kBars);
+  auto stage = [&](int s) { return base + s * C::kStageBytes; };
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);   // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (tid == 32) {
+    int run = 0;
+    offs[0] = 0;
+    for (int e = 0; e < a.E; ++e) {
+      run = min(run + a.gs[e], a.M);
+      offs[e + 1] = run;
+    }
+  }
+  __syncthreads();
+  // tiles expert-major: all (K, N) tiles of group g, then g + 1, so the
+  // ~132 tiles in flight read one group's rows from L2
+  const int tiles_n = (a.N + BN - 1) / BN;
+  const int per_g = ((a.K + kBM - 1) / kBM) * tiles_n;
+  const int tiles = a.E * per_g;
+  auto tile = [&](int t, int& g, int& k0, int& n0, int& lo, int& nk) {
+    g = t / per_g;
+    const int r = t % per_g;
+    k0 = (r / tiles_n) * kBM;
+    n0 = (r % tiles_n) * BN;
+    lo = offs[g];
+    nk = (offs[g + 1] - lo + kBK - 1) / kBK;
+  };
+
+  if (tid < 128) {
+    // ---------------- producer: one thread issues every load ----------------
+    regs_down<C::kLoadRegs>();
+    if (tid != 0) return;
+    int s = 0;
+    uint32_t ph = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int g, k0, n0, lo, nk;
+      tile(t, g, k0, n0, lo, nk);
+      // boxes wholly past K or N are not loaded: their rows and columns
+      // are never stored
+      const int a_boxes = min(2, (a.K - k0 + 63) / 64);
+      const int boxes = b_boxes<BN, false>(n0, a.N);
+      const uint32_t bytes = (a_boxes + boxes) * kBK * 128;
+      for (int ks = 0; ks < nk; ++ks) {
+        const int r0 = lo + ks * kBK;
+        mbar_wait(&empty[s], ph ^ 1);
+        mbar_arrive_tx(&full[s], bytes);
+        for (int j = 0; j < a_boxes; ++j)
+          tma_load_2d(stage(s) + j * (kBK * 128), &tmA, &full[s], k0 + 64 * j,
+                      r0);
+        load_b<BN, false>(stage(s) + C::kABytes, &tmB, &full[s], n0, r0, 0,
+                          boxes);
+        if (++s == C::kStages) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---------------- consumer warpgroups ----------------
+  regs_up<C::kMathRegs>();
+  const int wgi = tid / 128 - 1, lt = tid & 127;
+  const int warp = lt >> 5, lane = tid & 31, q = lane & 3;
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  };
+  int s = 0;
+  uint32_t ph = 0;
+  float acc[C::kAcc];
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    int g, k0, n0, lo, nk;
+    tile(t, g, k0, n0, lo, nk);
+#pragma unroll
+    for (int i = 0; i < C::kAcc; ++i) acc[i] = 0.f;
+    int prev = 0;
+    for (int ks = 0; ks < nk; ++ks) {
+      mbar_wait(&full[s], ph);
+      unsigned char* st = stage(s);
+      const int live = offs[g + 1] - (lo + ks * kBK);
+      if (live < kBK) {
+        // the next group's rows of this warpgroup's A box: zeros
+        unsigned char* box = st + wgi * (kBK * 128);
+        for (int e = lt; e < (kBK - live) * 8; e += 128)
+          *reinterpret_cast<uint4*>(box + live * 128 + e * 16) =
+              make_uint4(0, 0, 0, 0);
+        fence_async_shared();
+        named_sync(1 + wgi, 128);
+      }
+      const uint32_t sa = smem_u32(st);
+      const uint32_t a0 = sa + wgi * (kBK * 128), b0 = sa + C::kABytes;
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma<BN, 1, 1>(acc, desc(a0 + kk * 2048, kBK * 128, 1024),
+                        desc(b0 + kk * 2048, kBK * 128, 1024));
+      wgmma_commit();
+      fence_acc(acc);
+      wgmma_wait<1>();   // the previous stage's products have retired
+      fence_acc(acc);
+      if (ks > 0) release(prev);
+      prev = s;
+      if (++s == C::kStages) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    if (nk > 0) {
+      wgmma_wait<0>();
+      fence_acc(acc);
+      release(prev);
+    }
+    // rows [k0, k0 + 128) ∩ [0, K) of out[g], columns [n0, n0 + BN) ∩
+    // [0, N); an empty group's tiles are zeros. Each quad trades its
+    // pieces so that a lane holds 8 whole columns of a row (bf16) or lane
+    // pairs trade so that it holds 4 (f32): 16 bytes a store.
+    const int rw = warp * 16 + (lane >> 2);   // row in the warpgroup's 64
+    if constexpr (C::kTmaOut) {
+      // this warpgroup's 64 rows, 128 columns a round: two boxes of 64
+      // rows x 128 bytes, 16-byte chunk c of row r at c ^ (r % 8); free
+      // once the last round's stores have read them
+      unsigned char* ob = obuf + wgi * 16384;
+#pragma unroll
+      for (int half = 0; half < BN / 128; ++half) {
+        if (lt == 0) bulk_wait<0, true>();
+        named_sync(1 + wgi, 128);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = rw + 8 * h;
+#pragma unroll
+          for (int m = 4 * half; m < 4 * half + 4; ++m) {
+            uint32_t v[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              v[i] = pack_bf16(acc[4 * (4 * m + i) + 2 * h],
+                               acc[4 * (4 * m + i) + 2 * h + 1]);
+            transpose4<1>(v, q);
+            const int c = 4 * (m - 4 * half) + q;   // 8-column chunk
+            *reinterpret_cast<uint4*>(ob + (c >> 3) * 8192 + r * 128 +
+                                      (((c & 7) ^ (r & 7)) << 4)) =
+                make_uint4(v[0], v[1], v[2], v[3]);
+          }
+        }
+        fence_async_shared();
+        named_sync(1 + wgi, 128);
+        const int c0 = n0 + 128 * half;
+        if (lt == 0 && k0 + 64 * wgi < a.K && c0 < a.N) {
+          tma_store_3d(&tmO, ob, c0, k0 + 64 * wgi, g);
+          if (c0 + 64 < a.N)
+            tma_store_3d(&tmO, ob + 8192, c0 + 64, k0 + 64 * wgi, g);
+          bulk_commit();
+        }
+      }
+    } else {
+      OutT* out = static_cast<OutT*>(a.out) + int64_t(g) * a.K * a.N;
+      const int odd = q & 1;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = k0 + wgi * 64 + rw + 8 * h;
+        OutT* p = out + int64_t(row) * a.N;
+#pragma unroll
+        for (int j = 0; j < BN / 8; j += 2) {
+          const float x0 = acc[4 * j + 2 * h], x1 = acc[4 * j + 2 * h + 1];
+          const float y0 = acc[4 * (j + 1) + 2 * h];
+          const float y1 = acc[4 * (j + 1) + 2 * h + 1];
+          // an even lane sends its chunk j + 1, an odd one its chunk j
+          const float u0 = __shfl_xor_sync(kFullMask, odd ? x0 : y0, 1);
+          const float u1 = __shfl_xor_sync(kFullMask, odd ? x1 : y1, 1);
+          const float4 v = odd ? make_float4(u0, u1, y0, y1)
+                               : make_float4(x0, x1, u0, u1);
+          const int col = n0 + 8 * (j + odd) + 2 * (q - odd);
+          if (row < a.K && col < a.N)
+            __stcs(reinterpret_cast<float4*>(p + col), v);
+        }
+      }
+    }
+  }
+  if constexpr (C::kTmaOut) {
+    if (lt == 0) bulk_wait<0, false>();   // the stores are done
+  }
 }
 
-// a tiled map of a row-major tensor: dims innermost first, byte strides of
-// dims 1.., zero fill outside it
-inline cudaError_t encode(CUtensorMap* map, CUtensorMapDataType type, int rank,
-                          const void* ptr, const cuuint64_t* dims,
-                          const cuuint64_t* strides, const cuuint32_t* box,
-                          CUtensorMapSwizzle swizzle) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult res =
-      fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, unit,
-         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
+// ---------------------------------------------------------------------------
+// host: tensor maps and the launches
+// ---------------------------------------------------------------------------
 // The kernel over args; lhs [M, K] bf16 (gmm; unused by B9) and rhs
 // [E, K, N] (bf16 or int8) or [E, N, K] (kTransB), 16-byte aligned, K and
 // N multiples of 8 (of 16 for an int8 rhs).
@@ -908,6 +809,46 @@ cudaError_t launch(const Args& a, const void* lhs, const void* rhs,
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int tiles = ((a.M + kBM - 1) / kBM) * ((a.N + BN - 1) / BN);
   kernel<<<std::min(tiles, sms), kThreads, smem, stream>>>(a, tmA, tmB);
+  return cudaGetLastError();
+}
+
+// tgmm over args: lhs [M, K] (lhs^T's storage) and rhs [M, N] bf16, 16-byte
+// aligned, K and N multiples of 8, M > 0; out [E, K, N] of OutT
+template <int BN, typename OutT>
+cudaError_t launch_tgmm(const TArgs& a, const void* lhs, const void* rhs,
+                        cudaStream_t stream) {
+  using C = TCfg<BN, OutT>;
+  alignas(64) CUtensorMap tmA{}, tmB{}, tmO{};
+  const cuuint64_t M = a.M, K = a.K, N = a.N;
+  const cuuint64_t adims[2] = {K, M}, astrides[1] = {2 * K};
+  const cuuint32_t abox[2] = {64, kBK};
+  cudaError_t err = encode(&tmA, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, lhs,
+                           adims, astrides, abox, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t bdims[3] = {N, M, 1}, bstrides[2] = {2 * N, 2 * N * M};
+  const cuuint32_t bbox[3] = {64, kBK, 1};
+  err = encode(&tmB, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, rhs, bdims, bstrides,
+               bbox, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  if (C::kTmaOut) {
+    const cuuint64_t odims[3] = {N, K, cuuint64_t(a.E)};
+    const cuuint64_t ostrides[2] = {2 * N, 2 * N * K};
+    const cuuint32_t obox[3] = {64, 64, 1};
+    err = encode(&tmO, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, a.out, odims,
+                 ostrides, obox, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != cudaSuccess) return err;
+  }
+  const int smem = C::smem_bytes(a.E);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = tgmm_sm90<BN, OutT>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int tiles = a.E * ((a.K + kBM - 1) / kBM) * ((a.N + BN - 1) / BN);
+  kernel<<<std::min(tiles, sms), kThreads, smem, stream>>>(a, tmA, tmB, tmO);
   return cudaGetLastError();
 }
 

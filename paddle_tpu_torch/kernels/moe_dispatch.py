@@ -14,7 +14,8 @@ paddle_tpu/kernels/moe_dispatch (its single-program forms).
   device: the kernels read them there and the host never does. Both
   kernels write every row and group they own, so rows past ``sum(gs)``
   and empty groups come out as zeros. :func:`tile_width` picks the bf16
-  ``gmm`` and B9 kernels' output tile (256 or 128 columns) on the host.
+  B9, ``gmm`` and ``tgmm`` kernels' output tile (256 or 128 columns) on
+  the host.
 - :class:`_GmmTuned` is the differentiable grouped matmul (the JAX
   ``_gmm_tuned`` custom_vjp): forward ``gmm``, backward ``gmm`` with
   ``transpose_rhs`` (dgrad) and ``tgmm`` (wgrad). Its forward runs through
@@ -241,11 +242,12 @@ def _check_index(name, t, device, n):
 
 
 def tile_width(n: int) -> int:
-    """Output columns of a bf16 B9/``gmm`` kernel tile for an n-wide
-    output: 256 where n is a whole number of 256-column tiles (the MoE
-    step's 2816 and 2048), else 128 (1408, 136, 264), so no more than 120
-    of a tile's columns are ever padding. Raises on an n the kernels do not
-    take (not a positive multiple of 8)."""
+    """Output columns of a bf16 B9/B10 kernel tile for an n-wide output
+    (``tgmm``'s n is rhs's width): 256 where n is a whole number of
+    256-column tiles (the MoE step's 2816 and 2048), else 128 (1408, 136,
+    264), so no more than 120 of a tile's columns are ever padding.
+    Raises on an n the kernels do not take (not a positive multiple of
+    8)."""
     if n <= 0 or n % 8:
         raise ValueError(f"tile_width: {n} columns is not a positive "
                          "multiple of 8")
@@ -309,14 +311,15 @@ def tgmm(lhs_t, rhs, gs, out_dtype=_f32):
     if out_dtype not in (_f32, lhs.dtype):
         raise TypeError(f"tgmm writes f32 or {lhs.dtype}, not {out_dtype}")
     fn = _build.kernel("ptt_tgmm", [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     out = torch.empty((E, K, N), dtype=out_dtype, device=lhs.device)
     if out.numel() == 0:
         return out               # an empty grid is no launch
     with torch.cuda.device(lhs.device):
         err = fn(_build.ptr(lhs), _build.ptr(rhs), _build.ptr(gs),
                  _build.ptr(out), M, K, N, E, _DTYPES[lhs.dtype],
-                 _DTYPES[out_dtype], _build.stream_handle(lhs))
+                 _DTYPES[out_dtype], tile_width(N),
+                 _build.stream_handle(lhs))
     _build.check(err, "tgmm")
     _build.launch_counts["tgmm"] += 1
     return out

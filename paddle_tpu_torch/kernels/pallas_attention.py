@@ -133,15 +133,17 @@ def _check(q, k, v):
 
 def _check_cuda(name, tensors, D):
     """What the CUDA kernels take: one dtype of bf16 or f32, head_dim 64
-    or 128, contiguous tensors."""
+    or 128, contiguous 16-byte-aligned tensors (B1's bf16 form reads them
+    by TMA)."""
     dt = tensors[0].dtype
     if dt not in _DTYPES or any(t.dtype != dt for t in tensors):
         raise TypeError(f"{name} takes bf16 or f32 tensors of one dtype, "
                         f"got {[t.dtype for t in tensors]}")
     if D not in (64, 128):
         raise ValueError(f"{name}: head_dim {D} not in (64, 128)")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name} needs contiguous inputs")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in tensors):
+        raise ValueError(f"{name} needs contiguous 16-byte-aligned inputs")
 
 
 def flash_attention_fwd(q, k, v, causal: bool = False):

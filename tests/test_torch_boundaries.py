@@ -328,6 +328,56 @@ def test_tile_width_raises_on_widths_the_kernels_do_not_take(n):
         tmdisp.tile_width(n)
 
 
+def test_tgmm_passes_the_tile_width_of_its_output_columns(monkeypatch):
+    """tgmm runs on the Hopper grouped-GEMM kernel and, like gmm and B9,
+    passes ``tile_width`` of its output's columns (rhs's width n of
+    [E, k, n]) to its C entry point after the inputs' checks: 256 for the
+    MoE step's wgrads (2816, 2048), 128 for 1408 and 136. The launch is
+    replaced here by a recorder of its arguments."""
+    import contextlib
+    calls = []
+
+    def kernel(name, argtypes):
+        def fn(*args):
+            calls.append((name, len(argtypes), args))
+            return 0
+        return fn
+
+    real_empty = torch.empty
+    monkeypatch.setattr(tmdisp._build, "kernel", kernel)
+    monkeypatch.setattr(tmdisp._build, "ptr", lambda t: 0)
+    monkeypatch.setattr(tmdisp._build, "stream_handle", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch, "empty", lambda *a, device=None, **k:
+                        real_empty(*a, **k))
+
+    def cuda(shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype).as_subclass(_CudaTyped)
+
+    gs = cuda((4,), torch.int32)
+    for n, want in ((2816, 256), (2048, 256), (1408, 128), (136, 128)):
+        for out_dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+            tmdisp.tgmm(cuda((300, 136)).t(), cuda((300, n)), gs,
+                        out_dtype=out_dtype)
+            name, n_args, args = calls[-1]
+            assert name == "ptt_tgmm" and len(args) == n_args == 12
+            # M, K, N, E, dtype, out_dtype, tile width
+            assert args[4:11] == (300, 136, n, 4, 1, code, want)
+
+
+def test_flash_kernels_take_only_16_byte_aligned_inputs():
+    """B1's bf16 kernel reads q, k and v by TMA, which needs 16-byte-aligned
+    rows: a contiguous view 2 bytes off that alignment is refused before
+    any launch; an aligned one passes the checks."""
+    base = torch.zeros(2 * 8 * 2 * 64 + 8, dtype=torch.bfloat16)
+    off = base[1:1 + 2 * 8 * 2 * 64].view(2, 8, 2, 64)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        tfa._check_cuda("flash_attention_fwd", (off, off, off), 64)
+    ok = base[:2 * 8 * 2 * 64].view(2, 8, 2, 64)
+    tfa._check_cuda("flash_attention_fwd", (ok, ok, ok), 64)
+
+
 def test_moe_unported_arguments_raise_naming_their_queue():
     cfg = tm.tiny_moe(vocab=32, hidden=32, layers=1, heads=4, experts=4)
     params = tm.init_params(cfg, device="cpu")

@@ -51,6 +51,27 @@ def test_plain_matches_pallas_kernel(S, causal):
                                atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("S,Hq,Hkv,D,causal", [
+    (100, 2, 1, 128, True), (200, 2, 2, 128, False),
+    (100, 2, 2, 64, True), (200, 4, 2, 64, False)])
+def test_plain_matches_pallas_kernel_at_edges(S, Hq, Hkv, D, causal):
+    """The edges of the Hopper kernel's tiles the plain version stands for
+    on the CPU: ragged S (100 and 200, not a multiple of its 128-row tiles
+    or the 64-row ones before), Hq = Hkv (DeepSeekMoE's 16/16) and D = 64
+    (the spec draft's), against the JAX kernel in interpret mode; f32
+    within 1e-4, lse against a float64 reference."""
+    q, k, v = _inputs(S + 10 * Hq + D, 1, S, Hq, Hkv, D)
+    want = np.asarray(jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=causal))
+    out, lse = tpa.flash_attention_fwd(torch.as_tensor(q),
+                                       torch.as_tensor(k),
+                                       torch.as_tensor(v), causal)
+    assert tuple(out.shape) == want.shape
+    np.testing.assert_allclose(out.numpy(), want, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), _lse_reference(q, k, causal),
+                               atol=1e-4, rtol=0)
+
+
 def test_plain_gqa_maps_query_head_to_kv_head_by_division():
     """Query head h reads kv head h // G: zeroing kv head 1 must change
     exactly query heads 2 and 3 (the repeat-interleave convention)."""

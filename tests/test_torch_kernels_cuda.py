@@ -46,6 +46,31 @@ def test_flash_kernel_matches_plain(dev, dtype, tol, S, causal, D):
     assert (lse - ref_lse).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("hq,hkv", [(2, 2), (6, 2), (8, 2)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S", [1, 63, 64, 100, 129, 1000, 1024, 2048])
+def test_flash_sm90_edges_match_plain(dev, S, causal, hq, hkv, D):
+    """B1's bf16 Hopper kernel (128-row query and K/V tiles) against its
+    plain version within 2e-2: S below, at and past one tile, ragged in
+    the last tile and whole; GQA groups of 1, 3 and 4; D 64 and 128. Two
+    calls agree bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(S + 7 * hq + D)
+    q, k, v = (torch.randn(shape, generator=g, device=dev)
+               .to(torch.bfloat16)
+               for shape in ((1, S, hq, D), (1, S, hkv, D), (1, S, hkv, D)))
+    before = _build.launch_counts["flash_fwd"]
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal)
+    again, lse2 = tfa.flash_attention_fwd(q, k, v, causal)
+    ref, ref_lse = tfa.flash_attention_fwd_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_fwd"] == before + 2
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 2e-2
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bs,G,d,lens", [
     (64, 4, 128, [0, 1, 64, 1000]),
@@ -384,6 +409,47 @@ def test_gmm_sm90_edges_match_plain(dev, shape, transpose_rhs):
     assert out.dtype == torch.bfloat16 and out.shape == (M, N)
     assert torch.all(out[sum(sizes):] == 0)
     assert _rel(out, ref) <= 1e-2
+    assert torch.equal(out, again)
+
+
+# Edge shapes of tgmm's Hopper kernel: (M, K, N, gs), K and N the output's
+# [E, K, N]. "ragged": group boundaries off 64 and off 8 (a group's last
+# 64-row stage holds the next group's rows, which must add nothing), empty
+# groups, 250 rows past sum(gs), K = 136 (a second K tile of 8 rows) and N
+# = 1408 (128-wide tiles); "one": one group holds every row, K = 1408,
+# N = 136; "wrap": K = N = 2048 over 8 groups, 1024 output tiles (more than
+# 2 x 132), reductions of up to 19 stages that wrap the stage ring.
+_SM90_TGMM = {
+    "ragged": (1000, 136, 1408, [3, 61, 0, 77, 9, 500, 0, 100]),
+    "one": (700, 1408, 136, [0, 700, 0]),
+    "wrap": (4096, 2048, 2048, [700, 0, 13, 1200, 87, 900, 600, 500]),
+}
+
+
+@pytest.mark.parametrize("out_dtype,tol", [(torch.bfloat16, 1e-2),
+                                           (torch.float32, 1e-5)])
+@pytest.mark.parametrize("shape", list(_SM90_TGMM))
+def test_tgmm_sm90_edges_match_plain(dev, shape, out_dtype, tol):
+    """B10 tgmm's bf16 kernel against its plain version at the edge shapes
+    above, within ``tol`` of the plain result's largest magnitude; empty
+    groups' blocks are exact zeros; two calls agree bit for bit."""
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+    M, K, N, sizes = _SM90_TGMM[shape]
+    g = torch.Generator(device=dev).manual_seed(23)
+    lhs = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+    rhs = torch.randn(M, N, generator=g, device=dev).to(torch.bfloat16)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    before = _build.launch_counts["tgmm"]
+    out = md.tgmm(lhs.t(), rhs, gs, out_dtype=out_dtype)
+    again = md.tgmm(lhs.t(), rhs, gs, out_dtype=out_dtype)
+    ref = md.tgmm_plain(lhs.t(), rhs, gs, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["tgmm"] == before + 2
+    assert out.dtype == out_dtype and out.shape == (len(sizes), K, N)
+    for e, n in enumerate(sizes):
+        if n == 0:
+            assert torch.all(out[e] == 0)
+    assert _rel(out, ref) <= tol
     assert torch.equal(out, again)
 
 

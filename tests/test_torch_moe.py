@@ -97,6 +97,27 @@ def test_tgmm_plain_matches_megablox():
     _close(got, want, 1e-5)
 
 
+def test_tgmm_plain_matches_megablox_on_ragged_groups():
+    """Group boundaries off 64 and off 8 (rows 3, 64, 141, 150), so groups
+    straddle the Hopper kernel's 64-row stages and megablox's 128-row
+    tiles, an empty group and 106 rows past sum(gs): f32 within 1e-5, the
+    empty group's block zero in both."""
+    from jax.experimental.pallas.ops.tpu.megablox.gmm import tgmm
+    gs = np.array([3, 61, 0, 77, 9], np.int32)
+    rng = np.random.default_rng(3)
+    lhs = rng.standard_normal((256, 128)).astype(np.float32)
+    rhs = rng.standard_normal((256, 128)).astype(np.float32)
+    want = np.asarray(tgmm(jnp.asarray(lhs.T), jnp.asarray(rhs),
+                           jnp.asarray(gs),
+                           preferred_element_type=jnp.float32,
+                           tiling=(128, 128, 128), num_actual_groups=5,
+                           interpret=True))
+    got = tmd.tgmm(torch.as_tensor(lhs).t(), torch.as_tensor(rhs),
+                   torch.as_tensor(gs))
+    assert np.all(want[2] == 0) and torch.all(got[2] == 0)
+    _close(got, want, 1e-5)
+
+
 # ---------------------------------------------------------------------------
 # routing, layout and B9
 # ---------------------------------------------------------------------------

@@ -13,7 +13,8 @@ weights, B10 ``gmm``
 (down forward, down dgrad, gate|up dgrad) and ``tgmm`` (both wgrads).
 Each library is called through its own tree's C interface: a tree whose
 wrappers pick the tile width (``moe_dispatch.tile_width``) passes it, and
-B9's expert count, as its entry points take them. Both libraries' results
+B9's expert count, as its entry points take them (``tgmm`` takes the tile
+width since it runs on the Hopper kernel). Both libraries' results
 are compared. With ``--step``, the MoE train step of each tree
 (``paddle_tpu_torch.examples.moe_pretrain`` at 12 layers, batch 4 x 2048,
 run from the tree's root) is timed too: parent, change, change, parent.
@@ -90,14 +91,17 @@ class Lib:
         self.lib = ctypes.CDLL(str(path))
         self.lib.ptt_error_string.argtypes = [ctypes.c_int]
         self.lib.ptt_error_string.restype = ctypes.c_char_p
-        wrappers = tree / "paddle_tpu_torch" / "kernels" / "moe_dispatch.py"
-        self.tiled = "def tile_width" in wrappers.read_text()
+        wrappers = (tree / "paddle_tpu_torch" / "kernels" /
+                    "moe_dispatch.py").read_text()
+        self.tiled = "def tile_width" in wrappers
+        # tgmm on the Hopper kernel takes the tile width too
+        self.tgmm_tiled = "_DTYPES[out_dtype], tile_width(N)" in wrappers
         P, I = ctypes.c_void_p, ctypes.c_int
         extra = 1 if self.tiled else 0
         self.fns = {}
         for name, n_ptr, n_int in (("ptt_gmm", 4, 6 + extra),
                                    ("ptt_gather_gmm", 5, 6 + 2 * extra),
-                                   ("ptt_tgmm", 4, 6)):
+                                   ("ptt_tgmm", 4, 6 + self.tgmm_tiled)):
             fn = getattr(self.lib, name)
             fn.argtypes = [P] * n_ptr + [I] * n_int + [P]
             fn.restype = I
@@ -132,8 +136,9 @@ class Lib:
     def tgmm(self, lhs, rhs, gs):   # lhs [m, k] (lhs^T's storage), bf16 out
         (M, K), N, E = lhs.shape, rhs.shape[1], gs.shape[0]
         out = torch.empty((E, K, N), dtype=lhs.dtype, device=lhs.device)
+        tail = [tmdisp.tile_width(N)] if self.tgmm_tiled else []
         self._call("ptt_tgmm", lhs.data_ptr(), rhs.data_ptr(), gs.data_ptr(),
-                   out.data_ptr(), M, K, N, E, BF16, BF16)
+                   out.data_ptr(), M, K, N, E, BF16, BF16, *tail)
         return out
 
 
