@@ -43,17 +43,22 @@ into the git-ignored ``paddle_tpu_torch/_build``, then runs, in order
    of phase 4's mix on phase 4's weights, with one B5 launch a decode
    step and no B4 launch, a traced decode call, and the same mix through
    a ragged engine at 4 slots for comparison;
-7. B2/B3, the flash-backward kernels (dQ; dK/dV), against their plain
-   versions at llama-2.6b head shapes (Hq=24, Hkv=8, D=128; B=2; S in
-   128/1000/2048; causal and not; bf16 and f32; D=64 once), and their f32
-   gradients against torch.autograd through dense attention;
+7. B2/B3, the flash-backward kernels (dQ with Delta computed in it;
+   dK/dV), against their plain versions at llama-2.6b head shapes
+   (Hq=24, Hkv=8, D=128; B=2; S in 128/1000/2048; causal and not; bf16
+   and f32; D=64 once), then at the bf16 Hopper kernels' edge shapes (S
+   from 1 to 1000 around their 64-row tiles, GQA groups of 1, 3 and 4, D
+   64 and 128, causal and not), each equal to itself over two calls, and
+   their f32 gradients against torch.autograd through dense attention;
 8. the training path: ``train_step`` on llama-2.6b at full width and
    depth (batch 8, seq 2048, full remat, adafactor, bf16 params, random
    weights), 2 warm-up and 5 timed steps on one fixed batch — finite,
    falling losses and, per step, 2x24 B1 and 24 B2/B3 launches; tokens/s,
    step time, MFU, peak memory; one more step traced with torch.profiler;
-9. B2 and B3 timed at the step's shapes beside their plain versions,
-   their bounds and SDPA's backward;
+9. B2 and B3 timed at the llama-2.6b and DeepSeekMoE steps' shapes
+   beside their plain versions and their bounds, B2 also given a torch
+   Delta, and the whole backward (Delta + B2 + B3) beside SDPA's
+   backward;
 10. card vs CPU train step: llama-2.6b widths cut to 2 layers, f32,
     AdamW, B=1, S=256, the same numpy-made weights — loss, grad norm,
     grads and updated params must agree;
@@ -1501,33 +1506,61 @@ def rel_err(a, b):
     return max_err(a, b) / b.float().abs().max().item()
 
 
+# Edge shapes of B2/B3's Hopper kernels (64-row K/V and query tiles,
+# 128-row dQ items), bf16, B=1: ragged S below, past and across tiles;
+# GQA groups of 1, 3 and 4; D 64 and 128; causal and not.
+FLASH_BWD_EDGE_S = (1, 63, 100, 129, 1000)
+
+
 def check_flash_bwd(tfa, dev):
-    """B2 (dQ) and B3 (dK/dV) against their plain versions at llama-2.6b
-    head shapes (Hq=24, Hkv=8, D=128; B=2; S in 128/1000/2048; causal and
-    not; bf16 and f32; D=64 once), each gradient within 2e-2 (bf16) or
-    1e-4 (f32) of its largest magnitude; then the kernels' f32 gradients
-    against torch.autograd through a dense f32 attention at S=256."""
+    """B2 (dQ, Delta computed in it) and B3 (dK/dV) against their plain
+    versions at llama-2.6b head shapes (Hq=24, Hkv=8, D=128; B=2; S in
+    128/1000/2048; causal and not; bf16 and f32; D=64 once), then at the
+    Hopper kernels' edge shapes (``FLASH_BWD_EDGE_S`` x
+    ``FLASH_EDGE_HEADS`` x D 64/128 x causal and not), each gradient within
+    2e-2 (bf16) or 1e-4 (f32) of its largest magnitude (floored at 1e-2)
+    and each bf16 call equal to itself bit for bit over two calls (no
+    atomics); then the
+    kernels' f32 gradients against torch.autograd through a dense f32
+    attention at S=256."""
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
-    cases = [(S, causal, dtype, 128) for S in (128, 1000, 2048)
+    cases = [(2, S, 24, 8, causal, dtype, 128) for S in (128, 1000, 2048)
              for causal in (True, False)
              for dtype in (torch.bfloat16, torch.float32)]
-    cases.append((1000, True, torch.bfloat16, 64))
-    for S, causal, dtype, D in cases:
+    cases.append((2, 1000, 24, 8, True, torch.bfloat16, 64))
+    cases += [(1, S, hq, hkv, causal, torch.bfloat16, D)
+              for S in FLASH_BWD_EDGE_S for hq, hkv in FLASH_EDGE_HEADS
+              for D in (64, 128) for causal in (False, True)]
+    worst = {}
+    for B, S, hq, hkv, causal, dtype, D in cases:
         q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(dtype)
-                       for shape in ((2, S, 24, D), (2, S, 8, D),
-                                     (2, S, 8, D), (2, S, 24, D)))
+                       for shape in ((B, S, hq, D), (B, S, hkv, D),
+                                     (B, S, hkv, D), (B, S, hq, D)))
         out, lse = tfa.flash_attention_fwd(q, k, v, causal)
         got = tfa.flash_attention_bwd(q, k, v, out, lse, do, causal)
         want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
         torch.cuda.synchronize()
         tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-        errs = [rel_err(a, b) for a, b in zip(got, want)]
-        log(f"  B2/B3 S={S} causal={causal} {str(dtype)[6:]} D={D}: "
-            f"rel err dq/dk/dv {[f'{e:.3g}' for e in errs]} (tol {tol})")
+        # S=1 leaves dq and dk zero up to rounding: the largest magnitude
+        # is floored at 1e-2
+        errs = [max_err(a, b) / max(b.float().abs().max().item(), 1e-2)
+                for a, b in zip(got, want)]
+        label = (f"B={B} S={S} Hq={hq} Hkv={hkv} causal={causal} "
+                 f"{str(dtype)[6:]} D={D}")
+        if B == 2:
+            log(f"  B2/B3 {label}: rel err dq/dk/dv "
+                f"{[f'{e:.3g}' for e in errs]} (tol {tol})")
+        worst[str(dtype)[6:]] = max(worst.get(str(dtype)[6:], 0.0), *errs)
         if max(errs) > tol:
             raise AssertionError(f"B2/B3 disagree with their plain versions "
-                                 f"at S={S} causal={causal} {dtype} D={D}")
+                                 f"at {label}: {errs}")
+        if dtype == torch.bfloat16:
+            again = tfa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"B2/B3: two calls differ at {label}")
         del q, k, v, do, out, lse, got, want
+    log(f"  B2/B3 vs plain at {len(cases)} shapes (edge shapes included), "
+        f"largest relative errors: {worst}")
     # the gradients are the derivative: autograd through dense attention
     S = 256
     q, k, v, do = (torch.randn(shape, generator=g, device=dev)
@@ -1624,13 +1657,13 @@ def train_llama_2_6b(llama, build, dev, card, warmup=2, steps=5, lr=3e-5):
         f"{tok_s:.1f} tok/s, {wall / steps * 1e3:.1f} ms a step, MFU "
         f"{mfu:.4f}, peak memory {peak / 2**30:.2f} GiB, losses {losses}; "
         f"card: {card}")
-    res["traced_step"] = traced(lambda: step(state))
+    res["traced_step"] = traced(lambda: step(state), kernel_category)
     log(f"  traced train step: {res['traced_step']}")
     return launches, res
 
 
 # ---------------------------------------------------------------------------
-# phase 9: B2/B3 timed at the step's shapes
+# phase 9: B2/B3 timed at the train steps' shapes
 # ---------------------------------------------------------------------------
 def sdpa_backward(q, k, v, do):
     """A function running PyTorch's SDPA backward (dq, dk, dv together) on
@@ -1669,63 +1702,115 @@ def sdpa_backward(q, k, v, do):
     raise RuntimeError("SDPA's backward ran on no backend")
 
 
-def time_flash_bwd(tfa, dev, B=8, S=2048, Hq=24, Hkv=8, D=128):
-    """B2 and B3 at the train step's shape ([8, 2048, 24/8, 128] bf16,
-    causal): CUDA-event ms beside their plain versions, their bounds, and
-    SDPA's backward as the library yardstick for the two together."""
+def time_flash_bwd(tfa, dev, B, S, Hq, Hkv, D=128):
+    """B2 and B3 at a train step's shape ([B, S, Hq/Hkv, D] bf16, causal)
+    as the step runs them: B2 given the forward's ``out`` (it computes
+    Delta), B3 reading that Delta. CUDA-event ms of each beside its plain
+    version and its bound (and share), B2 given a torch Delta instead,
+    the whole ``flash_attention_bwd`` (Delta + B2 + B3) beside SDPA's
+    backward, the library yardstick of the two together. Each gradient is
+    held to its plain version within 2e-2 of its largest magnitude."""
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
     q, k, v, do = (torch.randn(shape, generator=g, device=dev,
                                dtype=torch.bfloat16)
                    for shape in ((B, S, Hq, D), (B, S, Hkv, D),
                                  (B, S, Hkv, D), (B, S, Hq, D)))
     out, lse = tfa.flash_attention_fwd(q, k, v, True)
-    delta = tfa._delta(out, do)
-    dq = tfa.flash_dq(q, k, v, do, lse, delta, True)
+    ref_delta = tfa._delta(out, do)
+    delta = torch.empty_like(ref_delta)
+    dq = tfa.flash_dq(q, k, v, do, lse, delta, True, out=out)
     dk, dv = tfa.flash_dkv(q, k, v, do, lse, delta, True)
-    want_dq = tfa.flash_dq_plain(q, k, v, do, lse, delta, True)
+    want_dq = tfa.flash_dq_plain(q, k, v, do, lse, ref_delta, True)
     err_dq = max_err(dq, want_dq)
     rel_dq = err_dq / want_dq.float().abs().max().item()
     del want_dq
-    want_dk, want_dv = tfa.flash_dkv_plain(q, k, v, do, lse, delta, True)
+    want_dk, want_dv = tfa.flash_dkv_plain(q, k, v, do, lse, ref_delta,
+                                           True)
     err_dk, err_dv = max_err(dk, want_dk), max_err(dv, want_dv)
     rel_dkv = max(err_dk / want_dk.float().abs().max().item(),
                   err_dv / want_dv.float().abs().max().item())
-    del want_dk, want_dv
+    del want_dk, want_dv, dq, dk, dv
+    shape = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal"
     if max(rel_dq, rel_dkv) > 2e-2:
-        raise AssertionError(f"B2/B3 disagree at the step's shape: "
-                             f"{rel_dq}, {rel_dkv}")
-    ms_dq = time_ms(lambda i=0: tfa.flash_dq(q, k, v, do, lse, delta, True),
-                    10)
+        raise AssertionError(f"B2/B3 disagree at {shape}: {rel_dq}, "
+                             f"{rel_dkv}")
+    torch.cuda.empty_cache()
+    ms_dq = time_ms(lambda i=0: tfa.flash_dq(q, k, v, do, lse, delta, True,
+                                             out=out), 10)
+    ms_dq_given = time_ms(lambda i=0: tfa.flash_dq(q, k, v, do, lse,
+                                                   ref_delta, True), 10)
     ms_dkv = time_ms(lambda i=0: tfa.flash_dkv(q, k, v, do, lse, delta,
                                                True), 10)
+    ms_bwd = time_ms(lambda i=0: tfa.flash_attention_bwd(
+        q, k, v, out, lse, do, True), 10)
     plain_dq = time_ms(lambda i=0: tfa.flash_dq_plain(
-        q, k, v, do, lse, delta, True), 3)
+        q, k, v, do, lse, ref_delta, True), 3)
     plain_dkv = time_ms(lambda i=0: tfa.flash_dkv_plain(
-        q, k, v, do, lse, delta, True), 3)
+        q, k, v, do, lse, ref_delta, True), 3)
+    torch.cuda.empty_cache()
     fn, note = sdpa_backward(q, k, v, do)
     library_ms = time_ms(fn, 10)
+    del fn
+    torch.cuda.empty_cache()
     # each input read once, each output written once
-    qb, kvb, stats = q.numel() * 2, k.numel() * 2, 2 * B * Hq * S * 4
-    shape = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal"
-    res = {}
-    for name, err, ms, plain, n_mm, out_b in (
-            ("flash_dq", err_dq, ms_dq, plain_dq, 3, qb),
-            ("flash_dkv", max(err_dk, err_dv), ms_dkv, plain_dkv, 4,
-             2 * kvb)):
+    qb, kvb, stat = q.numel() * 2, k.numel() * 2, B * Hq * S * 4
+
+    def bound(n_mm, nbytes):
         flops = n_mm * B * Hq * S * S * D            # causal: S^2/2 pairs
-        nbytes = 2 * qb + 2 * kvb + stats + out_b
         t_ops, t_bytes = flops / BF16_FLOPS * 1e3, \
             nbytes / HBM_BYTES_PER_S * 1e3
+        return max(t_ops, t_bytes), \
+            "operations" if t_ops >= t_bytes else "bytes"
+
+    # B2: q, k, v, dout, out, lse in; dq, delta out; 3 products (S, dP,
+    # dQ). B3: q, k, v, dout, lse, delta in; dk, dv out; 4 products (S, dP,
+    # dV, dK). The backward as a function: B2's inputs in, dq, dk, dv out,
+    # and 5 products (S, dP, dV, dK, dQ): the 2 that B2 and B3 both
+    # recompute are this design's cost, not the function's.
+    b_dq, by_dq = bound(3, 4 * qb + 2 * kvb + 2 * stat)
+    b_dkv, by_dkv = bound(4, 2 * qb + 4 * kvb + 2 * stat)
+    b_bwd, _ = bound(5, 4 * qb + 4 * kvb + stat)
+    res = {}
+    for name, err, ms, plain, b, by in (
+            ("flash_dq", err_dq, ms_dq, plain_dq, b_dq, by_dq),
+            ("flash_dkv", max(err_dk, err_dv), ms_dkv, plain_dkv, b_dkv,
+             by_dkv)):
         res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                     "bound_ms": max(t_ops, t_bytes),
-                     "bound_by": "operations" if t_ops >= t_bytes
-                     else "bytes",
+                     "bound_ms": b, "bound_by": by, "bound_share": b / ms,
                      "library_ms": library_ms,
                      "library": f"SDPA backward, dq/dk/dv together "
-                                f"(compare with flash_dq + flash_dkv): "
+                                f"(compare with flash_attention_bwd): "
                                 f"{note}",
-                     "shape": shape}
+                     "bwd_ms": ms_bwd, "bwd_bound_ms": b_bwd,
+                     "bwd_bound_share": b_bwd / ms_bwd, "shape": shape}
+    res["flash_dq"]["ms_given_delta"] = ms_dq_given
+    res["flash_dq"]["rel_err"] = rel_dq
+    res["flash_dkv"]["rel_err"] = rel_dkv
     return res
+
+
+def time_flash_bwd_shapes(tfa, dev):
+    """B2 and B3 timed (``time_flash_bwd``) at the llama-2.6b train step's
+    [8, 2048, 24/8, 128] and the DeepSeekMoE step's [4, 2048, 16/16, 128]:
+    the kernels-line entries (the llama shape's fields, both shapes in
+    "per_shape")."""
+    rows = []
+    for args in ((8, 2048, 24, 8), (4, 2048, 16, 16)):
+        rows.append(time_flash_bwd(tfa, dev, *args))
+        for name in ("flash_dq", "flash_dkv"):
+            r = rows[-1][name]
+            log(f"  {name} {r['shape']}: {r['ms']:.4f} ms (bound "
+                f"{r['bound_ms']:.4f}, share {r['bound_share']:.3f}; plain "
+                f"{r['plain_ms']:.2f})" + (
+                    f", given a torch Delta {r['ms_given_delta']:.4f}"
+                    if name == "flash_dq" else ""))
+        r = rows[-1]["flash_dq"]
+        log(f"  flash_attention_bwd (Delta + B2 + B3) {r['bwd_ms']:.4f} ms "
+            f"(bound {r['bwd_bound_ms']:.4f}, share "
+            f"{r['bwd_bound_share']:.3f}) against SDPA's backward "
+            f"{r['library_ms']:.4f} ms ({r['library'].split(': ')[-1]})")
+    return {name: dict(rows[0][name], per_shape=[r[name] for r in rows])
+            for name in ("flash_dq", "flash_dkv")}
 
 
 # ---------------------------------------------------------------------------
@@ -2832,9 +2917,9 @@ def main() -> int:
     train_launches, training = train_llama_2_6b(llama, build, dev, card)
     torch.cuda.empty_cache()
 
-    log("phase 9: B2/B3 timed at the train step's shapes")
-    bwd = time_flash_bwd(tfa, dev)
-    log(f"  B2/B3 timing: {bwd}")
+    log("phase 9: B2/B3 timed at the train steps' shapes")
+    bwd = time_flash_bwd_shapes(tfa, dev)
+    log(f"  B2/B3 timing: {json.dumps(bwd)}")
     torch.cuda.empty_cache()
 
     log("phase 10: card vs CPU train step")

@@ -87,22 +87,6 @@ struct Fa3 {
   static_assert(kSmem <= sm90::kMaxSmem, "shared memory");
 };
 
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// d (64 x D) += A (64 x 16, registers) * V (16 x D, N-major, descriptor)
-template <int D>
-__device__ __forceinline__ void pv_step(float (&d)[D / 2],
-                                        const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (D == 128)
-    sm90::wgmma_ra_n128<1>(d, a, db);
-  else
-    sm90::wgmma_ra_n64<1>(d, a, db);
-}
-
 // q [B, S, Hq, D], k/v [B, S, Hkv, D] (the maps), o [B, S, Hq, D], lse
 // [B, Hq, S] f32; scale_log2 = scale * log2(e). A persistent grid: block
 // b takes work items b, b + gridDim.x, ..., item w being query tile
@@ -297,7 +281,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tmQ,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kKVRows / 16; ++kk)
-        pv_step<D>(oacc, pa[kk], desc(vb + kk * 2048, F::kBoxBytes, 1024));
+        wgmma_ra<D, 1>(oacc, pa[kk],
+                       desc(vb + kk * 2048, F::kBoxBytes, 1024));
       wgmma_commit();
       fence_acc(oacc);
       wgmma_wait<0>();
@@ -508,7 +493,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   const int items = B * Hq * ((S + kQRows - 1) / kQRows);
   flash_fwd_sm90<D><<<std::min(items, sms), kWgThreads, F::kSmem, stream>>>(
       tmQ, tmK, tmV, static_cast<bf16*>(o), lse, B, S, Hq, Hkv, causal,
-      scale * 1.4426950408889634f);
+      scale * sm90::kLog2e);
   return cudaGetLastError();
 }
 

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (grouped_gemm_sm90.cuh: B9, B10's gmm and tgmm; flash_fwd.cu: B1's bf16
-// form): shared addresses, mbarriers, TMA loads of 2- to 4-D tensor maps,
-// proxy fences, the register split of a warp-specialised block, wgmma
-// descriptors and instructions, a quad transpose for 16-byte epilogue
-// stores, and the host-side tensor-map encoder.
+// (grouped_gemm_sm90.cuh: B9, B10's gmm and tgmm; flash_fwd.cu,
+// flash_dq.cu and flash_dkv.cu: B1-B3's bf16 forms): shared addresses,
+// mbarriers, TMA loads of 1- to 4-D tensor maps, proxy fences, the
+// register split of a warp-specialised block, wgmma descriptors and
+// instructions, a quad transpose for 16-byte epilogue stores, and the
+// host-side tensor-map encoder.
 //
 // Everything stays in an anonymous namespace: a tool may load several
 // variant libraries into one process, and template statics with external
@@ -93,6 +94,15 @@ __device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[4], uint32_t addr) {
       : "r"(addr));
 }
 
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1) {
   asm volatile(
@@ -156,6 +166,15 @@ __device__ __forceinline__ void bulk_wait() {
 // __syncthreads's)
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x (MUFU; the softmax and the backward's recomputed probabilities)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 template <int kRegs>
@@ -307,6 +326,32 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1), "n"(kTransA), "n"(kTransB));
 }
 
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(kTransA), "n"(kTransB));
+}
+
 // d += A (64 x 16, bf16 fragments in registers: a[0..3] hold rows r, r + 8,
 // r, r + 8 (r = 16*(t/32) + (t%32)/4) of reduction pairs 2*(t%4), 2*(t%4),
 // 2*(t%4) + 8, 2*(t%4) + 8: mma.sync's A layout a warp) * B (16 x n,
@@ -390,6 +435,17 @@ __device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t da,
     wgmma_n128<kTransA, kTransB>(d, da, db);
 }
 
+// d (64 x D) += A (64 x 16, registers) * B (16 x D, descriptor db; kTransB
+// as above), D = 64 or 128
+template <int D, int kTransB>
+__device__ __forceinline__ void wgmma_ra(float (&d)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 128)
+    wgmma_ra_n128<kTransB>(d, a, db);
+  else
+    wgmma_ra_n64<kTransB>(d, a, db);
+}
+
 // ---------------------------------------------------------------------------
 // epilogue and host
 // ---------------------------------------------------------------------------
@@ -438,7 +494,7 @@ inline EncodeTiled encode_tiled() {
 }
 
 // a tiled map of a tensor of rank <= 5: dims innermost first, byte strides
-// of dims 1.., zero fill outside it
+// of dims 1.. (none read at rank 1), zero fill outside it
 inline cudaError_t encode(CUtensorMap* map, CUtensorMapDataType type, int rank,
                           const void* ptr, const cuuint64_t* dims,
                           const cuuint64_t* strides, const cuuint32_t* box,

@@ -13,7 +13,7 @@ length); on CPU tensors they run their plain PyTorch versions:
   ``csrc/flash_dkv.cu`` (B3, dK and dV summed over each kv head's group
   of query heads), from the forward's log-sum-exp and Delta =
   rowsum(O * dO); :func:`flash_attention_bwd` runs both from the
-  forward's output;
+  forward's output, and on the card B2 computes Delta as it goes;
 - :class:`flash_attention` — the differentiable function made of the two,
   the counterpart of the JAX package's ``_flash`` custom_vjp.
 
@@ -197,6 +197,9 @@ def _check_bwd(name, q, k, v, dout, lse, delta):
                for t in (lse, delta)):
         raise TypeError(f"{name}: lse/delta must be contiguous f32, got "
                         f"{lse.dtype}, {delta.dtype}")
+    if not all(t.data_ptr() % 16 == 0 for t in (lse, delta)):
+        raise ValueError(f"{name}: lse/delta must be 16-byte-aligned (B3 "
+                         f"reads them by TMA)")
     return False
 
 
@@ -207,13 +210,28 @@ def _bwd_args(q, k, dout, lse, delta, causal):
              1.0 / math.sqrt(D), _build.stream_handle(q)))
 
 
-def flash_dq(q, k, v, dout, lse, delta, causal: bool = False):
+def flash_dq(q, k, v, dout, lse, delta, causal: bool = False, out=None):
     """B2: dq [B, S, Hq, D] from q [B, S, Hq, D], k/v [B, S, Hkv, D], the
     output gradient ``dout``, the forward's ``lse`` and
-    ``delta = rowsum(out * dout)`` (both [B, Hq, S] f32)."""
-    if _check_bwd("flash_dq", q, k, v, dout, lse, delta):
+    ``delta = rowsum(out * dout)`` (both [B, Hq, S] f32). Given the
+    forward's ``out``, B2 computes Delta itself and writes it into
+    ``delta``, a [B, Hq, S] f32 buffer (on the CPU: ``_delta``'s value)."""
+    plain = _check_bwd("flash_dq", q, k, v, dout, lse, delta)
+    if out is not None:
+        if out.shape != q.shape or out.device != q.device:
+            raise ValueError(f"flash_dq: out must be {tuple(q.shape)} on "
+                             f"{q.device}, got {tuple(out.shape)} on "
+                             f"{out.device}")
+        if out.dtype != q.dtype:
+            raise TypeError(f"flash_dq: out must share q's dtype {q.dtype}, "
+                            f"got {out.dtype}")
+        if plain:
+            delta.copy_(_delta(out, dout))
+        else:
+            _check_cuda("flash_dq", (out,), q.shape[3])
+    if plain:
         return flash_dq_plain(q, k, v, dout, lse, delta, causal)
-    fn = _build.kernel("ptt_flash_dq", [ctypes.c_void_p] * 7
+    fn = _build.kernel("ptt_flash_dq", [ctypes.c_void_p] * 8
                        + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_void_p])
     dq = torch.empty_like(q)
@@ -221,7 +239,8 @@ def flash_dq(q, k, v, dout, lse, delta, causal: bool = False):
         return dq                # an empty grid is no launch
     ptrs, args = _bwd_args(q, k, dout, lse, delta, causal)
     with torch.cuda.device(q.device):
-        err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), *ptrs,
+        err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), ptrs[0],
+                 None if out is None else _build.ptr(out), *ptrs[1:],
                  _build.ptr(dq), *args)
     _build.check(err, "flash_dq")
     _build.launch_counts["flash_dq"] += 1
@@ -252,9 +271,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = False):
     """The gradients of :func:`flash_attention_fwd`'s output: q [B, S, Hq,
     D], k/v [B, S, Hkv, D], its ``out`` and ``lse``, and ``dout`` (the
     gradient of ``out``). Returns (dq, dk, dv) in the inputs' dtypes;
-    dk/dv sum over each kv head's group of query heads. Delta =
-    rowsum(out * dout) is a torch reduction (as in the JAX ``_bwd``), then
-    B2 and B3 run."""
+    dk/dv sum over each kv head's group of query heads. B2 runs first and
+    computes Delta = rowsum(out * dout) into a buffer that B3 then reads
+    (on the CPU, ``_delta``'s torch reduction, as in the JAX ``_bwd``)."""
     if not (out.shape == dout.shape == q.shape
             and out.device == dout.device == q.device):
         raise ValueError(f"out/dout must be {tuple(q.shape)} on {q.device}, "
@@ -263,9 +282,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = False):
     if out.dtype != q.dtype:
         raise TypeError(f"out must share q's dtype {q.dtype}, got "
                         f"{out.dtype}")
-    delta = _delta(out, dout)
+    delta = torch.empty_like(lse)        # [B, Hq, S] f32, written by B2
+    dq = flash_dq(q, k, v, dout, lse, delta, causal, out=out)
     dk, dv = flash_dkv(q, k, v, dout, lse, delta, causal)
-    return flash_dq(q, k, v, dout, lse, delta, causal), dk, dv
+    return dq, dk, dv
 
 
 @torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())

@@ -378,6 +378,26 @@ def test_flash_kernels_take_only_16_byte_aligned_inputs():
     tfa._check_cuda("flash_attention_fwd", (ok, ok, ok), 64)
 
 
+def test_flash_backward_takes_only_16_byte_aligned_lse_and_delta():
+    """B3 reads lse and Delta by TMA: a contiguous view 4 bytes off a
+    16-byte boundary is refused before any launch, for the given Delta
+    and for the buffer B2 fills; aligned ones pass the checks."""
+    def cuda(t):
+        return t.as_subclass(_CudaTyped)
+
+    q = cuda(torch.zeros(1, 8, 4, 64))
+    kv = cuda(torch.zeros(1, 8, 2, 64))
+    base = torch.zeros(4 * 8 + 4)
+    ok = cuda(base[:32].view(1, 4, 8))
+    off = cuda(base[1:33].view(1, 4, 8))
+    for lse, delta in ((off, ok), (ok, off)):
+        with pytest.raises(ValueError, match="16-byte-aligned"):
+            tfa._check_bwd("flash_dkv", q, kv, kv, q, lse, delta)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        tfa.flash_dq(q, kv, kv, q, ok, off, out=q)
+    assert tfa._check_bwd("flash_dkv", q, kv, kv, q, ok, ok) is False
+
+
 def test_moe_unported_arguments_raise_naming_their_queue():
     cfg = tm.tiny_moe(vocab=32, hidden=32, layers=1, heads=4, experts=4)
     params = tm.init_params(cfg, device="cpu")

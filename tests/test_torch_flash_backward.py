@@ -87,3 +87,31 @@ def test_backward_wrapper_rejects_bad_shapes_and_dtypes():
     with pytest.raises(ValueError):          # not a CPU or CUDA tensor
         tpa.flash_attention_bwd(*(t.to("meta")
                                   for t in (q, k, v, out, lse, do)))
+    B, S, H, _ = q.shape
+    delta = torch.empty(B, H, S)
+    with pytest.raises(ValueError):          # out of the wrong shape
+        tpa.flash_dq(q, k, v, do, lse, delta, out=out[:, :4])
+    with pytest.raises(TypeError):           # out in another dtype
+        tpa.flash_dq(q, k, v, do, lse, delta, out=out.double())
+    with pytest.raises(ValueError):          # a Delta buffer of the wrong shape
+        tpa.flash_dq(q, k, v, do, lse, delta[:, :2], out=out)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_dq_given_out_fills_delta(causal):
+    """flash_dq given the forward's ``out`` (the card's fused-Delta form)
+    writes Delta = rowsum(out * dout) into its ``delta`` buffer and returns
+    the dq of the explicit-Delta form; flash_attention_bwd's gradients are
+    the same either way."""
+    q, k, v, do = (torch.as_tensor(a) for a in _inputs(9, 2, 40, 6, 2, 16))
+    out, lse = tpa.flash_attention_fwd(q, k, v, causal)
+    want_delta = tpa._delta(out, do)
+    delta = torch.full_like(want_delta, float("nan"))
+    dq = tpa.flash_dq(q, k, v, do, lse, delta, causal, out=out)
+    assert torch.equal(delta, want_delta)
+    assert torch.equal(dq, tpa.flash_dq(q, k, v, do, lse, want_delta,
+                                        causal))
+    dk, dv = tpa.flash_dkv(q, k, v, do, lse, delta, causal)
+    for got, want in zip((dq, dk, dv), tpa.flash_attention_bwd_plain(
+            q, k, v, out, lse, do, causal)):
+        assert torch.equal(got, want)

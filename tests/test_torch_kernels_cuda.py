@@ -154,6 +154,79 @@ def test_flash_attention_gradients_are_the_derivative(dev):
         assert err <= 1e-3 * b.grad.abs().max().item()
 
 
+def _bwd_inputs(dev, B, S, hq, hkv, D, causal, seed):
+    """bf16 q, k, v, dout and the forward's out and lse."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev)
+                   .to(torch.bfloat16)
+                   for shape in ((B, S, hq, D), (B, S, hkv, D),
+                                 (B, S, hkv, D), (B, S, hq, D)))
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal)
+    return q, k, v, do, out, lse
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("hq,hkv", [(2, 2), (6, 2), (8, 2), (24, 8)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S", [1, 63, 64, 100, 129, 1000, 2048])
+def test_flash_bwd_sm90_edges_match_plain(dev, S, causal, hq, hkv, D):
+    """B2 and B3's bf16 Hopper kernels (64-row K/V and query tiles, 128-row
+    dQ items, Delta computed in B2) against their plain versions, each
+    gradient within 2e-2 of its largest magnitude (the bf16 roundings of
+    P and dS; the magnitude floored at 1e-2, since S=1 leaves dq and dk
+    zero up to rounding): S below, at and past one tile, ragged and
+    whole; GQA groups of 1, 3 and 4 (a query head read from kv head
+    h % Hkv fails (6, 2) and (8, 2)); D 64 and 128. One launch of each a
+    call."""
+    q, k, v, do, out, lse = _bwd_inputs(dev, 1, S, hq, hkv, D, causal,
+                                        S + 7 * hq + D)
+    before = (_build.launch_counts["flash_dq"],
+              _build.launch_counts["flash_dkv"])
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    assert (_build.launch_counts["flash_dq"],
+            _build.launch_counts["flash_dkv"]) == (before[0] + 1,
+                                                   before[1] + 1)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape, name
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= 2e-2 * max(b.float().abs().max().item(), 1e-2), \
+            (name, err)
+
+
+@pytest.mark.parametrize("S,causal,hq,hkv,D", [
+    (100, True, 8, 2, 128), (1000, False, 6, 2, 64), (2048, True, 24, 8, 128)])
+def test_flash_dq_fused_delta_matches_given_delta(dev, S, causal, hq, hkv,
+                                                  D):
+    """B2 given ``out`` computes Delta = rowsum(out * dout) itself: the
+    Delta it writes equals ``_delta``'s within f32 summation order
+    (1e-5 of the largest), and its dq equals the dq of the explicit-Delta
+    form within bf16 tolerance (2e-2 of the largest)."""
+    q, k, v, do, out, lse = _bwd_inputs(dev, 2, S, hq, hkv, D, causal, S)
+    want_delta = tfa._delta(out, do)
+    delta = torch.full_like(want_delta, float("nan"))
+    dq = tfa.flash_dq(q, k, v, do, lse, delta, causal, out=out)
+    want = tfa.flash_dq(q, k, v, do, lse, want_delta, causal)
+    torch.cuda.synchronize()
+    scale = want_delta.abs().max().item()
+    assert (delta - want_delta).abs().max().item() <= 1e-5 * scale
+    err = (dq.float() - want.float()).abs().max().item()
+    assert err <= 2e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bwd_repeat_calls_bit_equal(dev, causal):
+    """No atomics: two calls of flash_attention_bwd on the same inputs
+    give bit-equal dq, dk and dv (the llama-2.6b step's heads, S=1000)."""
+    q, k, v, do, out, lse = _bwd_inputs(dev, 2, 1000, 24, 8, 128, causal, 3)
+    first = tfa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    again = tfa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, again):
+        assert torch.equal(a, b), name
+
+
 @pytest.mark.parametrize("policy,fwd_per_layer", [("full", 2), ("attn", 1)])
 def test_remat_policies_launch_b1_as_their_policy_says(dev, policy,
                                                        fwd_per_layer):
