@@ -838,13 +838,26 @@ def check_mega(tmd, cfg, params, dev, walk, kv_int8=False):
            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops > t_bytes else "bytes",
            "library_ms": None, "bytes": nbytes, "f32_ms": ms32,
-           "blocks_per_sm": tmd.blocks_per_sm(cfg.dtype, D, N, w_int8),
+           "share_of_bound": max(t_ops, t_bytes) / ms,
+           "schedule": static_schedule(tmd, cfg, dev, N, w_int8),
            "shape": f"L={L} h={cfg.hidden_size} F={cfg.intermediate_size} "
                     f"Hq={Hq} Hkv={Hkv} D={D} bf16, {form}, N={N}, "
                     f"walk={walk}, t={t}"}
     log(f"  B5 timing: {res}")
     del kw
     return res
+
+
+def static_schedule(tmd, cfg, dev, n_slots, w_int8, head=None):
+    """B5's static split of each phase's units over its grid, from the
+    kernel library's own schedule code (``mega_decode.schedule``): what
+    the kernel is set to do, not a measurement of what it did. Printed
+    on its own line, beside the kernels line."""
+    per_sm = tmd.blocks_per_sm(cfg.dtype, cfg.head_dim, n_slots, w_int8)
+    blocks = per_sm * torch.cuda.get_device_properties(
+        dev).multi_processor_count
+    return {"blocks_per_sm": per_sm, "blocks": blocks,
+            "phases": tmd.schedule(cfg, blocks, w_int8=w_int8, head=head)}
 
 
 def first_divergence(a, b):
@@ -1038,6 +1051,11 @@ def check_loop(tmd, cfg, params, dev, walk, label, budgets=None, eos=None,
             res["bound_ms"], res["bound_by"], res["bytes"] = loop_bound(
                 cfg, params, kw)
             res["library_ms"] = None
+            res["share_of_bound"] = res["bound_ms"] / res["ms"]
+            res["schedule"] = static_schedule(
+                tmd, cfg, dev, len(walk),
+                isinstance(params["layers"]["wq"], dict),
+                head=tmd._head_mode(params, cfg))
             res["shape"] = (f"L={cfg.num_layers} h={cfg.hidden_size} "
                             f"F={cfg.intermediate_size} Hq={cfg.num_heads} "
                             f"Hkv={cfg.num_kv_heads} D={cfg.head_dim} "
@@ -2955,6 +2973,11 @@ def main() -> int:
         moe, build, tmf, dev, card)
     free_memory()
 
+    # B5's static schedules: printed apart from the kernels line, whose
+    # numbers (bound_ms aside) are measured in this run
+    schedules = {"mega_decode": b5.pop("schedule"),
+                 "mega_decode_int8": b5_int8.pop("schedule"),
+                 "mega_decode_loop": b5_multi["schedule"]}
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
@@ -3009,7 +3032,7 @@ def main() -> int:
              launches=spec_mega["launches"].get("mega_decode_loop", 0),
              **{k: b5_multi[k] for k in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms", "shape")}),
+                 "library_ms", "share_of_bound", "shape")}),
         dict(name="paged_decode_attention", route="cuda",
              source="paddle_tpu_torch/kernels/csrc/paged_decode.cu",
              replaces="paddle_tpu/kernels/paged_attention.py:343",
@@ -3035,6 +3058,7 @@ def main() -> int:
     log(f"spec: {json.dumps(spec)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
+    log(json.dumps({"static_schedule": schedules}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

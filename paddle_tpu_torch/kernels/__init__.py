@@ -8,7 +8,9 @@ also holds the per-kernel ``launch_counts``).
 - ``pallas_attention.flash_dq`` / ``flash_dkv`` — its backward, dQ
   (``csrc/flash_dq.cu``) and dK/dV (``csrc/flash_dkv.cu``), run together
   by ``flash_attention_bwd`` and the autograd Function
-  ``flash_attention``;
+  ``flash_attention``. In bf16 all three are persistent, warp-specialised
+  wgmma/TMA kernels (shared blocks in ``csrc/hopper.cuh``); the f32
+  forms run on the CUDA cores;
 - ``paged_attention.ragged_decode_partial`` — the ragged paged-decode
   walk over bf16/f32 or int8 pools (``csrc/ragged_decode.cu``, its walk
   in ``csrc/ragged_walk.cuh``);
@@ -17,7 +19,10 @@ also holds the per-kernel ``launch_counts``).
   reusing the walk), with dense or int8 weights and pools, screened by
   ``mega_decode.mega_supported``; ``mega_decode.mega_decode_loop``, its
   multi-step form (the speculative draft's k greedy steps, head and
-  argmax included, in one launch: ``csrc/mega_decode_multi_*.cu``);
+  argmax included, in one launch: ``csrc/mega_decode_multi_*.cu``). A
+  producer warp streams the weights by TMA ahead of the grid barriers;
+  bf16 and int8 weights meet the input rows on wgmma, f32 on the CUDA
+  cores;
 - ``paged_attention.paged_decode_attention`` (``csrc/paged_decode.cu``),
   ``paged_append_token`` and ``paged_append_blocks``
   (``csrc/paged_cache.cu``) — the paged-cache API's decode attention and
@@ -29,10 +34,11 @@ also holds the per-kernel ``launch_counts``).
   ``csrc/tgmm.cu``), under the differentiable ``grouped_matmul``;
 - ``moe_fused.gather_gmm`` — the grouped GEMM with the expert-sort gather
   fused into its row loads, dense or int8 rhs (``csrc/gather_gmm.cu``),
-  the fused MoE dispatch's gate|up projection. In bf16 it and ``gmm`` run
-  on the persistent wgmma/TMA kernel of ``csrc/grouped_gemm_sm90.cuh``
-  (tile width from ``moe_dispatch.tile_width``); ``tgmm`` and the f32
-  forms share the mma.sync tiles of ``csrc/grouped_gemm.cuh``.
+  the fused MoE dispatch's gate|up projection. In bf16 it, ``gmm`` and
+  ``tgmm`` run on the persistent wgmma/TMA kernels of
+  ``csrc/grouped_gemm_sm90.cuh`` (tile width from
+  ``moe_dispatch.tile_width``); the f32 forms share the CUDA-core tiles
+  of ``csrc/grouped_gemm.cuh``.
 
 Functions are imported from their modules (a re-export here would shadow
 the ``paged_attention`` module with its function of the same name).

@@ -118,21 +118,6 @@ struct Args {
 // ---------------------------------------------------------------------------
 // tiles
 // ---------------------------------------------------------------------------
-// Two int8 values of w -> bf16x2, exactly: bytes 0 and 2 (kOdd false) or 1
-// and 3 (kOdd true), the first in the low half. The low 7 bits of a byte
-// become the mantissa of 128 + l, and subtracting 128 (sign bit clear) or
-// 256 (set) gives the value; both are small integers, exact in bf16.
-template <bool kOdd>
-__device__ __forceinline__ uint32_t widen2(uint32_t w) {
-  const uint32_t b = kOdd ? w >> 8 : w;
-  const uint32_t lo = (b & 0x007F007Fu) | 0x43004300u;
-  const uint32_t off = (b & 0x00800080u) | 0x43004300u;
-  using B2 = __nv_bfloat162;
-  const B2 r = __hsub2(*reinterpret_cast<const B2*>(&lo),
-                       *reinterpret_cast<const B2*>(&off));
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
-
 // bytes the rhs boxes of one stage bring: an N-major tile skips the
 // 64-column boxes wholly past N (their columns are never stored)
 template <int BN, bool kTransB, int kCols = 64>

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
 // (grouped_gemm_sm90.cuh: B9, B10's gmm and tgmm; flash_fwd.cu,
-// flash_dq.cu and flash_dkv.cu: B1-B3's bf16 forms): shared addresses,
+// flash_dq.cu and flash_dkv.cu: B1-B3's bf16 forms; mega_decode.cuh: B5's
+// bf16 and int8 forms): shared addresses,
 // mbarriers, TMA loads of 1- to 4-D tensor maps, proxy fences, the
-// register split of a warp-specialised block, wgmma descriptors and
+// register split of a warp-specialised block, the exact int8 -> bf16x2
+// widening of a wgmma register operand, wgmma descriptors and
 // instructions, a quad transpose for 16-byte epilogue stores, and the
 // host-side tensor-map encoder.
 //
@@ -184,6 +186,21 @@ __device__ __forceinline__ void regs_down() {
 template <int kRegs>
 __device__ __forceinline__ void regs_up() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// Two int8 values of w -> bf16x2, exactly: bytes 0 and 2 (kOdd false) or 1
+// and 3 (kOdd true), the first in the low half. The low 7 bits of a byte
+// become the mantissa of 128 + l, and subtracting 128 (sign bit clear) or
+// 256 (set) gives the value; both are small integers, exact in bf16.
+template <bool kOdd>
+__device__ __forceinline__ uint32_t widen2(uint32_t w) {
+  const uint32_t b = kOdd ? w >> 8 : w;
+  const uint32_t lo = (b & 0x007F007Fu) | 0x43004300u;
+  const uint32_t off = (b & 0x00800080u) | 0x43004300u;
+  using B2 = __nv_bfloat162;
+  const B2 r = __hsub2(*reinterpret_cast<const B2*>(&lo),
+                       *reinterpret_cast<const B2*>(&off));
+  return *reinterpret_cast<const uint32_t*>(&r);
 }
 
 // ---------------------------------------------------------------------------
@@ -422,6 +439,39 @@ __device__ __forceinline__ void wgmma_ra_n64(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(kTransB));
+}
+
+// d (64 x 8) += A (64 x 16, descriptor da) * B (16 x 8, descriptor db):
+// the decode megakernel's products of a weight tile with N <= 8 input rows
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_n8(float (&d)[4], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1), "n"(kTransA), "n"(kTransB));
+}
+
+// the same with A (64 x 16) in registers, in wgmma_ra_n128's layout
+template <int kTransB>
+__device__ __forceinline__ void wgmma_ra_n8(float (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
         "n"(kTransB));
 }

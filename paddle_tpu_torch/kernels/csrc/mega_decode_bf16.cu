@@ -5,8 +5,9 @@
 namespace ptt {
 namespace mega {
 
-cudaError_t launch_bf16(const Args& a, int D, int N, cudaStream_t st) {
-  return launch_shape<__nv_bfloat16, __nv_bfloat16, false>(a, D, N, st);
+cudaError_t launch_bf16(const Args& a, const Maps& m, int D, int N,
+                        cudaStream_t st) {
+  return launch_shape<__nv_bfloat16, __nv_bfloat16, false>(a, m, D, N, st);
 }
 
 cudaError_t occupancy_bf16(int D, int N, int* per_sm) {

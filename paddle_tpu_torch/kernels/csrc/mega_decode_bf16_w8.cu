@@ -5,8 +5,9 @@
 namespace ptt {
 namespace mega {
 
-cudaError_t launch_bf16_w8(const Args& a, int D, int N, cudaStream_t st) {
-  return launch_shape<__nv_bfloat16, int8_t, false>(a, D, N, st);
+cudaError_t launch_bf16_w8(const Args& a, const Maps& m, int D, int N,
+                           cudaStream_t st) {
+  return launch_shape<__nv_bfloat16, int8_t, false>(a, m, D, N, st);
 }
 
 cudaError_t occupancy_bf16_w8(int D, int N, int* per_sm) {

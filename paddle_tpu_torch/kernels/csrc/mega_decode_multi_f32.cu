@@ -6,9 +6,9 @@
 namespace ptt {
 namespace mega {
 
-cudaError_t launch_multi_f32(const Args& a, int D, int N,
-                              cudaStream_t st) {
-  return launch_shape<float, float, true>(a, D, N, st);
+cudaError_t launch_multi_f32(const Args& a, const Maps& m, int D, int N,
+                             cudaStream_t st) {
+  return launch_shape<float, float, true>(a, m, D, N, st);
 }
 
 cudaError_t occupancy_multi_f32(int D, int N, int* per_sm) {

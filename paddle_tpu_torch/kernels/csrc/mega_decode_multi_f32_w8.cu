@@ -6,9 +6,9 @@
 namespace ptt {
 namespace mega {
 
-cudaError_t launch_multi_f32_w8(const Args& a, int D, int N,
-                              cudaStream_t st) {
-  return launch_shape<float, int8_t, true>(a, D, N, st);
+cudaError_t launch_multi_f32_w8(const Args& a, const Maps& m, int D, int N,
+                                cudaStream_t st) {
+  return launch_shape<float, int8_t, true>(a, m, D, N, st);
 }
 
 cudaError_t occupancy_multi_f32_w8(int D, int N, int* per_sm) {

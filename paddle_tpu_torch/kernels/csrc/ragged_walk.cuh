@@ -9,9 +9,10 @@
 // through shared memory. It stages 64 positions at a time (each
 // position's block looked up on its own, so any block size works) with
 // 16-byte cp.async copies, double-buffered: the next tile's copies are in
-// flight while the current one is scored. Each lane scores two
-// positions, positions at or past the length are masked to -1e30 before
-// the running max, and the accumulators stay in f32 registers.
+// flight while the current one is scored (B5 walks with four 32-position
+// stages, three in flight). Each lane scores two (or one) positions,
+// positions at or past the length are masked to -1e30 before the running
+// max, and the accumulators stay in f32 registers.
 // Probabilities are rounded to the pool dtype before the PV product, as
 // the TPU kernel does.
 //
@@ -37,7 +38,10 @@ constexpr int kTile = 64;     // positions staged per step (two per lane)
 constexpr int kMaxGroup = 8;  // query heads per kv head (computing warps)
 constexpr int kStages = 2;    // tiles in shared memory: current and next
 
-template <typename T, int D>
+// kTileP positions a stage (64: two a lane, or 32: one a lane) and
+// kStagesP stages; B4 walks with the defaults, B5 with four 32-position
+// stages (the same bytes, three tiles in flight ahead of the one scored)
+template <typename T, int D, int kTileP = kTile, int kStagesP = kStages>
 struct Layout {
   static constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   // +16 bytes a row: lane t reading 16 bytes of row t is conflict-free
@@ -45,11 +49,32 @@ struct Layout {
   static constexpr int kVecs = D * int(sizeof(T)) / 16;  // 16-byte copies a row
   static constexpr int kPer = 16 / int(sizeof(T));       // elements a copy
   // K rows, V rows, then (int8) the K and V scales of the tile's positions
-  static constexpr int kScaleBytes = kInt8 ? 2 * kTile * 4 : 0;
-  static constexpr int kStageBytes = 2 * kTile * kRowBytes + kScaleBytes;
+  static constexpr int kScaleBytes = kInt8 ? 2 * kTileP * 4 : 0;
+  static constexpr int kStageBytes = 2 * kTileP * kRowBytes + kScaleBytes;
   // the staging buffers, then the group's queries in f32
-  static constexpr int kSmem = kStages * kStageBytes + kMaxGroup * D * 4;
+  static constexpr int kSmem = kStagesP * kStageBytes + kMaxGroup * D * 4;
 };
+
+// until at most `ahead` (< S) of this thread's cp.async groups are pending
+template <int S>
+__device__ __forceinline__ void cp_async_wait_upto(int ahead) {
+  if constexpr (S > 3) {
+    if (ahead >= 3) {
+      cp_async_wait<3>();
+      return;
+    }
+  }
+  if constexpr (S > 2) {
+    if (ahead == 2) {
+      cp_async_wait<2>();
+      return;
+    }
+  }
+  if (ahead == 1)
+    cp_async_wait<1>();
+  else
+    cp_async_wait<0>();
+}
 
 // 16 bytes of shared memory as f32
 __device__ __forceinline__ void load16(const float* p, float* out) {
@@ -126,29 +151,40 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
                "l"(gmem), "r"(src_bytes));
 }
 
+// The block-wide barrier and thread count of a walk: the whole block
+// (B4). B5 walks with its consumer threads only and passes its own.
+struct BlockSync {
+  __device__ static void sync() { __syncthreads(); }
+  __device__ static int threads() { return blockDim.x; }
+};
+
 // The walk over positions [begin, end) of one slot for the G
 // (<= kMaxGroup) query heads of kv head `hk`. Every thread of the block takes part (the
 // copies and the barriers); warp g < G leaves its query head's state in
 // m, l and acc (lane holds columns lane*D/32 ...). `smem` holds
 // Layout::kSmem bytes with the queries (f32, [G][D]) already at offset
-// kStages * kStageBytes; `tbl` is the slot's block table (shared or
+// kStagesP * kStageBytes; `tbl` is the slot's block table (shared or
 // global memory). `ks_pool`/`vs_pool` are the [L, NB, BS, Hkv] f32 scale
 // pools of int8 pools (unused otherwise). A walk of any tile ends with a
-// __syncthreads(); the caller syncs before it writes the queries of
-// another walk.
-template <typename T, int D>
+// barrier; the caller syncs before it writes the queries of
+// another walk. `Sync` names the threads that take part (every thread
+// of the block unless a caller says otherwise) and their barrier.
+template <typename T, int D, typename Sync = BlockSync, int kTileP = kTile,
+          int kStagesP = kStages>
 __device__ __forceinline__ void ragged_walk(
     const T* __restrict__ k_pool, const T* __restrict__ v_pool,
     const float* __restrict__ ks_pool, const float* __restrict__ vs_pool,
     const int* tbl, int begin, int end, int layer, int NB, int BS, int Hkv,
     int hk, int G, float scale, unsigned char* smem, float& m, float& l,
     float (&acc)[D / 32]) {
-  using Lay = Layout<T, D>;
+  static_assert(kTileP == 32 || kTileP == 64, "one or two positions a lane");
+  using Lay = Layout<T, D, kTileP, kStagesP>;
+  constexpr int kPL = kTileP / 32;   // positions a lane scores
   const float* Qs = reinterpret_cast<const float*>(
-      smem + kStages * Lay::kStageBytes);
-  const int tid = threadIdx.x, nthreads = blockDim.x;
+      smem + kStagesP * Lay::kStageBytes);
+  const int tid = threadIdx.x, nthreads = Sync::threads();
   const int warp = tid >> 5, lane = tid & 31;
-  const int n_tiles = (max(end - begin, 0) + kTile - 1) / kTile;
+  const int n_tiles = (max(end - begin, 0) + kTileP - 1) / kTileP;
 
   const int64_t tok_stride = int64_t(Hkv) * D;   // elements
   const int64_t blk_stride = BS * tok_stride;
@@ -160,10 +196,10 @@ __device__ __forceinline__ void ragged_walk(
   // (int8) the positions' K and V scales
   auto stage = [&](int tile, int buf) {
     unsigned char* ks = smem + buf * Lay::kStageBytes;
-    unsigned char* vs = ks + kTile * Lay::kRowBytes;
-    for (int e = tid; e < kTile * Lay::kVecs; e += nthreads) {
+    unsigned char* vs = ks + kTileP * Lay::kRowBytes;
+    for (int e = tid; e < kTileP * Lay::kVecs; e += nthreads) {
       const int t = e / Lay::kVecs, c = e % Lay::kVecs;
-      const int p = begin + tile * kTile + t;
+      const int p = begin + tile * kTileP + t;
       const bool live = p < end;
       const int64_t off = live ? base0 + int64_t(tbl[p / BS]) * blk_stride
                                      + int64_t(p % BS) * tok_stride
@@ -173,15 +209,15 @@ __device__ __forceinline__ void ragged_walk(
       cp_async16(vs + sm, v_pool + off + c * Lay::kPer, live);
     }
     if constexpr (Lay::kInt8) {
-      float* kss = reinterpret_cast<float*>(vs + kTile * Lay::kRowBytes);
-      for (int t = tid; t < kTile; t += nthreads) {
-        const int p = begin + tile * kTile + t;
+      float* kss = reinterpret_cast<float*>(vs + kTileP * Lay::kRowBytes);
+      for (int t = tid; t < kTileP; t += nthreads) {
+        const int p = begin + tile * kTileP + t;
         const bool live = p < end;
         const int64_t so = live ? sbase0 + (int64_t(tbl[p / BS]) * BS
                                             + p % BS) * Hkv
                                 : 0;
         cp_async4(kss + t, ks_pool + so, live);
-        cp_async4(kss + kTile + t, vs_pool + so, live);
+        cp_async4(kss + kTileP + t, vs_pool + so, live);
       }
     }
     cp_async_commit();
@@ -193,25 +229,26 @@ __device__ __forceinline__ void ragged_walk(
 #pragma unroll
   for (int c = 0; c < DC; ++c) acc[c] = 0.f;
 
-  if (n_tiles > 0) stage(0, 0);
+  // kStagesP - 1 tiles in flight ahead of the one scored
+  for (int j = 0; j < kStagesP - 1; ++j)
+    if (j < n_tiles) stage(j, j);
   for (int i = 0; i < n_tiles; ++i) {
-    if (i + 1 < n_tiles) {
-      stage(i + 1, (i + 1) & 1);
-      cp_async_wait<1>();      // tile i landed; tile i+1 still in flight
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();           // tile i visible to every warp
+    const int next = i + kStagesP - 1;
+    if (next < n_tiles) stage(next, next % kStagesP);
+    // tile i landed; the tiles after it still in flight
+    cp_async_wait_upto<kStagesP>(min(kStagesP - 1, n_tiles - 1 - i));
+    Sync::sync();              // tile i visible to every warp
     if (warp < G) {
-      const unsigned char* ks = smem + (i & 1) * Lay::kStageBytes;
-      const unsigned char* vs = ks + kTile * Lay::kRowBytes;
-      const float* kss = reinterpret_cast<const float*>(vs + kTile * Lay::kRowBytes);
+      const unsigned char* ks = smem + (i % kStagesP) * Lay::kStageBytes;
+      const unsigned char* vs = ks + kTileP * Lay::kRowBytes;
+      const float* kss = reinterpret_cast<const float*>(vs + kTileP * Lay::kRowBytes);
       const float* qw = Qs + warp * D;
 
-      // warp = query head of the group; lane scores positions lane, lane+32
-      float s[2];
+      // warp = query head of the group; lane scores positions lane (and
+      // lane+32 in a 64-position tile)
+      float s[kPL];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
+      for (int h = 0; h < kPL; ++h) {
         const int t = lane + 32 * h;
         const T* krow = reinterpret_cast<const T*>(ks + t * Lay::kRowBytes);
         float dot = 0.f;
@@ -225,25 +262,30 @@ __device__ __forceinline__ void ragged_walk(
         }
         float sc = dot * scale;
         if constexpr (Lay::kInt8) sc *= kss[t];
-        s[h] = (begin + i * kTile + t < end) ? sc : kNegInf;
+        s[h] = (begin + i * kTileP + t < end) ? sc : kNegInf;
       }
-      const float m_new = fmaxf(m, group_max<32>(fmaxf(s[0], s[1])));
+      float smax = s[0];
+      if constexpr (kPL == 2) smax = fmaxf(s[0], s[1]);
+      const float m_new = fmaxf(m, group_max<32>(smax));
       const float alpha = expf(m - m_new);
-      const float p0 = expf(s[0] - m_new), p1 = expf(s[1] - m_new);
-      l = l * alpha + group_sum<32>(p0 + p1);
-      float pr[2];
-      if constexpr (Lay::kInt8) {
-        // the V scale rides the (unrounded) probabilities
-        pr[0] = p0 * kss[kTile + lane];
-        pr[1] = p1 * kss[kTile + lane + 32];
-      } else {
-        pr[0] = round_to<T>(p0);
-        pr[1] = round_to<T>(p1);
+      float pe[kPL];
+#pragma unroll
+      for (int h = 0; h < kPL; ++h) pe[h] = expf(s[h] - m_new);
+      float psum = pe[0];
+      if constexpr (kPL == 2) psum = pe[0] + pe[1];
+      l = l * alpha + group_sum<32>(psum);
+      float pr[kPL];
+#pragma unroll
+      for (int h = 0; h < kPL; ++h) {
+        if constexpr (Lay::kInt8)   // the V scale rides the (unrounded) probabilities
+          pr[h] = pe[h] * kss[kTileP + lane + 32 * h];
+        else
+          pr[h] = round_to<T>(pe[h]);
       }
 #pragma unroll
       for (int c = 0; c < DC; ++c) acc[c] *= alpha;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
+      for (int h = 0; h < kPL; ++h) {
 #pragma unroll 8
         for (int j = 0; j < 32; ++j) {
           const float pt = __shfl_sync(kFullMask, pr[h], j);
@@ -257,7 +299,7 @@ __device__ __forceinline__ void ragged_walk(
       }
       m = m_new;
     }
-    __syncthreads();           // buffer i&1 is free for tile i+2
+    Sync::sync();              // buffer i % kStagesP is free for tile next
   }
 }
 

@@ -14,8 +14,11 @@ the ragged path (``serving/engine._paged_decode``).
 
 - On CUDA tensors it launches the hand-written persistent kernel
   (``csrc/mega_decode.cuh``, instantiated in ``csrc/mega_decode_*.cu``,
-  entry points in ``csrc/mega_decode.cu``: a cooperative grid, five
-  grid-wide barriers a layer) and raises on any failure.
+  entry points in ``csrc/mega_decode.cu``: a cooperative grid of one
+  warp-specialised block an SM whose producer streams the weights by TMA
+  through a ring of shared-memory stages, ahead of the consumers' five
+  grid-wide barriers a layer, on a static schedule: :func:`schedule`) and
+  raises on any failure.
 - On CPU tensors it runs the plain version :func:`mega_decode_step_plain`:
   :func:`decode_layers`, the ragged path's per-layer math for one step,
   with the plain ragged partial.
@@ -57,45 +60,90 @@ from ..models.llama import LAYER_KEYS, _rms_norm, _rotate, head_weight
 
 __all__ = ["mega_supported", "mega_decode_step", "mega_decode_step_plain",
            "mega_decode_loop", "mega_decode_loop_plain", "decode_layers",
-           "MAX_SLOTS"]
+           "schedule", "MAX_SLOTS"]
 
 NEG_INF = -1e30
 _MATS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # limits fixed by csrc/mega_decode.cuh (kept equal to its constants)
-MAX_SLOTS = 8             # rows of the GEMVs' register accumulators
+MAX_SLOTS = 8             # input rows of a product (wgmma's n = 8)
 MAX_GROUP = 8             # query heads per kv head (one warp each)
-TILE_COLS = 32            # output columns of a GEMV tile
-_CHUNK_ROWS = 4096        # GEMV input rows staged in shared memory at once
-_MAX_SPLITS = 8           # k-ranges a GEMV tile is split into
-_WALK_TILE, _WALK_STAGES = 64, 2
-_WARPS = 8
+WIDTH_MULTIPLE = 32       # hidden and ffn widths, a column head's vocab
+MAX_HEAD_HIDDEN = 4096    # the multi-step form's hidden width, at most
+_STAGE_BYTES = 16384      # a stage of the weight ring: 4 boxes x 32 rows
+_MAX_STAGES = 16
+_XS_ROWS = 2048           # input rows staged in shared memory at once
+_SLOTS = 512              # output columns of a tile, at most
+_MAX_PARTS = 8            # parts one (slot, kv head) walk splits into
+_MISC_BYTES = 5632
+_WALK_FLAGS = 16 + 160 + 2 * 512 * 8   # the walk flags' offset in `count`
+_ALIGN = 1024
+_WALK_TILE, _WALK_STAGES = 32, 4   # B5's walk: four 32-position stages
 SMEM_LIMIT = 232448       # shared memory a block may use on the H100
 _HEAD_MODES = {"dense": 0, "tied": 1, "int8": 2}   # csrc HeadMode
 
 
 def _walk_smem(row_bytes: int, scale_bytes: int, D: int) -> int:
     """The walk's staging: K and V tiles of ``row_bytes`` rows (padded by
-    16 bytes) and, for int8 pools, the positions' K and V scales,
-    double-buffered, then the group's f32 queries."""
+    16 bytes) and, for int8 pools, the positions' K and V scales, four
+    stages, then the group's f32 queries."""
     return (_WALK_STAGES * (2 * _WALK_TILE * (row_bytes + 16)
                             + 2 * _WALK_TILE * scale_bytes)
             + MAX_GROUP * D * 4)
 
 
-def _smem_bytes(itemsize: int, D: int, n_slots: int) -> int:
-    """Dynamic shared memory of one block (csrc/mega_decode.cuh
-    ``smem_bytes``): the largest of the attention walk's staging over
-    pools of the model dtype and over int8 pools (rows of D + 16 bytes
-    and 4-byte scales) — the kernel takes either at run time — and the
-    GEMVs' (staged input rows, cross-warp reduction, two output tiles,
-    the rows' norm factors) for the kernel built for 4 or 8 rows."""
+def _smem_layout(itemsize: int, D: int, n_slots: int):
+    """(ring stages, dynamic shared memory of one block) as
+    csrc/mega_decode.cuh ``Smem`` lays them out: the weight ring, then a
+    region that holds either the GEMVs' staged input rows (bf16: 8 rows
+    padded for wgmma; f32: the 4 or 8 rows of the instantiation) and a
+    tile's f32 sums, or the attention walk's staging over pools of the
+    model dtype or int8 pools (the kernel takes either at run time), then
+    the mbarriers, norm factors and RoPE table. The ring takes what is
+    left of the card's 227 KB, at most 16 stages."""
     ns = 4 if n_slots <= 4 else 8
     walk = max(_walk_smem(D * itemsize, 0, D), _walk_smem(D, 4, D))
-    gemv = (ns * _CHUNK_ROWS * itemsize
-            + (_WARPS + 2) * ns * TILE_COLS * 4 + (ns + _WARPS) * 4)
-    return max(walk, gemv)
+    xs = 8 * _XS_ROWS * 2 if itemsize == 2 else ns * _XS_ROWS * 4
+    region = -(-max(walk, xs + _SLOTS * 8 * 4) // 128) * 128
+    stages = min(_MAX_STAGES, (SMEM_LIMIT - _ALIGN - region - _MISC_BYTES)
+                 // _STAGE_BYTES)
+    return stages, _ALIGN + stages * _STAGE_BYTES + region + _MISC_BYTES
+
+
+def _smem_bytes(itemsize: int, D: int, n_slots: int) -> int:
+    """Dynamic shared memory of one block (:func:`_smem_layout`)."""
+    return _smem_layout(itemsize, D, n_slots)[1]
+
+
+def schedule(config, n_blocks: int, w_int8: bool = False,
+             head: str = None):
+    """The static schedule the kernel runs on a grid of ``n_blocks``
+    blocks, as its own code computes it (``ptt_mega_decode_schedule``,
+    the function its producer and consumers call; needs the built
+    library): for each of one layer's products ``qkv``, ``wo``,
+    ``gate_up`` and ``down`` (and, with ``head`` one of ``"dense"``,
+    ``"tied"``, ``"int8"``, the multi-step form's head) its tiles, units
+    a tile (one 16 KB ring stage each), units, the most units one block
+    takes (block b takes units [b U / G, (b + 1) U / G)) and the
+    imbalance, that most over the mean."""
+    c = config
+    fn = _build.kernel("ptt_mega_decode_schedule",
+                       [ctypes.c_int] * 10 + [ctypes.c_void_p])
+    out = (ctypes.c_longlong * 20)()
+    _build.check(fn(_DTYPES[c.dtype], int(w_int8), c.hidden_size,
+                    c.intermediate_size, c.num_kv_heads,
+                    c.num_heads // c.num_kv_heads, c.head_dim,
+                    c.vocab_size, -1 if head is None else _HEAD_MODES[head],
+                    n_blocks, out), "mega_decode schedule")
+    names = ["qkv", "wo", "gate_up", "down"] + (["head"] if head else [])
+    res = {}
+    for i, name in enumerate(names):
+        tiles, upt, units, most = out[4 * i:4 * i + 4]
+        res[name] = {"tiles": tiles, "units_a_tile": upt, "units": units,
+                     "max_units": most,
+                     "imbalance": most * n_blocks / units if units else None}
+    return res
 
 
 def _head_mode(params, config) -> str:
@@ -129,7 +177,7 @@ def _head_ok(params, config):
                 or head["s"].dtype != torch.bfloat16 \
                 or tuple(head["s"].shape) != (V,):
             return False, "head_dtype"
-    if h > _CHUNK_ROWS or (mode != "tied" and V % TILE_COLS):
+    if h > MAX_HEAD_HIDDEN or (mode != "tied" and V % WIDTH_MULTIPLE):
         return False, "head_width"
     return True, "ok"
 
@@ -146,10 +194,10 @@ def mega_supported(params, config, *, n_slots: int, n_steps: int,
     weight in the model dtype, every int8 leaf an int8 matrix with bf16
     scales), ``"head_dim"`` (64 or 128), ``"group"`` (at most 8 query
     heads per kv head), ``"slots"`` (1 to 8 rows), ``"width"`` (hidden
-    and ffn widths multiples of the 32-column GEMV tile) and ``"smem"``
-    (a block's shared memory within the card's 227 KB, without which no
-    co-resident grid can launch). int8 weights and int8 pools
-    (``kv_int8``) are taken, each on its own or both. ``multi_step``
+    and ffn widths multiples of 32) and ``"smem"`` (a block's shared
+    memory, with a ring of at least 2 stages, within the card's 227 KB,
+    without which no co-resident grid can launch). int8 weights and int8
+    pools (``kv_int8``) are taken, each on its own or both. ``multi_step``
     screens the multi-step form (:func:`mega_decode_loop`) as well: its
     head and embedding (``"head_dtype"``, ``"head_width"``: see
     :func:`_head_ok`) and at least one step."""
@@ -177,10 +225,12 @@ def mega_supported(params, config, *, n_slots: int, n_steps: int,
         return False, "group"
     if not 1 <= n_slots <= MAX_SLOTS:
         return False, "slots"
-    if config.hidden_size % TILE_COLS or config.intermediate_size % TILE_COLS:
+    if config.hidden_size % WIDTH_MULTIPLE \
+            or config.intermediate_size % WIDTH_MULTIPLE:
         return False, "width"
     itemsize = torch.empty((), dtype=dt).element_size()
-    if _smem_bytes(itemsize, D, n_slots) > SMEM_LIMIT:
+    stages, smem = _smem_layout(itemsize, D, n_slots)
+    if stages < 2 or smem > SMEM_LIMIT:
         return False, "smem"
     if multi_step:
         if n_steps < 1:
@@ -332,22 +382,23 @@ def _rope_freq(theta: float, D: int, device) -> torch.Tensor:
 def _buffers(config, x0):
     """The kernel's hidden state — a copy of x0 in the model dtype, which
     it updates in place — and its scratch: q/k/v, the attention output,
-    gate*up, the partial sums of the GEMV tiles' k-ranges and of the
-    walks' parts, and the counters (zero) that find the block finishing
-    each tile or walk."""
+    gate*up, the f32 sums of split tiles (a 512-column slot of 8 rows a
+    block, one block an SM) and of the walks' parts, and the flags (zero):
+    the grid barrier's arrivals, then one a block and one a walk part."""
     c = config
     dt, dev = c.dtype, x0.device
     N, h = x0.shape
     Hq, Hkv, D = c.num_heads, c.num_kv_heads, c.head_dim
     F = c.intermediate_size
-    widest = max((Hq + 2 * Hkv) * D, 2 * F, h)
+    G = Hq // Hkv
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    part = max(blocks * _SLOTS * 8, N * Hkv * _MAX_PARTS * G * (D + 2))
     return (x0.to(dt).clone(),
             torch.empty((N, (Hq + 2 * Hkv) * D), dtype=dt, device=dev),
             torch.empty((N, Hq * D), dtype=dt, device=dev),
             torch.empty((N, F), dtype=dt, device=dev),
-            torch.empty((_MAX_SPLITS, N, widest), dtype=torch.float32,
-                        device=dev),
-            torch.zeros((max(widest // TILE_COLS, N * Hkv),),
+            torch.empty((part,), dtype=torch.float32, device=dev),
+            torch.zeros((_WALK_FLAGS + N * Hkv * _MAX_PARTS,),
                         dtype=torch.int32, device=dev))
 
 

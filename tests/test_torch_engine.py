@@ -144,6 +144,46 @@ def test_top_k_top_p_masks_equal_jax(monkeypatch):
         np.testing.assert_allclose(got.numpy()[live], want[live], rtol=1e-6)
 
 
+def test_top_p_one_row_masks_nothing_where_jax_masks_its_tail(monkeypatch):
+    """A known divergence, pinned on the port's side: in a batch that
+    samples with top_p < 1, a row with top_p = 1.0 keeps every token in
+    the port, while the JAX engine drops a sorted token once the f32
+    cumsum before it reaches 1.0, which a peaked row at Llama-3's vocab
+    of 128,256 does well before its tail. The reference's own docstring
+    says "top_p>=1 → disabled", so the port keeps its behaviour; the
+    tokens the reference drops hold a mass below f32's resolution of 1."""
+    captured = []
+
+    def capture(key, lg, axis=-1):
+        captured.append(np.asarray(lg))
+        return jnp.argmax(lg, axis=axis)
+
+    monkeypatch.setattr(jax.random, "categorical", capture)
+    vocab = 128256
+    rng = np.random.default_rng(0)
+    logits = (rng.standard_normal((2, vocab)) * 3).astype(np.float32)
+    logits[0, rng.choice(vocab, 5, replace=False)] += 20.0   # peaked row
+    temps = np.ones(2, np.float32)
+    top_ks = np.zeros(2, np.int32)
+    top_ps = np.array([1.0, 0.9], np.float32)
+    jeng._sample_rows(jnp.asarray(logits), jax.random.PRNGKey(0),
+                      jnp.asarray(temps), jnp.asarray(top_ks),
+                      jnp.asarray(top_ps), True, False, True)
+    jax_drop = captured[0] <= -1e29
+    port_drop = teng._filter_logits(
+        torch.as_tensor(logits), torch.as_tensor(temps),
+        torch.as_tensor(top_ks), torch.as_tensor(top_ps), False,
+        True).numpy() <= -1e29
+    assert not port_drop[0].any()
+    assert jax_drop[0].sum() > 10_000
+    p = np.exp(logits[0].astype(np.float64) - logits[0].max())
+    p /= p.sum()
+    assert p[jax_drop[0]].sum() < 1e-6
+    # the top_p = 0.9 row is masked by both (the same nucleus)
+    assert port_drop[1].any() and jax_drop[1].any()
+    assert abs(int(port_drop[1].sum()) - int(jax_drop[1].sum())) <= 2
+
+
 def test_unported_arguments_raise(model):
     _, _, tcfg, tp = model
     for kw, err, match in ((dict(kv_dtype="fp8"), ValueError, "kv_dtype"),

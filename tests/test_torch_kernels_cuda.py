@@ -260,15 +260,16 @@ def test_remat_policies_launch_b1_as_their_policy_says(dev, policy,
             <= 1e-2 * b.float().abs().max().item()
 
 
-def _mega_inputs(dev, dtype, D, G, N, seed=0, L=2, hkv=2, bs=16, mb=8, S=4):
+def _mega_inputs(dev, dtype, D, G, N, seed=0, L=2, hkv=2, bs=16, mb=8, S=4,
+                 hidden=1024, ffn=2048, vocab=128):
     """A small model (hidden 1024, ffn 2048, L layers: wide enough that
     every GEMV phase splits its tiles' rows into several k-ranges) with D
     and G as asked, its [L, NB, bs, hkv, D] pools, a ring whose first
     steps hold earlier rows, and walk lengths 100, 0, a full table, 37,
     ... (the first N)."""
     from paddle_tpu_torch.models import llama
-    cfg = llama.LlamaConfig(vocab_size=128, hidden_size=1024,
-                            intermediate_size=2048, num_layers=L,
+    cfg = llama.LlamaConfig(vocab_size=vocab, hidden_size=hidden,
+                            intermediate_size=ffn, num_layers=L,
                             num_heads=hkv * G, num_kv_heads=hkv,
                             head_dim=D, max_seq_len=256, dtype=dtype)
     params = llama.init_params(cfg, seed=seed, device=dev, dtype=dtype)
@@ -283,7 +284,7 @@ def _mega_inputs(dev, dtype, D, G, N, seed=0, L=2, hkv=2, bs=16, mb=8, S=4):
                             .reshape(N, mb).astype(np.int32), device=dev)
     walk = torch.as_tensor(([100, 0, mb * bs, 37] * 2)[:N],
                            dtype=torch.int32, device=dev)
-    x0 = torch.randn(N, 1024, generator=g, device=dev).to(dtype)
+    x0 = torch.randn(N, hidden, generator=g, device=dev).to(dtype)
     return cfg, params, x0, table, walk, pools, rings
 
 
@@ -411,6 +412,100 @@ def test_tgmm_kernel_matches_plain(dev, dtype, out_dtype, tol):
     assert out.dtype == out_dtype and out.shape == (5, K, N)
     assert torch.all(out[0] == 0) and torch.all(out[3] == 0)
     assert _rel(out, ref) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("D,G,N,hidden,ffn", [
+    (128, 3, 2, 1056, 2080), (64, 3, 7, 1056, 2080), (128, 8, 5, 1024, 2048),
+    (64, 4, 3, 160, 96), (128, 1, 8, 4096, 1056)])
+def test_mega_hopper_edges(dev, dtype, tol, int8, D, G, N, hidden, ffn):
+    """B5's Hopper design at its edges: widths that are multiples of 32
+    but not of a 256-column (bf16) or 512-column (int8) tile, so the last
+    tile of a phase has boxes past its matrix (zero-filled, or not
+    loaded); a hidden width of 160 (fewer units than blocks: most blocks
+    hold nothing) and of 4096 (a phase split into many k-ranges); G 1, 3,
+    4, 8; N 2-8 (both instantiations); walks of 0, part of and a whole
+    table; with ``int8`` both int8 weights and int8 pools. Held to the
+    plain version as the dense test holds it, and two launches on the
+    same inputs give the same bits."""
+    from paddle_tpu_torch.kernels import mega_decode as tmd
+    from paddle_tpu_torch.models import llama
+    cfg, params, x0, table, walk, (kp, vp), (rk, rv) = _mega_inputs(
+        dev, dtype, D, G, N, hidden=hidden, ffn=ffn)
+    pools = dict(k_pool=kp, v_pool=vp)
+    if int8:
+        params = llama.quantize_params(params)
+        qk, qv, ks, vs = _int8_pools(kp, vp)
+        pools = dict(k_pool=qk, v_pool=qv, ks_pool=ks, vs_pool=vs)
+    kw = dict(x0=x0, t=3, block_table=table, walk_lens=walk, lens=walk + 3,
+              **pools)
+    name = "mega_decode_int8" if int8 else "mega_decode"
+    before = _build.launch_counts[name]
+    runs = [tmd.mega_decode_step(params, cfg, ring_k=rk.clone(),
+                                 ring_v=rv.clone(), **kw) for _ in range(2)]
+    ref = tmd.mega_decode_step_plain(params, cfg, ring_k=rk.clone(),
+                                     ring_v=rv.clone(), **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[name] == before + 2
+    for got, want in zip(runs[0], ref):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol * want.float().abs().max().item()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head,vocab", [("tied", 1000), ("int8", 1056),
+                                        ("dense", 2080)])
+def test_mega_loop_at_the_head_limit(dev, dtype, head, vocab):
+    """The multi-step form at the hidden width 4096 the screen allows for
+    its head (the head's input rows staged in two chunks), a vocabulary
+    that is not a multiple of the head's tile, the three heads, a row
+    inactive, one ending at its budget and one at an eos mid-wave. f32:
+    the emitted tokens and the final state equal the plain version's;
+    bf16: the first step's ring rows within 2e-2 and valid tokens. Two
+    launches give the same bits."""
+    import dataclasses
+    from paddle_tpu_torch.kernels import mega_decode as tmd
+    from paddle_tpu_torch.models import llama
+    N, k = 4, 4
+    cfg, params, x0, table, walk, pools, _ = _mega_inputs(
+        dev, dtype, 128, 4, N, L=1, hidden=4096, ffn=1056, vocab=vocab)
+    if head == "tied":
+        cfg = dataclasses.replace(cfg, tie_embeddings=True)
+        params = {kk: v for kk, v in params.items() if kk != "lm_head"}
+    if head == "int8":
+        params = llama.quantize_params(params)
+    assert tmd.mega_supported(params, cfg, n_slots=N, n_steps=k,
+                              block_size=16, kv_int8=False,
+                              multi_step=True) == (True, "ok")
+    budgets, eos = [k, 2, k, k], [-1] * N
+    first = tmd.mega_decode_loop_plain(params, cfg, **_loop_args(
+        params, cfg, x0, table, walk, pools, k, budgets, eos))[0]
+    eos[-1] = int(first[1, -1])
+
+    def args():   # row 2 is inactive
+        return _loop_args(params, cfg, x0, table, walk, pools, k, budgets,
+                          eos)
+    runs = [tmd.mega_decode_loop(params, cfg, **args()) for _ in range(2)]
+    want = tmd.mega_decode_loop_plain(params, cfg, **args())
+    torch.cuda.synchronize()
+    got = runs[0]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert bool(((got[0] >= -1) & (got[0] < vocab)).all())
+    assert bool((got[0][:, 2] == -1).all())
+    if dtype == torch.float32:
+        for g, w in zip(got[:5], want[:5]):
+            assert torch.equal(g.long().cpu(), w.long().cpu())
+        for g, w in zip(got[5:], want[5:]):
+            assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+    else:
+        for g, w in zip(got[5:], want[5:]):
+            err = (g[:, :, 0].float() - w[:, :, 0].float()).abs().max()
+            assert err.item() <= 2e-2 * w[:, :, 0].float().abs().max().item()
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),

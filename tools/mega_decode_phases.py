@@ -4,9 +4,12 @@
 Builds copies of the kernel (``paddle_tpu_torch/kernels/csrc/mega_decode.cuh``
 and its units) side by side (one ``nvcc`` each, all started together): the
 kernel as it is, and
-one copy per phase with that phase's work loop emptied (q/k/v, attention,
-wo, gate/up, down), plus one with every phase emptied (the grid barriers
-alone). Each runs one decode step of Llama-3-8B (random bf16 weights,
+one copy per phase with that phase switched off (q/k/v, attention, wo,
+gate/up, down: the producer streams none of its tiles and the consumers
+skip it), plus one with every phase off (the grid barriers alone). With
+the weight stream running ahead of the barriers, a knocked-out phase
+also takes its share of the overlap with its neighbours away, so the
+phases' times need not add up to the whole. Each runs one decode step of Llama-3-8B (random bf16 weights,
 seed 0) at the serving mix's walk lengths, timed with CUDA events in two
 rounds of opposite order; a phase's time is the full kernel's minus its
 knocked-out copy's. Prints, for each slot count asked for, one JSON
@@ -39,25 +42,26 @@ from paddle_tpu_torch.kernels import _build  # noqa: E402
 from paddle_tpu_torch.kernels import mega_decode as tmd  # noqa: E402
 from paddle_tpu_torch.models import llama  # noqa: E402
 
-# each phase's work loop bound, and what empties it
+# each phase's switch in the kernel source (the producer and the
+# consumers both skip a phase that is off)
 PHASES = {
-    "qkv": "item < Mqkv / kTileCols * s_qkv;",
-    "attention": "item < N * Hkv * parts;",
-    "wo": "item < h / kTileCols * s_wo;",
-    "gate_up": "item < F / kTileCols * s_gu;",
-    "down": "item < h / kTileCols * s_down;",
+    "qkv": "kRunQkv = true;",
+    "attention": "kRunAttention = true;",
+    "wo": "kRunWo = true;",
+    "gate_up": "kRunGateUp = true;",
+    "down": "kRunDown = true;",
 }
 
 
 def variants(src: str):
     out = {"full": src}
-    for name, bound in PHASES.items():
-        if src.count(bound) != 1:
-            raise RuntimeError(f"the kernel no longer has the loop {bound!r}")
-        out[f"no_{name}"] = src.replace(bound, "item < 0;")
+    for name, on in PHASES.items():
+        if src.count(on) != 1:
+            raise RuntimeError(f"the kernel no longer has the switch {on!r}")
+        out[f"no_{name}"] = src.replace(on, on.replace("true", "false"))
     barriers = src
-    for bound in PHASES.values():
-        barriers = barriers.replace(bound, "item < 0;")
+    for on in PHASES.values():
+        barriers = barriers.replace(on, on.replace("true", "false"))
     out["barriers_only"] = barriers
     return out
 
@@ -70,7 +74,8 @@ def build(srcs, tmp: Path):
     for name, text in srcs.items():
         d = tmp / name
         d.mkdir()
-        for f in ["common.cuh", "ragged_walk.cuh", "errors.cu"] + units:
+        for f in ["common.cuh", "hopper.cuh", "ragged_walk.cuh",
+                  "errors.cu"] + units:
             (d / f).write_bytes((csrc / f).read_bytes())
         (d / "mega_decode.cuh").write_text(text)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
@@ -167,6 +172,9 @@ def measure(cfg, params, dev, srcs, tmp, slots, iters, build_s, card,
             "full_ms": mean["full"], "runs_ms": ms, "phases": phases,
             "barriers_only_ms": mean["barriers_only"],
             "barriers": 5 * L - 1, "blocks_per_sm": per_sm,
+            "schedule": tmd.schedule(
+                cfg, per_sm * torch.cuda.get_device_properties(
+                    dev).multi_processor_count, w_int8=int8),
             "build_s": build_s, "card": card}
 
 
