@@ -27,7 +27,9 @@ into the git-ignored ``paddle_tpu_torch/_build``, then runs, in order
    torch.profiler (the device's busy share of its wall time), and each
    kernel timed at the run's own shapes beside its plain version (and,
    for B1, beside SDPA; B1 also at the llama-2.6b and DeepSeekMoE train
-   steps' shapes);
+   steps' shapes; B4 and B4-int8 also alone by the profiler, with the
+   host microseconds a wrapper call costs, and B4 at one and at eight
+   2000-position slots);
 5. cross-device streams: Llama-3-8B widths cut to 2 layers and a 32768
    vocabulary, f32, two prompts of 130 and 200 tokens for 8 greedy
    tokens through the ragged engine on the card and on the CPU (plain
@@ -222,6 +224,20 @@ def kernel_device_ms(fn, iters, key):
     return sum(spans) / 1e3 / iters if spans else None
 
 
+def host_us(fn, calls=1000):
+    """Host microseconds a call of ``fn()`` costs: a host clock over
+    ``calls`` calls with no synchronize between them (after one warm-up
+    call)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(calls):
+        fn(i)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
 def max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
@@ -379,10 +395,12 @@ def check_ragged(tpa, dev):
         del kp, vp
 
 
-def time_ragged(tpa, dev, lengths, num_blocks, Lc=32):
+def time_ragged(tpa, dev, lengths, num_blocks, Lc=32, plain=True):
     """B4 at the serving run's decode shape: q [8, 32, 128] bf16 over a
     [32, num_blocks, 64, 8, 128] pool, one launch per layer in turn (each
-    layer's blocks are cold in L2, as on the main path)."""
+    layer's blocks are cold in L2, as on the main path): CUDA events over
+    back-to-back wrapper calls, the profiler's time of the kernel alone
+    and the host microseconds a wrapper call costs."""
     N, Hkv, G, D, BS, MB = len(lengths), 8, 4, 128, 64, 2048 // 64
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     rng = np.random.default_rng(SEED + 3)
@@ -402,20 +420,39 @@ def time_ragged(tpa, dev, lengths, num_blocks, Lc=32):
     err = max_err(out, ref)
     if err > 1e-2 * ref.abs().max().item():
         raise AssertionError(f"B4 disagrees at the serving shape: {err}")
-    ms = time_ms(lambda i=0: tpa.ragged_decode_partial(
-        q, kp, vp, table, lens, layer=i % Lc), 4 * Lc)
+    def call(i=0):
+        return tpa.ragged_decode_partial(q, kp, vp, table, lens,
+                                         layer=i % Lc)
+    ms = time_ms(call, 4 * Lc)
+    device_ms = kernel_device_ms(call, 2 * Lc, "ragged_decode")
+    us = host_us(call)
     plain_ms = time_ms(lambda i=0: tpa.ragged_decode_partial_plain(
-        q, kp, vp, table, lens, i % Lc), Lc)
+        q, kp, vp, table, lens, i % Lc), Lc) if plain else None
     tokens = int(sum(lengths))
     nbytes = 2 * tokens * Hkv * D * 2 + q.numel() * 2 \
         + N * Hkv * G * (D + 2) * 4 + table.numel() * 4 + N * 4
     flops = 4.0 * tokens * Hkv * G * D
     t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
+    bound = max(t_ops, t_bytes)
+    return {"max_abs_err": err, "ms": ms, "device_ms": device_ms,
+            "host_us": us, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations" if t_ops > t_bytes else "bytes",
             "library_ms": None,
+            "share_of_bound": bound / device_ms if device_ms else None,
             "shape": f"N={N} sum(len)={tokens} Hq=32 Hkv=8 D=128 bf16"}
+
+
+# B4's shapes beyond the serving run's: one long slot and eight, each 2000
+# positions
+RAGGED_LONG = {"n1x2000": [2000], "n8x2000": [2000] * 8}
+
+
+def time_ragged_long(tpa, dev):
+    """B4 (bf16) at RAGGED_LONG's shapes, as :func:`time_ragged` times it,
+    each over a pool just large enough for its table."""
+    return {name: time_ragged(tpa, dev, lens, len(lens) * 32 + 1,
+                              plain=False)
+            for name, lens in RAGGED_LONG.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -2501,8 +2538,13 @@ def time_ragged_int8(tpa, dev, lengths, num_blocks, Lc=32):
               for a, b in zip(got, want))
     if err > 1e-5:
         raise AssertionError(f"B4-int8 disagrees at the serving shape: {err}")
-    ms = time_ms(lambda i=0: tpa.ragged_decode_partial(
-        q, kp, vp, table, lens, layer=i % Lc, ks_pool=ks, vs_pool=vs), 4 * Lc)
+    def call(i=0):
+        return tpa.ragged_decode_partial(q, kp, vp, table, lens,
+                                         layer=i % Lc, ks_pool=ks,
+                                         vs_pool=vs)
+    ms = time_ms(call, 4 * Lc)
+    device_ms = kernel_device_ms(call, 2 * Lc, "ragged_decode")
+    us = host_us(call)
     plain_ms = time_ms(lambda i=0: tpa.ragged_decode_partial_plain(
         q, kp, vp, table, lens, i % Lc, ks, vs), Lc)
     tokens = int(sum(lengths))
@@ -2510,11 +2552,13 @@ def time_ragged_int8(tpa, dev, lengths, num_blocks, Lc=32):
         + N * Hkv * G * (D + 2) * 4 + table.numel() * 4 + N * 4
     flops = 4.0 * tokens * Hkv * G * D
     t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(t_ops, t_bytes)
     return {"max_abs_err": max(max_err(a, b) for a, b in zip(got, want)),
-            "rel_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
+            "rel_err": err, "ms": ms, "device_ms": device_ms, "host_us": us,
+            "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations" if t_ops > t_bytes else "bytes",
             "library_ms": None,
+            "share_of_bound": bound / device_ms if device_ms else None,
             "shape": f"N={N} sum(len)={tokens} Hq=32 Hkv=8 D=128, bf16 q, "
                      "int8 pools + f32 scales"}
 
@@ -2797,6 +2841,8 @@ def main() -> int:
     lens = [n + 32 for n in serving["prompt_lens"][:8]]
     b4 = time_ragged(tpa, dev, lens, num_blocks)
     log(f"  B4 timing: {b4}")
+    b4["long_shapes"] = time_ragged_long(tpa, dev)
+    log(f"  B4 at {list(RAGGED_LONG)}: {b4['long_shapes']}")
     torch.cuda.empty_cache()
 
     log("phase 5: card vs CPU greedy streams")

@@ -8,8 +8,11 @@ a ``[N, MB]`` int32 block table per slot and ``[N]`` int32 lengths.
 - :func:`ragged_decode_partial` walks each slot's block table up to its
   true length with an online softmax and returns the flash-decoding
   partial state (acc, m, l). On CUDA tensors it launches the hand-written
-  kernel ``csrc/ragged_decode.cu``; on CPU tensors it runs the plain
-  PyTorch version :func:`ragged_decode_partial_plain`.
+  kernel ``csrc/ragged_decode.cu``, which splits the walks over a
+  persistent grid (:func:`ragged_schedule` is its schedule,
+  :func:`ragged_decode_partial_split_plain` its split form in plain
+  PyTorch); on CPU tensors it runs the plain PyTorch version
+  :func:`ragged_decode_partial_plain`.
 - :func:`ragged_paged_decode` normalizes that state into the attention
   output.
 - :func:`paged_attention` is the dense-gather reference (the JAX
@@ -38,6 +41,7 @@ raises.
 """
 from __future__ import annotations
 
+import bisect
 import ctypes
 import math
 from typing import NamedTuple
@@ -94,8 +98,14 @@ def ragged_decode_partial_plain(q, k_pool, v_pool, block_table, lengths,
     to the pool dtype before the PV product, as the kernels do. int8 pools
     (with their f32 scale pools): scores times the K scale, ``l`` over the
     unscaled probabilities, and PV as (p * V scale) . v in f32."""
-    N, Hq, D = q.shape
     ks4, vs4 = _scale_pools(k_pool, ks_pool, vs_pool)
+    return _plain_window(q, k_pool, v_pool, block_table,
+                         torch.zeros_like(lengths), lengths, layer, ks4, vs4)
+
+
+def _plain_window(q, k_pool, v_pool, block_table, lo, hi, layer, ks4, vs4):
+    """The plain walk over positions [lo[n], hi[n]) of each slot n."""
+    N, Hq, D = q.shape
     kp, vp = _as5d(k_pool)[layer], _as5d(v_pool)[layer]
     BS, Hkv = kp.shape[1], kp.shape[2]
     G = Hq // Hkv
@@ -108,8 +118,9 @@ def ragged_decode_partial_plain(q, k_pool, v_pool, block_table, lengths,
     if ks4 is not None:
         ks = ks4[layer][tbl].reshape(N, MB * BS, Hkv).float()
         s = s * ks.permute(0, 2, 1)[:, :, None, :]
-    valid = (torch.arange(MB * BS, device=q.device)[None, :]
-             < lengths.to(q.device).long()[:, None])[:, None, None, :]
+    pos = torch.arange(MB * BS, device=q.device)[None, :]
+    valid = ((pos >= lo.to(q.device).long()[:, None])
+             & (pos < hi.to(q.device).long()[:, None]))[:, None, None, :]
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1)                                   # [N, Hkv, G]
     p = torch.where(valid, torch.exp(s - m[..., None]), torch.zeros_like(s))
@@ -123,7 +134,112 @@ def ragged_decode_partial_plain(q, k_pool, v_pool, block_table, lengths,
     return acc, m, l
 
 
-def _check_cuda(q, kp, vp, block_table, lengths, layer, ks, vs):
+# ---------------------------------------------------------------------------
+# the split walk: the kernel's schedule and merge, in plain Python
+# ---------------------------------------------------------------------------
+RAGGED_TILE = 32        # positions a tile of the kernel's bf16-query walk
+RAGGED_TILE_F32 = 64    # of its f32-query walk (ragged_walk.cuh's stages)
+
+
+def ragged_schedule(lengths, Hkv, MB, BS, tile, grid):
+    """How the kernel deals the walks to its persistent grid, as rows
+    ``(block, slot, kv head, first tile, end tile, walk tiles, parts)``
+    (``csrc/ragged_decode.cu``'s ``Sched``, exported there as
+    ``ptt_ragged_decode_schedule``). Each (slot, kv head) walk is
+    ``ceil(len / tile)`` tiles (one for a length-0 slot, whose tile is
+    empty), the walks lie end to end in (slot, kv head) order, and block
+    b takes the tiles [b * per, (b + 1) * per), per = ceil(total / grid):
+    a walk cut by a range boundary becomes parts on tile boundaries, one a
+    block, in block order."""
+    cap = MB * BS
+    tiles = [max(1, -(-min(max(0, int(n)), cap) // tile)) for n in lengths]
+    start = [0]
+    for t in tiles:
+        start.append(start[-1] + Hkv * t)
+    total = start[-1]
+    per = -(-total // grid)
+    rows = []
+    for b in range(grid):
+        r, r1 = b * per, min(total, (b + 1) * per)
+        while r < r1:
+            n = bisect.bisect_right(start, r) - 1
+            t = tiles[n]
+            hk = (r - start[n]) // t
+            ws = start[n] + hk * t
+            end = min(r1, ws + t)
+            rows.append((b, n, hk, r - ws, end - ws, t,
+                         (ws + t - 1) // per - ws // per + 1))
+            r = end
+    return rows
+
+
+def merge_parts(parts):
+    """The flash-decoding combine of partial states ``(acc, m, l)``, taken
+    in the order given (the kernel merges a walk's parts in part order)."""
+    m = parts[0][1]
+    for _a, mq, _l in parts[1:]:
+        m = torch.maximum(m, mq)
+    acc = torch.zeros_like(parts[0][0])
+    l = torch.zeros_like(parts[0][2])
+    for a, mq, lq in parts:
+        w = torch.exp(mq - m)
+        acc = acc + a * w[..., None]
+        l = l + lq * w
+    return acc, m, l
+
+
+def ragged_decode_partial_split_plain(q, k_pool, v_pool, block_table,
+                                      lengths, layer: int = 0, ks_pool=None,
+                                      vs_pool=None, *, tile=RAGGED_TILE,
+                                      grid=132):
+    """The kernel's split of the walks across blocks in plain PyTorch:
+    each block part of :func:`ragged_schedule` as the plain walk over its
+    positions, a walk's parts merged in part order by :func:`merge_parts`
+    (inside a block the kernel also walks a part in up to four pieces,
+    merged the same way). Equals :func:`ragged_decode_partial_plain` up to
+    the order of f32 sums, and for bf16 pools up to P's rounding."""
+    ks4, vs4 = _scale_pools(k_pool, ks_pool, vs_pool)
+    N = q.shape[0]
+    Hkv, BS = _as5d(k_pool).shape[3], _as5d(k_pool).shape[2]
+    MB = block_table.shape[1]
+    lens = [max(0, min(int(n), MB * BS)) for n in lengths.tolist()]
+    walks = {}
+    for _b, n, hk, ta, tb, _t, _np in ragged_schedule(lens, Hkv, MB, BS,
+                                                        tile, grid):
+        lo = torch.zeros(N, dtype=torch.int64)
+        hi = torch.zeros(N, dtype=torch.int64)
+        lo[n], hi[n] = min(lens[n], ta * tile), min(lens[n], tb * tile)
+        acc, m, l = _plain_window(q, k_pool, v_pool, block_table, lo, hi,
+                                  layer, ks4, vs4)
+        walks.setdefault((n, hk), []).append((acc[n, hk], m[n, hk],
+                                              l[n, hk]))
+    G = q.shape[1] // Hkv
+    acc = torch.zeros(N, Hkv, G, q.shape[2], dtype=torch.float32,
+                      device=q.device)
+    m = torch.full((N, Hkv, G), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros(N, Hkv, G, dtype=torch.float32, device=q.device)
+    for (n, hk), parts in walks.items():
+        acc[n, hk], m[n, hk], l[n, hk] = merge_parts(parts)
+    return acc, m, l
+
+
+# ---------------------------------------------------------------------------
+# the kernel's wrapper
+# ---------------------------------------------------------------------------
+_grids = {}   # (device index, dtype code, pool code, D) -> the kernel's grid
+# (device index, stream) -> (int32 flags, zero between calls; the parts'
+# f32 scratch): calls on one stream run one after another, so they share
+_work = {}
+# the current stream's handle without a Stream object (CUDA builds)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float,
+                                                        ctypes.c_void_p]
+_MAX_PARTS = 192        # the kernel's largest grid (kMaxParts)
+_MAX_SLOTS = 511        # slots a call (the schedule's shared memory)
+
+
+def _explain(q, kp, vp, block_table, lengths, layer, ks, vs):
+    """Raise the error that names what the kernel does not take."""
     dev = q.device
     named = (("k_pool", kp), ("v_pool", vp), ("block_table", block_table),
              ("lengths", lengths))
@@ -163,11 +279,71 @@ def _check_cuda(q, kp, vp, block_table, lengths, layer, ks, vs):
                          "int32 [N]")
     if not all(t.is_contiguous() for _n, t in named + (("q", q),)):
         raise ValueError("ragged_decode_partial needs contiguous inputs")
-    if kp.data_ptr() % 16 or vp.data_ptr() % 16:
-        raise ValueError("ragged_decode_partial copies pool rows 16 bytes at "
-                         "a time: the pools must be 16-byte aligned")
+    if q.data_ptr() % 16 or kp.data_ptr() % 16 or vp.data_ptr() % 16:
+        raise ValueError("ragged_decode_partial copies q and pool rows 16 "
+                         "bytes at a time: they must be 16-byte aligned")
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} out of range for {L} pool layers")
+    if N > _MAX_SLOTS:
+        raise ValueError(f"ragged_decode_partial takes at most {_MAX_SLOTS} "
+                         f"slots a call, got {N}")
+
+
+def _fits(q, kp, vp, table, lengths, layer, ks, vs):
+    """Whether the kernel takes these tensors: every check of
+    :func:`_explain`, in one expression of cheap reads."""
+    d = q.get_device()
+    N, Hq, D = q.shape
+    L, _NB, _BS, Hkv, Dk = kp.shape
+    qdt = q.dtype
+    pool_dt = qdt if ks is None else torch.int8
+    return ((qdt is torch.bfloat16 or qdt is torch.float32)
+            and kp.get_device() == d and vp.get_device() == d
+            and table.get_device() == d and lengths.get_device() == d
+            and vp.shape == kp.shape and Dk == D
+            and (D == 64 or D == 128) and Hq % Hkv == 0
+            and Hq <= _MAX_GROUP * Hkv and kp.dtype == pool_dt
+            and vp.dtype == pool_dt and table.dtype == torch.int32
+            and lengths.dtype == torch.int32 and table.dim() == 2
+            and table.shape[0] == N and lengths.shape == (N,)
+            and q.is_contiguous() and kp.is_contiguous()
+            and vp.is_contiguous() and table.is_contiguous()
+            and lengths.is_contiguous() and not q.data_ptr() % 16
+            and not kp.data_ptr() % 16 and not vp.data_ptr() % 16
+            and 0 <= layer < L and N <= _MAX_SLOTS
+            and (ks is None or (
+                ks.get_device() == d and vs.get_device() == d
+                and ks.dtype == torch.float32 and vs.dtype == torch.float32
+                and ks.shape == kp.shape[:4] and vs.shape == ks.shape
+                and ks.is_contiguous() and vs.is_contiguous())))
+
+
+def _grid(dev: int, dt: int, pool: int, D: int) -> int:
+    """The kernel's persistent grid for a form on device ``dev`` (its
+    one-time set-up on that device runs here; the wrapper's scratch holds
+    two parts a block of at most _MAX_PARTS blocks)."""
+    fn = _build.kernel("ptt_ragged_decode_grid", [ctypes.c_int] * 3)
+    with torch.cuda.device(dev):
+        grid = fn(dt, pool, D)
+    if not 0 < grid <= _MAX_PARTS:
+        raise RuntimeError(f"ragged_decode_partial: no grid for dtype {dt}, "
+                           f"pools {pool}, D {D} (got {grid})")
+    _grids[(dev, dt, pool, D)] = grid
+    return grid
+
+
+def _workspace(dev: int, stream: int, n: int):
+    """The walks' flags (int32, zero; the kernel leaves them zero) and the
+    parts' scratch (two parts a block of the largest grid, 8 heads of
+    D = 128) of the calls on ``stream``, at least ``n`` flags."""
+    work = _work.get((dev, stream))
+    if work is None or work[0].numel() < n:
+        cuda = torch.device("cuda", dev)
+        work = (torch.zeros(max(n, 256), dtype=torch.int32, device=cuda),
+                torch.empty(2 * _MAX_PARTS * _MAX_GROUP * 130,
+                            dtype=torch.float32, device=cuda))
+        _work[(dev, stream)] = work
+    return work
 
 
 def ragged_decode_partial(q, k_pool, v_pool, block_table, lengths, *,
@@ -179,42 +355,61 @@ def ragged_decode_partial(q, k_pool, v_pool, block_table, lengths, *,
     f32 scale pools ``ks_pool``/``vs_pool`` [L, NB, BS, Hkv] or
     [NB, BS, Hkv]); block_table [N, MB] int32; lengths [N] int32, read on
     the device. Returns ``(acc [N, Hkv, G, D], m [N, Hkv, G],
-    l [N, Hkv, G])`` in f32; a length-0 slot returns (0, -1e30, 0)."""
+    l [N, Hkv, G])`` in f32 (views of one buffer on the card); a length-0
+    slot returns (0, -1e30, 0)."""
     ks4, vs4 = _scale_pools(k_pool, ks_pool, vs_pool)
     if mesh is not None:
         raise NotImplementedError(
             "the tensor-parallel mesh form is not ported yet "
             "(ROADMAP queue A10)")
-    if q.device.type == "cpu":
-        return ragged_decode_partial_plain(q, k_pool, v_pool, block_table,
-                                           lengths, layer, ks4, vs4)
-    if q.device.type != "cuda":
+    qdev = q.device
+    where = qdev.type
+    if where != "cuda":
+        if where == "cpu":
+            return ragged_decode_partial_plain(q, k_pool, v_pool,
+                                               block_table, lengths, layer,
+                                               ks4, vs4)
         raise ValueError(f"ragged_decode_partial: unsupported device "
                          f"{q.device}")
-    kp, vp = _as5d(k_pool), _as5d(v_pool)
-    _check_cuda(q, kp, vp, block_table, lengths, layer, ks4, vs4)
+    kp = k_pool if k_pool.dim() == 5 else k_pool[None]
+    vp = v_pool if v_pool.dim() == 5 else v_pool[None]
+    if not _fits(q, kp, vp, block_table, lengths, layer, ks4, vs4):
+        _explain(q, kp, vp, block_table, lengths, layer, ks4, vs4)
     N, Hq, D = q.shape
-    L, NB, BS, Hkv, _ = kp.shape
+    _L, NB, BS, Hkv, _D = kp.shape
     G = Hq // Hkv
-    fn = _build.kernel("ptt_ragged_decode", [ctypes.c_void_p] * 10
-                       + [ctypes.c_int] * 10
-                       + [ctypes.c_float, ctypes.c_void_p])
-    null = ctypes.c_void_p(0)
-    acc = torch.empty((N, Hkv, G, D), dtype=torch.float32, device=q.device)
-    m = torch.empty((N, Hkv, G), dtype=torch.float32, device=q.device)
-    l = torch.empty((N, Hkv, G), dtype=torch.float32, device=q.device)
+    dev = qdev.index
+    dt = _DTYPES[q.dtype]
+    pool = dt if ks4 is None else _POOL_INT8
+    if (dev, dt, pool, D) not in _grids:
+        _grid(dev, dt, pool, D)
+    fn = _build.kernel("ptt_ragged_decode", _ARGS)
+    # acc, m and l back to back in one buffer
+    a = N * Hkv * G
+    out = torch.empty(a * (D + 2), dtype=torch.float32, device=qdev)
+    acc = out.as_strided((N, Hkv, G, D), (Hkv * G * D, G * D, D, 1))
+    m = out.as_strided((N, Hkv, G), (Hkv * G, G, 1), a * D)
+    l = out.as_strided((N, Hkv, G), (Hkv * G, G, 1), a * D + a)
     if N == 0:
         return acc, m, l         # an empty grid is no launch
-    with torch.cuda.device(q.device):
-        err = fn(_build.ptr(q), _build.ptr(kp), _build.ptr(vp),
-                 null if ks4 is None else _build.ptr(ks4),
-                 null if vs4 is None else _build.ptr(vs4),
-                 _build.ptr(block_table), _build.ptr(lengths),
-                 _build.ptr(acc), _build.ptr(m), _build.ptr(l),
-                 N, int(layer), NB, BS, Hkv, G, D, block_table.shape[1],
-                 _DTYPES[q.dtype],
-                 _POOL_INT8 if ks4 is not None else _DTYPES[q.dtype],
-                 1.0 / math.sqrt(D), _build.stream_handle(q))
+    guard = torch.cuda.current_device() != dev
+    if guard:
+        ctx = torch.cuda.device(dev)
+        ctx.__enter__()
+    try:
+        stream = _raw_stream(dev) if _raw_stream is not None else \
+            torch.cuda.current_stream(qdev).cuda_stream
+        flags, scratch = _workspace(dev, stream, N * Hkv)
+        err = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                 None if ks4 is None else ks4.data_ptr(),
+                 None if vs4 is None else vs4.data_ptr(),
+                 block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                 scratch.data_ptr(), flags.data_ptr(), N, layer, NB, BS, Hkv,
+                 G, D, block_table.shape[1], dt, pool, 1.0 / math.sqrt(D),
+                 stream)
+    finally:
+        if guard:
+            ctx.__exit__(None, None, None)
     name = "ragged_decode_int8" if ks4 is not None else "ragged_decode"
     _build.check(err, name)
     _build.launch_counts[name] += 1
@@ -510,6 +705,9 @@ def paged_decode_attention(q, cache: PagedKVCache, layer: int = 0):
                          "at a time: the pools must be 16-byte aligned")
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} out of range for {L} pool layers")
+    if N > _MAX_SLOTS:
+        raise ValueError(f"ragged_decode_partial takes at most {_MAX_SLOTS} "
+                         f"slots a call, got {N}")
     q = q.contiguous()
     out = torch.empty_like(q)
     if N == 0:

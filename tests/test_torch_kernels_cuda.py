@@ -90,9 +90,11 @@ def test_ragged_kernel_matches_plain(dev, dtype, bs, G, d, lens):
     kp = torch.randn(L, NB, bs, hkv, d, generator=g, device=dev).to(dtype)
     vp = torch.randn(L, NB, bs, hkv, d, generator=g, device=dev).to(dtype)
     q = torch.randn(4, G * hkv, d, generator=g, device=dev).to(dtype)
+    before = _build.launch_counts["ragged_decode"]
     acc, m, l = tpa.ragged_decode_partial(q, kp, vp, table, lens, layer=1)
     racc, rm, rl = tpa.ragged_decode_partial_plain(q, kp, vp, table, lens, 1)
     torch.cuda.synchronize()
+    assert _build.launch_counts["ragged_decode"] == before + 1
     assert torch.all(acc[0] == 0) and torch.all(l[0] == 0)
     assert torch.all(m[0] == -1e30)
     if dtype == torch.float32:
@@ -102,6 +104,105 @@ def test_ragged_kernel_matches_plain(dev, dtype, bs, G, d, lens):
     out = acc[1:] / l[1:, ..., None]
     ref = racc[1:] / rl[1:, ..., None]
     assert (out - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+
+
+# Edge shapes of B4's split walk (csrc/ragged_decode.cu: 32-position tiles,
+# 64 for f32 queries, dealt in equal ranges over a persistent grid, each
+# block's range in four pairs' sub-ranges): (lengths, block size, G, D). One long slot (2000 positions and the
+# full 2048-position table) spread over the whole grid; 64 short slots, more
+# walks than blocks; lengths on tile edges (31, 32, 33, 63, 64, 65) and
+# 0; block sizes 16, 32 and 64; G of 1, 4 and 8; D 64 and 128.
+_SPLIT_EDGES = {
+    "n1_2000": ([2000], 64, 4, 128),
+    "n1_full": ([2048], 16, 8, 64),
+    "short64": ([int(x) for x in np.random.default_rng(5).integers(
+        0, 129, size=64)], 32, 4, 128),
+    "tile_edges": ([31, 32, 33, 0, 63, 64, 65, 1], 16, 1, 128),
+    "mixed": ([2000, 1, 0, 777, 128, 1500, 33, 64], 64, 8, 64),
+}
+
+
+def _split_case(dev, name, pools, qdtype, seed):
+    lens, bs, G, d = _SPLIT_EDGES[name]
+    rng = np.random.default_rng(seed)
+    N, hkv, mb = len(lens), 2, 2048 // bs
+    need = [-(-x // bs) for x in lens]
+    nb = sum(need) + 1
+    table = np.zeros((N, mb), np.int32)
+    ids, at = rng.permutation(np.arange(1, nb)), 0
+    for i, k in enumerate(need):
+        table[i, :k] = ids[at:at + k]
+        at += k
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kp = torch.randn(2, nb, bs, hkv, d, generator=g, device=dev)
+    vp = torch.randn(2, nb, bs, hkv, d, generator=g, device=dev)
+    scales = {}
+    if pools == "int8":
+        kp, vp, ks, vs = _int8_pools(kp, vp)
+        scales = dict(ks_pool=ks, vs_pool=vs)
+    else:
+        kp, vp = kp.to(qdtype), vp.to(qdtype)
+    q = torch.randn(N, G * hkv, d, generator=g, device=dev).to(qdtype)
+    return (q, kp, vp, torch.as_tensor(table, device=dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev)), scales
+
+
+@pytest.mark.parametrize("qdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("pools", ["dense", "int8"])
+@pytest.mark.parametrize("name", list(_SPLIT_EDGES))
+def test_ragged_split_edges_match_plain(dev, name, pools, qdtype):
+    """B4 at its split walk's edge shapes, both pool forms, bf16 and f32
+    queries, layer 1 of two, against its plain version: dense bf16 pools
+    within 1e-2 of the normalized output's largest magnitude; f32 pools
+    and int8 pools (exact rows, unrounded probabilities) acc, m and l
+    within 1e-5 of their largest magnitude. One launch a call; two calls
+    agree bit for bit; a length-0 slot gives (0, -1e30, 0)."""
+    args, scales = _split_case(dev, name, pools, qdtype, seed=len(name))
+    key = "ragged_decode_int8" if pools == "int8" else "ragged_decode"
+    before = _build.launch_counts[key]
+    got = [t.clone() for t in tpa.ragged_decode_partial(*args, layer=1,
+                                                        **scales)]
+    again = tpa.ragged_decode_partial(*args, layer=1, **scales)
+    want = tpa.ragged_decode_partial_plain(*args, 1, **scales)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[key] == before + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    empty = args[4] == 0
+    assert torch.all(got[0][empty] == 0) and torch.all(got[2][empty] == 0)
+    assert torch.all(got[1][empty] == -1e30)
+    if pools == "dense" and qdtype == torch.bfloat16:
+        live = ~empty
+        out = got[0][live] / got[2][live][..., None]
+        ref = want[0][live] / want[2][live][..., None]
+        assert (out - ref).abs().max().item() \
+            <= 1e-2 * ref.abs().max().item()
+    else:
+        for a, b in zip(got, want):
+            assert (a - b).abs().max().item() \
+                <= 1e-5 * max(1.0, b.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype,pool", [(1, 1), (1, 2), (0, 0), (0, 2)])
+def test_ragged_schedule_matches_mirror(dev, dtype, pool):
+    """The kernel's own split of the walks (``ptt_ragged_decode_schedule``
+    at the grid the form launches) equals ``tpa.ragged_schedule``."""
+    import ctypes
+    grid = _build.kernel("ptt_ragged_decode_grid", [ctypes.c_int] * 3)(
+        dtype, pool, 128)
+    assert grid > 0
+    fn = _build.kernel("ptt_ragged_decode_schedule",
+                       [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_void_p, ctypes.c_int])
+    for lens, _bs, _g, _d in _SPLIT_EDGES.values():
+        lens_c = (ctypes.c_int * len(lens))(*lens)
+        cap = 8 * (grid + 64 * 8)
+        rows = (ctypes.c_int * (7 * cap))()
+        tile = tpa.RAGGED_TILE if dtype == 1 else tpa.RAGGED_TILE_F32
+        n = fn(lens_c, len(lens), 8, 32, 64, tile, grid, rows, cap)
+        got = [tuple(rows[7 * i:7 * i + 7]) for i in range(n)]
+        assert got == tpa.ragged_schedule(lens, 8, 32, 64, tile, grid)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),

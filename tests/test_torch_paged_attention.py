@@ -100,3 +100,128 @@ def test_unported_forms_raise():
         tpa.ragged_decode_partial(q, kp, vp, table, lens, mesh=object())
     with pytest.raises(ValueError):
         tpa.ragged_decode_partial(q.to("meta"), kp, vp, table, lens)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's split walk (csrc/ragged_decode.cu): its schedule, mirrored in
+# tpa.ragged_schedule, and its ordered merge of a walk's parts
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("seed,n,hkv,tile,grid", [
+    (0, 1, 8, 32, 132), (1, 8, 8, 32, 132), (2, 64, 8, 32, 132),
+    (3, 5, 2, 64, 7), (4, 3, 1, 4, 192), (5, 17, 4, 32, 1),
+    (6, 8, 8, 64, 192), (7, 2, 8, 32, 131)])
+def test_schedule_covers_each_position_once(seed, n, hkv, tile, grid):
+    """Every (slot, kv head) walk is cut into parts on tile boundaries, one
+    a block, in consecutive blocks; the parts cover each of the slot's
+    positions exactly once (a length-0 slot: one empty tile); no block
+    takes more than ceil(total / grid) tiles."""
+    mb, bs = 32, 64
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, mb * bs + 100, size=n)
+    lens[0] = 0 if n > 1 else lens[0]
+    rows = tpa.ragged_schedule(lens.tolist(), hkv, mb, bs, tile, grid)
+    true = [min(int(x), mb * bs) for x in lens]
+    tiles = [max(1, -(-x // tile)) for x in true]
+    per = -(-hkv * sum(tiles) // grid)
+    load = np.zeros(grid, int)
+    walks = {}
+    for b, s, hk, ta, tb, t, parts in rows:
+        assert 0 <= b < grid and 0 <= ta < tb <= t == tiles[s]
+        load[b] += tb - ta
+        walks.setdefault((s, hk), []).append((b, ta, tb, parts))
+    assert load.max() <= per and load.sum() == hkv * sum(tiles)
+    assert sorted(walks) == [(s, hk) for s in range(n) for hk in range(hkv)]
+    for (s, hk), ps in walks.items():
+        assert ps[0][1] == 0 and ps[-1][2] == tiles[s]
+        for a, b in zip(ps, ps[1:]):
+            assert b[0] == a[0] + 1 and b[1] == a[2]
+        assert all(p[3] == len(ps) for p in ps)
+        covered = np.zeros(true[s], int)
+        for _b, ta, tb, _p in ps:
+            covered[ta * tile:min(tb * tile, true[s])] += 1
+        assert np.all(covered == 1)
+
+
+def _split_inputs(pools, seed=9):
+    """Five slots (lengths 0, 1, one block, a partial block, the full
+    table) over two-layer pools: f32, f32 holding bf16 values, or int8
+    with f32 scales (``quantize_kv``); f32 queries."""
+    from paddle_tpu_torch.kernels.quant_matmul import quantize_kv
+    q, kp, vp, table, _ = _mk(seed, 5, [1] * 5, layers=2)
+    lens = np.array([0, 1, BS, 2 * BS + 3, MB * BS], np.int32)
+    if pools == "bf16 data":
+        q, kp, vp = (np.asarray(torch.as_tensor(a).bfloat16().float())
+                     for a in (q, kp, vp))
+    ks = vs = None
+    if pools == "int8":
+        qk, ks = quantize_kv(torch.as_tensor(kp))
+        qv, vs = quantize_kv(torch.as_tensor(vp))
+        kp, vp, ks, vs = (t.numpy() for t in (qk, qv, ks, vs))
+    return q, kp, vp, table, lens, ks, vs
+
+
+@pytest.mark.parametrize("pools", ["f32", "bf16 data", "int8"])
+@pytest.mark.parametrize("tile,grid", [(4, 7), (4, 3), (8, 5), (32, 132)])
+def test_split_merge_matches_unsplit_and_pallas(pools, tile, grid):
+    """The plain walk cut into the schedule's parts and merged in part
+    order equals the unsplit plain walk and the JAX kernel (Pallas,
+    interpret mode) within f32 1e-5, layer 1 of two; tiles of 4 and 8
+    positions split these short walks into parts."""
+    q, kp, vp, table, lens, ks, vs = _split_inputs(pools)
+    tq = [torch.as_tensor(a) for a in (q, kp, vp, table, lens)]
+    scales = {} if ks is None else dict(ks_pool=torch.as_tensor(ks),
+                                        vs_pool=torch.as_tensor(vs))
+    rows = tpa.ragged_schedule(lens.tolist(), HKV, MB, BS, tile, grid)
+    if tile < 32:
+        assert max(r[6] for r in rows) >= 2
+    split = tpa.ragged_decode_partial_split_plain(*tq, 1, tile=tile,
+                                                  grid=grid, **scales)
+    whole = tpa.ragged_decode_partial_plain(*tq, 1, **scales)
+    jscales = {} if ks is None else dict(ks_pool=jnp.asarray(ks),
+                                         vs_pool=jnp.asarray(vs))
+    want = jax_ragged(*(jnp.asarray(a) for a in (q, kp, vp, table, lens)),
+                      layer=1, **jscales)
+    for got, ref, w, name in zip(split, whole, want, ("acc", "m", "l")):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-5,
+                                   rtol=0, err_msg=name)
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=1e-5, err_msg=name)
+    assert torch.all(split[0][0] == 0) and torch.all(split[2][0] == 0)
+    assert torch.all(split[1][0] == -1e30)
+
+
+def test_split_merge_bf16_pools_within_the_kernels_tolerance():
+    """bf16 pools round each part's probabilities to bf16 against that
+    part's own maximum (as the kernel's tiles and the TPU kernel's do), so
+    the split walk differs from the unsplit one at bf16's precision: the
+    normalized output within 1e-2 of its largest magnitude, the
+    tolerance chip_smoke.py holds the bf16 kernel to."""
+    q, kp, vp, table, lens, _, _ = _split_inputs("f32")
+    tq = [torch.as_tensor(a) for a in (q, kp, vp, table, lens)]
+    tq = [t.bfloat16() if t.is_floating_point() else t for t in tq]
+    split = tpa.ragged_decode_partial_split_plain(*tq, 1, tile=4, grid=7)
+    whole = tpa.ragged_decode_partial_plain(*tq, 1)
+    out = split[0][1:] / split[2][1:, ..., None]
+    ref = whole[0][1:] / whole[2][1:, ..., None]
+    assert (out - ref).abs().max() <= 1e-2 * ref.abs().max()
+    torch.testing.assert_close(split[1], whole[1], atol=1e-5, rtol=0)
+
+
+def test_merge_parts_is_the_flash_decoding_combine():
+    """merge_parts of (acc, m, l) states, one of them empty (the identity
+    (0, -1e30, 0)), equals the softmax-weighted sum over their union."""
+    rng = np.random.default_rng(3)
+    s = torch.as_tensor(rng.standard_normal((2, 12)), dtype=torch.float32)
+    v = torch.as_tensor(rng.standard_normal((2, 12, 5)), dtype=torch.float32)
+
+    def state(lo, hi):
+        if lo == hi:
+            return (torch.zeros(2, 5), torch.full((2,), -1e30),
+                    torch.zeros(2))
+        m = s[:, lo:hi].amax(-1)
+        p = torch.exp(s[:, lo:hi] - m[:, None])
+        return torch.einsum("nt,ntd->nd", p, v[:, lo:hi]), m, p.sum(-1)
+    acc, m, l = tpa.merge_parts([state(0, 5), state(5, 5), state(5, 12)])
+    ref = torch.einsum("nt,ntd->nd", torch.softmax(s, -1), v)
+    torch.testing.assert_close(acc / l[:, None], ref, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(m, s.amax(-1))
