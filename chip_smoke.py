@@ -125,7 +125,10 @@ multi-step form ``mega_decode_loop``) and the paged-cache API (B6-B8):
      within 1e-5, bf16 within 2e-2, 0 for a zero-length slot; the JAX package's chip-test path (cache init, prefill blocks,
      decode attention, token append, block append) with its launches
      counted; each kernel timed beside its bound, its plain version and
-     (B7, B8) ``index_put_``;
+     (B7, B8) ``index_put_``, with its kernels alone and the host
+     microseconds a call: B6 at (s4)'s lengths and at one and eight slots
+     of 2000 positions (``ragged_paged_decode`` at each shape beside it),
+     B8 also from a cold L2;
 (s1) after phase 6 (c): B5's multi-step form against its plain version
      for one k=4 draft wave at 4 slots and the serving mix's lengths: f32
      Llama-3-8B at full width and depth (dense head: tokens and states
@@ -205,12 +208,10 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, iters, key):
-    """Mean device time in ms of the kernels whose name holds ``key`` over
-    ``iters`` calls of ``fn()`` (torch.profiler, after one warm-up call):
-    the kernel alone, where CUDA events around back-to-back calls of a
-    short kernel time its wrapper's host work. None when the trace holds
-    no such kernel."""
+def kernel_spans(fn, iters, key):
+    """The device intervals (start, end) in us of the kernels whose name
+    holds ``key`` over ``iters`` calls of ``fn()`` (torch.profiler, after
+    one warm-up call), in order."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -218,10 +219,34 @@ def kernel_device_ms(fn, iters, key):
         for i in range(iters):
             fn(i)
         torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and key in e.name]
-    return sum(spans) / 1e3 / iters if spans else None
+    return sorted((e.time_range.start, e.time_range.end)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and key in e.name)
+
+
+def kernel_device_ms(fn, iters, key):
+    """Mean device time in ms of the kernels whose name holds ``key`` over
+    ``iters`` calls of ``fn()``, summed over every such kernel of a call:
+    the kernel alone, where CUDA events around back-to-back calls of a
+    short kernel time its wrapper's host work. None when the trace holds
+    no such kernel."""
+    spans = kernel_spans(fn, iters, key)
+    return sum(b - a for a, b in spans) / 1e3 / iters if spans else None
+
+
+def kernel_span_ms(fn, iters, key):
+    """As :func:`kernel_device_ms`, but the union of the kernels'
+    intervals: where a call's kernels overlap (a dependent launch starts
+    before its primary ends) the time the card spends on the call."""
+    spans = kernel_spans(fn, iters, key)
+    if not spans:
+        return None
+    union, end = 0.0, spans[0][0]
+    for a, b in spans:
+        union += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return union / 1e3 / iters
 
 
 def host_us(fn, calls=1000):
@@ -1377,8 +1402,9 @@ def check_paged_api(tpa, build, dev, NB=512):
     — cache init, prefill blocks, decode attention, token append, block
     append — with the launch counts read around it, and each kernel timed
     at Llama-3-8B's shapes beside its bound, its plain version and (B7,
-    B8) ``index_put_``. Returns (the path's launches, the kernels-line
-    fields of B6, B7, B8)."""
+    B8) ``index_put_``: B6 also at RAGGED_LONG's shapes, B8 also cycling
+    through eight source sets and destinations (cold in L2). Returns (the
+    path's launches, the kernels-line fields of B6, B7, B8)."""
     L, BS, Hkv, N, MB = 4, 64, 8, 8, 32
     rng = np.random.default_rng(SEED + 12)
     g = torch.Generator(device=dev).manual_seed(SEED + 12)
@@ -1481,10 +1507,6 @@ def check_paged_api(tpa, build, dev, NB=512):
                           dtype=torch.bfloat16) for _ in range(2))
     q = torch.randn(N, G * Hkv, D, generator=g, device=dev,
                     dtype=torch.bfloat16)
-    cache = tpa.PagedKVCache(kp, vp, table, lens)
-    out = tpa.paged_decode_attention(q, cache, layer=1)
-    ref = tpa.paged_decode_attention_plain(q, cache, layer=1)
-    tokens = int(lens.sum())
 
     def fields(ms, plain_ms, nbytes, flops, library_ms, err, shape):
         t_ops = flops / BF16_FLOPS * 1e3
@@ -1493,41 +1515,93 @@ def check_paged_api(tpa, build, dev, NB=512):
                 "bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops > t_bytes else "bytes",
                 "library_ms": library_ms, "shape": shape}
-    b6 = fields(
-        time_ms(lambda i=0: tpa.paged_decode_attention(q, cache,
-                                                       layer=i % L), 4 * L),
-        time_ms(lambda i=0: tpa.paged_decode_attention_plain(q, cache,
-                                                             i % L), L),
-        2 * tokens * Hkv * D * 2 + 2 * q.numel() * 2 + table.numel() * 4
-        + N * 4, 4.0 * tokens * Hkv * G * D, None, max_err(out, ref),
-        f"N={N} sum(len)={tokens} Hq=32 Hkv=8 D=128 bf16")
+
     k_new, v_new = (torch.randn(N, Hkv, D, generator=g, device=dev,
                                 dtype=torch.bfloat16) for _ in range(2))
     blk = table.gather(1, (lens.long() // BS)[:, None])[:, 0]
     off = (lens % BS).int()
+    kb, vb = (torch.randn(MB, BS, Hkv, D, generator=g, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2))
+    ids = table[3]
+
+    def b6_case(lengths):
+        n = len(lengths)
+        qn = q[:n]
+        cache = tpa.PagedKVCache(kp, vp, table[:n], torch.tensor(
+            lengths, dtype=torch.int32, device=dev))
+        return (lengths, qn, cache,
+                lambda i=0: tpa.paged_decode_attention(qn, cache,
+                                                       layer=i % L))
+    b6_cases = {"s4": b6_case(lens.tolist()),
+                **{name: b6_case(lengths)
+                   for name, lengths in RAGGED_LONG.items()}}
+
+    def b7_call(i=0):
+        return tpa.paged_append_token(kp, vp, k_new, v_new, blk, off,
+                                      layer=1)
+
+    def b8_call(i=0):
+        return tpa.paged_append_blocks(kp, vp, kb, vb, ids, layer=2)
+    # the wrappers' host cost first: once a process has run the profiler,
+    # every launch costs it more host time; 200 calls stay within the
+    # launch queue, which would otherwise hold the host to the device
+    hosts = {name: host_us(case[3], calls=200)
+             for name, case in b6_cases.items()}
+    hosts["b7"] = host_us(b7_call, calls=200)
+    hosts["b8"] = host_us(b8_call, calls=200)
+
+    def time_b6(name, plain=True):
+        """B6 at one of ``b6_cases``: events over back-to-back calls (one
+        pool layer a call in turn), the kernels alone (the profiler:
+        ``device_ms`` sums the call's kernels, ``device_span_ms`` is their
+        union, which the share of the bound reads), the host microseconds
+        a call, and ``ragged_paged_decode`` (B4 and its normalization:
+        another rounding of p, an in-repo note) at the same shape."""
+        lengths, qn, cache, call = b6_cases[name]
+        n = len(lengths)
+        out = tpa.paged_decode_attention(qn, cache, layer=1)
+        ref = tpa.paged_decode_attention_plain(qn, cache, layer=1)
+        tokens = int(sum(lengths))
+
+        def b4(i=0):
+            return tpa.ragged_paged_decode(qn, cache, layer=i % L)
+        f = fields(
+            time_ms(call, 4 * L),
+            time_ms(lambda i=0: tpa.paged_decode_attention_plain(
+                qn, cache, i % L), L) if plain else None,
+            2 * tokens * Hkv * D * 2 + 2 * qn.numel() * 2 + n * MB * 4
+            + n * 4, 4.0 * tokens * Hkv * G * D, None, max_err(out, ref),
+            f"N={n} sum(len)={tokens} Hq=32 Hkv=8 D=128 bf16")
+        f["device_ms"] = kernel_device_ms(call, 4 * L, "paged_decode")
+        f["device_span_ms"] = kernel_span_ms(call, 4 * L, "paged_decode")
+        f["host_us"] = hosts[name]
+        f["share_of_bound"] = (f["bound_ms"] / f["device_span_ms"]
+                               if f["device_span_ms"] else None)
+        f["ragged_paged_decode"] = {
+            "ms": time_ms(b4, 4 * L),
+            "device_ms": kernel_device_ms(b4, 4 * L, "ragged_decode")}
+        return f
+    b6 = time_b6("s4")
+    b6["long_shapes"] = {name: time_b6(name, plain=False)
+                         for name in RAGGED_LONG}
 
     def index_put_token(i=0):
         kp[1, blk.long(), off.long()] = k_new
         vp[1, blk.long(), off.long()] = v_new
     b7 = fields(
-        time_ms(lambda i=0: tpa.paged_append_token(kp, vp, k_new, v_new,
-                                                   blk, off, layer=1), 50),
+        time_ms(b7_call, 50),
         time_ms(lambda i=0: tpa.paged_append_token_plain(
             kp, vp, k_new, v_new, blk, off, 1), 50),
         2 * 2 * N * Hkv * D * 2 + 2 * N * 4, 0.0,
         time_ms(index_put_token, 50), 0.0,
         f"N={N} rows of [Hkv=8, D=128] bf16 into [L=4, NB=512, BS=64] "
         "pools")
-    kb, vb = (torch.randn(MB, BS, Hkv, D, generator=g, device=dev,
-                          dtype=torch.bfloat16) for _ in range(2))
-    ids = table[3]
 
     def index_put_blocks(i=0):
         kp[2, ids.long()] = kb
         vp[2, ids.long()] = vb
     b8 = fields(
-        time_ms(lambda i=0: tpa.paged_append_blocks(kp, vp, kb, vb, ids,
-                                                    layer=2), 20),
+        time_ms(b8_call, 20),
         time_ms(lambda i=0: tpa.paged_append_blocks_plain(kp, vp, kb, vb,
                                                           ids, 2), 20),
         2 * 2 * kb.numel() * 2 + MB * 4, 0.0, time_ms(index_put_blocks, 20),
@@ -1535,20 +1609,33 @@ def check_paged_api(tpa, build, dev, NB=512):
         "prefill) into [L=4, NB=512, BS=64] pools")
     # the kernels' own device time: B7/B8 last a few microseconds, less
     # than their wrappers' host work between back-to-back calls
-    b6["device_ms"] = kernel_device_ms(
-        lambda i=0: tpa.paged_decode_attention(q, cache, layer=i % L),
-        4 * L, "paged_decode_kernel")
-    b7["device_ms"] = kernel_device_ms(
-        lambda i=0: tpa.paged_append_token(kp, vp, k_new, v_new, blk, off,
-                                           layer=1), 50,
-        "append_token_kernel")
-    b8["device_ms"] = kernel_device_ms(
-        lambda i=0: tpa.paged_append_blocks(kp, vp, kb, vb, ids, layer=2),
-        20, "append_blocks_kernel")
+    b7["device_ms"] = kernel_device_ms(b7_call, 50, "append_token_kernel")
+    b7["host_us"] = hosts["b7"]
+    b8["device_ms"] = kernel_device_ms(b8_call, 20, "append_blocks_kernel")
+    b8["host_us"] = hosts["b8"]
+    # B8 cold: eight source sets and destinations in turn (134 MB of
+    # traffic a cycle against the 50 MB L2), as a prefill finds them
+    rng8 = np.random.default_rng(SEED + 13)
+    sets = [(torch.randn(MB, BS, Hkv, D, generator=g, device=dev,
+                         dtype=torch.bfloat16),
+             torch.randn(MB, BS, Hkv, D, generator=g, device=dev,
+                         dtype=torch.bfloat16),
+             torch.as_tensor(rng8.permutation(np.arange(1, NB))[:MB]
+                             .astype(np.int32), device=dev))
+            for _ in range(8)]
+
+    def b8_cold(i=0):
+        kc, vc, ic = sets[i % 8]
+        return tpa.paged_append_blocks(kp, vp, kc, vc, ic, layer=i % L)
+    b8["cold_ms"] = time_ms(b8_cold, 48)
+    b8["device_cold_ms"] = kernel_device_ms(b8_cold, 48,
+                                            "append_blocks_kernel")
+    b8["share_of_bound_cold"] = (b8["bound_ms"] / b8["device_cold_ms"]
+                                 if b8["device_cold_ms"] else None)
     log(f"  B6 timing: {b6}")
     log(f"  B7 timing: {b7}")
     log(f"  B8 timing: {b8}")
-    del kp, vp
+    del kp, vp, sets
     torch.cuda.empty_cache()
     return path_launches, {"b6": b6, "b7": b7, "b8": b8, "checks": errs}
 

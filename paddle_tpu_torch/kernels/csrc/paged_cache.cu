@@ -18,10 +18,13 @@
 // 16-byte aligned: the wrapper checks). B7: one block per slot, its
 // threads striding over the slot's K row and V row. B8: a grid of
 // (block, chunk) — each thread block copies one chunk of one prefill
-// block, so a few large blocks still spread over many SMs. The
-// destination block ids and offsets are read on the device. Duplicate
-// destinations (the trash block) are written in an unspecified order,
-// as on the TPU.
+// block, so a few large blocks still spread over many SMs — and each
+// thread issues all its loads (kVecs vectors of K and of V, streaming:
+// the prefill rows are read once) before its stores, so a thread keeps
+// 128 bytes in flight and the card's HBM rate is reached from a cold L2.
+// The destination block ids and offsets are read on the device.
+// Duplicate destinations (the trash block) are written in an unspecified
+// order, as on the TPU.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -29,7 +32,8 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kChunkVecs = 1024;   // 16-byte vectors a B8 block copies
+constexpr int kVecs = 4;                      // 16-byte vectors a B8 thread
+constexpr int kChunkVecs = kThreads * kVecs;  // copies of K and of V
 
 __global__ void __launch_bounds__(kThreads)
 append_token_kernel(const uint4* __restrict__ k_new,   // [N, row]
@@ -57,13 +61,25 @@ append_blocks_kernel(const uint4* __restrict__ k_blocks,  // [nblk, blk]
                      const int* __restrict__ blk_ids,     // [nblk]
                      int layer, int NB, int blk_vecs) {
   const int b = blockIdx.x;
-  const int64_t dst = (int64_t(layer) * NB + blk_ids[b]) * blk_vecs;
   const int64_t src = int64_t(b) * blk_vecs;
-  const int e0 = blockIdx.y * kChunkVecs;
-  const int e1 = min(blk_vecs, e0 + kChunkVecs);
-  for (int e = e0 + threadIdx.x; e < e1; e += blockDim.x) {
-    k_pool[dst + e] = k_blocks[src + e];
-    v_pool[dst + e] = v_blocks[src + e];
+  const int e0 = blockIdx.y * kChunkVecs + threadIdx.x;
+  uint4 kv[kVecs], vv[kVecs];
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    const int e = e0 + i * kThreads;
+    if (e < blk_vecs) {
+      kv[i] = __ldcs(k_blocks + src + e);
+      vv[i] = __ldcs(v_blocks + src + e);
+    }
+  }
+  const int64_t dst = (int64_t(layer) * NB + blk_ids[b]) * blk_vecs;
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    const int e = e0 + i * kThreads;
+    if (e < blk_vecs) {
+      k_pool[dst + e] = kv[i];
+      v_pool[dst + e] = vv[i];
+    }
   }
 }
 

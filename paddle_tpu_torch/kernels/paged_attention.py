@@ -227,15 +227,34 @@ def ragged_decode_partial_split_plain(q, k_pool, v_pool, block_table,
 # the kernel's wrapper
 # ---------------------------------------------------------------------------
 _grids = {}   # (device index, dtype code, pool code, D) -> the kernel's grid
-# (device index, stream) -> (int32 flags, zero between calls; the parts'
-# f32 scratch): calls on one stream run one after another, so they share
+# (device index, stream) -> (int32 flags, zero between calls; f32 scratch:
+# the parts, then B6's walk maxima): calls on one stream run one after
+# another, so B4 and B6 share them
 _work = {}
 # the current stream's handle without a Stream object (CUDA builds)
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 _ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float,
                                                         ctypes.c_void_p]
-_MAX_PARTS = 192        # the kernel's largest grid (kMaxParts)
+_MAX_PARTS = 192        # the kernels' largest grid (kMaxParts)
 _MAX_SLOTS = 511        # slots a call (the schedule's shared memory)
+# the parts' scratch: two parts a block of the largest grid, 8 heads of
+# D = 128 (acc, m, l)
+_PARTS_FLOATS = 2 * _MAX_PARTS * _MAX_GROUP * 130
+
+
+def _stream(dev: int) -> int:
+    """Device ``dev``'s current stream handle."""
+    return _raw_stream(dev) if _raw_stream is not None else \
+        torch.cuda.current_stream(dev).cuda_stream
+
+
+def _on_device(dev: int, fn, *args) -> int:
+    """``fn(*args)`` with device ``dev`` current, made so only when another
+    device is."""
+    if torch.cuda.current_device() == dev:
+        return fn(*args)
+    with torch.cuda.device(dev):
+        return fn(*args)
 
 
 def _explain(q, kp, vp, block_table, lengths, layer, ks, vs):
@@ -333,14 +352,15 @@ def _grid(dev: int, dt: int, pool: int, D: int) -> int:
 
 
 def _workspace(dev: int, stream: int, n: int):
-    """The walks' flags (int32, zero; the kernel leaves them zero) and the
-    parts' scratch (two parts a block of the largest grid, 8 heads of
-    D = 128) of the calls on ``stream``, at least ``n`` flags."""
+    """The walks' flags (int32, zero; the kernels leave them zero) and the
+    f32 scratch (the parts' ``_PARTS_FLOATS``, then 8 maxima a walk) of
+    the calls on ``stream``, for at least ``n`` walks."""
     work = _work.get((dev, stream))
     if work is None or work[0].numel() < n:
         cuda = torch.device("cuda", dev)
-        work = (torch.zeros(max(n, 256), dtype=torch.int32, device=cuda),
-                torch.empty(2 * _MAX_PARTS * _MAX_GROUP * 130,
+        n = max(n, 256)
+        work = (torch.zeros(n, dtype=torch.int32, device=cuda),
+                torch.empty(_PARTS_FLOATS + n * _MAX_GROUP,
                             dtype=torch.float32, device=cuda))
         _work[(dev, stream)] = work
     return work
@@ -392,24 +412,15 @@ def ragged_decode_partial(q, k_pool, v_pool, block_table, lengths, *,
     l = out.as_strided((N, Hkv, G), (Hkv * G, G, 1), a * D + a)
     if N == 0:
         return acc, m, l         # an empty grid is no launch
-    guard = torch.cuda.current_device() != dev
-    if guard:
-        ctx = torch.cuda.device(dev)
-        ctx.__enter__()
-    try:
-        stream = _raw_stream(dev) if _raw_stream is not None else \
-            torch.cuda.current_stream(qdev).cuda_stream
-        flags, scratch = _workspace(dev, stream, N * Hkv)
-        err = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                 None if ks4 is None else ks4.data_ptr(),
-                 None if vs4 is None else vs4.data_ptr(),
-                 block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                 scratch.data_ptr(), flags.data_ptr(), N, layer, NB, BS, Hkv,
-                 G, D, block_table.shape[1], dt, pool, 1.0 / math.sqrt(D),
-                 stream)
-    finally:
-        if guard:
-            ctx.__exit__(None, None, None)
+    stream = _stream(dev)
+    flags, scratch = _workspace(dev, stream, N * Hkv)
+    err = _on_device(dev, fn, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                     None if ks4 is None else ks4.data_ptr(),
+                     None if vs4 is None else vs4.data_ptr(),
+                     block_table.data_ptr(), lengths.data_ptr(),
+                     out.data_ptr(), scratch.data_ptr(), flags.data_ptr(), N,
+                     layer, NB, BS, Hkv, G, D, block_table.shape[1], dt, pool,
+                     1.0 / math.sqrt(D), stream)
     name = "ragged_decode_int8" if ks4 is not None else "ragged_decode"
     _build.check(err, name)
     _build.launch_counts[name] += 1
@@ -526,6 +537,41 @@ def _index_check(name, idx, n, dev):
         raise ValueError(f"{name}: indices must be int32 [{n}] on {dev}")
 
 
+def _append_fits(kp, vp, kn, vn, i0, i1, layer) -> bool:
+    """Whether an append kernel takes these tensors as they are: the new
+    rows ``kn``/``vn`` [n, Hkv, D] (B7, with int32 [n] indices ``i0`` and
+    ``i1``) or [n, BS, Hkv, D] (B8, ``i1`` None) in the pools' dtype.
+    Every check of :func:`_check_pools` and :func:`_index_check`, with no
+    cast or copy needed, in one expression of cheap reads."""
+    shp, ks = kp.shape, kn.shape
+    nd, nk = len(shp), len(ks)
+    if not (nd == 4 or nd == 5) or nk != (3 if i1 is not None else 4):
+        return False
+    dt, d, n = kp.dtype, kp.get_device(), ks[0]
+    return (vp.shape == shp and vn.shape == ks and ks[-1] == shp[-1]
+            and ks[-2] == shp[-2] and (nk == 3 or ks[1] == shp[-3])
+            and vp.dtype is dt and kn.dtype is dt and vn.dtype is dt
+            and vp.get_device() == d and kn.get_device() == d
+            and vn.get_device() == d and kp.is_contiguous()
+            and vp.is_contiguous() and kn.is_contiguous()
+            and vn.is_contiguous()
+            and not (kp.data_ptr() | vp.data_ptr() | kn.data_ptr()
+                     | vn.data_ptr()) % 16
+            and 0 <= layer < (shp[0] if nd == 5 else 1)
+            and not shp[-2] * shp[-1] * kp.element_size() % 16
+            and i0.dtype is torch.int32 and i0.shape == (n,)
+            and i0.get_device() == d and i0.is_contiguous()
+            and (i1 is None or (i1.dtype is torch.int32 and i1.shape == (n,)
+                                and i1.get_device() == d
+                                and i1.is_contiguous())))
+
+
+_TOKEN_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_BLOCKS_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+    + [ctypes.c_int64, ctypes.c_void_p]
+_DECODE_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+
 def paged_append_token_plain(k_pool, v_pool, k_new, v_new, blk_phys, offset,
                              layer: int = 0):
     """The plain PyTorch version of :func:`paged_append_token`
@@ -546,33 +592,37 @@ def paged_append_token(k_pool, v_pool, k_new, v_new, blk_phys, offset,
     Slots meant to be idle point at the trash block. Launches
     ``csrc/paged_cache.cu`` on CUDA tensors (or raises), runs
     :func:`paged_append_token_plain` on CPU tensors."""
-    if k_pool.device.type == "cpu":
-        return paged_append_token_plain(k_pool, v_pool, k_new, v_new,
-                                        blk_phys, offset, layer)
-    if k_pool.device.type != "cuda":
+    where = k_pool.device.type
+    if where != "cuda":
+        if where == "cpu":
+            return paged_append_token_plain(k_pool, v_pool, k_new, v_new,
+                                            blk_phys, offset, layer)
         raise ValueError(f"paged_append_token: unsupported device "
                          f"{k_pool.device}")
-    kn = k_new.to(k_pool.dtype).contiguous()
-    vn = v_new.to(v_pool.dtype).contiguous()
-    N = kn.shape[0]
-    kp5, vp5 = _check_pools("paged_append_token", k_pool, v_pool, kn, (N,),
-                            layer=layer)
-    if vn.shape != kn.shape:
-        raise ValueError("paged_append_token: k_new and v_new differ in "
-                         "shape")
-    _check_pools("paged_append_token", k_pool, v_pool, vn, (N,), layer=layer)
-    for idx in (blk_phys, offset):
-        _index_check("paged_append_token", idx, N, k_pool.device)
+    if not _append_fits(k_pool, v_pool, k_new, v_new, blk_phys, offset,
+                        layer):
+        k_new = k_new.to(k_pool.dtype).contiguous()
+        v_new = v_new.to(v_pool.dtype).contiguous()
+        N = k_new.shape[0]
+        _check_pools("paged_append_token", k_pool, v_pool, k_new, (N,),
+                     layer=layer)
+        if v_new.shape != k_new.shape:
+            raise ValueError("paged_append_token: k_new and v_new differ in "
+                             "shape")
+        _check_pools("paged_append_token", k_pool, v_pool, v_new, (N,),
+                     layer=layer)
+        for idx in (blk_phys, offset):
+            _index_check("paged_append_token", idx, N, k_pool.device)
+        blk_phys, offset = blk_phys.contiguous(), offset.contiguous()
+    N = k_new.shape[0]
     if N == 0:
         return k_pool, v_pool
-    fn = _build.kernel("ptt_paged_append_token", [ctypes.c_void_p] * 6
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    P = _build.ptr
-    with torch.cuda.device(k_pool.device):
-        err = fn(P(kn), P(vn), P(kp5), P(vp5), P(blk_phys), P(offset), N,
-                 int(layer), kp5.shape[1], kp5.shape[2],
-                 kp5.shape[3] * kp5.shape[4] * kp5.element_size(),
-                 _build.stream_handle(kn))
+    fn = _build.kernel("ptt_paged_append_token", _TOKEN_ARGS)
+    shp, dev = k_pool.shape, k_pool.get_device()
+    err = _on_device(dev, fn, k_new.data_ptr(), v_new.data_ptr(),
+                     k_pool.data_ptr(), v_pool.data_ptr(), blk_phys.data_ptr(),
+                     offset.data_ptr(), N, int(layer), shp[-4], shp[-3],
+                     shp[-2] * shp[-1] * k_pool.element_size(), _stream(dev))
     _build.check(err, "paged_append_token")
     _build.launch_counts["paged_append_token"] += 1
     return k_pool, v_pool
@@ -599,33 +649,37 @@ def paged_append_blocks(k_pool, v_pool, k_blocks, v_blocks, blk_ids,
     :func:`paged_append_token`. Launches ``csrc/paged_cache.cu`` on CUDA
     tensors (or raises), runs :func:`paged_append_blocks_plain` on CPU
     tensors."""
-    if k_pool.device.type == "cpu":
-        return paged_append_blocks_plain(k_pool, v_pool, k_blocks, v_blocks,
-                                         blk_ids, layer)
-    if k_pool.device.type != "cuda":
+    where = k_pool.device.type
+    if where != "cuda":
+        if where == "cpu":
+            return paged_append_blocks_plain(k_pool, v_pool, k_blocks,
+                                             v_blocks, blk_ids, layer)
         raise ValueError(f"paged_append_blocks: unsupported device "
                          f"{k_pool.device}")
-    kb = k_blocks.to(k_pool.dtype).contiguous()
-    vb = v_blocks.to(v_pool.dtype).contiguous()
-    nblk = kb.shape[0]
-    kp5, vp5 = _check_pools("paged_append_blocks", k_pool, v_pool, kb,
-                            (nblk,), layer=layer)
-    if vb.shape != kb.shape or kb.dim() != 4:
-        raise ValueError("paged_append_blocks: k_blocks and v_blocks must "
-                         "both be [nblk, BS, Hkv, D]")
-    _check_pools("paged_append_blocks", k_pool, v_pool, vb, (nblk,),
-                 layer=layer)
-    _index_check("paged_append_blocks", blk_ids, nblk, k_pool.device)
+    if not _append_fits(k_pool, v_pool, k_blocks, v_blocks, blk_ids, None,
+                        layer):
+        k_blocks = k_blocks.to(k_pool.dtype).contiguous()
+        v_blocks = v_blocks.to(v_pool.dtype).contiguous()
+        nblk = k_blocks.shape[0]
+        _check_pools("paged_append_blocks", k_pool, v_pool, k_blocks,
+                     (nblk,), layer=layer)
+        if v_blocks.shape != k_blocks.shape or k_blocks.dim() != 4:
+            raise ValueError("paged_append_blocks: k_blocks and v_blocks "
+                             "must both be [nblk, BS, Hkv, D]")
+        _check_pools("paged_append_blocks", k_pool, v_pool, v_blocks,
+                     (nblk,), layer=layer)
+        _index_check("paged_append_blocks", blk_ids, nblk, k_pool.device)
+        blk_ids = blk_ids.contiguous()
+    nblk = k_blocks.shape[0]
     if nblk == 0:
         return k_pool, v_pool
-    fn = _build.kernel("ptt_paged_append_blocks", [ctypes.c_void_p] * 5
-                       + [ctypes.c_int] * 3
-                       + [ctypes.c_int64, ctypes.c_void_p])
-    P = _build.ptr
-    with torch.cuda.device(k_pool.device):
-        err = fn(P(kb), P(vb), P(kp5), P(vp5), P(blk_ids), nblk, int(layer),
-                 kp5.shape[1], kb[0].numel() * kb.element_size(),
-                 _build.stream_handle(kb))
+    fn = _build.kernel("ptt_paged_append_blocks", _BLOCKS_ARGS)
+    shp, dev = k_pool.shape, k_pool.get_device()
+    err = _on_device(dev, fn, k_blocks.data_ptr(), v_blocks.data_ptr(),
+                     k_pool.data_ptr(), v_pool.data_ptr(), blk_ids.data_ptr(),
+                     nblk, int(layer), shp[-4],
+                     shp[-3] * shp[-2] * shp[-1] * k_pool.element_size(),
+                     _stream(dev))
     _build.check(err, "paged_append_blocks")
     _build.launch_counts["paged_append_blocks"] += 1
     return k_pool, v_pool
@@ -659,21 +713,54 @@ def paged_decode_attention_plain(q, cache: PagedKVCache, layer: int = 0):
     return (o / p.sum(dim=-1)[..., None]).reshape(N, Hq, D).to(q.dtype)
 
 
-def paged_decode_attention(q, cache: PagedKVCache, layer: int = 0):
-    """Decode attention: q [N, Hq, D] -> [N, Hq, D], each slot attending
-    its first ``cache.lengths[n]`` positions of pool plane ``layer``
-    (pools [L, NB, BS, Hkv, D] or [NB, BS, Hkv, D] in q's dtype, bf16 or
-    f32; D 64 or 128; at most 8 query heads a kv head). A zero-length
-    slot returns 0. Launches ``csrc/paged_decode.cu`` on CUDA tensors (or
-    raises) — whatever the length, with no fallback to the dense gather —
-    and runs :func:`paged_decode_attention_plain` on CPU tensors."""
-    if q.device.type == "cpu":
-        return paged_decode_attention_plain(q, cache, layer)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_decode_attention: unsupported device "
-                         f"{q.device}")
-    kp, vp = _as5d(cache.k_pool), _as5d(cache.v_pool)
-    table, lengths = cache.block_table, cache.lengths
+def paged_decode_attention_split_plain(q, cache: PagedKVCache,
+                                       layer: int = 0, *, tile=RAGGED_TILE,
+                                       grid=132):
+    """B6's kernel in plain PyTorch: the walks dealt by
+    :func:`ragged_schedule`; pass 1 each part's maximum score and the
+    walk's maximum over its parts; pass 2 each part's sums at that
+    maximum (p = exp(s - max), rounded to the pool dtype for the PV
+    product; l the sum of the unrounded p); the parts' sums added in part
+    order and normalized, in q's dtype (0 for a zero-length slot). Equals
+    :func:`paged_decode_attention_plain` up to the order of f32 sums."""
+    N, Hq, D = q.shape
+    kp, vp = _as5d(cache.k_pool)[layer], _as5d(cache.v_pool)[layer]
+    BS, Hkv = kp.shape[1], kp.shape[2]
+    G = Hq // Hkv
+    MB = cache.block_table.shape[1]
+    lens = [max(0, min(int(n), MB * BS)) for n in cache.lengths.tolist()]
+    tbl = cache.block_table.long()
+    k = kp[tbl].reshape(N, MB * BS, Hkv, D).float()
+    v = vp[tbl].reshape(N, MB * BS, Hkv, D)
+    s = torch.einsum("nhgd,nthd->nhgt", q.float().reshape(N, Hkv, G, D),
+                     k) / math.sqrt(D)
+    pos = torch.arange(MB * BS, device=q.device)
+    parts = {}                    # (n, hk) -> its parts' positions, in order
+    for _b, n, hk, ta, tb, _t, _np in ragged_schedule(lens, Hkv, MB, BS,
+                                                        tile, grid):
+        parts.setdefault((n, hk), []).append(
+            (pos >= ta * tile) & (pos < min(lens[n], tb * tile)))
+    out = torch.zeros(N, Hkv, G, D, dtype=torch.float32, device=q.device)
+    for (n, hk), masks in parts.items():
+        if lens[n] == 0:
+            continue
+        sw = s[n, hk]                                        # [G, P]
+        m = torch.stack([torch.where(mk, sw, torch.full_like(sw, NEG_INF))
+                         .amax(-1) for mk in masks]).amax(0)
+        acc = torch.zeros(G, D, dtype=torch.float32, device=q.device)
+        l = torch.zeros(G, dtype=torch.float32, device=q.device)
+        for mk in masks:
+            p = torch.where(mk, torch.exp(sw - m[:, None]),
+                            torch.zeros_like(sw))
+            acc = acc + p.to(v.dtype).float() @ v[n, :, hk].float()
+            l = l + p.sum(-1)
+        out[n, hk] = acc / l[:, None]
+    return out.reshape(N, Hq, D).to(q.dtype)
+
+
+def _decode_explain(q, kp, vp, table, lengths, layer):
+    """Raise the error that names what B6's kernel does not take (``kp``,
+    ``vp``: the pools as 5-D views)."""
     N, Hq, D = q.shape
     L, NB, BS, Hkv, Dk = kp.shape
     for name, t in (("k_pool", kp), ("v_pool", vp), ("block_table", table),
@@ -706,19 +793,70 @@ def paged_decode_attention(q, cache: PagedKVCache, layer: int = 0):
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} out of range for {L} pool layers")
     if N > _MAX_SLOTS:
-        raise ValueError(f"ragged_decode_partial takes at most {_MAX_SLOTS} "
-                         f"slots a call, got {N}")
-    q = q.contiguous()
+        raise ValueError(f"paged_decode_attention takes at most "
+                         f"{_MAX_SLOTS} slots a call, got {N}")
+
+
+def _decode_fits(q, kp, vp, table, lengths, layer) -> bool:
+    """Whether B6's kernel takes these tensors as they are (pools 4-D or
+    5-D): every check of :func:`_decode_explain`, and q contiguous and
+    16-byte aligned, in one expression of cheap reads."""
+    N, Hq, D = q.shape
+    shp, qdt, d = kp.shape, q.dtype, q.get_device()
+    nd = len(shp)
+    if nd != 4 and nd != 5:
+        return False
+    Hkv = shp[-2]
+    return ((qdt is torch.bfloat16 or qdt is torch.float32)
+            and kp.dtype is qdt and vp.dtype is qdt and vp.shape == shp
+            and shp[-1] == D and (D == 64 or D == 128) and Hkv > 0
+            and Hq % Hkv == 0 and Hq <= _MAX_GROUP * Hkv
+            and kp.get_device() == d and vp.get_device() == d
+            and table.get_device() == d and lengths.get_device() == d
+            and table.dtype is torch.int32 and lengths.dtype is torch.int32
+            and table.dim() == 2 and table.shape[0] == N
+            and lengths.shape == (N,) and q.is_contiguous()
+            and kp.is_contiguous() and vp.is_contiguous()
+            and table.is_contiguous() and lengths.is_contiguous()
+            and not (q.data_ptr() | kp.data_ptr() | vp.data_ptr()) % 16
+            and 0 <= layer < (shp[0] if nd == 5 else 1) and N <= _MAX_SLOTS)
+
+
+def paged_decode_attention(q, cache: PagedKVCache, layer: int = 0):
+    """Decode attention: q [N, Hq, D] -> [N, Hq, D], each slot attending
+    its first ``cache.lengths[n]`` positions of pool plane ``layer``
+    (pools [L, NB, BS, Hkv, D] or [NB, BS, Hkv, D] in q's dtype, bf16 or
+    f32; D 64 or 128; at most 8 query heads a kv head; at most 511 slots).
+    A zero-length slot returns 0. Launches ``csrc/paged_decode.cu`` on
+    CUDA tensors (or raises) — whatever the length, with no fallback to
+    the dense gather — and runs :func:`paged_decode_attention_plain` on
+    CPU tensors."""
+    where = q.device.type
+    if where != "cuda":
+        if where == "cpu":
+            return paged_decode_attention_plain(q, cache, layer)
+        raise ValueError(f"paged_decode_attention: unsupported device "
+                         f"{q.device}")
+    kp, vp, table, lengths = cache
+    if not _decode_fits(q, kp, vp, table, lengths, layer):
+        _decode_explain(q, _as5d(kp), _as5d(vp), table, lengths, layer)
+        if not q.is_contiguous() or q.data_ptr() % 16:
+            q = q.clone(memory_format=torch.contiguous_format)
+    N, Hq, D = q.shape
     out = torch.empty_like(q)
     if N == 0:
         return out
-    fn = _build.kernel("ptt_paged_decode_attention", [ctypes.c_void_p] * 6
-                       + [ctypes.c_int] * 9 + [ctypes.c_void_p])
-    P = _build.ptr
-    with torch.cuda.device(q.device):
-        err = fn(P(q), P(kp), P(vp), P(table), P(lengths), P(out), N,
-                 int(layer), NB, BS, Hkv, Hq // Hkv, D, table.shape[1],
-                 _DTYPES[q.dtype], _build.stream_handle(q))
+    fn = _build.kernel("ptt_paged_decode_attention", _DECODE_ARGS)
+    NB, BS, Hkv = kp.shape[-4:-1]
+    dev = q.get_device()
+    stream = _stream(dev)
+    flags, scratch = _workspace(dev, stream, N * Hkv)
+    err = _on_device(dev, fn, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                     table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                     scratch.data_ptr(),
+                     scratch.data_ptr() + 4 * _PARTS_FLOATS,
+                     flags.data_ptr(), N, int(layer), NB, BS, Hkv, Hq // Hkv,
+                     D, table.shape[1], _DTYPES[q.dtype], stream)
     _build.check(err, "paged_decode_attention")
     _build.launch_counts["paged_decode_attention"] += 1
     return out

@@ -1195,3 +1195,115 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, tol, bs, G, D):
     assert bool((out[0] == 0).all())
     err = (out.float() - ref.float()).abs().flatten(1).amax(1)[1:]
     assert bool((err <= tol * ref.float().abs().flatten(1).amax(1)[1:]).all())
+
+
+# Edge shapes of B6's split walk (csrc/paged_decode.cu: B4's schedule of
+# 32-position tiles, 64 for f32, in two passes): (lengths, block size, G,
+# D). (s4)'s lengths at Llama-3-8B's heads; one slot of 2000 positions
+# spread over the grid; 64 short slots, more walks than blocks; lengths on
+# and beside tile edges (31-33, 63-65), 0 and past the table (clamped).
+_PAGED_EDGES = {
+    "s4": ([0, 1, 64, 2000, 777, 128, 1500, 33], 64, 4, 128),
+    "n1_2000": ([2000], 64, 4, 128),
+    "short64": ([int(x) for x in np.random.default_rng(5).integers(
+        0, 129, size=64)], 32, 3, 128),
+    "tile_edges": ([31, 32, 33, 0, 63, 64, 65, 1, 5000], 16, 8, 64),
+    "g1": ([2000, 1, 0, 777, 128, 1500, 33, 64], 64, 1, 64),
+}
+
+
+def _paged_case(dev, name, dtype, seed):
+    lens, bs, G, d = _PAGED_EDGES[name]
+    rng = np.random.default_rng(seed)
+    N, hkv, mb = len(lens), 8 if name == "s4" else 2, 2048 // bs
+    need = [max(1, -(-min(x, mb * bs) // bs)) for x in lens]
+    nb = sum(need) + 1
+    table = np.zeros((N, mb), np.int32)
+    ids, at = rng.permutation(np.arange(1, nb)), 0
+    for i, k in enumerate(need):
+        table[i, :k] = ids[at:at + k]
+        at += k
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kp, vp = (torch.randn(2, nb, bs, hkv, d, generator=g, device=dev)
+              .to(dtype) for _ in range(2))
+    q = torch.randn(N, G * hkv, d, generator=g, device=dev).to(dtype)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, tpa.PagedKVCache(kp, vp, torch.as_tensor(table, device=dev),
+                               lens)
+
+
+def _per_slot_ok(out, ref, lens, tol):
+    live = lens > 0
+    err = (out.float() - ref.float()).abs().flatten(1).amax(1)[live]
+    return bool((out[~live] == 0).all()) and bool(
+        (err <= tol * ref.float().abs().flatten(1).amax(1)[live]).all())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("name", list(_PAGED_EDGES))
+def test_paged_decode_split_edges_match_plain(dev, name, dtype, tol):
+    """B6 at its split walk's edge shapes, layer 1 of two, against its
+    plain version: per slot within the tolerance of
+    test_paged_decode_kernel_matches_plain (f32 1e-5, bf16 2e-2 of the
+    slot's largest magnitude), a zero-length slot exactly 0. One counted
+    call a call; two calls agree bit for bit."""
+    q, cache = _paged_case(dev, name, dtype, seed=len(name))
+    before = _build.launch_counts["paged_decode_attention"]
+    out = tpa.paged_decode_attention(q, cache, layer=1)
+    again = tpa.paged_decode_attention(q, cache, layer=1)
+    ref = tpa.paged_decode_attention_plain(q, cache, layer=1)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["paged_decode_attention"] == before + 2
+    assert out.dtype == dtype and out.shape == q.shape
+    assert torch.equal(out, again)
+    assert _per_slot_ok(out, ref, cache.lengths, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_back_to_back_calls_equal(dev, dtype):
+    """500 back-to-back calls on one stream (pass 2 of each bf16 call
+    launched dependent on its pass 1, the next call's pass 1 after it) all
+    equal the first, bit for bit: the passes' maxima, parts and flags are
+    reused call after call."""
+    q, cache = _paged_case(dev, "s4", dtype, seed=3)
+    first = tpa.paged_decode_attention(q, cache, layer=0)
+    outs = [tpa.paged_decode_attention(q, cache, layer=0)
+            for _ in range(500)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first) for o in outs)
+    ref = tpa.paged_decode_attention_plain(q, cache, layer=0)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    assert _per_slot_ok(first, ref, cache.lengths, tol)
+
+
+@pytest.mark.parametrize("cold", [False, True])
+def test_paged_append_blocks_cold_and_warm_bit_equal(dev, cold):
+    """B8 at the (s4) shape (32 blocks of [64, 8, 128] bf16 into
+    [4, 512, 64, 8, 128] pools) equals its plain version bit for bit,
+    warm (one source set every call) and cold (eight source sets and
+    destinations in turn, more bytes than L2 holds), pad blocks on the
+    trash block 0 (their rows equal, so the duplicate writes' order does
+    not matter)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    rng = np.random.default_rng(11)
+    kp, vp = (torch.randn(4, 512, 64, 8, 128, generator=g, device=dev)
+              .to(torch.bfloat16) for _ in range(2))
+    want = [kp.clone(), vp.clone()]
+    before = _build.launch_counts["paged_append_blocks"]
+    sets = []
+    for _ in range(8 if cold else 1):
+        kb, vb = (torch.randn(32, 64, 8, 128, generator=g, device=dev)
+                  .to(torch.bfloat16) for _ in range(2))
+        ids = rng.permutation(np.arange(1, 512))[:32].astype(np.int32)
+        ids[[5, 20]] = 0
+        kb[20], vb[20] = kb[5], vb[5]
+        sets.append((kb, vb, torch.as_tensor(ids, device=dev)))
+    n = len(sets)
+    for i in range(3 * n):
+        kb, vb, ids = sets[i % n]
+        tpa.paged_append_blocks(kp, vp, kb, vb, ids, layer=i % 4)
+        tpa.paged_append_blocks_plain(*want, kb, vb, ids, i % 4)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["paged_append_blocks"] == before + 3 * n
+    assert torch.equal(kp, want[0]) and torch.equal(vp, want[1])

@@ -171,3 +171,197 @@ def test_decode_attention_wrapper_checks():
     cache = tpa.PagedKVCache(*(torch.zeros(1).to("meta") for _ in range(4)))
     with pytest.raises(ValueError, match="unsupported device"):
         tpa.paged_decode_attention(q, cache)
+
+
+# B6's split walk (csrc/paged_decode.cu: the walks' 32-position tiles dealt
+# over a persistent grid, pass 1 the parts' maxima, pass 2 the parts' sums
+# at the walk's maximum, merged in part order): lengths 0, 1, on and
+# beside tile edges, the whole table and past it (clamped).
+_EDGE_LENS = [0, 1, 31, 32, 33, 63, 64, 65, 96, 200]
+_EDGE_BS, _EDGE_MB = 16, 6
+
+
+@pytest.mark.parametrize("G,D", [(1, 64), (3, 128), (4, 64), (8, 128)])
+def test_decode_split_plain_matches_plain_and_jax(G, D):
+    """``paged_decode_attention_split_plain`` (the kernel's schedule and
+    merge, at grids that cut walks into parts and one that leaves them
+    whole) equals ``paged_decode_attention_plain`` within 1e-6 and the
+    JAX Pallas kernel (interpret mode) within 1e-5, f32; a zero-length
+    slot is 0."""
+    rng = np.random.default_rng(G * D)
+    n, hkv = len(_EDGE_LENS), 2
+    nb = n * _EDGE_MB + 1
+    kp, vp = (rng.standard_normal((2, nb, _EDGE_BS, hkv, D))
+              .astype(np.float32) for _ in range(2))
+    table = rng.permutation(np.arange(1, nb)).reshape(n, _EDGE_MB) \
+        .astype(np.int32)
+    lens = np.array(_EDGE_LENS, np.int32)
+    q = rng.standard_normal((n, G * hkv, D)).astype(np.float32)
+    cache = tpa.PagedKVCache(torch.as_tensor(kp), torch.as_tensor(vp),
+                             torch.as_tensor(table), torch.as_tensor(lens))
+    plain = tpa.paged_decode_attention_plain(torch.as_tensor(q), cache, 1)
+    want = np.asarray(jpa.paged_decode_attention(
+        jnp.asarray(q), jpa.PagedKVCache(jnp.asarray(kp), jnp.asarray(vp),
+                                         jnp.asarray(table),
+                                         jnp.asarray(lens)), layer=1))
+    for grid in (3, 7, 132):
+        got = tpa.paged_decode_attention_split_plain(
+            torch.as_tensor(q), cache, 1, grid=grid)
+        assert torch.all(got[0] == 0)
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-6,
+                                   rtol=0)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+def test_decode_split_plain_bf16_rounds_p_at_the_global_max():
+    """bf16 pools: the split form rounds p against each walk's global
+    maximum, as the one-shot softmax does, so it matches the plain version
+    to bf16 output rounding however the grid cuts the walks."""
+    rng = np.random.default_rng(4)
+    n, hkv, G, D = len(_EDGE_LENS), 2, 4, 64
+    nb = n * _EDGE_MB + 1
+    kp, vp = (torch.as_tensor(rng.standard_normal((nb, _EDGE_BS, hkv, D))
+                              .astype(np.float32)).to(torch.bfloat16)
+              for _ in range(2))
+    table = torch.as_tensor(rng.permutation(np.arange(1, nb))
+                            .reshape(n, _EDGE_MB).astype(np.int32))
+    cache = tpa.PagedKVCache(kp, vp, table,
+                             torch.as_tensor(np.array(_EDGE_LENS, np.int32)))
+    q = torch.as_tensor(rng.standard_normal((n, G * hkv, D))
+                        .astype(np.float32)).to(torch.bfloat16)
+    plain = tpa.paged_decode_attention_plain(q, cache).float()
+    for grid in (2, 5, 132):
+        got = tpa.paged_decode_attention_split_plain(q, cache, grid=grid)
+        assert got.dtype == torch.bfloat16
+        # one bf16 rounding of the output apart (2^-8 relative)
+        assert torch.all((got.float() - plain).abs()
+                         <= 2 ** -8 * plain.abs() + 1e-6)
+
+
+@pytest.mark.parametrize("grid", [1, 3, 7, 132])
+@pytest.mark.parametrize("tile", [32, 64])
+def test_decode_schedule_covers_each_position_once(grid, tile):
+    """The kernel's schedule deals every position under each slot's
+    (clamped) length to exactly one part of its walk, every walk of every
+    kv head (a zero-length slot one empty tile), the parts of a walk in
+    consecutive blocks, no block past the grid."""
+    hkv, mb, bs = 3, _EDGE_MB, _EDGE_BS
+    cap = mb * bs
+    rows = tpa.ragged_schedule(_EDGE_LENS, hkv, mb, bs, tile, grid)
+    covered = {}
+    for b, n, hk, ta, tb, t, nparts in rows:
+        assert 0 <= b < grid and 0 <= ta < tb <= t
+        covered.setdefault((n, hk), []).append((b, ta, tb, nparts))
+    assert set(covered) == {(n, hk) for n in range(len(_EDGE_LENS))
+                            for hk in range(hkv)}
+    for (n, hk), parts in covered.items():
+        length = min(_EDGE_LENS[n], cap)
+        seen = np.zeros(max(length, 1), int)
+        for b, ta, tb, nparts in parts:
+            seen[ta * tile:min(length, tb * tile)] += 1
+            assert nparts == len(parts)
+        assert np.all(seen[:length] == 1)
+        blocks = [b for b, *_ in parts]
+        assert blocks == list(range(blocks[0], blocks[0] + len(blocks)))
+
+
+def _decode_inputs(N=3, G=4, D=64, hkv=2, dtype=torch.bfloat16, L=2):
+    g = torch.Generator().manual_seed(0)
+    kp, vp = (torch.randn(L, 2 * N + 1, 16, hkv, D, generator=g).to(dtype)
+              for _ in range(2))
+    q = torch.randn(N, G * hkv, D, generator=g).to(dtype)
+    table = torch.arange(1, 2 * N + 1, dtype=torch.int32).reshape(N, 2)
+    return q, kp, vp, table, torch.full((N,), 20, dtype=torch.int32)
+
+
+# Inputs B6's kernel does not take, each with the error the wrapper raises
+# (the same before the wrapper's one-expression check as after it).
+_DECODE_BAD = {
+    "f16": (lambda q, kp, vp, t, n: (q.half(), kp.half(), vp.half(), t, n),
+            TypeError, "bf16 or f32"),
+    "pool_dtype": (lambda q, kp, vp, t, n: (q, kp.float(), vp, t, n),
+                   TypeError, "bf16 or f32"),
+    "head_dim": (lambda q, kp, vp, t, n: (q[..., :32].contiguous(),
+                                          kp[..., :32].contiguous(),
+                                          vp[..., :32].contiguous(), t, n),
+                 ValueError, "head_dim 64 or 128"),
+    "group": (lambda q, kp, vp, t, n: (q.repeat(1, 3, 1), kp, vp, t, n),
+              ValueError, "query heads a kv head"),
+    "pools_differ": (lambda q, kp, vp, t, n: (q, kp, vp[:, :-1].contiguous(),
+                                              t, n),
+                     ValueError, "do not match"),
+    "table_int64": (lambda q, kp, vp, t, n: (q, kp, vp, t.long(), n),
+                    ValueError, "int32"),
+    "lengths_shape": (lambda q, kp, vp, t, n: (q, kp, vp, t, n[:-1]),
+                      ValueError, "int32"),
+    "table_strided": (lambda q, kp, vp, t, n: (q, kp, vp, t.t().contiguous()
+                                               .t(), n),
+                      ValueError, "not contiguous"),
+    "pool_offset": (lambda q, kp, vp, t, n: (
+        q, kp.flatten()[4:4 + vp[:, 1:].numel()].view(vp[:, 1:].shape),
+        vp[:, 1:].contiguous(), t, n), ValueError, "16-byte aligned"),
+}
+
+
+@pytest.mark.parametrize("case", list(_DECODE_BAD))
+def test_decode_fits_refuses_what_explain_raises(case):
+    """B6's wrapper checks through one cheap expression (``_decode_fits``)
+    and raises from ``_decode_explain``: for each input the kernel does
+    not take, the first is False and the second raises its error; for
+    good inputs the first is True and the second passes."""
+    good = _decode_inputs()
+    assert tpa._decode_fits(*good, 1)
+    tpa._decode_explain(*good, 1)
+    make, exc, words = _DECODE_BAD[case]
+    q, kp, vp, table, lengths = make(*good)
+    assert not tpa._decode_fits(q, kp, vp, table, lengths, 1)
+    with pytest.raises(exc, match=words):
+        tpa._decode_explain(q, kp, vp, table, lengths, 1)
+
+
+def test_decode_slot_limit_names_paged_decode_attention():
+    """Past 511 slots B6's wrapper refuses the call in its own name."""
+    q, kp, vp, table, lengths = _decode_inputs(N=512)
+    assert not tpa._decode_fits(q, kp, vp, table, lengths, 0)
+    with pytest.raises(ValueError, match="paged_decode_attention takes at "
+                                         "most 511 slots a call, got 512"):
+        tpa._decode_explain(q, kp, vp, table, lengths, 0)
+    assert not tpa._decode_fits(*_decode_inputs(), 2)   # layer out of range
+    with pytest.raises(ValueError, match="layer 2 out of range"):
+        tpa._decode_explain(*_decode_inputs(), 2)
+
+
+@pytest.mark.parametrize("five_d", [False, True])
+def test_append_fits_matches_the_append_checks(five_d):
+    """The append wrappers' one-expression check: True for tensors the
+    kernels take as they are, False where a cast, a copy or an error is
+    due (the checks ``_check_pools`` and ``_index_check`` raise for the
+    last)."""
+    g = torch.Generator().manual_seed(1)
+    shape = ((3,) if five_d else ()) + (9, 4, 2, 8)
+    kp, vp = (torch.randn(shape, generator=g).to(torch.bfloat16)
+              for _ in range(2))
+    kb, vb = (torch.randn(2, 4, 2, 8, generator=g).to(torch.bfloat16)
+              for _ in range(2))
+    ids = torch.tensor([3, 0], dtype=torch.int32)
+    layer = 2 if five_d else 0
+    assert tpa._append_fits(kp, vp, kb, vb, ids, None, layer)
+    kn, vn = kb[:, 0].contiguous(), vb[:, 0].contiguous()
+    assert tpa._append_fits(kp, vp, kn, vn, ids, ids, layer)
+    assert not tpa._append_fits(kp, vp, kb.float(), vb, ids, None, layer)
+    assert not tpa._append_fits(kp, vp, kb, vb, ids.long(), None, layer)
+    assert not tpa._append_fits(kp, vp, kb, vb, ids[:1], None, layer)
+    assert not tpa._append_fits(kp, vp, kb, vb, ids, None, layer + 1)
+    strided = kb.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not tpa._append_fits(kp, vp, strided, vb, ids, None, layer)
+    assert not tpa._append_fits(kp, vp, kn, vn, ids, None, layer)
+    with pytest.raises(ValueError, match="out of range"):
+        tpa._check_pools("paged_append_blocks", kp, vp, kb, (2,),
+                         layer=layer + 1)
+    narrow = kb[..., :4].contiguous()
+    assert not tpa._append_fits(kp, vp, narrow, narrow, ids, None, layer)
+    with pytest.raises(ValueError, match="do not match"):
+        tpa._check_pools("paged_append_blocks", kp, vp, narrow, (2,),
+                         layer=layer)
+    with pytest.raises(ValueError, match="indices must be int32"):
+        tpa._index_check("paged_append_blocks", ids.long(), 2, kp.device)

@@ -30,10 +30,11 @@ output buffer, the split walk's scratch and its flags.
 tree's kernel (a compile-time switch in the tool's own build; the
 shipped sources are unchanged): ``copies`` (the copies run, the scoring
 does not) and ``scoring`` (the scoring runs on tiles that are never
-copied), timed in the same turns. In a tree whose ``ragged_decode.cu``
-carries the switches they knock out its bf16-query kernel only (its
-f32-query forms walk with ``ragged_walk.cuh``, which the copies leave
-as it is); in the parent design they knock out ``ragged_walk.cuh``. ``--wrapper`` times the host cost of
+copied), timed in the same turns. In a tree whose ``ragged_split.cuh``
+(or, before it, ``ragged_decode.cu``) carries the switches they knock
+out its bf16-query kernel only (its f32-query forms walk with
+``ragged_walk.cuh``, which the copies leave as it is); in the older
+design they knock out ``ragged_walk.cuh``. ``--wrapper`` times the host cost of
 this checkout's ``paged_attention.ragged_decode_partial`` (a host clock
 over ``--host-calls`` calls with no synchronize between them).
 
@@ -70,12 +71,13 @@ from paddle_tpu_torch.kernels import paged_attention as tpa  # noqa: E402
 HKV, G, D, BS, MB, LAYERS = 8, 4, 128, 64, 2048 // 64, 32
 FORMS = ("bf16", "int8", "f32")
 
-# knock-outs of a tree's kernel: (file, text, replacement) for a tree whose
-# ragged_decode.cu carries the switches, else for the walk of
+# knock-outs of a tree's kernel: (text, replacement) in the file of the
+# tree that carries the switches (ragged_split.cuh, or ragged_decode.cu
+# before the split walk moved into that header), else in the walk of
 # ragged_walk.cuh (the parent design)
 PROBES = {
-    "copies": [("ragged_decode.cu", "kScore = true;", "kScore = false;")],
-    "scoring": [("ragged_decode.cu", "kCopy = true;", "kCopy = false;")],
+    "copies": ("kScore = true;", "kScore = false;"),
+    "scoring": ("kCopy = true;", "kCopy = false;"),
 }
 PROBES_WALK = {
     "copies": [("ragged_walk.cuh", "if (warp < G) {", "if (false) {")],
@@ -125,8 +127,12 @@ def build(dirs):
 
 
 def probe_patches(tree: Path, kind: str):
-    text = (tree / "paddle_tpu_torch/kernels/csrc/ragged_decode.cu").read_text()
-    return (PROBES if "kCopy = true;" in text else PROBES_WALK)[kind]
+    src = tree / "paddle_tpu_torch/kernels/csrc"
+    for name in ("ragged_split.cuh", "ragged_decode.cu"):
+        f = src / name
+        if f.exists() and "kCopy = true;" in f.read_text():
+            return [(name, *PROBES[kind])]
+    return PROBES_WALK[kind]
 
 
 def inputs(lengths, form, dev, seed):
