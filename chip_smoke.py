@@ -128,7 +128,14 @@ multi-step form ``mega_decode_loop``) and the paged-cache API (B6-B8):
      (B7, B8) ``index_put_``, with its kernels alone and the host
      microseconds a call: B6 at (s4)'s lengths and at one and eight slots
      of 2000 positions (``ragged_paged_decode`` at each shape beside it),
-     B8 also from a cold L2;
+     B7 also at 64 and 256 rows (bit-equal there too), B8 also from a
+     cold L2; B7 and B8 beside the launch floor E (the profiler's time of
+     ``torch.cuda._sleep(0)``, an empty kernel) and E + their bytes
+     bound; then the API's decode sequence over 32 pool layers of [32,
+     512, 64, 8, 128] bf16 (B7 appends at (s4)'s lengths, B6 attends at
+     lengths + 1, a layer; rows bit-equal and B6 within 2e-2 of the plain
+     chain), its device span a layer from behind a spin kernel on a
+     ``paged_chain`` line;
 (s1) after phase 6 (c): B5's multi-step form against its plain version
      for one k=4 draft wave at 4 slots and the serving mix's lengths: f32
      Llama-3-8B at full width and depth (dense head: tokens and states
@@ -265,6 +272,42 @@ def host_us(fn, calls=1000):
 
 def max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
+
+
+def spans_behind_spin(run, reps, layers, spin=40_000_000):
+    """``reps`` runs of ``run()`` (``layers`` layers of launches), each
+    queued behind a spin kernel (``torch.cuda._sleep`` of ``spin``
+    cycles) so that the host enqueues every launch before the card
+    reaches them, traced: each run's device span a layer in us (the spin
+    kernel's end to the last kernel's end, over ``layers``), each run's
+    host enqueue time in ms, and each spin kernel's time in ms."""
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    host = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            torch.cuda._sleep(spin)
+            t0 = time.perf_counter()
+            run()
+            host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+    events = sorted((e.time_range.start, e.time_range.end)
+                    for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    spins = [(a, b) for a, b in events if b - a > 1e3]   # over 1 ms
+    spans = []
+    for k, (a, b) in enumerate(spins):
+        nxt = spins[k + 1][0] if k + 1 < len(spins) else float("inf")
+        spans.append((max(e for s, e in events if a < s < nxt) - b)
+                     / layers)
+    return spans, host, [(b - a) / 1e3 for a, b in spins]
+
+
+def launch_floor_ms(iters=200):
+    """E, the least device time a launch takes: the profiler's mean time
+    of ``torch.cuda._sleep(0)`` (a kernel that returns at once)."""
+    return kernel_span_ms(lambda i=0: torch.cuda._sleep(0), iters, "")
 
 
 def free_memory():
@@ -1608,9 +1651,50 @@ def check_paged_api(tpa, build, dev, NB=512):
         0.0, f"{MB} blocks of [BS=64, Hkv=8, D=128] bf16 (one 2048-token "
         "prefill) into [L=4, NB=512, BS=64] pools")
     # the kernels' own device time: B7/B8 last a few microseconds, less
-    # than their wrappers' host work between back-to-back calls
-    b7["device_ms"] = kernel_device_ms(b7_call, 50, "append_token_kernel")
+    # than their wrappers' host work between back-to-back calls; beside
+    # them the launch floor E and E + the bytes bound
+    floor = launch_floor_ms()
+
+    def with_floor(f, device_ms):
+        f["floor_ms"] = floor
+        f["floor_bound_ms"] = floor + f["bound_ms"]
+        f["share_of_floor_bound"] = f["floor_bound_ms"] / device_ms
+        return f
+    b7["device_ms"] = kernel_span_ms(b7_call, 50, "append_token_kernel")
     b7["host_us"] = hosts["b7"]
+    with_floor(b7, b7["device_ms"])
+    # B7 at 64 and 256 rows on distinct random blocks, bit-equal first
+    b7["shapes"] = {}
+    for n in (64, 256):
+        dst = rng.permutation(np.arange(1, NB))[:n]
+        bn, on = (torch.as_tensor(a.astype(np.int32), device=dev) for a in (
+            dst, rng.integers(0, BS, size=n)))
+        kn, vn = (torch.randn(n, Hkv, D, generator=g, device=dev,
+                              dtype=torch.bfloat16) for _ in range(2))
+        got, want = [kp.clone(), vp.clone()], [kp.clone(), vp.clone()]
+        tpa.paged_append_token(*got, kn, vn, bn, on, layer=1)
+        tpa.paged_append_token_plain(*want, kn, vn, bn, on, 1)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"B7 differs from its plain version at "
+                                 f"N={n}")
+        del got, want
+
+        def call(i=0, kn=kn, vn=vn, bn=bn, on=on):
+            return tpa.paged_append_token(kp, vp, kn, vn, bn, on, layer=1)
+
+        def index_put(i=0, kn=kn, vn=vn, bn=bn, on=on):
+            kp[1, bn.long(), on.long()] = kn
+            vp[1, bn.long(), on.long()] = vn
+        fn = fields(
+            time_ms(call, 50),
+            time_ms(lambda i=0: tpa.paged_append_token_plain(
+                kp, vp, kn, vn, bn, on, 1), 20),
+            2 * 2 * n * Hkv * D * 2 + 2 * n * 4, 0.0,
+            time_ms(index_put, 50), 0.0,
+            f"N={n} rows of [Hkv=8, D=128] bf16 on distinct blocks")
+        fn["device_ms"] = kernel_span_ms(call, 50, "append_token_kernel")
+        b7["shapes"][f"n{n}"] = with_floor(fn, fn["device_ms"])
     b8["device_ms"] = kernel_device_ms(b8_call, 20, "append_blocks_kernel")
     b8["host_us"] = hosts["b8"]
     # B8 cold: eight source sets and destinations in turn (134 MB of
@@ -1632,12 +1716,81 @@ def check_paged_api(tpa, build, dev, NB=512):
                                             "append_blocks_kernel")
     b8["share_of_bound_cold"] = (b8["bound_ms"] / b8["device_cold_ms"]
                                  if b8["device_cold_ms"] else None)
+    with_floor(b8, b8["device_ms"])
+    b8["share_of_floor_bound_cold"] = (b8["floor_bound_ms"]
+                                       / b8["device_cold_ms"])
     log(f"  B6 timing: {b6}")
     log(f"  B7 timing: {b7}")
     log(f"  B8 timing: {b8}")
     del kp, vp, sets
     torch.cuda.empty_cache()
-    return path_launches, {"b6": b6, "b7": b7, "b8": b8, "checks": errs}
+    chain = paged_chain(tpa, dev, g, rng, NB=NB)
+    errs["chain_b6_slot_rel"] = chain["b6_slot_rel"]
+    log(json.dumps({"paged_chain": chain}))
+    return path_launches, {"b6": b6, "b7": b7, "b8": b8, "checks": errs,
+                           "chain": chain}
+
+
+def paged_chain(tpa, dev, g, rng, layers=32, NB=512, reps=5):
+    """The paged-cache API's decode sequence over ``layers`` pool layers of
+    [layers, NB, 64, 8, 128] bf16 (4.3 GB of K and V at 32 layers, so each
+    layer is cold in L2): a layer is ``paged_append_token`` of 8 rows at
+    (s4)'s lengths, then ``paged_decode_attention`` (Hq=32) at lengths +
+    1. Checked against the plain chain (rows bit-equal, B6 per slot within
+    2e-2 of the slot's largest magnitude), then its device span a layer
+    behind a spin kernel (:func:`spans_behind_spin`; us, the median over
+    ``reps`` runs)."""
+    BS, Hkv, D, N, MB = 64, 8, 128, 8, 32
+    table = rng.permutation(np.arange(1, NB))[:N * MB].reshape(N, MB)
+    lens = np.array([0, 1, 64, 2000, 777, 128, 1500, 33])
+    kp, vp = (torch.randn(layers, NB, BS, Hkv, D, generator=g, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2))
+    k_new, v_new = (torch.randn(N, Hkv, D, generator=g, device=dev,
+                                dtype=torch.bfloat16) for _ in range(2))
+    q = torch.randn(N, 4 * Hkv, D, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    blk, off = (torch.as_tensor(a.astype(np.int32), device=dev) for a in (
+        table[np.arange(N), lens // BS], lens % BS))
+    cache = tpa.PagedKVCache(kp, vp, torch.as_tensor(
+        table.astype(np.int32), device=dev), torch.as_tensor(
+            (lens + 1).astype(np.int32), device=dev))
+    at = (slice(None), blk.long(), off.long())
+    rows = (kp[at].clone(), vp[at].clone())
+    ref = []
+    for layer in range(layers):
+        tpa.paged_append_token_plain(kp, vp, k_new, v_new, blk, off, layer)
+        ref.append(tpa.paged_decode_attention_plain(q, cache, layer))
+    kp[at], vp[at] = rows
+
+    def run(outs=None):
+        for layer in range(layers):
+            tpa.paged_append_token(kp, vp, k_new, v_new, blk, off,
+                                   layer=layer)
+            out = tpa.paged_decode_attention(q, cache, layer=layer)
+            if outs is not None:
+                outs.append(out)
+    outs = []
+    run(outs)
+    torch.cuda.synchronize()
+    new_rows = (k_new.expand(layers, -1, -1, -1),
+                v_new.expand(layers, -1, -1, -1))
+    rows_ok = torch.equal(kp[at], new_rows[0]) and torch.equal(vp[at],
+                                                               new_rows[1])
+    rel = max(((o.float() - r.float()).abs().flatten(1).amax(1)
+               / r.float().abs().flatten(1).amax(1)).max().item()
+              for o, r in zip(outs, ref))
+    if not rows_ok or rel > 2e-2:
+        raise AssertionError(f"the append-then-attend chain disagrees with "
+                             f"the plain chain: rows equal {rows_ok}, B6 "
+                             f"per-slot error {rel}")
+    spans, host, spin_ms = spans_behind_spin(run, reps, layers)
+    del kp, vp, cache, outs, ref, rows
+    torch.cuda.empty_cache()
+    return {"layers": layers, "N": N, "tokens": int(lens.sum()),
+            "us_a_layer": float(np.median(spans)), "runs_us": spans,
+            "host_enqueue_ms": host, "spin_ms": spin_ms,
+            "queued_ahead": all(h < s for h, s in zip(host, spin_ms)),
+            "rows_equal": rows_ok, "b6_slot_rel": rel}
 
 
 # ---------------------------------------------------------------------------

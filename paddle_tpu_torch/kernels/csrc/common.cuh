@@ -79,4 +79,37 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Programmatic dependent launch. A kernel started by launch_dependent may
+// run before the kernel ahead of it on the stream has ended: once every
+// block of that kernel has run launch_dependents() or exited. It must run
+// grid_dependency_wait() before it touches memory the kernel ahead of it
+// may write; the wait returns when that kernel has ended and its writes
+// are visible (at once, when it had ended or never signalled).
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+template <typename... K, typename... A>
+inline cudaError_t launch_dependent(void (*kernel)(K...), dim3 grid,
+                                    dim3 block, size_t smem, cudaStream_t st,
+                                    A&&... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kernel, static_cast<A&&>(args)...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 }  // namespace ptt

@@ -39,6 +39,14 @@
 //   schedule and the table and copy K and V while pass 1 ends; only its
 //   consumers wait (griddepcontrol.wait) for pass 1's maxima. No block
 //   waits on another block's flag.
+// - Pass 1 (and the f32 walk) is launched dependent on the kernel before
+//   it, so that its launch overlaps that kernel (B7's token append
+//   signals at its start): it waits before it reads the lengths, the
+//   table, q or the pools, and lets pass 2 launch only after that wait,
+//   since pass 2's producers copy the pools without a wait of their own.
+//   With B7 launched the same way, this took 3.2 us a layer off the
+//   paged API's decode sequence (B7, then B6; tools/paged_decode_ab.py
+//   --chain; NVIDIA H100 80GB HBM3, 700.00 W).
 //
 // f32 (q and pools): the CUDA-core walk of ragged_walk.cuh on the same
 // split schedule in 64-position tiles (`walk_split`, as B4's f32 form),
@@ -256,7 +264,7 @@ struct SumPass : Pair<bf16, bf16, D> {
     const int r0 = sp.sub(w), r1 = sp.sub(w + 1);
     // pass 1 has ended and its maxima are visible (this grid may start
     // before it ends; the producers copy meanwhile)
-    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    grid_dependency_wait();
     int s = 0, k = 0;
     for (int r = r0; r < r1; ++k) {
       const Seg sg = sc.seg(r, r1);
@@ -362,8 +370,11 @@ paged_decode_max(const __grid_constant__ Args<bf16> a) {
   using L = MaxLay<D>;
   constexpr int kP = L::kP;
   extern __shared__ __align__(128) unsigned char smem[];
-  // pass 2 may launch once every block of this grid runs
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  // the kernel ahead (a token append, say) may still write q, the pools,
+  // the table or the lengths; then pass 2 may launch, whose producers copy
+  // K and V without a wait of their own
+  grid_dependency_wait();
+  launch_dependents();
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kOffBar);
   int *start, *lens;
   const Split<kP> sp = pairs_prologue<L>(a, smem, start, lens);
@@ -408,6 +419,7 @@ template <int D>
 __global__ void __launch_bounds__(WalkLay<float, D>::kThreads)
 paged_decode_walk(const __grid_constant__ Args<float> a) {
   extern __shared__ __align__(16) unsigned char smem[];
+  grid_dependency_wait();                 // as paged_decode_max
   walk_split<float, D>(a, smem);
 }
 
@@ -430,23 +442,12 @@ cudaError_t launch_bf16(const Args<bf16>& a, cudaStream_t st) {
   const int g1 = grid_for(f1), g2 = grid_for(f2);
   const int grid = g1 < g2 ? g1 : g2;
   if (grid == 0) return cudaErrorInvalidConfiguration;
-  f1.kernel<<<grid, f1.threads, f1.smem + sched_bytes(a.N), st>>>(a);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = launch_dependent(
+      f1.kernel, dim3(grid), dim3(f1.threads), f1.smem + sched_bytes(a.N), st,
+      a);
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(f2.threads);
-  cfg.dynamicSmemBytes = f2.smem + sched_bytes(a.N);
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  void* args[] = {const_cast<Args<bf16>*>(&a)};
-  err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(f2.kernel),
-                            args);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  return launch_dependent(f2.kernel, dim3(grid), dim3(f2.threads),
+                          f2.smem + sched_bytes(a.N), st, a);
 }
 
 template <int kId, int D>
@@ -456,8 +457,8 @@ cudaError_t launch_f32(const Args<float>& a, cudaStream_t st) {
                                 WalkLay<float, D>::kSmem);
   const int grid = grid_for(f);
   if (grid == 0) return cudaErrorInvalidConfiguration;
-  f.kernel<<<grid, f.threads, f.smem + sched_bytes(a.N), st>>>(a);
-  return cudaGetLastError();
+  return launch_dependent(f.kernel, dim3(grid), dim3(f.threads),
+                          f.smem + sched_bytes(a.N), st, a);
 }
 
 }  // namespace

@@ -589,9 +589,12 @@ def paged_append_token(k_pool, v_pool, k_new, v_new, blk_phys, offset,
     offset[n]] = k_new[n]`` and the same for v. Pools [L, NB, BS, Hkv, D]
     or [NB, BS, Hkv, D] (returned as given); k_new/v_new [N, Hkv, D], cast
     to the pools' dtype; blk_phys/offset [N] int32, read on the device.
-    Slots meant to be idle point at the trash block. Launches
-    ``csrc/paged_cache.cu`` on CUDA tensors (or raises), runs
-    :func:`paged_append_token_plain` on CPU tensors."""
+    Slots meant to be idle point at the trash block 0, the one
+    destination slots may share (the last such slot's row wins there,
+    as on the TPU). Launches
+    ``csrc/paged_cache.cu`` on CUDA tensors (or raises) — dependent on the
+    kernel before it on the stream, whose writes it waits for before it
+    reads — and runs :func:`paged_append_token_plain` on CPU tensors."""
     where = k_pool.device.type
     if where != "cuda":
         if where == "cpu":

@@ -1307,3 +1307,116 @@ def test_paged_append_blocks_cold_and_warm_bit_equal(dev, cold):
     torch.cuda.synchronize()
     assert _build.launch_counts["paged_append_blocks"] == before + 3 * n
     assert torch.equal(kp, want[0]) and torch.equal(vp, want[1])
+
+
+@pytest.mark.parametrize("five_d", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("N", [1, 8, 64, 256, 1000])
+def test_paged_append_token_edges_match_plain(dev, N, D, dtype, five_d):
+    """B7 at its grid's edges (one slot; (s4)'s 8; 64, 256 and 1000
+    slots, one block a slot; rows of 1, 2 and 4 KB: a block of 64 or 128
+    vectors, or two of 128), layer 1 of three or a 4-D pool: bit-equal to
+    its plain version, with a quarter of the slots on one trash position
+    (block 0, offset 3), each with its own row: that position takes one of
+    its writers' rows whole (the last one's, as on the TPU), and every
+    other element equals the plain version's."""
+    rng = np.random.default_rng(N + D)
+    g = torch.Generator(device=dev).manual_seed(N + D)
+    NB, BS, hkv = 160, 16, 8
+    layer = 1 if five_d else 0
+    shape = ((3,) if five_d else ()) + (NB, BS, hkv, D)
+    kp, vp = (torch.randn(shape, generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    new = [torch.randn(N, hkv, D, generator=g, device=dev).to(dtype)
+           for _ in range(2)]
+    pos = rng.permutation((NB - 1) * BS)[:N] + BS    # blocks 1 .. NB-1
+    blk, off = pos // BS, pos % BS
+    trash = rng.permutation(N)[:N // 4]
+    blk[trash], off[trash] = 0, 3
+    blk, off = (torch.as_tensor(a.astype(np.int32), device=dev)
+                for a in (blk, off))
+    got, want = [kp.clone(), vp.clone()], [kp.clone(), vp.clone()]
+    before = _build.launch_counts["paged_append_token"]
+    tpa.paged_append_token(*got, *new, blk, off, layer=layer)
+    tpa.paged_append_token_plain(*want, *new, blk, off, layer)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["paged_append_token"] == before + 1
+    for a, b, rows in zip(got, want, new):
+        a5, b5 = tpa._as5d(a)[layer], tpa._as5d(b)[layer]
+        if len(trash):
+            assert torch.equal(a5[0, 3], rows[trash.max()])
+            a5[0, 3] = b5[0, 3]
+        assert torch.equal(a, b)
+
+
+def test_paged_append_token_after_torch_ops(dev):
+    """B7 launched right after torch ops on the same stream that write
+    its inputs (cuBLAS GEMMs for the new rows, an elementwise op for the
+    offsets, last: predecessors that never signal a dependent launch)
+    writes what its plain version writes from the same tensors."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    N, hkv, D, BS = 8, 8, 128, 64
+    kp, vp = (torch.randn(4, 64, BS, hkv, D, generator=g, device=dev)
+              .to(torch.bfloat16) for _ in range(2))
+    x = torch.randn(N, 32768, generator=g, device=dev).to(torch.bfloat16)
+    wk, wv = (torch.randn(32768, hkv * D, generator=g, device=dev)
+              .to(torch.bfloat16) for _ in range(2))
+    table = torch.arange(1, 1 + N * 7, dtype=torch.int32,
+                         device=dev).reshape(N, 7)
+    lens = torch.tensor([0, 1, 64, 400, 77, 128, 150, 33],
+                        dtype=torch.int32, device=dev)
+    got, want = [kp.clone(), vp.clone()], [kp.clone(), vp.clone()]
+    torch.cuda.synchronize()
+    for step in range(3):
+        blk = table.gather(1, ((lens + step) // BS).long()[:, None])[:, 0]
+        k_new = (x @ wk).view(N, hkv, D)
+        v_new = (x @ wv).view(N, hkv, D)
+        off = (lens + step) % BS
+        tpa.paged_append_token(*got, k_new, v_new, blk, off, layer=step)
+        torch.cuda.synchronize()
+        tpa.paged_append_token_plain(*want, k_new, v_new, blk, off, step)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_append_then_attend_chain_back_to_back(dev, dtype):
+    """The API's decode sequence (B7 appends at (s4)'s lengths, B6 attends
+    at lengths + 1), 500 times back to back over 4 pool layers with a new
+    row each time: each B6 output is bit-equal to the same call made
+    after a synchronize, and slot 0 (length 0 to 1) returns its appended
+    V row: B6's wait sees B7's stores."""
+    rng = np.random.default_rng(17)
+    g = torch.Generator(device=dev).manual_seed(17)
+    N, G, hkv, D, BS, MB, L, calls = 8, 4, 8, 128, 64, 32, 4, 500
+    table = torch.as_tensor(rng.permutation(np.arange(1, N * MB + 1))
+                            .reshape(N, MB).astype(np.int32), device=dev)
+    lens = torch.tensor([0, 1, 64, 2000, 777, 128, 1500, 33],
+                        dtype=torch.int32, device=dev)
+    kp, vp = (torch.randn(L, N * MB + 1, BS, hkv, D, generator=g,
+                          device=dev).to(dtype) for _ in range(2))
+    q = torch.randn(N, G * hkv, D, generator=g, device=dev).to(dtype)
+    k_rows, v_rows = (torch.randn(calls, N, hkv, D, generator=g,
+                                  device=dev).to(dtype) for _ in range(2))
+    blk = table.gather(1, (lens // BS).long()[:, None])[:, 0]
+    off = lens % BS
+    cache = tpa.PagedKVCache(kp, vp, table, lens + 1)
+    torch.cuda.synchronize()
+    outs = []
+    for i in range(calls):
+        tpa.paged_append_token(kp, vp, k_rows[i], v_rows[i], blk, off,
+                               layer=i % L)
+        outs.append(tpa.paged_decode_attention(q, cache, layer=i % L))
+    torch.cuda.synchronize()
+    for i in range(calls):
+        tpa.paged_append_token(kp, vp, k_rows[i], v_rows[i], blk, off,
+                               layer=i % L)
+        torch.cuda.synchronize()
+        again = tpa.paged_decode_attention(q, cache, layer=i % L)
+        torch.cuda.synchronize()
+        assert torch.equal(outs[i], again), i
+        assert torch.equal(outs[i][0].view(hkv, G, D),
+                           v_rows[i][0][:, None].expand(hkv, G, D)), i
+    ref = tpa.paged_decode_attention_plain(q, cache, layer=(calls - 1) % L)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    assert _per_slot_ok(outs[-1], ref, cache.lengths, tol)

@@ -365,3 +365,67 @@ def test_append_fits_matches_the_append_checks(five_d):
                          layer=layer)
     with pytest.raises(ValueError, match="indices must be int32"):
         tpa._index_check("paged_append_blocks", ids.long(), 2, kp.device)
+
+
+# The API's decode sequence at a small size: B7 appends one row a slot at
+# its length, then B6 attends at lengths + 1. Slot 0 goes from length 0 to
+# 1, slot 1's append opens its second block (offset 0), slots 2 and 3
+# append mid-block.
+_CHAIN_LENS = [0, BS, 6, 13]
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("layers,layer", [(0, 0), (2, 1)])
+def test_append_then_attend_chain_matches_jax(layers, layer, dtype, tol):
+    """The port's append-then-attend chain (``paged_append_token``, then
+    ``paged_decode_attention`` at ``lengths + 1``) against the JAX
+    package's kernels (interpret mode) on the same numpy inputs, on 4-D
+    and 5-D pools: the appended pools equal exactly, B6 per slot within
+    1e-5 (f32) or 2e-2 (bf16, phase 2's rule) of the slot's largest
+    magnitude, and the appended row is read (slot 0 attends to it
+    alone, so its output is its V row)."""
+    n, G = len(_CHAIN_LENS), 2
+    rng = np.random.default_rng(30 + layers)
+    nb = n * MB + 1
+    shape = ((layers,) if layers else ()) + (nb, BS, HKV, D)
+    kp, vp = (rng.standard_normal(shape).astype(np.float32)
+              for _ in range(2))
+    table = rng.permutation(np.arange(1, nb)).reshape(n, MB).astype(np.int32)
+    lens = np.array(_CHAIN_LENS, np.int32)
+    k_new, v_new = (rng.standard_normal((n, HKV, D)).astype(np.float32)
+                    for _ in range(2))
+    q = rng.standard_normal((n, G * HKV, D)).astype(np.float32)
+    blk = table[np.arange(n), lens // BS]
+    off = lens % BS
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+
+    def jx(a):
+        return jnp.asarray(a).astype(jdt)
+
+    def tx(a):
+        return torch.as_tensor(a).to(tdt)
+    jk, jv = jpa.paged_append_token(jx(kp), jx(vp), jx(k_new), jx(v_new),
+                                    jnp.asarray(blk), jnp.asarray(off),
+                                    layer=layer)
+    want = jpa.paged_decode_attention(jx(q), jpa.PagedKVCache(
+        jk, jv, jnp.asarray(table), jnp.asarray(lens + 1)), layer=layer)
+    tk, tv = tx(kp), tx(vp)
+    tpa.paged_append_token(tk, tv, tx(k_new), tx(v_new),
+                           torch.as_tensor(blk), torch.as_tensor(off),
+                           layer=layer)
+    got = tpa.paged_decode_attention(tx(q), tpa.PagedKVCache(
+        tk, tv, torch.as_tensor(table), torch.as_tensor(lens) + 1),
+        layer=layer)
+    for a, b in ((tk, jk), (tv, jv)):
+        np.testing.assert_array_equal(a.float().numpy(),
+                                      np.asarray(b.astype(jnp.float32)))
+    got = got.float().numpy()
+    want = np.asarray(want.astype(jnp.float32))
+    assert got.shape == want.shape == q.shape
+    err = np.abs(got - want).reshape(n, -1).max(1)
+    assert np.all(err <= tol * np.abs(want).reshape(n, -1).max(1))
+    v0 = tx(v_new).float().numpy()[0]                  # [Hkv, D]
+    np.testing.assert_allclose(got[0].reshape(HKV, G, D),
+                               np.broadcast_to(v0[:, None], (HKV, G, D)),
+                               atol=tol * np.abs(v0).max(), rtol=0)
