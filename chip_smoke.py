@@ -162,9 +162,43 @@ multi-step form ``mega_decode_loop``) and the paged-cache API (B6-B8):
      requests, a traced spec wave and the first divergence from the plain
      mega streams.
 
+The training memory modes (``optimizer/offload.py``), phase 15, after
+(f), each sub-phase's state freed before the next, phase 8's recipe
+(adafactor, bf16 params, lr 3e-5 with its floor lifted, random weights,
+one fixed batch), 1 warm-up step then timed ones:
+
+(t1) ``llama.train_step`` on Llama-3-8B (``llama3_8b()``, seq 2048, full
+     remat, 16 loss chunks) at the largest batch of 8, 4, 2 whose peak,
+     reckoned from the code and printed first (``reckon_8b``), lies
+     within 0.9 of the card's memory; 3 timed steps, each launching B1
+     2x32 times and B2, B3 32 times; finite, falling losses;
+(t2) ``make_layerwise_train_step`` on the same model at batch 8 (and at
+     t1's batch if smaller): the same launches, finite and falling
+     losses;
+(t3) ``make_streaming_train_step`` at batch 8: the same launches; after
+     every step each layer tensor lies on the CPU, pinned, and the card
+     holds at most the tail (embedding, final norm, head, their moments)
+     plus 1 GB; the pinned bytes against the layers', the step's PCIe
+     bytes, the link's pinned copy rates (each direction alone and both
+     at once), the step time against t2's, one step traced;
+(t4) a small f32 model (4 layers, heads of 128): 3 layer-wise and
+     streaming steps on the card and streaming steps on the CPU from one
+     numpy-made state (losses within 2e-5 relative, parameters and second
+     moments within 1e-4 of each leaf's largest magnitude), and 2
+     ``make_offload_train_step`` steps (adamw with pinned moments,
+     adafactor) against ``llama.train_step`` on the card by the same rule;
+(t5) ``make_streaming_moe_train_step`` on DeepSeekMoE-16B at full depth
+     (28 layers, layer 0 dense; cut, and the cut printed, only if the
+     host cannot pin them), batch 4 x 2048, 2 timed steps with the B1-B3,
+     B9, gmm and tgmm launches the step's code implies, finite losses,
+     one step traced;
+then B1, B2 and B3 timed at the 8B step's attention shape ([8, 2048,
+32/8, 128], causal) beside SDPA and their bounds. Each of (t1)-(t3) and
+(t5) prints tokens/s, MFU and its peak memory with the card.
+
 Before its last line it prints ``serving``, ``mega``, ``training``,
-``moe_training``, ``int8`` and ``spec`` lines (phases 4, 6, 8, 12-14,
-(a)-(f) and (s1)-(s4)),
+``moe_training``, ``int8``, ``training_memory`` and ``spec`` lines
+(phases 4, 6, 8, 12-15, (a)-(f) and (s1)-(s4)),
 one JSON object with every ported kernel
 (launches on its main path, max error, and times in ms beside the
 bound), and the card's name and power limit; the last line is
@@ -675,11 +709,26 @@ def trace_decode_call(eng, prompts):
     return res
 
 
+def union_us(events):
+    """The union of the events' device intervals, in us."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    if not spans:
+        return 0.0
+    busy, (s0, e0) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > e0:
+            busy, s0, e0 = busy + e0 - s0, s, e
+        else:
+            e0 = max(e0, e)
+    return busy + e0 - s0
+
+
 def traced(fn, classify=None):
     """Run ``fn()`` once under torch.profiler (device activity only), up to
     a device synchronize, and return the device's busy share of the wall
     time, the kernel launches and the kernels that took the most device
-    time (None when the trace holds no device activity); with
+    time (None when the trace holds no device activity), and the busy
+    share of the kernels alone (copies left out); with
     ``classify`` (kernel name -> bucket), also the device ms and launches
     of each bucket."""
     from torch.profiler import ProfilerActivity, profile
@@ -693,21 +742,16 @@ def traced(fn, classify=None):
     if not kern:
         log("  the trace holds no device activity; busy share not measured")
         return None
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
-    busy, (s0, e0) = 0.0, spans[0]
-    for s, e in spans[1:]:
-        if s > e0:
-            busy, s0, e0 = busy + e0 - s0, s, e
-        else:
-            e0 = max(e0, e)
-    busy += e0 - s0
+    busy = union_us(kern)
     by_name = {}
     for e in kern:
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    compute = [e for e in kern if not e.name.startswith("Memcpy")]
     res = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
            "device_busy_share": busy / wall_us, "kernel_launches": len(kern),
+           "compute_busy_share": union_us(compute) / wall_us,
            "top_kernels_ms": [(name[:60], t / 1e3, n)
                               for name, (t, n) in top]}
     if classify is not None:
@@ -3021,6 +3065,601 @@ def moe_int8_forward(moe, build, tmf, dev, card, layers=28, cmp_layers=12,
     return launches, res
 
 
+# ---------------------------------------------------------------------------
+# phase 15 (t1-t5): the training memory modes (optimizer/offload.py)
+# ---------------------------------------------------------------------------
+T_LR = 3e-5      # phase 8's recipe: adafactor, lr 3e-5, its floor lifted
+
+
+def llama3_8b_train(llama):
+    """Llama-3-8B (``llama3_8b()``) as bench.py's bench_8b trains it: seq
+    2048, full remat, the cross-entropy in 16 chunks."""
+    import dataclasses
+    return dataclasses.replace(llama.llama3_8b(), max_seq_len=2048,
+                               remat=True, remat_policy="full",
+                               loss_chunks=16)
+
+
+def leaves_of(tree):
+    """The tensors of a nested dict, or of lists of them."""
+    from paddle_tpu_torch.optimizer.functional import tree_leaves
+    if isinstance(tree, (list, tuple)):
+        return [t for sub in tree for t in leaves_of(sub)]
+    return tree_leaves(tree)
+
+
+def tree_bytes(tree):
+    return sum(t.numel() * t.element_size() for t in leaves_of(tree))
+
+
+def reckon_8b(llama, cfg, B, S, mode):
+    """Peak device bytes of a Llama-3-8B step (bf16 parameters, adafactor)
+    reckoned from the code before it runs, by part:
+
+    * ``train_step`` (``mode="plain"``): the backward phase holds the
+      parameters, the gradient tree, the activations and the stacked
+      gradient of its largest leaf (the unbind's backward stacks the L
+      slices while they are alive); the update (``optimizer_update`` maps
+      over every leaf before it returns) holds the parameters, the
+      gradients, the new leaves made so far and the f32 temporaries of
+      the leaf it updates: ~6 copies (``functional.adafactor_update``: g
+      in f32, v, rsqrt, u, p in f32, the update's products) of the whole
+      leaf, or of one slice of a leaf above 2^30 elements (whose new
+      bf16 leaf is made first). The leaves go in tree order: embed,
+      final_norm, lm_head, then the layers' (``llama.LAYER_KEYS``);
+    * the layer-wise step: the parameters (updated in place) and either
+      the activations and one layer's gradients, or the tail update:
+      ``d_embed`` in f32, ~6 f32 temporaries of ``embed`` [128256, 4096]
+      and the head's gradient;
+    * the streaming step: the tail (embedding, head) and the larger of
+      the activations with ~3 layers in flight, and the tail update;
+    * ``activations``: the saved layer inputs (L x B x S x h bf16), one
+      layer's recompute and backward ((10h + 7f) x B x S bf16) and one
+      cross-entropy chunk (f32 logits, their gradient and the bf16
+      product: 10 x B x S/chunks x V bytes)."""
+    from paddle_tpu_torch.optimizer import functional
+    h, f, V, L = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, \
+        cfg.num_layers
+    top, layers = llama._shapes(cfg)
+    shapes = {**{k: s for k, (s, _) in top.items()},
+              **{k: layers[k][0] for k in llama.LAYER_KEYS}}
+    sizes = {k: math.prod(s) for k, s in shapes.items()}
+    P = 2 * sum(sizes.values())
+    layer_bytes = 2 * sum(sizes[k] for k in layers) // L
+    acts = (2 * L * B * S * h + 2 * (10 * h + 7 * f) * B * S
+            + 10 * B * (S // cfg.loss_chunks) * V)
+    tail_update = (4 + 24 + 2) * V * h       # d_embed, 6 f32, d_head
+    if mode == "plain":
+        update, made, largest = 0, 0, 0
+        for k, n in sizes.items():
+            shape = shapes[k]
+            if len(shape) >= 3 and n > functional._ADAFACTOR_WHOLE:
+                row = n // shape[0]
+                temp = 24 * row * max(1, functional._ADAFACTOR_CHUNK // row)
+                made += 2 * n                 # the new leaf, made first
+                update = max(update, 2 * P + made + temp)
+            else:
+                temp = 24 * n
+                update = max(update, 2 * P + made + temp)
+                made += 2 * n
+            largest = max(largest, temp)
+        backward = 2 * P + acts + 2 * max(sizes.values())
+        parts = {"params": P, "grads": P, "new_params": P,
+                 "adafactor_largest_transient": largest,
+                 "activations": acts, "backward_phase": backward,
+                 "update_phase": update}
+        peak = max(backward, update)
+    elif mode == "layerwise":
+        parts = {"params": P, "adafactor_tail": tail_update,
+                 "activations": acts, "layer_grads": layer_bytes}
+        peak = P + max(acts + layer_bytes, tail_update)
+    else:
+        tail = 4 * V * h
+        parts = {"tail": tail, "layers_in_flight": 3 * layer_bytes,
+                 "adafactor_tail": tail_update, "activations": acts}
+        peak = tail + max(acts + 3 * layer_bytes, tail_update)
+    return {"peak": peak, "parts": parts}
+
+
+def gb(n):
+    return round(n / 1e9, 3)
+
+
+def run_steps(build, step, holder, warmup, steps, after=None):
+    """``warmup`` steps, then ``steps`` timed ones (synchronized wall
+    clock), of ``step(state) -> (state, loss)`` from the state in the
+    one-element list ``holder`` (taken out of it, so that no caller keeps
+    the first state alive beside the later ones); the launches of each
+    step and the peak device memory over all of them. ``after(state)``
+    runs after each step (host checks only: no synchronize)."""
+    state = holder.pop()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, per_step = [], []
+    build.launch_counts.clear()
+    for i in range(warmup + steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        before = dict(build.launch_counts)
+        state, loss = step(state)
+        losses.append(loss)
+        per_step.append({k: v - before.get(k, 0)
+                         for k, v in build.launch_counts.items()
+                         if v - before.get(k, 0)})
+        if after is not None:
+            after(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return state, {"losses": [x.item() for x in losses], "wall_s": wall,
+                   "step_ms": wall / steps * 1e3, "per_step": per_step,
+                   "launches": dict(build.launch_counts),
+                   "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def check_steps(label, res, want, falling):
+    """Each step launched ``want``; the losses are finite (and fall)."""
+    for i, n in enumerate(res["per_step"]):
+        if any(n.get(k, 0) != v for k, v in want.items()):
+            raise AssertionError(f"{label}: step {i} launched {n}, "
+                                 f"expected {want}")
+    losses = res["losses"]
+    if not all(math.isfinite(x) for x in losses) \
+            or (falling and losses[-1] >= losses[0]):
+        raise AssertionError(f"{label}: losses {losses} not finite"
+                             + (" or not falling" if falling else ""))
+
+
+def rates(res, B, S, steps, fpt):
+    tok_s = B * S * steps / res["wall_s"]
+    return {"tokens_per_s": tok_s, "mfu": fpt * tok_s / BF16_FLOPS}
+
+
+def tokens_for(cfg, B, S, dev, seed=SEED + 1):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                         device=dev)
+
+
+def train_8b_plain(llama, build, dev, card, total, S=2048, warmup=1,
+                   steps=3):
+    """(t1) ``llama.train_step`` on Llama-3-8B at full width and depth
+    (random bf16 weights, adafactor, lr 3e-5 with the floor lifted, one
+    fixed batch): the batch is the largest of 8, 4, 2 whose reckoned peak
+    (``reckon_8b``) lies within 0.9 of the card's memory. Each step must
+    launch B1 2L times (forward and the remat recompute), B2 and B3 L
+    times; the losses must be finite and fall."""
+    cfg = llama3_8b_train(llama)
+    L = cfg.num_layers
+    reck = {b: reckon_8b(llama, cfg, b, S, "plain") for b in (8, 4, 2)}
+    B = next((b for b in (8, 4, 2) if reck[b]["peak"] <= 0.9 * total), 2)
+    parts = {k: gb(v) for k, v in reck[B]["parts"].items()}
+    log(f"  reckoned peaks (GB) by batch: "
+        f"{ {b: gb(r['peak']) for b, r in reck.items()} } against 0.9 x "
+        f"{gb(total)}; batch {B}: {parts}")
+    holder = [llama.init_train_state(cfg, SEED, optimizer="adafactor",
+                                     param_dtype=torch.bfloat16,
+                                     device=dev)]
+    tokens = tokens_for(cfg, B, S, dev)
+
+    def step(st):
+        return llama.train_step(st, tokens, cfg, optimizer="adafactor",
+                                lr=T_LR, adafactor_eps2=0.0)
+
+    state, res = run_steps(build, step, holder, warmup, steps)
+    check_steps("t1", res, {"flash_fwd": 2 * L, "flash_dq": L,
+                            "flash_dkv": L}, falling=True)
+    res.update(rates(res, B, S, steps, llama.flops_per_token(cfg, S)),
+               batch=B, seq=S, warmup=warmup, timed_steps=steps,
+               params=llama.num_params(state.params),
+               reckoned_peak_gb=gb(reck[B]["peak"]),
+               reckoned_parts_gb=parts, card=card)
+    log_train("t1 plain train_step", res)
+    return res
+
+
+def log_train(label, res):
+    reck = res.get("reckoned_peak_gb")
+    log(f"  {label}: batch {res['batch']}, {res['tokens_per_s']:.1f} tok/s, "
+        f"{res['step_ms']:.1f} ms a step, MFU {res['mfu']:.4f}, peak "
+        f"{gb(res['peak_bytes'])} GB"
+        + ("" if reck is None else f" (reckoned {reck})")
+        + f", losses {res['losses']}, launches a step "
+        f"{res['per_step'][-1]}; card: {res['card']}")
+
+
+def train_8b_layerwise(llama, offload, build, dev, card, batches, S=2048,
+                       warmup=1, steps=3):
+    """(t2) ``make_layerwise_train_step`` on Llama-3-8B at each batch of
+    ``batches`` (t1's recipe): the same launches a step as t1, finite and
+    falling losses."""
+    cfg = llama3_8b_train(llama)
+    L = cfg.num_layers
+    out = {}
+    for B in batches:
+        reck = reckon_8b(llama, cfg, B, S, "layerwise")
+        holder = [offload.init_layerwise_train_state(cfg, SEED, device=dev)]
+        tokens = tokens_for(cfg, B, S, dev)
+        step_fn = offload.make_layerwise_train_step(cfg, lr=T_LR,
+                                                    adafactor_eps2=0.0)
+        state, res = run_steps(build, lambda st: step_fn(st, tokens), holder,
+                               warmup, steps)
+        check_steps(f"t2 batch {B}", res, {"flash_fwd": 2 * L,
+                                           "flash_dq": L, "flash_dkv": L},
+                    falling=True)
+        res.update(rates(res, B, S, steps, llama.flops_per_token(cfg, S)),
+                   batch=B, seq=S, warmup=warmup, timed_steps=steps,
+                   reckoned_peak_gb=gb(reck["peak"]),
+                   reckoned_parts_gb={k: gb(v)
+                                      for k, v in reck["parts"].items()},
+                   card=card)
+        log_train(f"t2 layer-wise step", res)
+        out[B] = res
+        del state, tokens
+        free_memory()
+    return out
+
+
+def pcie_rates(dev, nbytes, reps=5):
+    """GB/s of pinned copies of ``nbytes`` (one layer's bf16 weights):
+    host to device alone, device to host alone, and both at once on two
+    streams (the sum of the two directions), each from a synchronized
+    wall clock over ``reps`` copies."""
+    from paddle_tpu_torch.optimizer.offload import host_put
+    d_src = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    d_dst = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    h = host_put({"a": d_src, "b": d_dst}, dev)
+    s1, s2 = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+
+    def run(h2d, d2h):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            if h2d:
+                with torch.cuda.stream(s1):
+                    d_dst.copy_(h["a"], non_blocking=True)
+            if d2h:
+                with torch.cuda.stream(s2):
+                    h["b"].copy_(d_src, non_blocking=True)
+        torch.cuda.synchronize()
+        return (h2d + d2h) * nbytes * reps / (time.perf_counter() - t0) / 1e9
+
+    run(True, True)
+    return {"h2d_gb_s": run(True, False), "d2h_gb_s": run(False, True),
+            "both_gb_s": run(True, True), "bytes": nbytes}
+
+
+def memcpy_category(name):
+    """A traced event's bucket: the PCIe copies by direction, else the
+    kernel's bucket."""
+    if name.startswith("Memcpy HtoD"):
+        return "PCIe h2d"
+    if name.startswith("Memcpy DtoH"):
+        return "PCIe d2h"
+    return kernel_category(name)
+
+
+def train_8b_streaming(llama, offload, build, dev, card, B, layerwise_ms,
+                       S=2048, warmup=1, steps=3):
+    """(t3) ``make_streaming_train_step`` on Llama-3-8B at t2's batch
+    (t1's recipe): the same launches a step as t1 and finite losses;
+    after every step each layer tensor (parameters and second moments)
+    lies on the CPU in pinned memory, and the card holds at most the
+    tail (embedding, final norm, head and their moments) plus 1 GB. The
+    pinned bytes against the layers' bytes, the step's PCIe bytes, the
+    link's pinned copy rates and the step time against t2's at the same
+    batch; one more step traced (device busy share, PCIe copies by
+    direction)."""
+    cfg = llama3_8b_train(llama)
+    L = cfg.num_layers
+    reck = reckon_8b(llama, cfg, B, S, "streaming")
+    t0 = time.perf_counter()
+    state = offload.init_streaming_train_state(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    lay_bytes = tree_bytes(state.layers)
+    nu_bytes = tree_bytes(state.nu_layers)
+    pinned = offload.pinned_bytes([state.layers, state.nu_layers])
+    tail_bytes = tree_bytes([state.embed, state.final_norm, state.lm_head,
+                             state.nu_embed, state.nu_fn, state.nu_head])
+    log(f"  streaming state in {init_s:.1f} s: layers {gb(lay_bytes)} GB "
+        f"bf16 + second moments {gb(nu_bytes)} GB in {gb(pinned)} GB "
+        f"pinned; tail on the card {gb(tail_bytes)} GB")
+    seen = []
+
+    def after(st):
+        bad = [t for t in leaves_of([st.layers, st.nu_layers])
+               if t.device.type != "cpu" or not t.is_pinned()]
+        alloc = torch.cuda.memory_allocated()
+        seen.append(alloc)
+        if bad or alloc > tail_bytes + 1e9:
+            raise AssertionError(f"t3: {len(bad)} layer tensors not pinned "
+                                 f"on the host; {alloc} bytes on the card "
+                                 f"against a tail of {tail_bytes}")
+
+    after(state)
+    tokens = tokens_for(cfg, B, S, dev)
+    step_fn = offload.make_streaming_train_step(cfg, lr=T_LR,
+                                                adafactor_eps2=0.0,
+                                                device=dev)
+    holder = [state]
+    del state
+    state, res = run_steps(build, lambda st: step_fn(st, tokens), holder,
+                           warmup, steps, after=after)
+    check_steps("t3", res, {"flash_fwd": 2 * L, "flash_dq": L,
+                            "flash_dkv": L}, falling=False)
+    res.update(rates(res, B, S, steps, llama.flops_per_token(cfg, S)),
+               batch=B, seq=S, warmup=warmup, timed_steps=steps,
+               reckoned_peak_gb=gb(reck["peak"]),
+               reckoned_parts_gb={k: gb(v) for k, v in reck["parts"].items()},
+               init_s=init_s, layer_bytes=lay_bytes, nu_bytes=nu_bytes,
+               pinned_bytes=pinned, tail_bytes=tail_bytes,
+               allocated_between_steps=seen,
+               pcie_bytes_per_step=3 * lay_bytes + 2 * nu_bytes,
+               layerwise_step_ms=layerwise_ms,
+               vs_layerwise=res["step_ms"] / layerwise_ms, card=card)
+    log_train("t3 streaming step", res)
+    res["pcie"] = pcie_rates(dev, lay_bytes // L)
+    log(f"  pinned copy rates: {res['pcie']}; the step moves "
+        f"{gb(res['pcie_bytes_per_step'])} GB over PCIe; step time "
+        f"{res['step_ms']:.1f} ms against the layer-wise step's "
+        f"{layerwise_ms:.1f} at batch {B}")
+    res["traced_step"] = traced(lambda: step_fn(state, tokens),
+                                classify=memcpy_category)
+    log(f"  traced streaming step: {res['traced_step']}")
+    del state, tokens
+    free_memory()
+    return res
+
+
+def small_llama(llama):
+    """(t4)'s model: f32, 4 layers, 4 heads of 128 (hidden 512) over 2 KV
+    heads, ffn 1024, vocab 4096."""
+    import dataclasses
+    return dataclasses.replace(
+        llama.tiny_llama(vocab=4096, hidden=512, layers=4, heads=4,
+                         kv_heads=2, seq=256, ffn=1024),
+        head_dim=128, dtype=torch.float32)
+
+
+def layerwise_nu_numpy(tree):
+    """Zero layer-wise second moments for a numpy parameter tree (the
+    stacked matrices factored with the stack dim kept, the [L, h] norms
+    full; the tail per leaf)."""
+    def nu(a, stacked):
+        if a.ndim - stacked >= 2:
+            return {"vr": np.zeros(a.shape[:-1], np.float32),
+                    "vc": np.zeros(a.shape[:-2] + a.shape[-1:], np.float32)}
+        return {"v": np.zeros(a.shape, np.float32)}
+    return {k: ({kk: nu(vv, 1) for kk, vv in v.items()} if k == "layers"
+                else nu(v, 0)) for k, v in tree.items()}
+
+
+def trees_rel_err(got, want):
+    """The largest error of a leaf of ``got`` over the largest magnitude of
+    the matching leaf of ``want`` (both on the CPU)."""
+    return max((a.float().cpu() - b.float().cpu()).abs().max().item()
+               / max(b.float().abs().max().item(), 1e-30)
+               for a, b in zip(leaves_of(got), leaves_of(want)))
+
+
+def cross_device_offload(llama, offload, dev, steps=3, B=2, S=256):
+    """(t4) From one numpy-made state of ``small_llama``: ``steps`` steps
+    of the layer-wise and the streaming step on the card and of the
+    streaming step on the CPU (t1's recipe): losses within 2e-5 relative,
+    parameters and second moments within 1e-4 of each leaf's largest
+    magnitude (card streaming against card layer-wise and against the
+    CPU). Then 2 steps of ``make_offload_train_step`` (adamw with the
+    moments in pinned memory, and adafactor) against ``llama.train_step``
+    on the card from the same state, by the same rule; the adamw moments
+    lie in pinned memory between steps."""
+    cfg = small_llama(llama)
+    tree = numpy_params(cfg, SEED + 3)
+    nu = layerwise_nu_numpy(tree)
+    toks = np.random.default_rng(SEED + 8).integers(
+        0, cfg.vocab_size, (B, S + 1))
+    kw = dict(lr=T_LR, adafactor_eps2=0.0)
+    cpu = torch.device("cpu")
+    runs = {}
+    for name, where, streaming in (("card_layerwise", dev, False),
+                                   ("card_streaming", dev, True),
+                                   ("cpu_streaming", cpu, True)):
+        st = offload.layerwise_state_from_numpy(tree, nu, device=where)
+        if streaming:
+            st = offload.streaming_state_from_layerwise(st)
+            step = offload.make_streaming_train_step(cfg, device=where, **kw)
+        else:
+            step = offload.make_layerwise_train_step(cfg, **kw)
+        t = torch.as_tensor(toks, device=where)
+        losses = []
+        for _ in range(steps):
+            st, loss = step(st, t)
+            losses.append(loss.item())
+        if streaming:
+            st = offload.layerwise_state_from_streaming(st)
+        runs[name] = {"losses": losses, "params": st.params, "nu": st.nu}
+    ref = runs["card_layerwise"]
+    out = {}
+    for name, want in (("card_streaming_vs_card_layerwise", ref),
+                       ("card_streaming_vs_cpu_streaming",
+                        runs["cpu_streaming"])):
+        got = runs["card_streaming"]
+        out[name] = {
+            "loss": max(abs(a - b) / abs(b) for a, b in
+                        zip(got["losses"], want["losses"])),
+            "params": trees_rel_err(got["params"], want["params"]),
+            "nu": trees_rel_err(got["nu"], want["nu"])}
+    out["losses"] = {k: v["losses"] for k, v in runs.items()}
+    del runs, ref
+    t = torch.as_tensor(toks, device=dev)
+    for opt in ("adamw", "adafactor"):
+        params = llama.params_from_numpy(tree, device=dev)
+        from paddle_tpu_torch.optimizer.functional import init_moments
+        mu, nu_ = init_moments(params, opt)
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        ref_st = llama.TrainState(params, mu, nu_, zero)
+        host = opt == "adamw"
+        st = llama.TrainState(
+            llama.params_from_numpy(tree, device=dev),
+            offload.host_put(mu, dev) if host else mu,
+            offload.host_put(nu_, dev) if host else nu_, zero)
+        step = offload.make_offload_train_step(
+            llama, cfg, optimizer=opt, lr=T_LR, offload_moments=host,
+            adafactor_eps2=0.0)
+        errs = []
+        for _ in range(2):
+            st, loss = step(st, t)
+            ref_st, rloss = llama.train_step(ref_st, t, cfg, optimizer=opt,
+                                             lr=T_LR, adafactor_eps2=0.0)
+            errs.append(abs(loss.item() - rloss.item()) / abs(rloss.item()))
+            if host and not all(x.device.type == "cpu" and x.is_pinned()
+                                for x in leaves_of([st.mu, st.nu])):
+                raise AssertionError("t4: offloaded moments not pinned")
+        torch.cuda.synchronize()
+        out[f"offload_{opt}_vs_train_step"] = {
+            "loss": max(errs),
+            "params": trees_rel_err(st.params, ref_st.params),
+            "nu": trees_rel_err(st.nu, ref_st.nu)}
+    log(f"  card vs card and card vs CPU: {out}")
+    for k, v in out.items():
+        if k != "losses" and (v["loss"] > 2e-5 or v["params"] > 1e-4
+                              or v["nu"] > 1e-4):
+            raise AssertionError(f"t4: {k} differs: {v}")
+    return out
+
+
+def meminfo_bytes(key="MemAvailable"):
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError(f"/proc/meminfo has no {key}")
+
+
+def moe_layer_bytes(cfg, dense):
+    """Pinned bytes of one streamed MoE layer: bf16 parameters and their
+    f32 second moments (factored for matrices)."""
+    h, E, fm = cfg.hidden_size, cfg.num_experts, cfg.moe_intermediate_size
+    d, nq, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    fs = cfg.n_shared_experts * fm
+    mats = [(h, nq * d), (h, nkv * d), (h, nkv * d), (nq * d, h),
+            (h, fs), (h, fs), (fs, h)]
+    if not dense:
+        mats += [(h, E)] + [(E, h, fm)] * 2 + [(E, fm, h)]
+    p = 2 * (2 * h + sum(math.prod(m) for m in mats))
+    nu = 4 * (2 * h + sum(math.prod(m[:-1]) + math.prod(m[:-2] + m[-1:])
+                          for m in mats))
+    return p + nu
+
+
+def train_moe_streaming(moe, offload, build, tmf, dev, card, B=4, S=2048,
+                        warmup=1, steps=2, host_reserve=16e9):
+    """(t5) ``make_streaming_moe_train_step`` on DeepSeekMoE-16B
+    (``deepseek_moe_16b``) at full depth, 28 layers with layer 0 dense,
+    batch 4 x 2048, random bf16 weights, t1's recipe; the depth is cut
+    (and the cut printed) only if the host's MemAvailable cannot pin 28
+    layers and keep ``host_reserve`` bytes. Each step launches, per
+    layer, B1 twice (the forward and the vjp's re-run), B2 and B3 once,
+    and per MoE layer B9 twice, gmm four times (the down projection in
+    both forwards, its dgrad, gate|up's dgrad) and tgmm twice; the losses
+    are finite. One more step traced."""
+    import dataclasses
+    cfg = dataclasses.replace(moe.deepseek_moe_16b(), max_seq_len=S)
+    dense_b = moe_layer_bytes(cfg, True)
+    moe_b = moe_layer_bytes(cfg, False)
+    nd = cfg.first_dense_layers
+    need = nd * dense_b + (cfg.num_layers - nd) * moe_b
+    avail = meminfo_bytes()
+    full = layers = cfg.num_layers
+    if need > avail - host_reserve:
+        layers = nd + int((avail - host_reserve - nd * dense_b) // moe_b)
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    log(f"  MemAvailable {gb(avail)} GB; {gb(need)} GB pinned for {full} "
+        f"layers (+ {gb(host_reserve)} GB kept free): running {layers} "
+        f"layers" + ("" if layers == full else
+                     " (depth cut by host memory)"))
+    t0 = time.perf_counter()
+    state = offload.init_streaming_moe_train_state(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    lay_bytes = tree_bytes(state.layers)
+    nu_bytes = tree_bytes(state.nu_layers)
+    pinned = offload.pinned_bytes([state.layers, state.nu_layers])
+    log(f"  streaming MoE state in {init_s:.1f} s: layers {gb(lay_bytes)} "
+        f"GB bf16 + second moments {gb(nu_bytes)} GB in {gb(pinned)} GB "
+        f"pinned (MemAvailable now {gb(meminfo_bytes())} GB)")
+    tokens = tokens_for(cfg, B, S, dev)
+    step_fn = offload.make_streaming_moe_train_step(cfg, lr=T_LR,
+                                                    adafactor_eps2=0.0,
+                                                    device=dev)
+    tmf.fused_paths.clear()
+    holder = [state]
+    del state
+    state, res = run_steps(build, lambda st: step_fn(st, tokens), holder,
+                           warmup, steps)
+    n_moe = layers - nd
+    want = {"flash_fwd": 2 * layers, "flash_dq": layers,
+            "flash_dkv": layers, "gather_gmm": 2 * n_moe, "gmm": 4 * n_moe,
+            "tgmm": 2 * n_moe}
+    check_steps("t5", res, want, falling=False)
+    fused = dict(tmf.fused_paths)
+    if fused != {"padded": 2 * n_moe * (warmup + steps)}:
+        raise AssertionError(f"t5: fused dispatch paths {fused}")
+    res.update(rates(res, B, S, steps, moe.flops_per_token(cfg, S)),
+               layers=layers, batch=B, seq=S, warmup=warmup,
+               timed_steps=steps, init_s=init_s, layer_bytes=lay_bytes,
+               nu_bytes=nu_bytes, pinned_bytes=pinned,
+               mem_available_before=avail,
+               pcie_bytes_per_step=3 * lay_bytes + 2 * nu_bytes,
+               active_params_per_token=moe.active_params_per_token(cfg),
+               fused_paths=fused, card=card)
+    log_train(f"t5 streaming MoE step, {layers} layers", res)
+    log(f"  the step moves {gb(res['pcie_bytes_per_step'])} GB over PCIe")
+    res["traced_step"] = traced(lambda: step_fn(state, tokens),
+                                classify=memcpy_category)
+    log(f"  traced streaming MoE step: {res['traced_step']}")
+    del state, tokens
+    free_memory()
+    return res
+
+
+def training_memory(llama, moe, offload, build, tfa, tmf, dev, card):
+    """Phase 15, (t1)-(t5), then B1-B3 timed at the 8B step's attention
+    shape; each sub-phase's state is freed before the next. Returns the
+    results and the launches of each path."""
+    total = torch.cuda.get_device_properties(dev).total_memory
+    out = {}
+    log("phase 15 (t1): llama.train_step on Llama-3-8B")
+    out["t1_plain"] = train_8b_plain(llama, build, dev, card, total)
+    free_memory()
+    b1 = out["t1_plain"]["batch"]
+    log("phase 15 (t2): the layer-wise step on Llama-3-8B")
+    out["t2_layerwise"] = train_8b_layerwise(
+        llama, offload, build, dev, card, sorted({8, b1}, reverse=True))
+    B = 8
+    log("phase 15 (t3): the host-streamed step on Llama-3-8B")
+    out["t3_streaming"] = train_8b_streaming(
+        llama, offload, build, dev, card, B,
+        out["t2_layerwise"][B]["step_ms"])
+    log("phase 15 (t4): streaming vs layer-wise on the card, card vs CPU, "
+        "offload vs train_step")
+    out["t4_cross_device"] = cross_device_offload(llama, offload, dev)
+    free_memory()
+    log("phase 15 (t5): the streaming MoE step on DeepSeekMoE-16B")
+    out["t5_moe_streaming"] = train_moe_streaming(moe, offload, build, tmf,
+                                                  dev, card)
+    log(f"phase 15: B1-B3 at the 8B step's attention shape (B={B})")
+    shape = {"flash_fwd": time_flash(tfa, dev, B, 2048, 32, 8)}
+    log(f"  B1 {shape['flash_fwd']['shape']}: {shape['flash_fwd']}")
+    torch.cuda.empty_cache()
+    shape.update(time_flash_bwd(tfa, dev, B, 2048, 32, 8))
+    for name in ("flash_dq", "flash_dkv"):
+        log(f"  {name} at the 8B shape: {shape[name]}")
+    torch.cuda.empty_cache()
+    out["b1_b3_8b_shape"] = shape
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3033,6 +3672,7 @@ def main() -> int:
         from paddle_tpu_torch.kernels import paged_attention as tpa
         from paddle_tpu_torch.kernels import pallas_attention as tfa
         from paddle_tpu_torch.models import llama, moe
+        from paddle_tpu_torch.optimizer import offload
         from paddle_tpu_torch.serving import LLMEngine
         from paddle_tpu_torch.serving import engine as teng
     except ImportError as exc:
@@ -3259,6 +3899,20 @@ def main() -> int:
         moe, build, tmf, dev, card)
     free_memory()
 
+    tm_res = training_memory(llama, moe, offload, build, tfa, tmf, dev, card)
+    free_memory()
+    # each kernel's launches on the training-memory paths (per run) and,
+    # for B1-B3, their times at the 8B step's attention shape
+    t_launch = {
+        k: {"plain_8b": tm_res["t1_plain"]["launches"].get(k, 0),
+            "layerwise_8b": tm_res["t2_layerwise"][8]["launches"].get(k, 0),
+            "streaming_8b": tm_res["t3_streaming"]["launches"].get(k, 0),
+            "streaming_moe_16b":
+                tm_res["t5_moe_streaming"]["launches"].get(k, 0)}
+        for k in ("flash_fwd", "flash_dq", "flash_dkv", "gather_gmm", "gmm",
+                  "tgmm")}
+    shape8 = tm_res.pop("b1_b3_8b_shape")
+
     # B5's static schedules: printed apart from the kernels line, whose
     # numbers (bound_ms aside) are measured in this run
     schedules = {"mega_decode": b5.pop("schedule"),
@@ -3269,7 +3923,9 @@ def main() -> int:
              source="paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
              replaces="paddle_tpu/kernels/pallas_attention.py:107",
              launches=launches.get("flash_fwd", 0),
-             train_launches=train_launches.get("flash_fwd", 0), **b1),
+             train_launches=train_launches.get("flash_fwd", 0),
+             train8b_launches=t_launch["flash_fwd"],
+             train8b_shape=shape8["flash_fwd"], **b1),
         dict(name="ragged_decode", route="cuda",
              source="paddle_tpu_torch/kernels/csrc/ragged_decode.cu",
              replaces="paddle_tpu/kernels/paged_attention.py:578",
@@ -3277,12 +3933,15 @@ def main() -> int:
         dict(name="flash_dq", route="cuda",
              source="paddle_tpu_torch/kernels/csrc/flash_dq.cu",
              replaces="paddle_tpu/kernels/pallas_attention.py:232",
-             launches=train_launches.get("flash_dq", 0), **bwd["flash_dq"]),
+             launches=train_launches.get("flash_dq", 0),
+             train8b_launches=t_launch["flash_dq"],
+             train8b_shape=shape8["flash_dq"], **bwd["flash_dq"]),
         dict(name="flash_dkv", route="cuda",
              source="paddle_tpu_torch/kernels/csrc/flash_dkv.cu",
              replaces="paddle_tpu/kernels/pallas_attention.py:253",
              launches=train_launches.get("flash_dkv", 0),
-             **bwd["flash_dkv"]),
+             train8b_launches=t_launch["flash_dkv"],
+             train8b_shape=shape8["flash_dkv"], **bwd["flash_dkv"]),
         dict(name="mega_decode", route="cuda",
              source="paddle_tpu_torch/kernels/csrc/mega_decode.cuh",
              replaces="paddle_tpu/kernels/mega_decode.py:645",
@@ -3291,15 +3950,18 @@ def main() -> int:
              source="paddle_tpu_torch/kernels/csrc/gather_gmm.cu",
              replaces="paddle_tpu/kernels/moe_fused.py:266",
              launches=moe_launches.get("gather_gmm", 0),
+             train8b_launches=t_launch["gather_gmm"],
              **grouped["gather_gmm"]),
         dict(name="gmm", route="cuda",
              source="paddle_tpu_torch/kernels/csrc/gmm.cu",
              replaces="paddle_tpu/kernels/moe_dispatch.py:434",
-             launches=moe_launches.get("gmm", 0), **grouped["gmm"]),
+             launches=moe_launches.get("gmm", 0),
+             train8b_launches=t_launch["gmm"], **grouped["gmm"]),
         dict(name="tgmm", route="cuda",
              source="paddle_tpu_torch/kernels/csrc/tgmm.cu",
              replaces="paddle_tpu/kernels/moe_dispatch.py:445",
-             launches=moe_launches.get("tgmm", 0), **grouped["tgmm"]),
+             launches=moe_launches.get("tgmm", 0),
+             train8b_launches=t_launch["tgmm"], **grouped["tgmm"]),
         dict(name="ragged_decode_int8", route="cuda",
              source="paddle_tpu_torch/kernels/csrc/ragged_decode.cu",
              replaces="paddle_tpu/kernels/paged_attention.py:578",
@@ -3340,6 +4002,7 @@ def main() -> int:
     log(f"training: {json.dumps(training)}")
     log(f"moe_training: {json.dumps(moe_training)}")
     log(f"int8: {json.dumps(int8_res)}")
+    log(f"training_memory: {json.dumps(tm_res)}")
     spec["paged_api_checks"] = paged["checks"]
     log(f"spec: {json.dumps(spec)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -14,9 +14,14 @@ the kernels and warms the libraries, is not timed). ``--lr`` and
 the JAX package) set the step size; at the defaults a random-init 2.6b
 model's loss on one batch oscillates rather than falls (PERF.md), at
 ``--lr 3e-5 --adafactor-eps2 0`` it falls. ``--device cpu`` runs the
-kernels' plain versions. Meshes (``--tp/--pp/--dp/--sp`` above 1), the
-1F1B schedule (``--microbatches``) and the layer-wise optimizer
-(``--layerwise``) are not ported yet and raise.
+kernels' plain versions.
+
+``--layerwise`` trains with the layer-wise optimizer-in-backward
+(``optimizer/offload.py``: adafactor, bf16 parameters, no gradient tree
+ever formed): one first step, then ``--steps`` timed ones, printing the
+loss and tokens/s, as the JAX example does. Meshes (``--tp/--pp/--dp/--sp``
+above 1) and the 1F1B schedule (``--microbatches``) are not ported yet
+and raise.
 """
 import argparse
 import time
@@ -61,7 +66,9 @@ def parse_args(argv=None):
     ap.add_argument("--bf16-params", action="store_true",
                     help="bf16 parameter memory mode")
     ap.add_argument("--layerwise", action="store_true",
-                    help="layer-wise optimizer-in-backward")
+                    help="layer-wise optimizer-in-backward: no full grad "
+                         "tree ever exists (single device, adafactor, "
+                         "bf16 params)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' (plain versions)")
     return ap.parse_args(argv)
@@ -76,13 +83,11 @@ def main(argv=None):
     if args.microbatches > 0:
         raise NotImplementedError(
             "the 1F1B pipeline schedule is not ported yet (ROADMAP A10)")
-    if args.layerwise:
-        raise NotImplementedError(
-            "the layer-wise optimizer (optimizer/offload.py) is not ported "
-            "yet (ROADMAP A3)")
     dev = resolve_device(args.device)
     cfg = SIZES[args.size]()
     seq = args.seq or cfg.max_seq_len
+    if args.layerwise:
+        return layerwise(args, cfg, seq, dev)
     state = llama.init_train_state(
         cfg, 0, optimizer=args.optimizer,
         param_dtype=torch.bfloat16 if args.bf16_params else torch.float32,
@@ -114,6 +119,30 @@ def main(argv=None):
     if args.steps > 1:
         tps = args.batch_size * seq * (args.steps - 1) / dt
         print(f"{tps:,.0f} tokens/s on {dev}")
+    return loss.item()
+
+
+def layerwise(args, cfg, seq, dev):
+    """The ``--layerwise`` run: ``make_layerwise_train_step`` on a
+    ``init_layerwise_train_state`` (bf16 parameters)."""
+    from paddle_tpu_torch.optimizer.offload import (
+        init_layerwise_train_state, make_layerwise_train_step)
+    state = init_layerwise_train_state(cfg, 0, device=dev)
+    step = make_layerwise_train_step(cfg, lr=args.lr,
+                                     adafactor_eps2=args.adafactor_eps2)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (args.batch_size, seq + 1),
+                           generator=gen, device=dev)
+    state, loss = step(state, tokens)      # builds the kernels
+    loss.item()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        state, loss = step(state, tokens)
+    print(f"loss {loss.item():.4f}")       # waits for the last step
+    dt = time.perf_counter() - t0
+    tps = args.batch_size * seq * args.steps / dt
+    print(f"{tps:,.0f} tokens/s on {dev} (layer-wise "
+          "optimizer-in-backward)")
     return loss.item()
 
 

@@ -89,6 +89,32 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         paddle_tpu_torch.resolve_device("meta")
 
 
+def test_offload_entry_points_default_to_cuda_and_raise_without_it():
+    """The layer-wise, streaming and offload steps' entry points and the
+    8B example run on the card unless asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a machine without CUDA")
+    from paddle_tpu_torch.optimizer import offload as to
+    cfg = tl.tiny_llama(vocab=32, hidden=32, layers=1, heads=4, kv_heads=2)
+    mcfg = tm.tiny_moe(vocab=32, hidden=32, layers=1, heads=4, experts=4)
+    for call in (lambda: to.init_layerwise_train_state(cfg),
+                 lambda: to.init_streaming_train_state(cfg),
+                 lambda: to.make_streaming_train_step(cfg),
+                 lambda: to.init_streaming_moe_train_state(mcfg),
+                 lambda: to.make_streaming_moe_train_step(mcfg),
+                 lambda: to.init_offload_train_state(tl, cfg),
+                 lambda: to.supports_host_memory(),
+                 lambda: to.supports_compiled_host_memory(),
+                 lambda: to.host_put({"w": torch.zeros(2)})):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    from paddle_tpu_torch.examples import llama_pretrain, train_8b_single_chip
+    with pytest.raises(RuntimeError, match="CUDA"):
+        llama_pretrain.main(["--size", "tiny", "--layerwise"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_8b_single_chip.main(["--size", "tiny"])
+
+
 def test_kernel_library_is_keyed_by_its_sources(tmp_path, monkeypatch):
     """An edited CUDA source names a new library, so it is rebuilt."""
     from paddle_tpu_torch.kernels import _build

@@ -1420,3 +1420,120 @@ def test_append_then_attend_chain_back_to_back(dev, dtype):
     ref = tpa.paged_decode_attention_plain(q, cache, layer=(calls - 1) % L)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
     assert _per_slot_ok(outs[-1], ref, cache.lengths, tol)
+
+
+# ---------------------------------------------------------------------------
+# the host-streamed and layer-wise train steps (optimizer/offload.py)
+# ---------------------------------------------------------------------------
+def _small_llama_numpy(L=3, h=256, nq=2, nkv=1, f=512, V=512, seed=0):
+    """A small f32 llama with the flash kernels' head dimension (128), its
+    weights made with numpy, and a zero layer-wise second-moment tree."""
+    import dataclasses
+    from paddle_tpu_torch.models import llama as tl
+    cfg = dataclasses.replace(
+        tl.tiny_llama(vocab=V, hidden=h, layers=L, heads=nq, kv_heads=nkv,
+                      seq=128, ffn=f), head_dim=h // nq, dtype=torch.float32)
+    rng = np.random.default_rng(seed)
+    d = h // nq
+
+    def rnd(*shape):
+        return (rng.standard_normal(shape) / np.sqrt(shape[-2] if
+                                                     len(shape) > 1 else 1)
+                ).astype(np.float32)
+
+    tree = {"embed": rnd(V, h), "final_norm": np.ones(h, np.float32),
+            "lm_head": rnd(h, V),
+            "layers": {"attn_norm": np.ones((L, h), np.float32),
+                       "wq": rnd(L, h, nq * d), "wk": rnd(L, h, nkv * d),
+                       "wv": rnd(L, h, nkv * d), "wo": rnd(L, nq * d, h),
+                       "mlp_norm": np.ones((L, h), np.float32),
+                       "w_gate": rnd(L, h, f), "w_up": rnd(L, h, f),
+                       "w_down": rnd(L, f, h)}}
+
+    def nu_of(a, stacked):
+        if a.ndim - stacked >= 2:
+            return {"vr": np.zeros(a.shape[:-1], np.float32),
+                    "vc": np.zeros(a.shape[:-2] + a.shape[-1:], np.float32)}
+        return {"v": np.zeros(a.shape, np.float32)}
+
+    nu = {k: ({kk: nu_of(vv, 1) for kk, vv in v.items()} if k == "layers"
+              else nu_of(v, 0)) for k, v in tree.items()}
+    return cfg, tree, nu
+
+
+def _rel_close(got, want, rel):
+    for a, b in zip(_leaves(got), _leaves(want)):
+        a, b = a.float().cpu(), b.float().cpu()
+        assert (a - b).abs().max().item() <= rel * b.abs().max().item()
+
+
+def _leaves(tree):
+    """The tensors of a nested dict, or of lists of them."""
+    from paddle_tpu_torch.optimizer.functional import tree_leaves
+    if isinstance(tree, (list, tuple)):
+        return [t for sub in tree for t in _leaves(sub)]
+    return tree_leaves(tree)
+
+
+def test_streaming_step_on_card_equals_layerwise(dev):
+    """Three host-streamed steps on the card against three layer-wise
+    steps on the card from the same numpy weights (f32, 3 layers, heads
+    of 128): losses within 2e-5 relative, parameters and second moments
+    within 1e-4 of each leaf's largest magnitude. Between steps every
+    layer leaf lies in pinned host memory, in blocks of exactly the
+    layers' bytes (each leaf rounded up to 256), and the device holds no
+    layer."""
+    from paddle_tpu_torch.optimizer import offload as to
+    cfg, tree, nu = _small_llama_numpy()
+    lw = to.layerwise_state_from_numpy(tree, nu, device=dev)
+    st = to.streaming_state_from_layerwise(
+        to.layerwise_state_from_numpy(tree, nu, device=dev))
+    step_l = to.make_layerwise_train_step(cfg, lr=1e-2)
+    step_s = to.make_streaming_train_step(cfg, lr=1e-2, device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (2, 129), generator=g,
+                         device=dev)
+    want = sum(-(-t.numel() * t.element_size() // 256) * 256
+               for t in _leaves([st.layers, st.nu_layers]))
+    for _ in range(3):
+        lw, loss_l = step_l(lw, toks)
+        st, loss_s = step_s(st, toks)
+        layer_leaves = _leaves([st.layers, st.nu_layers])
+        assert all(t.device.type == "cpu" and t.is_pinned()
+                   for t in layer_leaves)
+        assert to.pinned_bytes([st.layers, st.nu_layers]) == want
+        assert abs(loss_s.item() - loss_l.item()) <= 2e-5 * abs(loss_l.item())
+    back = to.layerwise_state_from_streaming(st)
+    _rel_close(back.params, lw.params, 1e-4)
+    _rel_close(back.nu, lw.nu, 1e-4)
+
+
+def test_offload_step_on_card_keeps_moments_pinned(dev):
+    """Two offload steps (adamw, gradients and moments through pinned host
+    memory) against llama.train_step on the card from the same weights:
+    losses within 2e-5 relative, parameters within 1e-4 of each leaf's
+    largest magnitude; the moments lie in pinned host memory between
+    steps."""
+    from paddle_tpu_torch.models import llama as tl
+    from paddle_tpu_torch.optimizer import functional as tf
+    from paddle_tpu_torch.optimizer import offload as to
+    cfg, tree, _ = _small_llama_numpy(L=2)
+    params = tl.params_from_numpy(tree, device=dev)
+    mu, nu = tf.init_moments(params, "adamw")
+    ref = tl.TrainState(params, mu, nu,
+                        torch.zeros((), dtype=torch.int32, device=dev))
+    st = tl.TrainState(tl.params_from_numpy(tree, device=dev),
+                       to.host_put(mu, dev), to.host_put(nu, dev),
+                       torch.zeros((), dtype=torch.int32, device=dev))
+    step = to.make_offload_train_step(tl, cfg, offload_moments=True)
+    g = torch.Generator(device=dev).manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (2, 129), generator=g,
+                         device=dev)
+    for _ in range(2):
+        st, loss = step(st, toks)
+        ref, rloss = tl.train_step(ref, toks, cfg)
+        assert all(t.device.type == "cpu" and t.is_pinned()
+                   for t in _leaves([st.mu, st.nu]))
+        assert abs(loss.item() - rloss.item()) <= 2e-5 * abs(rloss.item())
+    torch.cuda.synchronize()
+    _rel_close(st.params, ref.params, 1e-4)
