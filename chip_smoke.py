@@ -22,9 +22,12 @@ into the git-ignored ``paddle_tpu_torch/_build``, then runs, in order
    and more;
 4. the serving path: ``LLMEngine(decode_kernel="ragged")`` serving 16
    greedy requests (prompts of 64-1000 tokens, 64 new tokens each) on
-   Llama-3-8B with random bf16 weights, with the kernels' launch counts
-   read around the run; then one more decode call traced with
-   torch.profiler (the device's busy share of its wall time), and each
+   Llama-3-8B with random bf16 weights, its decode calls chained (no
+   synchronize inside the timed run: tokens/s, chained step times, time
+   to first token, readbacks a call), with the kernels' launch counts
+   read around the run; then one more decode call traced alone with
+   torch.profiler (the device's busy share of its wall time) and two
+   chained calls traced back to back, and each
    kernel timed at the run's own shapes beside its plain version (and,
    for B1, beside SDPA; B1 also at the llama-2.6b and DeepSeekMoE train
    steps' shapes; B4 and B4-int8 also alone by the profiler, with the
@@ -40,7 +43,8 @@ into the git-ignored ``paddle_tpu_torch/_build``, then runs, in order
    depth (4 slots at the serving mix's lengths): in f32 within 1e-3, in
    bf16 no farther from the f32 result than 1.5x the plain bf16 version;
    then timed in bf16 beside it; (b) phase 5's streams again through the mega engine on the card
-   and on the CPU — all four must be equal; (c)
+   and on the CPU — all four must be equal; (c), run right after
+   phase 4 (``serving_runs``),
    ``LLMEngine(decode_kernel="mega", max_slots=4)`` serving 8 requests
    of phase 4's mix on phase 4's weights, with one B5 launch a decode
    step and no B4 launch, a traced decode call, and the same mix through
@@ -196,9 +200,42 @@ then B1, B2 and B3 timed at the 8B step's attention shape ([8, 2048,
 32/8, 128], causal) beside SDPA and their bounds. Each of (t1)-(t3) and
 (t5) prints tokens/s, MFU and its peak memory with the card.
 
-Before its last line it prints ``serving``, ``mega``, ``training``,
+The serving tiers (chained decode, ``serving/prefix_cache.py``,
+``kv_swap.py``, ``offload.py``), after phase 6 (c), on phase 4's
+weights:
+
+(p1) two steady-state chained steps (``eng.step()`` whole, the previous
+     call unread; only its readback runs with the mode off) each for
+     ragged at 8 slots and mega at 4 and 8 under
+     ``torch.cuda.set_sync_debug_mode("error")``: a host sync raises;
+     then phase 4's 16 requests through mega at 8 slots beside phase 4's
+     ragged run (tokens/s, steps, readbacks a call, first divergence);
+(p2) bench.py's shared-prefix recipe: 24 clients, a 384-token shared
+     prefix plus 48-112-token tails, 48 new tokens, int8 pools, 8 slots
+     of mega decode; prefix cache with 128-token chunks against no
+     cache, each warmed on another prefix, two arrivals up front then one
+     a step: tokens/s, TTFT p50/p95, hits, misses, tokens skipped, the
+     first divergence;
+(p3) bench.py's offload recipe: 16 requests of 256-384 tokens, 96 new
+     tokens, int8 pools, 8 slots of mega decode, decode_steps 8, a pool
+     of 2/5 the working set and an 8 GiB swap tier, ``kv_offload="sync"``
+     against ``"async"``: the first swapped request's restored blocks equal
+     its spilled bytes (every pool entry, scales included), tokens/s,
+     restores, prefetch hits, stalls, stall seconds, fallbacks, the held
+     host bytes beside the pinned memory torch reports;
+(p4) phase 5's cut model through the prefix cache, 64-token chunks, a
+     prefix host tier and the swap tier over a 6-block pool (spills and
+     preemptions forced), on the card in sync and async modes and on the
+     CPU: every stream equals the card's cache-off streams, and the
+     ledger balances at every step.
+
+``python3 chip_smoke.py --serving`` runs phases 4, 6 (c) and (p1)-(p4)
+alone (no kernel checks, no device line).
+
+Before its last line it prints ``serving``, ``serving_tiers``, ``mega``,
+``training``,
 ``moe_training``, ``int8``, ``training_memory`` and ``spec`` lines
-(phases 4, 6, 8, 12-15, (a)-(f) and (s1)-(s4)),
+(phases 4, (p1)-(p4), 6, 8, 12-15, (a)-(f) and (s1)-(s4)),
 one JSON object with every ported kernel
 (launches on its main path, max error, and times in ms beside the
 bound), and the card's name and power limit; the last line is
@@ -222,7 +259,14 @@ BF16_FLOPS = 989e12
 SEED = 0
 
 
+T0 = time.perf_counter()
+
+
 def log(*a):
+    """Print and flush; a phase's header line also gets the seconds since
+    the script started, so the log shows where the run's time goes."""
+    if a and isinstance(a[0], str) and a[0].startswith("phase"):
+        a = (*a, f"[{time.perf_counter() - T0:.1f} s]")
     print(*a, flush=True)
 
 
@@ -249,21 +293,28 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def kernel_spans(fn, iters, key):
+def kernel_spans(fn, iters, key, traces=3):
     """The device intervals (start, end) in us of the kernels whose name
     holds ``key`` over ``iters`` calls of ``fn()`` (torch.profiler, after
-    one warm-up call), in order."""
+    one warm-up call), in order. A trace that comes back without any such
+    kernel (CUPTI now and then hands back none of a run's device events)
+    is taken again, up to ``traces`` traces; empty only if all were."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i)
-        torch.cuda.synchronize()
-    return sorted((e.time_range.start, e.time_range.end)
-                  for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and key in e.name)
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and key in e.name)
+        if spans:
+            return spans
+        log(f"  (trace of {key!r} held none of its kernels; tracing again)")
+    return []
 
 
 def kernel_device_ms(fn, iters, key):
@@ -561,11 +612,12 @@ def time_ragged_long(tpa, dev):
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 class CallTimer:
-    """Counts an engine method's calls and times each on the host clock up
-    to a device synchronize (a decode call ends in a readback anyway; a
-    prefill wave is otherwise left in flight for the next decode call)."""
+    """Counts an engine method's calls and times each on the host clock,
+    up to a device synchronize with ``sync`` (left out where a
+    synchronize would drain the chained decode pipeline: the time is
+    then the call's host time alone)."""
 
-    def __init__(self, obj, name):
+    def __init__(self, obj, name, sync=True):
         self.args = []
         self.seconds = []
         inner = getattr(obj, name)
@@ -573,7 +625,8 @@ class CallTimer:
         def wrapped(*a, **k):
             t0 = time.perf_counter()
             res = inner(*a, **k)
-            torch.cuda.synchronize()
+            if sync:
+                torch.cuda.synchronize()
             self.seconds.append(time.perf_counter() - t0)
             self.args.append(a)
             return res
@@ -583,6 +636,54 @@ class CallTimer:
     @property
     def n(self):
         return len(self.seconds)
+
+
+class StepTimer:
+    """Wraps ``eng.step`` (no synchronize: the chained pipeline runs as it
+    would): each step's wall time, whether it dispatched a prefill and a
+    decode call, and each request's time to its first host-visible token
+    from its arrival (``arrive``; ``start`` stamps every request queued
+    so far)."""
+
+    def __init__(self, eng, prefills, decodes):
+        self.steps = []           # (seconds, prefill calls, decode calls)
+        self.arrived = {}
+        self.ttft = {}
+        inner = eng.step
+
+        def wrapped():
+            n_p, n_d = prefills.n, decodes.n
+            t0 = time.perf_counter()
+            out = inner()
+            t1 = time.perf_counter()
+            self.steps.append((t1 - t0, prefills.n - n_p, decodes.n - n_d))
+            for rid, _tok in out:
+                if rid in self.arrived and rid not in self.ttft:
+                    self.ttft[rid] = t1 - self.arrived[rid]
+            return out
+
+        eng.step = wrapped
+
+    def arrive(self, rid):
+        self.arrived[rid] = time.perf_counter()
+
+    def start(self, rids):
+        t = time.perf_counter()
+        for rid in rids:
+            self.arrived[rid] = t
+
+    def decode_step_ms(self, decode_steps):
+        """Per decode step, the wall time of each step that dispatched a
+        decode call and no prefill (in steady chaining one call's time)."""
+        return [1e3 * t / decode_steps for t, n_p, n_d in self.steps
+                if n_d and not n_p]
+
+    def ttft_s(self):
+        return sorted(self.ttft.values())
+
+
+def p95(xs):
+    return xs[int(0.95 * (len(xs) - 1))] if xs else None
 
 
 def llama3_8b_bf16(llama, dev):
@@ -597,6 +698,16 @@ def llama3_8b_bf16(llama, dev):
     return cfg, params
 
 
+# every engine of phases 4, 6 (c) and (p1): block size, length, prefill
+# buckets, steps a decode call
+SERVE_ENGINE = dict(block_size=64, max_model_len=2048,
+                    prompt_buckets=[128, 512, 1024], decode_steps=16)
+# phases 4 and 6 (c): (cell, decode kernel, slots, requests of the mix)
+SERVING_CELLS = (("phase4_ragged_8", "ragged", 8, 16),
+                 ("phase6c_mega_4", "mega", 4, 8),
+                 ("phase6c_ragged_4", "ragged", 4, 8))
+
+
 def serving_mix(cfg, n):
     """The first ``n`` requests of the serving mix: prompt lengths drawn
     from 64-1000 and tokens by ``numpy.random.default_rng(0)``."""
@@ -608,28 +719,33 @@ def serving_mix(cfg, n):
 
 
 def serve(LLMEngine, build, dev, card, cfg, params, prompts, max_slots,
-          decode_kernel, kv_dtype=None):
+          decode_kernel, kv_dtype=None, chained_trace=0):
     """``LLMEngine`` on Llama-3-8B serving ``prompts`` (64 greedy tokens
     each) through ``decode_kernel`` (int8 pools with ``kv_dtype="int8"``;
-    int8 weights when ``params`` hold them): the run's numbers, with the
-    kernels' launch counts read around it, then one more decode call
-    traced. The decode kernels counted are the int8 branches when the
-    weights or the pools are int8."""
-    eng = LLMEngine(params, cfg, max_slots=max_slots, block_size=64,
-                    max_model_len=2048, prompt_buckets=[128, 512, 1024],
-                    decode_steps=16, decode_kernel=decode_kernel, seed=SEED,
+    int8 weights when ``params`` hold them), its decode calls chained: the
+    run's numbers with no synchronize inside it (tokens/s, steady step
+    times, time to first token with every request queued at the start,
+    readbacks a decode dispatch), with the kernels' launch counts read
+    around it, then one decode call traced alone and, with
+    ``chained_trace``, that many chained calls traced back to back. The
+    decode kernels counted are the int8 branches when the weights or the
+    pools are int8."""
+    eng = LLMEngine(params, cfg, max_slots=max_slots, **SERVE_ENGINE,
+                    decode_kernel=decode_kernel, seed=SEED,
                     kv_dtype=kv_dtype, device=dev)
     w_int8 = isinstance(params["layers"]["wq"], dict)
     b4 = "ragged_decode_int8" if kv_dtype else "ragged_decode"
     b5 = "mega_decode_int8" if kv_dtype or w_int8 else "mega_decode"
     lens = np.array([len(p) for p in prompts])
     ids = [eng.add_request(p, max_new_tokens=64) for p in prompts]
-    prefills = CallTimer(eng, "_dispatch_prefill")
-    decodes = CallTimer(eng, "_dispatch_decode")
+    prefills = CallTimer(eng, "_dispatch_prefill", sync=False)
+    decodes = CallTimer(eng, "_dispatch_decode", sync=False)
+    steps = StepTimer(eng, prefills, decodes)
     torch.cuda.reset_peak_memory_stats(dev)
     build.launch_counts.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    steps.start(ids)
     out = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -659,54 +775,105 @@ def serve(LLMEngine, build, dev, card, cfg, params, prompts, max_slots,
         raise AssertionError(f"the mega engine launched {launches} for "
                              f"{decodes.n} decode calls of 16 steps "
                              f"(fallbacks {dict(eng.mega_fallbacks)})")
+    if sum(eng.readbacks.values()) != decodes.n:
+        raise AssertionError(f"{dict(eng.readbacks)} readbacks for "
+                             f"{decodes.n} decode calls")
     peak = torch.cuda.max_memory_allocated(dev)
     # each prefill wave's (rows, bucket): B=1 alone, else max_slots rows
     waves = [(1 if len(rows) == 1 else eng.N,
-              eng._bucket_for(max(len(ctx) for _s, _r, ctx in rows)))
+              eng._bucket_for(max(r[4] for r in rows)))
              for (rows,) in prefills.args]
-    step_ms = [1e3 * t / 16 for t in decodes.seconds]
+    step_ms = steps.decode_step_ms(16)
+    ttft = steps.ttft_s()
+    drained = eng.readbacks["drained"]
     log(f"  {decode_kernel} decode, {max_slots} slots, weights "
         f"{'int8' if w_int8 else str(cfg.dtype)[6:]}, KV "
         f"{kv_dtype or str(cfg.dtype)[6:]}: served {len(ids)} "
         f"requests, {n_tok} tokens in {wall:.2f} s: {n_tok / wall:.1f} "
-        f"output tok/s; prefill waves {waves} took {prefills.seconds} s; "
-        f"{decodes.n} decode calls of 16 steps took {decodes.seconds} s "
-        f"(median step {float(np.median(step_ms)):.2f} ms); launches "
+        f"output tok/s; prefill waves {waves}; {decodes.n} decode calls "
+        f"of 16 steps, readbacks {dict(eng.readbacks)} "
+        f"({drained / max(1, decodes.n):.3f} draining syncs a call); "
+        f"median chained step {float(np.median(step_ms)):.2f} ms over "
+        f"{len(step_ms)} decode-only steps; TTFT p50 "
+        f"{ttft[len(ttft) // 2]:.3f} s, p95 {p95(ttft):.3f} s; launches "
         f"{launches}; peak memory {peak / 2**30:.2f} GiB; card: {card}")
     summary = {"decode_kernel": decode_kernel, "max_slots": max_slots,
                "int8_weights": w_int8, "kv_dtype": kv_dtype,
                "requests": len(ids), "output_tokens": n_tok,
                "wall_s": wall, "output_tok_per_s": n_tok / wall,
-               "prefill_waves": waves, "prefill_s": list(prefills.seconds),
-               "decode_calls": decodes.n, "decode_s": list(decodes.seconds),
+               "prefill_waves": waves,
+               "prefill_host_s": list(prefills.seconds),
+               "decode_calls": decodes.n,
+               "decode_host_s": list(decodes.seconds),
+               "readbacks": dict(eng.readbacks),
+               "draining_syncs_per_call": drained / max(1, decodes.n),
                "decode_step_ms": step_ms,
                "median_decode_step_ms": float(np.median(step_ms)),
+               "ttft_s": ttft, "ttft_p95_s": p95(ttft),
                "launches": launches,
                "peak_mem_gib": peak / 2**30, "prompt_lens": lens.tolist()}
     streams = [out[i] for i in ids]
-    summary["traced_decode_call"] = trace_decode_call(eng, prompts[:eng.N])
+    summary["traced_decode_call"], summary["traced_chained_calls"] = \
+        trace_decode_call(eng, prompts[:eng.N], chained_trace)
     return launches, summary, streams, eng.nb
 
 
-def trace_decode_call(eng, prompts):
+def serving_runs(llama, LLMEngine, build, dev, card):
+    """Phases 4 and 6 (c) on Llama-3-8B's random bf16 weights: each of
+    SERVING_CELLS through ``serve`` (two chained calls traced, but for
+    the ragged 4-slot cell). Returns the config, the weights and, by
+    cell, ``serve``'s (launches, summary, streams, blocks)."""
+    log("phase 4: LLMEngine serves Llama-3-8B (ragged decode); phase 6 "
+        "(c): mega and ragged at 4 slots")
+    cfg8, params8 = llama3_8b_bf16(llama, dev)
+    runs = {}
+    for cell, kernel, slots, n in SERVING_CELLS:
+        runs[cell] = serve(
+            LLMEngine, build, dev, card, cfg8, params8, serving_mix(cfg8, n),
+            max_slots=slots, decode_kernel=kernel,
+            chained_trace=0 if cell == "phase6c_ragged_4" else 2)
+        free_memory()
+    mega, ragged4 = runs["phase6c_mega_4"][1], runs["phase6c_ragged_4"][1]
+    mega["ragged_same_mix"] = ragged4
+    mega["first_stream_divergence"] = first_divergence(
+        runs["phase6c_mega_4"][2], runs["phase6c_ragged_4"][2])
+    log(f"  mega vs ragged at 4 slots: {mega['output_tok_per_s']:.1f} vs "
+        f"{ragged4['output_tok_per_s']:.1f} output tok/s, median step "
+        f"{mega['median_decode_step_ms']:.2f} vs "
+        f"{ragged4['median_decode_step_ms']:.2f} ms; first stream "
+        f"divergence (request, token): {mega['first_stream_divergence']}")
+    return cfg8, params8, runs
+
+
+def trace_decode_call(eng, prompts, chained=0):
     """Where one steady decode call's time goes: admit a full wave, run
-    its first decode call, then trace the next one with torch.profiler
-    and report the device's busy share of the call's wall time, its
-    kernel launches and the kernels that took the most device time. The
-    engine is drained afterwards."""
+    its first decode call, then trace the next one alone (the pipeline
+    drained before it) with torch.profiler and report the device's busy
+    share of the call's wall time, its kernel launches and the kernels
+    that took the most device time; then, the pipeline drained again,
+    trace ``chained`` steps back to back (each dispatches a call and
+    reads the one before): the busy share the chain reaches. The engine
+    is drained afterwards."""
     for p in prompts:
-        eng.add_request(p, max_new_tokens=48)
+        eng.add_request(p, max_new_tokens=16 * (chained + 3))
     eng.step()
     torch.cuda.synchronize()
     res = traced(eng.step)
     if res is not None:
         res["launches_per_step"] = res["kernel_launches"] / eng.decode_steps
+    torch.cuda.synchronize()
+    chain = (traced(lambda: [eng.step() for _ in range(chained)])
+             if chained else None)
+    if chain is not None:
+        chain["calls"] = chained
     eng.run()
     acct = eng.block_accounting()
     if acct["free"] != acct["total"]:
         raise AssertionError(f"block ledger unbalanced after drain: {acct}")
     log(f"  traced decode call ({eng.decode_steps} steps): {res}")
-    return res
+    if chained:
+        log(f"  traced {chained} chained decode calls: {chain}")
+    return res, chain
 
 
 def union_us(events):
@@ -794,6 +961,26 @@ def numpy_params(cfg, seed):
     }
 
 
+CUT = {}
+
+
+def cut_model(llama, int8=False):
+    """Phase 5's cut model: Llama-3-8B widths, 2 layers, a 32768
+    vocabulary, f32 weights made with numpy from SEED, on the CPU (with
+    ``int8``, ``quantize_params``'d) — made once and shared by phases 5,
+    6, (p4), (s2) and (int8 d); ``CUT.clear()`` frees it."""
+    if "cfg" not in CUT:
+        import dataclasses
+        CUT["cfg"] = dataclasses.replace(llama.llama3_8b(), num_layers=2,
+                                         vocab_size=32768,
+                                         dtype=torch.float32)
+        CUT[False] = llama.params_from_numpy(numpy_params(CUT["cfg"], SEED),
+                                             device="cpu")
+    if int8 not in CUT:
+        CUT[int8] = llama.quantize_params(CUT[False])
+    return CUT["cfg"], CUT[int8]
+
+
 def tree_to(tree, device):
     """A nested dict of tensors (int8 leaves included) moved to device."""
     if isinstance(tree, dict):
@@ -807,12 +994,7 @@ def cross_device_streams(llama, LLMEngine, dev, decode_kernel, int8=False):
     ``decode_kernel`` on the card and on the CPU, which must be equal.
     With ``int8`` the weights are ``quantize_params``'d (once, on the CPU)
     and the pools int8."""
-    import dataclasses
-    cfg = dataclasses.replace(llama.llama3_8b(), num_layers=2,
-                              vocab_size=32768, dtype=torch.float32)
-    base = llama.params_from_numpy(numpy_params(cfg, SEED), device="cpu")
-    if int8:
-        base = llama.quantize_params(base)
+    cfg, base = cut_model(llama, int8)
     rng = np.random.default_rng(SEED + 5)
     prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
                for n in (130, 200)]
@@ -1019,6 +1201,372 @@ def first_divergence(a, b):
         if len(x) != len(y):
             return (i, min(len(x), len(y)))
     return None
+
+
+# ---------------------------------------------------------------------------
+# phases (p1)-(p4): chained decode, the prefix cache with chunked prefill,
+# and the swap/offload host tiers
+# ---------------------------------------------------------------------------
+def chained_dispatch(LLMEngine, dev, cfg, params, prompts):
+    """(p1): two steady-state chained steps — ``eng.step()`` whole: the
+    offload sweep, chunks, admission, backing, the carry and slot-vector
+    refresh and the decode dispatch, with the previous call unread — for
+    each of ragged at 8 slots and mega at 4 and 8, under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host sync raises.
+    Only ``_process``, the previous call's readback (a wait by design),
+    runs with the mode off; each step must have dispatched and read one
+    chained call and drained none."""
+    res = {}
+    for kernel, slots in (("ragged", 8), ("mega", 4), ("mega", 8)):
+        eng = LLMEngine(params, cfg, max_slots=slots, **SERVE_ENGINE,
+                        decode_kernel=kernel, seed=SEED, device=dev)
+        for p in prompts[:slots]:
+            eng.add_request(p[:128], max_new_tokens=64)
+        eng.step()                   # the wave's prefill and first call
+        eng.step()                   # the second call, chained
+        process = eng._process
+
+        def process_unchecked(rec):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return process(rec)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+
+        eng._process = process_unchecked
+        for _ in range(2):
+            if eng._inflight is None or not eng._spec_safe():
+                raise AssertionError(f"{kernel} {slots}: not chained")
+            before = dict(eng.readbacks)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eng.step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if eng.readbacks["chained"] != before.get("chained", 0) + 1 \
+                    or eng.readbacks["drained"] != before.get("drained", 0):
+                raise AssertionError(f"{kernel} {slots}: readbacks "
+                                     f"{before} -> {dict(eng.readbacks)}")
+        eng._process = process
+        out = eng.run()
+        if eng.mega_fallbacks or any(len(v) != 64 for v in out.values()):
+            raise AssertionError(f"{kernel} {slots}: fallbacks "
+                                 f"{dict(eng.mega_fallbacks)}")
+        res[f"{kernel}_{slots}_slots"] = {
+            "sync_free_steps": 2, "readbacks": dict(eng.readbacks),
+            "decode_paths": dict(eng.decode_paths)}
+        log(f"  {kernel} at {slots} slots: 2 chained steps under sync "
+            f"debug mode 'error' raised nothing; readbacks "
+            f"{dict(eng.readbacks)}")
+        del eng, process
+        free_memory()
+    return res
+
+
+def mega_only(eng, label):
+    """Fail unless every decode call of ``eng`` ran the mega kernel."""
+    if eng.mega_fallbacks or set(eng.decode_paths) != {"mega"}:
+        raise AssertionError(f"{label}: decode paths "
+                             f"{dict(eng.decode_paths)}, mega fallbacks "
+                             f"{dict(eng.mega_fallbacks)}")
+
+
+def shared_prefix(LLMEngine, build, dev, card, cfg, params):
+    """(p2): bench.py's shared-prefix recipe (attempt_sharedprefix) on
+    Llama-3-8B with int8 pools: 24 clients whose prompts share a
+    384-token prefix (tails of 48-112 tokens), 48 greedy tokens each;
+    cache on (prefix cache + 128-token chunks) against off, each engine
+    warmed on another prefix; two arrivals up front, then one a step.
+    Decode runs the mega kernel (B5-int8), as in (p1) at 8 slots, where
+    ragged would be host-bound and leave prefill a small share.
+    Tokens/s, TTFT p50/p95 from each arrival, the cache's counters over
+    the timed run, launches, and the first stream divergence on against
+    off."""
+    n_clients, new_tok = 24, 48
+    rng = np.random.default_rng(0)
+    shared = rng.integers(1, 32768, size=384).tolist()
+    tails = [rng.integers(1, 32768, size=int(t)).tolist()
+             for t in rng.integers(48, 112, size=n_clients)]
+    warm_shared = rng.integers(1, 32768, size=384).tolist()
+    res, streams = {}, {}
+    for on in (False, True):
+        eng = LLMEngine(params, cfg, max_slots=8, block_size=64,
+                        max_model_len=1024, prompt_buckets=[128, 512, 1024],
+                        decode_steps=16, decode_kernel="mega",
+                        kv_dtype="int8", prefix_cache=on,
+                        prefill_chunk=128 if on else 0, seed=SEED,
+                        device=dev)
+        for t in tails[:2]:
+            eng.add_request(warm_shared + t, max_new_tokens=17)
+        eng.run()
+        pc = eng.prefix_cache
+        base = ((pc.hits, pc.misses, pc.tokens_skipped) if on
+                else (0, 0, 0))
+        prefills = CallTimer(eng, "_dispatch_prefill", sync=False)
+        decodes = CallTimer(eng, "_dispatch_decode", sync=False)
+        steps = StepTimer(eng, prefills, decodes)
+        build.launch_counts.clear()
+        pending = [shared + t for t in tails]
+        ids, gen = [], 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            ids.append(eng.add_request(pending.pop(0),
+                                       max_new_tokens=new_tok))
+            steps.arrive(ids[-1])
+        while eng.has_work() or pending:
+            if pending:
+                ids.append(eng.add_request(pending.pop(0),
+                                           max_new_tokens=new_tok))
+                steps.arrive(ids[-1])
+            gen += len(eng.step())
+            acct = eng.block_accounting()
+            if acct["free"] + acct["backed"] + acct["cached"] \
+                    != acct["total"]:
+                raise AssertionError(f"ledger {acct}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out = [eng.results[i] for i in ids]
+        acct = eng.block_accounting()
+        if gen != n_clients * new_tok or any(len(s) != new_tok for s in out) \
+                or acct["backed"] or acct["free"] + acct["cached"] \
+                != acct["total"]:
+            raise AssertionError(f"cache {on}: {gen} tokens, ledger {acct}")
+        mega_only(eng, f"(p2) cache {on}")
+        ttft = steps.ttft_s()
+        key = "cache_on" if on else "cache_off"
+        streams[key] = out
+        res[key] = {
+            "output_tok_per_s": gen / wall, "wall_s": wall,
+            "ttft_p50_s": ttft[len(ttft) // 2], "ttft_p95_s": p95(ttft),
+            "prefill_calls": prefills.n, "decode_calls": decodes.n,
+            "readbacks": dict(eng.readbacks),
+            "median_decode_step_ms": float(np.median(
+                steps.decode_step_ms(16) or [float("nan")])),
+            "launches": dict(build.launch_counts)}
+        if on:
+            res[key].update(hits=pc.hits - base[0],
+                            misses=pc.misses - base[1],
+                            tokens_skipped=pc.tokens_skipped - base[2],
+                            evictions=dict(pc.evictions))
+        log(f"  shared prefix, cache {'on' if on else 'off'}: "
+            f"{res[key]}; card: {card}")
+        del eng, prefills, decodes, steps
+        free_memory()
+    res["first_divergence_on_vs_off"] = first_divergence(
+        streams["cache_on"], streams["cache_off"])
+    res["speedup_on_over_off"] = (res["cache_on"]["output_tok_per_s"]
+                                  / res["cache_off"]["output_tok_per_s"])
+    return res
+
+
+def offload_tiers(LLMEngine, build, dev, card, cfg, params):
+    """(p3): bench.py's offload recipe (attempt_offload) on Llama-3-8B
+    with int8 pools: 16 requests of 256-384 prompt tokens, 96 greedy
+    tokens each, at 8 slots, decode_steps 8, the block pool 2/5 of the
+    working set (bench.py's divisor of the working set, 1.5, raised to
+    2.5: at 2/3 the run swaps 3 times in all, at 2/5 in most prefill
+    waves) and an 8 GiB swap tier; ``kv_offload="sync"`` against
+    ``"async"``. Decode runs the mega kernel (B5-int8): device-bound
+    steps, so a restore's inline stall is not lost in host noise. The first
+    swapped-out request's blocks are copied on the card when it is
+    spilled and compared (``torch.equal``, every pool entry, scales
+    included) with what its swap-in restores: a mismatch fails. Tokens/s,
+    restores, prefetch hits, stalls and their seconds, recompute
+    fallbacks, the held host bytes' peak against the pinned host memory
+    torch's allocator reports."""
+    n_reqs, new_tok = 16, 96
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 32768, size=int(ln)).tolist()
+               for ln in rng.integers(256, 384, size=n_reqs)]
+    per_req = -(-(384 + new_tok) // 64)
+    pool_blocks = max(2 * per_req, int(8 * per_req / 2.5))
+    res, streams = {"pool_blocks": pool_blocks,
+                    "working_set_blocks": 8 * per_req}, {}
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    for mode in ("sync", "async"):
+        eng = LLMEngine(params, cfg, max_slots=8, block_size=64,
+                        max_model_len=1024, prompt_buckets=[128, 512, 1024],
+                        decode_steps=8, decode_kernel="mega",
+                        kv_dtype="int8",
+                        num_blocks=pool_blocks, kv_swap_bytes=8 << 30,
+                        kv_offload=mode, seed=SEED, device=dev)
+        warm = np.random.default_rng(1)
+        for ln in (100, 300):
+            eng.add_request(warm.integers(1, 32768, size=ln).tolist(),
+                            max_new_tokens=17)
+        eng.run()
+        check = {"rid": None, "before": None, "equal": None}
+        spill = eng.offload.spill_async
+
+        def spill_copying(key, pools, block_ids, *a, **k):
+            if check["rid"] is None and a[1] is eng.swap_pool:
+                idx = torch.tensor(list(block_ids), device=dev)
+                check["rid"] = key
+                check["before"] = {n: p.index_select(1, idx).clone()
+                                   for n, p in pools.items()}
+            return spill(key, pools, block_ids, *a, **k)
+
+        swap_in = eng._swap_in
+
+        def swap_in_comparing(slot, req, ent):
+            swap_in(slot, req, ent)
+            if req.req_id == check["rid"] and check["equal"] is None:
+                idx = torch.tensor(eng.table[slot, :ent.n_blocks].tolist(),
+                                   device=dev)
+                check["equal"] = all(
+                    torch.equal(p.index_select(1, idx), check["before"][n])
+                    for n, p in eng.pools.items())
+                check["before"] = None
+
+        eng.offload.spill_async = spill_copying
+        eng._swap_in = swap_in_comparing
+        held = [0]
+        step = eng.step
+
+        def step_checked():
+            out = step()
+            acct = eng.block_accounting()
+            if acct["free"] + acct["backed"] + acct["in_flight"] \
+                    != acct["total"]:
+                raise AssertionError(f"ledger {acct}")
+            held[0] = max(held[0], eng.swap_pool.bytes_used
+                          + eng.swap_pool.reserved_bytes)
+            return out
+
+        eng.step = step_checked
+        build.launch_counts.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = [eng.add_request(p, max_new_tokens=new_tok) for p in prompts]
+        out = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        streams[mode] = [out[r] for r in rids]
+        gen = sum(len(s) for s in streams[mode])
+        off = eng.offload
+        acct = eng.block_accounting()
+        if check["equal"] is not True:
+            raise AssertionError(f"{mode}: request {check['rid']}'s "
+                                 f"restored blocks: {check['equal']}")
+        if gen != n_reqs * new_tok or acct["free"] != acct["total"] \
+                or acct["in_flight"] or len(eng.swap_pool):
+            raise AssertionError(f"{mode}: {gen} tokens, ledger {acct}")
+        mega_only(eng, f"(p3) {mode}")
+        res[mode] = {
+            "output_tok_per_s": gen / wall, "wall_s": wall,
+            "restores": off.prefetch_hits + off.stalls,
+            "prefetch_hits": off.prefetch_hits, "stalls": off.stalls,
+            "stall_seconds": off.stall_seconds,
+            "recompute_fallbacks": eng.swap_fallbacks,
+            "restored_block_bytes_equal": {"request": check["rid"],
+                                           "equal": True},
+            "readbacks": dict(eng.readbacks),
+            "held_host_bytes_peak": held[0],
+            "host_memory_stats": ({k: v for k, v in stats().items()
+                                   if "bytes" in k}
+                                  if stats is not None else "not measured"),
+            "launches": dict(build.launch_counts)}
+        log(f"  offload {mode}: {res[mode]}; card: {card}")
+        del eng, spill, swap_in, step
+        free_memory()
+    res["first_divergence_async_vs_sync"] = first_divergence(
+        streams["async"], streams["sync"])
+    res["async_over_sync"] = (res["async"]["output_tok_per_s"]
+                              / res["sync"]["output_tok_per_s"])
+    return res
+
+
+P4_GEOMETRY = dict(max_slots=2, block_size=64, max_model_len=512,
+                   prompt_buckets=[128, 256], decode_steps=4)
+P4_TIERS = dict(prefix_cache=True, prefill_chunk=64,
+                prefix_cache_host_bytes=64 << 20, kv_swap_bytes=64 << 20,
+                num_blocks=6)
+
+
+def p4_requests(vocab, seed=SEED + 9):
+    """(p4)'s traffic: two 128-token prefixes taken in turn by four
+    prompts with 20-70-token tails, 40 greedy tokens each."""
+    rng = np.random.default_rng(seed)
+    a, b = (rng.integers(0, vocab, size=128).tolist() for _ in range(2))
+    heads = (a, b, a, b)
+    tails = (40, 70, 30, 20)
+    news = (40, 40, 40, 40)
+    return [(h + rng.integers(0, vocab, size=t).tolist(), n)
+            for h, t, n in zip(heads, tails, news)]
+
+
+def serve_tiers(LLMEngine, cfg, params, device, requests, **kw):
+    """``requests`` through an engine of (p4)'s geometry, the ledger
+    checked at every step; the streams and the engine's tier counters."""
+    eng = LLMEngine(params, cfg, device=device, **P4_GEOMETRY, **kw)
+    ids = [eng.add_request(p, max_new_tokens=n) for p, n in requests]
+    preempted = []
+    free_slot = eng._free_slot
+
+    def counting(slot, requeue=False):
+        preempted.append(requeue)
+        return free_slot(slot, requeue)
+
+    eng._free_slot = counting
+    while eng.has_work():
+        eng.step()
+        a = eng.block_accounting()
+        if a["free"] + a["backed"] + a["cached"] + a["squeezed"] \
+                + a["in_flight"] != a["total"]:
+            raise AssertionError(f"{device} {kw}: ledger {a}")
+    eng.drain_offload()
+    a = eng.block_accounting()
+    if a["backed"] or a["in_flight"] or a["free"] + a["cached"] \
+            != a["total"]:
+        raise AssertionError(f"{device} {kw}: ledger after drain {a}")
+    stats = {"preemptions": sum(preempted)}
+    if eng.prefix_cache is not None:
+        pc = eng.prefix_cache
+        stats.update(hits=pc.hits, tokens_skipped=pc.tokens_skipped,
+                     spills=pc.evictions["spill"],
+                     restores=eng.offload.prefetch_hits
+                     + eng.offload.stalls,
+                     swap_fallbacks=eng.swap_fallbacks)
+    return [eng.results[i] for i in ids], stats
+
+
+def tiers_cross_device(llama, LLMEngine, dev):
+    """(p4): phase 5's cut model (Llama-3-8B widths, 2 layers, a 32768
+    vocabulary, f32 numpy-made weights) through the prefix cache, 64-token
+    chunks, a prefix host tier and the swap tier over a 6-block pool that
+    forces spills and preemptions, on the card (sync and async) and on
+    the CPU (sync), and cache-off on the card: every greedy stream must be
+    equal, and the ledger balance at every step."""
+    cfg, base = cut_model(llama)
+    reqs = p4_requests(cfg.vocab_size)
+    streams, stats = {}, {}
+    for where, modes in ((str(dev), ("sync", "async")), ("cpu", ("sync",))):
+        params = tree_to(base, where)
+        for mode in modes:
+            t0 = time.perf_counter()
+            key = f"{where}_{mode}"
+            streams[key], stats[key] = serve_tiers(
+                LLMEngine, cfg, params, where, reqs, kv_offload=mode,
+                **P4_TIERS)
+            log(f"  {key}: {stats[key]} ({time.perf_counter() - t0:.1f} s)")
+        if where == str(dev):
+            streams["cache_off"], _ = serve_tiers(LLMEngine, cfg, params,
+                                                  where, reqs)
+        del params
+    ref = streams["cache_off"]
+    bad = {k: first_divergence(v, ref) for k, v in streams.items()
+           if v != ref}
+    if bad:
+        raise AssertionError(f"(p4) streams differ from cache-off: {bad}")
+    st = stats[f"{dev}_async"]
+    if not (st["hits"] and st["spills"] and st["preemptions"]
+            and st["restores"]):
+        raise AssertionError(f"(p4) the tiers were not exercised: {stats}")
+    log(f"  card and CPU streams equal cache-off in sync and async modes: "
+        f"{[len(s) for s in ref]} tokens")
+    return {"stats": stats, "streams_equal": True}
 
 
 # ---------------------------------------------------------------------------
@@ -1281,11 +1829,8 @@ def spec_cross_device(llama, LLMEngine, build, dev, want, kv_int8=False):
     speculates; the streams must all be equal and equal ``want``, the plain
     engine's (with ``kv_int8``, int8 pools everywhere and a plain card
     engine's streams)."""
-    import dataclasses
-    cfg = dataclasses.replace(llama.llama3_8b(), num_layers=2,
-                              vocab_size=32768, dtype=torch.float32)
+    cfg, base = cut_model(llama)
     dcfg = llama.draft_config(cfg, num_layers=1)
-    base = llama.params_from_numpy(numpy_params(cfg, SEED), device="cpu")
     dbase = llama.params_from_numpy(numpy_params(dcfg, SEED + 11),
                                     device="cpu")
     rng = np.random.default_rng(SEED + 5)
@@ -1701,8 +2246,11 @@ def check_paged_api(tpa, build, dev, NB=512):
 
     def with_floor(f, device_ms):
         f["floor_ms"] = floor
-        f["floor_bound_ms"] = floor + f["bound_ms"]
-        f["share_of_floor_bound"] = f["floor_bound_ms"] / device_ms
+        f["floor_bound_ms"] = (floor + f["bound_ms"] if floor is not None
+                               else None)
+        f["share_of_floor_bound"] = (f["floor_bound_ms"] / device_ms
+                                     if device_ms and f["floor_bound_ms"]
+                                     else None)
         return f
     b7["device_ms"] = kernel_span_ms(b7_call, 50, "append_token_kernel")
     b7["host_us"] = hosts["b7"]
@@ -1761,8 +2309,9 @@ def check_paged_api(tpa, build, dev, NB=512):
     b8["share_of_bound_cold"] = (b8["bound_ms"] / b8["device_cold_ms"]
                                  if b8["device_cold_ms"] else None)
     with_floor(b8, b8["device_ms"])
-    b8["share_of_floor_bound_cold"] = (b8["floor_bound_ms"]
-                                       / b8["device_cold_ms"])
+    b8["share_of_floor_bound_cold"] = (
+        b8["floor_bound_ms"] / b8["device_cold_ms"]
+        if b8["device_cold_ms"] and b8["floor_bound_ms"] else None)
     log(f"  B6 timing: {b6}")
     log(f"  B7 timing: {b7}")
     log(f"  B8 timing: {b8}")
@@ -3660,6 +4209,68 @@ def training_memory(llama, moe, offload, build, tfa, tmf, dev, card):
     return out
 
 
+def serving_tiers(llama, LLMEngine, build, dev, card, cfg8, params8,
+                  serving, bf16_streams):
+    """Phases (p1)-(p4) on phase 4's weights: the chained dispatch under
+    sync debug mode, phase 4's mix through mega at 8 slots beside phase
+    4's ragged run, the shared-prefix and offload recipes, and the tiers
+    card against CPU. Returns their numbers and the kernels' launches in
+    each run."""
+    log("phase (p1): chained decode — sync-free dispatch; phase 4's mix "
+        "through mega at 8 slots")
+    tiers = {"p1": chained_dispatch(LLMEngine, dev, cfg8, params8,
+                                    serving_mix(cfg8, 8))}
+    launches = {}
+    launches["p1_mega_8"], mega8, m8_streams, _ = serve(
+        LLMEngine, build, dev, card, cfg8, params8, serving_mix(cfg8, 16),
+        max_slots=8, decode_kernel="mega", chained_trace=2)
+    mega8["first_divergence_vs_ragged_8"] = first_divergence(m8_streams,
+                                                            bf16_streams)
+    tiers["p1"]["serve_mega_8_slots"] = mega8
+    tiers["p1"]["serve_ragged_8_slots"] = {k: serving[k] for k in (
+        "output_tok_per_s", "median_decode_step_ms", "readbacks",
+        "draining_syncs_per_call", "ttft_p95_s")}
+    log(f"  phase 4's mix at 8 slots: mega {mega8['output_tok_per_s']:.1f} "
+        f"tok/s (median step {mega8['median_decode_step_ms']:.2f} ms), "
+        f"ragged {serving['output_tok_per_s']:.1f} "
+        f"({serving['median_decode_step_ms']:.2f} ms); draining syncs a "
+        f"call {mega8['draining_syncs_per_call']:.3f} and "
+        f"{serving['draining_syncs_per_call']:.3f}")
+    free_memory()
+    log("phase (p2): shared prefix, Llama-3-8B, int8 pools, cache on vs off")
+    tiers["p2"] = shared_prefix(LLMEngine, build, dev, card, cfg8, params8)
+    for k in ("cache_on", "cache_off"):
+        launches[f"p2_{k}"] = tiers["p2"][k]["launches"]
+    free_memory()
+    log("phase (p3): offload, Llama-3-8B, int8 pools, sync vs async")
+    tiers["p3"] = offload_tiers(LLMEngine, build, dev, card, cfg8, params8)
+    for k in ("sync", "async"):
+        launches[f"p3_{k}"] = tiers["p3"][k]["launches"]
+    free_memory()
+    log("phase (p4): the tiers on the card against the CPU (phase 5's cut "
+        "model)")
+    tiers["p4"] = tiers_cross_device(llama, LLMEngine, dev)
+    free_memory()
+    return tiers, launches
+
+
+def serving_only(llama, LLMEngine, build, dev, card) -> int:
+    """``--serving``: phases 4 and 6(c) (the serving runs alone, no kernel
+    checks) and (p1)-(p4), then their lines; no device line."""
+    cfg8, params8, runs = serving_runs(llama, LLMEngine, build, dev, card)
+    _, serving, bf16_streams, _ = runs["phase4_ragged_8"]
+    tiers, tier_launches = serving_tiers(
+        llama, LLMEngine, build, dev, card, cfg8, params8, serving,
+        bf16_streams)
+    log(f"serving: {json.dumps(serving)}")
+    log(f"mega: {json.dumps(runs['phase6c_mega_4'][1])}")
+    log(f"serving_tiers: {json.dumps(tiers)}")
+    log(f"tier_launches: {json.dumps(tier_launches)}")
+    log(f"total {time.perf_counter() - T0:.1f} s")
+    log(card)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3679,7 +4290,6 @@ def main() -> int:
         print(f"chip_smoke: run from the root of a repository checkout "
               f"({exc})", file=sys.stderr)
         return 1
-    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
 
     log("phase 1: device")
@@ -3691,6 +4301,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     build.library()
     log(f"  kernels built in {build.build_seconds:.1f} s")
+
+    if sys.argv[1:] == ["--serving"]:
+        return serving_only(llama, LLMEngine, build, dev, card)
 
     log("phase 2: B1 flash prefill vs plain")
     check_flash(tfa, dev)
@@ -3707,12 +4320,9 @@ def main() -> int:
     paged_launches, paged = check_paged_api(tpa, build, dev)
     torch.cuda.empty_cache()
 
-    log("phase 4: LLMEngine serves Llama-3-8B (ragged decode)")
-    cfg8, params8 = llama3_8b_bf16(llama, dev)
-    launches, serving, bf16_streams, num_blocks = serve(
-        LLMEngine, build, dev, card, cfg8, params8, serving_mix(cfg8, 16),
-        max_slots=8, decode_kernel="ragged")
-    free_memory()
+    cfg8, params8, runs = serving_runs(llama, LLMEngine, build, dev, card)
+    launches, serving, bf16_streams, num_blocks = runs["phase4_ragged_8"]
+    mega_launches, mega, m_streams, _ = runs["phase6c_mega_4"]
     # the kernels timed at the run's own shapes: its largest prefill wave,
     # and its first wave's decode lengths halfway through their tokens
     B, S = max(serving["prefill_waves"], key=lambda w: w[0] * w[1] ** 2)
@@ -3737,21 +4347,11 @@ def main() -> int:
     if mega_streams != ragged_streams:
         raise AssertionError(f"mega streams {mega_streams} differ from the "
                              f"ragged ones {ragged_streams}")
-    mega_launches, mega, m_streams, _ = serve(
-        LLMEngine, build, dev, card, cfg8, params8, mix8, max_slots=4,
-        decode_kernel="mega")
-    _, ragged4, r_streams, _ = serve(
-        LLMEngine, build, dev, card, cfg8, params8, mix8, max_slots=4,
-        decode_kernel="ragged")
-    mega["ragged_same_mix"] = ragged4
-    mega["first_stream_divergence"] = first_divergence(m_streams, r_streams)
     mega["B5"] = b5
-    log(f"  mega vs ragged at 4 slots: {mega['output_tok_per_s']:.1f} vs "
-        f"{ragged4['output_tok_per_s']:.1f} output tok/s, median step "
-        f"{mega['median_decode_step_ms']:.2f} vs "
-        f"{ragged4['median_decode_step_ms']:.2f} ms; first stream "
-        f"divergence (request, token): {mega['first_stream_divergence']}")
-    free_memory()
+
+    tiers, tier_launches = serving_tiers(
+        llama, LLMEngine, build, dev, card, cfg8, params8, serving,
+        bf16_streams)
 
     log("phase (s1): B5's multi-step form vs plain, one k=4 draft wave at "
         "4 slots")
@@ -3851,6 +4451,7 @@ def main() -> int:
         raise AssertionError(f"int8 mega streams {i8_mega_s} differ from the "
                              f"ragged ones {i8_ragged}")
     int8_res["cross_device_streams"] = i8_ragged
+    CUT.clear()
     free_memory()
 
     log("phase 7: B2/B3 flash backward vs plain")
@@ -3997,7 +4598,12 @@ def main() -> int:
              launches=paged_launches.get("paged_append_blocks", 0),
              **paged["b8"]),
     ]
+    # each kernel's launches in the runs of phases (p1)-(p3)
+    for k in kernels:
+        k["tier_launches"] = {run: n[k["name"]] for run, n in
+                              tier_launches.items() if n.get(k["name"])}
     log(f"serving: {json.dumps(serving)}")
+    log(f"serving_tiers: {json.dumps(tiers)}")
     log(f"mega: {json.dumps(mega)}")
     log(f"training: {json.dumps(training)}")
     log(f"moe_training: {json.dumps(moe_training)}")
@@ -4005,7 +4611,7 @@ def main() -> int:
     log(f"training_memory: {json.dumps(tm_res)}")
     spec["paged_api_checks"] = paged["checks"]
     log(f"spec: {json.dumps(spec)}")
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"total {time.perf_counter() - T0:.1f} s")
     log(card)
     log(json.dumps({"static_schedule": schedules}))
     log(json.dumps({"kernels": kernels}))

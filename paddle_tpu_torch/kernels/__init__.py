@@ -12,11 +12,13 @@ also holds the per-kernel ``launch_counts``).
   wgmma/TMA kernels (shared blocks in ``csrc/hopper.cuh``); the f32
   forms run on the CUDA cores;
 - ``paged_attention.ragged_decode_partial`` — the ragged paged-decode
-  walk over bf16/f32 or int8 pools (``csrc/ragged_decode.cu``, its walk
-  in ``csrc/ragged_walk.cuh``);
+  walk over bf16/f32 or int8 pools (``csrc/ragged_decode.cu``): bf16
+  queries walk on the split, tensor-core walk of ``csrc/ragged_split.cuh``
+  (shared with B6), f32 queries on the CUDA-core walk of
+  ``csrc/ragged_walk.cuh`` over the same schedule;
 - ``mega_decode.mega_decode_step`` — the persistent decode megakernel,
   one launch for a decode step of every layer (``csrc/mega_decode.cuh``,
-  reusing the walk), with dense or int8 weights and pools, screened by
+  reusing ``ragged_walk.cuh``), with dense or int8 weights and pools, screened by
   ``mega_decode.mega_supported``; ``mega_decode.mega_decode_loop``, its
   multi-step form (the speculative draft's k greedy steps, head and
   argmax included, in one launch: ``csrc/mega_decode_multi_*.cu``). A

@@ -1,6 +1,7 @@
 """Continuous-batching paged-KV serving engine — the port of
 paddle_tpu/serving/engine.py (greedy/sampled core, ragged and mega
-decode, int8, speculative decoding).
+decode chained in flight, int8, speculative decoding, the prefix cache
+with chunked prefill, and the swap/offload host tiers).
 
 Design, as in the JAX engine:
 
@@ -28,7 +29,25 @@ Design, as in the JAX engine:
   pools: admission reserves the prompt's blocks, decode backs the blocks
   the next call can touch, and when the pool runs dry the newest
   admission is preempted and re-queued for a fresh prefill of
-  prompt + generated (recompute preemption).
+  prompt + generated (recompute preemption) — or, with a host swap tier
+  (``kv_swap_bytes``), its blocks move to host memory and re-admission
+  restores them bit-exactly (``serving.kv_swap``).
+- Chained decode: call k+1 is dispatched before call k is read whenever
+  no slot of call k can finish inside it, so the readback overlaps the
+  next call. The carry (last tokens, lengths, done flags, budgets) stays
+  on the device from call to call, and nothing in a dispatch waits on
+  the device: every upload goes through a pinned staging copy and the
+  slot vectors and the block table are uploaded only when they change.
+- Prefix cache + chunked prefill (optional): a radix trie of full prompt
+  blocks (``serving.prefix_cache``) lets an admission pin a cached
+  prefix and prefill only the suffix against it (plain torch: one
+  softmax over the gathered history and the causal piece);
+  ``prefill_chunk`` feeds long suffixes one chunk a step between decode
+  calls. Cached blocks spill to a host tier under pressure.
+- Async offload (``serving.offload``): spills copy d2h on a side stream
+  and land at step boundaries (their blocks ride the ledger's
+  ``in_flight`` term until then), queued restores prefetch h2d ahead of
+  admission, and cold cached blocks spill proactively under pressure.
 - int8 everywhere (optional): int8 weight-only params
   (``models.llama.quantize_params``) go through
   ``kernels.quant_matmul.weight_only_matmul`` in prefill, the ragged
@@ -50,25 +69,28 @@ Design, as in the JAX engine:
   streams are the non-speculative greedy streams.
 
 Differences from the JAX engine: PyTorch runs eagerly, so nothing is
-compiled and the pools are updated in place rather than donated. Each
-decode call ends in one synchronous readback (the JAX engine chains the
-next call before reading the previous one); the first tokens of a
-prefill wave stay on the device until that readback. The observability
-hooks (among them the JAX engine's int8 numerics probes) are not ported.
+compiled and the pools are updated in place rather than donated; the
+random source is the engine's ``torch.Generator`` (sampled streams
+differ from the JAX engine's, whose RNG differs; greedy streams are
+equal). The observability hooks (among them the JAX engine's int8
+numerics probes) are not ported.
 The spec wave's draft prefill samples greedily (its token is discarded;
 the JAX engine draws it with the wave's flags), so a speculating engine
 draws the same random numbers for sampled requests as a plain one. The
 ``serving_spec_*`` metrics wait for the observability port (A8); the
-host counters ``spec_*`` are kept. Prefix caching, chunked prefill,
-swap/offload, admission control, deadlines, disaggregated roles and
-tensor parallelism are not ported yet (ROADMAP queue A), nor the
-``"bucketed"`` dense-gather decode; their constructor and request
-arguments raise ``NotImplementedError`` naming their queue when set.
+host counters ``spec_*`` are kept. Admission control, deadlines,
+cancellation, the fault injector, disaggregated roles and tensor
+parallelism are not ported yet (ROADMAP queue A), nor the ``"bucketed"``
+dense-gather decode; their constructor and request arguments raise
+``NotImplementedError`` naming their queue when set.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
 import math
+import time
 from collections import Counter, deque
 from typing import Dict, List, Optional
 
@@ -76,6 +98,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..framework.flags import get_flag
 from ..kernels.mega_decode import (_layer, _mlp, decode_layers,
                                    mega_decode_loop, mega_decode_step,
                                    mega_supported)
@@ -84,6 +107,9 @@ from ..kernels.quant_matmul import is_quantized_weight, quantize_kv
 from ..kernels.quant_matmul import weight_only_matmul as _wo_mm
 from ..models.llama import (LlamaConfig, _apply_rope, _apply_rope_at,
                             _rms_norm, _rope_tables, head_weight)
+from .kv_swap import HostKVPool
+from .offload import OffloadEngine, gather_blocks, take_staged, upload
+from .prefix_cache import PrefixCache
 
 __all__ = ["LLMEngine", "Request"]
 
@@ -91,12 +117,8 @@ NEG_INF = -1e30
 
 # JAX constructor arguments not ported yet -> (default, ROADMAP queue)
 _UNPORTED = {
-    "mesh": (None, "A10"),
-    "admission": (None, "A5"), "kv_swap_bytes": (0, "A5"),
-    "injector": (None, "A8"), "prefix_cache": (False, "A5"),
-    "prefill_chunk": (0, "A5"), "prefix_cache_host_bytes": (0, "A5"),
-    "kv_offload": ("auto", "A5"), "role": ("both", "A7"),
-    "relay": (None, "A7"),
+    "mesh": (None, "A10"), "admission": (None, "A5"),
+    "injector": (None, "A8"), "role": ("both", "A7"), "relay": (None, "A7"),
 }
 
 
@@ -190,9 +212,35 @@ def _apply_admissions(c_last, c_len, c_done, c_rem, wave_toks, slot_of_row,
     return c_last, c_len, c_done, c_rem
 
 
+class _Readback:
+    """A device tensor and its copy to pinned host memory, started as soon
+    as the work that makes the tensor is enqueued: ``numpy()`` waits for
+    that copy alone, not for work queued after it (the next chained call;
+    a ``.cpu()`` there would wait for it too). On the CPU the tensor is
+    its own host copy."""
+
+    __slots__ = ("dev", "host", "event")
+
+    def __init__(self, t):
+        self.dev = t
+        if t.device.type == "cuda":
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(t.device))
+        else:
+            self.host, self.event = t, None
+
+    def numpy(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
 def _paged_prefill(params, tokens, blk_ids, true_len, pools, temps, top_ks,
                    top_ps, generator, *, config: LlamaConfig,
-                   sample_flags=(True, True, True), kv_prefix: str = ""):
+                   sample_flags=(True, True, True), kv_prefix: str = "",
+                   hist_len=None, ctx_tbl=None):
     """Prefill a wave of admissions: causal forward over the padded prompt
     batch, each layer's K/V written into the rows' pool blocks (in place;
     pad rows and the bucket's pad tail point at the trash block 0), and
@@ -204,28 +252,89 @@ def _paged_prefill(params, tokens, blk_ids, true_len, pools, temps, top_ks,
     the dense K/V and the pools get them quantized (``quantize_kv``).
     ``kv_prefix="d"`` runs the wave through the speculative draft (its
     params and config) into the draft's ``dk``/``dv`` pools.
+
+    Suffix/chunked prefill (``ctx_tbl`` given): the wave prefills only a
+    PIECE of each row's context — tokens ``[hist_len[b], hist_len[b] +
+    true_len[b])`` — against K/V already resident in the pools (a matched
+    prefix-cache path and/or the slot's earlier chunks). ``ctx_tbl``
+    [B, prefix_nbk] names the history's physical blocks (a power-of-two
+    bucket; pad entries point at the trash block and mask via
+    ``hist_len``); each layer gathers its history K/V once (int8 pools
+    dequantized), each piece token attends to (masked history) + (causal
+    within the piece) in one softmax, and RoPE offsets by ``hist_len``
+    per row — plain torch, as the JAX engine leaves it to XLA. Without
+    ``ctx_tbl`` the program is the full-prompt prefill on B1, bit for bit.
     Returns the first tokens [B] int32 (on the device)."""
     c = config
     dt = c.dtype
     B, S = tokens.shape
-    bs = pools[kv_prefix + "k"].shape[2]
+    pk, pv = kv_prefix + "k", kv_prefix + "v"
+    bs = pools[pk].shape[2]
     Hq, Hkv, D = c.num_heads, c.num_kv_heads, c.head_dim
     flat = blk_ids.reshape(-1).long()
     x = params["embed"][tokens.long()].to(dt)
-    cos, sin = _rope_tables(S, D, c.rope_theta, tokens.device)
+    dev = tokens.device
+    if ctx_tbl is not None:
+        G = Hq // Hkv
+        Pp = ctx_tbl.shape[1] * bs
+        scale = 1.0 / math.sqrt(D)
+        kv_int8 = kv_prefix + "ks" in pools
+        # per-row absolute positions: row b's piece starts hist_len[b]
+        # tokens into its sequence
+        freq = c.rope_theta ** (-torch.arange(0, D, 2, dtype=torch.float32,
+                                              device=dev) / D)
+        pos = hist_len.float()[:, None] + torch.arange(
+            S, dtype=torch.float32, device=dev)[None, :]
+        ang = pos[:, :, None] * freq[None, None, :]           # [B, S, D/2]
+        cos, sin = torch.cos(ang), torch.sin(ang)
+        pre_mask = (torch.arange(Pp, device=dev)[None, :]
+                    < hist_len[:, None])[:, None, None, None, :]
+        in_mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                        device=dev))[None, None, None]
+        tbl = ctx_tbl.long()
+    else:
+        cos, sin = _rope_tables(S, D, c.rope_theta, dev)
     for l in range(c.num_layers):
         p = _layer(params, l)
         hn = _rms_norm(x, p["attn_norm"], c.rms_eps)
-        q = _apply_rope(_wo_mm(hn, p["wq"], dt).reshape(B, S, Hq, D),
-                        cos, sin)
-        k = _apply_rope(_wo_mm(hn, p["wk"], dt).reshape(B, S, Hkv, D),
-                        cos, sin)
+        q = _wo_mm(hn, p["wq"], dt).reshape(B, S, Hq, D)
+        k = _wo_mm(hn, p["wk"], dt).reshape(B, S, Hkv, D)
         v = _wo_mm(hn, p["wv"], dt).reshape(B, S, Hkv, D)
-        _write_pools(pools, (slice(l, l + 1), flat),
-                     k.reshape(1, -1, bs, Hkv, D),
-                     v.reshape(1, -1, bs, Hkv, D), kv_prefix)
-        att = flash_attention_fwd(q, k, v, causal=True)[0].reshape(
-            B, S, Hq * D)
+        if ctx_tbl is None:
+            q, k = _apply_rope(q, cos, sin), _apply_rope(k, cos, sin)
+            _write_pools(pools, (slice(l, l + 1), flat),
+                         k.reshape(1, -1, bs, Hkv, D),
+                         v.reshape(1, -1, bs, Hkv, D), kv_prefix)
+            att = flash_attention_fwd(q, k, v, causal=True)[0].reshape(
+                B, S, Hq * D)
+        else:
+            q, k = _apply_rope_at(q, cos, sin), _apply_rope_at(k, cos, sin)
+            # the history, gathered before this layer's piece lands
+            kpre = pools[pk][l][tbl].reshape(B, Pp, Hkv, D)
+            vpre = pools[pv][l][tbl].reshape(B, Pp, Hkv, D)
+            if kv_int8:
+                ksc = pools[kv_prefix + "ks"][l][tbl].reshape(B, Pp, Hkv)
+                vsc = pools[kv_prefix + "vs"][l][tbl].reshape(B, Pp, Hkv)
+                kpre = kpre.to(dt) * ksc[..., None].to(dt)
+                vpre = vpre.to(dt) * vsc[..., None].to(dt)
+            _write_pools(pools, (slice(l, l + 1), flat),
+                         k.reshape(1, -1, bs, Hkv, D),
+                         v.reshape(1, -1, bs, Hkv, D), kv_prefix)
+            # softmax over [history ; causal in-piece]: masked history
+            # positions contribute an exact 0.0
+            qg = q.reshape(B, S, Hkv, G, D).float()
+            s_pre = torch.einsum("bshgd,bphd->bhgsp", qg,
+                                 kpre.float()) * scale
+            s_in = torch.einsum("bshgd,bthd->bhgst", qg, k.float()) * scale
+            s_pre = torch.where(pre_mask, s_pre,
+                                torch.full_like(s_pre, NEG_INF))
+            s_in = torch.where(in_mask, s_in, torch.full_like(s_in, NEG_INF))
+            probs = torch.softmax(torch.cat([s_pre, s_in], dim=-1), dim=-1)
+            att = (torch.einsum("bhgsp,bphd->bshgd", probs[..., :Pp].to(dt),
+                                vpre.to(dt))
+                   + torch.einsum("bhgst,bthd->bshgd",
+                                  probs[..., Pp:].to(dt), v))
+            att = att.reshape(B, S, Hq * D).to(dt)
         x = _mlp(x + _wo_mm(att, p["wo"], dt), p, c)
     x = _rms_norm(x, params["final_norm"], c.rms_eps)
     rows = torch.arange(B, device=x.device)
@@ -470,10 +579,17 @@ class LLMEngine:
     >>> eng.add_request([1, 2, 3], max_new_tokens=32)
     >>> outputs = eng.run()          # {req_id: [generated tokens...]}
 
-    ``step()`` admits queued requests, runs one decode call and returns
-    the (req_id, token) pairs that became host-visible — the streaming
-    hook. ``params`` must live on ``device`` (``"cuda"`` by default;
-    ``"cpu"`` runs the kernels' plain versions).
+    ``step()`` admits queued requests, keeps the card fed and returns the
+    (req_id, token) pairs that became host-visible — the streaming hook.
+    ``params`` must live on ``device`` (``"cuda"`` by default; ``"cpu"``
+    runs the kernels' plain versions).
+
+    Chained decode: call k+1 is dispatched BEFORE call k's tokens are
+    read whenever no slot of call k can finish inside it (``_spec_safe``:
+    no eos token, budget beyond the call), so the readback overlaps the
+    next call's work; the stream then lags the card by one call. Every
+    readback is counted in ``readbacks`` as ``"chained"`` (a call was
+    queued behind it) or ``"drained"`` (the card had nothing left).
 
     ``draft_params``/``draft_config``: a second, smaller llama sharing the
     target's vocabulary (``models.llama.draft_config``), the speculative
@@ -481,14 +597,41 @@ class LLMEngine:
     cover their contexts runs draft-then-verify: ``spec_tokens`` proposals
     a slot, one verify call, and the agreeing prefix plus the target's
     token committed (capped at ``spec_tokens``, at least one token a
-    wave) — exactly the non-speculative greedy streams. Other waves take
-    the normal decode path (a slot advanced there stays out of spec waves
-    until it is re-prefilled). ``spec=False`` leaves the engine as it is
-    without a draft: no draft pools, no draft prefill. The counters
-    ``spec_waves``, ``spec_proposed``, ``spec_accepted``,
-    ``spec_committed``, ``spec_draft_steps`` and ``spec_verify_calls``
-    are kept on the host; ``spec_draft_paths`` counts the draft calls by
-    kernel path.
+    wave) — exactly the non-speculative greedy streams. A spec wave
+    drains the pipeline first (acceptance is a host decision). Other
+    waves take the normal decode path (a slot advanced there stays out of
+    spec waves until it is re-prefilled). ``spec=False`` leaves the
+    engine as it is without a draft. The counters ``spec_waves``,
+    ``spec_proposed``, ``spec_accepted``, ``spec_committed``,
+    ``spec_draft_steps`` and ``spec_verify_calls`` are kept on the host;
+    ``spec_draft_paths`` counts the draft calls by kernel path.
+
+    ``prefix_cache``: a refcounted radix index over the block pool
+    (``serving.prefix_cache``) — an admission matches the longest cached
+    prefix at block granularity, pins those blocks into the slot's table
+    and prefills ONLY the suffix. Cached blocks are LRU-evicted at
+    refcount 0 under pool pressure, spilling to a host tier of
+    ``prefix_cache_host_bytes`` (0 = drop instead of spill) and restoring
+    on a later match.
+
+    ``prefill_chunk``: split suffix prefills longer than this many tokens
+    into chunks (rounded up to a block-size multiple), one chunk a slot a
+    step, interleaved with the other slots' decode calls. 0 = one-shot.
+
+    ``kv_swap_bytes``: capacity of the host KV swap tier
+    (``serving.kv_swap``). Non-zero turns preemption from recompute into
+    swap: the victim's blocks move to host memory and re-admission
+    restores them bit-exactly instead of re-prefilling; recompute stays
+    the fallback when the host pool is full (``swap_fallbacks``).
+
+    ``kv_offload``: how the host tiers move their bytes
+    (``serving.offload``). ``"async"`` — spills copy on a side stream
+    and land at a step boundary (their blocks ride the ledger's
+    ``in_flight`` term until then), queued restores prefetch h2d ahead of
+    admission, and refcount-0 cached blocks spill proactively under pool
+    pressure. ``"sync"`` — inline transfers. ``"auto"`` (default) follows
+    ``FLAGS_serve_kv_offload_sync``. Greedy streams are equal either way.
+    Ignored when no host tier is configured.
     """
 
     def __init__(self, params, config: LlamaConfig, max_slots: int = 4,
@@ -498,7 +641,10 @@ class LLMEngine:
                  decode_steps: int = 1, decode_kernel: str = "auto",
                  kv_dtype=None, device="cuda", draft_params=None,
                  draft_config: Optional[LlamaConfig] = None,
-                 spec_tokens: int = 4, spec: bool = True, **unported):
+                 spec_tokens: int = 4, spec: bool = True,
+                 kv_swap_bytes: int = 0, prefix_cache: bool = False,
+                 prefill_chunk: int = 0, prefix_cache_host_bytes: int = 0,
+                 kv_offload: str = "auto", **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"LLMEngine got an unexpected argument "
@@ -511,14 +657,18 @@ class LLMEngine:
         if decode_kernel == "bucketed":
             raise NotImplementedError(
                 "decode_kernel='bucketed' (the dense-gather decode) is not "
-                "ported: the port decodes through the ragged or the mega "
-                "kernel")
+                "ported yet (ROADMAP queue A5): the port decodes through "
+                "the ragged or the mega kernel")
         if decode_kernel not in ("auto", "ragged", "mega"):
             raise ValueError(f"decode_kernel must be 'auto', 'ragged' or "
                              f"'mega', got {decode_kernel!r}")
         if kv_dtype not in (None, "int8", torch.int8):
             raise ValueError(
                 f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
+        if kv_offload not in ("auto", "async", "sync"):
+            raise ValueError(
+                f"kv_offload must be 'auto', 'async' or 'sync', got "
+                f"{kv_offload!r}")
         if max_model_len % block_size:
             raise ValueError(f"max_model_len {max_model_len} is not a "
                              f"multiple of block_size {block_size}")
@@ -589,8 +739,9 @@ class LLMEngine:
                 raise ValueError(f"draft_params {bad[:3]} are not on "
                                  f"{self.device}")
             # the draft's pools share the target's block grid (one block
-            # backs both models' K/V for its positions, so the allocator
-            # needs no new bookkeeping) and stay in the draft's dtype
+            # backs both models' K/V for its positions, so the allocator,
+            # the prefix cache and the swap tier need no new bookkeeping)
+            # and stay in the draft's dtype
             dc = draft_config
             dshape = (dc.num_layers, self.nb, block_size, dc.num_kv_heads,
                       dc.head_dim)
@@ -621,15 +772,76 @@ class LLMEngine:
         self._next_id = 0
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.decode_steps = max(1, int(decode_steps))
-        self._table_dev = None       # device copy of self.table, when clean
         # decode dispatches by path, and mega picks the screen refused by
         # reason (the JAX engine's serving_decode_kernel_total and
         # serving_mega_fallback_total)
         self.decode_paths: Counter = Counter()
         self.mega_fallbacks: Counter = Counter()
+        # decode-record readbacks: "chained" (the next call was already
+        # queued) or "drained" (read with the card's queue empty)
+        self.readbacks: Counter = Counter()
+        # swap-enabled preemptions that fell back to recompute
+        self.swap_fallbacks = 0
+        # device-resident decode carry (last, lengths, done, budgets) and
+        # the per-slot vectors (active, temps, top_ks, top_ps, eos ids):
+        # the carry chains from call to call and is rebuilt from host
+        # state only when the pipeline is drained; the vectors and the
+        # table are uploaded again only when they changed
+        self._carry = None
+        self._slot_vecs = None
+        self._slots_dirty = True
+        self._table_dirty = True
+        self._table_dev = None
+        # the dispatched-but-unread decode call (pipeline depth 1)
+        self._inflight = None
         # admissions whose device-sampled first token has not been read
-        # back yet: (slot, req_id, wave token array, row)
+        # back yet: (slot, req_id, the wave's _Readback, row); attached to
+        # the next dispatch record
         self._pending_adm: List = []
+        # -- host tiers ----------------------------------------------------
+        self.swap_pool = (HostKVPool(kv_swap_bytes) if kv_swap_bytes
+                          else None)
+        # one transfer engine whenever any host tier exists; "auto"
+        # defers the sync decision to FLAGS_serve_kv_offload_sync
+        self.offload = (OffloadEngine(
+            sync=None if kv_offload == "auto" else kv_offload == "sync",
+            device=self.device)
+            if (kv_swap_bytes or (prefix_cache and prefix_cache_host_bytes))
+            else None)
+        # proactive-spill pressure threshold
+        self._spill_free_frac = float(
+            get_flag("serve_kv_offload_spill_free_frac"))
+        # swap-ins whose carry lanes await their host-known state
+        # ((slot, req_id); the recompute path uses _pending_adm instead)
+        self._pending_swapin: List = []
+        # slots (re)admitted by swap since the last dispatch: their
+        # rem_start comes from host state, never the previous record's
+        # chained countdown (the slot id may be recycled)
+        self._fresh_swapins: set = set()
+        # -- prefix cache + chunked prefill --------------------------------
+        if prefill_chunk:
+            # chunks start and (but for the last) end on block
+            # boundaries, so cached prefixes and chunk history stay
+            # block-aligned — round up rather than reject
+            prefill_chunk = -(-int(prefill_chunk) // block_size) \
+                * block_size
+            if prefill_chunk > self.buckets[-1]:
+                raise ValueError(
+                    f"prefill_chunk {prefill_chunk} exceeds the largest "
+                    f"prompt bucket {self.buckets[-1]}")
+        self.prefill_chunk = prefill_chunk
+        self.prefix_cache = (
+            PrefixCache(block_size,
+                        HostKVPool(prefix_cache_host_bytes, kind="prefix")
+                        if prefix_cache_host_bytes else None)
+            if prefix_cache else None)
+        # trie nodes each slot has pinned, in block-table order: the first
+        # len(_pinned[slot]) table entries are cache-owned (shared, never
+        # freed by the slot — unpinned instead)
+        self._pinned: List[List] = [[] for _ in range(self.N)]
+        # slots mid-chunked-prefill: slot -> {"ctx", "pos", "rid"};
+        # excluded from decode dispatch until the final chunk lands
+        self._chunks: Dict[int, Dict] = {}
 
     # -- public api ---------------------------------------------------------
     def add_request(self, prompt: List[int], **kw) -> int:
@@ -653,29 +865,94 @@ class LLMEngine:
     def run(self) -> Dict[int, List[int]]:
         while self.has_work():
             self.step()
+        if self._inflight is not None:      # defensive: step() drains first
+            self._process_inflight()
+        self.drain_offload()                # land stragglers: in_flight -> 0
         return self.results
 
     def step(self):
-        """Admit queued requests, run one decode call (or, with a draft,
-        one draft-then-verify wave) over the active slots, and return the
-        (req_id, token) pairs emitted."""
+        """Admit queued requests, keep the card fed, and return the
+        (req_id, token) pairs that became host-visible this call.
+
+        Chained: decode call k+1 is dispatched BEFORE call k's tokens are
+        read whenever no in-flight slot can finish mid-call
+        (``_spec_safe``), so the readback overlaps the next call. A step
+        runs, in order: the offload sweep (landed spills, proactive
+        spills, prefetch), one chunk for every mid-prefill slot,
+        admission, then a spec wave (pipeline drained first) or a decode
+        dispatch."""
+        emitted = []
+        self._offload_tick()
+        self._advance_chunks()
         self._admit()
+        if self._spec_on:
+            active = self._decode_slots()
+            if active and self._spec_eligible(active):
+                # a spec wave syncs on its own acceptance decision: drain
+                # the pipeline first (host state must be exact), refill
+                # freed slots, then draft -> verify -> commit
+                if self._inflight is not None:
+                    emitted += self._process_inflight()
+                    self._admit()
+                    active = self._decode_slots()
+                if active and self._spec_eligible(active):
+                    return emitted + self._spec_wave(active)
+        if self._inflight is not None and not self._spec_safe():
+            emitted += self._process_inflight()
+            self._admit()          # freed slots: refill before dispatching
         active = self._decode_slots()
         if not active:
-            return []
-        if self._spec_eligible(active):
-            return self._spec_wave()
-        self._back_or_preempt()
+            if self._inflight is not None:
+                emitted += self._process_inflight()
+            return emitted
+        emitted += self._back_or_preempt()
         active = self._decode_slots()
         if not active:
-            return []
-        return self._dispatch_decode(active)
+            return emitted
+        self._refresh_carry(active)
+        prev = self._dispatch_decode(active)
+        if prev is not None:
+            self.readbacks["chained"] += 1
+            emitted += self._process(prev)
+        return emitted
 
     def block_accounting(self) -> Dict[str, int]:
-        """Device block-pool ledger: ``free + backed == total`` at every
-        step boundary (``backed`` counts the blocks slots hold)."""
-        return {"total": self.nb - 1, "free": len(self.free_blocks),
-                "backed": int(self.n_alloc.sum())}
+        """Device block-pool ledger: ``free + backed + cached + squeezed
+        + in_flight == total`` at every step boundary, through eviction,
+        preemption (swap or recompute) and cache spills. ``backed``
+        counts blocks a slot owns PRIVATELY; a cache-owned block counts
+        once under ``cached`` however many slots pin it. ``in_flight``
+        counts blocks parked behind an async swap-out d2h still moving (0
+        whenever no transfer is in flight). ``squeezed`` (blocks an
+        injected pool squeeze holds) stays 0 until the fault injector is
+        ported (ROADMAP A8). ``host_spilled_blocks`` (prefix-cache blocks
+        resident only in the host tier) and ``swapped_host_blocks`` ride
+        along — those blocks are not in the sum. The draft's ``dk``/
+        ``dv`` pools share the block ids, so speculative decoding adds no
+        terms."""
+        pc = self.prefix_cache
+        return {
+            "total": self.nb - 1,
+            "free": len(self.free_blocks),
+            "backed": int(sum(int(self.n_alloc[i]) - len(self._pinned[i])
+                              for i in range(self.N))),
+            "cached": pc.device_blocks if pc is not None else 0,
+            "squeezed": 0,
+            "in_flight": (self.offload.held_blocks
+                          if self.offload is not None else 0),
+            "host_spilled_blocks": (pc.host_blocks if pc is not None
+                                    else 0),
+            "swapped_host_blocks": (self.swap_pool.swapped_blocks
+                                    if self.swap_pool is not None else 0),
+        }
+
+    def drain_offload(self) -> None:
+        """Land every in-flight offload transfer NOW (blocking) — the
+        run()-exit / quiescence hook, so a drained engine's ledger shows
+        ``in_flight == 0`` and the host tiers hold exactly their
+        committed entries."""
+        if self.offload is not None:
+            self.free_blocks.extend(self.offload.poll(block=True))
 
     # -- internals ----------------------------------------------------------
     def _bucket_for(self, n: int) -> int:
@@ -685,17 +962,129 @@ class LLMEngine:
         raise ValueError(f"prompt length {n} exceeds largest bucket "
                          f"{self.buckets[-1]}")
 
+    def _upload(self, arr) -> torch.Tensor:
+        return upload(arr, self.device)
+
+    def _table(self) -> torch.Tensor:
+        """The block table on the device, uploaded again only after a
+        change (full width: the kernels read each slot's true length)."""
+        if self._table_dirty or self._table_dev is None:
+            self._table_dev = self._upload(self.table)
+            self._table_dirty = False
+        return self._table_dev
+
+    # -- block allocation over the free list + the prefix cache ------------
+    def _avail_blocks(self) -> int:
+        """Blocks an allocation could obtain right now: the free list plus
+        every refcount-0 cached block (reclaimable by spill/drop)."""
+        n = len(self.free_blocks)
+        if self.prefix_cache is not None:
+            n += self.prefix_cache.evictable_blocks
+        return n
+
     def _take_up_to(self, k: int) -> List[int]:
+        """Pop up to ``k`` free blocks, reclaiming from the prefix cache
+        (LRU spill-then-drop) when the free list runs short — ONE reclaim
+        sweep and one batched d2h however many blocks are needed."""
+        if len(self.free_blocks) < k and self.prefix_cache is not None:
+            self.free_blocks.extend(self.prefix_cache.reclaim(
+                k - len(self.free_blocks), self._fetch_blocks))
         out: List[int] = []
         while self.free_blocks and len(out) < k:
             out.append(self.free_blocks.popleft())
         return out
 
+    def _fetch_blocks(self, blks: List[int]) -> Dict:
+        """d2h a batch of blocks from every pool entry in one gather per
+        entry (payload AND scales under int8 pools — the spill/restore
+        round trip is bit-exact), blocking, into pinned host tensors on
+        the card. Returns CPU tensors stacked on the block axis, the
+        layout :meth:`PrefixCache.reclaim` slices per node."""
+        arrays = gather_blocks(self.pools, blks)
+        if self.device.type != "cuda":
+            return arrays
+        return {n: torch.empty(a.shape, dtype=a.dtype,
+                               pin_memory=True).copy_(a)
+                for n, a in arrays.items()}
+
+    def _swapin(self, blks: List[int], data: Dict) -> None:
+        """Scatter every restored pool entry into blocks ``blks`` in
+        place (one ``index_copy_`` on the block axis an entry)."""
+        idx = self._upload(torch.tensor(blks, dtype=torch.long))
+        for name, d in data.items():
+            self.pools[name].index_copy_(1, idx, d)
+
+    def _restore_blocks(self, blks: List[int], ents: List) -> None:
+        """h2d a matched path's spilled blocks in ONE batched scatter —
+        never a transfer per block on the admission path. Entries the
+        offload engine staged ahead of time (``SwapEntry.staged``) are
+        prefetch hits; the rest transfer here and the observed wait
+        counts as a stall."""
+        names = sorted(ents[0].data)
+        staged_i = [i for i, e in enumerate(ents) if e.staged is not None]
+        fresh_i = [i for i, e in enumerate(ents) if e.staged is None]
+        # reorder entries staged-first WITH their blocks (the scatter
+        # pairs blks[i] with slice i, so any consistent permutation is
+        # exact): every fresh payload batches into one h2d an entry
+        blks = [blks[i] for i in staged_i + fresh_i]
+        t0 = time.perf_counter()
+        fresh_up = {}
+        if fresh_i:
+            fresh_up = self.offload.upload_inline({n: torch.cat(
+                [ents[i].data[n] for i in fresh_i], dim=1)
+                if len(fresh_i) > 1 else ents[fresh_i[0]].data[n]
+                for n in names})
+            self.offload.note_stall(time.perf_counter() - t0,
+                                    n=len(fresh_i))
+        if staged_i:
+            self.offload.note_hit(len(staged_i))
+        staged = [take_staged(ents[i]) for i in staged_i]
+        stacked = {}
+        for n in names:
+            parts = [st[n] for st in staged]
+            if fresh_i:
+                parts.append(fresh_up[n])
+            stacked[n] = torch.cat(parts, dim=1) if len(parts) > 1 \
+                else parts[0]
+        self._swapin(blks, stacked)
+
     def _free_slot(self, slot: int, requeue: bool = False):
         req = self.slot_req[slot]
         out = self.slot_out[slot]
-        for j in range(int(self.n_alloc[slot])):
-            self.free_blocks.append(int(self.table[slot, j]))
+        swapped, held = False, []
+        if requeue and req is not None and self.swap_pool is not None:
+            # swap instead of recompute: move the victim's blocks to the
+            # host tier BEFORE they are freed (fallback: recompute; async
+            # mode parks `held` with the in-flight transfer)
+            swapped, held = self._swap_out(slot, req, out)
+            if not swapped:
+                self.swap_fallbacks += 1
+        # blocks [0, keep) are cache-owned: shared, unpinned below, never
+        # freed here. A finishing request first offers its decode-grown
+        # FULL blocks to the trie (multi-turn prefix reuse: the next turn
+        # re-sends prompt+answer and matches them)
+        keep = len(self._pinned[slot])
+        if not requeue and req is not None \
+                and self.prefix_cache is not None:
+            # K/V are valid for the first self.lengths positions only
+            # (the final emitted token's K/V were never written)
+            full = int(self.lengths[slot]) // self.bs
+            if full > keep:
+                ctx_all = req.prompt + req.generated + out
+                adopted = self.prefix_cache.extend(
+                    ctx_all, keep,
+                    [int(self.table[slot, j]) for j in range(keep, full)],
+                    pin=False)
+                keep += len(adopted)
+        held_set = set(held)
+        for j in range(keep, int(self.n_alloc[slot])):
+            blk = int(self.table[slot, j])
+            if blk not in held_set:     # custody: frees when the spill lands
+                self.free_blocks.append(blk)
+        if self._pinned[slot]:
+            self.prefix_cache.unpin(self._pinned[slot])
+            self._pinned[slot] = []
+        self._chunks.pop(slot, None)
         self.table[slot, :] = 0
         self.n_alloc[slot] = 0
         self.lengths[slot] = 0
@@ -704,94 +1093,344 @@ class LLMEngine:
         if slot in self.admit_order:
             self.admit_order.remove(slot)
         self.slot_out[slot] = []
-        self._table_dev = None
+        self._table_dirty = True
+        self._slots_dirty = True
         # an admission whose first token was never read back dies with the
         # slot (recompute semantics: re-admission prefills and re-samples)
         self._pending_adm = [e for e in self._pending_adm if e[0] != slot]
-        if requeue:
+        self._pending_swapin = [e for e in self._pending_swapin
+                                if e[0] != slot]
+        self._fresh_swapins.discard(slot)
+        if requeue and req is not None:
             # preemption: carry generated tokens so re-admission continues
             # from prompt+generated — streamed tokens are never re-emitted
+            # (swap-in restores their K/V; recompute re-prefills them)
             req.generated.extend(out)
             self.queue.appendleft(req)
-        else:
+        elif req is not None:
             self.results[req.req_id] = req.generated + out
+            if self.swap_pool is not None:
+                self.swap_pool.discard(req.req_id)
+                if self.offload is not None:
+                    # an in-flight spill for a finished request is moot:
+                    # drop it, reclaim its custody blocks now
+                    self.free_blocks.extend(
+                        self.offload.cancel(req.req_id))
 
+    # -- swap ---------------------------------------------------------------
+    def _swap_out(self, slot: int, req: Request, out: List[int]):
+        """Copy the slot's live K/V blocks to the host tier. Keeps
+        ``len(ctx) - 1`` positions where ``ctx = prompt + generated +
+        out``: the context tail is the re-admission's next decode input,
+        whose K/V the first restored decode step rewrites — so a slot
+        whose sampled-but-unread first token died with it (K/V cover ALL
+        of ctx) and a mid-decode victim (K/V cover ctx[:-1]) restore
+        through one invariant.
+
+        Returns ``(swapped, held)``. Async mode dispatches a non-blocking
+        d2h and parks the victim's private blocks in the offload engine's
+        custody (``held`` — the ledger's ``in_flight`` term; cache-pinned
+        head blocks stay ``cached``: the gather read them in stream
+        order): they return to the free list at the step boundary after
+        the copy lands. Sync mode blocks inline and holds nothing.
+        ``swapped=False`` on fallback (host pool full, nothing to keep) —
+        the caller then recomputes."""
+        n_keep = len(req.prompt) + len(req.generated) + len(out) - 1
+        if n_keep <= 0 or self.lengths[slot] < n_keep:
+            return False, []
+        nb_keep = -(-n_keep // self.bs)
+        blocks = [int(b) for b in self.table[slot, :nb_keep]]
+        keep = len(self._pinned[slot])
+        held = ([] if self.offload.sync else blocks[keep:nb_keep])
+        ok = self.offload.spill_async(
+            req.req_id, self.pools, blocks, n_keep, self.swap_pool,
+            hold_blocks=held)
+        return ok, (held if ok else [])
+
+    def _swap_in(self, slot: int, req: Request, ent) -> None:
+        """Re-admit a preempted request from its host-tier K/V: allocate
+        blocks, restore the payload, and rebuild host bookkeeping — a
+        short h2d instead of a full re-prefill."""
+        blocks = self._take_up_to(max(1, ent.n_blocks))
+        assert len(blocks) == max(1, ent.n_blocks), \
+            "swap-in allocated past _avail_blocks"
+        self._pinned[slot] = []      # restored K/V is slot-private
+        self.table[slot, :len(blocks)] = blocks
+        self.n_alloc[slot] = len(blocks)
+        self.lengths[slot] = ent.n_tokens
+        if self._spec_on:
+            # the swap moved BOTH models' pool entries verbatim, so the
+            # draft's coverage restores with the target's
+            self._draft_len[slot] = ent.n_tokens
+        self.slot_req[slot] = req
+        self.admit_order.append(slot)
+        self._table_dirty = True
+        self._slots_dirty = True
+        if ent.n_blocks:
+            if ent.staged is not None:
+                # prefetch hit: the offload engine staged this entry's
+                # payload ahead of admission — no inline wait
+                datas = take_staged(ent)
+                self.offload.note_hit()
+            else:
+                t0 = time.perf_counter()
+                datas = self.offload.upload_inline(ent.data)
+                self.offload.note_stall(time.perf_counter() - t0)
+            self._swapin(blocks[:ent.n_blocks], datas)
+        self._pending_swapin.append((slot, req.req_id))
+        self._fresh_swapins.add(slot)
+
+    def _offload_tick(self) -> None:
+        """The step-boundary offload sweep, in three moves:
+
+        1. **Land** — commit every finished async spill into its host pool
+           and return the custody blocks to the free list.
+        2. **Proactive spill** — when the allocatable-block fraction
+           drops below the pressure threshold, start background d2h for
+           the coldest refcount-0 cached blocks, so a later reclaim frees
+           them without an inline transfer.
+        3. **Prefetch** — scan the first ``prefetch_depth`` queued
+           requests: a swapped one's host entry, or the host-resident trie
+           nodes its prompt would match, start staging h2d NOW so the
+           admission-time restore is a prefetch hit."""
+        off = self.offload
+        if off is None:
+            return
+        freed = off.poll()
+        if freed:
+            self.free_blocks.extend(freed)
+        if off.sync:
+            return
+        pc = self.prefix_cache
+        if pc is not None and pc.host is not None:
+            frac = self._avail_blocks() / max(1, self.nb - 1)
+            # one arithmetic headroom probe before the O(trie) candidate
+            # sweep: a saturated host tier is not asked again every step
+            blk_bytes = sum(a.shape[0] * int(np.prod(a.shape[2:]))
+                            * a.element_size() for a in self.pools.values())
+            room = (pc.host.capacity_bytes - pc.host.bytes_used
+                    - pc.host.reserved_bytes)
+            n_spill = min(off.spill_batch(), room // max(1, blk_bytes))
+            if frac < self._spill_free_frac and n_spill > 0:
+                for nd in pc.spill_candidates(n_spill):
+                    if not off.spill_async(
+                            ("pfx", nd.uid), self.pools, [nd.block],
+                            self.bs, pc.host, hold_blocks=[],
+                            on_land=functools.partial(pc.finish_spill, nd),
+                            proactive=True):
+                        pc.abort_spill(nd)
+        depth = off.prefetch_depth()
+        if depth:
+            for req in itertools.islice(self.queue, depth):
+                if self.swap_pool is not None:
+                    ent = self.swap_pool.get(req.req_id)
+                    if ent is not None:
+                        off.stage(self.swap_pool, req.req_id, ent)
+                        continue
+                if pc is not None and pc.host is not None:
+                    ctx = req.prompt + req.generated
+                    for key, ent in pc.host_path_entries(
+                            ctx, (len(ctx) - 1) // self.bs):
+                        off.stage(pc.host, key, ent)
+
+    # -- admission and prefill ---------------------------------------------
     def _admit(self):
         """Admit every queued request a free slot and free blocks can
-        take, then prefill the whole wave in one call."""
-        wave = []
+        take, then dispatch ONE prefill call for the whole wave. No host
+        sync: each first token is sampled on the device and rides to the
+        host one decode call later (``_pending_adm`` → the next dispatch
+        record).
+
+        A request with a host swap entry is restored instead (no prefill;
+        an entry still in flight is landed first). With the prefix cache
+        on, each admission first matches the longest cached prefix at
+        block granularity (capped at ``(len(ctx)-1)//bs`` so at least one
+        token prefills and yields the sampling hidden state), pins those
+        blocks into the slot's table and prefills ONLY the suffix.
+        Suffixes longer than ``prefill_chunk`` enter chunked mode: the
+        wave carries their first chunk and :meth:`_advance_chunks` feeds
+        one chunk a step until the final chunk samples the first
+        token."""
+        wave = []           # rows: (slot, req, ctx, hist, piece, final)
         while self.queue and len(wave) < self.N:
             slot = next((i for i in range(self.N)
                          if self.slot_req[i] is None), None)
             if slot is None:
                 break
             req = self.queue[0]
+            ent = (self.swap_pool.get(req.req_id)
+                   if self.swap_pool is not None else None)
+            if ent is None and self.swap_pool is not None \
+                    and self.offload.pending(req.req_id):
+                # the request's swap-out is still in flight but its
+                # re-admission is due NOW: land it (blocking — counted as
+                # a stall) so the swap-in path sees a committed entry
+                freed = self.offload.force_land(req.req_id)
+                if freed:
+                    self.free_blocks.extend(freed)
+                ent = self.swap_pool.get(req.req_id)
+            idle = not any(r is not None for r in self.slot_req) \
+                and not (self.offload is not None
+                         and self.offload.held_blocks)
+            if ent is not None:
+                # swap-in re-admission: restore the preempted K/V blocks
+                # from the host tier — no prefill, no sampled first token
+                # (the tail of prompt+generated is the next decode input)
+                if self._avail_blocks() < max(1, ent.n_blocks):
+                    if idle:
+                        raise RuntimeError(
+                            f"request {req.req_id}: swap-in needs "
+                            f"{ent.n_blocks} blocks but the pool only has "
+                            f"{self.nb - 1} usable")
+                    break                    # blocks busy: wait for frees
+                self.queue.popleft()
+                self._swap_in(slot, req, self.swap_pool.pop(req.req_id))
+                continue
             ctx = req.prompt + req.generated   # re-admission continues
-            need = max(1, -(-len(ctx) // self.bs))
-            if len(self.free_blocks) < need:
-                if not any(r is not None for r in self.slot_req):
+            true_len = len(ctx)
+            nodes, cached_blocks = [], []
+            if self.prefix_cache is not None:
+                # longest cached prefix, pinned; host-resident blocks on
+                # the path restore through the free list
+                nodes, cached_blocks = self.prefix_cache.match_and_pin(
+                    ctx, (true_len - 1) // self.bs,
+                    self._take_up_to, self._restore_blocks)
+            m = len(nodes)
+            hist = m * self.bs
+            # only the blocks the true prompt occupies; the bucket's pad
+            # tail scatters into the trash block (never read: causality)
+            need = max(1, -(-true_len // self.bs)) - m
+            if self._avail_blocks() < need:
+                if nodes:
+                    self.prefix_cache.unpin(nodes)
+                if idle:
                     raise RuntimeError(
                         f"request {req.req_id}: prefill needs {need} blocks "
                         f"but the pool only has {self.nb - 1} usable — the "
                         "block pool is too small for this request")
                 break                        # blocks busy: wait for frees
             self.queue.popleft()
-            blocks = self._take_up_to(need)
-            self.table[slot, :need] = blocks
-            self.n_alloc[slot] = need
+            blocks = cached_blocks + self._take_up_to(need)
+            self.table[slot, :len(blocks)] = blocks
+            self.n_alloc[slot] = len(blocks)
+            self.lengths[slot] = hist        # grows as pieces land
             self.slot_req[slot] = req
             self.admit_order.append(slot)
-            self._table_dev = None
-            wave.append((slot, req, ctx))
+            self._pinned[slot] = nodes
+            self._table_dirty = True
+            self._slots_dirty = True
+            if self.prefix_cache is not None:
+                self.prefix_cache.note_lookup(hist)
+            suffix = true_len - hist
+            piece = (min(suffix, self.prefill_chunk)
+                     if self.prefill_chunk else suffix)
+            wave.append((slot, req, ctx, hist, piece, piece == suffix))
         if wave:
             self._dispatch_prefill(wave)
 
+    def _advance_chunks(self):
+        """Feed every mid-prefill slot its next chunk — ONE chunk a slot a
+        step, so long prefills interleave with the other slots' decode
+        calls. The final chunk samples the request's first token and
+        hands the slot to the decode path."""
+        if not self._chunks:
+            return
+        rows = []
+        for slot in sorted(self._chunks):
+            st = self._chunks[slot]
+            req = self.slot_req[slot]
+            if req is None or req.req_id != st["rid"]:
+                self._chunks.pop(slot)     # freed since (defensive)
+                continue
+            ctx, pos = st["ctx"], st["pos"]
+            piece = min(self.prefill_chunk, len(ctx) - pos)
+            rows.append((slot, req, ctx, pos, piece,
+                         pos + piece == len(ctx)))
+        if rows:
+            self._dispatch_prefill(rows)
+
     def _dispatch_prefill(self, rows):
-        """One prefill call for a wave: B=1 for a single admission, else
-        padded to ``max_slots`` rows; pad rows point at the trash block."""
-        bucket = self._bucket_for(max(len(ctx) for _s, _r, ctx in rows))
+        """One prefill call for a wave of context PIECES — full prompts,
+        cache-hit suffixes and chunk continuations mix in one call: B=1
+        for a single row, else padded to ``max_slots`` rows; pad rows
+        point at the trash block. Rows whose piece completes the context
+        (``final``) keep their device-sampled first token
+        (``_pending_adm``); chunk rows discard it and stay in
+        ``_chunks``. A wave with history (``hist > 0`` on some row) runs
+        the suffix form over a power-of-two history bucket."""
+        bucket = self._bucket_for(max(piece for *_x, piece, _f in rows))
         B = 1 if len(rows) == 1 else self.N
+        nbp = bucket // self.bs
+        hist_blocks = max(hist // self.bs for _s, _r, _c, hist, _p, _f
+                          in rows)
+        pnbk = ((1 << (hist_blocks - 1).bit_length()) if hist_blocks
+                else 0)
         toks = np.zeros((B, bucket), np.int32)
-        blk_ids = np.zeros((B, bucket // self.bs), np.int32)
+        blk_ids = np.zeros((B, nbp), np.int32)   # pad rows: all trash
         true_lens = np.ones(B, np.int32)
+        hist_lens = np.zeros(B, np.int32)
+        ctx_tbl = np.zeros((B, pnbk), np.int32) if pnbk else None
         temps = np.zeros(B, np.float32)
         top_ks = np.zeros(B, np.int32)
         top_ps = np.ones(B, np.float32)
-        for i, (slot, req, ctx) in enumerate(rows):
-            nblk = -(-len(ctx) // self.bs)
-            toks[i, :len(ctx)] = ctx
-            blk_ids[i, :nblk] = self.table[slot, :nblk]
-            true_lens[i] = len(ctx)
-            temps[i], top_ks[i], top_ps[i] = (req.temperature, req.top_k,
-                                              req.top_p)
-        flags = _sample_flags([r for _s, r, _c in rows])
-        dev = self.device
-        tok_dev = _paged_prefill(
-            self.params, torch.as_tensor(toks, device=dev),
-            torch.as_tensor(blk_ids, device=dev),
-            torch.as_tensor(true_lens, device=dev), self.pools,
-            torch.as_tensor(temps, device=dev),
-            torch.as_tensor(top_ks, device=dev),
-            torch.as_tensor(top_ps, device=dev), self._gen,
-            config=self.config, sample_flags=flags)
+        for i, (slot, req, ctx, hist, piece, final) in enumerate(rows):
+            b0 = hist // self.bs
+            nblk = -(-(hist + piece) // self.bs) - b0
+            toks[i, :piece] = ctx[hist:hist + piece]
+            blk_ids[i, :nblk] = self.table[slot, b0:b0 + nblk]
+            true_lens[i] = piece
+            hist_lens[i] = hist
+            if pnbk and b0:
+                ctx_tbl[i, :b0] = self.table[slot, :b0]
+            if final:        # non-final rows sample a discarded argmax
+                temps[i], top_ks[i], top_ps[i] = (req.temperature,
+                                                  req.top_k, req.top_p)
+        flags = _sample_flags([r for _s, r, _c, _h, _p, final in rows
+                               if final])
+        up = self._upload
+        args = (up(toks), up(blk_ids), up(true_lens))
+        knobs = (up(temps), up(top_ks), up(top_ps), self._gen)
+        hist_kw = (dict(hist_len=up(hist_lens), ctx_tbl=up(ctx_tbl))
+                   if pnbk else {})
+        wave = _Readback(_paged_prefill(self.params, *args, self.pools,
+                                        *knobs, config=self.config,
+                                        sample_flags=flags, **hist_kw))
         if self._spec_on:
-            # the same wave through the draft, so both models' K/V cover
-            # every prefilled position; its token is discarded (greedy:
-            # it draws nothing from the generator)
-            _paged_prefill(
-                self.draft_params, torch.as_tensor(toks, device=dev),
-                torch.as_tensor(blk_ids, device=dev),
-                torch.as_tensor(true_lens, device=dev), self.pools,
-                torch.as_tensor(temps, device=dev),
-                torch.as_tensor(top_ks, device=dev),
-                torch.as_tensor(top_ps, device=dev), self._gen,
-                config=self.draft_config, sample_flags=(False, False, False),
-                kv_prefix="d")
-        for i, (slot, req, ctx) in enumerate(rows):
-            self.lengths[slot] = len(ctx)
-            self._draft_len[slot] = len(ctx)
-            self._pending_adm.append((slot, req.req_id, tok_dev, i))
+            # the same pieces through the draft, so both models' K/V
+            # cover every prefilled position; its token is discarded
+            # (greedy: it draws nothing from the generator)
+            _paged_prefill(self.draft_params, *args, self.pools, *knobs,
+                           config=self.draft_config,
+                           sample_flags=(False, False, False),
+                           kv_prefix="d", **hist_kw)
+        for i, (slot, req, ctx, hist, piece, final) in enumerate(rows):
+            self.lengths[slot] = hist + piece
+            if self._spec_on:
+                self._draft_len[slot] = hist + piece
+            if final:
+                if self._chunks.pop(slot, None) is not None:
+                    self._slots_dirty = True   # rejoins the decode mask
+                self._pending_adm.append((slot, req.req_id, wave, i))
+            else:
+                if slot not in self._chunks:
+                    self._slots_dirty = True   # leaves the decode mask
+                self._chunks[slot] = {"ctx": ctx, "pos": hist + piece,
+                                      "rid": req.req_id}
+            if self.prefix_cache is not None \
+                    and len(self._pinned[slot]) == hist // self.bs:
+                # adopt this piece's FULL blocks into the trie (pinned:
+                # the slot itself holds them); adoption stays contiguous
+                # with the pinned head — a gap (another request cached the
+                # same block first) ends adoption for this slot
+                b0 = hist // self.bs
+                full = (hist + piece) // self.bs
+                if full > b0:
+                    self._pinned[slot].extend(self.prefix_cache.extend(
+                        ctx, b0,
+                        [int(self.table[slot, j]) for j in range(b0, full)],
+                        pin=True))
 
+    # -- decode ---------------------------------------------------------------
     def _emit(self, slot: int, tok: int) -> bool:
         """Record a generated token; free the slot when the request is done.
         Returns True if the request finished."""
@@ -804,39 +1443,87 @@ class LLMEngine:
             self._free_slot(slot)
         return done
 
-    def _ensure_backed(self, slot: int, steps: Optional[int] = None) -> bool:
+    def _ensure_backed(self, slot: int, lag: int = 0,
+                       steps: Optional[int] = None) -> bool:
         """Back every block this slot's next decode call can write
-        (clamped to its remaining token budget); ``steps`` overrides the
-        call's write horizon (a spec wave commits up to ``spec_tokens``).
-        Returns False if the pool is exhausted (caller preempts)."""
+        (clamped to its remaining token budget). ``lag``: tokens the
+        unread in-flight call may already have appended beyond the host's
+        view of the length; the horizon covers them too, since
+        under-backing would divert K/V to the trash block. ``steps``
+        overrides the call's write horizon (a spec wave commits up to
+        ``spec_tokens``). Returns False if the pool is exhausted (caller
+        preempts)."""
         req = self.slot_req[slot]
         remaining = req.max_new_tokens - len(req.generated) \
             - len(self.slot_out[slot])
         base = self.decode_steps if steps is None else steps
-        steps = max(1, min(base, remaining))
+        steps = max(1, min(base + lag, remaining + lag))
         horizon = int(self.lengths[slot]) + steps - 1
         last_blk = min(horizon, self.max_model_len - 1) // self.bs
         need = last_blk + 1 - int(self.n_alloc[slot])
         if need <= 0:
             return True
-        got = self._take_up_to(need)
+        got = self._take_up_to(need)     # one reclaim sweep for the lot
         for blk in got:
             self.table[slot, int(self.n_alloc[slot])] = blk
             self.n_alloc[slot] += 1
-            self._table_dev = None
+            self._table_dirty = True
         return len(got) == need
 
     def _decode_slots(self):
-        return [i for i in range(self.N) if self.slot_req[i] is not None]
+        """Slots the decode call covers: active and not mid-chunked-
+        prefill (a chunking slot joins once its final chunk lands)."""
+        return [i for i in range(self.N) if self.slot_req[i] is not None
+                and i not in self._chunks]
+
+    def _spec_safe(self) -> bool:
+        """True iff dispatching the next decode call BEFORE reading the
+        in-flight one cannot waste work: every slot in the in-flight
+        snapshot is still alive when that call ends — no eos token to
+        trip on, and budget strictly beyond the call's horizon. Otherwise
+        the engine reads first."""
+        rec = self._inflight
+        for slot, rid in rec["snapshot"]:
+            req = self.slot_req[slot]
+            if req is None or req.req_id != rid:
+                return False
+            if req.eos_token_id is not None:
+                return False
+            if rec["rem_start"][slot] - self.decode_steps <= 0:
+                return False
+        return True
 
     def _back_or_preempt(self, steps: Optional[int] = None):
-        """Back the next call's writes for every active slot (``steps``
-        positions, default ``decode_steps``); preempt the newest
-        admissions while the pool is short (recompute policy)."""
-        for slot in self._decode_slots():
+        """Back upcoming writes for every decode slot; preempt the newest
+        admissions while the pool is short (recompute or swap). With an
+        unread call in flight the host length lags by up to
+        ``decode_steps`` — if generous backing fails, the pipeline is
+        drained so preemption decisions see exact state. ``steps``
+        overrides the write horizon (spec waves back ``spec_k``
+        positions and run with the pipeline drained). Returns the tokens
+        a drain made host-visible."""
+        emitted = []
+        for slot in list(self._decode_slots()):
             if self.slot_req[slot] is None:
                 continue                      # already preempted as a victim
-            while not self._ensure_backed(slot, steps):
+            while True:
+                in_snap = self._inflight is not None and any(
+                    s == slot for s, _ in self._inflight["snapshot"])
+                if self._ensure_backed(slot,
+                                       self.decode_steps if in_snap else 0,
+                                       steps=steps):
+                    break
+                if self._inflight is not None:
+                    # exact lengths before evicting anyone
+                    emitted += self._process_inflight()
+                    if self.slot_req[slot] is None:
+                        break
+                    continue
+                if self.offload is not None and self.offload.held_blocks:
+                    # blocks parked behind an in-flight spill: landing
+                    # them (blocking) beats preempting ANOTHER victim
+                    self.drain_offload()
+                    continue
                 victim = self.admit_order[-1]
                 if victim == slot and len(self.admit_order) == 1:
                     # alone and starved: nothing else will ever free a block
@@ -847,6 +1534,98 @@ class LLMEngine:
                 self._free_slot(victim, requeue=True)
                 if victim == slot:
                     break
+        return emitted
+
+    def _refresh_carry(self, active_slots):
+        """Bring the device carry and per-slot vectors up to date, with no
+        host sync: every upload goes through a pinned staging copy.
+
+        The carry CHAINS on the device from call to call; host state is
+        injected only where it is exact: a full rebuild when no call is
+        unread (carry is None), or a per-slot scatter for freshly
+        admitted slots (whose first token exists only on the device) and
+        swapped-in slots. Freed slots are masked out by the active
+        vector — their stale carry lanes are never read."""
+        up = self._upload
+        if self._carry is None:
+            assert self._inflight is None, \
+                "carry rebuild requires a drained pipeline"
+            last = np.zeros(self.N, np.int32)
+            budgets = np.zeros(self.N, np.int32)
+            pend = {s for s, _, _, _ in self._pending_adm}
+            for i in active_slots:
+                req = self.slot_req[i]
+                # swap-in slots continue from the context tail; pending
+                # slots get a placeholder overwritten by _apply_admissions
+                last[i] = self.slot_out[i][-1] if self.slot_out[i] else \
+                    (req.generated[-1] if req.generated else req.prompt[-1])
+                budgets[i] = req.max_new_tokens - len(req.generated) \
+                    - len(self.slot_out[i]) - (1 if i in pend else 0)
+            self._carry = (up(last), up(self.lengths.astype(np.int32)),
+                           torch.zeros(self.N, dtype=torch.bool,
+                                       device=self.device), up(budgets))
+        if self._pending_adm:
+            # one _apply_admissions call per wave array (usually one)
+            groups: Dict = {}
+            for s, rid, wave, i in self._pending_adm:
+                groups.setdefault(id(wave), (wave.dev, []))[1].append((s, i))
+            c_last, c_len, c_done, c_rem = self._carry
+            for arr, items in groups.values():
+                slot_of_row = np.full(arr.shape[0], self.N, np.int32)
+                upd = np.zeros(self.N, bool)
+                lens_new = np.zeros(self.N, np.int32)
+                rems_new = np.zeros(self.N, np.int32)
+                for s, i in items:
+                    slot_of_row[i] = s
+                    upd[s] = True
+                    lens_new[s] = int(self.lengths[s])
+                    req = self.slot_req[s]
+                    rems_new[s] = (req.max_new_tokens
+                                   - len(req.generated) - 1)
+                c_last, c_len, c_done, c_rem = _apply_admissions(
+                    c_last, c_len, c_done, c_rem, arr, up(slot_of_row),
+                    up(lens_new), up(rems_new), up(upd))
+            self._carry = (c_last, c_len, c_done, c_rem)
+        if self._pending_swapin:
+            # swap-in lanes: the same scatter as a prefill wave, but the
+            # "wave token" is host-known (the tail of prompt+generated)
+            c_last, c_len, c_done, c_rem = self._carry
+            slot_of_row = np.full(self.N, self.N, np.int32)
+            upd = np.zeros(self.N, bool)
+            toks = np.zeros(self.N, np.int32)
+            lens_new = np.zeros(self.N, np.int32)
+            rems_new = np.zeros(self.N, np.int32)
+            for row, (s, rid) in enumerate(self._pending_swapin):
+                req = self.slot_req[s]
+                if req is None or req.req_id != rid:
+                    continue          # freed again before any dispatch
+                slot_of_row[row] = s
+                upd[s] = True
+                toks[row] = (req.generated[-1] if req.generated
+                             else req.prompt[-1])
+                lens_new[s] = int(self.lengths[s])
+                rems_new[s] = req.max_new_tokens - len(req.generated)
+            self._pending_swapin = []
+            if upd.any():
+                self._carry = _apply_admissions(
+                    c_last, c_len, c_done, c_rem, up(toks),
+                    up(slot_of_row), up(lens_new), up(rems_new), up(upd))
+        if self._slots_dirty or self._slot_vecs is None:
+            temps = np.zeros(self.N, np.float32)
+            top_ks = np.zeros(self.N, np.int32)
+            top_ps = np.ones(self.N, np.float32)
+            eos_ids = np.full(self.N, -1, np.int32)
+            active = np.zeros(self.N, bool)
+            for i in active_slots:
+                req = self.slot_req[i]
+                temps[i], top_ks[i], top_ps[i] = (req.temperature,
+                                                  req.top_k, req.top_p)
+                if req.eos_token_id is not None:
+                    eos_ids[i] = req.eos_token_id
+                active[i] = True
+            self._slot_vecs = (up(active), up(temps), up(top_ks),
+                               up(top_ps), up(eos_ids))
+            self._slots_dirty = False
 
     def _decode_path(self) -> str:
         """Kernel path of the next decode dispatch: ``"mega"`` (the
@@ -867,93 +1646,81 @@ class LLMEngine:
             self.mega_fallbacks[reason] += 1
         return "ragged"
 
-    def _dispatch_decode(self, active):
-        """Run one decode call over ``active`` and read its tokens back."""
-        dev = self.device
+    def _dispatch_decode(self, active_slots):
+        """Enqueue one multi-step decode call and record it as in flight;
+        return the previous record (unread) or None. ``rem_start`` holds
+        each slot's EXACT remaining budget at the start of the call (host
+        bookkeeping lags; it chains from the previous record when
+        pipelined). Nothing here reads the device."""
+        prev = self._inflight
         pend = {s for s, _, _, _ in self._pending_adm}
-        last = np.zeros(self.N, np.int32)
-        budgets = np.zeros(self.N, np.int32)
-        temps = np.zeros(self.N, np.float32)
-        top_ks = np.zeros(self.N, np.int32)
-        top_ps = np.ones(self.N, np.float32)
-        eos_ids = np.full(self.N, -1, np.int32)
-        act = np.zeros(self.N, bool)
-        for i in active:
+        rem_start = {}
+        for i in active_slots:
             req = self.slot_req[i]
-            # pending-admission slots get their device-sampled first token
-            # scattered in by _apply_admissions below
-            last[i] = self.slot_out[i][-1] if self.slot_out[i] else \
-                (req.generated[-1] if req.generated else req.prompt[-1])
-            budgets[i] = req.max_new_tokens - len(req.generated) \
-                - len(self.slot_out[i]) - (1 if i in pend else 0)
-            temps[i], top_ks[i], top_ps[i] = (req.temperature, req.top_k,
-                                              req.top_p)
-            if req.eos_token_id is not None:
-                eos_ids[i] = req.eos_token_id
-            act[i] = True
-        c_last = torch.as_tensor(last, device=dev)
-        c_len = torch.as_tensor(self.lengths.astype(np.int32), device=dev)
-        c_done = torch.zeros(self.N, dtype=torch.bool, device=dev)
-        c_rem = torch.as_tensor(budgets, device=dev)
-        waves: Dict = {}
-        for s, _rid, arr, i in self._pending_adm:
-            waves.setdefault(id(arr), (arr, []))[1].append((s, i))
-        for arr, items in waves.values():
-            slot_of_row = np.full(arr.shape[0], self.N, np.int32)
-            upd = np.zeros(self.N, bool)
-            for s, i in items:
-                slot_of_row[i] = s
-                upd[s] = True
-            c_last, c_len, c_done, c_rem = _apply_admissions(
-                c_last, c_len, c_done, c_rem, arr,
-                torch.as_tensor(slot_of_row, device=dev), c_len, c_rem,
-                torch.as_tensor(upd, device=dev))
-        if self._table_dev is None:
-            self._table_dev = torch.as_tensor(self.table, device=dev)
+            if i in pend:
+                rem_start[i] = req.max_new_tokens - len(req.generated) - 1
+            elif i in self._fresh_swapins:
+                # swap-in since the last dispatch: the slot id may be
+                # recycled from the previous record — its budget comes
+                # from host state, never the stale chained countdown
+                rem_start[i] = req.max_new_tokens - len(req.generated)
+            elif prev is not None and i in prev["rem_start"]:
+                rem_start[i] = prev["rem_start"][i] - self.decode_steps
+            else:
+                rem_start[i] = req.max_new_tokens - len(req.generated) \
+                    - len(self.slot_out[i])
         path = self._decode_path()
         self.decode_paths[path] += 1
-        toks, *_carry = _paged_decode(
-            self.params, c_last, c_len, c_done, c_rem, self._gen,
-            torch.as_tensor(act, device=dev), self._table_dev, self.pools,
-            torch.as_tensor(temps, device=dev),
-            torch.as_tensor(top_ks, device=dev),
-            torch.as_tensor(top_ps, device=dev),
-            torch.as_tensor(eos_ids, device=dev), config=self.config,
-            n_steps=self.decode_steps,
-            sample_flags=_sample_flags([self.slot_req[i] for i in active]),
+        c_last, c_len, c_done, c_rem = self._carry
+        v_act, v_t, v_k, v_p, v_eos = self._slot_vecs
+        toks, *carry = _paged_decode(
+            self.params, c_last, c_len, c_done, c_rem, self._gen, v_act,
+            self._table(), self.pools, v_t, v_k, v_p, v_eos,
+            config=self.config, n_steps=self.decode_steps,
+            sample_flags=_sample_flags([self.slot_req[i]
+                                        for i in active_slots]),
             mega=path == "mega")
-        adm, self._pending_adm = self._pending_adm, []
-        return self._process(adm, toks,
-                             [(i, self.slot_req[i].req_id) for i in active])
+        self._carry = tuple(carry)
+        self._inflight = {
+            "toks": _Readback(toks),
+            "snapshot": [(i, self.slot_req[i].req_id) for i in active_slots],
+            "adm": self._pending_adm,
+            "rem_start": rem_start,
+        }
+        self._pending_adm = []
+        self._fresh_swapins = set()
+        return prev
 
     def _flush_adm(self, adm):
-        """Read back the first tokens of admissions ((slot, req_id, wave
-        token array, row) tuples) and emit them; slots whose request
-        changed since are skipped."""
+        """Read back the first tokens of admissions ((slot, req_id, the
+        wave's ``_Readback``, row) tuples) — one readback per distinct
+        wave — and emit them; slots whose request changed since are
+        skipped."""
         emitted = []
         host = {}
-        for slot, rid, arr, i in adm:
-            if id(arr) not in host:
-                host[id(arr)] = arr.cpu().numpy()
+        for slot, rid, wave, i in adm:
+            if id(wave) not in host:
+                host[id(wave)] = wave.numpy()
             req = self.slot_req[slot]
             if req is None or req.req_id != rid:
-                continue
-            tok = int(host[id(arr)][i])
+                continue              # preempted before its call ran
+            tok = int(host[id(wave)][i])
             emitted.append((rid, tok))
             self._emit(slot, tok)
         return emitted
 
-    def _process(self, adm, toks, snapshot):
-        """Read back a decode call: the first tokens of its admissions,
-        then its emitted grid [n_steps, N]. Slots whose request changed
-        since dispatch are skipped."""
-        emitted = self._flush_adm(adm)
-        toks_host = toks.cpu().numpy()
-        for slot, rid in snapshot:
+    def _process(self, rec):
+        """Read back one decode record: the first tokens of its
+        admissions, then its emitted grid [n_steps, N]. Slots whose
+        request changed since dispatch (finished or preempted) are
+        skipped — their lanes are -1 padding or discarded work."""
+        emitted = self._flush_adm(rec["adm"]) if rec["adm"] else []
+        toks_host = rec["toks"].numpy()
+        for slot, rid in rec["snapshot"]:
+            req = self.slot_req[slot]
+            if req is None or req.req_id != rid:
+                continue
             for k in range(toks_host.shape[0]):
-                req = self.slot_req[slot]
-                if req is None or req.req_id != rid:
-                    break
                 tok = int(toks_host[k, slot])
                 if tok < 0:
                     break          # slot went done mid-call
@@ -966,6 +1733,12 @@ class LLMEngine:
                 if self._emit(slot, tok):
                     break
         return emitted
+
+    def _process_inflight(self):
+        """Read the in-flight call with nothing queued behind it."""
+        rec, self._inflight = self._inflight, None
+        self.readbacks["drained"] += 1
+        return self._process(rec)
 
     # -- speculative decoding: draft-then-verify waves ----------------------
     def _spec_eligible(self, active) -> bool:
@@ -989,24 +1762,31 @@ class LLMEngine:
         need = max(1, need, -(-horizon // self.bs))
         return min(1 << (need - 1).bit_length(), self.mb)
 
-    def _spec_wave(self):
-        """One draft-then-verify wave: the draft proposes ``spec_k``
-        tokens a slot in one call, the target scores them all in one
-        verify call (the draft's grid feeds it on the device), and the
-        host commits each slot's agreeing prefix plus the target's token,
-        capped at ``spec_k`` — so the draft's K/V stay in lockstep with the
-        target's and a rejected suffix is rolled back by the length alone.
-        Pending admissions are read back first: the wave reads the host's
-        state."""
+    def _spec_wave(self, active):
+        """One draft-then-verify wave, run with the pipeline drained: the
+        draft proposes ``spec_k`` tokens a slot in one call, the target
+        scores them all in one verify call (the draft's grid feeds it on
+        the device), and the host commits each slot's agreeing prefix plus
+        the target's token, capped at ``spec_k`` — so the draft's K/V stay
+        in lockstep with the target's and a rejected suffix is rolled back
+        by the length alone. Pending admissions are read back first: the
+        wave reads the host's state, and the chained carry is rebuilt
+        after it."""
         emitted = []
         if self._pending_adm:
             adm, self._pending_adm = self._pending_adm, []
             emitted += self._flush_adm(adm)
-        self._back_or_preempt(steps=self.spec_k)
+        # swap-in carry lanes are host-known state; the spec wave reads
+        # host state directly and invalidates the chained device carry
+        self._pending_swapin = []
+        self._fresh_swapins = set()
+        self._carry = None
+        self._slots_dirty = True
+        emitted += self._back_or_preempt(steps=self.spec_k)
         active = self._decode_slots()
         if not active:
             return emitted
-        k, N, dev = self.spec_k, self.N, self.device
+        k, N = self.spec_k, self.N
         path = self._decode_path()
         if path == "mega":
             # the draft's own screen (its widths, its head, the multi-step
@@ -1020,8 +1800,7 @@ class LLMEngine:
                 path = "ragged"
         self.spec_draft_paths[path] += 1
         nbk = self._spec_bucket(active)
-        if self._table_dev is None:
-            self._table_dev = torch.as_tensor(self.table, device=dev)
+        table = self._table()
         last = np.zeros(N, np.int32)
         budgets = np.zeros(N, np.int32)
         act = np.zeros(N, bool)
@@ -1034,14 +1813,14 @@ class LLMEngine:
             # it could never commit
             budgets[i] = req.max_new_tokens - len(req.generated) - len(out)
             act[i] = True
-        last_d = torch.as_tensor(last, device=dev)
-        lens_d = torch.as_tensor(self.lengths.astype(np.int32), device=dev)
-        act_d = torch.as_tensor(act, device=dev)
+        up, dev = self._upload, self.device
+        last_d = up(last)
+        lens_d = up(self.lengths.astype(np.int32))
+        act_d = up(act)
         draft, *_ = _paged_decode(
             self.draft_params, last_d, lens_d,
-            torch.zeros(N, dtype=torch.bool, device=dev),
-            torch.as_tensor(budgets, device=dev), self._gen, act_d,
-            self._table_dev, self.pools,
+            torch.zeros(N, dtype=torch.bool, device=dev), up(budgets),
+            self._gen, act_d, table, self.pools,
             torch.zeros(N, dtype=torch.float32, device=dev),
             torch.zeros(N, dtype=torch.int32, device=dev),
             torch.ones(N, dtype=torch.float32, device=dev),
@@ -1050,8 +1829,8 @@ class LLMEngine:
             sample_flags=(False, False, False), mega=path == "mega",
             mega_multistep=path == "mega", kv_prefix="d")
         verified = _spec_verify(
-            self.params, self._table_dev[:, :nbk], last_d, draft, lens_d,
-            act_d, self.pools, config=self.config, n_spec=k,
+            self.params, table[:, :nbk], last_d, draft, lens_d, act_d,
+            self.pools, config=self.config, n_spec=k,
             max_model_len=self.max_model_len)
         d_host = draft.cpu().numpy()                    # [k, N]
         v_host = verified.cpu().numpy()                 # [N, k+1]

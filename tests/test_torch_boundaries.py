@@ -69,6 +69,29 @@ print("OK")
     assert res.stdout.strip().endswith("OK")
 
 
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch.framework.flags",
+    "paddle_tpu_torch.serving.prefix_cache",
+    "paddle_tpu_torch.serving.kv_swap",
+    "paddle_tpu_torch.serving.offload"])
+def test_serving_tier_modules_import_without_jax(module):
+    """The flag registry and the serving host tiers are the port's own
+    copies: importing one in a fresh process loads no jax and nothing of
+    paddle_tpu."""
+    code = f"""
+import sys
+import {module}
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+assert not leaked, leaked
+print("OK")
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("OK")
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("this check needs a machine without CUDA")

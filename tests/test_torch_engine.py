@@ -72,7 +72,9 @@ def test_greedy_streams_equal_jax_engine(model, decode_steps, monkeypatch):
     for i, j in zip(ids, jids):
         assert eng.results[i] == want[j]
         assert streamed[i] == eng.results[i]
-    assert eng.block_accounting() == {"total": 6, "free": 6, "backed": 0}
+    assert eng.block_accounting() == {
+        "total": 6, "free": 6, "backed": 0, "cached": 0, "squeezed": 0,
+        "in_flight": 0, "host_spilled_blocks": 0, "swapped_host_blocks": 0}
 
 
 def test_sampled_requests_stay_in_vocab_and_respect_eos(model):
@@ -187,16 +189,27 @@ def test_top_p_one_row_masks_nothing_where_jax_masks_its_tail(monkeypatch):
 def test_unported_arguments_raise(model):
     _, _, tcfg, tp = model
     for kw, err, match in ((dict(kv_dtype="fp8"), ValueError, "kv_dtype"),
-                           (dict(prefix_cache=True), NotImplementedError,
+                           (dict(kv_offload="bogus", kv_swap_bytes=1),
+                            ValueError, "kv_offload"),
+                           (dict(admission=object()), NotImplementedError,
                             "A5"),
-                           (dict(prefill_chunk=16), NotImplementedError,
-                            "A5"),
+                           (dict(injector=object()), NotImplementedError,
+                            "A8"),
+                           (dict(role="prefill"), NotImplementedError,
+                            "A7"),
+                           (dict(relay=object()), NotImplementedError,
+                            "A7"),
                            (dict(mesh=object()), NotImplementedError,
                             "A10"),
                            (dict(decode_kernel="bucketed"),
                             NotImplementedError, "bucketed")):
         with pytest.raises(err, match=match):
             LLMEngine(tp, tcfg, device="cpu", **kw)
+    # the ported host-tier and prefix arguments construct
+    eng = LLMEngine(tp, tcfg, device="cpu", prefix_cache=True,
+                    prefill_chunk=16, prefix_cache_host_bytes=1 << 20,
+                    kv_swap_bytes=1 << 20, kv_offload="sync")
+    assert eng.prefix_cache is not None and eng.offload.sync
     eng = LLMEngine(tp, tcfg, device="cpu", kv_dtype=None,
                     prefix_cache=False)
     # the reference Request's fields exist (ROADMAP fault C1) and raise

@@ -177,7 +177,9 @@ def _port_streams(tp, tcfg, kernel, prompts, decode_steps, monkeypatch):
     ids = [eng.add_request(p, max_new_tokens=16) for p in prompts]
     out = eng.run()
     assert any(preempted), "the pool was meant to force a preemption"
-    assert eng.block_accounting() == {"total": 6, "free": 6, "backed": 0}
+    assert eng.block_accounting() == {
+        "total": 6, "free": 6, "backed": 0, "cached": 0, "squeezed": 0,
+        "in_flight": 0, "host_spilled_blocks": 0, "swapped_host_blocks": 0}
     return [out[i] for i in ids], eng
 
 
