@@ -229,10 +229,38 @@ weights:
      CPU: every stream equals the card's cache-off streams, and the
      ledger balances at every step.
 
-``python3 chip_smoke.py --serving`` runs phases 4, 6 (c) and (p1)-(p4)
-alone (no kernel checks, no device line).
+The rest of the serving engine (``serving/admission.py``,
+``serving/resilient.py``, ``distributed/resilience/faults.py``, the
+engine's deadlines, cancellation and ``decode_kernel="bucketed"``), after
+(p4), on phase 4's weights:
 
-Before its last line it prints ``serving``, ``serving_tiers``, ``mega``,
+(r1) chaos at full width: Llama-3-8B, mega decode at 8 slots, a 4 GiB
+     swap tier with async offload over a pool of 2/5 of the working set,
+     admission control (two tenants) and the fault injector
+     (``R_SCHEDULE``: a slow step, a pool squeeze, two failed readbacks,
+     an offload crash) under ``ResilientEngine``; 32 submissions of
+     64-512 prompt tokens, two a step, some with deadlines of 0 and 0.3
+     s, a queued and an in-flight request cancelled. The ledger balances
+     with no block counted twice at every step; at the end every minted
+     id has one terminal reason, 3 recoveries, exactly-once streams, the
+     pool free and the tiers empty. Sheds by reason, seconds from each
+     crash to the next token, and tokens/s beside the same submissions
+     with no injector;
+(r2) card against CPU under chaos: phase 5's cut model as a self-draft
+     speculative engine on ragged decode, the (r1) schedule plus a failed
+     verify, scripted cancels: each step's emitted list, the ledgers,
+     finish reasons and recoveries equal on the card and the CPU;
+(r3) phase 4's mix through the bucketed decode at 8 slots beside phase
+     4's ragged run (tokens/s, step time, TTFT p95, a traced call's busy
+     share and launches a step, KV bytes a call, the first divergence);
+     the cut model's f32 streams bucketed on the card and the CPU and
+     ragged on the card, equal, with model-dtype and int8 pools.
+
+``python3 chip_smoke.py --serving`` runs phases 4, 6 (c), (p1)-(p4) and
+(r1)-(r3) alone (no kernel checks, no device line).
+
+Before its last line it prints ``serving``, ``serving_tiers``,
+``serving_resilience``, ``mega``,
 ``training``,
 ``moe_training``, ``int8``, ``training_memory`` and ``spec`` lines
 (phases 4, (p1)-(p4), 6, 8, 12-15, (a)-(f) and (s1)-(s4)),
@@ -249,6 +277,7 @@ import math
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -738,6 +767,14 @@ def serve(LLMEngine, build, dev, card, cfg, params, prompts, max_slots,
     b5 = "mega_decode_int8" if kv_dtype or w_int8 else "mega_decode"
     lens = np.array([len(p) for p in prompts])
     ids = [eng.add_request(p, max_new_tokens=64) for p in prompts]
+    kv_bytes = []
+    dispatch = eng._dispatch_decode
+
+    def dispatch_counting(active):
+        kv_bytes.append(call_kv_bytes(eng, active))
+        return dispatch(active)
+
+    eng._dispatch_decode = dispatch_counting
     prefills = CallTimer(eng, "_dispatch_prefill", sync=False)
     decodes = CallTimer(eng, "_dispatch_decode", sync=False)
     steps = StepTimer(eng, prefills, decodes)
@@ -775,6 +812,13 @@ def serve(LLMEngine, build, dev, card, cfg, params, prompts, max_slots,
         raise AssertionError(f"the mega engine launched {launches} for "
                              f"{decodes.n} decode calls of 16 steps "
                              f"(fallbacks {dict(eng.mega_fallbacks)})")
+    if decode_kernel == "bucketed" and (
+            set(eng.decode_paths) - {"bucketed", "dense"}
+            or any(launches.get(k, 0) for k in (
+                "ragged_decode", "ragged_decode_int8", "mega_decode",
+                "mega_decode_int8"))):
+        raise AssertionError(f"the bucketed engine launched {launches}, "
+                             f"paths {dict(eng.decode_paths)}")
     if sum(eng.readbacks.values()) != decodes.n:
         raise AssertionError(f"{dict(eng.readbacks)} readbacks for "
                              f"{decodes.n} decode calls")
@@ -810,12 +854,37 @@ def serve(LLMEngine, build, dev, card, cfg, params, prompts, max_slots,
                "decode_step_ms": step_ms,
                "median_decode_step_ms": float(np.median(step_ms)),
                "ttft_s": ttft, "ttft_p95_s": p95(ttft),
+               "kv_bytes_per_call": float(np.mean([b for b, _ in
+                                                   kv_bytes])),
+               "gathered_bytes_per_call": float(np.mean([g for _, g in
+                                                         kv_bytes])),
+               "decode_paths": dict(eng.decode_paths),
                "launches": launches,
                "peak_mem_gib": peak / 2**30, "prompt_lens": lens.tolist()}
     streams = [out[i] for i in ids]
     summary["traced_decode_call"], summary["traced_chained_calls"] = \
         trace_decode_call(eng, prompts[:eng.N], chained_trace)
     return launches, summary, streams, eng.nb
+
+
+def call_kv_bytes(eng, active):
+    """(KV bytes, gathered bytes) of the next decode call of ``eng`` for
+    ``active``, by the JAX engine's ``kv_read_bytes`` convention (target
+    pools only): ragged and mega walk each slot's blocks at its true
+    length (plus the unread call's lag) every step and gather nothing;
+    bucketed gathers its power-of-two bucket of blocks for every slot
+    once a call, writes that dense copy and reads it every step."""
+    pb = sum(a.shape[0] * int(np.prod(a.shape[2:])) * a.element_size()
+             for n, a in eng.pools.items() if n in ("k", "v", "ks", "vs"))
+    if eng.decode_kernel == "bucketed":
+        gathered = pb * eng.N * eng._prefix_blocks(active)
+        return gathered * (2 + eng.decode_steps), gathered
+    snap = ({s for s, _ in eng._inflight["snapshot"]}
+            if eng._inflight is not None else ())
+    walk = sum(-(-(int(eng.lengths[i])
+                   + (eng.decode_steps if i in snap else 0)) // eng.bs)
+               for i in active)
+    return walk * pb * eng.decode_steps, 0
 
 
 def serving_runs(llama, LLMEngine, build, dev, card):
@@ -1567,6 +1636,383 @@ def tiers_cross_device(llama, LLMEngine, dev):
     log(f"  card and CPU streams equal cache-off in sync and async modes: "
         f"{[len(s) for s in ref]} tokens")
     return {"stats": stats, "streams_equal": True}
+
+
+# ---------------------------------------------------------------------------
+# phases (r1)-(r3): admission control, deadlines, cancellation, the serving
+# fault injector under ResilientEngine, and the bucketed dense-gather decode
+# ---------------------------------------------------------------------------
+# the serving faults of (r1), at fixed engine steps; (r2) adds a failed
+# speculative verify
+R_SCHEDULE = ("slow_step@3,pool_squeeze@5,readback_fail@8,offload_crash@13,"
+              "readback_fail@21")
+R_CRASHES = 3           # readback_fail twice, offload_crash once
+TERMINAL = {"finished", "shed", "deadline_exceeded", "client_disconnected"}
+# (r1): Llama-3-8B at 8 slots of mega decode with both host tiers
+R1_ENGINE = dict(max_slots=8, block_size=64, max_model_len=1024,
+                 prompt_buckets=[128, 512, 1024], decode_steps=8,
+                 decode_kernel="mega", kv_swap_bytes=4 << 30,
+                 kv_offload="async")
+# (r2): phase 5's cut model, a self-draft spec engine on ragged decode
+R2_ENGINE = dict(max_slots=2, block_size=16, max_model_len=256,
+                 prompt_buckets=[64], decode_steps=2, decode_kernel="ragged",
+                 num_blocks=7, kv_swap_bytes=64 << 20, kv_offload="async",
+                 spec_tokens=3)
+
+
+def ledger_checked(eng):
+    """The block ledger ``free + backed + cached + squeezed + in_flight ==
+    total``, with no block id counted twice (the free list, the slots'
+    tables, squeezed and custody blocks) and the trash block never handed
+    out; returns the ledger."""
+    a = eng.block_accounting()
+    if a["free"] + a["backed"] + a["cached"] + a["squeezed"] \
+            + a["in_flight"] != a["total"]:
+        raise AssertionError(f"ledger {a}")
+    ids = list(eng.free_blocks)
+    for i in range(eng.N):
+        ids += [int(b) for b in eng.table[i, :int(eng.n_alloc[i])]]
+    ids += [b for _, blocks in eng._squeezed for b in blocks]
+    if eng.offload is not None:
+        ids += [b for t in eng.offload._spills.values() for b in t.blocks]
+    if len(ids) != len(set(ids)) or 0 in ids:
+        raise AssertionError(f"a block id counted twice or the trash block "
+                             f"handed out; ledger {a}")
+    return a
+
+
+def drive_chaos(eng, reng, submissions, per_step, actions, clock=None):
+    """Submit ``submissions`` ((prompt, kwargs) pairs) ``per_step`` a step
+    to ``eng`` and step ``reng`` (its ``ResilientEngine``) until both are
+    done, the ledger checked after every step. ``actions`` maps a step
+    index to a callable run just before that step (a cancel); one that
+    returns False is tried again at the next step. ``clock`` (a
+    one-element list) advances 0.1 s a step: the admission controller's
+    clock. Returns the minted ids (sheds included), each step's emitted
+    list, ledger and end time, and the times of the recoveries."""
+    from paddle_tpu_torch.serving import ShedError
+    pending = list(submissions)
+    ids, steps, ledgers, t_end, t_crash = [], [], [], [], []
+    todo = sorted(actions.items())
+    idx = 0
+    while reng.has_work() or pending:
+        for prompt, kw in pending[:per_step]:
+            try:
+                ids.append(eng.add_request(prompt, **kw))
+            except ShedError as e:
+                ids.append(e.req_id)
+        pending = pending[per_step:]
+        idx += 1
+        while todo and todo[0][0] <= idx and todo[0][1]() is not False:
+            todo.pop(0)
+        n_rec = reng.recoveries
+        steps.append(reng.step())
+        t_end.append(time.perf_counter())
+        if reng.recoveries != n_rec:
+            t_crash.append((idx, t_end[-1]))
+        ledgers.append(ledger_checked(eng))
+        if clock is not None:
+            clock[0] += 0.1
+    if todo:
+        raise AssertionError(f"actions never found a target: {todo}")
+    eng.drain_offload()
+    return ids, steps, ledgers, t_end, t_crash
+
+
+def streams_of(steps):
+    out = {}
+    for step in steps:
+        for rid, tok in step:
+            out.setdefault(rid, []).append(tok)
+    return out
+
+
+def r1_requests(vocab):
+    """(r1)'s 32 submissions: prompts of 64-512 tokens and 16-48 new
+    tokens from ``numpy.random.default_rng(SEED + 17)`` (the lengths
+    drawn before the tokens, so they do not depend on ``vocab``), two
+    tenants in turn; every 5th has a deadline of 0 s, two more one of
+    0.3 s."""
+    rng = np.random.default_rng(SEED + 17)
+    lens, news = rng.integers(64, 513, size=32), rng.integers(16, 49, 32)
+    subs = []
+    for i in range(32):
+        kw = dict(max_new_tokens=int(news[i]),
+                  tenant=("interactive", "batch")[i % 2])
+        if i % 5 == 4:
+            kw["deadline_s"] = 0.0
+        elif i in (7, 16):
+            kw["deadline_s"] = 0.3
+        subs.append((rng.integers(0, vocab, size=int(lens[i])).tolist(),
+                     kw))
+    return subs
+
+
+def chaos_full_width(LLMEngine, build, dev, card, cfg, params):
+    """(r1): Llama-3-8B, bf16, mega decode at 8 slots, a 4 GiB swap tier
+    with async offload over a pool of 2/5 of the working set, admission
+    control (a 6-deep queue, per-tenant buckets of 1500 tokens/s and a
+    2000-token burst on a clock that advances 0.1 s a step, so the same
+    requests shed on every run) and ``FaultInjector(R_SCHEDULE)`` under
+    ``ResilientEngine``: 32 submissions, two a step; the newest queued
+    request cancelled at step 6 and a request whose call is in flight at
+    step 10 (or the first step after with such a target). The ledger is
+    checked at every step; at the end every minted id has one terminal
+    reason, every fault fired, 3 recoveries, each stream equals its
+    result, the pool is free, the swap tier empty and nothing in flight.
+    The same submissions then run with no injector, for tokens/s."""
+    from paddle_tpu_torch.distributed.resilience import FaultInjector
+    from paddle_tpu_torch.serving import (AdmissionConfig,
+                                          AdmissionController,
+                                          ResilientEngine)
+    subs = r1_requests(cfg.vocab_size)
+    per_req = -(-(512 + 48) // 64)
+    pool = int(8 * per_req / 2.5)
+    res = {"pool_blocks": pool, "working_set_blocks": 8 * per_req}
+    launches = {}
+    for label, schedule in (("chaos", R_SCHEDULE), ("no_faults", None)):
+        clock = [0.0]
+        ctl = AdmissionController(
+            AdmissionConfig(max_queue=6, rate_tokens_per_s=1500.0,
+                            burst_tokens=2000.0), now_fn=lambda: clock[0])
+        inj = FaultInjector(schedule) if schedule else None
+        eng = LLMEngine(params, cfg, num_blocks=pool, seed=SEED,
+                        device=dev, admission=ctl, injector=inj,
+                        **R1_ENGINE)
+        reng = ResilientEngine(eng)
+        cancelled = {}
+
+        def cancel_queued(eng=eng, cancelled=cancelled):
+            if not eng.queue:
+                return False
+            cancelled["queued"] = eng.queue[-1].req_id
+            eng.cancel_request(cancelled["queued"])
+
+        def cancel_in_flight(eng=eng, cancelled=cancelled):
+            rec = eng._inflight
+            live = [r for s, r in (rec["snapshot"] if rec else [])
+                    if eng.slot_req[s] is not None
+                    and eng.slot_req[s].req_id == r]
+            if not live:
+                return False
+            cancelled["in_flight"] = live[0]
+            eng.cancel_request(live[0])
+
+        build.launch_counts.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, steps, ledgers, t_end, t_crash = drive_chaos(
+            eng, reng, subs, 2, {6: cancel_queued, 10: cancel_in_flight},
+            clock)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[f"r1_{label}"] = dict(build.launch_counts)
+        reasons = eng.finish_reasons
+        streams = streams_of(steps)
+        bad = [r for r in eng.results if streams.get(r, []) !=
+               eng.results[r]]
+        a = eng.block_accounting()
+        if set(reasons) != set(ids) or set(reasons.values()) - TERMINAL \
+                or bad or a["free"] != a["total"] or a["in_flight"] \
+                or eng.swap_pool.bytes_used or len(eng.swap_pool) \
+                or eng.offload.held_blocks \
+                or any(reasons[r] != "client_disconnected"
+                       for r in cancelled.values()):
+            raise AssertionError(
+                f"(r1) {label}: reasons {dict(Counter(reasons.values()))} "
+                f"for {len(ids)} ids, streams unequal {bad}, ledger {a}, "
+                f"swap {eng.swap_pool.bytes_used} B, cancelled "
+                f"{cancelled}")
+        if inj is not None and (inj.pending or reng.recoveries != R_CRASHES):
+            raise AssertionError(f"(r1): faults not fired {inj.pending}, "
+                                 f"fired {inj.fired}, recoveries "
+                                 f"{reng.recoveries}")
+        mega_only(eng, f"(r1) {label}")
+        n_tok = sum(len(v) for v in streams.values())
+        # seconds from each recovered crash to the next step that emitted
+        to_token = []
+        for idx, t in t_crash:
+            nxt = next((t_end[i] for i in range(idx, len(steps))
+                        if steps[i]), None)
+            to_token.append(None if nxt is None else nxt - t)
+        res[label] = {
+            "minted": len(ids), "finish_reasons": dict(Counter(
+                reasons.values())),
+            "sheds": dict(ctl.sheds), "cancelled": cancelled,
+            "recoveries": reng.recoveries,
+            "fired": inj.fired if inj is not None else [],
+            "crash_to_next_token_s": to_token, "steps": len(steps),
+            "output_tokens": n_tok, "wall_s": wall,
+            "output_tok_per_s": n_tok / wall,
+            "swap_restores": eng.offload.prefetch_hits + eng.offload.stalls,
+            "swap_fallbacks": eng.swap_fallbacks,
+            "max_squeezed": max(x["squeezed"] for x in ledgers),
+            "readbacks": dict(eng.readbacks), "launches": launches[
+                f"r1_{label}"]}
+        log(f"  (r1) {label}: {res[label]}; card: {card}")
+        del eng, reng, cancel_queued, cancel_in_flight
+        free_memory()
+    return res, launches
+
+
+def r2_requests(vocab):
+    """(r2)'s 14 submissions: prompts of 16-60 tokens and 10-15 new
+    tokens from ``numpy.random.default_rng(SEED + 19)`` (lengths first);
+    every 4th has a deadline of 0 s; every 5th of the rest samples with
+    ``top_k=1``: its stream is the greedy one on any device, but its
+    waves take the normal decode path, so readbacks happen there (a
+    greedy self-draft engine otherwise runs only spec waves)."""
+    rng = np.random.default_rng(SEED + 19)
+    lens, news = rng.integers(16, 61, size=14), rng.integers(10, 16, 14)
+    subs = []
+    for i in range(14):
+        kw = dict(max_new_tokens=int(news[i]))
+        if i % 4 == 3:
+            kw["deadline_s"] = 0.0
+        elif i % 5 == 4:
+            kw.update(temperature=0.7, top_k=1)
+        subs.append((rng.integers(0, vocab, size=int(lens[i])).tolist(),
+                     kw))
+    return subs
+
+
+def chaos_cross_device(llama, LLMEngine, build, dev):
+    """(r2): phase 5's cut model (f32) as a self-draft speculative engine
+    on ragged decode, async offload over a 7-block pool, a 5-deep
+    admission queue and ``FaultInjector(R_SCHEDULE +
+    ",spec_verify_fail@6")`` under ``ResilientEngine``; (r2)'s
+    submissions two a step, request 6 cancelled before step 5 and request
+    2 before step 11. On the card and on the CPU: each step's emitted
+    list, every ledger, ``finish_reasons``, ``recoveries`` and the
+    results must be equal."""
+    from paddle_tpu_torch.distributed.resilience import FaultInjector
+    from paddle_tpu_torch.serving import AdmissionConfig, ResilientEngine
+    cfg, base = cut_model(llama)
+    subs = r2_requests(cfg.vocab_size)
+    runs = {}
+    launches = {}
+    for where in (str(dev), "cpu"):
+        params = tree_to(base, where)
+        inj = FaultInjector(R_SCHEDULE + ",spec_verify_fail@6")
+        eng = LLMEngine(params, cfg, draft_params=params, draft_config=cfg,
+                        admission=AdmissionConfig(max_queue=5),
+                        injector=inj, device=where, seed=SEED, **R2_ENGINE)
+        reng = ResilientEngine(eng)
+        acts = {5: lambda: eng.cancel_request(6),
+                11: lambda: eng.cancel_request(2)}
+        build.launch_counts.clear()
+        t0 = time.perf_counter()
+        ids, steps, ledgers, _, _ = drive_chaos(eng, reng, subs, 2, acts)
+        runs[where] = (steps, ledgers, dict(eng.finish_reasons),
+                       reng.recoveries, dict(eng.results), inj.fired)
+        if where != "cpu":
+            torch.cuda.synchronize()
+            launches["r2_card"] = dict(build.launch_counts)
+        log(f"  (r2) {where}: {len(steps)} steps, recoveries "
+            f"{reng.recoveries}, fired {inj.fired}, pending {inj.pending}, "
+            f"reasons {dict(Counter(eng.finish_reasons.values()))}, spec "
+            f"waves {eng.spec_waves}, decode paths "
+            f"{dict(eng.decode_paths)}, cancel no-ops {eng.cancel_noops} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        del params, eng, reng
+    card_run, cpu_run = runs[str(dev)], runs["cpu"]
+    names = ("steps", "ledgers", "finish_reasons", "recoveries", "results",
+             "fired")
+    unequal = [n for n, a, b in zip(names, card_run, cpu_run) if a != b]
+    if unequal:
+        raise AssertionError(f"(r2) card and CPU differ in {unequal}")
+    steps, _, reasons, recoveries, results, fired = card_run
+    if streams_of(steps) != {r: t for r, t in results.items() if t} \
+            or set(reasons.values()) - TERMINAL or not recoveries:
+        raise AssertionError(f"(r2): reasons {reasons}, recoveries "
+                             f"{recoveries}")
+    return {"steps": len(steps), "recoveries": recoveries, "fired": fired,
+            "finish_reasons": dict(Counter(reasons.values())),
+            "card_equals_cpu": True}, launches
+
+
+def bucketed_streams(llama, LLMEngine, dev, kv_dtype):
+    """Phase 5's two prompts through the cut model (f32): bucketed on the
+    card, bucketed on the CPU and ragged on the card must emit equal
+    greedy streams (``kv_dtype="int8"``: int8 pools)."""
+    cfg, base = cut_model(llama)
+    rng = np.random.default_rng(SEED + 5)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in (130, 200)]
+    streams = {}
+    for where, kernel in ((str(dev), "bucketed"), ("cpu", "bucketed"),
+                          (str(dev), "ragged")):
+        params = tree_to(base, where)
+        eng = LLMEngine(params, cfg, max_slots=2, block_size=64,
+                        max_model_len=512, prompt_buckets=[256],
+                        decode_steps=4, decode_kernel=kernel,
+                        kv_dtype=kv_dtype, device=where)
+        ids = [eng.add_request(p, max_new_tokens=8) for p in prompts]
+        out = eng.run()
+        streams[f"{kernel}_{where}"] = [out[i] for i in ids]
+        del params, eng
+    if len({str(v) for v in streams.values()}) != 1:
+        raise AssertionError(f"(r3) f32 streams differ ({kv_dtype}): "
+                             f"{streams}")
+    return streams[f"bucketed_{dev}"]
+
+
+def bucketed_decode(llama, LLMEngine, build, dev, card, cfg8, params8,
+                    serving, bf16_streams):
+    """(r3): phase 4's mix (16 requests, 64 new tokens) through
+    ``decode_kernel="bucketed"`` at 8 slots on Llama-3-8B's bf16 weights,
+    as ``serve`` runs it (tokens/s, chained step time, TTFT, a traced
+    decode call), beside phase 4's ragged numbers from this same call,
+    the KV bytes a call of each and the first stream divergence; then the
+    f32 cut model's streams, bucketed on the card and the CPU and ragged
+    on the card, with the model's own and with int8 pools."""
+    launches = {}
+    launches["r3_bucketed"], summary, streams, _ = serve(
+        LLMEngine, build, dev, card, cfg8, params8, serving_mix(cfg8, 16),
+        max_slots=8, decode_kernel="bucketed")
+    keys = ("output_tok_per_s", "median_decode_step_ms", "ttft_p95_s",
+            "kv_bytes_per_call", "gathered_bytes_per_call", "readbacks")
+    res = {"bucketed_8_slots": {k: summary[k] for k in keys + (
+        "decode_paths",)}, "ragged_8_slots": {k: serving[k] for k in keys}}
+    for name, src in (("bucketed_8_slots", summary),
+                      ("ragged_8_slots", serving)):
+        tr = src["traced_decode_call"] or {}
+        res[name]["traced_decode_call"] = {
+            k: tr.get(k) for k in ("device_busy_share", "launches_per_step",
+                                   "wall_ms", "top_kernels_ms")}
+    res["first_divergence_vs_ragged"] = first_divergence(streams,
+                                                         bf16_streams)
+    log(f"  (r3) bucketed vs ragged at 8 slots: {json.dumps(res)}; card: "
+        f"{card}")
+    free_memory()
+    res["f32_streams"] = {kv or "model_dtype": bucketed_streams(
+        llama, LLMEngine, dev, kv) for kv in (None, "int8")}
+    log(f"  (r3) f32 cut model: bucketed card = bucketed CPU = ragged card, "
+        f"model-dtype and int8 pools")
+    return res, launches
+
+
+def serving_resilience(llama, LLMEngine, build, dev, card, cfg8, params8,
+                       serving, bf16_streams):
+    """Phases (r1)-(r3) on phase 4's weights. Returns their numbers and
+    the kernels' launches in each run."""
+    log("phase (r1): chaos at full width — Llama-3-8B, mega at 8 slots, "
+        "admission, deadlines, cancels, the fault injector")
+    res, launches = {}, {}
+    res["r1"], more = chaos_full_width(LLMEngine, build, dev, card, cfg8,
+                                       params8)
+    launches.update(more)
+    log("phase (r2): card against CPU under chaos (phase 5's cut model, "
+        "self-draft spec on ragged)")
+    res["r2"], more = chaos_cross_device(llama, LLMEngine, build, dev)
+    launches.update(more)
+    free_memory()
+    log("phase (r3): the bucketed dense-gather decode")
+    res["r3"], more = bucketed_decode(llama, LLMEngine, build, dev, card,
+                                      cfg8, params8, serving, bf16_streams)
+    launches.update(more)
+    free_memory()
+    return res, launches
 
 
 # ---------------------------------------------------------------------------
@@ -4256,15 +4702,21 @@ def serving_tiers(llama, LLMEngine, build, dev, card, cfg8, params8,
 
 def serving_only(llama, LLMEngine, build, dev, card) -> int:
     """``--serving``: phases 4 and 6(c) (the serving runs alone, no kernel
-    checks) and (p1)-(p4), then their lines; no device line."""
+    checks), (p1)-(p4) and (r1)-(r3), then their lines; no device
+    line."""
     cfg8, params8, runs = serving_runs(llama, LLMEngine, build, dev, card)
     _, serving, bf16_streams, _ = runs["phase4_ragged_8"]
     tiers, tier_launches = serving_tiers(
         llama, LLMEngine, build, dev, card, cfg8, params8, serving,
         bf16_streams)
+    resilience, r_launches = serving_resilience(
+        llama, LLMEngine, build, dev, card, cfg8, params8, serving,
+        bf16_streams)
+    tier_launches.update(r_launches)
     log(f"serving: {json.dumps(serving)}")
     log(f"mega: {json.dumps(runs['phase6c_mega_4'][1])}")
     log(f"serving_tiers: {json.dumps(tiers)}")
+    log(f"serving_resilience: {json.dumps(resilience)}")
     log(f"tier_launches: {json.dumps(tier_launches)}")
     log(f"total {time.perf_counter() - T0:.1f} s")
     log(card)
@@ -4352,6 +4804,10 @@ def main() -> int:
     tiers, tier_launches = serving_tiers(
         llama, LLMEngine, build, dev, card, cfg8, params8, serving,
         bf16_streams)
+    resilience, r_launches = serving_resilience(
+        llama, LLMEngine, build, dev, card, cfg8, params8, serving,
+        bf16_streams)
+    tier_launches.update(r_launches)
 
     log("phase (s1): B5's multi-step form vs plain, one k=4 draft wave at "
         "4 slots")
@@ -4598,12 +5054,13 @@ def main() -> int:
              launches=paged_launches.get("paged_append_blocks", 0),
              **paged["b8"]),
     ]
-    # each kernel's launches in the runs of phases (p1)-(p3)
+    # each kernel's launches in the runs of phases (p1)-(p3) and (r1)-(r3)
     for k in kernels:
         k["tier_launches"] = {run: n[k["name"]] for run, n in
                               tier_launches.items() if n.get(k["name"])}
     log(f"serving: {json.dumps(serving)}")
     log(f"serving_tiers: {json.dumps(tiers)}")
+    log(f"serving_resilience: {json.dumps(resilience)}")
     log(f"mega: {json.dumps(mega)}")
     log(f"training: {json.dumps(training)}")
     log(f"moe_training: {json.dumps(moe_training)}")

@@ -57,6 +57,17 @@ Design, as in the JAX engine:
   the dense K/V and scatters them quantized, the decode walks read the
   scales, and the in-call ring stays in the model dtype until the
   writeback quantizes it.
+- Bucketed decode (``decode_kernel="bucketed"``): the dense-gather
+  path. Each call gathers every slot's frozen prefix ONCE, over the
+  smallest power-of-two block count covering ``max(lengths) +
+  decode_steps`` (``_prefix_blocks``; the table is sliced to it), and
+  each step runs masked attention over [prefix ; ring] in one softmax —
+  plain torch, as the JAX engine leaves this path to XLA (int8 pools
+  through ``attn_qk``/``attn_pv``). The ring is written back as on the
+  other paths. ``"auto"`` never picks it: on the card the hand-written
+  kernels serve (ragged, or mega at ``max_slots <= 4``), and on the CPU
+  ragged runs its plain version — unlike the JAX engine, whose "auto"
+  picks bucketed off a TPU because its kernel would run interpreted.
 - Speculative decoding (optional): with ``draft_params``/``draft_config``
   a greedy decode wave runs draft-then-verify. The draft (a smaller llama
   on the target's vocabulary, its own ``dk``/``dv`` pools on the target's
@@ -67,6 +78,15 @@ Design, as in the JAX engine:
   prefill-shaped call (``_spec_verify``); the host commits the agreeing
   prefix plus the target's own token, capped at ``spec_tokens``. The
   streams are the non-speculative greedy streams.
+- Survivability: ``admission`` (``serving.admission``) sheds
+  reject-newest with a typed ``ShedError``; ``Request.deadline_s``
+  evicts a request past its budget (queued or in a slot, partial tokens
+  delivered); ``cancel_request`` marks a request for eviction at the
+  next step boundary; every minted id ends in exactly one
+  ``finish_reasons`` entry. ``injector`` (a
+  ``distributed.resilience.FaultInjector``) fires the serving fault
+  kinds inside the step loop, and ``serving.resilient.ResilientEngine``
+  recovers a crashed step through ``recover_crashed_step``.
 
 Differences from the JAX engine: PyTorch runs eagerly, so nothing is
 compiled and the pools are updated in place rather than donated; the
@@ -78,11 +98,12 @@ The spec wave's draft prefill samples greedily (its token is discarded;
 the JAX engine draws it with the wave's flags), so a speculating engine
 draws the same random numbers for sampled requests as a plain one. The
 ``serving_spec_*`` metrics wait for the observability port (A8); the
-host counters ``spec_*`` are kept. Admission control, deadlines,
-cancellation, the fault injector, disaggregated roles and tensor
-parallelism are not ported yet (ROADMAP queue A), nor the ``"bucketed"``
-dense-gather decode; their constructor and request arguments raise
-``NotImplementedError`` naming their queue when set.
+host counters ``spec_*`` are kept; so are the admission controller's
+``sheds`` and ``cancel_noops``. Not ported yet: tensor parallelism
+(``mesh``, ROADMAP A10), disaggregated roles and the relay pool
+(``role``, ``relay``, ``Request.relay_key``, A7) and the observability
+hooks (A8); their arguments raise ``NotImplementedError`` naming their
+queue when set.
 """
 from __future__ import annotations
 
@@ -90,6 +111,7 @@ import dataclasses
 import functools
 import itertools
 import math
+import threading
 import time
 from collections import Counter, deque
 from typing import Dict, List, Optional
@@ -98,15 +120,18 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..distributed.resilience.faults import SimulatedCrash
 from ..framework.flags import get_flag
-from ..kernels.mega_decode import (_layer, _mlp, decode_layers,
+from ..kernels.mega_decode import (_layer, _mlp, _rope1, decode_layers,
                                    mega_decode_loop, mega_decode_step,
                                    mega_supported)
 from ..kernels.pallas_attention import flash_attention_fwd
-from ..kernels.quant_matmul import is_quantized_weight, quantize_kv
+from ..kernels.quant_matmul import (attn_pv, attn_qk, is_quantized_weight,
+                                    quantize_kv)
 from ..kernels.quant_matmul import weight_only_matmul as _wo_mm
 from ..models.llama import (LlamaConfig, _apply_rope, _apply_rope_at,
                             _rms_norm, _rope_tables, head_weight)
+from .admission import AdmissionConfig, AdmissionController, ShedError
 from .kv_swap import HostKVPool
 from .offload import OffloadEngine, gather_blocks, take_staged, upload
 from .prefix_cache import PrefixCache
@@ -116,10 +141,8 @@ __all__ = ["LLMEngine", "Request"]
 NEG_INF = -1e30
 
 # JAX constructor arguments not ported yet -> (default, ROADMAP queue)
-_UNPORTED = {
-    "mesh": (None, "A10"), "admission": (None, "A5"),
-    "injector": (None, "A8"), "role": ("both", "A7"), "relay": (None, "A7"),
-}
+_UNPORTED = {"mesh": (None, "A10"), "role": ("both", "A7"),
+             "relay": (None, "A7")}
 
 
 @dataclasses.dataclass
@@ -131,10 +154,13 @@ class Request:
     top_k: int = 0
     top_p: float = 1.0
     eos_token_id: Optional[int] = None
-    # not ported: a latency budget (A5), the admission tenant (A5) and
-    # its stamped deadline
+    # latency budget in seconds from add_request; past it the request is
+    # evicted (queued or mid-decode), its KV blocks freed, partial tokens
+    # delivered with finish reason "deadline_exceeded". None = no deadline.
     deadline_s: Optional[float] = None
+    # admission-control tenant for the per-tenant token-bucket rate limit
     tenant: str = "default"
+    # absolute perf_counter deadline, stamped by add_request
     t_deadline: Optional[float] = None
     # tokens generated before a preemption; a re-admission prefills
     # prompt+generated so already-streamed tokens are never re-emitted
@@ -143,14 +169,10 @@ class Request:
     relay_key: Optional[int] = None
 
     def __post_init__(self):
-        for name, default, queue in (("deadline_s", None, "A5"),
-                                     ("tenant", "default", "A5"),
-                                     ("t_deadline", None, "A5"),
-                                     ("relay_key", None, "A7")):
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"Request({name}=...) is not ported yet (ROADMAP queue "
-                    f"{queue})")
+        if self.relay_key is not None:
+            raise NotImplementedError(
+                "Request(relay_key=...) is not ported yet (ROADMAP queue "
+                "A7)")
 
 
 # ---------------------------------------------------------------------------
@@ -231,9 +253,13 @@ class _Readback:
         else:
             self.host, self.event = t, None
 
-    def numpy(self):
+    def wait(self):
+        """Block until the copy into ``host`` has landed."""
         if self.event is not None:
             self.event.synchronize()
+
+    def numpy(self):
+        self.wait()
         return self.host.numpy()
 
 
@@ -361,11 +387,59 @@ def _write_pools(pools, index, k, v, prefix: str = ""):
         pools[pv][index] = v.to(pools[pv].dtype)
 
 
+def _dense_layers(params, config, x, *, t: int, lens, ring_k, ring_v, kd,
+                  vd, ksc, vsc, pre_mask):
+    """One decode step of every layer for x [N, h], the bucketed path's
+    math (the JAX engine's dense body): per layer the fresh K/V row lands
+    in the ring at index ``t`` (in place), and one masked softmax runs
+    over [gathered prefix ; ring positions ``j <= t``]. ``kd``/``vd``
+    [L, N, P, Hkv, D] are the call's gathered prefixes (int8 with their
+    scales ``ksc``/``vsc`` [L, N, P, Hkv] under int8 pools, through
+    ``attn_qk``/``attn_pv``); ``pre_mask`` [N, 1, 1, P] marks each slot's
+    frozen prefix. Returns the post-layer-stack hidden state [N, h]."""
+    c = config
+    dt = c.dtype
+    N = x.shape[0]
+    S = ring_k.shape[2]
+    P = kd.shape[2]
+    Hkv, D = c.num_kv_heads, c.head_dim
+    G = c.num_heads // Hkv
+    scale = 1.0 / math.sqrt(D)
+    freq = c.rope_theta ** (-torch.arange(0, D, 2, dtype=torch.float32,
+                                          device=x.device) / D)
+    ang = lens.float()[:, None] * freq[None, :]
+    ring_live = (torch.arange(S, device=x.device) <= t)[None, None, None, :]
+    for l in range(c.num_layers):
+        p = _layer(params, l)
+        hn = _rms_norm(x, p["attn_norm"], c.rms_eps)
+        q = _rope1(_wo_mm(hn, p["wq"], dt).reshape(N, Hkv * G, D), ang)
+        kk = _rope1(_wo_mm(hn, p["wk"], dt).reshape(N, Hkv, D), ang)
+        vv = _wo_mm(hn, p["wv"], dt).reshape(N, Hkv, D)
+        ring_k[l, :, t] = kk
+        ring_v[l, :, t] = vv
+        qg = q.reshape(N, Hkv, G, D)
+        s_rng = torch.einsum("nhgd,nshd->nhgs", qg.float(),
+                             ring_k[l].float()) * scale
+        s_rng = torch.where(ring_live, s_rng, torch.full_like(s_rng, NEG_INF))
+        s_pre = attn_qk(qg, kd[l], None if ksc is None else ksc[l]) * scale
+        s_pre = torch.where(pre_mask, s_pre, torch.full_like(s_pre, NEG_INF))
+        probs = torch.softmax(torch.cat([s_pre, s_rng], dim=-1), dim=-1)
+        p_rng = probs[..., P:].to(dt)
+        att = (attn_pv(probs[..., :P], vd[l], None if vsc is None else vsc[l],
+                       out_dtype=dt)
+               + torch.einsum("nhgs,nshd->nhgd", p_rng.float(),
+                              ring_v[l].float()).to(dt))
+        att = att.reshape(N, Hkv * G * D).to(dt)
+        x = _mlp(x + _wo_mm(att, p["wo"], dt), p, c)
+    return x
+
+
 def _paged_decode(params, last_tokens, lengths, done0, budgets, generator,
                   active, block_table, pools, temps, top_ks, top_ps, eos_ids,
                   *, config: LlamaConfig, n_steps: int,
                   sample_flags=(True, True, True), mega: bool = False,
-                  mega_multistep: bool = False, kv_prefix: str = ""):
+                  mega_multistep: bool = False, kv_prefix: str = "",
+                  bucketed: bool = False):
     """``n_steps`` decode iterations over all slots.
 
     The slot prefixes ``[0, lengths)`` are frozen for the call: every step
@@ -378,6 +452,11 @@ def _paged_decode(params, last_tokens, lengths, done0, budgets, generator,
     done and emit -1 from then on. The ring (model dtype) holds the
     call's new K/V; its valid entries are written back to the pools (in
     place, quantized for int8 pools) at the end of the call.
+
+    ``bucketed``: the dense-gather path instead. ``block_table`` arrives
+    sliced to the engine's power-of-two bucket [N, nbk]; the call gathers
+    every slot's prefix once, P = nbk * bs positions, and each step runs
+    :func:`_dense_layers` (one masked softmax over [prefix ; ring]).
 
     ``kv_prefix="d"`` runs the call as the speculative draft's proposal
     loop (draft params and config, greedy flags, the ``dk``/``dv`` pools).
@@ -404,6 +483,19 @@ def _paged_decode(params, last_tokens, lengths, done0, budgets, generator,
     pools_kw = dict(k_pool=pools[pk], v_pool=pools[pv],
                     ks_pool=pools.get(kv_prefix + "ks"),
                     vs_pool=pools.get(kv_prefix + "vs"))
+    if bucketed:
+        # one dense gather of every slot's frozen prefix (int8 pools stay
+        # int8: half the bytes moved); positions past a slot's length are
+        # masked to -1e30, so the bucket's tail changes nothing
+        tbl = block_table.long()
+        sks, svs = pools.get(kv_prefix + "ks"), pools.get(kv_prefix + "vs")
+        dense = dict(
+            kd=pools[pk][:, tbl].reshape(Lc, N, P, Hkv, D),
+            vd=pools[pv][:, tbl].reshape(Lc, N, P, Hkv, D),
+            ksc=None if sks is None else sks[:, tbl].reshape(Lc, N, P, Hkv),
+            vsc=None if svs is None else svs[:, tbl].reshape(Lc, N, P, Hkv),
+            pre_mask=(torch.arange(P, device=dev)[None, :]
+                      < lens0[:, None])[:, None, None, :])
     in_kernel = mega and mega_multistep
     if in_kernel:
         if any(sample_flags):
@@ -430,8 +522,13 @@ def _paged_decode(params, last_tokens, lengths, done0, budgets, generator,
         # both write the step's K/V rows into the rings in place
         kw = dict(t=t, block_table=block_table, walk_lens=walk_lens,
                   lens=lens, ring_k=ring_k, ring_v=ring_v, **pools_kw)
-        x = mega_decode_step(params, c, x0=x0, **kw)[0] if mega \
-            else decode_layers(params, c, x0, **kw)
+        if mega:
+            x = mega_decode_step(params, c, x0=x0, **kw)[0]
+        elif bucketed:
+            x = _dense_layers(params, c, x0, t=t, lens=lens, ring_k=ring_k,
+                              ring_v=ring_v, **dense)
+        else:
+            x = decode_layers(params, c, x0, **kw)
         xf = _rms_norm(x, params["final_norm"], c.rms_eps)
         logits = _wo_mm(xf, head_w, dt).float()
         nxt = _sample_rows(logits, generator, temps, top_ks, top_ps,
@@ -632,6 +729,30 @@ class LLMEngine:
     pressure. ``"sync"`` — inline transfers. ``"auto"`` (default) follows
     ``FLAGS_serve_kv_offload_sync``. Greedy streams are equal either way.
     Ignored when no host tier is configured.
+
+    ``decode_kernel``: ``"ragged"`` (B4's true-length walk), ``"mega"``
+    (B5, one launch a step), ``"bucketed"`` (the dense-gather path over a
+    power-of-two prefix bucket, plain torch; ``decode_paths`` counts it
+    ``"bucketed"``, or ``"dense"`` at the full-width bucket) or
+    ``"auto"``: mega on the card at ``max_slots <= 4``, else ragged (on
+    the CPU its plain version). The JAX engine's "auto" picks bucketed
+    off a TPU; this one does not, on purpose: the card has the kernels.
+
+    ``admission``: an :class:`AdmissionConfig` (or a prebuilt
+    :class:`AdmissionController`) enabling load shedding —
+    ``add_request`` raises :class:`ShedError` (queue_full /
+    rate_limited / pool_pressure) instead of queueing without bound.
+    ``None`` admits everything.
+
+    ``injector``: a ``distributed.resilience.FaultInjector`` whose serving
+    kinds (``readback_fail``, ``slow_step``, ``pool_squeeze``,
+    ``spec_verify_fail``, ``offload_crash``, keyed by engine step index)
+    fire inside the step loop — the chaos surface behind
+    :class:`~paddle_tpu_torch.serving.resilient.ResilientEngine`.
+
+    ``finish_reasons`` maps every minted request id to exactly one of
+    ``finished``, ``shed``, ``deadline_exceeded`` or a cancellation's
+    reason (``client_disconnected`` by default).
     """
 
     def __init__(self, params, config: LlamaConfig, max_slots: int = 4,
@@ -644,7 +765,8 @@ class LLMEngine:
                  spec_tokens: int = 4, spec: bool = True,
                  kv_swap_bytes: int = 0, prefix_cache: bool = False,
                  prefill_chunk: int = 0, prefix_cache_host_bytes: int = 0,
-                 kv_offload: str = "auto", **unported):
+                 kv_offload: str = "auto", admission=None, injector=None,
+                 **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"LLMEngine got an unexpected argument "
@@ -654,14 +776,9 @@ class LLMEngine:
                 raise NotImplementedError(
                     f"LLMEngine({name}=...) is not ported yet (ROADMAP "
                     f"queue {queue})")
-        if decode_kernel == "bucketed":
-            raise NotImplementedError(
-                "decode_kernel='bucketed' (the dense-gather decode) is not "
-                "ported yet (ROADMAP queue A5): the port decodes through "
-                "the ragged or the mega kernel")
-        if decode_kernel not in ("auto", "ragged", "mega"):
-            raise ValueError(f"decode_kernel must be 'auto', 'ragged' or "
-                             f"'mega', got {decode_kernel!r}")
+        if decode_kernel not in ("auto", "ragged", "bucketed", "mega"):
+            raise ValueError(f"decode_kernel must be 'auto', 'ragged', "
+                             f"'bucketed' or 'mega', got {decode_kernel!r}")
         if kv_dtype not in (None, "int8", torch.int8):
             raise ValueError(
                 f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
@@ -808,9 +925,36 @@ class LLMEngine:
             device=self.device)
             if (kv_swap_bytes or (prefix_cache and prefix_cache_host_bytes))
             else None)
-        # proactive-spill pressure threshold
+        # -- survivability: shedding, deadlines, cancellation, chaos -----
+        self.admission = (AdmissionController(admission)
+                          if isinstance(admission, AdmissionConfig)
+                          else admission)
+        # proactive-spill pressure threshold: the flag, raised to twice
+        # the admission shed threshold when one is set (spilling must
+        # engage before shedding)
         self._spill_free_frac = float(
             get_flag("serve_kv_offload_spill_free_frac"))
+        if isinstance(self.admission, AdmissionController):
+            self._spill_free_frac = self.admission.spill_free_frac(
+                self._spill_free_frac)
+        self.injector = injector
+        # terminal disposition per minted request id: finished / shed /
+        # deadline_exceeded / a cancellation's reason
+        self.finish_reasons: Dict[int, str] = {}
+        self.cancel_noops = 0   # cancels that raced a terminal reason
+        self._step_idx = 0
+        # blocks an injected pool_squeeze holds, with their release step
+        self._squeezed: List = []
+        # live requests carrying a deadline: the expiry sweep is skipped
+        # at 0, so deadline-free traffic pays nothing for the feature
+        self._deadline_live = 0
+        # rid -> reason marked by cancel_request, applied at the next step
+        # boundary; the lock makes the handoff safe from any thread
+        self._cancels: Dict[int, str] = {}
+        self._cancel_lock = threading.Lock()
+        # every (rid, tok) committed host-side THIS step, in commit order:
+        # the salvage buffer ResilientEngine delivers after a crash
+        self._step_emitted: List = []
         # swap-ins whose carry lanes await their host-known state
         # ((slot, req_id); the recompute path uses _pending_adm instead)
         self._pending_swapin: List = []
@@ -845,6 +989,10 @@ class LLMEngine:
 
     # -- public api ---------------------------------------------------------
     def add_request(self, prompt: List[int], **kw) -> int:
+        """Queue a request and return its id. A request the engine can
+        never serve raises before an id is minted; one that admission
+        control sheds gets an id, finish reason ``shed`` and raises
+        :class:`ShedError` carrying both."""
         req = Request(req_id=self._next_id, prompt=list(prompt), **kw)
         if len(req.prompt) + req.max_new_tokens > self.max_model_len:
             raise ValueError(
@@ -855,9 +1003,25 @@ class LLMEngine:
             raise ValueError(
                 f"request {req.req_id}: prompt length {len(req.prompt)} "
                 f"exceeds the largest prompt bucket {self.buckets[-1]}")
+        rid = self._next_id
         self._next_id += 1
+        if req.deadline_s is not None:
+            req.t_deadline = time.perf_counter() + float(req.deadline_s)
+        if self.admission is not None:
+            # cache-aware pressure: refcount-0 cached blocks are
+            # reclaimable, so they count as headroom
+            reason = self.admission.check(
+                req, queue_depth=len(self.queue),
+                free_frac=self._avail_blocks() / max(1, self.nb - 1))
+            if reason is not None:
+                # reject-newest: fail THIS request at once so the
+                # admitted ones keep their latency
+                self.finish_reasons[rid] = "shed"
+                raise ShedError(reason, rid)
         self.queue.append(req)
-        return req.req_id
+        if req.t_deadline is not None:
+            self._deadline_live += 1
+        return rid
 
     def has_work(self) -> bool:
         return bool(self.queue) or any(r is not None for r in self.slot_req)
@@ -877,11 +1041,27 @@ class LLMEngine:
         Chained: decode call k+1 is dispatched BEFORE call k's tokens are
         read whenever no in-flight slot can finish mid-call
         (``_spec_safe``), so the readback overlaps the next call. A step
-        runs, in order: the offload sweep (landed spills, proactive
+        runs, in order: the injected faults, deadline expiry, the
+        cancellations, the offload sweep (landed spills, proactive
         spills, prefetch), one chunk for every mid-prefill slot,
         admission, then a spec wave (pipeline drained first) or a decode
         dispatch."""
+        return self._step_inner()
+
+    def _step_inner(self):
         emitted = []
+        self._step_emitted = []
+        self._step_idx += 1
+        # chaos, deadlines and cancellations run before admission: an
+        # injected squeeze shapes this step's block budget, and an
+        # expired or cancelled request must not hold a slot a live one
+        # could take
+        self._apply_faults()
+        self._expire_deadlines()
+        self._apply_cancels()
+        # the offload sweep after cancellations (a dead request is not
+        # staged) and before admission (blocks a landed spill frees are
+        # allocatable this step)
         self._offload_tick()
         self._advance_chunks()
         self._admit()
@@ -923,9 +1103,9 @@ class LLMEngine:
         counts blocks a slot owns PRIVATELY; a cache-owned block counts
         once under ``cached`` however many slots pin it. ``in_flight``
         counts blocks parked behind an async swap-out d2h still moving (0
-        whenever no transfer is in flight). ``squeezed`` (blocks an
-        injected pool squeeze holds) stays 0 until the fault injector is
-        ported (ROADMAP A8). ``host_spilled_blocks`` (prefix-cache blocks
+        whenever no transfer is in flight). ``squeezed`` counts the
+        blocks an injected ``pool_squeeze`` holds until its release.
+        ``host_spilled_blocks`` (prefix-cache blocks
         resident only in the host tier) and ``swapped_host_blocks`` ride
         along — those blocks are not in the sum. The draft's ``dk``/
         ``dv`` pools share the block ids, so speculative decoding adds no
@@ -937,7 +1117,7 @@ class LLMEngine:
             "backed": int(sum(int(self.n_alloc[i]) - len(self._pinned[i])
                               for i in range(self.N))),
             "cached": pc.device_blocks if pc is not None else 0,
-            "squeezed": 0,
+            "squeezed": sum(len(b) for _, b in self._squeezed),
             "in_flight": (self.offload.held_blocks
                           if self.offload is not None else 0),
             "host_spilled_blocks": (pc.host_blocks if pc is not None
@@ -953,6 +1133,158 @@ class LLMEngine:
         committed entries."""
         if self.offload is not None:
             self.free_blocks.extend(self.offload.poll(block=True))
+
+    # -- survivability: deadlines, cancellation, chaos, recovery -----------
+    def cancel_request(self, rid: int,
+                       reason: str = "client_disconnected") -> None:
+        """Mark a live request for cancellation (a dropped connection, a
+        stalled reader, a drain cutoff). Applied at the NEXT step
+        boundary, so any thread may call this: a queued victim finishes
+        at once with its partial tokens, an in-slot victim has its slot
+        and KV blocks freed and its lanes of an unread in-flight call
+        skipped at readback (the (slot, rid) snapshot check). An
+        already-terminal rid is a counted no-op (``cancel_noops``)."""
+        if rid in self.finish_reasons:
+            self.cancel_noops += 1
+            return
+        with self._cancel_lock:
+            self._cancels[rid] = str(reason)
+
+    def _active_slots(self):
+        return [i for i in range(self.N) if self.slot_req[i] is not None]
+
+    def _finish_expired(self, req: Request, out: List[int], queued: bool,
+                        reason: str = "deadline_exceeded") -> None:
+        """Terminal bookkeeping for a QUEUED request evicted before any
+        slot (deadline expiry or a cancellation): its partial tokens
+        become its result. A rid that already has a terminal reason is a
+        counted no-op — never a double free of its swap/offload state."""
+        rid = req.req_id
+        if rid in self.finish_reasons:
+            self.cancel_noops += 1
+            return
+        self.results[rid] = out
+        self.finish_reasons[rid] = reason
+        if req.t_deadline is not None:
+            self._deadline_live = max(0, self._deadline_live - 1)
+        if self.swap_pool is not None:
+            self.swap_pool.discard(rid)
+            if self.offload is not None:
+                self.free_blocks.extend(self.offload.cancel(rid))
+
+    def _apply_cancels(self) -> None:
+        """Evict every request marked by :meth:`cancel_request` — queued
+        and in-slot. Free when nothing is marked (the unlocked emptiness
+        probe is safe: a marker racing past it is applied next step)."""
+        if not self._cancels:
+            return
+        with self._cancel_lock:
+            cancels, self._cancels = self._cancels, {}
+        live = {req.req_id for req in self.queue} \
+            | {r.req_id for r in self.slot_req if r is not None}
+        kept = {rid: rsn for rid, rsn in cancels.items() if rid in live}
+        # markers that raced a natural finish: counted no-ops
+        self.cancel_noops += len(cancels) - len(kept)
+        cancels = kept
+        if not cancels:
+            return
+        if any(req.req_id in cancels for req in self.queue):
+            queue = deque()
+            for req in self.queue:
+                if req.req_id in cancels:
+                    self._finish_expired(req, list(req.generated),
+                                         queued=True,
+                                         reason=cancels[req.req_id])
+                else:
+                    queue.append(req)
+            self.queue = queue
+        for slot in self._active_slots():
+            req = self.slot_req[slot]
+            if req.req_id in cancels:
+                self._free_slot(slot, reason=cancels[req.req_id])
+
+    def _expire_deadlines(self) -> None:
+        """Evict every request past its deadline — queued and in-slot
+        (KV blocks freed; the in-flight record's lanes for the slot are
+        skipped at readback). Free when no live request has a
+        deadline."""
+        if not self._deadline_live:
+            return
+        now = time.perf_counter()
+        if any(r.t_deadline is not None and now >= r.t_deadline
+               for r in self.queue):
+            queue = deque()
+            for req in self.queue:
+                if req.t_deadline is not None and now >= req.t_deadline:
+                    self._finish_expired(req, list(req.generated),
+                                         queued=True)
+                else:
+                    queue.append(req)
+            self.queue = queue
+        for slot in self._active_slots():
+            req = self.slot_req[slot]
+            if req.t_deadline is not None and now >= req.t_deadline:
+                self._free_slot(slot, reason="deadline_exceeded")
+
+    def _apply_faults(self) -> None:
+        """Release expired pool squeezes, then fire this step's injected
+        ``slow_step`` and ``pool_squeeze`` (``readback_fail`` fires in
+        :meth:`_process`, ``spec_verify_fail`` in :meth:`_spec_wave`,
+        ``offload_crash`` in :meth:`_offload_tick`)."""
+        if self._squeezed:
+            keep = []
+            for release_step, blocks in self._squeezed:
+                if self._step_idx >= release_step:
+                    self.free_blocks.extend(blocks)
+                else:
+                    keep.append((release_step, blocks))
+            self._squeezed = keep
+        inj = self.injector
+        if inj is None:
+            return
+        if inj.fires("slow_step", self._step_idx):
+            time.sleep(0.02)
+        if inj.fires("pool_squeeze", self._step_idx):
+            n = min(max(1, (self.nb - 1) // 2), len(self.free_blocks))
+            taken = [self.free_blocks.popleft() for _ in range(n)]
+            if taken:
+                self._squeezed.append((self._step_idx + 2, taken))
+
+    def recover_crashed_step(self) -> None:
+        """Recovery from a crashed ``step()`` (ResilientEngine): drop the
+        poisoned in-flight wave — its tokens were never host-visible, so
+        the stream stays exactly-once — and requeue every request in a
+        slot from its host state for a recompute re-admission (the pools'
+        contents are suspect, so the swap tier is bypassed). Every
+        in-flight spill is abandoned and the prefix cache cleared. The
+        device carry is rebuilt from host state at the next dispatch.
+
+        The dropped call's d2h copies into pinned memory are waited for
+        first, so no pinned buffer goes back to the host allocator under
+        a running copy; a device fault there raises."""
+        rec = self._inflight
+        adm = self._pending_adm + (rec["adm"] if rec is not None else [])
+        for rb in ([rec["toks"]] if rec is not None else []) \
+                + [wave for _s, _rid, wave, _i in adm]:
+            rb.wait()
+        self._inflight = None
+        self._pending_adm = []
+        self._pending_swapin = []
+        self._fresh_swapins = set()
+        self._carry = None
+        self._slots_dirty = True
+        for slot in self._active_slots():
+            self._free_slot(slot, requeue=True, swap=False)
+        self._chunks = {}
+        if self.offload is not None:
+            # the poisoned-wave rule extends to transfers: every in-flight
+            # spill is abandoned (reservations released, nothing
+            # half-landed commits) and its custody blocks freed; staged
+            # prefetch buffers drop too
+            self.free_blocks.extend(self.offload.abandon())
+        if self.prefix_cache is not None:
+            # cached K/V is as suspect as the rest of the pools
+            self.free_blocks.extend(self.prefix_cache.clear())
 
     # -- internals ----------------------------------------------------------
     def _bucket_for(self, n: int) -> int:
@@ -1048,11 +1380,15 @@ class LLMEngine:
                 else parts[0]
         self._swapin(blks, stacked)
 
-    def _free_slot(self, slot: int, requeue: bool = False):
+    def _free_slot(self, slot: int, requeue: bool = False,
+                   reason: str = "finished", swap: bool = True):
+        """Release a slot: requeue its request (preemption: swap unless
+        ``swap=False``, else recompute) or end it with ``reason``."""
         req = self.slot_req[slot]
         out = self.slot_out[slot]
         swapped, held = False, []
-        if requeue and req is not None and self.swap_pool is not None:
+        if requeue and req is not None and swap \
+                and self.swap_pool is not None:
             # swap instead of recompute: move the victim's blocks to the
             # host tier BEFORE they are freed (fallback: recompute; async
             # mode parks `held` with the in-flight transfer)
@@ -1064,7 +1400,7 @@ class LLMEngine:
         # FULL blocks to the trie (multi-turn prefix reuse: the next turn
         # re-sends prompt+answer and matches them)
         keep = len(self._pinned[slot])
-        if not requeue and req is not None \
+        if not requeue and req is not None and reason == "finished" \
                 and self.prefix_cache is not None:
             # K/V are valid for the first self.lengths positions only
             # (the final emitted token's K/V were never written)
@@ -1109,10 +1445,13 @@ class LLMEngine:
             self.queue.appendleft(req)
         elif req is not None:
             self.results[req.req_id] = req.generated + out
+            self.finish_reasons[req.req_id] = reason
+            if req.t_deadline is not None:
+                self._deadline_live = max(0, self._deadline_live - 1)
             if self.swap_pool is not None:
                 self.swap_pool.discard(req.req_id)
                 if self.offload is not None:
-                    # an in-flight spill for a finished request is moot:
+                    # an in-flight spill for a terminal request is moot:
                     # drop it, reclaim its custody blocks now
                     self.free_blocks.extend(
                         self.offload.cancel(req.req_id))
@@ -1192,46 +1531,55 @@ class LLMEngine:
         3. **Prefetch** — scan the first ``prefetch_depth`` queued
            requests: a swapped one's host entry, or the host-resident trie
            nodes its prompt would match, start staging h2d NOW so the
-           admission-time restore is a prefetch hit."""
+           admission-time restore is a prefetch hit.
+
+        The injected ``offload_crash`` fires at its end, with transfers
+        possibly in flight."""
         off = self.offload
         if off is None:
             return
         freed = off.poll()
         if freed:
             self.free_blocks.extend(freed)
-        if off.sync:
-            return
-        pc = self.prefix_cache
-        if pc is not None and pc.host is not None:
-            frac = self._avail_blocks() / max(1, self.nb - 1)
-            # one arithmetic headroom probe before the O(trie) candidate
-            # sweep: a saturated host tier is not asked again every step
-            blk_bytes = sum(a.shape[0] * int(np.prod(a.shape[2:]))
-                            * a.element_size() for a in self.pools.values())
-            room = (pc.host.capacity_bytes - pc.host.bytes_used
-                    - pc.host.reserved_bytes)
-            n_spill = min(off.spill_batch(), room // max(1, blk_bytes))
-            if frac < self._spill_free_frac and n_spill > 0:
-                for nd in pc.spill_candidates(n_spill):
-                    if not off.spill_async(
-                            ("pfx", nd.uid), self.pools, [nd.block],
-                            self.bs, pc.host, hold_blocks=[],
-                            on_land=functools.partial(pc.finish_spill, nd),
-                            proactive=True):
-                        pc.abort_spill(nd)
-        depth = off.prefetch_depth()
-        if depth:
-            for req in itertools.islice(self.queue, depth):
-                if self.swap_pool is not None:
-                    ent = self.swap_pool.get(req.req_id)
-                    if ent is not None:
-                        off.stage(self.swap_pool, req.req_id, ent)
-                        continue
-                if pc is not None and pc.host is not None:
-                    ctx = req.prompt + req.generated
-                    for key, ent in pc.host_path_entries(
-                            ctx, (len(ctx) - 1) // self.bs):
-                        off.stage(pc.host, key, ent)
+        if not off.sync:
+            pc = self.prefix_cache
+            if pc is not None and pc.host is not None:
+                frac = self._avail_blocks() / max(1, self.nb - 1)
+                # one arithmetic headroom probe before the O(trie)
+                # candidate sweep: a saturated host tier is not asked
+                # again every step
+                blk_bytes = sum(a.shape[0] * int(np.prod(a.shape[2:]))
+                                * a.element_size()
+                                for a in self.pools.values())
+                room = (pc.host.capacity_bytes - pc.host.bytes_used
+                        - pc.host.reserved_bytes)
+                n_spill = min(off.spill_batch(), room // max(1, blk_bytes))
+                if frac < self._spill_free_frac and n_spill > 0:
+                    for nd in pc.spill_candidates(n_spill):
+                        if not off.spill_async(
+                                ("pfx", nd.uid), self.pools, [nd.block],
+                                self.bs, pc.host, hold_blocks=[],
+                                on_land=functools.partial(
+                                    pc.finish_spill, nd),
+                                proactive=True):
+                            pc.abort_spill(nd)
+            depth = off.prefetch_depth()
+            if depth:
+                for req in itertools.islice(self.queue, depth):
+                    if self.swap_pool is not None:
+                        ent = self.swap_pool.get(req.req_id)
+                        if ent is not None:
+                            off.stage(self.swap_pool, req.req_id, ent)
+                            continue
+                    if pc is not None and pc.host is not None:
+                        ctx = req.prompt + req.generated
+                        for key, ent in pc.host_path_entries(
+                                ctx, (len(ctx) - 1) // self.bs):
+                            off.stage(pc.host, key, ent)
+        if self.injector is not None and \
+                self.injector.fires("offload_crash", self._step_idx):
+            raise SimulatedCrash(
+                f"injected offload crash at serving step {self._step_idx}")
 
     # -- admission and prefill ---------------------------------------------
     def _admit(self):
@@ -1269,7 +1617,10 @@ class LLMEngine:
                 if freed:
                     self.free_blocks.extend(freed)
                 ent = self.swap_pool.get(req.req_id)
+            # nothing will free a block: no slot busy, no squeeze to
+            # release, no spill to land
             idle = not any(r is not None for r in self.slot_req) \
+                and not self._squeezed \
                 and not (self.offload is not None
                          and self.offload.held_blocks)
             if ent is not None:
@@ -1525,8 +1876,11 @@ class LLMEngine:
                     self.drain_offload()
                     continue
                 victim = self.admit_order[-1]
-                if victim == slot and len(self.admit_order) == 1:
-                    # alone and starved: nothing else will ever free a block
+                if victim == slot and len(self.admit_order) == 1 \
+                        and not self._squeezed:
+                    # alone and starved: nothing else will ever free a
+                    # block (an injected squeeze returns its blocks in a
+                    # step or two: self-preempt and wait instead)
                     raise RuntimeError(
                         f"request {self.slot_req[slot].req_id}: the block "
                         f"pool ({self.nb - 1} usable blocks) is too small "
@@ -1628,11 +1982,14 @@ class LLMEngine:
             self._slots_dirty = False
 
     def _decode_path(self) -> str:
-        """Kernel path of the next decode dispatch: ``"mega"`` (the
-        persistent megakernel — forced, or picked by ``"auto"`` on the
-        card at ``max_slots <= 4``, where a step is launch-bound) when its
-        screen accepts the model and batch, else ``"ragged"``. A mega pick
-        the screen refuses is counted in ``mega_fallbacks`` by reason."""
+        """Kernel path of the next decode dispatch: ``"bucketed"`` when
+        forced, ``"mega"`` (the persistent megakernel — forced, or picked
+        by ``"auto"`` on the card at ``max_slots <= 4``, where a step is
+        launch-bound) when its screen accepts the model and batch, else
+        ``"ragged"``. A mega pick the screen refuses is counted in
+        ``mega_fallbacks`` by reason."""
+        if self.decode_kernel == "bucketed":
+            return "bucketed"
         want_mega = self.decode_kernel == "mega" or (
             self.decode_kernel == "auto" and self.device.type == "cuda"
             and self.N <= 4)
@@ -1645,6 +2002,25 @@ class LLMEngine:
                 return "mega"
             self.mega_fallbacks[reason] += 1
         return "ragged"
+
+    def _prefix_blocks(self, active_slots) -> int:
+        """The bucketed call's prefix horizon: the smallest power-of-two
+        BLOCK COUNT covering ``max(lengths) + decode_steps`` over the
+        active slots, from the host's exact lengths plus the pipeline lag
+        (an unread in-flight call may already have appended up to
+        ``decode_steps`` tokens for the slots in its snapshot)."""
+        prev = self._inflight
+        snap = ({s for s, _ in prev["snapshot"]} if prev is not None
+                else ())
+        hmax = need = 0
+        for i in active_slots:
+            h = int(self.lengths[i]) + (self.decode_steps if i in snap
+                                        else 0)
+            hmax = max(hmax, h)
+            need = max(need, int(self.n_alloc[i]))
+        horizon = min(hmax + self.decode_steps, self.max_model_len)
+        need = max(1, need, -(-horizon // self.bs))
+        return min(1 << (need - 1).bit_length(), self.mb)
 
     def _dispatch_decode(self, active_slots):
         """Enqueue one multi-step decode call and record it as in flight;
@@ -1670,16 +2046,24 @@ class LLMEngine:
                 rem_start[i] = req.max_new_tokens - len(req.generated) \
                     - len(self.slot_out[i])
         path = self._decode_path()
-        self.decode_paths[path] += 1
+        table = self._table()
+        if path == "bucketed":
+            # the kernels read true lengths from a full-width table; the
+            # dense gather reads the table sliced to its bucket
+            nbk = self._prefix_blocks(active_slots)
+            table = table[:, :nbk]
+            self.decode_paths["dense" if nbk >= self.mb else path] += 1
+        else:
+            self.decode_paths[path] += 1
         c_last, c_len, c_done, c_rem = self._carry
         v_act, v_t, v_k, v_p, v_eos = self._slot_vecs
         toks, *carry = _paged_decode(
             self.params, c_last, c_len, c_done, c_rem, self._gen, v_act,
-            self._table(), self.pools, v_t, v_k, v_p, v_eos,
+            table, self.pools, v_t, v_k, v_p, v_eos,
             config=self.config, n_steps=self.decode_steps,
             sample_flags=_sample_flags([self.slot_req[i]
                                         for i in active_slots]),
-            mega=path == "mega")
+            mega=path == "mega", bucketed=path == "bucketed")
         self._carry = tuple(carry)
         self._inflight = {
             "toks": _Readback(toks),
@@ -1706,6 +2090,9 @@ class LLMEngine:
                 continue              # preempted before its call ran
             tok = int(host[id(wave)][i])
             emitted.append((rid, tok))
+            # commit point: host-visible from here on, so mirrored into
+            # the step's salvage buffer
+            self._step_emitted.append((rid, tok))
             self._emit(slot, tok)
         return emitted
 
@@ -1713,7 +2100,13 @@ class LLMEngine:
         """Read back one decode record: the first tokens of its
         admissions, then its emitted grid [n_steps, N]. Slots whose
         request changed since dispatch (finished or preempted) are
-        skipped — their lanes are -1 padding or discarded work."""
+        skipped — their lanes are -1 padding or discarded work. The
+        injected ``readback_fail`` fires here, before anything is read."""
+        if self.injector is not None and \
+                self.injector.fires("readback_fail", self._step_idx):
+            raise SimulatedCrash(
+                f"injected readback failure at serving step "
+                f"{self._step_idx}")
         emitted = self._flush_adm(rec["adm"]) if rec["adm"] else []
         toks_host = rec["toks"].numpy()
         for slot, rid in rec["snapshot"]:
@@ -1730,6 +2123,7 @@ class LLMEngine:
                     # behind until a re-prefill
                     self._draft_len[slot] = -1
                 emitted.append((rid, tok))
+                self._step_emitted.append((rid, tok))
                 if self._emit(slot, tok):
                     break
         return emitted
@@ -1820,18 +2214,27 @@ class LLMEngine:
         draft, *_ = _paged_decode(
             self.draft_params, last_d, lens_d,
             torch.zeros(N, dtype=torch.bool, device=dev), up(budgets),
-            self._gen, act_d, table, self.pools,
+            self._gen, act_d,
+            table[:, :nbk] if path == "bucketed" else table, self.pools,
             torch.zeros(N, dtype=torch.float32, device=dev),
             torch.zeros(N, dtype=torch.int32, device=dev),
             torch.ones(N, dtype=torch.float32, device=dev),
             torch.full((N,), -1, dtype=torch.int32, device=dev),
             config=self.draft_config, n_steps=k,
             sample_flags=(False, False, False), mega=path == "mega",
-            mega_multistep=path == "mega", kv_prefix="d")
+            mega_multistep=path == "mega", kv_prefix="d",
+            bucketed=path == "bucketed")
         verified = _spec_verify(
             self.params, table[:, :nbk], last_d, draft, lens_d, act_d,
             self.pools, config=self.config, n_spec=k,
             max_model_len=self.max_model_len)
+        if self.injector is not None and \
+                self.injector.fires("spec_verify_fail", self._step_idx):
+            # nothing of this wave is host-visible yet: recovery rolls
+            # back to the last committed token
+            raise SimulatedCrash(
+                f"injected speculative-verify failure at serving step "
+                f"{self._step_idx}")
         d_host = draft.cpu().numpy()                    # [k, N]
         v_host = verified.cpu().numpy()                 # [N, k+1]
         wave_prop = wave_acc = wave_commit = 0
@@ -1857,6 +2260,7 @@ class LLMEngine:
                 self._draft_len[i] += 1     # and the draft its own
                 wave_commit += 1
                 emitted.append((rid, tok))
+                self._step_emitted.append((rid, tok))
                 if self._emit(i, tok):
                     break                   # eos or budget mid-wave
         self.spec_waves += 1

@@ -309,6 +309,27 @@ class OffloadEngine:
             t.on_land(False)
         return t.blocks
 
+    def abandon(self) -> List[int]:
+        """Crash recovery: drop EVERY in-flight spill and staging buffer
+        (a crashed step must not commit a half-landed payload). Each
+        host reservation is released at once and each ``on_land`` told
+        the spill failed; the copies themselves run on into buffers
+        nothing reads (the gathered tensors are kept by
+        ``record_stream``, the pinned ones by the caching host
+        allocator's event). Returns all custody blocks for the free
+        list: the copies read the gathered tensors, not the blocks."""
+        freed: List[int] = []
+        for t in self._spills.values():
+            t.pool.unreserve(t.key)
+            if t.on_land is not None:
+                t.on_land(False)
+            freed.extend(t.blocks)
+        self._spills = {}
+        for _pool, ent in self._staged.values():
+            ent.staged = ent.staged_event = None
+        self._staged = {}
+        return freed
+
     # -- prefetch staging (h2d) --------------------------------------------
     def stage(self, host_pool, key, ent) -> bool:
         """Start the h2d copy of one host entry's payload into staging

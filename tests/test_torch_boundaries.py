@@ -73,7 +73,10 @@ print("OK")
     "paddle_tpu_torch.framework.flags",
     "paddle_tpu_torch.serving.prefix_cache",
     "paddle_tpu_torch.serving.kv_swap",
-    "paddle_tpu_torch.serving.offload"])
+    "paddle_tpu_torch.serving.offload",
+    "paddle_tpu_torch.serving.admission",
+    "paddle_tpu_torch.serving.resilient",
+    "paddle_tpu_torch.distributed.resilience.faults"])
 def test_serving_tier_modules_import_without_jax(module):
     """The flag registry and the serving host tiers are the port's own
     copies: importing one in a fresh process loads no jax and nothing of

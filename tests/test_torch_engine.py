@@ -191,18 +191,12 @@ def test_unported_arguments_raise(model):
     for kw, err, match in ((dict(kv_dtype="fp8"), ValueError, "kv_dtype"),
                            (dict(kv_offload="bogus", kv_swap_bytes=1),
                             ValueError, "kv_offload"),
-                           (dict(admission=object()), NotImplementedError,
-                            "A5"),
-                           (dict(injector=object()), NotImplementedError,
-                            "A8"),
                            (dict(role="prefill"), NotImplementedError,
                             "A7"),
                            (dict(relay=object()), NotImplementedError,
                             "A7"),
                            (dict(mesh=object()), NotImplementedError,
-                            "A10"),
-                           (dict(decode_kernel="bucketed"),
-                            NotImplementedError, "bucketed")):
+                            "A10")):
         with pytest.raises(err, match=match):
             LLMEngine(tp, tcfg, device="cpu", **kw)
     # the ported host-tier and prefix arguments construct
@@ -210,18 +204,26 @@ def test_unported_arguments_raise(model):
                     prefill_chunk=16, prefix_cache_host_bytes=1 << 20,
                     kv_swap_bytes=1 << 20, kv_offload="sync")
     assert eng.prefix_cache is not None and eng.offload.sync
+    # so do admission control, the fault injector and the bucketed decode
+    from paddle_tpu_torch.distributed.resilience import FaultInjector
+    from paddle_tpu_torch.serving import AdmissionConfig
     eng = LLMEngine(tp, tcfg, device="cpu", kv_dtype=None,
-                    prefix_cache=False)
-    # the reference Request's fields exist (ROADMAP fault C1) and raise
-    # naming their queue when set
-    for kw, queue in ((dict(deadline_s=1.0), "A5"),
-                      (dict(tenant="batch"), "A5"),
-                      (dict(t_deadline=5.0), "A5"),
-                      (dict(relay_key=7), "A7")):
-        with pytest.raises(NotImplementedError, match=queue):
-            eng.add_request([1, 2, 3], **kw)
+                    prefix_cache=False, decode_kernel="bucketed",
+                    admission=AdmissionConfig(max_queue=4),
+                    injector=FaultInjector("slow_step@1"))
+    assert eng.admission.config.max_queue == 4
+    # the reference Request's fields exist (ROADMAP fault C1): the
+    # deadline and the tenant are live, the relay key raises naming A7
+    rid = eng.add_request([1, 2, 3], deadline_s=30.0, tenant="batch",
+                          max_new_tokens=2)
+    assert eng.queue[-1].t_deadline is not None
+    with pytest.raises(NotImplementedError, match="A7"):
+        eng.add_request([1, 2, 3], relay_key=7)
     eng.add_request([1, 2, 3], deadline_s=None, tenant="default",
-                    relay_key=None)
+                    relay_key=None, max_new_tokens=2)
+    out = eng.run()
+    assert len(out[rid]) == 2 and eng.decode_paths["bucketed"]
+    assert eng.injector.fired == [("slow_step", 1)]
     with pytest.raises(TypeError):
         LLMEngine(tp, tcfg, device="cpu", no_such_argument=1)
     with pytest.raises(ValueError):

@@ -1537,3 +1537,109 @@ def test_offload_step_on_card_keeps_moments_pinned(dev):
         assert abs(loss.item() - rloss.item()) <= 2e-5 * abs(rloss.item())
     torch.cuda.synchronize()
     _rel_close(st.params, ref.params, 1e-4)
+
+
+def _tree_to(tree, where):
+    return {k: _tree_to(v, where) if isinstance(v, dict) else v.to(where)
+            for k, v in tree.items()}
+
+
+def _chaos_run(params, cfg, where):
+    """A self-draft speculative engine on ragged decode with async offload
+    over a 7-block pool, a 5-deep admission queue and every serving fault
+    kind under ResilientEngine: 14 requests two a step (every 4th with a
+    deadline of 0 s, every 5th of the rest sampling with top_k=1, whose
+    waves take the normal decode path), requests 6 and 2 cancelled before
+    steps 5 and 11. Returns each step's list and ledger, the finish
+    reasons, recoveries, results and the faults fired."""
+    from paddle_tpu_torch.distributed.resilience import FaultInjector
+    from paddle_tpu_torch.serving import (AdmissionConfig, LLMEngine,
+                                          ResilientEngine, ShedError)
+    rng = np.random.default_rng(19)
+    lens, news = rng.integers(16, 61, size=14), rng.integers(10, 16, 14)
+    subs = []
+    for i in range(14):
+        kw = dict(max_new_tokens=int(news[i]))
+        if i % 4 == 3:
+            kw["deadline_s"] = 0.0
+        elif i % 5 == 4:
+            kw.update(temperature=0.7, top_k=1)
+        subs.append((rng.integers(0, cfg.vocab_size, size=int(lens[i]))
+                     .tolist(), kw))
+    inj = FaultInjector("slow_step@3,pool_squeeze@5,spec_verify_fail@6,"
+                        "readback_fail@8,offload_crash@13,readback_fail@21")
+    eng = LLMEngine(params, cfg, draft_params=params, draft_config=cfg,
+                    spec_tokens=3, max_slots=2, block_size=16,
+                    max_model_len=256, prompt_buckets=[64], decode_steps=2,
+                    decode_kernel="ragged", num_blocks=7,
+                    kv_swap_bytes=64 << 20, kv_offload="async",
+                    admission=AdmissionConfig(max_queue=5), injector=inj,
+                    device=where)
+    reng = ResilientEngine(eng)
+    steps, ledgers, idx = [], [], 0
+    while reng.has_work() or subs:
+        for prompt, kw in subs[:2]:
+            try:
+                eng.add_request(prompt, **kw)
+            except ShedError:
+                pass
+        subs = subs[2:]
+        idx += 1
+        if idx in (5, 11):
+            eng.cancel_request(6 if idx == 5 else 2)
+        steps.append(reng.step())
+        a = eng.block_accounting()
+        assert a["free"] + a["backed"] + a["cached"] + a["squeezed"] \
+            + a["in_flight"] == a["total"], a
+        ledgers.append(a)
+    eng.drain_offload()
+    assert eng.block_accounting()["free"] == eng.nb - 1
+    return (steps, ledgers, dict(eng.finish_reasons), reng.recoveries,
+            dict(eng.results), inj.fired, inj.pending)
+
+
+def test_chaos_engine_on_card_matches_cpu(dev):
+    """Every serving fault kind, admission sheds, 0-s deadlines and two
+    cancels under ResilientEngine (f32, D = 128): each step's emitted list,
+    every ledger, the finish reasons, recoveries and results on the card
+    equal the CPU's, and every scheduled fault fired."""
+    cfg, params, *_ = _mega_inputs(dev, torch.float32, 128, 4, 4)
+    card = _chaos_run(params, cfg, dev)
+    torch.cuda.synchronize()
+    cpu = _chaos_run(_tree_to(params, "cpu"), cfg, "cpu")
+    assert card == cpu
+    assert card[-1] == [] and card[3] == 4
+    assert set(card[2].values()) == {"finished", "shed",
+                                     "deadline_exceeded",
+                                     "client_disconnected"}
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_bucketed_engine_on_card_matches_cpu_and_ragged(dev, kv_dtype):
+    """The bucketed decode (plain torch over a dense gather) on the card,
+    on the CPU and the ragged engine on the card emit equal greedy streams
+    (f32, D = 128), through a preemption; the bucketed engine launches no
+    decode kernel."""
+    from paddle_tpu_torch.serving import LLMEngine
+    cfg, params, *_ = _mega_inputs(dev, torch.float32, 128, 4, 4)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, 128, size=n).tolist() for n in (5, 40, 17)]
+    streams = {}
+    for where, kernel in (("cuda", "bucketed"), ("cpu", "bucketed"),
+                          ("cuda", "ragged")):
+        eng = LLMEngine(_tree_to(params, where), cfg, max_slots=2,
+                        block_size=16, max_model_len=128, num_blocks=6,
+                        prompt_buckets=[64], decode_steps=4,
+                        decode_kernel=kernel, kv_dtype=kv_dtype,
+                        device=where)
+        ids = [eng.add_request(p, max_new_tokens=20) for p in prompts]
+        _build.launch_counts.clear()
+        out = eng.run()
+        streams[(where, kernel)] = [out[i] for i in ids]
+        if where == "cuda" and kernel == "bucketed":
+            torch.cuda.synchronize()
+            assert not any(n for k, n in _build.launch_counts.items()
+                           if k.startswith(("ragged", "mega")))
+            assert set(eng.decode_paths) <= {"bucketed", "dense"}
+    assert streams[("cuda", "bucketed")] == streams[("cpu", "bucketed")] \
+        == streams[("cuda", "ragged")]
