@@ -79,16 +79,57 @@ into the git-ignored ``paddle_tpu_torch/_build``, then runs, in order
     bf16 at the MoE train step's shapes;
 12. the MoE training path: ``moe.train_step`` on DeepSeekMoE-16B's
     widths cut to 12 layers (batch 4, seq 2048, remat "outs", adafactor,
-    bf16 params, random weights), 2 warm-up and 5 timed steps — falling
-    losses and, per step, the expected launches of B1-B3, B9, gmm and
-    tgmm; tokens/s, step time, MFU, peak memory, the fused dispatch's
-    route counts; one more step traced, its device time by kernel;
+    bf16 params, random weights, the fused dispatch), 2 warm-up and 5
+    timed steps — falling losses and, per step, the expected launches of
+    B1-B3, B9, gmm (four a MoE layer: "outs" keeps the routed output, so
+    the recompute runs the down GEMM again) and tgmm; tokens/s, step
+    time, MFU, peak memory, the fused dispatch's route counts; one more
+    step traced, its device time by kernel;
 13. B9, gmm and tgmm timed at each of their calls' shapes in the step
     beside their plain versions, their bounds (and each call's share of
     it) and ``torch._grouped_mm``;
     the fused and gmm dispatch forms timed forward and backward;
 14. card vs CPU MoE train step (f32, 2 layers, AdamW), and the card's gmm
     form against its fused form.
+
+The rest of single-device MoE (``kernels/gmm_autotune.py``, the measured
+``pick_dispatch_form``, ``dispatch="dense"``, remat "outs" keeping
+[T, h]), its measured artifacts in a temporary ``FLAGS_jit_cache_dir``:
+
+(m3) after phase 11: ``get_tilings`` at phase 12's four grouped-GEMM
+     sites (the fused form's gate|up and down over the padded layout,
+     the gmm form's two over the sorted rows), every candidate tile
+     width of every pass (forward, dgrad, wgrad) held to the plain
+     version at that width and timed; the winners against the
+     heuristic; the persisted file read back with no measurement;
+(m1) ``pick_dispatch_form`` at phase 12's routing shape with the dense
+     form admitted: each form's forward-plus-backward ms, the winner
+     (what "auto" runs there), no measurement on a second call nor from
+     the file after ``clear_form_cache()``; a traced dense forward and
+     backward;
+(m2) after phase 12, on its state: 2 warm-up and 3 timed steps with
+     ``dispatch="dense"`` beside phase 12's fused numbers (its route a
+     MoE layer and host syncs a step, a traced step); phase 14's small
+     model with the dense form on the card against the CPU and against
+     the card's fused form, and an overflowing batch that takes B10;
+(m3) the fused step with the tuned widths against the heuristic ones;
+(m4) what "outs" keeps a MoE layer (no tensor of A_pad rows), the
+     memory a forward holds, and the forward-plus-backward peak and step
+     time against "outs" keeping the down GEMM's output as before.
+
+Llama generation (``llama.generate``, ``generate_fused``) and the HF
+interchange:
+
+(g1) after (s3), on phase 4's weights: batch 8 of 128-token prompts, 64
+     new tokens, greedy and sampled (temperature 0.8, top_k 40, top_p
+     0.95) with an eos ending some rows: tokens/s, decode ms a token,
+     host syncs and graph replays a token, kernels a token; greedy
+     ``generate`` equals ``generate_fused``; the first divergence from
+     ``LLMEngine``'s greedy streams;
+(g2) after (int8 d), phase 5's cut model: ``generate`` and
+     ``generate_fused`` on the card, ``generate`` on the CPU and a ragged
+     engine on the card emit equal streams; ``to_hf_state_dict`` ->
+     ``convert_hf_state_dict`` returns every leaf and the logits exactly.
 
 The int8 slice rides beside them (int8 weights from ``quantize_params``,
 int8 pools from ``kv_dtype="int8"``, int8 experts from
@@ -262,11 +303,13 @@ engine's deadlines, cancellation and ``decode_kernel="bucketed"``), after
 Before its last line it prints ``serving``, ``serving_tiers``,
 ``serving_resilience``, ``mega``,
 ``training``,
-``moe_training``, ``int8``, ``training_memory`` and ``spec`` lines
-(phases 4, (p1)-(p4), 6, 8, 12-15, (a)-(f) and (s1)-(s4)),
-one JSON object with every ported kernel
-(launches on its main path, max error, and times in ms beside the
-bound), and the card's name and power limit; the last line is
+``moe_training`` (with (m1)-(m4) under ``forms``), ``int8``,
+``training_memory``, ``spec`` and ``generation`` lines (phases 4,
+(p1)-(p4), 6, 8, 12-15, (a)-(f), (s1)-(s4), (g1)-(g2)), one JSON object
+with every ported kernel (launches on its main path, max error, and
+times in ms beside the bound; B9 and B10 with the tile width each of
+their calls ran at), and the card's name and power limit; the last line
+is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 Without a CUDA device, or without the repository beside it, it exits 1
 and prints no result.
@@ -3424,21 +3467,27 @@ def kernel_category(name):
 
 
 def train_moe(moe, build, tmf, dev, card, layers=12, warmup=2, steps=5,
-              lr=3e-5):
+              lr=3e-5, hold=None):
     """``moe.train_step`` on DeepSeekMoE-16B's widths (``deepseek_moe_16b``:
     hidden 2048, 16 heads of 128, 64 routed experts of 1408, top-6, 2
     shared, vocab 102400, layer 0 dense) cut to ``layers`` layers, as
     bench.py's bench_moe runs it: batch 4 x seq 2048, adafactor, bf16
-    params, remat "outs"; random weights and one fixed token batch from
+    params, remat "outs", the fused dispatch (named: "auto" measures the
+    forms); random weights and one fixed token batch from
     seeded generators on the card; ``warmup`` steps, then ``steps`` timed
     ones, at lr 3e-5 with adafactor's floor lifted (as phase 8). Each step
-    must launch, per MoE layer, B9 twice (forward and recompute), gmm three
-    times (down projection; its two dgrads) and tgmm twice, and per layer
-    B1, B2 and B3 once; the losses must be finite and fall. One more step is
-    traced."""
+    must launch, per MoE layer, B9 twice (forward and recompute), gmm four
+    times (the down projection in the forward and in the recompute, which
+    runs to the routed FFN's end since "outs" keeps its [T, h] output and
+    no longer the down GEMM's; its two dgrads) and tgmm twice, and per
+    layer B1, B2 and B3 once; the losses must be finite and fall. One more
+    step is traced. With ``hold`` (a dict), the state, the tokens, the
+    config and the step function are left in it for the phases that
+    follow."""
     import dataclasses
     cfg = dataclasses.replace(moe.deepseek_moe_16b(), num_layers=layers,
-                              remat=True, remat_policy="outs")
+                              remat=True, remat_policy="outs",
+                              dispatch="fused")
     B, S = 4, 2048
     t0 = time.perf_counter()
     state = moe.init_train_state(cfg, SEED, optimizer="adafactor",
@@ -3476,7 +3525,7 @@ def train_moe(moe, build, tmf, dev, card, layers=12, warmup=2, steps=5,
     losses = [x.item() for x in losses]
     n_moe = layers - cfg.first_dense_layers
     want = {"flash_fwd": layers, "flash_dq": layers, "flash_dkv": layers,
-            "gather_gmm": 2 * n_moe, "gmm": 3 * n_moe, "tgmm": 2 * n_moe}
+            "gather_gmm": 2 * n_moe, "gmm": 4 * n_moe, "tgmm": 2 * n_moe}
     for i, n in enumerate(per_step):
         if n != want:
             raise AssertionError(f"step {i} launched {n}, expected {want}")
@@ -3490,7 +3539,7 @@ def train_moe(moe, build, tmf, dev, card, layers=12, warmup=2, steps=5,
     res = {"config": f"deepseek_moe_16b (models/moe.py:123) cut to {layers} "
            "layers: hidden 2048, 16/16 heads of 128, 64 experts of 1408, "
            "top-6, 2 shared, vocab 102400, first layer dense; remat outs, "
-           "adafactor, bf16 params, dispatch auto (fused)",
+           "adafactor, bf16 params, dispatch fused",
            "lr": lr, "adafactor_eps2": 0.0, "batch": B, "seq": S,
            "params": n_params,
            "active_params_per_token": moe.active_params_per_token(cfg),
@@ -3507,6 +3556,8 @@ def train_moe(moe, build, tmf, dev, card, layers=12, warmup=2, steps=5,
     log(f"  traced MoE train step: {res['traced_step']}")
     res["step_parts"] = step_parts(moe, state, tokens, cfg, lr)
     log(f"  step parts: {res['step_parts']}")
+    if hold is not None:
+        hold.update(state=[state], tokens=tokens, cfg=cfg, lr=lr)
     return launches, res
 
 
@@ -3676,6 +3727,18 @@ def time_forms(tmdisp, d, dev):
 # ---------------------------------------------------------------------------
 # phase 14: card vs CPU MoE train step
 # ---------------------------------------------------------------------------
+def phase14_config(moe, dispatch="fused"):
+    """Phase 14's small MoE (its docstring), the fused dispatch named
+    ("auto" measures the forms on the card)."""
+    return moe.MoEConfig(vocab_size=512, hidden_size=256,
+                         moe_intermediate_size=128, num_layers=2,
+                         num_heads=4, num_kv_heads=4, head_dim=64,
+                         num_experts=16, top_k=4, n_shared_experts=2,
+                         first_dense_layers=1, max_seq_len=256,
+                         dtype=torch.float32, remat=True,
+                         remat_policy="outs", dispatch=dispatch)
+
+
 def cross_device_moe_step(moe, llama, dev):
     """One AdamW ``moe.train_step`` of a small MoE (hidden 256, 4 heads of
     64, 16 experts of 128, top-4, 2 shared, 2 layers with layer 0 dense,
@@ -3687,13 +3750,7 @@ def cross_device_moe_step(moe, llama, dev):
     gradient within 1e-4."""
     import dataclasses
     from paddle_tpu_torch.optimizer.functional import init_moments, tree_map
-    cfg = moe.MoEConfig(vocab_size=512, hidden_size=256,
-                        moe_intermediate_size=128, num_layers=2,
-                        num_heads=4, num_kv_heads=4, head_dim=64,
-                        num_experts=16, top_k=4, n_shared_experts=2,
-                        first_dense_layers=1, max_seq_len=256,
-                        dtype=torch.float32, remat=True,
-                        remat_policy="outs")
+    cfg = phase14_config(moe)
     tree = tree_map(lambda t: t.numpy(),
                     moe.init_params(cfg, SEED, device="cpu"))
     rng = np.random.default_rng(SEED + 11)
@@ -3966,7 +4023,7 @@ def moe_int8_forward(moe, build, tmf, dev, card, layers=28, cmp_layers=12,
                      warmup=2, runs=5):
     """(f) ``moe.forward`` on DeepSeekMoE-16B (``deepseek_moe_16b``) at
     full depth with ``quantize_expert_params`` (int8 routed experts, f32
-    scales) and dispatch "auto" (fused), batch 4 x 2048, random bf16
+    scales) and the fused dispatch, batch 4 x 2048, random bf16
     weights and tokens from seeded generators: ``warmup`` then ``runs``
     timed forwards (no autograd), each launching B9's int8 branch and B10
     gmm once a MoE layer, then one more traced (device time by kernel
@@ -3976,7 +4033,8 @@ def moe_int8_forward(moe, build, tmf, dev, card, layers=28, cmp_layers=12,
     their relative error."""
     import dataclasses
     cfg = dataclasses.replace(moe.deepseek_moe_16b(), num_layers=layers,
-                              remat=False, expert_dtype="int8")
+                              remat=False, expert_dtype="int8",
+                              dispatch="fused")
     B, S = 4, 2048
     t0 = time.perf_counter()
     params = moe.init_params(cfg, SEED, device=dev, dtype=torch.bfloat16)
@@ -4559,7 +4617,8 @@ def train_moe_streaming(moe, offload, build, tmf, dev, card, B=4, S=2048,
     both forwards, its dgrad, gate|up's dgrad) and tgmm twice; the losses
     are finite. One more step traced."""
     import dataclasses
-    cfg = dataclasses.replace(moe.deepseek_moe_16b(), max_seq_len=S)
+    cfg = dataclasses.replace(moe.deepseek_moe_16b(), max_seq_len=S,
+                              dispatch="fused")
     dense_b = moe_layer_bytes(cfg, True)
     moe_b = moe_layer_bytes(cfg, False)
     nd = cfg.first_dense_layers
@@ -4723,6 +4782,560 @@ def serving_only(llama, LLMEngine, build, dev, card) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phases (m1)-(m4): the rest of single-device MoE — the measured dispatch
+# pick, the dense-base form, the tile-width autotuner, what remat "outs"
+# keeps
+# ---------------------------------------------------------------------------
+# phase 12's routing shape: 4 x 2048 tokens of DeepSeekMoE-16B, top-6 of 64
+# experts of 1408, hidden 2048
+P12 = dict(T=8192, k=6, E=64, h=2048, f=1408)
+
+
+def tile_autotune(tmdisp, tmf, dev):
+    """(m3) ``gmm_autotune.get_tilings`` at phase 12's four grouped-GEMM
+    call sites (the fused form's gate|up, variant "fused", and down
+    projection over the padded layout of ``deepseek_routing``; the gmm
+    form's two over the sorted rows), each pass (forward, dgrad, wgrad)
+    timed at every candidate width by a measure that first holds the
+    kernel's result at that width to its plain version (within 1e-2 of
+    its largest magnitude, bf16) and then takes ``time_best``. The
+    winners persist; a cleared cache answers from the file with no
+    measurement. Returns each site's candidates' ms, winner and
+    heuristic."""
+    from paddle_tpu_torch.jit import cache as jcache
+    from paddle_tpu_torch.kernels import gmm_autotune as ga
+    d = deepseek_routing(tmdisp, tmf, dev)
+    x, r, gs_pad, tok_pad, gid = (d[k] for k in ("x", "r", "gs_pad",
+                                                 "tok_pad", "gid"))
+    Wcat, Wd, E, f, h = d["Wcat"], d["ed"], d["E"], d["f"], d["h"]
+    Ap, A = tok_pad.shape[0], r.tok.shape[0]
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    xs_pad, xs = x.index_select(0, tok_pad), x.index_select(0, r.tok)
+    bf = torch.bfloat16
+    sites = {}
+    for name, variant, lhs, rhs, gs, full in (
+            ("fused gate|up", "fused", xs_pad, Wcat, gs_pad, False),
+            ("fused down", "gmm", rnd(Ap, f), Wd, gs_pad, False),
+            ("gmm gate|up", "gmm", xs, Wcat, r.gs, True),
+            ("gmm down", "gmm", rnd(A, f), Wd, r.gs, True)):
+        grad = rnd(lhs.shape[0], rhs.shape[2])
+        if variant == "fused":
+            fwd = (lambda bn: tmf.gather_gmm(x, tok_pad, Wcat, gid, bn=bn),
+                   lambda: tmf.gather_gmm_plain(x, tok_pad, Wcat, gid))
+        else:
+            fwd = (lambda bn, l=lhs, w=rhs, s=gs: tmdisp.gmm(l, w, s, bn=bn),
+                   lambda l=lhs, w=rhs, s=gs: tmdisp.gmm_plain(l, w, s))
+        passes = {
+            "fwd": fwd,
+            "dgrad": (lambda bn, gr=grad, w=rhs, s=gs: tmdisp.gmm(
+                gr, w, s, transpose_rhs=True, bn=bn),
+                lambda gr=grad, w=rhs, s=gs: tmdisp.gmm_plain(gr, w, s, True)),
+            "wgrad": (lambda bn, l=lhs, gr=grad, s=gs: tmdisp.tgmm(
+                l.t(), gr, s, out_dtype=bf, bn=bn),
+                lambda l=lhs, gr=grad, s=gs: tmdisp.tgmm_plain(l.t(), gr, s))}
+        rows, plains = [], {}
+
+        def measure(pass_, tiling, passes=passes, rows=rows, plains=plains):
+            kern, plain = passes[pass_]
+            if pass_ not in plains:
+                plains[pass_] = plain()
+            err = rel_err(kern(tiling[2]), plains[pass_])
+            if not err <= 1e-2:
+                raise AssertionError(f"{pass_} at width {tiling[2]}: "
+                                     f"relative error {err}")
+            t = ga.time_best(lambda: kern(tiling[2]))
+            rows.append({"pass": pass_, "bn": tiling[2], "ms": t * 1e3,
+                         "rel_err": err})
+            return t
+
+        m, k, n = lhs.shape[0], lhs.shape[1], rhs.shape[2]
+        key = (m, k, n, E, bf, full)
+        heur = ga.heuristic_tilings(m, k, n)
+        t0 = time.perf_counter()
+        won = ga.get_tilings(*key, measure=measure, variant=variant)
+        sites[name] = {
+            "shape": f"[{m}, {k}] @ [{E}, {k}, {n}], {variant}, "
+                     f"full_rows={full}",
+            "key": key, "variant": variant, "candidates": rows,
+            "heuristic": [t[2] for t in heur],
+            "winner": [t[2] for t in won],
+            "seconds": time.perf_counter() - t0}
+        log(f"  (m3) {name}: {sites[name]}")
+        del plains
+    doc = jcache.load_json(ga.PERSIST_NAME, schema=ga.SCHEMA)
+    if len(doc) != 4 or any(e["source"] != "measured" for e in doc.values()):
+        raise AssertionError(f"persisted tilings {doc}")
+    ga.clear()
+
+    def boom(pass_, tiling):
+        raise AssertionError("a persisted width was measured again")
+
+    for name, site in sites.items():
+        got = ga.get_tilings(*site["key"], measure=boom,
+                             variant=site["variant"])
+        if [t[2] for t in got] != site["winner"]:
+            raise AssertionError(f"{name}: {got} read back, "
+                                 f"{site['winner']} persisted")
+        site["key"] = list(map(str, site["key"]))
+    log(f"  (m3) the persisted file round-trips: {len(doc)} entries")
+    return sites
+
+
+def form_pick(tmdisp, dev):
+    """(m1) ``pick_dispatch_form`` at phase 12's routing shape with the
+    dense form admitted (``plan_dispatch`` gives Q = 896 and use_dense):
+    each form's forward-plus-backward ms from ``_default_form_measure``
+    (the sum-of-squares loss through ``fused_routing`` on
+    ``make_moe_operands``, best of 3 after a warm call), the winner —
+    what ``dispatch="auto"`` runs at this shape on this card; a second
+    call measures nothing, and after ``clear_form_cache()`` the file
+    answers the same winner with no measurement."""
+    from paddle_tpu_torch.jit import cache as jcache
+    T, k, E, h, f = (P12[n] for n in ("T", "k", "E", "h", "f"))
+    plan = tmdisp.plan_dispatch(T, k, E, h)
+    if not plan.use_dense:
+        raise AssertionError(f"plan {plan}: the dense form is not admitted")
+    runner = tmdisp._default_form_measure(T, k, E, h, f, torch.bfloat16)
+    ms = {}
+
+    def measure(form):
+        t = runner(form)
+        ms[form] = t * 1e3
+        return t
+
+    def boom(form):
+        raise AssertionError("a cached dispatch form was measured again")
+
+    def pick(fn):
+        return tmdisp.pick_dispatch_form(T, k, E, h, f, torch.bfloat16,
+                                         dense_ok=True, measure=fn)
+
+    tmdisp.clear_form_cache()
+    tmdisp.dense_paths.clear()
+    t0 = time.perf_counter()
+    winner = pick(measure)
+    seconds = time.perf_counter() - t0
+    dense_route = dict(tmdisp.dense_paths)
+    if pick(boom) != winner:
+        raise AssertionError("the in-process form cache answered otherwise")
+    tmdisp.clear_form_cache()
+    if pick(boom) != winner:
+        raise AssertionError("the persisted form cache answered otherwise")
+    doc = jcache.load_json("moe_dispatch_forms", schema=2)
+    x, rw, eg, eu, ed = tmdisp.make_moe_operands(T, h, E, f, torch.bfloat16,
+                                                 device=dev)
+    ws = [t.requires_grad_(True) for t in (x, eg, eu, ed)]
+
+    def dense_fwd_bwd():
+        r = tmdisp.fused_routing(ws[0], rw, k)
+        y = tmdisp.dropless_moe_ffn_dense(ws[0], r.weights, r.idx, *ws[1:],
+                                          routing=r)
+        return torch.autograd.grad(y.float().square().sum(), ws)
+
+    dense_fwd_bwd()
+    traced_dense = traced(dense_fwd_bwd, classify=kernel_category)
+    del x, rw, eg, eu, ed, ws
+    res = {"plan": {"Q": plan.Q, "use_dense": plan.use_dense},
+           "fwd_bwd_ms": ms, "winner": winner, "seconds": seconds,
+           "dense_route_while_measured": dense_route,
+           "traced_dense_fwd_bwd": traced_dense, "persisted": doc,
+           "dense_over_fused": ms.get("dense", math.nan) / ms["fused"],
+           "gmm_over_fused": ms["gmm"] / ms["fused"]}
+    log(f"  (m1) {res}")
+    return res
+
+
+def moe_phase12_forms(moe, llama, tmdisp, build, dev, card, hold, fused):
+    """(m2), the step comparison of (m3) and (m4), on phase 12's state
+    (``hold``) and beside its fused numbers (``fused``): (m2) 2 warm-up
+    and 3 timed steps with ``dispatch="dense"`` (no B9 or B10 launch when
+    no batch overflows; host syncs a step from ``dense_paths``; one step
+    traced for its busy share); (m3) the fused step with the tuned widths
+    against ``tile_width``'s (``FLAGS_moe_gmm_autotune`` off), 2 timed
+    steps each in the order tuned, heuristic, heuristic, tuned after one
+    warm step; (m4) what remat "outs" keeps a MoE layer (``moe.saved_probe``
+    over one forward: no tensor with A_pad rows), the memory one forward
+    holds under "outs" and "full", and the forward-plus-backward peak and
+    step time of "outs" against "outs" keeping the down GEMM's [A_pad, h]
+    output as it did before (its policy's operator list swapped back),
+    2 timed steps each in the order now, before, before, now."""
+    import dataclasses
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.optimizer.functional import tree_map
+    cfg, tokens, lr = hold["cfg"], hold["tokens"], hold["lr"]
+    n_moe = cfg.num_layers - cfg.first_dense_layers
+    B, S = tokens.shape[0], tokens.shape[1] - 1
+    fpt = moe.flops_per_token(cfg, S)
+
+    def step_of(c):
+        return lambda st: moe.train_step(st, tokens, c, optimizer="adafactor",
+                                         lr=lr, adafactor_eps2=0.0)
+
+    def steps(c, warmup, timed):
+        """``run_steps`` on the held state, which goes back into ``hold``
+        (no other reference to a state outlives the call: two states of
+        this model do not fit beside a step)."""
+        state, res = run_steps(build, step_of(c), hold["state"], warmup,
+                               timed)
+        hold["state"].append(state)
+        return res
+
+    out = {}
+    cd = dataclasses.replace(cfg, dispatch="dense")
+    tmdisp.dense_paths.clear()
+    res = steps(cd, 2, 3)
+    paths = dict(tmdisp.dense_paths)
+    for i, n in enumerate(res["per_step"]):
+        if any(n.get(kk) for kk in ("gather_gmm", "gmm", "tgmm")) and \
+                paths.get("gmm", 0) == 0:
+            raise AssertionError(f"dense step {i} launched {n}")
+    if not all(math.isfinite(x) for x in res["losses"]):
+        raise AssertionError(f"dense losses {res['losses']}")
+    tok_s = B * S / (res["step_ms"] / 1e3)
+    out["m2_dense_step"] = {
+        "step_ms": res["step_ms"], "tokens_per_s": tok_s,
+        "mfu": fpt * tok_s / BF16_FLOPS,
+        "peak_mem_gib": res["peak_bytes"] / 2**30, "losses": res["losses"],
+        "launches_per_step": res["per_step"][-1], "dense_paths": paths,
+        "host_syncs_per_step": sum(paths.values()) / 5,
+        "fused_step_ms": fused["step_s"] * 1e3,
+        "fused_tokens_per_s": fused["tokens_per_s"], "fused_mfu": fused["mfu"],
+        "fused_peak_mem_gib": fused["peak_mem_gib"], "card": card}
+    tr = traced(lambda: step_of(cd)(hold["state"][0]),
+                classify=kernel_category)
+    out["m2_dense_step"]["traced"] = tr
+    fused_tr = fused.get("traced_step") or {}
+    out["m2_dense_step"]["fused_traced_busy_share"] = fused_tr.get(
+        "device_busy_share")
+    log(f"  (m2) dense step: {out['m2_dense_step']}")
+
+    runs = []
+    for mode in ("tuned", "heuristic", "heuristic", "tuned"):
+        set_flags({"moe_gmm_autotune": mode == "tuned"})
+        runs.append((mode, steps(cfg, 1, 2)["step_ms"]))
+    set_flags({"moe_gmm_autotune": True})
+    mean = {m: sum(t for mm, t in runs if mm == m) / 2
+            for m in ("tuned", "heuristic")}
+    out["m3_step"] = {"runs_ms": runs, "mean_ms": mean,
+                      "tuned_over_heuristic": mean["tuned"]
+                      / mean["heuristic"], "card": card}
+    log(f"  (m3) fused step, tuned against heuristic widths: "
+        f"{out['m3_step']}")
+
+    T, h = B * S, cfg.hidden_size
+    A_pad = -(-(T * cfg.top_k + cfg.num_experts * 127) // 128) * 128
+    held = {}
+    for pol in ("outs", "full"):
+        c = dataclasses.replace(cfg, remat_policy=pol)
+        probe = []
+        free_memory()
+        with torch.enable_grad():
+            tracked = tree_map(lambda t: t.detach().requires_grad_(True),
+                               hold["state"][0].params)
+            base = torch.cuda.memory_allocated()
+            moe.saved_probe = probe
+            loss = moe.loss_fn(tracked, tokens, c)
+            moe.saved_probe = None
+            torch.cuda.synchronize()
+            held[pol] = torch.cuda.memory_allocated() - base
+        del loss, tracked
+        if pol == "outs":
+            kept = probe
+    before_ops = (torch.ops.paddle_tpu_torch.flash_fwd.default,
+                  torch.ops.paddle_tpu_torch.gmm.default)
+    now_ops = moe._SAVED_OPS
+    fwd_bwd_peak = {}
+    for label, ops in (("outs", now_ops), ("outs_before", before_ops)):
+        moe._SAVED_OPS = ops
+        free_memory()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, grads = llama.loss_and_grads(hold["state"][0].params, tokens, cfg,
+                                        moe.loss_fn)
+        torch.cuda.synchronize()
+        fwd_bwd_peak[label] = torch.cuda.max_memory_allocated() - base
+        del grads
+    step_runs = []
+    for label in ("outs", "outs_before", "outs_before", "outs"):
+        moe._SAVED_OPS = now_ops if label == "outs" else before_ops
+        res = steps(cfg, 1, 2)
+        step_runs.append((label, res["step_ms"], res["per_step"][-1]))
+    moe._SAVED_OPS = now_ops
+    if any(shape and shape[0] == A_pad for _, shape, _ in kept):
+        raise AssertionError(f"outs kept a tensor of {A_pad} rows: {kept}")
+    routed = [s for n, s, _ in kept if n.endswith("routed_out")]
+    if routed != [(T, h)] * n_moe:
+        raise AssertionError(f"routed outputs kept {routed}")
+    hq = cfg.num_heads * cfg.head_dim
+    per_layer = {"routed_out": T * h * 2,
+                 "flash_fwd": T * hq * 2 + B * cfg.num_heads * S * 4}
+    out["m4_outs"] = {
+        "kept_per_moe_layer_bytes": per_layer,
+        "kept_before_per_moe_layer_bytes": {
+            "gmm_down_out": A_pad * h * 2, "flash_fwd": per_layer[
+                "flash_fwd"]},
+        "A_pad": A_pad, "kept_ops": len(kept),
+        "forward_held_bytes": held, "fwd_bwd_peak_bytes": fwd_bwd_peak,
+        "step_ms_now_against_before": step_runs,
+        "phase12_peak_gib": fused["peak_mem_gib"],
+        "pr10_peak_gib": 45.64, "card": card}
+    log(f"  (m4) outs: {out['m4_outs']}")
+    return out
+
+
+def moe_dense_cross_device(moe, llama, tmdisp, tmf, build, dev):
+    """(m2) phase 14's small MoE (f32, remat "outs") with
+    ``dispatch="dense"`` on the card against the CPU (loss within 1e-5
+    relative, gradients within 1e-3 of each leaf's largest magnitude,
+    phase 14's bounds) and against the card's fused form (1e-5, 1e-4);
+    every MoE layer takes the dense base. The weights come from the
+    port's CPU init with seed SEED + 1: phase 14's own (seed SEED) route
+    258 assignments to one expert, past Q = 256, so that batch would take
+    the gmm form, which the overflow check below covers. Then a batch at
+    its routing
+    width whose router favours expert 0 for every token (its load 512 >
+    Q = 256): ``dropless_moe_ffn_dense`` takes the gmm form (B10's gmm and
+    tgmm launched) and equals the fused form, values within 1e-5 and
+    gradients within 1e-4."""
+    from paddle_tpu_torch.optimizer.functional import tree_map
+    cfg = phase14_config(moe, "dense")
+    tree = tree_map(lambda t: t.numpy(),
+                    moe.init_params(cfg, SEED + 1, device="cpu"))
+    toks = np.random.default_rng(SEED + 11).integers(0, cfg.vocab_size,
+                                                     (2, 257))
+    res, paths = {}, {}
+    for where, form in ((str(dev), "dense"), ("cpu", "dense"),
+                        (str(dev), "fused")):
+        params = moe.params_from_numpy(tree, device=where)
+        tmdisp.dense_paths.clear()
+        loss, grads = llama.loss_and_grads(
+            params, torch.as_tensor(toks, device=where),
+            phase14_config(moe, form), moe.loss_fn)
+        res[(where, form)] = {"loss": loss.item(), "grads": {
+            p: g.cpu() for p, g in leaves(grads)}}
+        paths[f"{where} {form}"] = dict(tmdisp.dense_paths)
+        del params, grads
+    if paths[f"{dev} dense"] != {"dense": 2}:
+        raise AssertionError(f"dense paths {paths}")
+    card, cpu, fus = (res[(str(dev), "dense")], res[("cpu", "dense")],
+                      res[(str(dev), "fused")])
+    worst = {}
+    for name, a, b, bounds in (("card_vs_cpu", card, cpu, (1e-5, 1e-3)),
+                               ("dense_vs_fused", card, fus, (1e-5, 1e-4))):
+        worst[name] = {
+            "loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+            "grads": max(rel_err(a["grads"][p], gg)
+                         for p, gg in b["grads"].items()
+                         if gg.abs().max() > 0)}
+        if worst[name]["loss"] > bounds[0] or worst[name]["grads"] > bounds[1]:
+            raise AssertionError(f"dense {name}: {worst[name]}")
+    # an overflowing batch at the same routing width (T = 512, k = 4,
+    # E = 16, h = 256, f = 128, f32)
+    rng = np.random.default_rng(SEED + 13)
+    T, h, E, f, k = 512, 256, 16, 128, 4
+    x = rng.standard_normal((T, h)).astype(np.float32)
+    rw = (rng.standard_normal((h, E)) * 0.1).astype(np.float32)
+    x[:, 0] = np.abs(x[:, 0]) + 3.0
+    rw[0, 0] += 3.0
+    ex = [(rng.standard_normal(s) * 0.1).astype(np.float32)
+          for s in ((E, h, f), (E, h, f), (E, f, h))]
+    ct = torch.as_tensor(rng.standard_normal((T, h)).astype(np.float32),
+                         device=dev)
+    r = tmdisp.fused_routing(torch.as_tensor(x, device=dev),
+                             torch.as_tensor(rw, device=dev), k)
+    load = torch.bincount(r.idx.reshape(-1), minlength=E).max().item()
+    plan = tmdisp.plan_dispatch(T, k, E, h)
+    outs = {}
+    for form in ("dense", "fused"):
+        leaves_ = [torch.as_tensor(a, device=dev).requires_grad_(True)
+                   for a in [x] + ex]
+        w = r.weights.detach().requires_grad_(True)
+        tmdisp.dense_paths.clear()
+        before = dict(build.launch_counts)
+        if form == "dense":
+            y = tmdisp.dropless_moe_ffn_dense(leaves_[0], w, r.idx,
+                                              *leaves_[1:], routing=r,
+                                              plan=plan)
+        else:
+            y = tmdisp.dropless_moe_ffn_fused(leaves_[0], w, r.idx,
+                                              *leaves_[1:], routing=r)
+        grads = torch.autograd.grad((y * ct).sum(), [leaves_[0], w] +
+                                    leaves_[1:])
+        torch.cuda.synchronize()
+        outs[form] = (y.detach(), grads, dict(tmdisp.dense_paths), {
+            kk: v - before.get(kk, 0) for kk, v in build.launch_counts.items()
+            if v - before.get(kk, 0)})
+    y_d, g_d, p_d, l_d = outs["dense"]
+    y_f, g_f, _, _ = outs["fused"]
+    overflow = {"max_load": load, "Q": plan.Q, "dense_paths": p_d,
+                "launches": l_d, "y_rel_err": rel_err(y_d, y_f),
+                "grads_rel_err": max(rel_err(a, b) for a, b in zip(g_d, g_f))}
+    if load <= plan.Q or p_d != {"gmm": 1} or l_d.get("gmm", 0) < 3 \
+            or l_d.get("tgmm", 0) < 2 or overflow["y_rel_err"] > 1e-5 \
+            or overflow["grads_rel_err"] > 1e-4:
+        raise AssertionError(f"overflow batch: {overflow}")
+    out = {"relative_errors": worst, "dense_paths": paths,
+           "overflow": overflow}
+    log(f"  (m2) dense on the card: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases (g1)-(g2): fixed-batch generation and HF interchange
+# ---------------------------------------------------------------------------
+def generation_full_width(llama, LLMEngine, dev, card, cfg, params):
+    """(g1) ``generate`` and ``generate_fused`` on Llama-3-8B (phase 4's
+    random bf16 weights), batch 8 of 128-token prompts (numpy seed), 64
+    new tokens: greedy without an eos (the eos is then row 0's 17th
+    token, which ends some rows early), greedy with it — the two loops'
+    streams must be equal — and sampled at temperature 0.8, top_k 40,
+    top_p 0.95 with it, from one generator seed each (eos padding
+    checked); each run's tokens/s, ms a step, host syncs and graph
+    replays a token; a traced 16-token greedy run of each for its kernels
+    a token and busy share; and the first divergence of the fused greedy
+    streams from ``LLMEngine``'s (8 slots, ``SERVE_ENGINE``) on the same
+    prompts (bf16 near-ties may differ)."""
+    B, S0, NEW = 8, 128, 64
+    prompts = np.random.default_rng(SEED + 20).integers(
+        0, cfg.vocab_size, (B, S0))
+    prompt = torch.as_tensor(prompts, device=dev)
+    runs = {}
+
+    def run(label, fn, new=NEW, **kw):
+        llama.gen_stats.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(params, prompt, cfg, new, **kw).cpu()
+        wall = time.perf_counter() - t0
+        n = out.shape[1] - S0
+        st = dict(llama.gen_stats)
+        runs[label] = {"new_tokens": n, "wall_s": wall,
+                       "tokens_per_s": B * n / wall,
+                       "ms_per_step": wall / n * 1e3,
+                       "host_syncs_per_token": st.get("syncs", 0) / n,
+                       "graph_replays": st.get("graph_replays", 0),
+                       "graph_captures": st.get("graph_captures", 0)}
+        log(f"  (g1) {label}: {runs[label]}")
+        return out
+
+    run("warm_loop", llama.generate, new=2)
+    run("warm_fused", llama.generate_fused, new=2)
+    run("loop_1", llama.generate, new=1)
+    run("fused_1", llama.generate_fused, new=1)
+    free = run("fused_greedy_no_eos", llama.generate_fused)
+    eos = int(free[0, S0 + 16])
+    loop = run("loop_greedy_eos", llama.generate, eos_token_id=eos)
+    fused = run("fused_greedy_eos", llama.generate_fused, eos_token_id=eos)
+    if not torch.equal(loop, fused):
+        raise AssertionError(f"greedy generate and generate_fused differ at "
+                             f"{first_divergence(loop.tolist(), fused.tolist())}")
+    ended = int((free[:, S0:] == eos).any(1).sum())
+    kw = dict(temperature=0.8, top_k=40, top_p=0.95, eos_token_id=eos)
+    sampled = {}
+    for label, fn in (("loop_sampled", llama.generate),
+                      ("fused_sampled", llama.generate_fused)):
+        sampled[label] = run(label, fn, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 5), **kw)
+        toks = sampled[label][:, S0:]
+        hit = toks == eos
+        for row in range(B):
+            i = int(hit[row].int().argmax()) if hit[row].any() else None
+            if i is not None and not hit[row, i:].all():
+                raise AssertionError(f"{label}: row {row} emits past eos")
+        if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+            raise AssertionError(f"{label}: token ids out of range")
+    for label, fn in (("loop", llama.generate),
+                      ("fused", llama.generate_fused)):
+        tr = traced(lambda fn=fn: fn(params, prompt, cfg, 16))
+        if tr is not None:
+            tr["kernels_per_token"] = tr["kernel_launches"] / 16
+        runs[f"traced_{label}_16"] = tr
+        log(f"  (g1) traced {label}, 16 tokens: {tr}")
+    # decode alone: a run's time past the one-token run (prefill and the
+    # first sample) of the same loop, over its remaining steps
+    for label, r in runs.items():
+        one = runs.get("fused_1" if "fused" in label else "loop_1")
+        if r and "new_tokens" in r and r["new_tokens"] > 1 and one:
+            r["decode_ms_per_token"] = ((r["wall_s"] - one["wall_s"])
+                                        / (r["new_tokens"] - 1) * 1e3)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in leaves_of(params))
+    floor_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    eng = LLMEngine(params, cfg, max_slots=8, device=dev, **SERVE_ENGINE)
+    ids = [eng.add_request(p.tolist(), max_new_tokens=NEW) for p in prompts]
+    got = eng.run()
+    engine = [got[i] for i in ids]
+    del eng
+    free_memory()
+    res = {"runs": runs, "eos": eos, "rows_ending_early": ended,
+           "weight_bytes": weight_bytes,
+           "weight_read_floor_ms_per_token": floor_ms,
+           "greedy_loop_equals_fused": True,
+           "sampled_streams_equal": torch.equal(sampled["loop_sampled"],
+                                                sampled["fused_sampled"]),
+           "first_divergence_from_engine": first_divergence(
+               free[:, S0:].tolist(), engine),
+           "fused_over_loop_tokens_per_s":
+               runs["fused_greedy_eos"]["tokens_per_s"]
+               / runs["loop_greedy_eos"]["tokens_per_s"],
+           "card": card}
+    log(f"  (g1) {res}")
+    return res
+
+
+def generation_cross_device(llama, LLMEngine, dev):
+    """(g2) phase 5's cut model (f32): two 128-token prompts, 16 greedy
+    tokens through ``generate`` and ``generate_fused`` on the card,
+    ``generate`` on the CPU and a ragged ``LLMEngine`` on the card: all
+    equal. Then ``to_hf_state_dict`` -> ``convert_hf_state_dict`` of the
+    card's tree (2 layers at Llama-3-8B widths, vocabulary 32768) gives
+    every leaf back exactly and the same logits on the card."""
+    cfg, base = cut_model(llama)
+    prompts = np.random.default_rng(SEED + 21).integers(
+        0, cfg.vocab_size, (2, 128))
+    NEW = 16
+    t0 = time.perf_counter()
+    cpu = llama.generate(base, prompts, cfg, NEW, device="cpu")[:, 128:]
+    cpu_s = time.perf_counter() - t0
+    params = tree_to(base, dev)
+    loop = llama.generate(params, prompts, cfg, NEW).cpu()[:, 128:]
+    fused = llama.generate_fused(params, prompts, cfg, NEW).cpu()[:, 128:]
+    eng = LLMEngine(params, cfg, max_slots=2, block_size=64,
+                    max_model_len=512, prompt_buckets=[256], decode_steps=4,
+                    decode_kernel="ragged", device=dev)
+    ids = [eng.add_request(p.tolist(), max_new_tokens=NEW) for p in prompts]
+    got = eng.run()
+    engine = [got[i] for i in ids]
+    del eng
+    streams = {"cpu": cpu.tolist(), "card_loop": loop.tolist(),
+               "card_fused": fused.tolist(), "card_engine": engine}
+    if any(v != streams["cpu"] for v in streams.values()):
+        raise AssertionError(f"generation streams differ: {streams}")
+    t0 = time.perf_counter()
+    sd = llama.to_hf_state_dict(params, cfg)
+    back = llama.convert_hf_state_dict(sd, cfg, device=dev)
+    hf_s = time.perf_counter() - t0
+    back_leaves = dict(leaves(back))
+    bad = [p for p, t in leaves(params) if not torch.equal(t, back_leaves[p])]
+    ids_t = torch.as_tensor(prompts[:, :64], device=dev)
+    same_logits = torch.equal(llama.forward(params, ids_t, cfg),
+                              llama.forward(back, ids_t, cfg))
+    if bad or not same_logits:
+        raise AssertionError(f"HF round trip: leaves {bad} differ, logits "
+                             f"equal {same_logits}")
+    res = {"streams": streams["cpu"], "cpu_generate_s": cpu_s,
+           "hf_keys": len(sd), "hf_roundtrip_s": hf_s,
+           "hf_roundtrip_exact": True, "hf_same_logits": True}
+    log(f"  (g2) {res}")
+    del params, back, sd
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4743,6 +5356,12 @@ def main() -> int:
               f"({exc})", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    # the measured tile widths and dispatch forms of this run persist in a
+    # directory of its own (removed at exit), never in an earlier run's
+    import tempfile
+    from paddle_tpu_torch.framework.flags import set_flags
+    jit_dir = tempfile.TemporaryDirectory(prefix="ptt_jit_cache_")
+    set_flags({"jit_cache_dir": jit_dir.name})
 
     log("phase 1: device")
     card = nvidia_smi()
@@ -4845,6 +5464,11 @@ def main() -> int:
     del dparams
     free_memory()
 
+    log("phase (g1): generate and generate_fused, Llama-3-8B, batch 8")
+    generation = {"g1_full_width": generation_full_width(
+        llama, LLMEngine, dev, card, cfg8, params8)}
+    free_memory()
+
     log("phase 6 (int8 b): B5-int8 vs plain, Llama-3-8B, 4 slots")
     walk4 = [len(p) + 24 for p in mix8[:4]]
     b5_forms = {"kv_int8": check_mega(tmd, cfg8, params8, dev, walk4,
@@ -4907,6 +5531,11 @@ def main() -> int:
         raise AssertionError(f"int8 mega streams {i8_mega_s} differ from the "
                              f"ragged ones {i8_ragged}")
     int8_res["cross_device_streams"] = i8_ragged
+
+    log("phase (g2): card vs CPU generation and the HF round trip (phase "
+        "5's cut model)")
+    generation["g2_cross_device"] = generation_cross_device(
+        llama, LLMEngine, dev)
     CUT.clear()
     free_memory()
 
@@ -4931,8 +5560,31 @@ def main() -> int:
     grouped_errs = check_grouped(tmdisp, tmf, dev)
     free_memory()
 
+    log("phase (m3): the grouped GEMMs' tile widths measured at phase 12's "
+        "shapes")
+    tiles = tile_autotune(tmdisp, tmf, dev)
+    free_memory()
+
+    log("phase (m1): the dispatch form measured at phase 12's routing shape")
+    forms = {"m1_form_pick": form_pick(tmdisp, dev)}
+    free_memory()
+
     log("phase 12: moe.train_step trains DeepSeekMoE-16B widths")
-    moe_launches, moe_training = train_moe(moe, build, tmf, dev, card)
+    hold = {}
+    moe_launches, moe_training = train_moe(moe, build, tmf, dev, card,
+                                           hold=hold)
+    free_memory()
+
+    log("phase (m2)-(m4): the dense form's step, tuned against heuristic "
+        "widths, what remat outs keeps (phase 12's state)")
+    forms.update(moe_phase12_forms(moe, llama, tmdisp, build, dev, card,
+                                   hold, moe_training))
+    del hold
+    free_memory()
+    forms["m2_cross_device"] = moe_dense_cross_device(
+        moe, llama, tmdisp, tmf, build, dev)
+    forms["m3_tiles"] = tiles
+    moe_training["forms"] = forms
     free_memory()
 
     log("phase 13: B9/gmm/tgmm and the dispatch forms at the step's shapes")
@@ -4975,6 +5627,8 @@ def main() -> int:
     schedules = {"mega_decode": b5.pop("schedule"),
                  "mega_decode_int8": b5_int8.pop("schedule"),
                  "mega_decode_loop": b5_multi["schedule"]}
+    # the tile width each B9/B10 call of phase 12's step ran at (m3)
+    won = {name: site["winner"] for name, site in tiles.items()}
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
@@ -5008,17 +5662,27 @@ def main() -> int:
              replaces="paddle_tpu/kernels/moe_fused.py:266",
              launches=moe_launches.get("gather_gmm", 0),
              train8b_launches=t_launch["gather_gmm"],
+             tile_widths={"gate|up forward": won["fused gate|up"][0]},
              **grouped["gather_gmm"]),
         dict(name="gmm", route="cuda",
              source="paddle_tpu_torch/kernels/csrc/gmm.cu",
              replaces="paddle_tpu/kernels/moe_dispatch.py:434",
              launches=moe_launches.get("gmm", 0),
-             train8b_launches=t_launch["gmm"], **grouped["gmm"]),
+             train8b_launches=t_launch["gmm"],
+             tile_widths={"down forward": won["fused down"][0],
+                          "down dgrad": won["fused down"][1],
+                          "gate|up dgrad": won["fused gate|up"][1],
+                          "gmm form": won["gmm gate|up"]
+                          + won["gmm down"]},
+             **grouped["gmm"]),
         dict(name="tgmm", route="cuda",
              source="paddle_tpu_torch/kernels/csrc/tgmm.cu",
              replaces="paddle_tpu/kernels/moe_dispatch.py:445",
              launches=moe_launches.get("tgmm", 0),
-             train8b_launches=t_launch["tgmm"], **grouped["tgmm"]),
+             train8b_launches=t_launch["tgmm"],
+             tile_widths={"gate|up wgrad": won["fused gate|up"][2],
+                          "down wgrad": won["fused down"][2]},
+             **grouped["tgmm"]),
         dict(name="ragged_decode_int8", route="cuda",
              source="paddle_tpu_torch/kernels/csrc/ragged_decode.cu",
              replaces="paddle_tpu/kernels/paged_attention.py:578",
@@ -5068,6 +5732,7 @@ def main() -> int:
     log(f"training_memory: {json.dumps(tm_res)}")
     spec["paged_api_checks"] = paged["checks"]
     log(f"spec: {json.dumps(spec)}")
+    log(f"generation: {json.dumps(generation)}")
     log(f"total {time.perf_counter() - T0:.1f} s")
     log(card)
     log(json.dumps({"static_schedule": schedules}))

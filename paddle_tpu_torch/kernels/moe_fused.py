@@ -47,8 +47,9 @@ from typing import Optional
 import torch
 
 from . import _build
-from .moe_dispatch import (_DTYPES, _check_cuda, _check_index, _wide,
-                           grouped_matmul, sort_by_expert, tile_width)
+from .gmm_autotune import get_tilings
+from .moe_dispatch import (_DTYPES, _bn, _check_cuda, _check_index, _wide,
+                           _widths, grouped_matmul, sort_by_expert)
 from .quant_matmul import is_quantized_weight
 
 __all__ = ["fused_moe_ffn", "gather_gmm", "gather_gmm_plain",
@@ -170,12 +171,13 @@ def gather_gmm_plain(x, idx, rhs, gid, tm: int = _KTM):
     return out
 
 
-def gather_gmm(x, idx, rhs, gid, *, tm: int = _KTM):
+def gather_gmm(x, idx, rhs, gid, *, tm: int = _KTM, bn=None):
     """B9: ``out[i*tm + r] = x[idx[i*tm + r]] @ rhs[gid[i]]`` for x [T, h],
     int32 idx [rows] (rows a multiple of tm), rhs [E, h, n] (x's dtype, or
     int8, widened inside the kernel) and int32 gid [rows / tm]: out
     [rows, n] in x's dtype with f32 sums. Each tm-row tile belongs to one
-    group, which the caller's tile-padded layout guarantees."""
+    group, which the caller's tile-padded layout guarantees. ``bn``: the
+    bf16 kernel's tile width (None: ``moe_dispatch.tile_width``)."""
     rows = idx.shape[0]
     T, h = x.shape
     E, h2, n = rhs.shape
@@ -206,7 +208,7 @@ def gather_gmm(x, idx, rhs, gid, *, tm: int = _KTM):
     with torch.cuda.device(x.device):
         err = fn(_build.ptr(x), _build.ptr(idx), _build.ptr(rhs),
                  _build.ptr(gid), _build.ptr(out), rows, h, n, E, tm,
-                 _DTYPES[x.dtype], int(rhs_int8), tile_width(n),
+                 _DTYPES[x.dtype], int(rhs_int8), _bn(bn, n),
                  _build.stream_handle(x))
     name = "gather_gmm_int8" if rhs_int8 else "gather_gmm"
     _build.check(err, name)
@@ -216,10 +218,11 @@ def gather_gmm(x, idx, rhs, gid, *, tm: int = _KTM):
 
 @torch.library.custom_op("paddle_tpu_torch::gather_gmm", mutates_args=())
 def gather_gmm_op(x: torch.Tensor, idx: torch.Tensor, rhs: torch.Tensor,
-                  gid: torch.Tensor, tm: int) -> torch.Tensor:
+                  gid: torch.Tensor, tm: int, bn: int) -> torch.Tensor:
     """:func:`gather_gmm` as a registered operator
-    (``torch.ops.paddle_tpu_torch.gather_gmm``)."""
-    return gather_gmm(x, idx, rhs, gid, tm=tm)
+    (``torch.ops.paddle_tpu_torch.gather_gmm``; ``bn`` 0 takes
+    ``tile_width``)."""
+    return gather_gmm(x, idx, rhs, gid, tm=tm, bn=bn or None)
 
 
 def gather_gmm_supported(x, rhs, num_rows: int) -> Optional[str]:
@@ -251,16 +254,19 @@ def _tile_gids(gs_pad, A_pad: int, tm: int):
 
 
 class _GatherGmm(torch.autograd.Function):
-    """``_GatherGmm.apply(x, tok_pad, inv2d, rhs, gs_pad)``: forward B9
-    over the padded layout; backward B10's dgrad ``gmm(transpose_rhs)``,
-    the gather of x's rows, B10's ``tgmm`` and the k-way gather into dx
-    (padding rows carry zero gradients: see the combine-weight fold)."""
+    """``_GatherGmm.apply(x, tok_pad, inv2d, rhs, gs_pad, tilings)``:
+    forward B9 over the padded layout; backward B10's dgrad
+    ``gmm(transpose_rhs)``, the gather of x's rows, B10's ``tgmm`` and the
+    k-way gather into dx (padding rows carry zero gradients: see the
+    combine-weight fold). ``tilings`` (``get_tilings(variant="fused")``,
+    or None) gives each pass its tile width."""
 
     @staticmethod
-    def forward(ctx, x, tok_pad, inv2d, rhs, gs_pad):
+    def forward(ctx, x, tok_pad, inv2d, rhs, gs_pad, tilings=None):
         gid = _tile_gids(gs_pad, tok_pad.shape[0], _KTM)
         ctx.save_for_backward(x, tok_pad, inv2d, rhs, gs_pad)
-        return gather_gmm_op(x, tok_pad, rhs, gid, _KTM)
+        bn_fwd, ctx.bn_dgrad, ctx.bn_wgrad = _widths(tilings)
+        return gather_gmm_op(x, tok_pad, rhs, gid, _KTM, bn_fwd or 0)
 
     @staticmethod
     def backward(ctx, g):
@@ -271,13 +277,14 @@ class _GatherGmm(torch.autograd.Function):
         # int8 experts are frozen: the dgrad runs on the widened weight
         # and they get no gradient
         w = rhs.to(x.dtype) if rhs.dtype == torch.int8 else rhs
-        d_xs = gmm(g, w, gs_pad, transpose_rhs=True)
+        d_xs = gmm(g, w, gs_pad, transpose_rhs=True, bn=ctx.bn_dgrad)
         d_rhs = None
         if ctx.needs_input_grad[3]:
             xs = x.index_select(0, tok_pad)
-            d_rhs = tgmm(xs.t(), g, gs_pad, out_dtype=rhs.dtype)
+            d_rhs = tgmm(xs.t(), g, gs_pad, out_dtype=rhs.dtype,
+                         bn=ctx.bn_wgrad)
         dx = _k_way_sum(d_xs, inv2d).to(x.dtype)
-        return dx, None, None, d_rhs, None
+        return dx, None, None, d_rhs, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -342,7 +349,12 @@ def _fused_padded(x, ws, tok, esorted, gs, inv2d, Wcat, Wd, E, f, dt, *,
     f32."""
     tok_pad, ws_pad, es_pad, inv_pad2d, gs_pad = _pad_layout(
         gs, tok, ws, esorted, inv2d, E)
-    gu = _GatherGmm.apply(x, tok_pad, inv_pad2d, Wcat, gs_pad)
+    tilings = None
+    if x.device.type == "cuda" and Wcat.dtype != torch.int8:
+        # int8 weights (forward-only inference) keep tile_width
+        tilings = get_tilings(tok_pad.shape[0], x.shape[1], Wcat.shape[-1],
+                              E, x.dtype, False, variant="fused")
+    gu = _GatherGmm.apply(x, tok_pad, inv_pad2d, Wcat, gs_pad, tilings)
     zw = _elementwise_core(gu, ws_pad, f, dt, s_gu=s_gu, s_down=s_down,
                            esorted=es_pad)
     ys = _grouped(zw, Wd, gs_pad, full_rows=False)

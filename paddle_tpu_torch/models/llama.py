@@ -22,8 +22,15 @@ normalized probabilities, the flash path the unnormalized ones).
 
 Inference: :func:`init_kv_cache` and :func:`forward_with_cache`, the
 fixed-batch cache forward (``logits_all`` scores every position of a
-piece, the verify primitive of speculative decoding);
+piece, the verify primitive of speculative decoding; a device-resident
+``pos`` for a captured decode step); :func:`generate` (one eager step a
+token) and :func:`generate_fused` (each step one replay of a CUDA graph
+on the card), greedy or sampled with top-k/top-p and an eos early exit;
 :func:`draft_config` shrinks a config into a draft model's.
+:func:`convert_hf_state_dict` and :func:`to_hf_state_dict` map a Hugging
+Face Llama state dict to and from the parameter tree;
+:func:`export_for_inference` raises ``NotImplementedError`` (ROADMAP
+A11).
 
 Training: :func:`loss_fn` (optionally chunked cross-entropy),
 :func:`loss_and_grads`, :func:`train_step` with a global-norm clip,
@@ -35,9 +42,11 @@ policies). Context parallelism and pipeline schedules raise
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import math
+import re
 from typing import Any, Dict
 
 import numpy as np
@@ -58,7 +67,9 @@ __all__ = ["LlamaConfig", "llama3_8b", "tiny_llama", "draft_config",
            "head_weight", "hidden_states", "forward",
            "init_kv_cache", "forward_with_cache", "loss_fn",
            "loss_and_grads", "global_norm", "TrainState",
-           "init_train_state", "train_step", "flops_per_token"]
+           "init_train_state", "train_step", "flops_per_token", "generate",
+           "generate_fused", "gen_stats", "convert_hf_state_dict",
+           "to_hf_state_dict", "export_for_inference"]
 
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
               "w_up", "w_down")
@@ -433,11 +444,12 @@ def init_kv_cache(config: LlamaConfig, batch: int, max_len: int, *,
             "v": torch.zeros(shape, dtype=c.dtype, device=dev), "pos": 0}
 
 
-def _cached_attention(q, k_cache, v_cache, pos: int, config: LlamaConfig):
+def _cached_attention(q, k_cache, v_cache, pos, config: LlamaConfig):
     """q [B, S_new, Hq, D] against one layer's caches [B, max_len, Hkv,
     D]: keys at or below each query's position ``pos + i`` (causal inside
-    the new block), GQA-grouped (the cache is never repeated), f32
-    scores, probabilities rounded to q's dtype before the PV product."""
+    the new block; ``pos`` an int or a 0-d device tensor), GQA-grouped
+    (the cache is never repeated), f32 scores, probabilities rounded to
+    q's dtype before the PV product."""
     c = config
     B, S, Hq, D = q.shape
     G = Hq // c.num_kv_heads
@@ -461,17 +473,25 @@ def forward_with_cache(params, tokens, cache, config: LlamaConfig,
     draft tokens in one forward and read the next-token distribution
     after each. Prefill (S_new = prompt length) and decode (S_new = 1)
     alike. The cache's ``k``/``v`` are written in place; the returned
-    cache is a new dict with ``pos`` advanced by S_new."""
+    cache is a new dict with ``pos`` advanced by S_new.
+
+    ``cache["pos"]`` is an int, or a 0-d integer tensor on the cache's
+    device: then the rope angles, the causal mask and the cache write
+    index all come from it and the host never reads it, so one captured
+    CUDA graph of a decode step serves every position
+    (:func:`generate_fused`)."""
     c = config
     dt = c.dtype
     B, S = tokens.shape
-    pos = int(cache["pos"])
+    pos = cache["pos"]
+    if not isinstance(pos, torch.Tensor):
+        pos = int(pos)
     x = params["embed"].to(dt)[tokens.long()]
     freq = c.rope_theta ** (-torch.arange(0, c.head_dim, 2,
                                           dtype=torch.float32,
                                           device=x.device) / c.head_dim)
-    ang = (pos + torch.arange(S, dtype=torch.float32,
-                              device=x.device))[:, None] * freq[None, :]
+    rows = pos + torch.arange(S, device=x.device)    # the cache rows written
+    ang = rows.float()[:, None] * freq[None, :]
     cos, sin = torch.cos(ang), torch.sin(ang)
     ck, cv = cache["k"], cache["v"]
     for l in range(c.num_layers):
@@ -486,8 +506,8 @@ def forward_with_cache(params, tokens, cache, config: LlamaConfig,
                                              c.head_dim)
         q = _apply_rope(q, cos, sin)
         k = _apply_rope(k, cos, sin)
-        ck[l, :, pos:pos + S] = k
-        cv[l, :, pos:pos + S] = v
+        ck[l].index_copy_(1, rows, k)
+        cv[l].index_copy_(1, rows, v)
         att = _cached_attention(q, ck[l], cv[l], pos, c)
         x = x + _wo_mm(att.reshape(B, S, c.num_heads * c.head_dim),
                        p["wo"], dt)
@@ -501,6 +521,242 @@ def forward_with_cache(params, tokens, cache, config: LlamaConfig,
     else:
         logits = _wo_mm(xh, params["lm_head"], dt).float()
     return logits, {"k": ck, "v": cv, "pos": pos + S}
+
+
+# ---------------------------------------------------------------------------
+# fixed-batch generation (the decode that examples/llama_generate.py runs)
+# ---------------------------------------------------------------------------
+
+# host counters of the generation loops: "syncs" (host reads of a device
+# value inside a loop), "graph_captures" and "graph_replays"
+# (generate_fused on the card)
+gen_stats: collections.Counter = collections.Counter()
+
+_NEG = -1e30
+
+
+def _as_scalar(v, dtype, device):
+    """``v`` as a 0-d tensor on ``device``: a tensor as it is (in
+    ``dtype``), a Python number through a fill (no host-to-device copy)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype)
+    return torch.full((), v, dtype=dtype, device=device)
+
+
+def _filter_logits(logits, temperature, top_k, top_p, *, use_top_k: bool,
+                   use_top_p: bool):
+    """The logits :func:`_sample_impl` draws from, the reference's masks:
+    ``logits / temperature``; with ``use_top_k`` every logit below the
+    top_k-th largest (the k-th sorted logit) set to -1e30; then with
+    ``use_top_p`` every token outside the smallest probability-sorted
+    prefix whose mass reaches top_p (dropped where ``cum - p >= top_p``,
+    scattered back to vocabulary order) set to -1e30. The values may be
+    Python numbers or 0-d tensors on the logits' device."""
+    lg = logits / temperature
+    B, V = lg.shape
+    if use_top_k:
+        srt = torch.sort(lg, dim=-1).values
+        idx = torch.clamp(V - _as_scalar(top_k, torch.long, lg.device), 0,
+                          V - 1)
+        kth = srt.gather(-1, idx.reshape(1, 1).expand(B, 1))
+        lg = torch.where(lg < kth, _NEG, lg)
+    if use_top_p:
+        sort_idx = torch.argsort(-lg, dim=-1, stable=True)
+        sort_p = torch.softmax(lg, dim=-1).gather(-1, sort_idx)
+        cum = torch.cumsum(sort_p, dim=-1)
+        drop_sorted = cum - sort_p >= top_p      # keep the first >= p prefix
+        drop = torch.zeros_like(drop_sorted).scatter(-1, sort_idx,
+                                                     drop_sorted)
+        lg = torch.where(drop, _NEG, lg)
+    return lg
+
+
+def _sample_impl(logits, generator, temperature, top_k, top_p, *,
+                 sampled: bool, use_top_k: bool, use_top_p: bool):
+    """Next tokens [B] from [B, vocab] logits. The keyword flags fix the
+    regime (the reference's static arguments); temperature/top_k/top_p
+    may be 0-d device tensors, so a captured decode step serves any
+    values. Greedy is the argmax; sampling is the Gumbel-max draw over
+    :func:`_filter_logits` (what ``jax.random.categorical`` computes) with
+    uniforms from ``generator``."""
+    if not sampled:
+        return torch.argmax(logits, dim=-1)
+    lg = _filter_logits(logits, temperature, top_k, top_p,
+                        use_top_k=use_top_k, use_top_p=use_top_p)
+    u = torch.rand(lg.shape, generator=generator, device=lg.device)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+    return torch.argmax(lg + gumbel, dim=-1)
+
+
+def _sample_logits(logits, generator, temperature: float, top_k: int,
+                   top_p: float):
+    """Eager entry: the regime flags from the Python values."""
+    return _sample_impl(logits, generator, temperature, top_k, top_p,
+                        sampled=temperature > 0, use_top_k=top_k > 0,
+                        use_top_p=top_p < 1.0)
+
+
+def _gen_setup(params, prompt_tokens, device, generator):
+    dev = resolve_device(device) if device is not None \
+        else params["embed"].device
+    prompt = torch.as_tensor(prompt_tokens, device=dev)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    return dev, prompt, generator
+
+
+def generate(params, prompt_tokens, config: LlamaConfig,
+             max_new_tokens: int, temperature: float = 0.0, generator=None,
+             eos_token_id=None, top_k: int = 0, top_p: float = 1.0,
+             device=None):
+    """Greedy (temperature 0) or sampled generation, one eager decode step
+    a token; ``top_k``/``top_p`` restrict the sampling pool. prompt_tokens
+    [B, S_prompt] (a tensor or array) -> [B, S_prompt + n] on ``device``
+    (default: the parameters' device), n <= max_new_tokens: with
+    ``eos_token_id`` set, finished rows pad with eos and generation stops
+    once every row has finished (a host read of that flag each token,
+    counted in ``gen_stats["syncs"]``). ``generator``: a
+    ``torch.Generator`` on that device (default: seeded with 0)."""
+    dev, prompt, gen = _gen_setup(params, prompt_tokens, device, generator)
+    B, S0 = prompt.shape
+    cache = init_kv_cache(config, B, S0 + max_new_tokens, device=dev)
+    logits, cache = forward_with_cache(params, prompt, cache, config)
+    out = [prompt]
+    finished = torch.zeros((B,), dtype=torch.bool, device=dev)
+    for i in range(max_new_tokens):
+        nxt = _sample_logits(logits, gen, temperature, top_k, top_p)
+        if eos_token_id is not None:
+            # finished rows keep emitting eos
+            nxt = torch.where(finished, eos_token_id, nxt)
+            finished = finished | (nxt == eos_token_id)
+        nxt = nxt[:, None].to(prompt.dtype)
+        out.append(nxt)
+        if eos_token_id is not None:
+            gen_stats["syncs"] += 1
+            if bool(finished.all()):
+                break
+        if i + 1 < max_new_tokens:
+            logits, cache = forward_with_cache(params, nxt, cache, config)
+    return torch.cat(out, dim=1)
+
+
+def _generated_len(toks, eos_token_id) -> int:
+    """The reference's ``n``: every token when there is no eos, else the
+    step after the last row's first eos (at most every token)."""
+    n = toks.shape[1]
+    if eos_token_id is None:
+        return n
+    hit = (toks == eos_token_id).cpu()
+    first = torch.where(hit.any(1), hit.int().argmax(1),
+                        torch.full((toks.shape[0],), n))
+    return min(n, int(first.max()) + 1)
+
+
+def _replay_steps(step, n_steps: int, finished, has_eos: bool, dev,
+                  generator) -> None:
+    """``n_steps`` decode steps on the card: the first eager on a side
+    stream (the warm-up a capture needs), the rest as replays of ONE CUDA
+    graph of ``step`` (the sampling generator registered with it, so each
+    replay draws fresh numbers). With an eos, a pinned copy of "every row
+    finished" is read one step behind — the host waits on the event of
+    the step before the one it just queued, so the card always has work
+    — and the loop stops once it is set (finished rows only repeat eos,
+    so a later read is as good)."""
+    cur = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        step()
+    cur.wait_stream(side)
+    if n_steps == 1:
+        return
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    with torch.cuda.graph(graph):
+        step()
+    gen_stats["graph_captures"] += 1
+    flag = torch.zeros((), dtype=torch.bool, pin_memory=True)
+    pending = collections.deque()
+    for _ in range(n_steps - 1):
+        graph.replay()
+        gen_stats["graph_replays"] += 1
+        if not has_eos:
+            continue
+        flag.copy_(finished.all(), non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(cur)
+        pending.append(ev)
+        if len(pending) > 1:
+            pending.popleft().synchronize()
+            gen_stats["syncs"] += 1
+            if bool(flag):
+                break
+
+
+def generate_fused(params, prompt_tokens, config: LlamaConfig,
+                   max_new_tokens: int, temperature: float = 0.0,
+                   generator=None, eos_token_id=None, top_k: int = 0,
+                   top_p: float = 1.0, device=None):
+    """:func:`generate`'s contract with no per-token dispatch on the card:
+    one prefill, then each decode step (the forward over a device-resident
+    position, the sampling and the eos bookkeeping, all writing static
+    buffers in place) captured once a call as one CUDA graph for this
+    (batch, length, regime) and replayed each token; the host reads
+    nothing per token except, with an eos, a pinned flag one step behind.
+    The sampling values (temperature, top_k, top_p, eos) are device
+    scalars, the regime (greedy or sampled, top_k on, top_p on, eos set)
+    fixes the captured program. The output is ``out[:, :S0 + n]`` with the
+    reference's ``n``; ``max_new_tokens <= 0`` returns the prompt. The CPU
+    runs the same step as a plain loop."""
+    if max_new_tokens <= 0:
+        return prompt_tokens
+    dev, prompt, gen = _gen_setup(params, prompt_tokens, device, generator)
+    B, S0 = prompt.shape
+    sampled, has_eos = float(temperature) > 0, eos_token_id is not None
+    regime = dict(sampled=sampled, use_top_k=int(top_k) > 0,
+                  use_top_p=float(top_p) < 1.0)
+    f32, i64 = torch.float32, torch.long
+    temp_t = torch.full((), max(float(temperature), 1e-6), dtype=f32,
+                        device=dev)
+    top_k_t = torch.full((), int(top_k), dtype=i64, device=dev)
+    top_p_t = torch.full((), float(top_p), dtype=f32, device=dev)
+    eos_t = torch.full((), 0 if eos_token_id is None else int(eos_token_id),
+                       dtype=i64, device=dev)
+    cache = init_kv_cache(config, B, S0 + max_new_tokens, device=dev)
+    cache["pos"] = torch.zeros((), dtype=i64, device=dev)
+    toks = torch.zeros((B, max_new_tokens), dtype=i64, device=dev)
+    finished = torch.zeros((B,), dtype=torch.bool, device=dev)
+    last = torch.zeros((B, 1), dtype=i64, device=dev)
+    i_t = torch.zeros((1,), dtype=i64, device=dev)
+
+    def sample(logits):
+        nxt = _sample_impl(logits, gen, temp_t, top_k_t, top_p_t, **regime)
+        if has_eos:
+            nxt = torch.where(finished, eos_t, nxt)
+            finished.logical_or_(nxt == eos_t)
+        toks.index_copy_(1, i_t, nxt[:, None])
+        last.copy_(nxt[:, None])
+        i_t.add_(1)
+
+    def step():
+        logits, _ = forward_with_cache(params, last, cache, config)
+        cache["pos"].add_(1)
+        sample(logits)
+
+    logits, _ = forward_with_cache(params, prompt, cache, config)
+    cache["pos"].add_(S0)
+    sample(logits)
+    if dev.type == "cuda" and max_new_tokens > 1:
+        _replay_steps(step, max_new_tokens - 1, finished, has_eos, dev,
+                      gen if sampled else None)
+    else:
+        for _ in range(max_new_tokens - 1):
+            step()
+            if has_eos and bool(finished.all()):
+                break
+    n = _generated_len(toks, eos_token_id)
+    return torch.cat([prompt, toks[:, :n].to(prompt.dtype)], dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -644,3 +900,93 @@ def flops_per_token(config: LlamaConfig, seq_len: int) -> float:
     n = sum(math.prod(shape) for shape, _ in (*top.values(),
                                               *layers.values()))
     return 6.0 * n + 12.0 * c.num_layers * c.hidden_size * seq_len
+
+
+# ---------------------------------------------------------------------------
+# Hugging Face checkpoint interchange
+# ---------------------------------------------------------------------------
+
+_HF_LAYER_NAMES = (("input_layernorm.weight", "attn_norm", False),
+                   ("self_attn.q_proj.weight", "wq", True),
+                   ("self_attn.k_proj.weight", "wk", True),
+                   ("self_attn.v_proj.weight", "wv", True),
+                   ("self_attn.o_proj.weight", "wo", True),
+                   ("post_attention_layernorm.weight", "mlp_norm", False),
+                   ("mlp.gate_proj.weight", "w_gate", True),
+                   ("mlp.up_proj.weight", "w_up", True),
+                   ("mlp.down_proj.weight", "w_down", True))
+
+
+def convert_hf_state_dict(state_dict, config: LlamaConfig, device="cuda"):
+    """A Hugging Face Llama ``state_dict`` (torch tensors or numpy arrays
+    keyed ``model.layers.{i}.self_attn.q_proj.weight`` ...) as this
+    module's f32 parameter tree on ``device``: projection weights
+    transposed (a torch Linear stores [out, in]), layers stacked; HF
+    checkpoints already carry the rotate-half RoPE layout this module
+    uses, so no head permutation. A tied checkpoint without
+    ``lm_head.weight`` gives ``embed.T`` as the head. Raises
+    ``ValueError`` on a layer-count or embedding-shape mismatch."""
+    c = config
+    ckpt_layers = {int(m.group(1)) for k in state_dict
+                   for m in [re.match(r"model\.layers\.(\d+)\.", str(k))]
+                   if m}
+    if ckpt_layers and max(ckpt_layers) + 1 != c.num_layers:
+        raise ValueError(
+            f"checkpoint has {max(ckpt_layers) + 1} layers but "
+            f"config.num_layers={c.num_layers} — a truncated load would "
+            "silently produce garbage")
+    dev = resolve_device(device)
+
+    def arr(name):
+        v = state_dict[name]
+        if not isinstance(v, torch.Tensor):
+            v = torch.from_numpy(np.asarray(v, dtype=np.float32))
+        return v.detach().to(device=dev, dtype=torch.float32)
+
+    def stacked(fmt, transpose=True):
+        mats = [arr(fmt.format(i=i)) for i in range(c.num_layers)]
+        return torch.stack([m.t() for m in mats] if transpose else mats)
+
+    embed = arr("model.embed_tokens.weight")
+    if tuple(embed.shape) != (c.vocab_size, c.hidden_size):
+        raise ValueError(
+            f"checkpoint embed {tuple(embed.shape)} vs config "
+            f"(vocab={c.vocab_size}, hidden={c.hidden_size})")
+    params = {
+        "embed": embed,
+        "layers": {ours: stacked(f"model.layers.{{i}}.{hf}", transpose)
+                   for hf, ours, transpose in _HF_LAYER_NAMES},
+        "final_norm": arr("model.norm.weight"),
+    }
+    if not c.tie_embeddings:
+        key = ("lm_head.weight" if "lm_head.weight" in state_dict
+               else "model.embed_tokens.weight")  # tied checkpoints
+        params["lm_head"] = arr(key).t().contiguous()
+    return params
+
+
+def export_for_inference(*args, **kwargs):
+    raise NotImplementedError(
+        "export_for_inference writes the jit artifact format (paddle.jit."
+        "save), which is not ported yet (ROADMAP A11)")
+
+
+def to_hf_state_dict(params, config: LlamaConfig):
+    """The inverse of :func:`convert_hf_state_dict`: numpy arrays under HF
+    names (bf16 leaves widened to f32, exactly)."""
+    c = config
+
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    out = {"model.embed_tokens.weight": host(params["embed"]),
+           "model.norm.weight": host(params["final_norm"])}
+    lay = params["layers"]
+    for i in range(c.num_layers):
+        for hf, ours, transpose in _HF_LAYER_NAMES:
+            m = host(lay[ours][i])
+            out[f"model.layers.{i}.{hf}"] = m.T if transpose else m
+    if not c.tie_embeddings:
+        out["lm_head.weight"] = host(params["lm_head"]).T
+    return out

@@ -15,12 +15,16 @@ dense layer, whose width is n_shared*f rather than the config's
 ``intermediate_size``. :func:`params_from_numpy` carries a JAX tree over.
 
 The routed FFN (:func:`moe_ffn`) runs on one device: ``routing=
-"dropless"`` through ``kernels.moe_dispatch`` (``dispatch="fused"``, which
-"auto" resolves to, or ``"gmm"``; B9 and B10 on the card) or ``routing=
-"capacity"``, GShard's fixed-capacity einsum dispatch. Not ported yet,
-each raising ``NotImplementedError``: the dense-base form
-``dispatch="dense"`` and the measured pick of "auto" on the card (ROADMAP
-A9); a mesh with ``ep > 1`` (A10).
+"dropless"`` through ``kernels.moe_dispatch`` (``dispatch="fused"``,
+``"gmm"`` or ``"dense"``; B9 and B10 on the card) or ``routing=
+"capacity"``, GShard's fixed-capacity einsum dispatch. ``dispatch="auto"``
+is ``moe_dispatch.pick_dispatch_form`` at the batch's routing shape: on the
+card the forms measured forward and backward once per shape (the dense
+form a candidate where ``dense_base`` and the shape's plan allow it), the
+winner persisted; on the CPU the static default "fused", as the reference
+answers off a TPU. A model resolves "auto" once per forward, before its
+layers run. Not ported yet: a mesh with ``ep > 1`` raises
+``NotImplementedError`` (A10).
 
 int8 routed experts: :func:`quantize_expert_params` turns ``e_gate``,
 ``e_up`` and ``e_down`` into ``{"q": int8, "s": f32}`` leaves
@@ -34,13 +38,13 @@ the activations and every other parameter, never ``q`` or ``s``.
 ``remat`` recomputes each layer in the backward pass
 (``torch.utils.checkpoint``): "full" all of it; "attn" keeps the flash
 forward's outputs (``torch.ops.paddle_tpu_torch.flash_fwd``); "outs" also
-keeps the outputs of every grouped GEMM of the forward pass
-(``torch.ops.paddle_tpu_torch.gmm``: the fused form's down projection),
-and since the shared FFN runs before the routed one, the recompute stops
-there (non-reentrant checkpoint stops once it has every tensor the
-backward needs) — neither the down GEMM nor the combine runs twice, as
-the JAX package's saved ``routed_out`` spares them. It keeps [A_pad, h]
-a layer where the JAX package keeps [T, h] (PERF.md).
+keeps the routed FFN's output [T, h] (routed + shared), named by the
+identity operator ``torch.ops.paddle_tpu_torch.routed_out`` — the JAX
+package's ``save_only_these_names("attn_out", "routed_out")``. The
+recompute runs the routed FFN's forward again up to its last saved
+tensor (non-reentrant checkpoint stops there), so the down GEMM runs
+twice a step, as the reference's recompute does. :data:`saved_probe`, when
+set to a list, records what the "outs" policy keeps.
 """
 from __future__ import annotations
 
@@ -73,10 +77,6 @@ __all__ = [
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "router",
               "e_gate", "e_up", "e_down", "s_gate", "s_up", "s_down")
 
-# what dispatch="auto" resolves to: the JAX package's static default (on
-# a TPU it measures the forms instead; that measured pick is ROADMAP A9)
-_FORM_STATIC = "fused"
-
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
@@ -97,7 +97,8 @@ class MoEConfig:
     routing: str = "dropless"
     # expert-parallel strategy under an ep>1 mesh: not ported (A10)
     ep_strategy: str = "auto"
-    # "auto" (= "fused"), "fused", "gmm"; "dense" is not ported (A9)
+    # "auto" (measured on the card, "fused" on the CPU), "fused", "gmm",
+    # "dense"
     dispatch: str = "auto"
     dense_base: bool = True
     # False: the unfused router (top_k_gating, sort metadata re-derived)
@@ -143,11 +144,7 @@ def _check_supported(c: MoEConfig) -> None:
     if c.routing not in ("dropless", "capacity"):
         raise ValueError(f"routing={c.routing!r}: expected 'dropless' or "
                          "'capacity'")
-    if c.dispatch == "dense":
-        raise NotImplementedError(
-            "dispatch='dense' (the dense-base form) is not ported yet "
-            "(ROADMAP A9, rest)")
-    if c.dispatch not in ("auto", "fused", "gmm"):
+    if c.dispatch not in ("auto", "fused", "gmm", "dense"):
         raise ValueError(f"dispatch={c.dispatch!r}: expected 'auto', "
                          "'fused', 'gmm', or 'dense'")
 
@@ -295,14 +292,33 @@ def top_k_gating(logits, top_k: int):
     return weights, idx, E * (me * ce).sum()
 
 
+def _resolve_form(c: MoEConfig, T: int, x, quantized: bool) -> str:
+    """The dropless dispatch form for T tokens like x: int8 leaves take
+    "fused"; "auto" is :func:`moe_dispatch.pick_dispatch_form` at the
+    routing shape on the card (the dense form a candidate where
+    ``dense_base`` and the shape's plan allow it) and the static default
+    on the CPU, as the reference's single-program branch."""
+    if quantized:
+        return "fused"     # int8 leaves live on the fused path
+    if c.dispatch != "auto":
+        return c.dispatch
+    if x.device.type != "cuda":
+        return _md._FORM_STATIC
+    h, E = c.hidden_size, c.num_experts
+    plan = _md.plan_dispatch(T, c.top_k, E, h)
+    return _md.pick_dispatch_form(T, c.top_k, E, h, c.moe_intermediate_size,
+                                  x.dtype,
+                                  dense_ok=c.dense_base and plan.use_dense)
+
+
 def moe_ffn(x, router_w, e_gate, e_up, e_down, config: MoEConfig,
             shared_weights=None, mesh=None):
     """Routed-expert FFN over flattened tokens x [T, h], dispatched by
-    ``config.routing``; returns (y [T, h], aux). With
-    ``shared_weights=(s_gate, s_up, s_down)`` y is routed + shared (the
-    shared FFN runs first: see the module docstring on "outs"). ``mesh``
-    (axis name -> size) with ``ep > 1`` raises: expert parallelism is
-    ROADMAP A10."""
+    ``config.routing`` (and ``config.dispatch``: "auto" resolves here
+    unless the caller resolved it); returns (y [T, h], aux). With
+    ``shared_weights=(s_gate, s_up, s_down)`` y is routed + shared.
+    ``mesh`` (axis name -> size) with ``ep > 1`` raises: expert
+    parallelism is ROADMAP A10."""
     c = config
     _check_supported(c)
     if mesh is not None and mesh.get("ep", 1) > 1:
@@ -325,12 +341,17 @@ def moe_ffn(x, router_w, e_gate, e_up, e_down, config: MoEConfig,
             routing = None
             weights, idx, aux = top_k_gating(x.float() @ router_w.float(),
                                              c.top_k)
-        form = _FORM_STATIC if c.dispatch == "auto" else c.dispatch
-        if quantized:
-            form = "fused"     # int8 leaves live on the fused path
-        ffn = (_md.dropless_moe_ffn_fused if form == "fused"
-               else _md.dropless_moe_ffn)
-        y = ffn(x, weights, idx, e_gate, e_up, e_down, routing=routing)
+        form = _resolve_form(c, x.shape[0], x, quantized)
+        if form == "dense":
+            T, h = x.shape
+            plan = _md.plan_dispatch(T, c.top_k, e_gate.shape[0], h)
+            y = _md.dropless_moe_ffn_dense(x, weights, idx, e_gate, e_up,
+                                           e_down, routing=routing,
+                                           plan=plan)
+        else:
+            ffn = (_md.dropless_moe_ffn_fused if form == "fused"
+                   else _md.dropless_moe_ffn)
+            y = ffn(x, weights, idx, e_gate, e_up, e_down, routing=routing)
     else:
         y, aux = _capacity_ffn(x, router_w, e_gate, e_up, e_down, c)
     return (y if shared is None else y + shared), aux
@@ -387,21 +408,45 @@ def _layer_body(x, aux, p, cos, sin, config: MoEConfig, dense: bool):
         y, a = moe_ffn(hn.reshape(B * S, h), p["router"], p["e_gate"],
                        p["e_up"], p["e_down"], c,
                        shared_weights=(p["s_gate"], p["s_up"], p["s_down"]))
+        if c.remat and c.remat_policy == "outs":
+            y = routed_out(y)          # the one [T, h] tensor "outs" keeps
         y = y.reshape(B, S, h)
         aux = aux + a
     return x + y, aux
 
 
-_GMM = torch.ops.paddle_tpu_torch.gmm.default
+@torch.library.custom_op("paddle_tpu_torch::routed_out", mutates_args=())
+def routed_out(y: torch.Tensor) -> torch.Tensor:
+    """The identity on the routed FFN's output, as a registered operator
+    (``torch.ops.paddle_tpu_torch.routed_out``) that the "outs" policy
+    names (the JAX ``checkpoint_name(y, "routed_out")``). An operator's
+    output may not alias its input, so it is a copy ([T, h]: a few
+    microseconds)."""
+    return y.clone()
+
+
+routed_out.register_fake(lambda y: torch.empty_like(y))
+routed_out.register_autograd(lambda ctx, grad: grad)
+
+_SAVED_OPS = (torch.ops.paddle_tpu_torch.flash_fwd.default,
+              torch.ops.paddle_tpu_torch.routed_out.default)
+
+# None, or a list to which the "outs" policy appends (op name, shape,
+# dtype) of the first input of every operator whose outputs it keeps in a
+# forward pass (routed_out: its output's; flash_fwd: q's, whose shape its
+# output shares, beside a [B, Hq, S] f32 lse)
+saved_probe = None
 
 
 def _save_outs(ctx, op, *args, **kwargs):
-    """The "outs" policy: keep the flash forward's outputs and the grouped
-    GEMMs' (the JAX save_only_these_names("attn_out", "routed_out"); see
-    the module docstring)."""
-    return (CheckpointPolicy.MUST_SAVE
-            if op is _GMM or op is torch.ops.paddle_tpu_torch.flash_fwd.default
-            else CheckpointPolicy.PREFER_RECOMPUTE)
+    """The "outs" policy: keep the flash forward's outputs and the routed
+    FFN's [T, h] output (the JAX save_only_these_names("attn_out",
+    "routed_out"))."""
+    if op not in _SAVED_OPS:
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    if saved_probe is not None and not ctx.is_recompute:
+        saved_probe.append((op.name(), tuple(args[0].shape), args[0].dtype))
+    return CheckpointPolicy.MUST_SAVE
 
 
 def _remat(body, config: MoEConfig):
@@ -424,8 +469,14 @@ def hidden_states_with_aux(params, tokens, config: MoEConfig):
     c = config
     _check_supported(c)
     _llama._check_supported(c)
-    S = tokens.shape[1]
+    B, S = tokens.shape
     x = params["embed"].to(c.dtype)[tokens.long()]
+    # "auto" resolves once, outside the checkpointed layers (its first
+    # encounter of a shape measures the forms on the card)
+    if c.routing == "dropless" and c.dispatch == "auto":
+        quantized = _qm.is_quantized_weight(params["layers"]["e_gate"])
+        c = dataclasses.replace(c, dispatch=_resolve_form(c, B * S, x,
+                                                          quantized))
     cos, sin = _rope_tables(S, c.head_dim, c.rope_theta, tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     # one unbind per stacked weight (its backward stacks the L gradients)

@@ -1643,3 +1643,135 @@ def test_bucketed_engine_on_card_matches_cpu_and_ragged(dev, kv_dtype):
             assert set(eng.decode_paths) <= {"bucketed", "dense"}
     assert streams[("cuda", "bucketed")] == streams[("cpu", "bucketed")] \
         == streams[("cuda", "ragged")]
+
+
+# ---------------------------------------------------------------------------
+# the rest of single-device MoE and Llama generation: B9/B10 at each tile
+# width the autotuner may pick, the dense form, the captured decode loop
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bn", [128, 256])
+@pytest.mark.parametrize("n", [1408, 2816, 2048])
+@pytest.mark.parametrize("kernel", ["gmm", "gmm_t", "tgmm", "gather_gmm"])
+def test_grouped_kernels_at_each_tile_width_match_plain(dev, kernel, n, bn):
+    """``gmm`` (and with ``transpose_rhs``), ``tgmm`` and ``gather_gmm``
+    at both tile widths ``gmm_autotune`` may pick, at the MoE step's
+    widths (1408 is not a whole number of 256-wide tiles), bf16, within
+    1e-2 of the plain result's largest magnitude over ragged groups with
+    an empty one; one launch each."""
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+    from paddle_tpu_torch.kernels import moe_fused as mf
+    g = torch.Generator(device=dev).manual_seed(n + bn)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    E, k = 4, 192
+    sizes = [300, 0, 77, 523]
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    m = sum(sizes) + 100                       # tail rows past sum(gs)
+    if kernel == "gather_gmm":
+        pad = [-(-s // 128) * 128 for s in sizes]
+        gs = torch.tensor(pad, dtype=torch.int32, device=dev)
+        rows = sum(pad)
+        x = rnd(250, k)
+        idx = torch.randint(0, 250, (rows,), generator=g, device=dev,
+                            dtype=torch.int32)
+        gid = mf._tile_gids(gs, rows, 128)
+        rhs = rnd(E, k, n)
+        run = (lambda: mf.gather_gmm(x, idx, rhs, gid, bn=bn),
+               lambda: mf.gather_gmm_plain(x, idx, rhs, gid))
+    elif kernel == "tgmm":
+        lhs, rhs = rnd(m, k), rnd(m, n)
+        run = (lambda: md.tgmm(lhs.t(), rhs, gs, out_dtype=torch.bfloat16,
+                               bn=bn),
+               lambda: md.tgmm_plain(lhs.t(), rhs, gs))
+    else:
+        t = kernel == "gmm_t"
+        lhs = rnd(m, k)
+        rhs = rnd(E, n, k) if t else rnd(E, k, n)
+        run = (lambda: md.gmm(lhs, rhs, gs, transpose_rhs=t, bn=bn),
+               lambda: md.gmm_plain(lhs, rhs, gs, transpose_rhs=t))
+    name = "tgmm" if kernel == "tgmm" else kernel.replace("gmm_t", "gmm")
+    before = _build.launch_counts[name]
+    out, ref = run[0](), run[1]()
+    torch.cuda.synchronize()
+    assert _build.launch_counts[name] == before + 1
+    assert _rel(out, ref) <= 1e-2
+
+
+@pytest.mark.parametrize("skew", [0.0, 3.0], ids=["dense", "overflow"])
+def test_dense_form_on_card_matches_cpu(dev, skew):
+    """``dropless_moe_ffn_dense`` (f32, T=256, h=64, E=8, top-2, f=32) on
+    the card and on the CPU from the same inputs: values and the
+    gradients of x, the gate weights and the three expert weights within
+    1e-5 of each one's largest magnitude; the balanced batch takes the
+    dense base (no B9/B10 launch), the skewed one overflows Q and takes
+    the gmm form (B10's gmm and tgmm launched)."""
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+    rng = np.random.default_rng(8)
+    T, h, E, f, k = 256, 64, 8, 32, 2
+    x = rng.standard_normal((T, h)).astype(np.float32)
+    rw = (rng.standard_normal((h, E)) * 0.1).astype(np.float32)
+    x[:, 0] = np.abs(x[:, 0]) + skew
+    rw[0, 0] += skew
+    arrays = [x, rw] + [(rng.standard_normal(s) * 0.1).astype(np.float32)
+                        for s in ((E, h, f), (E, h, f), (E, f, h))]
+    ct = rng.standard_normal((T, h)).astype(np.float32)
+    r = md.fused_routing(torch.as_tensor(x), torch.as_tensor(rw), k)
+    res = {}
+    for where in ("cuda", "cpu"):
+        xx, _, eg, eu, ed = (torch.tensor(a, device=where)
+                             .requires_grad_(True) for a in arrays)
+        w = r.weights.to(where).requires_grad_(True)
+        _build.launch_counts.clear()
+        md.dense_paths.clear()
+        y = md.dropless_moe_ffn_dense(xx, w, r.idx.to(where), eg, eu, ed)
+        grads = torch.autograd.grad(
+            (y * torch.as_tensor(ct, device=where)).sum(), (xx, w, eg, eu,
+                                                            ed))
+        res[where] = [y.detach().cpu()] + [t.cpu() for t in grads]
+        if where == "cuda":
+            torch.cuda.synchronize()
+            counts = dict(_build.launch_counts)
+            if skew:
+                assert dict(md.dense_paths) == {"gmm": 1}
+                assert counts.get("gmm", 0) >= 3 and counts.get("tgmm") == 2
+            else:
+                assert dict(md.dense_paths) == {"dense": 1}
+                assert not counts
+    for a, b in zip(res["cuda"], res["cpu"]):
+        assert _rel(a, b) <= 1e-5
+
+
+@pytest.mark.parametrize("eos", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_generate_fused_matches_generate_on_card(dev, dtype, eos):
+    """Greedy ``generate_fused`` (one captured CUDA graph a call, replayed
+    each token) equals ``generate`` (eager steps) on the card, with and
+    without an eos that ends one row early, and (f32) the CPU's
+    ``generate``; the fused loop captures once and replays at most
+    max_new - 2 times."""
+    import dataclasses
+    from paddle_tpu_torch.models import llama
+    cfg = llama.tiny_llama(vocab=512, hidden=128, layers=2, heads=4,
+                           kv_heads=2, seq=256, ffn=256)
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    params = llama.init_params(cfg, seed=0, device="cpu", dtype=dtype)
+    card = {kk: (v.to(dev) if not isinstance(v, dict)
+                 else {a: b.to(dev) for a, b in v.items()})
+            for kk, v in params.items()}
+    prompt = np.random.default_rng(3).integers(0, 512, (3, 16))
+    kw = {}
+    if eos:
+        free = llama.generate(card, prompt, cfg, 24).cpu()
+        kw["eos_token_id"] = int(free[1, 16 + 5])
+    loop = llama.generate(card, prompt, cfg, 24, **kw).cpu()
+    llama.gen_stats.clear()
+    fused = llama.generate_fused(card, prompt, cfg, 24, **kw).cpu()
+    assert torch.equal(loop, fused)
+    assert llama.gen_stats["graph_captures"] == 1
+    assert 0 < llama.gen_stats["graph_replays"] <= 22
+    if dtype == torch.float32:
+        cpu = llama.generate(params, prompt, cfg, 24, device="cpu", **kw)
+        assert torch.equal(cpu, loop)
