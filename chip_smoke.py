@@ -297,11 +297,36 @@ engine's deadlines, cancellation and ``decode_kernel="bucketed"``), after
      the cut model's f32 streams bucketed on the card and the CPU and
      ragged on the card, equal, with model-dtype and int8 pools.
 
-``python3 chip_smoke.py --serving`` runs phases 4, 6 (c), (p1)-(p4) and
-(r1)-(r3) alone (no kernel checks, no device line).
+The observability core (``paddle_tpu_torch.observability``) on the
+serving path, after (r3), on phase 4's weights, observability on:
+
+(o1) phase 4's 16-request mix through mega and ragged at 8 slots:
+     tokens/s and step time beside phase 4's ragged run and (p1)'s mega
+     run with observability off; every decode step's ``serving_mfu`` in
+     (0, 1] and equal to this script's FLOP count
+     (``analytic_decode_flops``) over the step's wall time within 1%,
+     the HBM gauges equal to torch's allocator counters at each step's
+     end, every request's timeline queued -> admitted -> prefill ->
+     first_token -> decode... -> finish; then a ``MetricsServer(port=0)``
+     scraped: every serving name the runs move documented and above
+     zero, every prefill, decode and readback span inside a
+     ``serving.step``, the TTFT exemplars resolving to finished requests;
+(o2) int8 pools, mega at 4 slots: two chained steps under
+     ``set_sync_debug_mode("error")`` with the numerics probes on
+     ((p1)'s check with the telemetry added), the kv_int8 quant-error
+     gauge against this script's recompute on the same K/V within 1e-5
+     relative, step time with the probes on and off, a post-mortem
+     holding the run's flight events and a metrics snapshot;
+(o3) a two-step ``profiling.request_capture`` window during a mega run
+     at 8 slots: B5's kernel among the trace's device events inside a
+     ``serving.step`` range, one capture counted and its flight event,
+     the window's busy share and top device ops by time.
+
+``python3 chip_smoke.py --serving`` runs phases 4, 6 (c), (p1)-(p4),
+(r1)-(r3) and (o1)-(o3) alone (no kernel checks, no device line).
 
 Before its last line it prints ``serving``, ``serving_tiers``,
-``serving_resilience``, ``mega``,
+``serving_resilience``, ``observability``, ``mega``,
 ``training``,
 ``moe_training`` (with (m1)-(m4) under ``forms``), ``int8``,
 ``training_memory``, ``spec`` and ``generation`` lines (phases 4,
@@ -317,6 +342,7 @@ and prints no result.
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -780,6 +806,20 @@ SERVING_CELLS = (("phase4_ragged_8", "ragged", 8, 16),
                  ("phase6c_ragged_4", "ragged", 4, 8))
 
 
+def analytic_decode_flops(cfg, rows, steps, walk_lens, block_size):
+    """This script's own count of one decode call's FLOPs, which (o1)
+    holds the engine's ``serving_mfu`` to: two FLOPs per matmul weight
+    element (q, k, v, o, the SwiGLU MLP, the head) per batch row per step,
+    plus QK and PV — 4 * Hq * D FLOPs per walked K/V position per layer
+    per step — over each slot's whole blocks at its walked length."""
+    h, d, L = cfg.hidden_size, cfg.head_dim, cfg.num_layers
+    weights = L * (2 * h * cfg.num_heads * d + 2 * h * cfg.num_kv_heads * d
+                   + 3 * h * cfg.intermediate_size) + h * cfg.vocab_size
+    positions = sum(-(-n // block_size) * block_size for n in walk_lens)
+    return steps * (2 * weights * rows
+                    + 4 * cfg.num_heads * d * L * positions)
+
+
 def serving_mix(cfg, n):
     """The first ``n`` requests of the serving mix: prompt lengths drawn
     from 64-1000 and tokens by ``numpy.random.default_rng(0)``."""
@@ -791,7 +831,8 @@ def serving_mix(cfg, n):
 
 
 def serve(LLMEngine, build, dev, card, cfg, params, prompts, max_slots,
-          decode_kernel, kv_dtype=None, chained_trace=0):
+          decode_kernel, kv_dtype=None, chained_trace=0, trace=True,
+          hook=None):
     """``LLMEngine`` on Llama-3-8B serving ``prompts`` (64 greedy tokens
     each) through ``decode_kernel`` (int8 pools with ``kv_dtype="int8"``;
     int8 weights when ``params`` hold them), its decode calls chained: the
@@ -801,10 +842,13 @@ def serve(LLMEngine, build, dev, card, cfg, params, prompts, max_slots,
     around it, then one decode call traced alone and, with
     ``chained_trace``, that many chained calls traced back to back. The
     decode kernels counted are the int8 branches when the weights or the
-    pools are int8."""
+    pools are int8. ``trace=False`` leaves the traced calls out;
+    ``hook(eng)`` runs on the new engine before anything else wraps it."""
     eng = LLMEngine(params, cfg, max_slots=max_slots, **SERVE_ENGINE,
                     decode_kernel=decode_kernel, seed=SEED,
                     kv_dtype=kv_dtype, device=dev)
+    if hook is not None:
+        hook(eng)
     w_int8 = isinstance(params["layers"]["wq"], dict)
     b4 = "ragged_decode_int8" if kv_dtype else "ragged_decode"
     b5 = "mega_decode_int8" if kv_dtype or w_int8 else "mega_decode"
@@ -905,8 +949,9 @@ def serve(LLMEngine, build, dev, card, cfg, params, prompts, max_slots,
                "launches": launches,
                "peak_mem_gib": peak / 2**30, "prompt_lens": lens.tolist()}
     streams = [out[i] for i in ids]
-    summary["traced_decode_call"], summary["traced_chained_calls"] = \
-        trace_decode_call(eng, prompts[:eng.N], chained_trace)
+    if trace:
+        summary["traced_decode_call"], summary["traced_chained_calls"] = \
+            trace_decode_call(eng, prompts[:eng.N], chained_trace)
     return launches, summary, streams, eng.nb
 
 
@@ -2055,6 +2100,502 @@ def serving_resilience(llama, LLMEngine, build, dev, card, cfg8, params8,
                                       cfg8, params8, serving, bf16_streams)
     launches.update(more)
     free_memory()
+    return res, launches
+
+
+# ---------------------------------------------------------------------------
+# phases (o1)-(o3): the observability core on the serving path
+# ---------------------------------------------------------------------------
+# what a full-width serving run must move ((o1)): counters and histogram
+# counts above zero, gauges above zero, and gauges that must be set (0 is a
+# fair reading for them at the end of a drained run)
+O1_MOVED = ("serving_admissions_total", "serving_tokens_total",
+            "serving_requests_finished_total", "serving_decode_kernel_total",
+            "serving_decode_recompiles_total",
+            "serving_request_traces_total", "serving_request_exemplars_total",
+            "serving_ttft_seconds_count", "serving_tpot_seconds_count",
+            "serving_step_seconds_count", "serving_tokens_per_second_count",
+            "serving_request_queue_seconds_count", "serving_decode_variants",
+            "serving_decode_prefix_bucket", "serving_decode_kv_read_bytes",
+            "serving_kv_pool_blocks", "serving_mfu", "hbm_used_bytes",
+            "hbm_peak_bytes")
+O1_SET = ("serving_queue_depth", "serving_active_slots",
+          "serving_kv_pool_used_blocks", "serving_slo_ttft_attainment",
+          "serving_slo_tpot_attainment")
+
+
+def obs_reset(obs):
+    obs.get_registry().reset()
+    obs.get_tracer().clear()
+    obs.flight_recorder.get_recorder().clear()
+    obs.request_trace.get_request_tracer().clear()
+    obs.request_trace.get_exemplar_store().clear()
+    obs.numerics.clear()
+
+
+def prometheus_values(text):
+    """{sample name: sum over its label sets} of a Prometheus page."""
+    vals = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name_labels, value = line.rsplit(" ", 1)
+        name = name_labels.split("{", 1)[0]
+        vals[name] = vals.get(name, 0.0) + float(value)
+    return vals
+
+
+def obs_serve(LLMEngine, build, dev, card, cfg, params, kernel, obs):
+    """(o1) for one path: phase 4's 16-request mix through ``kernel`` at 8
+    slots with observability on, through ``serve`` (its checks, its
+    numbers). Every decode step is held to this script's own FLOP count
+    (the engine's count equal, ``serving_mfu`` equal to it over the
+    step's ``serving_step_seconds`` observation within 1%, in (0, 1]) and
+    the host time ``step()`` spends around ``_step_inner`` (its
+    telemetry) recorded, the HBM gauges to ``torch.cuda.memory_allocated`` and
+    ``max_memory_allocated`` at the step's end; each request's timeline
+    runs queued -> admitted -> prefill -> first_token -> decode... ->
+    finish."""
+    reg = obs.get_registry()
+    step_hist = reg.histogram("serving_step_seconds").labels()
+    mfu = reg.gauge("serving_mfu").labels()
+    used, peak = reg.gauge("hbm_used_bytes").labels(), \
+        reg.gauge("hbm_peak_bytes").labels()
+    rec = {"mfu": [], "hbm_mismatch": [], "wrapper_us": []}
+
+    def hook(eng):
+        inner_step, inner_dispatch = eng.step, eng._dispatch_decode
+        step_inner = eng._step_inner
+        walk, inner_s = [], []
+
+        def timed_inner():
+            t0 = time.perf_counter()
+            out = step_inner()
+            inner_s.append(time.perf_counter() - t0)
+            return out
+
+        def dispatch(active):
+            prev = eng._inflight
+            snap = ({s for s, _ in prev["snapshot"]} if prev is not None
+                    else set())
+            walk[:] = [int(eng.lengths[i])
+                       + (eng.decode_steps if i in snap else 0)
+                       for i in active]
+            return inner_dispatch(active)
+
+        def step():
+            walk.clear()
+            s0 = step_hist.sum
+            t0 = time.perf_counter()
+            out = inner_step()
+            # the host time step() spends around _step_inner: its
+            # telemetry (spans, TTFT loop, gauges, SLO and HBM reads)
+            rec["wrapper_us"].append(
+                (time.perf_counter() - t0 - inner_s[-1]) * 1e6)
+            dt = step_hist.sum - s0
+            if eng._last_decode_flops:
+                rec["mfu"].append((eng._last_decode_flops,
+                                   analytic_decode_flops(
+                                       cfg, eng.N, eng.decode_steps, walk,
+                                       eng.bs), dt, mfu.value))
+            got = (used.value, peak.value)
+            want = (torch.cuda.memory_allocated(dev),
+                    torch.cuda.max_memory_allocated(dev))
+            if got != want:
+                rec["hbm_mismatch"].append((got, want))
+            return out
+
+        eng._dispatch_decode = dispatch
+        eng._step_inner = timed_inner
+        eng.step = step
+
+    launches, summary, _streams, _ = serve(
+        LLMEngine, build, dev, card, cfg, params, serving_mix(cfg, 16),
+        max_slots=8, decode_kernel=kernel, trace=False, hook=hook)
+    if not rec["mfu"]:
+        raise AssertionError(f"(o1) {kernel}: no decode step set serving_mfu")
+    worst = 0.0
+    for flops, want, dt, m in rec["mfu"]:
+        if flops != want:
+            raise AssertionError(f"(o1) {kernel}: the engine counted {flops}"
+                                 f" FLOPs, this script {want}")
+        ref = want / (dt * BF16_FLOPS)
+        worst = max(worst, abs(m - ref) / ref)
+        if not 0 < m <= 1 or abs(m - ref) > 0.01 * ref:
+            raise AssertionError(f"(o1) {kernel}: serving_mfu {m} against "
+                                 f"{ref} ({want} FLOPs in {dt} s)")
+    if rec["hbm_mismatch"]:
+        raise AssertionError(f"(o1) {kernel}: HBM gauges (used, peak) "
+                             f"{rec['hbm_mismatch'][:3]} against torch's")
+    tracer = obs.request_trace.get_request_tracer()
+    for rid in range(16):
+        kinds = [e["kind"] for e in tracer.get(rid)["events"]]
+        if kinds[:4] != ["queued", "admitted", "prefill", "first_token"] \
+                or kinds[-1] != "finish" \
+                or set(kinds[4:-1]) != {"decode"}:
+            raise AssertionError(f"(o1) {kernel}: request {rid}'s timeline "
+                                 f"{kinds}")
+    mfus = [m for *_x, m in rec["mfu"]]
+    summary["mfu_median"] = float(np.median(mfus))
+    summary["mfu_max"] = max(mfus)
+    summary["mfu_steps_checked"] = len(mfus)
+    summary["mfu_worst_rel_diff"] = worst
+    summary["step_wrapper_us_median"] = float(np.median(rec["wrapper_us"]))
+    summary["step_wrapper_us_max"] = max(rec["wrapper_us"])
+    return launches, summary
+
+
+def obs_scrape(obs, kernels):
+    """(o1) after both runs: ``/metrics`` of a ``MetricsServer(port=0)``
+    (every name of O1_MOVED documented and above zero, O1_SET present),
+    ``/trace.json`` (every prefill, decode and readback span inside a
+    ``serving.step`` of its thread) and ``/requests.json`` (the TTFT
+    exemplars resolve to finished requests)."""
+    import urllib.request
+    from paddle_tpu_torch.observability.catalog import CATALOG
+
+    srv = obs.MetricsServer(port=0)
+    try:
+        def get(path):
+            url = f"http://127.0.0.1:{srv.port}{path}"
+            with urllib.request.urlopen(url, timeout=30) as r:
+                return r.read().decode()
+
+        text = get("/metrics")
+        trace = json.loads(get("/trace.json"))
+        reqs = json.loads(get("/requests.json"))
+    finally:
+        srv.close()
+    vals = prometheus_values(text)
+    bad = []
+    for name in O1_MOVED + O1_SET:
+        base = name[:-len("_count")] if name.endswith("_count") else name
+        if base not in CATALOG or f"# HELP {base} " not in text:
+            bad.append((name, "undocumented"))
+        elif name not in vals:
+            bad.append((name, "absent"))
+        elif name in O1_MOVED and not vals[name] > 0:
+            bad.append((name, vals[name]))
+    for k in kernels:
+        if f'serving_decode_kernel_total{{path="{k}"}}' not in text:
+            bad.append((k, "path not counted"))
+    if bad:
+        raise AssertionError(f"(o1) /metrics: {bad}")
+    spans = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    steps = {}
+    for e in spans:
+        if e["name"] == "serving.step":
+            steps.setdefault(e["tid"], []).append(
+                (e["ts"], e["ts"] + e["dur"]))
+    counts = Counter()
+    for e in spans:
+        if e["name"] not in ("serving.prefill", "serving.decode",
+                             "serving.readback"):
+            continue
+        counts[e["name"]] += 1
+        t0, t1 = e["ts"], e["ts"] + e["dur"]
+        if not any(a - 1e-3 <= t0 and t1 <= b + 1e-3
+                   for a, b in steps.get(e["tid"], ())):
+            raise AssertionError(f"(o1) {e['name']} at {t0} us is inside "
+                                 f"no serving.step")
+    if min(counts.get(n, 0) for n in ("serving.prefill", "serving.decode",
+                                      "serving.readback")) < 1:
+        raise AssertionError(f"(o1) nested spans {dict(counts)}")
+    tracer = obs.request_trace.get_request_tracer()
+    exs = reqs["exemplars"].get("serving_ttft_seconds", [])
+    for ex in exs:
+        doc = tracer.get(ex["request_id"])
+        if doc is None or not doc["finished"] or "first_token" not in [
+                e["kind"] for e in doc["events"]]:
+            raise AssertionError(f"(o1) exemplar {ex} resolves to {doc}")
+    if not exs or "p99" not in reqs["exemplar_quantiles"].get(
+            "serving_ttft_seconds", {}):
+        raise AssertionError(f"(o1) no TTFT exemplars: {reqs['exemplars']}")
+    return {"metrics_bytes": len(text), "span_counts": dict(counts),
+            "serving_steps": sum(len(v) for v in steps.values()),
+            "ttft_exemplars": len(exs),
+            "ttft_p99_exemplar": reqs["exemplar_quantiles"][
+                "serving_ttft_seconds"]["p99"]["request_id"]}
+
+
+def plain_kv_quant_error(tensors):
+    """This script's recompute of the kv_int8 probe: each tensor quantized
+    per entry (one f32 scale per [..., D] row, absmax / 127, values
+    rounded and clipped to +-127), the relative RMS reconstruction error
+    over all of them, summed in f64."""
+    num = den = None
+    for x in tensors:
+        xf = x.float()
+        scale = xf.abs().amax(dim=-1, keepdim=True) / 127.0
+        q = torch.round(xf / scale.clamp_min(1e-9)).clamp(-127, 127)
+        d = (xf - q * scale).double()
+        n, m = (d * d).sum(), (xf.double() ** 2).sum()
+        num, den = (n, m) if num is None else (num + n, den + m)
+    return math.sqrt(float(num) / max(float(den), 1e-30))
+
+
+def obs_chained_numerics(LLMEngine, build, dev, cfg, params, obs):
+    """(o2): phase 4's weights with int8 pools, mega at 4 slots, two
+    chained ``eng.step()`` calls under ``set_sync_debug_mode("error")``
+    with observability and FLAGS_obs_numerics on ((p1)'s check with the
+    telemetry added). Then the kv_int8 gauge against this script's
+    recompute on the same K/V (captured as the probes saw them), step
+    time with the probes on and off, and a post-mortem holding the run's
+    flight events and a metrics snapshot. The kernels' launches are those
+    of the whole run."""
+    nm = obs.numerics
+    shipped, pending = [], {}
+    add, ship = nm.QuantErrorProbe.add, nm.QuantErrorProbe.ship
+
+    def add_capturing(self, pre, q, scale, axis):
+        pending.setdefault(id(self), []).append(
+            (pre.detach().clone(), q.clone(), scale.clone()))
+        return add(self, pre, q, scale, axis)
+
+    def ship_capturing(self, site):
+        shipped.append(pending.pop(id(self), []))
+        return ship(self, site)
+
+    nm.QuantErrorProbe.add = add_capturing
+    nm.QuantErrorProbe.ship = ship_capturing
+    res = {}
+    try:
+        nm.enable()
+        eng = LLMEngine(params, cfg, max_slots=4, **SERVE_ENGINE,
+                        decode_kernel="mega", kv_dtype="int8", seed=SEED,
+                        device=dev)
+        build.launch_counts.clear()
+        ids = [eng.add_request(p[:128], max_new_tokens=512)
+               for p in serving_mix(cfg, 4)]
+        eng.step()
+        eng.step()
+        process = eng._process
+
+        def process_unchecked(rec):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return process(rec)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+
+        eng._process = process_unchecked
+        for _ in range(2):
+            if eng._inflight is None or not eng._spec_safe():
+                raise AssertionError("(o2) the step is not chained")
+            before = dict(eng.readbacks)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eng.step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if eng.readbacks["chained"] != before.get("chained", 0) + 1:
+                raise AssertionError(f"(o2) readbacks {before} -> "
+                                     f"{dict(eng.readbacks)}")
+        eng._process = process
+        nm.flush()
+        got = obs.get_registry().gauge("numerics_quant_error").labels(
+            site="kv_int8").value
+        want = plain_kv_quant_error([pre for pre, _q, _s in shipped[-1]])
+        rel = abs(got - want) / want
+        if not 0 < got < 0.05 or rel > 1e-5:
+            raise AssertionError(f"(o2) kv_int8 quant error {got} against "
+                                 f"the recompute's {want} (rel {rel})")
+        res.update(sync_free_steps=2, kv_int8_quant_error=got,
+                   recompute=want, rel_diff=rel, landings=len(nm.entries()),
+                   probes_shipped=len(shipped))
+        nm.QuantErrorProbe.add, nm.QuantErrorProbe.ship = add, ship
+        # the probe's own device time on the last decode writeback's ring
+        # (what it adds to a decode call): its reductions, no landing
+        ring = shipped[-1]
+
+        def probe(*_):
+            p = nm.QuantErrorProbe()
+            for pre, q, scale in ring:
+                p.add(pre, q, scale, -1)
+
+        res["probe_ms_per_decode_call"] = time_ms(probe, 20)
+        res["probe_ring_shape"] = list(ring[0][0].shape)
+        shipped.clear()
+        # step time with the probes on, then off (steady chained steps)
+        for label, on in (("step_ms_numerics_on", True),
+                          ("step_ms_numerics_off", False)):
+            (nm.enable if on else nm.disable)()
+            ts = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                eng.step()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            res[label] = float(np.median(ts))
+        for rid in ids:               # the requests end here, cancelled
+            eng.cancel_request(rid)
+        eng.step()
+        eng.run()
+        if set(eng.finish_reasons.values()) != {"client_disconnected"}:
+            raise AssertionError(f"(o2) {eng.finish_reasons}")
+        res["launches"] = dict(build.launch_counts)
+        pm = obs.flight_recorder.get_recorder().postmortem(trigger="manual")
+        kinds = {e["kind"] for e in pm["events"]}
+        names = {f["name"] for f in pm["metrics"]["metrics"]}
+        if not {"flag_change", "client_disconnected"} <= kinds \
+                or not {"numerics_quant_error",
+                        "serving_tokens_total"} <= names \
+                or "numerics" not in pm:
+            raise AssertionError(f"(o2) post-mortem events {sorted(kinds)}")
+        res["postmortem_events"] = sorted(kinds)
+        res["postmortem_metric_families"] = len(names)
+    finally:
+        nm.QuantErrorProbe.add, nm.QuantErrorProbe.ship = add, ship
+        nm.disable()
+    return res
+
+
+def obs_profile_window(LLMEngine, build, dev, cfg, params, obs):
+    """(o3): a ``profiling.request_capture(steps=2)`` window armed during
+    a mega run at 8 slots (phase 4's mix, its first 8 requests): the trace
+    file written, B5's kernel among its device events inside a
+    ``serving.step`` range, ``obs_profile_captures_total`` 1 and the
+    ``profile_capture`` flight event there; the window's busy share (of
+    its wall time, and of the span from its first device op to its last)
+    and its top device ops by time."""
+    import tempfile
+    reg = obs.get_registry()
+    reg.counter("obs_profile_captures_total").reset()
+    eng = LLMEngine(params, cfg, max_slots=8, **SERVE_ENGINE,
+                    decode_kernel="mega", seed=SEED, device=dev)
+    for p in serving_mix(cfg, 8):
+        eng.add_request(p, max_new_tokens=64)
+    eng.step()
+    eng.step()
+    with tempfile.TemporaryDirectory(prefix="ptt_obs_capture_") as d:
+        if not obs.profiling.request_capture(steps=2, out_dir=d)["ok"]:
+            raise AssertionError("(o3) the capture did not arm")
+        build.launch_counts.clear()
+        for _ in range(3):             # start, count down, stop
+            eng.step()
+        launches = dict(build.launch_counts)
+        ctl = obs.profiling.get_profile_controller()
+        last = ctl.status()["last_capture"]
+        if not last or not last["ok"] or not os.path.getsize(last["trace"]):
+            raise AssertionError(f"(o3) capture {last}")
+        with open(last["trace"]) as f:
+            events = json.load(f)["traceEvents"]
+        trace_mb = os.path.getsize(last["trace"]) / 2**20
+    eng.run()
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    b5 = [e for e in kern if "mega_decode_kernel" in e.get("name", "")]
+    ranges = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") == "gpu_user_annotation"
+              and e.get("name") == "serving.step"]
+    inside = sum(any(a <= k["ts"] and k["ts"] + k["dur"] <= b
+                     for a, b in ranges) for k in b5)
+    how = "gpu_user_annotation"
+    if not inside:
+        # no device-side ranges: a B5 launch inside a host serving.step
+        cpu = [(e["ts"], e["ts"] + e["dur"]) for e in events
+               if e.get("cat") == "user_annotation"
+               and e.get("name") == "serving.step"]
+        corr = {k.get("args", {}).get("correlation") for k in b5}
+        inside = sum(1 for e in events if e.get("cat") == "cuda_runtime"
+                     and e.get("args", {}).get("correlation") in corr
+                     and any(a <= e["ts"] <= b for a, b in cpu))
+        how = "host launch inside the host range"
+    if not b5 or not inside:
+        raise AssertionError(f"(o3) {len(b5)} B5 kernels, {len(ranges)} "
+                             f"serving.step device ranges, {inside} inside")
+    if reg.counter("obs_profile_captures_total").labels().value != 1:
+        raise AssertionError("(o3) obs_profile_captures_total is not 1")
+    evs = [e for e in obs.flight_recorder.get_recorder().events()
+           if e["kind"] == "profile_capture"]
+    if len(evs) != 1:
+        raise AssertionError(f"(o3) profile_capture events {evs}")
+    # device work: kernels, copies and memsets (the device-side
+    # serving.* annotation ranges are not work)
+    work = [e for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    wall_us = last["seconds"] * 1e6
+    by_name = {}
+    for e in work:
+        t, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (t + e["dur"], n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in work)
+    busy, (s0, e0) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > e0:
+            busy, s0, e0 = busy + e0 - s0, a, b
+        else:
+            e0 = max(e0, b)
+    busy += e0 - s0
+    span = max(b for _a, b in spans) - spans[0][0]
+    return {"steps": 2, "trace_mb": trace_mb, "b5_kernels": len(b5),
+            "b5_inside_serving_step": inside, "enclosed_by": how,
+            "serving_step_device_ranges": len(ranges),
+            "window_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / wall_us,
+            "device_span_ms": span / 1e3,
+            "busy_share_of_device_span": busy / span,
+            "device_events": len(work), "launches": launches,
+            "top_device_ops_ms": [(name[:60], t / 1e3, n)
+                                  for name, (t, n) in top]}
+
+
+def observability_phases(LLMEngine, build, dev, card, cfg8, params8,
+                         serving, tiers):
+    """Phases (o1)-(o3) on phase 4's weights, observability on throughout
+    and off again after. (o1)'s off figures are phase 4's ragged run and
+    (p1)'s mega run at 8 slots in this process. Returns the numbers and
+    the kernels' launches in each run."""
+    import paddle_tpu_torch.observability as obs
+    t0 = time.perf_counter()
+    res, launches = {}, {}
+    obs_reset(obs)
+    obs.enable()
+    try:
+        log("phase (o1): Llama-3-8B through mega and ragged at 8 slots with "
+            "observability on; /metrics, /trace.json, /requests.json")
+        off = {"mega": tiers["p1"]["serve_mega_8_slots"], "ragged": serving}
+        o1 = {}
+        for kernel in ("mega", "ragged"):
+            launches[f"o1_{kernel}_8"], on = obs_serve(
+                LLMEngine, build, dev, card, cfg8, params8, kernel, obs)
+            o1[kernel] = {
+                "tok_per_s_on": on["output_tok_per_s"],
+                "tok_per_s_off": off[kernel]["output_tok_per_s"],
+                "median_step_ms_on": on["median_decode_step_ms"],
+                "median_step_ms_off": off[kernel]["median_decode_step_ms"],
+                "step_cost_share": on["median_decode_step_ms"]
+                / off[kernel]["median_decode_step_ms"] - 1,
+                "readbacks": on["readbacks"], "launches": on["launches"],
+                **{k: on[k] for k in ("mfu_median", "mfu_max",
+                                      "mfu_steps_checked",
+                                      "mfu_worst_rel_diff",
+                                      "step_wrapper_us_median",
+                                      "step_wrapper_us_max")}}
+            log(f"  {kernel}: {o1[kernel]}")
+            free_memory()
+        o1["scrape"] = obs_scrape(obs, ("mega", "ragged"))
+        log(f"  scrape: {o1['scrape']}")
+        res["o1"] = o1
+        log("phase (o2): int8 pools, mega at 4 slots: chained steps with "
+            "the numerics probes on under sync debug mode")
+        res["o2"] = obs_chained_numerics(LLMEngine, build, dev, cfg8, params8,
+                                         obs)
+        launches["o2_mega_4_int8"] = res["o2"]["launches"]
+        log(f"  {res['o2']}")
+        free_memory()
+        log("phase (o3): a torch.profiler window of 2 steps, mega at 8 "
+            "slots")
+        res["o3"] = obs_profile_window(LLMEngine, build, dev, cfg8, params8,
+                                       obs)
+        launches["o3_mega_8_window"] = res["o3"]["launches"]
+        log(f"  {res['o3']}")
+        free_memory()
+    finally:
+        obs.disable()
+        obs_reset(obs)
+    res["seconds"] = time.perf_counter() - t0
+    res["card"] = card
     return res, launches
 
 
@@ -4761,8 +5302,8 @@ def serving_tiers(llama, LLMEngine, build, dev, card, cfg8, params8,
 
 def serving_only(llama, LLMEngine, build, dev, card) -> int:
     """``--serving``: phases 4 and 6(c) (the serving runs alone, no kernel
-    checks), (p1)-(p4) and (r1)-(r3), then their lines; no device
-    line."""
+    checks), (p1)-(p4), (r1)-(r3) and (o1)-(o3), then their lines; no
+    device line."""
     cfg8, params8, runs = serving_runs(llama, LLMEngine, build, dev, card)
     _, serving, bf16_streams, _ = runs["phase4_ragged_8"]
     tiers, tier_launches = serving_tiers(
@@ -4772,11 +5313,15 @@ def serving_only(llama, LLMEngine, build, dev, card) -> int:
         llama, LLMEngine, build, dev, card, cfg8, params8, serving,
         bf16_streams)
     tier_launches.update(r_launches)
+    observed, o_launches = observability_phases(
+        LLMEngine, build, dev, card, cfg8, params8, serving, tiers)
+    tier_launches.update(o_launches)
     log(f"serving: {json.dumps(serving)}")
     log(f"mega: {json.dumps(runs['phase6c_mega_4'][1])}")
     log(f"serving_tiers: {json.dumps(tiers)}")
     log(f"serving_resilience: {json.dumps(resilience)}")
     log(f"tier_launches: {json.dumps(tier_launches)}")
+    log(json.dumps({"observability": observed}))
     log(f"total {time.perf_counter() - T0:.1f} s")
     log(card)
     return 0
@@ -5427,6 +5972,9 @@ def main() -> int:
         llama, LLMEngine, build, dev, card, cfg8, params8, serving,
         bf16_streams)
     tier_launches.update(r_launches)
+    observed, o_launches = observability_phases(
+        LLMEngine, build, dev, card, cfg8, params8, serving, tiers)
+    tier_launches.update(o_launches)
 
     log("phase (s1): B5's multi-step form vs plain, one k=4 draft wave at "
         "4 slots")
@@ -5718,7 +6266,8 @@ def main() -> int:
              launches=paged_launches.get("paged_append_blocks", 0),
              **paged["b8"]),
     ]
-    # each kernel's launches in the runs of phases (p1)-(p3) and (r1)-(r3)
+    # each kernel's launches in the runs of phases (p1)-(p3), (r1)-(r3) and
+    # (o1)-(o3)
     for k in kernels:
         k["tier_launches"] = {run: n[k["name"]] for run, n in
                               tier_launches.items() if n.get(k["name"])}
@@ -5736,6 +6285,7 @@ def main() -> int:
     log(f"total {time.perf_counter() - T0:.1f} s")
     log(card)
     log(json.dumps({"static_schedule": schedules}))
+    log(json.dumps({"observability": observed}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,16 @@ version that CPU tensors take.
 Entry points run on the card: they default to ``device="cuda"`` and raise
 when no Hopper card is present, unless the caller passes ``device="cpu"``.
 The package imports ``torch`` and ``numpy`` only — never ``jax`` and never
-``paddle_tpu``.
+``paddle_tpu``. Importing the package itself loads neither:
+``resolve_device`` resolves on first use (PEP 562), so the stdlib-only
+``observability`` and ``framework.flags`` modules import without torch.
 """
-from .device import resolve_device  # noqa: F401
 
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from .device import resolve_device
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

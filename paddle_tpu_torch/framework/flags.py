@@ -5,8 +5,12 @@ registry, paddle/common/flags.h:38,93), overridable from ``FLAGS_*``
 environment variables and from Python via set_flags/get_flags
 (python/paddle/base/framework.py:132,157). The port keeps its own
 registry: its flags are read by its own modules (``serving/offload.py``
-registers the ``serve_kv_offload_*`` flags) and never by the JAX
-package's, so the two packages' flags do not see each other's values.
+registers the ``serve_kv_offload_*`` flags, ``observability`` the
+``obs_*`` ones) and never by the JAX package's, so the two packages'
+flags do not see each other's values. Watchers (:func:`watch_flag`,
+:func:`watch_all_flags`) run after a :func:`set_flags` commits, as in the
+reference: observability keeps its hot-path switch and its ring sizes in
+step with the flags through them.
 """
 from __future__ import annotations
 
@@ -16,6 +20,11 @@ from typing import Any, Dict
 
 _lock = threading.Lock()
 _registry: Dict[str, "_Flag"] = {}
+# flag-change observers: fn(new_value) per watched name
+_watchers: Dict[str, list] = {}
+# global observers: fn(name, new_value) for every actual value change (the
+# flight recorder logs flag flips as incident evidence through this)
+_global_watchers: list = []
 
 
 class _Flag:
@@ -54,7 +63,11 @@ def define_flag(name: str, default: Any, help: str = "", type_=None):
 
 def set_flags(flags: Dict[str, Any]):
     """paddle.set_flags parity. Validation is all-or-nothing: an unknown
-    name or uncoercible value raises before any flag is applied."""
+    name or uncoercible value raises before any flag is applied, so a
+    partial dict never commits some values while skipping their watcher
+    notifications."""
+    changed = []
+    really_changed = []
     with _lock:
         staged = []
         for k, v in flags.items():
@@ -64,7 +77,35 @@ def set_flags(flags: Dict[str, Any]):
                 raise ValueError(f"unknown flag: {k}")
             staged.append((k, _coerce(_registry[k].type, v)))
         for k, v in staged:
+            if _registry[k].value != v:
+                really_changed.append((k, v))
             _registry[k].value = v
+            if k in _watchers:
+                changed.append((k, v))
+    # watchers run outside the lock: one may call back into this module
+    for k, v in changed:
+        for fn in list(_watchers.get(k, ())):
+            fn(v)
+    # global watchers see only actual value changes
+    for k, v in really_changed:
+        for fn in list(_global_watchers):
+            fn(k, v)
+
+
+def watch_flag(name: str, fn):
+    """Register ``fn(new_value)`` to run whenever :func:`set_flags`
+    changes ``name``. Returns ``fn``."""
+    with _lock:
+        _watchers.setdefault(name, []).append(fn)
+    return fn
+
+
+def watch_all_flags(fn):
+    """Register ``fn(name, new_value)`` to run on every :func:`set_flags`
+    change of any flag. Returns ``fn``."""
+    with _lock:
+        _global_watchers.append(fn)
+    return fn
 
 
 def get_flags(flags=None) -> Dict[str, Any]:
@@ -86,3 +127,13 @@ def get_flags(flags=None) -> Dict[str, Any]:
 def get_flag(name: str):
     with _lock:
         return _registry[name].value
+
+
+def flag_entries(prefix: str = ""):
+    """``{name: (value, default, help)}`` for every registered flag whose
+    name starts with ``prefix``."""
+    with _lock:
+        return {k: (f.value, f.default, f.help)
+                for k, f in sorted(_registry.items())
+                if k.startswith(prefix)}
+

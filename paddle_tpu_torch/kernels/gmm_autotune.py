@@ -36,7 +36,8 @@ so no launch error is expected or caught: an error while measuring
 propagates. The reference's metrics (``moe_tiling_cache_{hits,misses}
 _total``, ``moe_tiling_autotune_seconds``,
 ``moe_tiling_autotune_rejected_total``) are host counters in
-:data:`counters` until the port has its observability layer.
+:data:`counters` until the training half of the port's observability
+(ROADMAP A8-train) wires them.
 """
 from __future__ import annotations
 

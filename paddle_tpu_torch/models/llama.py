@@ -58,6 +58,7 @@ from ..device import resolve_device
 from ..kernels.pallas_attention import flash_attention
 from ..kernels.quant_matmul import _slices, is_quantized_weight
 from ..kernels.quant_matmul import weight_only_matmul as _wo_mm
+from ..observability import numerics as _numerics
 from ..optimizer.functional import (init_moments, optimizer_update,
                                     tree_leaves, tree_map)
 
@@ -284,12 +285,26 @@ def quantize_params(params, include_lm_head: bool = True):
     """Per-output-channel absmax int8 quantization of the matmul weights
     ([L, K, N] stacked leaves -> ``{"q": int8 [L, K, N], "s": bf16
     [L, N]}``) and, with ``include_lm_head``, of ``lm_head``. Norms and the
-    embedding stay as they are (gathers, not matmuls)."""
+    embedding stay as they are (gathers, not matmuls).
+
+    With ``FLAGS_obs_numerics`` (and observability) on, the paired
+    pre/post-quant probe of every quantized leaf lands the site's relative
+    error in ``numerics_quant_error{site="weight_only"}`` (the scale rides
+    axis -2: one scale per output channel)."""
     out = dict(params)
     out["layers"] = {k: (_quantize_channels(v) if k in _QUANT_KEYS else v)
                      for k, v in params["layers"].items()}
     if include_lm_head and "lm_head" in params:
         out["lm_head"] = _quantize_channels(params["lm_head"])
+    if _numerics.active():
+        probe = _numerics.QuantErrorProbe()
+        for k in sorted(_QUANT_KEYS):
+            probe.add(params["layers"][k], out["layers"][k]["q"],
+                      out["layers"][k]["s"], -2)
+        if include_lm_head and "lm_head" in params:
+            probe.add(params["lm_head"], out["lm_head"]["q"],
+                      out["lm_head"]["s"], -2)
+        probe.ship("weight_only")
     return out
 
 

@@ -24,9 +24,9 @@ never burns its tenant's rate budget):
 
 The controller is a pure policy object — the engine owns the queue and
 raises :class:`ShedError`; tests drive ``check`` directly with an
-injected clock. The JAX package's ``serving_shed_total{reason}`` metric
-waits for the observability port (ROADMAP A8); the controller keeps the
-same count on the host in ``sheds``.
+injected clock. Every shed bumps ``serving_shed_total{reason}`` (no-op
+while observability is off) and the host count ``sheds``, which the
+metric mirrors.
 """
 from __future__ import annotations
 
@@ -35,8 +35,12 @@ import time
 from collections import Counter
 from typing import Callable, Dict, Optional
 
+from ..observability.catalog import instrument as _instrument
+
 __all__ = ["AdmissionConfig", "AdmissionController", "ShedError",
            "TokenBucket"]
+
+_M_SHED = _instrument("serving_shed_total")
 
 
 class ShedError(RuntimeError):
@@ -126,6 +130,7 @@ class AdmissionController:
                 reason = "rate_limited"
         if reason is not None:
             self.sheds[reason] += 1
+            _M_SHED.inc(reason=reason)
         return reason
 
     def spill_free_frac(self, default: float) -> float:

@@ -87,26 +87,42 @@ Design, as in the JAX engine:
   ``distributed.resilience.FaultInjector``) fires the serving fault
   kinds inside the step loop, and ``serving.resilient.ResilientEngine``
   recovers a crashed step through ``recover_crashed_step``.
+- Observability (``FLAGS_obs_enabled``, ``paddle_tpu_torch.observability``):
+  the JAX engine's metrics (the catalog's ``serving_*`` rows but the
+  disaggregation ones), the ``serving.step`` span with ``.prefill``,
+  ``.decode``, ``.readback``, ``.spec_draft`` and ``.spec_verify``
+  nested in it, per-request timelines with TTFT/TPOT exemplars, flight
+  events, the decode MFU and HBM gauges, the profiler window tick and,
+  with ``FLAGS_obs_numerics``, the ``kv_int8`` quant-error probes. Off,
+  ``step()`` costs one boolean check (plus the idle profiler tick's one
+  attribute read) and the probe sites add no device op. On, nothing in a
+  dispatch waits on the card either: a device-side value (a numerics
+  vector) lands after the readback the engine already does.
 
 Differences from the JAX engine: PyTorch runs eagerly, so nothing is
-compiled and the pools are updated in place rather than donated; the
-random source is the engine's ``torch.Generator`` (sampled streams
-differ from the JAX engine's, whose RNG differs; greedy streams are
-equal). The observability hooks (among them the JAX engine's int8
-numerics probes) are not ported.
-The spec wave's draft prefill samples greedily (its token is discarded;
-the JAX engine draws it with the wave's flags), so a speculating engine
-draws the same random numbers for sampled requests as a plain one. The
-``serving_spec_*`` metrics wait for the observability port (A8); the
-host counters ``spec_*`` are kept; so are the admission controller's
-``sheds`` and ``cancel_noops``. Not ported yet: tensor parallelism
+compiled and the pools are updated in place rather than donated;
+``serving_decode_recompiles_total`` counts the first use of each decode
+variant key — the ``(path or bucket, flags)`` key the JAX engine jits
+once — so it equals the reference's count step for step. The decode
+MFU's FLOPs are counted on the host (``observability.perf.decode_flops``)
+instead of by XLA's cost analysis. The random source is the engine's
+``torch.Generator`` (sampled streams differ from the JAX engine's, whose
+RNG differs; greedy streams are equal). The spec wave's draft prefill
+samples greedily (its token is discarded; the JAX engine draws it with
+the wave's flags), so a speculating engine draws the same random numbers
+for sampled requests as a plain one. The host counters (``spec_*``,
+``decode_paths``, ``mega_fallbacks``, ``readbacks``, ``swap_fallbacks``,
+``cancel_noops``, the admission controller's ``sheds``) are kept beside
+the metrics, which mirror them. Not ported yet: tensor parallelism
 (``mesh``, ROADMAP A10), disaggregated roles and the relay pool
-(``role``, ``relay``, ``Request.relay_key``, A7) and the observability
-hooks (A8); their arguments raise ``NotImplementedError`` naming their
-queue when set.
+(``role``, ``relay``, ``Request.relay_key``, A7), their arguments
+raising ``NotImplementedError`` naming their queue when set; and the
+time-series sampler's step tick (the JAX engine's ``_ts.step_tick()``),
+which comes with the port's ``observability.timeseries`` in A7.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import itertools
@@ -119,6 +135,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import observability as _obs
 from ..device import resolve_device
 from ..distributed.resilience.faults import SimulatedCrash
 from ..framework.flags import get_flag
@@ -131,6 +148,13 @@ from ..kernels.quant_matmul import (attn_pv, attn_qk, is_quantized_weight,
 from ..kernels.quant_matmul import weight_only_matmul as _wo_mm
 from ..models.llama import (LlamaConfig, _apply_rope, _apply_rope_at,
                             _rms_norm, _rope_tables, head_weight)
+from ..observability import flight_recorder as _flight
+from ..observability import numerics as _nm
+from ..observability import perf as _perf
+from ..observability import profiling as _profiling
+from ..observability import request_trace as _rt
+from ..observability import trace_span
+from ..observability.catalog import instrument as _instrument
 from .admission import AdmissionConfig, AdmissionController, ShedError
 from .kv_swap import HostKVPool
 from .offload import OffloadEngine, gather_blocks, take_staged, upload
@@ -140,9 +164,42 @@ __all__ = ["LLMEngine", "Request"]
 
 NEG_INF = -1e30
 
+# the span a decode dispatch runs in while observability is off
+_NO_SPAN = contextlib.nullcontext()
+
 # JAX constructor arguments not ported yet -> (default, ROADMAP queue)
 _UNPORTED = {"mesh": (None, "A10"), "role": ("both", "A7"),
              "relay": (None, "A7")}
+
+# always-on serving telemetry (no-ops until FLAGS_obs_enabled /
+# observability.enable()); the JAX engine's set but the two
+# serving_disagg_* instruments, which come with the roles (A7)
+_M_QUEUE_DEPTH = _instrument("serving_queue_depth")
+_M_ACTIVE_SLOTS = _instrument("serving_active_slots")
+_M_KV_USED = _instrument("serving_kv_pool_used_blocks")
+_M_KV_BLOCKS = _instrument("serving_kv_pool_blocks")
+_M_ADMISSIONS = _instrument("serving_admissions_total")
+_M_PREEMPTIONS = _instrument("serving_preemptions_total")
+_M_FINISHED = _instrument("serving_requests_finished_total")
+_M_TOKENS = _instrument("serving_tokens_total")
+_M_TTFT = _instrument("serving_ttft_seconds")
+_M_TPS = _instrument("serving_tokens_per_second")
+_M_STEP_SECONDS = _instrument("serving_step_seconds")
+_M_PREFIX_BUCKET = _instrument("serving_decode_prefix_bucket")
+_M_DECODE_RECOMPILES = _instrument("serving_decode_recompiles_total")
+_M_KV_READ_BYTES = _instrument("serving_decode_kv_read_bytes")
+_M_TPOT = _instrument("serving_tpot_seconds")
+_M_SERVING_MFU = _instrument("serving_mfu")
+_M_DEADLINE = _instrument("serving_deadline_exceeded_total")
+_M_SWAP_FALLBACK = _instrument("serving_kv_swap_fallback_total")
+_M_DECODE_KERNEL = _instrument("serving_decode_kernel_total")
+_M_DECODE_VARIANTS = _instrument("serving_decode_variants")
+_M_SPEC_PROPOSED = _instrument("serving_spec_proposed_total")
+_M_SPEC_ACCEPTED = _instrument("serving_spec_accepted_total")
+_M_SPEC_ACCEPT_RATE = _instrument("serving_spec_acceptance_rate")
+_M_SPEC_TOKENS_PER_WAVE = _instrument("serving_spec_tokens_per_wave")
+_M_CANCEL_NOOP = _instrument("serving_cancel_noop_total")
+_M_MEGA_FALLBACK = _instrument("serving_mega_fallback_total")
 
 
 @dataclasses.dataclass
@@ -266,7 +323,7 @@ class _Readback:
 def _paged_prefill(params, tokens, blk_ids, true_len, pools, temps, top_ks,
                    top_ps, generator, *, config: LlamaConfig,
                    sample_flags=(True, True, True), kv_prefix: str = "",
-                   hist_len=None, ctx_tbl=None):
+                   hist_len=None, ctx_tbl=None, numerics: bool = False):
     """Prefill a wave of admissions: causal forward over the padded prompt
     batch, each layer's K/V written into the rows' pool blocks (in place;
     pad rows and the bucket's pad tail point at the trash block 0), and
@@ -290,6 +347,10 @@ def _paged_prefill(params, tokens, blk_ids, true_len, pools, temps, top_ks,
     within the piece) in one softmax, and RoPE offsets by ``hist_len``
     per row — plain torch, as the JAX engine leaves it to XLA. Without
     ``ctx_tbl`` the program is the full-prompt prefill on B1, bit for bit.
+
+    ``numerics`` (int8 pools, ``FLAGS_obs_numerics``): the paired
+    pre/post-quant probe of every K/V the wave writes, one
+    ``kv_int8`` landing (``observability.numerics``).
     Returns the first tokens [B] int32 (on the device)."""
     c = config
     dt = c.dtype
@@ -300,6 +361,7 @@ def _paged_prefill(params, tokens, blk_ids, true_len, pools, temps, top_ks,
     flat = blk_ids.reshape(-1).long()
     x = params["embed"][tokens.long()].to(dt)
     dev = tokens.device
+    probe = _nm.QuantErrorProbe() if numerics else None
     if ctx_tbl is not None:
         G = Hq // Hkv
         Pp = ctx_tbl.shape[1] * bs
@@ -330,7 +392,7 @@ def _paged_prefill(params, tokens, blk_ids, true_len, pools, temps, top_ks,
             q, k = _apply_rope(q, cos, sin), _apply_rope(k, cos, sin)
             _write_pools(pools, (slice(l, l + 1), flat),
                          k.reshape(1, -1, bs, Hkv, D),
-                         v.reshape(1, -1, bs, Hkv, D), kv_prefix)
+                         v.reshape(1, -1, bs, Hkv, D), kv_prefix, probe)
             att = flash_attention_fwd(q, k, v, causal=True)[0].reshape(
                 B, S, Hq * D)
         else:
@@ -345,7 +407,7 @@ def _paged_prefill(params, tokens, blk_ids, true_len, pools, temps, top_ks,
                 vpre = vpre.to(dt) * vsc[..., None].to(dt)
             _write_pools(pools, (slice(l, l + 1), flat),
                          k.reshape(1, -1, bs, Hkv, D),
-                         v.reshape(1, -1, bs, Hkv, D), kv_prefix)
+                         v.reshape(1, -1, bs, Hkv, D), kv_prefix, probe)
             # softmax over [history ; causal in-piece]: masked history
             # positions contribute an exact 0.0
             qg = q.reshape(B, S, Hkv, G, D).float()
@@ -362,6 +424,8 @@ def _paged_prefill(params, tokens, blk_ids, true_len, pools, temps, top_ks,
                                   probs[..., Pp:].to(dt), v))
             att = att.reshape(B, S, Hq * D).to(dt)
         x = _mlp(x + _wo_mm(att, p["wo"], dt), p, c)
+    if probe is not None:
+        probe.ship("kv_int8")
     x = _rms_norm(x, params["final_norm"], c.rms_eps)
     rows = torch.arange(B, device=x.device)
     last_h = x[rows, (true_len.long() - 1).clamp_min(0)]
@@ -370,14 +434,18 @@ def _paged_prefill(params, tokens, blk_ids, true_len, pools, temps, top_ks,
                         *sample_flags)
 
 
-def _write_pools(pools, index, k, v, prefix: str = ""):
+def _write_pools(pools, index, k, v, prefix: str = "", probe=None):
     """pools[prefix + "k"][index] = k and the same for v — quantized, with
     their scales into the "ks"/"vs" entries, when those pools are int8
-    (the draft's ``dk``/``dv`` never are)."""
+    (the draft's ``dk``/``dv`` never are). ``probe`` (a
+    ``numerics.QuantErrorProbe``) takes the quantized pairs."""
     pk, pv = prefix + "k", prefix + "v"
     if prefix + "ks" in pools:
         qk, sk = quantize_kv(k)
         qv, sv = quantize_kv(v)
+        if probe is not None:
+            probe.add(k, qk, sk, -1)
+            probe.add(v, qv, sv, -1)
         pools[pk][index] = qk
         pools[pv][index] = qv
         pools[prefix + "ks"][index] = sk
@@ -439,7 +507,7 @@ def _paged_decode(params, last_tokens, lengths, done0, budgets, generator,
                   *, config: LlamaConfig, n_steps: int,
                   sample_flags=(True, True, True), mega: bool = False,
                   mega_multistep: bool = False, kv_prefix: str = "",
-                  bucketed: bool = False):
+                  bucketed: bool = False, numerics: bool = False):
     """``n_steps`` decode iterations over all slots.
 
     The slot prefixes ``[0, lengths)`` are frozen for the call: every step
@@ -464,6 +532,9 @@ def _paged_decode(params, last_tokens, lengths, done0, budgets, generator,
     draft) moves the step loop itself into the kernel: the ``n_steps``
     steps, argmax, bookkeeping and embedding gathers included, are ONE
     ``mega_decode_loop`` launch; the writeback stays shared.
+
+    ``numerics``: the writeback's ``kv_int8`` quant-error probe over the
+    ring (int8 pools, ``FLAGS_obs_numerics``).
 
     Returns (emitted [n_steps, N] int32 with -1 padding, last, lengths,
     done, budgets)."""
@@ -548,13 +619,17 @@ def _paged_decode(params, last_tokens, lengths, done0, budgets, generator,
     phys = block_table.long().gather(1, pos // bs)
     phys = torch.where(valid, phys, torch.zeros_like(phys))
     off = pos % bs
-    _write_pools(pools, (slice(None), phys, off), ring_k, ring_v, kv_prefix)
+    probe = _nm.QuantErrorProbe() if numerics else None
+    _write_pools(pools, (slice(None), phys, off), ring_k, ring_v, kv_prefix,
+                 probe)
+    if probe is not None:
+        probe.ship("kv_int8")
     return torch.stack(emitted), last, lens, done, rem
 
 
 def _spec_verify(params, block_table, last, draft_toks, lengths, active,
                  pools, *, config: LlamaConfig, n_spec: int,
-                 max_model_len: int):
+                 max_model_len: int, numerics: bool = False):
     """Score a speculative wave in ONE target forward: each slot's piece
     ``[last, d_1 .. d_k]`` (k = ``n_spec``; ``draft_toks`` is the draft
     call's [k, N] grid, -1 pads clipped into the vocabulary) runs a
@@ -575,8 +650,9 @@ def _spec_verify(params, block_table, last, draft_toks, lengths, active,
     (block, offset) at ``lengths[n] + j``, ALL k+1 of them (the host
     commits c <= k; later positions are unreadable past the length and
     the next wave overwrites them). Inactive rows and positions past
-    ``max_model_len`` go to trash block 0. Returns the greedy grid
-    [N, k+1] int32."""
+    ``max_model_len`` go to trash block 0. ``numerics``: the writeback's
+    ``kv_int8`` quant-error probe. Returns the greedy grid [N, k+1]
+    int32."""
     c = config
     dt = c.dtype
     N, nbk = block_table.shape
@@ -659,8 +735,11 @@ def _spec_verify(params, block_table, last, draft_toks, lengths, active,
     wposc = wpos.clamp(max=max_model_len - 1).long()
     phys = tbl.gather(1, (wposc // bs).clamp(max=nbk - 1))
     phys = torch.where(valid, phys, torch.zeros_like(phys))
+    probe = _nm.QuantErrorProbe() if numerics else None
     _write_pools(pools, (slice(None), phys, wposc % bs), torch.stack(k_all),
-                 torch.stack(v_all))
+                 torch.stack(v_all), probe=probe)
+    if probe is not None:
+        probe.ship("kv_int8")
     x = _rms_norm(x, params["final_norm"], c.rms_eps)
     logits = _wo_mm(x, head_weight(params, c), dt).float()
     return logits.argmax(dim=-1).int()
@@ -897,8 +976,18 @@ class LLMEngine:
         # decode-record readbacks: "chained" (the next call was already
         # queued) or "drained" (read with the card's queue empty)
         self.readbacks: Counter = Counter()
+        # decode variant keys used so far — the JAX engine's compiled-
+        # variant keys ((path or bucket, flags)); the first use of each
+        # counts in serving_decode_recompiles_total
+        self._decode_variants: set = set()
         # swap-enabled preemptions that fell back to recompute
         self.swap_fallbacks = 0
+        # observability: add_request and first-token-visible times of the
+        # live requests (TTFT / TPOT), and the counted FLOPs of this
+        # step's decode call (the MFU numerator; None on a no-decode step)
+        self._obs_t_add: Dict[int, float] = {}
+        self._obs_t_first: Dict[int, float] = {}
+        self._last_decode_flops = None
         # device-resident decode carry (last, lengths, done, budgets) and
         # the per-slot vectors (active, temps, top_ks, top_ps, eos ids):
         # the carry chains from call to call and is rebuilt from host
@@ -1017,10 +1106,26 @@ class LLMEngine:
                 # reject-newest: fail THIS request at once so the
                 # admitted ones keep their latency
                 self.finish_reasons[rid] = "shed"
+                _flight.record("request_shed", req_id=rid, reason=reason)
+                if _obs.enabled():
+                    tracer = _rt.get_request_tracer()
+                    tracer.submit(rid, prompt_tokens=len(req.prompt),
+                                  max_new_tokens=req.max_new_tokens,
+                                  tenant=req.tenant)
+                    tracer.finish(rid, tokens=0, reason="shed",
+                                  shed_reason=reason)
                 raise ShedError(reason, rid)
         self.queue.append(req)
         if req.t_deadline is not None:
             self._deadline_live += 1
+        if _obs.enabled():
+            self._obs_t_add[rid] = time.perf_counter()
+            _M_QUEUE_DEPTH.set(len(self.queue))
+            # the id minted here is the request's trace id: it follows
+            # the request through slots, preemptions and re-admissions
+            _rt.get_request_tracer().submit(
+                rid, prompt_tokens=len(req.prompt),
+                max_new_tokens=req.max_new_tokens, tenant=req.tenant)
         return rid
 
     def has_work(self) -> bool:
@@ -1045,8 +1150,56 @@ class LLMEngine:
         cancellations, the offload sweep (landed spills, proactive
         spills, prefetch), one chunk for every mid-prefill slot,
         admission, then a spec wave (pipeline drained first) or a decode
-        dispatch."""
-        return self._step_inner()
+        dispatch.
+
+        Observability (``FLAGS_obs_enabled``): each call lands a
+        ``serving.step`` span (prefill/decode/readback nested inside), a
+        step-duration and tokens/s observation, TTFT (with a request_id
+        exemplar) for requests whose first token became visible, a
+        decode tick on each request's timeline, the MFU and HBM gauges
+        and the queue/slot/KV-pool gauges. Off, this wrapper costs one
+        boolean check (plus the idle profiler tick's attribute read)."""
+        # the on-demand capture window's boundary: outside the enabled()
+        # gate — a capture is an explicit operator action
+        _profiling.step_tick()
+        if not _obs.enabled():
+            return self._step_inner()
+        t0 = time.perf_counter()
+        with trace_span("serving.step"):
+            emitted = self._step_inner()
+        now = time.perf_counter()
+        dt = now - t0
+        _M_STEP_SECONDS.observe(dt)
+        if emitted:
+            _M_TOKENS.inc(len(emitted))
+            if dt > 0:
+                _M_TPS.observe(len(emitted) / dt)
+            tracer = _rt.get_request_tracer()
+            step_toks: Dict[int, int] = {}
+            for rid, _tok in emitted:
+                step_toks[rid] = step_toks.get(rid, 0) + 1
+                t_add = self._obs_t_add.pop(rid, None)
+                if t_add is not None:
+                    tracer.record(rid, "first_token")
+                    _rt.observe_with_exemplar(_M_TTFT, now - t_add, rid)
+                    self._obs_t_first[rid] = now
+            for rid, n in step_toks.items():
+                # one decode tick per request per step (finished requests
+                # already left the live table: a no-op there)
+                tracer.record(rid, "decode", tokens=n)
+        if self._last_decode_flops:
+            m = _perf.mfu(self._last_decode_flops, dt, self.device)
+            if m is not None:
+                _M_SERVING_MFU.set(m)
+        _perf.update_serving_slo_gauges(_M_TTFT, _M_TPOT)
+        _perf.update_hbm_gauges(self.device.index or 0)
+        _M_QUEUE_DEPTH.set(len(self.queue))
+        _M_ACTIVE_SLOTS.set(sum(r is not None for r in self.slot_req))
+        _M_KV_BLOCKS.set(self.nb - 1)
+        _M_KV_USED.set(self.nb - 1 - len(self.free_blocks))
+        if self.prefix_cache is not None:
+            self.prefix_cache.update_gauges()
+        return emitted
 
     def _step_inner(self):
         emitted = []
@@ -1063,6 +1216,9 @@ class LLMEngine:
         # staged) and before admission (blocks a landed spill frees are
         # allocatable this step)
         self._offload_tick()
+        # stale FLOPs from an earlier dispatch must not divide a
+        # no-decode step's wall time
+        self._last_decode_flops = None
         self._advance_chunks()
         self._admit()
         if self._spec_on:
@@ -1146,6 +1302,7 @@ class LLMEngine:
         already-terminal rid is a counted no-op (``cancel_noops``)."""
         if rid in self.finish_reasons:
             self.cancel_noops += 1
+            _M_CANCEL_NOOP.inc()
             return
         with self._cancel_lock:
             self._cancels[rid] = str(reason)
@@ -1162,6 +1319,7 @@ class LLMEngine:
         rid = req.req_id
         if rid in self.finish_reasons:
             self.cancel_noops += 1
+            _M_CANCEL_NOOP.inc()
             return
         self.results[rid] = out
         self.finish_reasons[rid] = reason
@@ -1171,6 +1329,14 @@ class LLMEngine:
             self.swap_pool.discard(rid)
             if self.offload is not None:
                 self.free_blocks.extend(self.offload.cancel(rid))
+        if reason == "deadline_exceeded":
+            _M_DEADLINE.inc()
+        _flight.record(reason, req_id=rid, queued=queued, tokens=len(out))
+        self._obs_t_add.pop(rid, None)
+        self._obs_t_first.pop(rid, None)
+        if _obs.enabled():
+            _rt.get_request_tracer().finish(rid, tokens=len(out),
+                                            reason=reason)
 
     def _apply_cancels(self) -> None:
         """Evict every request marked by :meth:`cancel_request` — queued
@@ -1184,7 +1350,10 @@ class LLMEngine:
             | {r.req_id for r in self.slot_req if r is not None}
         kept = {rid: rsn for rid, rsn in cancels.items() if rid in live}
         # markers that raced a natural finish: counted no-ops
-        self.cancel_noops += len(cancels) - len(kept)
+        dropped = len(cancels) - len(kept)
+        if dropped:
+            self.cancel_noops += dropped
+            _M_CANCEL_NOOP.inc(dropped)
         cancels = kept
         if not cancels:
             return
@@ -1243,12 +1412,15 @@ class LLMEngine:
         if inj is None:
             return
         if inj.fires("slow_step", self._step_idx):
+            _flight.record("injected_slow_step", step=self._step_idx)
             time.sleep(0.02)
         if inj.fires("pool_squeeze", self._step_idx):
             n = min(max(1, (self.nb - 1) // 2), len(self.free_blocks))
             taken = [self.free_blocks.popleft() for _ in range(n)]
             if taken:
                 self._squeezed.append((self._step_idx + 2, taken))
+            _flight.record("injected_pool_squeeze", step=self._step_idx,
+                           blocks=len(taken))
 
     def recover_crashed_step(self) -> None:
         """Recovery from a crashed ``step()`` (ResilientEngine): drop the
@@ -1443,6 +1615,13 @@ class LLMEngine:
             # (swap-in restores their K/V; recompute re-prefills them)
             req.generated.extend(out)
             self.queue.appendleft(req)
+            _M_PREEMPTIONS.inc()
+            _flight.record("preemption", req_id=req.req_id,
+                           generated=len(req.generated), swapped=swapped)
+            if _obs.enabled():
+                _rt.get_request_tracer().record(
+                    req.req_id, "preempt", slot=slot,
+                    generated=len(req.generated), swapped=swapped)
         elif req is not None:
             self.results[req.req_id] = req.generated + out
             self.finish_reasons[req.req_id] = reason
@@ -1455,6 +1634,41 @@ class LLMEngine:
                     # drop it, reclaim its custody blocks now
                     self.free_blocks.extend(
                         self.offload.cancel(req.req_id))
+            if reason == "deadline_exceeded":
+                _M_DEADLINE.inc()
+                _flight.record("deadline_exceeded", req_id=req.req_id,
+                               tokens=len(self.results[req.req_id]))
+            elif reason != "finished":
+                # a cancellation: terminal with partial tokens, but not a
+                # completed request
+                _flight.record(reason, req_id=req.req_id,
+                               tokens=len(self.results[req.req_id]))
+            else:
+                _M_FINISHED.inc()
+            self._obs_finish(req, out, reason)
+
+    def _obs_finish(self, req: Request, out: List[int], reason: str):
+        """TTFT/TPOT and the timeline's finish for a request leaving its
+        slot. One that finishes in the SAME step its first token became
+        host-visible retires before step()'s TTFT loop runs — its first
+        token is visible now, so TTFT is observed here, and there is no
+        TPOT (no decode cadence to measure)."""
+        now = time.perf_counter()
+        rid = req.req_id
+        t_first = self._obs_t_first.pop(rid, None)
+        t_add = self._obs_t_add.pop(rid, None)
+        tracer = _rt.get_request_tracer() if _obs.enabled() else None
+        if t_add is not None and (req.generated or out):
+            if tracer is not None:
+                tracer.record(rid, "first_token")
+            _rt.observe_with_exemplar(_M_TTFT, now - t_add, rid)
+        elif t_first is not None:
+            n_out = len(req.generated) + len(out)
+            if n_out > 1:
+                _rt.observe_with_exemplar(
+                    _M_TPOT, (now - t_first) / (n_out - 1), rid)
+        if tracer is not None:
+            tracer.finish(rid, tokens=len(self.results[rid]), reason=reason)
 
     # -- swap ---------------------------------------------------------------
     def _swap_out(self, slot: int, req: Request, out: List[int]):
@@ -1476,6 +1690,9 @@ class LLMEngine:
         the caller then recomputes."""
         n_keep = len(req.prompt) + len(req.generated) + len(out) - 1
         if n_keep <= 0 or self.lengths[slot] < n_keep:
+            # every swap-enabled preemption lands in a swap-out or a
+            # counted fallback
+            _M_SWAP_FALLBACK.inc(reason="nothing_to_keep")
             return False, []
         nb_keep = -(-n_keep // self.bs)
         blocks = [int(b) for b in self.table[slot, :nb_keep]]
@@ -1505,19 +1722,31 @@ class LLMEngine:
         self.admit_order.append(slot)
         self._table_dirty = True
         self._slots_dirty = True
+        offload_mode = None
         if ent.n_blocks:
             if ent.staged is not None:
                 # prefetch hit: the offload engine staged this entry's
                 # payload ahead of admission — no inline wait
                 datas = take_staged(ent)
                 self.offload.note_hit()
+                offload_mode = "hit"
             else:
                 t0 = time.perf_counter()
                 datas = self.offload.upload_inline(ent.data)
                 self.offload.note_stall(time.perf_counter() - t0)
+                offload_mode = "stall"
             self._swapin(blocks[:ent.n_blocks], datas)
         self._pending_swapin.append((slot, req.req_id))
         self._fresh_swapins.add(slot)
+        _M_ADMISSIONS.inc()
+        _flight.record("kv_swap_in", req_id=req.req_id, tokens=ent.n_tokens,
+                       blocks=ent.n_blocks, offload=offload_mode)
+        if _obs.enabled():
+            kw = ({"offload": offload_mode} if offload_mode is not None
+                  else {})
+            _rt.get_request_tracer().admitted(
+                req.req_id, slot=slot, context_tokens=ent.n_tokens,
+                swapped_in=True, **kw)
 
     def _offload_tick(self) -> None:
         """The step-boundary offload sweep, in three moves:
@@ -1578,6 +1807,9 @@ class LLMEngine:
                             off.stage(pc.host, key, ent)
         if self.injector is not None and \
                 self.injector.fires("offload_crash", self._step_idx):
+            _flight.record("injected_offload_crash", step=self._step_idx,
+                           in_flight=off.held_blocks,
+                           inflight_bytes=off.inflight_bytes)
             raise SimulatedCrash(
                 f"injected offload crash at serving step {self._step_idx}")
 
@@ -1675,8 +1907,14 @@ class LLMEngine:
             suffix = true_len - hist
             piece = (min(suffix, self.prefill_chunk)
                      if self.prefill_chunk else suffix)
+            if _obs.enabled():
+                # "admitted" the first time, "resumed" after a preemption
+                _rt.get_request_tracer().admitted(
+                    req.req_id, slot=slot, context_tokens=true_len,
+                    cached_tokens=hist)
             wave.append((slot, req, ctx, hist, piece, piece == suffix))
         if wave:
+            _M_ADMISSIONS.inc(len(wave))
             self._dispatch_prefill(wave)
 
     def _advance_chunks(self):
@@ -1743,17 +1981,26 @@ class LLMEngine:
         knobs = (up(temps), up(top_ks), up(top_ps), self._gen)
         hist_kw = (dict(hist_len=up(hist_lens), ctx_tbl=up(ctx_tbl))
                    if pnbk else {})
-        wave = _Readback(_paged_prefill(self.params, *args, self.pools,
-                                        *knobs, config=self.config,
-                                        sample_flags=flags, **hist_kw))
+        wave_rids = [r.req_id for _s, r, _c, _h, _p, _f in rows]
+        with trace_span("serving.prefill", bucket=bucket, batch=B,
+                        wave=len(rows), prefix_bucket=pnbk * self.bs,
+                        request_ids=wave_rids):
+            wave = _Readback(_paged_prefill(
+                self.params, *args, self.pools, *knobs, config=self.config,
+                sample_flags=flags, numerics=self.kv_int8 and _nm.active(),
+                **hist_kw))
         if self._spec_on:
             # the same pieces through the draft, so both models' K/V
             # cover every prefilled position; its token is discarded
             # (greedy: it draws nothing from the generator)
-            _paged_prefill(self.draft_params, *args, self.pools, *knobs,
-                           config=self.draft_config,
-                           sample_flags=(False, False, False),
-                           kv_prefix="d", **hist_kw)
+            with trace_span("serving.prefill", bucket=bucket, batch=B,
+                            wave=len(rows), model="draft",
+                            request_ids=wave_rids):
+                _paged_prefill(self.draft_params, *args, self.pools, *knobs,
+                               config=self.draft_config,
+                               sample_flags=(False, False, False),
+                               kv_prefix="d", **hist_kw)
+        tracer = _rt.get_request_tracer() if _obs.enabled() else None
         for i, (slot, req, ctx, hist, piece, final) in enumerate(rows):
             self.lengths[slot] = hist + piece
             if self._spec_on:
@@ -1767,6 +2014,9 @@ class LLMEngine:
                     self._slots_dirty = True   # leaves the decode mask
                 self._chunks[slot] = {"ctx": ctx, "pos": hist + piece,
                                       "rid": req.req_id}
+            if tracer is not None:
+                tracer.record(req.req_id, "prefill", bucket=bucket,
+                              batch=B, chunk_start=hist, chunk=piece)
             if self.prefix_cache is not None \
                     and len(self._pinned[slot]) == hist // self.bs:
                 # adopt this piece's FULL blocks into the trie (pinned:
@@ -2001,6 +2251,7 @@ class LLMEngine:
             if ok:
                 return "mega"
             self.mega_fallbacks[reason] += 1
+            _M_MEGA_FALLBACK.inc(reason=reason)
         return "ragged"
 
     def _prefix_blocks(self, active_slots) -> int:
@@ -2047,23 +2298,37 @@ class LLMEngine:
                     - len(self.slot_out[i])
         path = self._decode_path()
         table = self._table()
+        nbk = self.mb
         if path == "bucketed":
             # the kernels read true lengths from a full-width table; the
             # dense gather reads the table sliced to its bucket
             nbk = self._prefix_blocks(active_slots)
             table = table[:, :nbk]
-            self.decode_paths["dense" if nbk >= self.mb else path] += 1
+            label = "dense" if nbk >= self.mb else path
         else:
-            self.decode_paths[path] += 1
+            label = path
+        self.decode_paths[label] += 1
+        flags = _sample_flags([self.slot_req[i] for i in active_slots])
+        # the JAX engine's variant key: one program per (path, flags) on
+        # the kernel paths, per (bucket, flags) on the bucketed one
+        vk = (nbk if path == "bucketed" else path, flags)
+        if vk not in self._decode_variants:
+            self._decode_variants.add(vk)
+            _M_DECODE_RECOMPILES.inc()
+        _M_DECODE_KERNEL.inc(path=label)
+        _M_DECODE_VARIANTS.set(len(self._decode_variants))
+        span = (self._obs_decode(path, nbk, active_slots, prev)
+                if _obs.enabled() else _NO_SPAN)
         c_last, c_len, c_done, c_rem = self._carry
         v_act, v_t, v_k, v_p, v_eos = self._slot_vecs
-        toks, *carry = _paged_decode(
-            self.params, c_last, c_len, c_done, c_rem, self._gen, v_act,
-            table, self.pools, v_t, v_k, v_p, v_eos,
-            config=self.config, n_steps=self.decode_steps,
-            sample_flags=_sample_flags([self.slot_req[i]
-                                        for i in active_slots]),
-            mega=path == "mega", bucketed=path == "bucketed")
+        with span:
+            toks, *carry = _paged_decode(
+                self.params, c_last, c_len, c_done, c_rem, self._gen, v_act,
+                table, self.pools, v_t, v_k, v_p, v_eos,
+                config=self.config, n_steps=self.decode_steps,
+                sample_flags=flags, mega=path == "mega",
+                bucketed=path == "bucketed",
+                numerics=self.kv_int8 and _nm.active())
         self._carry = tuple(carry)
         self._inflight = {
             "toks": _Readback(toks),
@@ -2074,6 +2339,45 @@ class LLMEngine:
         self._pending_adm = []
         self._fresh_swapins = set()
         return prev
+
+    def _pool_block_bytes(self) -> int:
+        """Bytes one physical block holds across the target's pool entries
+        and layers (int8 pools: payload and scales); the draft's
+        ``dk``/``dv`` are not counted."""
+        return sum(a.shape[0] * int(np.prod(a.shape[2:])) * a.element_size()
+                   for n, a in self.pools.items()
+                   if n in ("k", "v", "ks", "vs"))
+
+    def _obs_decode(self, path, nbk, active_slots, prev):
+        """Observability of one decode dispatch (host ints only): the
+        prefix-horizon and K/V-read gauges, the call's counted FLOPs for
+        the step's MFU, and the ``serving.decode`` span to run it in."""
+        bs = self.bs
+        if path == "bucketed":
+            step_bytes = self._pool_block_bytes() * self.N * nbk
+            bucket_tokens = nbk * bs
+            attn_tokens = self.N * nbk * bs
+        else:
+            # the kernels walk the device carry's lengths, ahead of the
+            # host's by decode_steps for slots behind an unread call
+            snap = ({s for s, _ in prev["snapshot"]} if prev is not None
+                    else ())
+            lens = [int(self.lengths[i])
+                    + (self.decode_steps if i in snap else 0)
+                    for i in active_slots]
+            walk = sum(-(-ln // bs) for ln in lens)
+            step_bytes = walk * self._pool_block_bytes()
+            bucket_tokens = -(-max(lens, default=0) // bs) * bs
+            attn_tokens = walk * bs
+        _M_PREFIX_BUCKET.set(bucket_tokens)
+        _M_KV_READ_BYTES.set(step_bytes)
+        self._last_decode_flops = _perf.decode_flops(
+            self.config, self.N, self.decode_steps, attn_tokens)
+        return trace_span("serving.decode", slots=len(active_slots),
+                          steps=self.decode_steps,
+                          prefix_bucket=bucket_tokens,
+                          request_ids=[self.slot_req[i].req_id
+                                       for i in active_slots])
 
     def _flush_adm(self, adm):
         """Read back the first tokens of admissions ((slot, req_id, the
@@ -2104,28 +2408,35 @@ class LLMEngine:
         injected ``readback_fail`` fires here, before anything is read."""
         if self.injector is not None and \
                 self.injector.fires("readback_fail", self._step_idx):
+            _flight.record("injected_readback_fail", step=self._step_idx)
             raise SimulatedCrash(
                 f"injected readback failure at serving step "
                 f"{self._step_idx}")
-        emitted = self._flush_adm(rec["adm"]) if rec["adm"] else []
-        toks_host = rec["toks"].numpy()
-        for slot, rid in rec["snapshot"]:
-            req = self.slot_req[slot]
-            if req is None or req.req_id != rid:
-                continue
-            for k in range(toks_host.shape[0]):
-                tok = int(toks_host[k, slot])
-                if tok < 0:
-                    break          # slot went done mid-call
-                self.lengths[slot] += 1     # its K/V was appended
-                if self._spec_on:
-                    # advanced by the normal path: the draft's K/V are
-                    # behind until a re-prefill
-                    self._draft_len[slot] = -1
-                emitted.append((rid, tok))
-                self._step_emitted.append((rid, tok))
-                if self._emit(slot, tok):
-                    break
+        emitted = []
+        with trace_span("serving.readback"):
+            if rec["adm"]:
+                emitted += self._flush_adm(rec["adm"])
+            toks_host = rec["toks"].numpy()
+            # the readback has landed the call and all before it: the
+            # numerics vectors they shipped land with it
+            _nm.land()
+            for slot, rid in rec["snapshot"]:
+                req = self.slot_req[slot]
+                if req is None or req.req_id != rid:
+                    continue
+                for k in range(toks_host.shape[0]):
+                    tok = int(toks_host[k, slot])
+                    if tok < 0:
+                        break          # slot went done mid-call
+                    self.lengths[slot] += 1     # its K/V was appended
+                    if self._spec_on:
+                        # advanced by the normal path: the draft's K/V
+                        # are behind until a re-prefill
+                        self._draft_len[slot] = -1
+                    emitted.append((rid, tok))
+                    self._step_emitted.append((rid, tok))
+                    if self._emit(slot, tok):
+                        break
         return emitted
 
     def _process_inflight(self):
@@ -2169,7 +2480,9 @@ class LLMEngine:
         emitted = []
         if self._pending_adm:
             adm, self._pending_adm = self._pending_adm, []
-            emitted += self._flush_adm(adm)
+            with trace_span("serving.readback"):
+                emitted += self._flush_adm(adm)
+                _nm.land()
         # swap-in carry lanes are host-known state; the spec wave reads
         # host state directly and invalidates the chained device carry
         self._pending_swapin = []
@@ -2191,6 +2504,7 @@ class LLMEngine:
                 multi_step=True)
             if not ok:
                 self.mega_fallbacks["draft_" + reason] += 1
+                _M_MEGA_FALLBACK.inc(reason="draft_" + reason)
                 path = "ragged"
         self.spec_draft_paths[path] += 1
         nbk = self._spec_bucket(active)
@@ -2211,32 +2525,41 @@ class LLMEngine:
         last_d = up(last)
         lens_d = up(self.lengths.astype(np.int32))
         act_d = up(act)
-        draft, *_ = _paged_decode(
-            self.draft_params, last_d, lens_d,
-            torch.zeros(N, dtype=torch.bool, device=dev), up(budgets),
-            self._gen, act_d,
-            table[:, :nbk] if path == "bucketed" else table, self.pools,
-            torch.zeros(N, dtype=torch.float32, device=dev),
-            torch.zeros(N, dtype=torch.int32, device=dev),
-            torch.ones(N, dtype=torch.float32, device=dev),
-            torch.full((N,), -1, dtype=torch.int32, device=dev),
-            config=self.draft_config, n_steps=k,
-            sample_flags=(False, False, False), mega=path == "mega",
-            mega_multistep=path == "mega", kv_prefix="d",
-            bucketed=path == "bucketed")
-        verified = _spec_verify(
-            self.params, table[:, :nbk], last_d, draft, lens_d, act_d,
-            self.pools, config=self.config, n_spec=k,
-            max_model_len=self.max_model_len)
+        rids = [self.slot_req[i].req_id for i in active]
+        with trace_span("serving.spec_draft", slots=len(active), k=k,
+                        request_ids=rids):
+            draft, *_ = _paged_decode(
+                self.draft_params, last_d, lens_d,
+                torch.zeros(N, dtype=torch.bool, device=dev), up(budgets),
+                self._gen, act_d,
+                table[:, :nbk] if path == "bucketed" else table, self.pools,
+                torch.zeros(N, dtype=torch.float32, device=dev),
+                torch.zeros(N, dtype=torch.int32, device=dev),
+                torch.ones(N, dtype=torch.float32, device=dev),
+                torch.full((N,), -1, dtype=torch.int32, device=dev),
+                config=self.draft_config, n_steps=k,
+                sample_flags=(False, False, False), mega=path == "mega",
+                mega_multistep=path == "mega", kv_prefix="d",
+                bucketed=path == "bucketed")
+        with trace_span("serving.spec_verify", slots=len(active), k=k,
+                        prefix_bucket=nbk * self.bs, request_ids=rids):
+            verified = _spec_verify(
+                self.params, table[:, :nbk], last_d, draft, lens_d, act_d,
+                self.pools, config=self.config, n_spec=k,
+                max_model_len=self.max_model_len,
+                numerics=self.kv_int8 and _nm.active())
         if self.injector is not None and \
                 self.injector.fires("spec_verify_fail", self._step_idx):
             # nothing of this wave is host-visible yet: recovery rolls
             # back to the last committed token
+            _flight.record("injected_spec_verify_fail", step=self._step_idx)
             raise SimulatedCrash(
                 f"injected speculative-verify failure at serving step "
                 f"{self._step_idx}")
-        d_host = draft.cpu().numpy()                    # [k, N]
-        v_host = verified.cpu().numpy()                 # [N, k+1]
+        with trace_span("serving.readback"):
+            d_host = draft.cpu().numpy()                    # [k, N]
+            v_host = verified.cpu().numpy()                 # [N, k+1]
+            _nm.land()
         wave_prop = wave_acc = wave_commit = 0
         for i in active:
             req = self.slot_req[i]
@@ -2269,6 +2592,14 @@ class LLMEngine:
         self.spec_proposed += wave_prop
         self.spec_accepted += wave_acc
         self.spec_committed += wave_commit
+        _M_SPEC_PROPOSED.inc(wave_prop)
+        if wave_acc:
+            _M_SPEC_ACCEPTED.inc(wave_acc)
+        if _obs.enabled():
+            _M_SPEC_ACCEPT_RATE.set(
+                self.spec_accepted / max(1, self.spec_proposed))
+            _M_SPEC_TOKENS_PER_WAVE.set(
+                self.spec_committed / max(1, self.spec_verify_calls))
         return emitted
 
 

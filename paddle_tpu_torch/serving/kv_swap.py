@@ -27,15 +27,27 @@ Accounting contract: swapped KV holds NO device blocks (they were freed
 at swap-out, or parked under the ledger's transient ``in_flight`` term
 while the async d2h is still moving) — the engine's device invariant
 stays ``free + backed + cached + squeezed (+ in_flight) == pool size``
-while the host tier tracks its own bytes and blocks. The JAX package's
-``serving_kv_swap_*`` metrics wait for the observability port (ROADMAP
-A8); the host counters are kept.
+while the host tier tracks its own bytes and blocks. The
+``serving_kv_swap_{out,in,fallback}_total``,
+``serving_kv_swap_host_bytes``, ``serving_prefix_cache_host_bytes`` and
+``serving_prefix_cache_evictions_total{kind="drop_host_full"}`` metrics
+are kept here as in the reference; the host counters stay. The relay
+kind's ``serving_disagg_*`` metrics come with its role (ROADMAP A7).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+from ..observability.catalog import instrument as _instrument
+
 __all__ = ["HostKVPool", "SwapEntry"]
+
+_M_SWAP_OUT = _instrument("serving_kv_swap_out_total")
+_M_SWAP_IN = _instrument("serving_kv_swap_in_total")
+_M_SWAP_FALLBACK = _instrument("serving_kv_swap_fallback_total")
+_M_SWAP_BYTES = _instrument("serving_kv_swap_host_bytes")
+_M_PREFIX_BYTES = _instrument("serving_prefix_cache_host_bytes")
+_M_PREFIX_EVICT = _instrument("serving_prefix_cache_evictions_total")
 
 
 def _nbytes(t) -> int:
@@ -87,6 +99,9 @@ class HostKVPool:
                              f"or 'relay', got {kind!r}")
         self.capacity_bytes = int(capacity_bytes)
         self.kind = kind
+        self._g_bytes = (_M_SWAP_BYTES if kind == "swap"
+                         else _M_PREFIX_BYTES if kind == "prefix"
+                         else None)
         self._entries: Dict = {}
         self._bytes = 0
         # incrementally maintained population counts: block_accounting
@@ -102,6 +117,14 @@ class HostKVPool:
 
     def _count_refusal(self) -> None:
         self.refusals += 1
+        if self.kind == "swap":
+            _M_SWAP_FALLBACK.inc(reason="host_pool_full")
+        elif self.kind == "prefix":
+            _M_PREFIX_EVICT.inc(kind="drop_host_full")
+
+    def _set_bytes_gauge(self) -> None:
+        if self._g_bytes is not None:
+            self._g_bytes.set(self._bytes)
 
     # -- async-spill reservation protocol ----------------------------------
     def reserve(self, rid, nbytes: int) -> bool:
@@ -156,10 +179,14 @@ class HostKVPool:
         if self._bytes + self._reserved - resv_self + ent.nbytes \
                 > self.capacity_bytes:
             self._count_refusal()
+            self._set_bytes_gauge()
             return False
         self._entries[rid] = ent
         self._bytes += ent.nbytes
         self._blocks += ent.n_blocks
+        if self.kind == "swap":
+            _M_SWAP_OUT.inc()
+        self._set_bytes_gauge()
         return True
 
     def get(self, rid) -> Optional[SwapEntry]:
@@ -173,6 +200,9 @@ class HostKVPool:
         if ent is not None:
             self._bytes -= ent.nbytes
             self._blocks -= ent.n_blocks
+            if self.kind == "swap":
+                _M_SWAP_IN.inc()
+            self._set_bytes_gauge()
         return ent
 
     def discard(self, rid) -> None:
@@ -184,6 +214,7 @@ class HostKVPool:
             ent.staged_event = None
             self._bytes -= ent.nbytes
             self._blocks -= ent.n_blocks
+            self._set_bytes_gauge()
 
     # -- accounting ---------------------------------------------------------
     @property

@@ -45,8 +45,9 @@ the next :meth:`poll`, as on the card).
 Host bytes are counted as the tensors hold them (``SwapEntry.nbytes``);
 torch's caching host allocator may round a pinned block up to a power of
 two, which :func:`torch.cuda.host_memory_stats` shows and the pools do
-not count. The JAX package's ``serving_kv_offload_*`` metrics wait for
-the observability port (ROADMAP A8); the host counters are kept.
+not count. The ``serving_kv_offload_*`` metrics (prefetch hits, stalls,
+stall seconds, in-flight bytes, proactive spills) mirror the host
+counters, which stay.
 """
 from __future__ import annotations
 
@@ -56,8 +57,15 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from ..framework.flags import define_flag, get_flag
+from ..observability.catalog import instrument as _instrument
 
 __all__ = ["OffloadEngine", "gather_blocks", "take_staged", "upload"]
+
+_M_PREFETCH_HITS = _instrument("serving_kv_offload_prefetch_hits_total")
+_M_STALLS = _instrument("serving_kv_offload_stalls_total")
+_M_STALL_SECONDS = _instrument("serving_kv_offload_stall_seconds_total")
+_M_INFLIGHT = _instrument("serving_kv_offload_inflight_bytes")
+_M_PROACTIVE = _instrument("serving_kv_offload_proactive_spills_total")
 
 define_flag("serve_kv_offload_sync", False,
             "force synchronous KV offload transfers (inline d2h/h2d): "
@@ -213,6 +221,9 @@ class OffloadEngine:
         return sum(ent.nbytes for _p, ent in self._staged.values()
                    if ent.staged is not None)
 
+    def _gauge(self) -> None:
+        _M_INFLIGHT.set(self.inflight_bytes)
+
     # -- spill (d2h) -------------------------------------------------------
     def spill_async(self, key, pools: Dict, block_ids, n_tokens: int,
                     host_pool, hold_blocks: List[int],
@@ -235,6 +246,7 @@ class OffloadEngine:
             return False
         if proactive:
             self.proactive_spills += 1
+            _M_PROACTIVE.inc()
         if self.sync:
             # the gather is a fresh tensor: on the CPU it is the copy
             data = {n: a.cpu() for n, a in arrays.items()}
@@ -248,6 +260,7 @@ class OffloadEngine:
         self._spills[key] = _Spill(key, arrays, event, hold_blocks,
                                    n_tokens, nbytes, host_pool, on_land,
                                    proactive)
+        self._gauge()
         return True
 
     def pending(self, key) -> bool:
@@ -278,6 +291,7 @@ class OffloadEngine:
             if ent.staged is None or pool.get(key) is not ent:
                 ent.staged = ent.staged_event = None   # release the buffers
                 del self._staged[key]
+        self._gauge()
         return freed
 
     def force_land(self, key) -> Optional[List[int]]:
@@ -293,6 +307,7 @@ class OffloadEngine:
         t0 = time.perf_counter()
         blocks = self._land(t)
         self.note_stall(time.perf_counter() - t0, n=0)
+        self._gauge()
         return blocks
 
     def cancel(self, key) -> List[int]:
@@ -307,6 +322,7 @@ class OffloadEngine:
         t.pool.unreserve(key)
         if t.on_land is not None:
             t.on_land(False)
+        self._gauge()
         return t.blocks
 
     def abandon(self) -> List[int]:
@@ -328,6 +344,7 @@ class OffloadEngine:
         for _pool, ent in self._staged.values():
             ent.staged = ent.staged_event = None
         self._staged = {}
+        self._gauge()
         return freed
 
     # -- prefetch staging (h2d) --------------------------------------------
@@ -381,7 +398,10 @@ class OffloadEngine:
     # -- restore outcome counters ------------------------------------------
     def note_hit(self, n: int = 1) -> None:
         self.prefetch_hits += n
+        _M_PREFETCH_HITS.inc(n)
 
     def note_stall(self, seconds: float, n: int = 1) -> None:
         self.stalls += n
         self.stall_seconds += float(seconds)
+        _M_STALLS.inc(n)
+        _M_STALL_SECONDS.inc(float(seconds))

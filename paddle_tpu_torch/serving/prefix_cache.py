@@ -39,10 +39,11 @@ pool entries are indexed by the same block ids), and spill/restore moves
 every pool entry verbatim, so a warm hit re-arms the draft too.
 
 The cache holds no device tensors itself: payloads it spills are the
-CPU tensors the engine's ``fetch_fn`` returns. The JAX package's
-``serving_prefix_cache_*`` metrics wait for the observability port
-(ROADMAP A8); the host counters ``hits``, ``misses``,
-``tokens_skipped`` and ``evictions`` are kept.
+CPU tensors the engine's ``fetch_fn`` returns. The
+``serving_prefix_cache_{hits,misses,evictions}_total``,
+``serving_prefill_tokens_skipped_total`` and
+``serving_prefix_cache_blocks`` metrics mirror the host counters
+``hits``, ``misses``, ``evictions`` and ``tokens_skipped``, which stay.
 """
 from __future__ import annotations
 
@@ -51,7 +52,15 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..observability.catalog import instrument as _instrument
+
 __all__ = ["PrefixCache"]
+
+_M_HITS = _instrument("serving_prefix_cache_hits_total")
+_M_MISSES = _instrument("serving_prefix_cache_misses_total")
+_M_EVICTIONS = _instrument("serving_prefix_cache_evictions_total")
+_M_SKIPPED = _instrument("serving_prefill_tokens_skipped_total")
+_M_BLOCKS = _instrument("serving_prefix_cache_blocks")
 
 _uid = itertools.count()
 
@@ -221,8 +230,11 @@ class PrefixCache:
         if cached_tokens > 0:
             self.hits += 1
             self.tokens_skipped += cached_tokens
+            _M_HITS.inc()
+            _M_SKIPPED.inc(cached_tokens)
         else:
             self.misses += 1
+            _M_MISSES.inc()
 
     # -- insertion --------------------------------------------------------
     def extend(self, tokens: List[int], start_block: int,
@@ -345,6 +357,7 @@ class PrefixCache:
                 self._n_evictable -= 1
                 self._n_host += 1
                 self.evictions["spill"] += 1
+                _M_EVICTIONS.inc(kind="spill")
             else:
                 fetch.append(nd)
         if self.host is not None and fetch_fn is not None and fetch:
@@ -363,6 +376,7 @@ class PrefixCache:
                     self._n_evictable -= 1
                     self._n_host += 1
                     self.evictions["spill"] += 1
+                    _M_EVICTIONS.inc(kind="spill")
                 else:
                     freed.extend(self._drop_subtree(nd))
         else:
@@ -401,6 +415,7 @@ class PrefixCache:
                 self._n_evictable -= 1
                 if count:
                     self.evictions["drop"] += 1
+                    _M_EVICTIONS.inc(kind="drop")
                 if nd.host_clean and self.host is not None:
                     # dual-resident node: its host copy dies with it
                     self.host.discard(("pfx", nd.uid))
@@ -445,6 +460,9 @@ class PrefixCache:
     @property
     def host_bytes(self) -> int:
         return self.host.bytes_used if self.host is not None else 0
+
+    def update_gauges(self) -> None:
+        _M_BLOCKS.set(self.device_blocks)
 
 
 def _slice_copy(arr, i: int):

@@ -16,17 +16,21 @@ recompute: the KV swap tier is bypassed on this path.
 By default only the injectable
 :class:`~paddle_tpu_torch.distributed.resilience.SimulatedCrash` counts
 as a crashed step: a CUDA error, a kernel build failure or a launch
-failure propagates. The JAX package's recovery metric and flight-recorder
-event wait for the observability port (ROADMAP A8); ``recoveries``
-counts on the host.
+failure propagates. A recovery bumps ``serving_engine_recoveries_total``
+and lands a ``serving_step_recovered`` flight event (both no-ops while
+observability is off); ``recoveries`` counts on the host as well.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Tuple, Type
 
 from ..distributed.resilience.faults import SimulatedCrash
+from ..observability import flight_recorder as _flight
+from ..observability.catalog import instrument as _instrument
 
 __all__ = ["ResilientEngine"]
+
+_M_RECOVERIES = _instrument("serving_engine_recoveries_total")
 
 
 class ResilientEngine:
@@ -71,10 +75,15 @@ class ResilientEngine:
         them to ``generated``, so re-admission never re-emits them)."""
         try:
             return self.engine.step()
-        except self.recoverable:
+        except self.recoverable as e:
             self.recoveries += 1
             if self.recoveries > self.max_recoveries:
                 raise
+            _M_RECOVERIES.inc()
+            _flight.record("serving_step_recovered",
+                           error=f"{type(e).__name__}: {e}"[:160],
+                           recoveries=self.recoveries,
+                           salvaged=len(self.engine._step_emitted))
             salvaged = list(self.engine._step_emitted)
             self.engine.recover_crashed_step()
             return salvaged

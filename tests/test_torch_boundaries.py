@@ -78,7 +78,14 @@ print("OK")
     "paddle_tpu_torch.serving.resilient",
     "paddle_tpu_torch.distributed.resilience.faults",
     "paddle_tpu_torch.jit.cache",
-    "paddle_tpu_torch.kernels.gmm_autotune"])
+    "paddle_tpu_torch.kernels.gmm_autotune",
+    "paddle_tpu_torch.observability",
+    "paddle_tpu_torch.observability.perf",
+    "paddle_tpu_torch.observability.profiling",
+    "paddle_tpu_torch.observability.numerics",
+    "paddle_tpu_torch.observability.request_trace",
+    "paddle_tpu_torch.observability.flight_recorder",
+    "paddle_tpu_torch.observability.http_server"])
 def test_serving_tier_modules_import_without_jax(module):
     """The flag registry and the serving host tiers are the port's own
     copies: importing one in a fresh process loads no jax and nothing of
@@ -88,6 +95,26 @@ import sys
 import {module}
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+assert not leaked, leaked
+print("OK")
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("OK")
+
+
+def test_observability_imports_neither_torch_nor_jax():
+    """The observability package is stdlib-only: importing it (and its
+    lazily loaded submodules) in a fresh process loads no torch, no jax
+    and nothing of paddle_tpu."""
+    code = """
+import sys
+import paddle_tpu_torch.observability as obs
+obs.request_trace, obs.profiling, obs.numerics, obs.perf
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("torch", "jax", "jaxlib",
+                                       "paddle_tpu"))
 assert not leaked, leaked
 print("OK")
 """

@@ -1775,3 +1775,63 @@ def test_generate_fused_matches_generate_on_card(dev, dtype, eos):
     if dtype == torch.float32:
         cpu = llama.generate(params, prompt, cfg, 24, device="cpu", **kw)
         assert torch.equal(cpu, loop)
+
+
+@pytest.mark.parametrize("kernel", ["ragged", "mega"])
+def test_chained_dispatch_with_telemetry_syncs_nothing(dev, kernel):
+    """Observability and FLAGS_obs_numerics on, int8 pools: two
+    steady-state chained ``eng.step()`` calls run under
+    ``torch.cuda.set_sync_debug_mode("error")`` (only ``_process``, the
+    previous call's readback, with the mode off) — no metric, span, gauge
+    or numerics probe syncs the host; the kv_int8 vectors land after the
+    readback."""
+    import paddle_tpu_torch.observability as obs
+    from paddle_tpu_torch.serving import LLMEngine
+    cfg, params, *_ = _mega_inputs(dev, torch.bfloat16, 128, 4, 4)
+    obs.get_registry().reset()
+    obs.numerics.clear()
+    obs.enable()
+    obs.numerics.enable()
+    try:
+        eng = LLMEngine(params, cfg, max_slots=4, block_size=16,
+                        max_model_len=128, prompt_buckets=[64],
+                        decode_steps=4, decode_kernel=kernel,
+                        kv_dtype="int8", device=dev)
+        rng = np.random.default_rng(5)
+        for n in (5, 40, 17, 30):
+            eng.add_request(rng.integers(1, 128, size=n).tolist(),
+                            max_new_tokens=40)
+        eng.step()
+        eng.step()
+        process = eng._process
+
+        def process_unchecked(rec):
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return process(rec)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+
+        eng._process = process_unchecked
+        for _ in range(2):
+            assert eng._inflight is not None and eng._spec_safe()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eng.step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        eng._process = process
+        assert eng.readbacks["chained"] >= 2
+        eng.run()
+        obs.numerics.flush()
+        err = obs.get_registry().gauge("numerics_quant_error").labels(
+            site="kv_int8").value
+        assert 0 < err < 0.05
+        assert obs.get_registry().counter(
+            "serving_decode_kernel_total").labels(path=kernel).value \
+            == eng.decode_paths[kernel]
+    finally:
+        obs.numerics.disable()
+        obs.disable()
+        obs.get_registry().reset()
+        obs.numerics.clear()
