@@ -322,11 +322,57 @@ serving path, after (r3), on phase 4's weights, observability on:
      ``serving.step`` range, one capture counted and its flight event,
      the window's busy share and top device ops by time.
 
+The front door and the fleet (``serving/http.py``, ``serving/router.py``,
+the engine's disaggregated roles, ``observability/fleet.py`` and
+``timeseries.py``, ``distributed/watchdog.py``, ``tools/serve.py``),
+after (o3), on phase 4's weights, observability on for (h1)-(h3), each
+leg's launches counted from zero; (p1)'s mega run at 8 slots is the
+direct (colocated) run beside them:
+
+(h1) ``HTTPFrontDoor(ResilientEngine(LLMEngine(mega, 8 slots)))`` and
+     stdlib socket clients: (a) 4 requests one at a time, each SSE body
+     byte-equal to the frames of the same engine's direct run of them;
+     (b) the 16-request mix from 16 concurrent clients: tokens/s at the
+     clients and TTFT from each send to its first frame, beside (p1);
+     (c) a client closes after 2 frames: ``client_disconnected`` within
+     2 engine steps and no backed block; (d) 8 live streams and
+     ``max_queue=2`` under a burst of 6: 503s with ``Retry-After``; (e) a
+     ``readback_fail`` mid-stream: one ``: retrying`` frame, the stream
+     exactly-once; (g) ``serving_http_*`` on ``/metrics`` and, with the
+     door's process as a fleet source, on ``/fleet/metrics``; (f) drain:
+     ``/readyz`` 503, a new POST 503 + ``Connection: close``, the live
+     stream finishes, ``serving_http_drain_seconds`` observed;
+(h2) ``ReplicaRouter`` over two 4-slot mega replicas sharing the weights,
+     each step under a log-mode watchdog: (a) (p2)'s shared-prefix prompts
+     count affinity hits; (b) the mix (submits acked while the replicas
+     hold, so placement sees every load; then from 16 concurrent
+     submitters) beside (p1); (c) r0 killed mid-flight: 16 ``finished``
+     streams of 64 tokens, failovers, dedup drops, bf16 identity with
+     (b); (e) ``revive_replica``: dead -> half_open -> healthy through one
+     probe, then ``drain_all`` leaves both ledgers free; (d) the same
+     kill on phase 5's cut model (f32): streams equal an uninterrupted
+     engine's; (f) both replicas on ragged decode with 6 (c)'s 8
+     requests: tokens/s and each replica's step time beside 6 (c)'s one
+     4-slot ragged engine;
+(h3) a ``role="prefill"`` engine and a ``role="decode"`` mega engine at
+     8 slots behind one router over one ``HostKVPool(kind="relay")``:
+     handoff bytes equal to Σ ⌈nᵢ/64⌉ x 8 MiB, 16 restored and none
+     missing, handoff seconds (median, max), the relay's peak, tokens/s
+     and TTFT beside (p1), bf16 identity with (p1); the pair on the cut
+     model (f32) equal to a colocated engine; int8 pools: the relay entry
+     and the restored slot's positions byte-equal to the prefill slot's
+     blocks (payload and scales);
+(h4) ``python -m paddle_tpu_torch.tools.serve --port 0`` on the card at
+     1024 wide: ``serving on``, one generate, SIGINT, ``drained; bye``
+     and exit 0 within 60 s (its output in
+     ``chip_smoke_out/serve_cli.log``).
+
 ``python3 chip_smoke.py --serving`` runs phases 4, 6 (c), (p1)-(p4),
-(r1)-(r3) and (o1)-(o3) alone (no kernel checks, no device line).
+(r1)-(r3), (o1)-(o3) and (h1)-(h4) alone (no kernel checks, no device
+line).
 
 Before its last line it prints ``serving``, ``serving_tiers``,
-``serving_resilience``, ``observability``, ``mega``,
+``serving_resilience``, ``observability``, ``front_door``, ``mega``,
 ``training``,
 ``moe_training`` (with (m1)-(m4) under ``forms``), ``int8``,
 ``training_memory``, ``spec`` and ``generation`` lines (phases 4,
@@ -5272,6 +5318,7 @@ def serving_tiers(llama, LLMEngine, build, dev, card, cfg8, params8,
         max_slots=8, decode_kernel="mega", chained_trace=2)
     mega8["first_divergence_vs_ragged_8"] = first_divergence(m8_streams,
                                                             bf16_streams)
+    STREAMS["p1_mega_8"] = m8_streams
     tiers["p1"]["serve_mega_8_slots"] = mega8
     tiers["p1"]["serve_ragged_8_slots"] = {k: serving[k] for k in (
         "output_tok_per_s", "median_decode_step_ms", "readbacks",
@@ -5316,12 +5363,17 @@ def serving_only(llama, LLMEngine, build, dev, card) -> int:
     observed, o_launches = observability_phases(
         LLMEngine, build, dev, card, cfg8, params8, serving, tiers)
     tier_launches.update(o_launches)
+    fd, h_launches = front_door_phases(
+        llama, LLMEngine, build, dev, card, cfg8, params8, tiers,
+        runs["phase6c_ragged_4"][1])
+    tier_launches.update(h_launches)
     log(f"serving: {json.dumps(serving)}")
     log(f"mega: {json.dumps(runs['phase6c_mega_4'][1])}")
     log(f"serving_tiers: {json.dumps(tiers)}")
     log(f"serving_resilience: {json.dumps(resilience)}")
     log(f"tier_launches: {json.dumps(tier_launches)}")
     log(json.dumps({"observability": observed}))
+    log(json.dumps({"front_door": fd}))
     log(f"total {time.perf_counter() - T0:.1f} s")
     log(card)
     return 0
@@ -5881,6 +5933,993 @@ def generation_cross_device(llama, LLMEngine, dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases (h1)-(h4): the HTTP/SSE front door, the replica router, the
+# disaggregated prefill/decode pair and the serve CLI
+# ---------------------------------------------------------------------------
+# (p1)'s direct streams (phase 4's mix through mega at 8 slots): the
+# colocated run (h1) and (h3) are held beside
+STREAMS = {}
+
+
+def http_post(port, doc, timeout=600):
+    """A raw client connection with one ``POST /v1/generate`` sent."""
+    import socket
+    s = socket.create_connection(("127.0.0.1", port), timeout=timeout)
+    body = json.dumps(doc).encode()
+    s.sendall(b"POST /v1/generate HTTP/1.1\r\nHost: x\r\nContent-Length: "
+              + str(len(body)).encode() + b"\r\n\r\n" + body)
+    return s
+
+
+def http_recv(s):
+    data = b""
+    while True:
+        chunk = s.recv(65536)
+        if not chunk:
+            break
+        data += chunk
+    s.close()
+    return data
+
+
+def http_get(port, path):
+    import socket
+    s = socket.create_connection(("127.0.0.1", port), timeout=60)
+    s.sendall(f"GET {path} HTTP/1.1\r\nHost: x\r\n\r\n".encode())
+    return http_recv(s)
+
+
+def http_status(raw):
+    return int(raw.split(b" ", 2)[1])
+
+
+def http_split(raw):
+    head, _, body = raw.partition(b"\r\n\r\n")
+    return head, body
+
+
+def sse_frames(body):
+    """The JSON of every ``data:`` frame of an SSE body."""
+    return [json.loads(c.split(b"\n", 1)[0])
+            for c in body.split(b"data: ")[1:]]
+
+
+def read_frames(s, n):
+    """Read until ``n`` SSE ``data:`` frames arrived."""
+    buf = b""
+    while buf.count(b"data:") < n or not buf.endswith(b"\n\n"):
+        c = s.recv(1)
+        if not c:
+            break
+        buf += c
+    return buf
+
+
+def wait_until(pred, timeout, what):
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{what}: not within {timeout} s")
+        time.sleep(0.002)
+
+
+def need_launches(launches, dev, label, want=(), none=()):
+    """Fail unless each kernel of ``want`` launched in the run (and none
+    of ``none``): its counts were zeroed just before and read just
+    after."""
+    missing = [k for k in want if not launches.get(k)]
+    extra = [k for k in none if launches.get(k)]
+    if missing or extra:
+        raise AssertionError(f"{label}: launches {launches} (missing "
+                             f"{missing}, unexpected {extra})")
+
+
+def stream_identity(got, want):
+    """(streams equal, of how many, the first divergence)."""
+    return {"equal": sum(a == b for a, b in zip(got, want)),
+            "of": len(want), "first_divergence": first_divergence(got,
+                                                                  want)}
+
+
+def client_run(port, prompts, new_tokens, dev):
+    """Every prompt posted at once from its own client thread (SSE):
+    tokens/s at the clients (all tokens over first send to last
+    terminal), each client's TTFT from its send to its first ``data:``
+    frame, and each stream (the terminal frame's tokens, checked equal to
+    the streamed frames)."""
+    import threading
+    out = [None] * len(prompts)
+    t_send = [0.0] * len(prompts)
+    t_first = [0.0] * len(prompts)
+    t_done = [0.0] * len(prompts)
+    errors = []
+
+    def client(i):
+        try:
+            t_send[i] = time.perf_counter()
+            s = http_post(port, {"prompt": prompts[i],
+                                 "max_new_tokens": new_tokens})
+            head = read_frames(s, 1)
+            t_first[i] = time.perf_counter()
+            body = http_split(head)[1] + http_recv(s)
+            t_done[i] = time.perf_counter()
+            frames = sse_frames(body)
+            term = frames[-1]
+            toks = [f["token"] for f in frames if "token" in f]
+            if term.get("reason") != "finished" or toks != term["tokens"] \
+                    or len(toks) != new_tokens:
+                raise AssertionError(f"client {i}: terminal {term}, "
+                                     f"{len(toks)} streamed tokens")
+            out[i] = toks
+        except Exception as e:          # re-raised on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"clients failed: {errors[:3]}")
+    torch.cuda.synchronize(dev)
+    wall = max(t_done) - min(t_send)
+    ttft = sorted(f - s for f, s in zip(t_first, t_send))
+    n_tok = sum(len(t) for t in out)
+    return {"requests": len(prompts), "output_tokens": n_tok,
+            "wall_s": wall, "output_tok_per_s": n_tok / wall,
+            "ttft_p50_s": ttft[len(ttft) // 2], "ttft_p95_s": p95(ttft),
+            "ttft_s": ttft}, out
+
+
+def front_door(LLMEngine, build, dev, card, cfg, params, direct):
+    """(h1): ``HTTPFrontDoor(ResilientEngine(LLMEngine(mega, 8 slots)))``
+    on phase 4's weights, observability on, stdlib socket clients.
+    ``direct`` is (p1)'s run of the same mix through the same engine
+    geometry. Returns the numbers and each leg's launches."""
+    import threading
+    import paddle_tpu_torch.observability as obs
+    from paddle_tpu_torch.distributed.resilience import FaultInjector
+    from paddle_tpu_torch.serving import (AdmissionConfig,
+                                          AdmissionController,
+                                          HTTPFrontDoor, ResilientEngine)
+    from paddle_tpu_torch.serving.http import (sse_retry_frame,
+                                               sse_terminal_frame,
+                                               sse_token_frame)
+    mix = serving_mix(cfg, 16)
+    res, launches = {}, {}
+    eng = LLMEngine(params, cfg, max_slots=8, **SERVE_ENGINE,
+                    decode_kernel="mega", seed=SEED, device=dev)
+    # (a)'s reference: the same engine, the same 4 requests one at a time
+    direct_toks = []
+    for p in mix[:4]:
+        rid = eng.add_request(p, max_new_tokens=64)
+        direct_toks.append(eng.run()[rid])
+    reng = ResilientEngine(eng)
+    front = HTTPFrontDoor(reng, port=0)
+    _, port = front.start()
+    try:
+        log("  (h1 a) sequential: 4 requests, SSE bytes against the direct "
+            "run")
+        build.launch_counts.clear()
+        equal = 0
+        for p, toks in zip(mix[:4], direct_toks):
+            rid = eng._next_id           # the door is idle between them
+            raw = http_recv(http_post(port, {"prompt": p,
+                                             "max_new_tokens": 64}))
+            body = http_split(raw)[1]
+            want = b"".join(sse_token_frame(t) for t in toks) \
+                + sse_terminal_frame(rid, "finished", toks)
+            if body != want:
+                raise AssertionError(
+                    f"request {rid}: the SSE body differs from the direct "
+                    f"run's frames (first divergence "
+                    f"{first_divergence([sse_frames(body)[-1]['tokens']], [toks])})")
+            equal += 1
+        launches["h1_sequential"] = dict(build.launch_counts)
+        need_launches(launches["h1_sequential"], dev, "(h1 a)",
+                      want=("flash_fwd", "mega_decode"),
+                      none=("ragged_decode",))
+        res["a_sequential"] = {"byte_equal": equal, "of": 4}
+
+        log("  (h1 b) 16 concurrent clients")
+        build.launch_counts.clear()
+        b, streams = client_run(port, mix, 64, dev)
+        launches["h1_concurrent"] = dict(build.launch_counts)
+        need_launches(launches["h1_concurrent"], dev, "(h1 b)",
+                      want=("flash_fwd", "mega_decode"))
+        b["direct_tok_per_s"] = direct["output_tok_per_s"]
+        b["direct_ttft_p95_s"] = direct["ttft_p95_s"]
+        d_ttft = direct["ttft_s"]
+        b["direct_ttft_p50_s"] = d_ttft[len(d_ttft) // 2] if d_ttft \
+            else None
+        b["door_cost"] = 1 - b["output_tok_per_s"] \
+            / direct["output_tok_per_s"]
+        if "p1_mega_8" in STREAMS:
+            b["identity_vs_direct"] = stream_identity(
+                streams, STREAMS["p1_mega_8"])
+        res["b_concurrent"] = b
+        log(f"  {b['output_tok_per_s']:.1f} tok/s at the clients against "
+            f"{direct['output_tok_per_s']:.1f} direct; TTFT p50 "
+            f"{b['ttft_p50_s']:.3f} s, p95 {b['ttft_p95_s']:.3f} s "
+            f"(direct p95 {direct['ttft_p95_s']:.3f} s)")
+
+        log("  (h1 c) a client disconnects after 2 frames")
+        rid = eng._next_id
+        s = http_post(port, {"prompt": mix[4], "max_new_tokens": 64})
+        read_frames(s, 2)
+        s.close()
+        step0 = eng._step_idx
+        wait_until(lambda: eng.finish_reasons.get(rid) is not None, 120,
+                   "(h1 c) the disconnect's terminal")
+        steps = eng._step_idx - step0
+        wait_until(lambda: not eng.has_work(), 120, "(h1 c) idle")
+        acct = eng.block_accounting()
+        if eng.finish_reasons[rid] != "client_disconnected" \
+                or acct["backed"] != 0 or steps > 2:
+            raise AssertionError(f"(h1 c): reason "
+                                 f"{eng.finish_reasons[rid]}, {steps} "
+                                 f"steps, ledger {acct}")
+        res["c_disconnect"] = {"reason": eng.finish_reasons[rid],
+                               "steps_to_terminal": steps,
+                               "tokens_kept": len(eng.results[rid]),
+                               "backed": acct["backed"]}
+
+        log("  (h1 d) overload: 8 live streams, max_queue 2, a burst of 6")
+        live = [http_post(port, {"prompt": p, "max_new_tokens": 64})
+                for p in mix[:8]]
+        for s in live:
+            read_frames(s, 1)               # every slot is decoding
+        eng.admission = AdmissionController(AdmissionConfig(max_queue=2))
+        codes, heads = [], []
+        lock = threading.Lock()
+
+        def burst(p):
+            raw = http_recv(http_post(port, {"prompt": p,
+                                             "max_new_tokens": 4,
+                                             "stream": False}))
+            with lock:
+                codes.append(http_status(raw))
+                heads.append(http_split(raw)[0])
+
+        threads = [threading.Thread(target=burst, args=(p,))
+                   for p in mix[8:14]]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        for s in live:
+            term = sse_frames(http_recv(s))[-1]
+            if term["reason"] != "finished":
+                raise AssertionError(f"(h1 d): a live stream ended {term}")
+        eng.admission = None
+        shed = [h for c, h in zip(codes, heads) if c == 503]
+        if len(codes) != 6 or not shed or set(codes) - {200, 503} \
+                or not all(b"Retry-After:" in h for h in shed):
+            raise AssertionError(f"(h1 d): codes {sorted(codes)}")
+        res["d_overload"] = {"served": codes.count(200),
+                             "shed_503": len(shed)}
+
+        log("  (h1 e) a readback_fail mid-stream")
+        rec0 = reng.recoveries
+        eng.injector = FaultInjector([("readback_fail", eng._step_idx + 3)])
+        raw = http_recv(http_post(port, {"prompt": mix[0],
+                                         "max_new_tokens": 64}))
+        eng.injector = None
+        body = http_split(raw)[1]
+        frames = sse_frames(body)
+        toks = [f["token"] for f in frames if "token" in f]
+        if reng.recoveries != rec0 + 1 \
+                or sse_retry_frame(rec0 + 1) not in body \
+                or frames[-1]["reason"] != "finished" \
+                or toks != frames[-1]["tokens"] or len(toks) != 64:
+            raise AssertionError(f"(h1 e): recoveries {reng.recoveries}, "
+                                 f"terminal {frames[-1]}")
+        res["e_recovery"] = {"recoveries": reng.recoveries - rec0,
+                             "retrying_frame": True, "exactly_once": True,
+                             "identity_vs_direct": stream_identity(
+                                 [toks], direct_toks[:1])}
+
+        log("  (h1 g) /metrics and /fleet/metrics through the door")
+        page = http_split(http_get(port, "/metrics"))[1].decode()
+        vals = prometheus_values(page)
+        # the fleet view merges replica-scoped series; the door's own
+        # process joins it as an explicit source, as a remote process
+        # would through fleet.http_source
+        agg = obs.fleet.get_aggregator()
+        agg.add_source("door", obs.snapshot)
+        try:
+            fpage = http_split(http_get(port, "/fleet/metrics"))[1].decode()
+        finally:
+            agg.remove_source("door")
+        fvals = prometheus_values(fpage)
+        http_names = sorted(k for k in vals if k.startswith("serving_http_"))
+        if vals.get("serving_http_requests_total", 0) < 20 \
+                or vals.get("serving_http_client_disconnects_total", 0) < 1 \
+                or fvals.get("serving_http_requests_total", 0) \
+                < vals["serving_http_requests_total"]:
+            raise AssertionError(f"(h1 g): {http_names} {vals} {fvals}")
+        res["g_scrapes"] = {"serving_http_series": http_names,
+                            "requests_total":
+                                vals["serving_http_requests_total"]}
+
+        log("  (h1 f) drain")
+        s = http_post(port, {"prompt": mix[1], "max_new_tokens": 64})
+        read_frames(s, 1)
+        t0 = time.perf_counter()
+        front.begin_drain(drain_s=300)
+        ready = http_status(http_get(port, "/readyz"))
+        raw = http_recv(http_post(port, {"prompt": mix[2],
+                                         "max_new_tokens": 2}))
+        term = sse_frames(http_recv(s))[-1]
+        if not front.wait_drained(300):
+            raise AssertionError("(h1 f): the door never drained")
+        drained_s = time.perf_counter() - t0
+        hist = obs.get_registry().histogram(
+            "serving_http_drain_seconds").labels()
+        if ready != 503 or http_status(raw) != 503 \
+                or b"Connection: close" not in http_split(raw)[0] \
+                or term["reason"] != "finished" \
+                or len(term["tokens"]) != 64 or sum(hist.counts) != 1:
+            raise AssertionError(f"(h1 f): readyz {ready}, post "
+                                 f"{http_status(raw)}, terminal {term}")
+        res["f_drain"] = {"readyz": ready, "post_during_drain": 503,
+                          "live_stream": term["reason"],
+                          "drain_s": drained_s}
+    finally:
+        front.stop()
+    acct = eng.block_accounting()
+    if acct["backed"] or acct["free"] != acct["total"]:
+        raise AssertionError(f"(h1): ledger after the door {acct}")
+    del reng, eng, front
+    free_memory()
+    return res, launches
+
+
+class StepClock:
+    """A router ``step_hook``: each replica's step wall times (between two
+    calls of the hook on its thread), and each stream's first-token time
+    from its submit (``submitted``). While ``hold`` is set every replica
+    waits after its step, taking its ops (a submit is acked at once) but
+    stepping nothing; with ``park`` set to (replica set, tokens), the
+    first replica found owning a live stream with that many delivered
+    tokens waits so until ``go`` is set, so a kill lands mid-stream."""
+
+    def __init__(self, park=None):
+        import threading
+        self.router = None
+        self.last = {}
+        self.steps = {}
+        self.submitted = {}
+        self.first = {}
+        self.park = park
+        self.victim = None
+        self.parked = threading.Event()
+        self.go = threading.Event()
+        self.hold = threading.Event()
+
+    def _wait(self, name, done):
+        rep = self.router.replicas[name]
+        t0 = time.perf_counter()
+        while not done() and time.perf_counter() - t0 < 300:
+            rep._run_ops()
+            time.sleep(0.001)
+        self.last.pop(name, None)
+
+    def __call__(self, name, _eng):
+        if self.hold.is_set():
+            self._wait(name, lambda: not self.hold.is_set())
+        now = time.perf_counter()
+        if name in self.last:
+            self.steps.setdefault(name, []).append(now - self.last[name])
+        self.last[name] = now
+        router = self.router
+        with router._lock:
+            for rid, rec in router._streams.items():
+                if rec.delivered and rid not in self.first \
+                        and rid in self.submitted:
+                    self.first[rid] = now - self.submitted[rid]
+            if self.park is None or self.victim is not None:
+                return
+            names, tokens = self.park
+            if name not in names or not any(
+                    rec.replica == name and not rec.done.is_set()
+                    and len(rec.delivered) >= tokens
+                    for rec in router._streams.values()):
+                return
+            self.victim = name
+        self.parked.set()
+        self._wait(name, self.go.is_set)
+
+
+def watched(fn, label, timeout=120.0):
+    """Run ``fn()`` under a process watchdog in log mode (every replica
+    step is a guarded region): a step past ``timeout`` fails the phase
+    once ``fn`` returns or raises, never hangs it silently."""
+    from paddle_tpu_torch.distributed import watchdog
+    hits = []
+    watchdog.install(watchdog.CommWatchdog(
+        timeout=timeout, mode="log", on_timeout=lambda n, e:
+        hits.append((n, round(e, 1)))))
+    try:
+        out = fn()
+    finally:
+        watchdog.uninstall()
+    if hits:
+        raise AssertionError(f"{label}: replica steps past {timeout} s: "
+                             f"{hits}")
+    return out
+
+
+def submit_held(router, clock, prompts, new_tokens):
+    """Submit every prompt in order while the replicas hold (each submit
+    acked at once, so the router's load model sees every earlier
+    placement), then let them run; the router ids in prompt order."""
+    clock.hold.set()
+    try:
+        rids = []
+        for p in prompts:
+            t = time.perf_counter()
+            rids.append(router.submit(list(p), max_new_tokens=new_tokens))
+            clock.submitted[rids[-1]] = t
+    finally:
+        clock.hold.clear()
+    return rids
+
+
+def submit_all(router, clock, prompts, new_tokens):
+    """Submit every prompt at once, one client thread each (the router
+    places each on the loads it saw, before any was acked); the router
+    ids in prompt order."""
+    import threading
+    rids = [None] * len(prompts)
+    errors = []
+
+    def one(i):
+        try:
+            t = time.perf_counter()
+            rids[i] = router.submit(list(prompts[i]),
+                                    max_new_tokens=new_tokens)
+            clock.submitted[rids[i]] = t
+        except Exception as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if errors:
+        raise AssertionError(f"submits failed: {errors[:3]}")
+    return rids
+
+
+def stop_router(router):
+    """Stop every replica thread; fail if one does not end (a hung
+    replica fails the phase, the script does not wait on it)."""
+    router.stop()
+    alive = [n for n, rep in router.replicas.items() if rep.alive()]
+    if alive:
+        raise AssertionError(f"replica threads still running: {alive}")
+
+
+def drained_clean(eng):
+    acct = eng.block_accounting()
+    return acct["free"] + acct["cached"] == acct["total"] \
+        and not acct["backed"] and not acct["squeezed"]
+
+
+def run_router(router, clock, prompts, new_tokens, dev, label,
+               submit=submit_held):
+    """``prompts`` through ``router``, submitted by ``submit``: tokens/s,
+    TTFT at the router, the dispatch split, streams (each checked
+    ``finished`` with ``new_tokens``)."""
+    torch.cuda.synchronize(dev)
+    before = {n: rep.dispatches for n, rep in router.replicas.items()}
+    t0 = time.perf_counter()
+    rids = submit(router, clock, prompts, new_tokens)
+    streams = [router.wait(r, timeout=600) for r in rids]
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    bad = [(r, router.finish_reasons[r], len(s))
+           for r, s in zip(rids, streams)
+           if router.finish_reasons[r] != "finished" or len(s) != new_tokens]
+    if bad:
+        raise AssertionError(f"{label}: streams {bad}")
+    ttft = sorted(clock.first.get(r, float("nan")) for r in rids)
+    n_tok = sum(len(s) for s in streams)
+    return {"requests": len(rids), "output_tokens": n_tok, "wall_s": wall,
+            "output_tok_per_s": n_tok / wall,
+            "ttft_p50_s": ttft[len(ttft) // 2], "ttft_p95_s": p95(ttft),
+            "dispatches": {n: rep.dispatches - before[n]
+                           for n, rep in router.replicas.items()}}, \
+        rids, streams
+
+
+def cut_prompts(cfg, n, seed=SEED + 5):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, size=int(m)).tolist()
+            for m in rng.integers(100, 250, size=n)]
+
+
+CUT_ENGINE = dict(block_size=64, max_model_len=512, prompt_buckets=[256],
+                  decode_steps=4)
+
+
+def cut_failover(llama, LLMEngine, dev):
+    """(h2 d): phase 5's cut model (f32) on the card, two mega replicas
+    at 4 slots; one killed once a stream on it has 4 tokens: every
+    stream equals an uninterrupted engine's."""
+    from paddle_tpu_torch.serving import ReplicaRouter
+    cfg, base = cut_model(llama)
+    params = tree_to(base, dev)
+    prompts = cut_prompts(cfg, 8)
+    ref = LLMEngine(params, cfg, max_slots=4, **CUT_ENGINE,
+                    decode_kernel="mega", device=dev)
+    ids = [ref.add_request(p, max_new_tokens=24) for p in prompts]
+    out = ref.run()
+    want = [out[i] for i in ids]
+    clock = StepClock(park=({"r0", "r1"}, 4))
+    router = ReplicaRouter(
+        [LLMEngine(params, cfg, max_slots=4, **CUT_ENGINE,
+                   decode_kernel="mega", device=dev) for _ in range(2)],
+        names=["r0", "r1"], step_hook=clock)
+    clock.router = router
+    router.start()
+    try:
+        rids = submit_held(router, clock, prompts, 24)
+        if not clock.parked.wait(300):
+            raise AssertionError("(h2 d): no replica reached the park")
+        router.kill_replica(clock.victim)
+        clock.go.set()
+        got = [router.wait(r, timeout=300) for r in rids]
+        failovers = router.failovers
+    finally:
+        clock.go.set()
+        stop_router(router)
+    if got != want or not failovers:
+        raise AssertionError(f"(h2 d): f32 resumed streams differ "
+                             f"({stream_identity(got, want)}), failovers "
+                             f"{failovers}")
+    del params, ref
+    return {"streams": len(got), "equal": True, "failovers": failovers,
+            "victim": clock.victim}
+
+
+def replica_router(llama, LLMEngine, build, dev, card, cfg, params, direct,
+                   ragged4):
+    """(h2): ``ReplicaRouter`` over two 4-slot replicas of phase 4's
+    weights (one params dict) on one card, observability on. ``direct``
+    is (p1)'s one 8-slot mega engine, ``ragged4`` phase 6 (c)'s one
+    4-slot ragged engine."""
+    import paddle_tpu_torch.observability as obs
+    from paddle_tpu_torch.serving import ReplicaRouter
+    res, launches = {}, {}
+    mix = serving_mix(cfg, 16)
+
+    def engines(kernel):
+        return [LLMEngine(params, cfg, max_slots=4, **SERVE_ENGINE,
+                          decode_kernel=kernel, seed=SEED, device=dev)
+                for _ in range(2)]
+
+    clock = StepClock()
+    router = ReplicaRouter(engines("mega"), names=["r0", "r1"],
+                           step_hook=clock, halfopen_s=0.5)
+    clock.router = router
+    if any(rep.raw.params is not params for rep in router.replicas.values()):
+        raise AssertionError("(h2): a replica copied the weights")
+    router.start()
+    try:
+        log("  (h2 a) affinity: (p2)'s shared 384-token prefix")
+        rng = np.random.default_rng(0)
+        top = min(32768, cfg.vocab_size)
+        shared = rng.integers(1, top, size=384).tolist()
+        tails = [rng.integers(1, top, size=int(t)).tolist()
+                 for t in rng.integers(48, 112, size=4)]
+        build.launch_counts.clear()
+        owners = []
+        for t in tails:
+            rid = router.submit(shared + t, max_new_tokens=8)
+            router.wait(rid, timeout=300)
+            owners.append(router._streams[rid].replica)
+        hits = obs.get_registry().counter(
+            "serving_router_affinity_total").labels(outcome="hit").value
+        if hits < 3 or len(set(owners)) != 1:
+            raise AssertionError(f"(h2 a): hits {hits}, owners {owners}")
+        res["a_affinity"] = {"hits": hits, "owners": owners}
+
+        log("  (h2 b) phase 4's 16-request mix, both replicas healthy")
+        clock.steps.clear()
+        build.launch_counts.clear()
+        b, _, streams_b = run_router(router, clock, mix, 64, dev, "(h2 b)")
+        launches["h2_router_mega"] = dict(build.launch_counts)
+        need_launches(launches["h2_router_mega"], dev, "(h2 b)",
+                      want=("flash_fwd", "mega_decode"),
+                      none=("ragged_decode",))
+        steps = [t for ts in clock.steps.values() for t in ts]
+        b.update(direct_tok_per_s=direct["output_tok_per_s"],
+                 direct_ttft_p95_s=direct["ttft_p95_s"],
+                 ratio=b["output_tok_per_s"] / direct["output_tok_per_s"],
+                 median_replica_step_ms=1e3 * float(np.median(steps)))
+        # the same mix from 16 concurrent submitters: each placed on the
+        # loads it saw before any earlier one was acked
+        herd, _, _ = run_router(router, clock, mix, 64, dev, "(h2 b herd)",
+                                submit=submit_all)
+        b["concurrent_submits"] = herd
+        if "p1_mega_8" in STREAMS:
+            b["identity_vs_direct"] = stream_identity(
+                streams_b, STREAMS["p1_mega_8"])
+        res["b_throughput"] = b
+        log(f"  router {b['output_tok_per_s']:.1f} tok/s against one 8-slot "
+            f"engine's {direct['output_tok_per_s']:.1f}; median replica "
+            f"step {b['median_replica_step_ms']:.2f} ms")
+
+        log("  (h2 c) r0 killed with streams in flight")
+        build.launch_counts.clear()
+        clock.first.clear()
+        rids = submit_held(router, clock, mix, 64)
+        wait_until(lambda: any(
+            rec.replica == "r0" and len(rec.delivered) >= 8
+            and not rec.done.is_set()
+            for rec in list(router._streams.values())), 300,
+            "(h2 c) a stream 8 tokens into r0")
+        router.kill_replica("r0")
+        streams_c = [router.wait(r, timeout=600) for r in rids]
+        launches["h2_failover"] = dict(build.launch_counts)
+        need_launches(launches["h2_failover"], dev, "(h2 c)",
+                      want=("flash_fwd", "mega_decode"))
+        reasons = [router.finish_reasons[r] for r in rids]
+        if set(reasons) != {"finished"} \
+                or any(len(s) != 64 for s in streams_c) \
+                or not router.failovers:
+            raise AssertionError(f"(h2 c): reasons {Counter(reasons)}, "
+                                 f"lengths {[len(s) for s in streams_c]}")
+        res["c_failover"] = {
+            "failovers": router.failovers,
+            "resumed_streams": router.resumed_streams,
+            "dedup_drops": router.dedup_drops,
+            "terminal_reasons": dict(Counter(reasons)),
+            "identity_vs_b": stream_identity(streams_c, streams_b)}
+        log(f"  {res['c_failover']}")
+
+        log("  (h2 e) revive r0: dead -> half_open -> healthy")
+        states = [router.check()["r0"]]
+        router.revive_replica("r0")
+        time.sleep(0.6)                     # past halfopen_s
+        states.append(router.check()["r0"])
+        # a prompt no replica has served: no affinity, so the half-open
+        # probe takes it
+        rid = router.submit(list(range(1, 65)), max_new_tokens=4)
+        probe_on = router._streams[rid].replica
+        router.wait(rid, timeout=300)
+        states.append(router.check()["r0"])
+        if states != ["dead", "half_open", "healthy"] or probe_on != "r0":
+            raise AssertionError(f"(h2 e): states {states}, probe on "
+                                 f"{probe_on}")
+        if not router.drain_all(timeout=300):
+            raise AssertionError("(h2 e): drain_all timed out")
+        wait_until(lambda: set(router.check().values()) == {"drained"},
+                   300, "(h2 e) both replicas drained")
+        ledgers = {n: rep.raw.block_accounting()
+                   for n, rep in router.replicas.items()}
+        if not all(drained_clean(rep.raw)
+                   for rep in router.replicas.values()):
+            raise AssertionError(f"(h2 e): ledgers after drain_all "
+                                 f"{ledgers}")
+        res["e_breaker"] = {"states": states, "ledgers": ledgers}
+    finally:
+        stop_router(router)
+    del router
+    free_memory()
+
+    log("  (h2 d) the same kill on phase 5's cut model (f32)")
+    res["d_f32_identity"] = cut_failover(llama, LLMEngine, dev)
+    free_memory()
+
+    log("  (h2 f) both replicas on ragged decode at 4 slots, 6 (c)'s 8 "
+        "requests")
+    clock = StepClock()
+    router = ReplicaRouter(engines("ragged"), names=["r0", "r1"],
+                           step_hook=clock)
+    clock.router = router
+    router.start()
+    try:
+        build.launch_counts.clear()
+        f, _, _ = run_router(router, clock, mix[:8], 64, dev, "(h2 f)")
+        launches["h2_router_ragged"] = dict(build.launch_counts)
+        need_launches(launches["h2_router_ragged"], dev, "(h2 f)",
+                      want=("flash_fwd", "ragged_decode"),
+                      none=("mega_decode",))
+    finally:
+        stop_router(router)
+    steps = [t for ts in clock.steps.values() for t in ts]
+    f.update(median_replica_step_ms=1e3 * float(np.median(steps)),
+             one_engine_4_slots_tok_per_s=ragged4["output_tok_per_s"],
+             one_engine_4_slots_median_decode_step_ms=ragged4[
+                 "median_decode_step_ms"])
+    res["f_ragged"] = f
+    log(f"  ragged router {f['output_tok_per_s']:.1f} tok/s, median "
+        f"replica step {f['median_replica_step_ms']:.1f} ms (one 4-slot "
+        f"engine: {ragged4['output_tok_per_s']:.1f} tok/s, "
+        f"{ragged4['median_decode_step_ms']:.2f} ms a token step)")
+    del router
+    free_memory()
+    return res, launches
+
+
+def kv_block_bytes(eng):
+    """Bytes one block of every pool entry holds (all layers)."""
+    return sum(t[:, :1].numel() * t.element_size()
+               for t in eng.pools.values())
+
+
+def disagg_pair(LLMEngine, dev, cfg, params, roles_slots, kernel,
+                relay_bytes, clock, **kw):
+    from paddle_tpu_torch.serving import HostKVPool, ReplicaRouter
+    relay = HostKVPool(relay_bytes, kind="relay")
+    engines = [LLMEngine(params, cfg, max_slots=slots, decode_kernel=kernel,
+                         role=role, relay=relay, device=dev, **kw)
+               for role, slots in roles_slots]
+    router = ReplicaRouter(engines, names=["p0", "d0"], step_hook=clock)
+    clock.router = router
+    return router.start(), relay, engines
+
+
+def relay_bit_exact(LLMEngine, dev, cfg, params, prompt):
+    """(h3)'s int8-pool leg: one request handed off by a prefill engine
+    to a decode engine through the relay, both with int8 pools. The
+    relay entry (payload and scales) equals the prefill slot's blocks,
+    and the restored slot's positions equal them byte for byte."""
+    from paddle_tpu_torch.serving import HostKVPool
+    relay = HostKVPool(1 << 30, kind="relay")
+    kw = dict(max_slots=1, **SERVE_ENGINE, decode_kernel="mega",
+              kv_dtype="int8", relay=relay, device=dev)
+    pre = LLMEngine(params, cfg, role="prefill", **kw)
+    dec = LLMEngine(params, cfg, role="decode", **kw)
+    nb = -(-len(prompt) // pre.bs)
+    held = {}
+    handoff = pre._handoff
+
+    def spy(slot):
+        blks = [int(b) for b in pre.table[slot, :nb]]
+        held.update({n: t[:, blks].cpu() for n, t in pre.pools.items()})
+        handoff(slot)
+
+    pre._handoff = spy
+    erid = pre.add_request(prompt, max_new_tokens=64)
+    first = []
+    while pre.has_work():
+        first += [t for _r, t in pre.step()]
+    ent = relay.get(erid)
+    if pre.finish_reasons[erid] != "handoff" or ent is None \
+            or sorted(ent.data) != ["k", "ks", "v", "vs"] \
+            or not all(torch.equal(ent.data[n], held[n]) for n in held):
+        raise AssertionError("(h3 int8): the relay entry differs from the "
+                             "prefill slot's blocks")
+    rid = dec.add_request(prompt + first, max_new_tokens=63,
+                          relay_key=erid)
+    dec.step()
+    blks = [int(b) for b in dec.table[0, :nb]]
+    n = len(prompt)
+    for name, t in dec.pools.items():
+        got = t[:, blks].cpu().flatten(1, 2)[:, :n]
+        if not torch.equal(got, held[name].flatten(1, 2)[:, :n]):
+            raise AssertionError(f"(h3 int8): restored {name} differs")
+    out = first + dec.run()[rid]
+    if len(out) != 64:
+        raise AssertionError(f"(h3 int8): {len(out)} tokens")
+    res = {"entries": ["k", "ks", "v", "vs"], "blocks": nb,
+           "bytes": int(sum(t.numel() * t.element_size()
+                            for t in ent.data.values())),
+           "bit_exact": True}
+    del pre, dec, relay, held, ent
+    return res
+
+
+def disaggregated(llama, LLMEngine, build, dev, card, cfg, params, direct):
+    """(h3): a prefill-role engine and a decode-role mega engine at 8
+    slots behind one router, one shared relay pool, phase 4's mix,
+    observability on."""
+    import paddle_tpu_torch.observability as obs
+    res, launches = {}, {}
+    mix = serving_mix(cfg, 16)
+    clock = StepClock()
+    router, relay, (p_eng, d_eng) = disagg_pair(
+        LLMEngine, dev, cfg, params, (("prefill", 8), ("decode", 8)),
+        "mega", 4 << 30, clock, seed=SEED, **SERVE_ENGINE)
+    handoff_s, relay_peak = [], [0]
+    handoff = p_eng._handoff
+
+    def timed(slot):
+        t0 = time.perf_counter()
+        handoff(slot)
+        handoff_s.append(time.perf_counter() - t0)
+        relay_peak[0] = max(relay_peak[0], relay.bytes_used)
+
+    p_eng._handoff = timed
+    try:
+        build.launch_counts.clear()
+        run, _, streams = run_router(router, clock, mix, 64, dev, "(h3)")
+        launches["h3_disagg"] = dict(build.launch_counts)
+        need_launches(launches["h3_disagg"], dev, "(h3)",
+                      want=("flash_fwd", "mega_decode"),
+                      none=("ragged_decode",))
+        agg = obs.fleet.get_aggregator()
+        outcome = {o: agg.fleet_counter_value(
+            "serving_disagg_handoffs_total", outcome=o)
+            for o in ("ok", "restored", "missing", "relay_full")}
+        per_block = kv_block_bytes(p_eng)
+        reckoned = per_block * sum(-(-len(p) // p_eng.bs) for p in mix)
+        if p_eng.handoff_bytes != reckoned or len(relay) \
+                or router.handoff_resumes != 16 \
+                or outcome["restored"] != 16 or outcome["missing"] \
+                or d_eng.handoffs:
+            raise AssertionError(f"(h3): handoff bytes "
+                                 f"{p_eng.handoff_bytes} against "
+                                 f"{reckoned}, relay {len(relay)}, "
+                                 f"outcomes {outcome}")
+        run.update(
+            direct_tok_per_s=direct["output_tok_per_s"],
+            direct_ttft_p95_s=direct["ttft_p95_s"],
+            handoffs=p_eng.handoffs, handoff_bytes=p_eng.handoff_bytes,
+            reckoned_bytes=reckoned, block_bytes=per_block,
+            handoff_s_median=float(np.median(handoff_s)),
+            handoff_s_max=max(handoff_s), relay_peak_bytes=relay_peak[0],
+            outcomes=outcome)
+        if "p1_mega_8" in STREAMS:
+            run["identity_vs_colocated"] = stream_identity(
+                streams, STREAMS["p1_mega_8"])
+        res["bf16"] = run
+        log(f"  disaggregated {run['output_tok_per_s']:.1f} tok/s (colocated "
+            f"{direct['output_tok_per_s']:.1f}), TTFT p95 "
+            f"{run['ttft_p95_s']:.3f} s (colocated "
+            f"{direct['ttft_p95_s']:.3f}), handoff median "
+            f"{1e3 * run['handoff_s_median']:.1f} ms, max "
+            f"{1e3 * run['handoff_s_max']:.1f} ms, relay peak "
+            f"{relay_peak[0] / 2**30:.2f} GiB, bytes {p_eng.handoff_bytes} "
+            f"= reckoned {reckoned}")
+    finally:
+        stop_router(router)
+    del router, relay, p_eng, d_eng
+    free_memory()
+
+    log("  (h3) f32: the pair on phase 5's cut model against a colocated "
+        "engine")
+    ccfg, base = cut_model(llama)
+    cparams = tree_to(base, dev)
+    prompts = cut_prompts(ccfg, 8, seed=SEED + 6)
+    ref = LLMEngine(cparams, ccfg, max_slots=4, **CUT_ENGINE,
+                    decode_kernel="mega", device=dev)
+    ids = [ref.add_request(p, max_new_tokens=24) for p in prompts]
+    out = ref.run()
+    want = [out[i] for i in ids]
+    clock = StepClock()
+    router, relay, (cp, _cd) = disagg_pair(
+        LLMEngine, dev, ccfg, cparams, (("prefill", 4), ("decode", 4)),
+        "mega", 1 << 30, clock, **CUT_ENGINE)
+    try:
+        _, _, got = run_router(router, clock, prompts, 24, dev, "(h3 f32)")
+    finally:
+        stop_router(router)
+    if got != want or router.handoff_resumes != len(prompts):
+        raise AssertionError(f"(h3 f32): {stream_identity(got, want)}")
+    res["f32_identity"] = {"streams": len(got), "equal": True,
+                           "handoffs": cp.handoffs}
+    del router, relay, cp, _cd, ref, cparams
+    free_memory()
+
+    log("  (h3) int8 pools: the relayed payload and scales bit-exact")
+    res["int8_relay"] = relay_bit_exact(LLMEngine, dev, cfg, params,
+                                        mix[0])
+    free_memory()
+    return res, launches
+
+
+def serve_cli(dev, card):
+    """(h4): ``python -m paddle_tpu_torch.tools.serve --port 0`` on the
+    card at 1024 wide, one generate, SIGINT: ``drained; bye`` and exit 0
+    within 60 s. Its output goes to ``chip_smoke_out/serve_cli.log``."""
+    import re
+    import signal
+    import threading
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "chip_smoke_out"), exist_ok=True)
+    path = os.path.join(root, "chip_smoke_out", "serve_cli.log")
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.tools.serve",
+           "--port", "0", "--hidden", "1024",
+           "--heads", "8", "--kv-heads", "8", "--dtype", "bfloat16",
+           "--block-size", "64", "--max-len", "512",
+           "--flags", "serve_drain_s=30"]
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, cwd=root, env=env)
+    lines = []
+    port_box = []
+    seen = threading.Event()
+
+    def reader():
+        for raw in proc.stdout:
+            line = raw.decode(errors="replace")
+            lines.append(line)
+            m = re.search(r"serving on http://127\.0\.0\.1:(\d+)", line)
+            if m and not port_box:
+                port_box.append(int(m.group(1)))
+                seen.set()
+
+    th = threading.Thread(target=reader, daemon=True)
+    th.start()
+    try:
+        if not seen.wait(60):
+            raise AssertionError("(h4): no 'serving on' line in 60 s")
+        port = port_box[0]
+        up_s = time.perf_counter() - t0
+        raw = http_recv(http_post(port, {"prompt": [1, 2, 3],
+                                         "max_new_tokens": 8}))
+        term = sse_frames(http_split(raw)[1])[-1]
+        if term.get("reason") != "finished" or len(term["tokens"]) != 8:
+            raise AssertionError(f"(h4): terminal {term}")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=max(1.0, 60 - (time.perf_counter() - t0)))
+        th.join(10)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        with open(path, "w") as f:
+            f.writelines(lines)
+    total = time.perf_counter() - t0
+    if rc != 0 or not any("drained; bye" in x for x in lines) or total > 60:
+        raise AssertionError(f"(h4): exit {rc} after {total:.1f} s; tail "
+                             f"{lines[-5:]}")
+    return {"exit": rc, "up_s": up_s, "total_s": total,
+            "terminal_tokens": len(term["tokens"]), "log": path}
+
+
+def front_door_phases(llama, LLMEngine, build, dev, card, cfg8, params8,
+                      tiers, ragged4):
+    """Phases (h1)-(h4) on phase 4's weights, observability on for
+    (h1)-(h3) and off again after; (p1)'s mega run at 8 slots is the
+    direct and colocated run beside them. Returns the ``front_door``
+    numbers and each leg's launches."""
+    import paddle_tpu_torch.observability as obs
+    t0 = time.perf_counter()
+    direct = tiers["p1"]["serve_mega_8_slots"]
+    res, launches = {}, {}
+    obs_reset(obs)
+    obs.enable()
+    try:
+        log("phase (h1): the HTTP/SSE front door, mega at 8 slots")
+        res["h1"], l1 = front_door(LLMEngine, build, dev, card, cfg8,
+                                   params8, direct)
+        launches.update(l1)
+        obs_reset(obs)
+        log("phase (h2): the replica router, two 4-slot replicas on one "
+            "card")
+        res["h2"], l2 = watched(lambda: replica_router(
+            llama, LLMEngine, build, dev, card, cfg8, params8, direct,
+            ragged4), "(h2)")
+        launches.update(l2)
+        obs_reset(obs)
+        log("phase (h3): disaggregated prefill/decode over a relay pool")
+        res["h3"], l3 = watched(lambda: disaggregated(
+            llama, LLMEngine, build, dev, card, cfg8, params8, direct),
+            "(h3)")
+        launches.update(l3)
+    finally:
+        obs.disable()
+        obs.fleet.get_aggregator().detach_router()
+        obs_reset(obs)
+    log("phase (h4): python -m paddle_tpu_torch.tools.serve on the card")
+    res["h4"] = serve_cli(dev, card)
+    log(f"  {res['h4']}")
+    res["seconds"] = time.perf_counter() - t0
+    res["card"] = card
+    return res, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5975,6 +7014,10 @@ def main() -> int:
     observed, o_launches = observability_phases(
         LLMEngine, build, dev, card, cfg8, params8, serving, tiers)
     tier_launches.update(o_launches)
+    front, h_launches = front_door_phases(
+        llama, LLMEngine, build, dev, card, cfg8, params8, tiers,
+        mega["ragged_same_mix"])
+    tier_launches.update(h_launches)
 
     log("phase (s1): B5's multi-step form vs plain, one k=4 draft wave at "
         "4 slots")
@@ -6266,8 +7309,8 @@ def main() -> int:
              launches=paged_launches.get("paged_append_blocks", 0),
              **paged["b8"]),
     ]
-    # each kernel's launches in the runs of phases (p1)-(p3), (r1)-(r3) and
-    # (o1)-(o3)
+    # each kernel's launches in the runs of phases (p1)-(p3), (r1)-(r3),
+    # (o1)-(o3) and (h1)-(h3)
     for k in kernels:
         k["tier_launches"] = {run: n[k["name"]] for run, n in
                               tier_launches.items() if n.get(k["name"])}
@@ -6286,6 +7329,7 @@ def main() -> int:
     log(card)
     log(json.dumps({"static_schedule": schedules}))
     log(json.dumps({"observability": observed}))
+    log(json.dumps({"front_door": front}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Distributed runtime pieces of the port. So far only
-:mod:`resilience.faults`, the seeded fault injector the serving engine's
-chaos surface reads (a copy of the JAX package's
-``distributed/resilience/faults.py``)."""
+"""Distributed runtime pieces of the port: :mod:`resilience` (the seeded
+fault injector the serving engine's chaos surface reads, and
+``retry_call``) and :mod:`watchdog` (hang detection over guarded blocking
+regions, which the serving router's replica steps run under)."""

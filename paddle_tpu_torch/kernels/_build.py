@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -31,13 +32,23 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
-# kernel name -> launches since the last reset (wrappers add one per launch)
+# kernel name -> launches since the last reset (wrappers add one per launch,
+# through count_launch)
 launch_counts: collections.Counter = collections.Counter()
+_count_lock = threading.Lock()
 # seconds the last build took (0.0 when an up-to-date library was loaded)
 build_seconds = None
 
 _lib = None
 _fns = {}
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel ``name`` to ``launch_counts``. Under a
+    lock: a router's replicas launch from their own step threads, and a
+    bare ``+= 1`` there can lose a count."""
+    with _count_lock:
+        launch_counts[name] += 1
 
 
 def _nvcc() -> str:

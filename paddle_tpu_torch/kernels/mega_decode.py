@@ -545,7 +545,7 @@ def mega_decode_step(params, config, *, x0, t: int, block_table, walk_lens,
                  _build.stream_handle(x))
     name = "mega_decode_int8" if w_int8 or kv_int8 else "mega_decode"
     _build.check(err, name)
-    _build.launch_counts[name] += 1
+    _build.count_launch(name)
     return x, ring_k, ring_v
 
 
@@ -627,7 +627,7 @@ def mega_decode_loop(params, config, *, x0, n_steps: int, block_table,
     name = "mega_decode_loop_int8" if w_int8 or kv_int8 \
         else "mega_decode_loop"
     _build.check(err, name)
-    _build.launch_counts[name] += 1
+    _build.count_launch(name)
     return (emitted, state[0], state[1], state[2].bool(), state[3], ring_k,
             ring_v)
 

@@ -314,7 +314,7 @@ def gmm(lhs, rhs, gs, transpose_rhs: bool = False, bn=None):
                  _DTYPES[lhs.dtype], _bn(bn, N),
                  _build.stream_handle(lhs))
     _build.check(err, "gmm")
-    _build.launch_counts["gmm"] += 1
+    _build.count_launch("gmm")
     return out
 
 
@@ -352,7 +352,7 @@ def tgmm(lhs_t, rhs, gs, out_dtype=_f32, bn=None):
                  _DTYPES[out_dtype], _bn(bn, N),
                  _build.stream_handle(lhs))
     _build.check(err, "tgmm")
-    _build.launch_counts["tgmm"] += 1
+    _build.count_launch("tgmm")
     return out
 
 

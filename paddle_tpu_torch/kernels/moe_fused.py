@@ -212,7 +212,7 @@ def gather_gmm(x, idx, rhs, gid, *, tm: int = _KTM, bn=None):
                  _build.stream_handle(x))
     name = "gather_gmm_int8" if rhs_int8 else "gather_gmm"
     _build.check(err, name)
-    _build.launch_counts[name] += 1
+    _build.count_launch(name)
     return out
 
 

@@ -423,7 +423,7 @@ def ragged_decode_partial(q, k_pool, v_pool, block_table, lengths, *,
                      1.0 / math.sqrt(D), stream)
     name = "ragged_decode_int8" if ks4 is not None else "ragged_decode"
     _build.check(err, name)
-    _build.launch_counts[name] += 1
+    _build.count_launch(name)
     return acc, m, l
 
 
@@ -627,7 +627,7 @@ def paged_append_token(k_pool, v_pool, k_new, v_new, blk_phys, offset,
                      offset.data_ptr(), N, int(layer), shp[-4], shp[-3],
                      shp[-2] * shp[-1] * k_pool.element_size(), _stream(dev))
     _build.check(err, "paged_append_token")
-    _build.launch_counts["paged_append_token"] += 1
+    _build.count_launch("paged_append_token")
     return k_pool, v_pool
 
 
@@ -684,7 +684,7 @@ def paged_append_blocks(k_pool, v_pool, k_blocks, v_blocks, blk_ids,
                      shp[-3] * shp[-2] * shp[-1] * k_pool.element_size(),
                      _stream(dev))
     _build.check(err, "paged_append_blocks")
-    _build.launch_counts["paged_append_blocks"] += 1
+    _build.count_launch("paged_append_blocks")
     return k_pool, v_pool
 
 
@@ -861,5 +861,5 @@ def paged_decode_attention(q, cache: PagedKVCache, layer: int = 0):
                      flags.data_ptr(), N, int(layer), NB, BS, Hkv, Hq // Hkv,
                      D, table.shape[1], _DTYPES[q.dtype], stream)
     _build.check(err, "paged_decode_attention")
-    _build.launch_counts["paged_decode_attention"] += 1
+    _build.count_launch("paged_decode_attention")
     return out

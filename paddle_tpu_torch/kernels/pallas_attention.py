@@ -169,7 +169,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False):
                  _build.ptr(lse), B, S, H, k.shape[2], D, _DTYPES[q.dtype],
                  int(causal), 1.0 / math.sqrt(D), _build.stream_handle(q))
     _build.check(err, "flash_fwd")
-    _build.launch_counts["flash_fwd"] += 1
+    _build.count_launch("flash_fwd")
     return out, lse
 
 
@@ -243,7 +243,7 @@ def flash_dq(q, k, v, dout, lse, delta, causal: bool = False, out=None):
                  None if out is None else _build.ptr(out), *ptrs[1:],
                  _build.ptr(dq), *args)
     _build.check(err, "flash_dq")
-    _build.launch_counts["flash_dq"] += 1
+    _build.count_launch("flash_dq")
     return dq
 
 
@@ -263,7 +263,7 @@ def flash_dkv(q, k, v, dout, lse, delta, causal: bool = False):
         err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), *ptrs,
                  _build.ptr(dk), _build.ptr(dv), *args)
     _build.check(err, "flash_dkv")
-    _build.launch_counts["flash_dkv"] += 1
+    _build.count_launch("flash_dkv")
     return dk, dv
 
 

@@ -1,5 +1,5 @@
 """paddle_tpu_torch.observability — always-on metrics + span tracing; the
-port's copy of paddle_tpu/observability (its single-engine half).
+port's copy of paddle_tpu/observability.
 
 Cheap always-on counters/gauges/histograms with Prometheus exposition, a
 span tracer with Chrome-trace export, per-request timelines, a crash
@@ -23,9 +23,9 @@ the reference's, so one dashboard or one ``tools/obs_dump.py`` reads
 either package. Stdlib-only on purpose: importing it never pulls torch
 (``perf``, ``profiling`` and ``numerics`` import it inside the functions
 that need it), so instrumented modules can depend on it
-unconditionally. The reference's ``fleet`` and ``timeseries`` modules
-(the router's and front door's fleet views and ``/alerts.json``) come
-with ROADMAP A7.
+unconditionally. ``fleet`` (the router's federated views, placement
+audit and per-replica SLO burn) and ``timeseries`` (the metrics history
+ring, windowed alerts and ``/alerts.json``) load lazily.
 """
 from __future__ import annotations
 
@@ -88,10 +88,47 @@ _define_flag("obs_numerics_capacity", 512,
              "bounded retention for landed numerics stat vectors "
              "(oldest evicted; the provenance walk and the obs_dump "
              "stats table read this ring)")
-# the reference's obs_fleet_* and obs_ts_* flags come with the port's
-# fleet and timeseries modules (ROADMAP A7)
+_define_flag("obs_fleet_placements_capacity", 256,
+             "bounded retention for router placement-audit entries "
+             "(/fleet/placements.json ring; oldest evicted)")
+_define_flag("obs_fleet_slo_target", 0.99,
+             "fleet SLO attainment target; a replica's burn rate is "
+             "(1 - attainment) / (1 - target) — above 1.0 it is "
+             "burning its error budget")
+_define_flag("obs_fleet_slo_min_requests", 20,
+             "minimum per-replica histogram samples before the fleet "
+             "SLO burn-rate check judges a replica (avoids flapping "
+             "on a cold replica's first requests)")
+_define_flag("obs_fleet_slo_advisory", False,
+             "let a replica's SLO burn feed the router health check "
+             "as an advisory suspect signal (healthy -> suspect only; "
+             "liveness still decides dead)")
+_define_flag("obs_ts_interval_s", 1.0,
+             "minimum seconds between time-series samples on the "
+             "engine/router step tick (0 samples every step — chaos "
+             "and demos only)")
+_define_flag("obs_ts_capacity", 512,
+             "time-series ring capacity in samples (oldest evicted; "
+             "live-resizable via watch_flag)")
+_define_flag("obs_ts_min_samples", 2,
+             "minimum ring samples before any windowed query answers "
+             "(below it, callers fall back to cumulative — counted)")
+_define_flag("obs_ts_fast_window_s", 60.0,
+             "fast alert window: windowed rates/quantiles and the "
+             "burn-rate alert's spike-catching window")
+_define_flag("obs_ts_slow_window_s", 600.0,
+             "slow alert window: the burn-rate alert's confirmation "
+             "window (clamped to available history on young processes)")
+_define_flag("obs_ts_dir", "",
+             "directory for the derived-signal history JSONL ring "
+             "(obs_ts-<pid>.jsonl); empty keeps the history in-memory "
+             "only (the post-mortem tail embeds either way)")
+_define_flag("obs_ts_history_tail", 120,
+             "bounded retention for derived-signal history entries "
+             "(in-memory tail AND the JSONL ring's compaction cap)")
 
-_LAZY_SUBMODULES = ("request_trace", "profiling", "numerics")
+_LAZY_SUBMODULES = ("request_trace", "profiling", "numerics", "fleet",
+                    "timeseries")
 _LAZY_NAMES = {
     "RequestContext": "request_trace", "RequestTracer": "request_trace",
     "exemplar_for_quantile": "request_trace",
@@ -103,6 +140,19 @@ _LAZY_NAMES = {
     "request_capture": "profiling",
     "tensor_stats": "numerics",
     "record_quant_error": "numerics",
+    "FleetAggregator": "fleet",
+    "PlacementLog": "fleet",
+    "get_aggregator": "fleet",
+    "get_placement_log": "fleet",
+    "merge_snapshots": "fleet",
+    "filter_snapshot": "fleet",
+    "TimeSeriesStore": "timeseries",
+    "AlertEngine": "timeseries",
+    "AlertSpec": "timeseries",
+    "get_store": "timeseries",
+    "get_alert_engine": "timeseries",
+    "alerts_payload": "timeseries",
+    "history_payload": "timeseries",
 }
 
 
@@ -132,4 +182,8 @@ __all__ = [
     "profiling", "ProfileController", "get_profile_controller",
     "request_capture",
     "numerics", "tensor_stats", "record_quant_error",
+    "fleet", "FleetAggregator", "PlacementLog", "get_aggregator",
+    "get_placement_log", "merge_snapshots", "filter_snapshot",
+    "timeseries", "TimeSeriesStore", "AlertEngine", "AlertSpec",
+    "get_store", "get_alert_engine", "alerts_payload", "history_payload",
 ]

@@ -155,10 +155,10 @@ def render_prometheus(registry: Optional[Registry] = None) -> str:
 
 def render_snapshot_prometheus(snap: Dict) -> str:
     """Prometheus text from a snapshot DICT rather than a live registry
-    — the federation path: the reference's ``fleet.FleetAggregator``
-    merges per-replica snapshots and exposes the merged dict as
-    ``/fleet/metrics`` through here (the port's ``fleet`` comes with
-    ROADMAP A7)."""
+    — the federation path: :class:`~.fleet.FleetAggregator` merges
+    per-replica snapshots (in-process, or the same JSON format fetched
+    over HTTP from other processes) and exposes the merged dict as
+    ``/fleet/metrics`` through here."""
     out = []
     for fam in snap.get("metrics", []):
         name, kind = fam["name"], fam["kind"]

@@ -126,8 +126,16 @@ class FlightRecorder:
                 out["numerics"] = npay
         except Exception:          # a broken probe must not block dumps
             pass
-        # the reference's "timeseries" section (the derived-signal history
-        # tail) comes with the port's timeseries module (ROADMAP A7)
+        try:
+            # the derived-signal history tail + last alert table: the
+            # TRAJECTORY into the failure, not just the final snapshot
+            from . import timeseries
+
+            tpay = timeseries.history_payload()
+            if tpay["entries"] or tpay["alerts"]:
+                out["timeseries"] = tpay
+        except Exception:          # a broken sampler must not block dumps
+            pass
         return out
 
     def dump(self, path: Optional[str] = None, trigger: str = "manual",

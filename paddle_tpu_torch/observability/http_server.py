@@ -9,11 +9,14 @@ GET /requests.json      -> per-request summaries + TTFT/TPOT exemplars
 GET /request/<id>.json  -> one request's full structured timeline
 GET /control/profile    -> arm an on-demand device capture
                            (?steps=N; windowed to N step boundaries)
+GET /fleet/metrics      -> fleet-merged Prometheus text (counters
+                           summed, histogram buckets merged, gauges
+                           per-replica-labeled)
+GET /fleet/replicas.json    -> per-replica state/throughput/SLO table
+GET /fleet/placements.json  -> router placement-decision audit ring
+GET /alerts.json        -> windowed burn-rate + anomaly-watcher alert
+                           table (evaluated fresh per scrape)
 GET /healthz            -> "ok" (liveness for load balancers)
-
-The reference's ``/fleet/*`` and ``/alerts.json`` routes come with the
-port's ``fleet`` and ``timeseries`` modules (ROADMAP A7); until then
-they answer 404 with a body that says so.
 
 Serves from a daemon thread; ``port=0`` binds an OS-assigned ephemeral
 port (hermetic for tests — read it back from ``server.port``).
@@ -65,10 +68,10 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_request_timeline(path[len("/request/"):])
         elif path == "/control/profile":
             self._send_profile_control(qs)
-        elif path.startswith("/fleet/") or path in ("/alerts.json",
-                                                    "/alerts"):
-            self._send(b"not ported yet: the fleet and alert views come "
-                       b"with ROADMAP A7", "text/plain", 404)
+        elif path.startswith("/fleet/"):
+            self._send_fleet(path)
+        elif path in ("/alerts.json", "/alerts"):
+            self._send_alerts()
         elif path == "/healthz":
             self._send(b"ok", "text/plain")
         else:
@@ -107,6 +110,24 @@ class _Handler(BaseHTTPRequestHandler):
                              "request_id": rid_s}, 404)
         else:
             self._send_json(doc)
+
+    def _send_fleet(self, path):
+        from . import fleet
+
+        if path in ("/fleet/metrics", "/fleet/metrics.txt"):
+            self._send(fleet.fleet_metrics_text().encode(),
+                       "text/plain; version=0.0.4; charset=utf-8")
+        elif path in ("/fleet/replicas.json", "/fleet/replicas"):
+            self._send_json(fleet.replicas_payload())
+        elif path in ("/fleet/placements.json", "/fleet/placements"):
+            self._send_json(fleet.placements_payload())
+        else:
+            self._send(b"not found", "text/plain", 404)
+
+    def _send_alerts(self):
+        from . import timeseries
+
+        self._send_json(timeseries.alerts_payload())
 
     def _send_profile_control(self, qs):
         from . import profiling

@@ -113,12 +113,13 @@ the wave's flags), so a speculating engine draws the same random numbers
 for sampled requests as a plain one. The host counters (``spec_*``,
 ``decode_paths``, ``mega_fallbacks``, ``readbacks``, ``swap_fallbacks``,
 ``cancel_noops``, the admission controller's ``sheds``) are kept beside
-the metrics, which mirror them. Not ported yet: tensor parallelism
-(``mesh``, ROADMAP A10), disaggregated roles and the relay pool
-(``role``, ``relay``, ``Request.relay_key``, A7), their arguments
-raising ``NotImplementedError`` naming their queue when set; and the
-time-series sampler's step tick (the JAX engine's ``_ts.step_tick()``),
-which comes with the port's ``observability.timeseries`` in A7.
+the metrics, which mirror them, and so are the disaggregated handoff's
+(``handoffs``, ``handoff_bytes``, ``handoff_seconds``). Each step ends
+with the time-series sampler's tick (``observability.timeseries
+.step_tick``: throttled, and skipped — never waited on — when another
+replica's step thread is sampling). Not ported yet: tensor parallelism
+(``mesh``, ROADMAP A10), whose argument raises ``NotImplementedError``
+naming its queue when set.
 """
 from __future__ import annotations
 
@@ -153,6 +154,7 @@ from ..observability import numerics as _nm
 from ..observability import perf as _perf
 from ..observability import profiling as _profiling
 from ..observability import request_trace as _rt
+from ..observability import timeseries as _ts
 from ..observability import trace_span
 from ..observability.catalog import instrument as _instrument
 from .admission import AdmissionConfig, AdmissionController, ShedError
@@ -168,12 +170,10 @@ NEG_INF = -1e30
 _NO_SPAN = contextlib.nullcontext()
 
 # JAX constructor arguments not ported yet -> (default, ROADMAP queue)
-_UNPORTED = {"mesh": (None, "A10"), "role": ("both", "A7"),
-             "relay": (None, "A7")}
+_UNPORTED = {"mesh": (None, "A10")}
 
 # always-on serving telemetry (no-ops until FLAGS_obs_enabled /
-# observability.enable()); the JAX engine's set but the two
-# serving_disagg_* instruments, which come with the roles (A7)
+# observability.enable()); the JAX engine's set
 _M_QUEUE_DEPTH = _instrument("serving_queue_depth")
 _M_ACTIVE_SLOTS = _instrument("serving_active_slots")
 _M_KV_USED = _instrument("serving_kv_pool_used_blocks")
@@ -200,6 +200,8 @@ _M_SPEC_ACCEPT_RATE = _instrument("serving_spec_acceptance_rate")
 _M_SPEC_TOKENS_PER_WAVE = _instrument("serving_spec_tokens_per_wave")
 _M_CANCEL_NOOP = _instrument("serving_cancel_noop_total")
 _M_MEGA_FALLBACK = _instrument("serving_mega_fallback_total")
+_M_DISAGG_HANDOFFS = _instrument("serving_disagg_handoffs_total")
+_M_DISAGG_SECONDS = _instrument("serving_disagg_handoff_seconds")
 
 
 @dataclasses.dataclass
@@ -222,14 +224,11 @@ class Request:
     # tokens generated before a preemption; a re-admission prefills
     # prompt+generated so already-streamed tokens are never re-emitted
     generated: List[int] = dataclasses.field(default_factory=list)
-    # not ported: the relay-pool key of disaggregated serving (A7)
+    # disaggregated serving: key of a relay-pool KV entry spilled by a
+    # prefill replica. Admission restores the entry (one batched h2d
+    # scatter) instead of prefilling; a missing entry degrades to a full
+    # prefill of the same context — streams identical either way.
     relay_key: Optional[int] = None
-
-    def __post_init__(self):
-        if self.relay_key is not None:
-            raise NotImplementedError(
-                "Request(relay_key=...) is not ported yet (ROADMAP queue "
-                "A7)")
 
 
 # ---------------------------------------------------------------------------
@@ -829,9 +828,27 @@ class LLMEngine:
     fire inside the step loop — the chaos surface behind
     :class:`~paddle_tpu_torch.serving.resilient.ResilientEngine`.
 
+    ``role`` / ``relay`` (disaggregated serving): ``role`` declares which
+    phase of a request this engine serves — ``"both"`` (default: the
+    colocated engine), ``"decode"`` (identical engine behavior; a
+    placement hint for the ReplicaRouter, which keeps fresh prefills off
+    it when a prefill-capable replica is healthy), or ``"prefill"``: the
+    engine runs admission + (chunked) prefill ONLY — as soon as a slot's
+    first token is host-visible it copies the slot's pool blocks
+    (payload + scales bit-exact, the swap-out d2h path) into the shared
+    host ``relay`` pool (``HostKVPool(kind="relay")``) keyed by request
+    id, frees the slot, and finishes the request with reason
+    ``"handoff"`` — partial result: the first token. A decode/both
+    engine admitting a request whose ``relay_key`` finds a relay entry
+    restores it with the batched h2d scatter of a swap-in instead of
+    prefilling; a missing or incomplete entry degrades to a full prefill
+    of the same context — greedy streams equal a colocated engine's
+    either way. ``role="prefill"`` requires a ``relay``.
+
     ``finish_reasons`` maps every minted request id to exactly one of
-    ``finished``, ``shed``, ``deadline_exceeded`` or a cancellation's
-    reason (``client_disconnected`` by default).
+    ``finished``, ``shed``, ``deadline_exceeded``, ``handoff`` (a
+    prefill-role engine's terminal) or a cancellation's reason
+    (``client_disconnected`` by default).
     """
 
     def __init__(self, params, config: LlamaConfig, max_slots: int = 4,
@@ -845,6 +862,7 @@ class LLMEngine:
                  kv_swap_bytes: int = 0, prefix_cache: bool = False,
                  prefill_chunk: int = 0, prefix_cache_host_bytes: int = 0,
                  kv_offload: str = "auto", admission=None, injector=None,
+                 role: str = "both", relay: Optional[HostKVPool] = None,
                  **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
@@ -865,6 +883,18 @@ class LLMEngine:
             raise ValueError(
                 f"kv_offload must be 'auto', 'async' or 'sync', got "
                 f"{kv_offload!r}")
+        if role not in ("prefill", "decode", "both"):
+            raise ValueError(
+                f"role must be 'prefill', 'decode' or 'both', got "
+                f"{role!r}")
+        if relay is not None and getattr(relay, "kind", None) != "relay":
+            raise ValueError(
+                "relay must be a HostKVPool(kind='relay') shared "
+                "between the prefill and decode replicas")
+        if role == "prefill" and relay is None:
+            raise ValueError(
+                "role='prefill' requires a relay pool — the handed-off "
+                "KV has to live somewhere the decode replica can reach")
         if max_model_len % block_size:
             raise ValueError(f"max_model_len {max_model_len} is not a "
                              f"multiple of block_size {block_size}")
@@ -875,6 +905,8 @@ class LLMEngine:
         c = config
         self.params = params
         self.config = config
+        self.role = role
+        self.relay = relay
         self.decode_kernel = decode_kernel
         self.N = max_slots
         self.bs = block_size
@@ -982,6 +1014,11 @@ class LLMEngine:
         self._decode_variants: set = set()
         # swap-enabled preemptions that fell back to recompute
         self.swap_fallbacks = 0
+        # disaggregated handoffs this prefill-role engine completed, and
+        # their d2h + relay bytes and seconds
+        self.handoffs = 0
+        self.handoff_bytes = 0
+        self.handoff_seconds = 0.0
         # observability: add_request and first-token-visible times of the
         # live requests (TTFT / TPOT), and the counted FLOPs of this
         # step's decode call (the MFU numerator; None on a no-decode step)
@@ -1199,6 +1236,10 @@ class LLMEngine:
         _M_KV_USED.set(self.nb - 1 - len(self.free_blocks))
         if self.prefix_cache is not None:
             self.prefix_cache.update_gauges()
+        # time-series sampler: throttled by FLAGS_obs_ts_interval_s and
+        # contention-free — a concurrent replica already sampling means
+        # this step skips instead of waiting
+        _ts.step_tick()
         return emitted
 
     def _step_inner(self):
@@ -1221,6 +1262,11 @@ class LLMEngine:
         self._last_decode_flops = None
         self._advance_chunks()
         self._admit()
+        if self.role == "prefill":
+            # disaggregated: no decode ever dispatches here — slots whose
+            # prefill (chunked included) just completed hand their K/V to
+            # the relay and their stream to a decode replica
+            return emitted + self._prefill_handoffs()
         if self._spec_on:
             active = self._decode_slots()
             if active and self._spec_eligible(active):
@@ -1704,9 +1750,10 @@ class LLMEngine:
         return ok, (held if ok else [])
 
     def _swap_in(self, slot: int, req: Request, ent) -> None:
-        """Re-admit a preempted request from its host-tier K/V: allocate
-        blocks, restore the payload, and rebuild host bookkeeping — a
-        short h2d instead of a full re-prefill."""
+        """Re-admit a preempted request from its host-tier K/V (or a
+        handed-off one from its relay entry): allocate blocks, restore
+        the payload, and rebuild host bookkeeping — a short h2d instead
+        of a full re-prefill."""
         blocks = self._take_up_to(max(1, ent.n_blocks))
         assert len(blocks) == max(1, ent.n_blocks), \
             "swap-in allocated past _avail_blocks"
@@ -1730,6 +1777,11 @@ class LLMEngine:
                 datas = take_staged(ent)
                 self.offload.note_hit()
                 offload_mode = "hit"
+            elif self.offload is None:
+                # a relay restore on an engine with no host tier of its
+                # own: a plain non-blocking h2d on the current stream
+                datas = {n: upload(a, self.device)
+                         for n, a in ent.data.items()}
             else:
                 t0 = time.perf_counter()
                 datas = self.offload.upload_inline(ent.data)
@@ -1747,6 +1799,56 @@ class LLMEngine:
             _rt.get_request_tracer().admitted(
                 req.req_id, slot=slot, context_tokens=ent.n_tokens,
                 swapped_in=True, **kw)
+
+    def _handoff(self, slot: int) -> None:
+        """Disaggregated handoff: copy the slot's prefilled K/V blocks
+        into the shared relay pool and finish the stream with reason
+        ``"handoff"`` — the prefill replica's terminal. Keeps
+        ``lengths[slot]`` positions (every prefilled token; the sampled
+        first token's K/V is written by the decode replica's first
+        restored step — the :meth:`_swap_out` invariant with the first
+        token as ``out``), so a decode replica re-admitting ``prompt +
+        delivered`` finds a relay entry of exactly ``len(ctx) - 1``
+        tokens: the same restore contract as a swap-in, payload + scales
+        bit-exact. A capacity refusal still hands the stream off — the
+        decode replica then re-prefills the identical context (the pool
+        counts outcome="relay_full"; streams match either way, only the
+        transfer saving is lost)."""
+        req = self.slot_req[slot]
+        t0 = time.perf_counter()
+        n_keep = int(self.lengths[slot])
+        nb_keep = -(-n_keep // self.bs)
+        data = self._fetch_blocks(
+            [int(self.table[slot, j]) for j in range(nb_keep)])
+        ok = self.relay.put(req.req_id, data, n_keep)
+        dt = time.perf_counter() - t0
+        nbytes = int(sum(a.numel() * a.element_size()
+                         for a in data.values()))
+        self.handoffs += 1
+        self.handoff_bytes += nbytes
+        self.handoff_seconds += dt
+        if ok:
+            _M_DISAGG_HANDOFFS.inc(outcome="ok")
+        _M_DISAGG_SECONDS.observe(dt)
+        _flight.record("kv_handoff", req_id=req.req_id, tokens=n_keep,
+                       blocks=nb_keep, bytes=nbytes, relayed=ok)
+        self._free_slot(slot, reason="handoff")
+
+    def _prefill_handoffs(self):
+        """The ``role="prefill"`` tail of a step (standing in for the
+        decode dispatch): flush pending first tokens (a host sync — a
+        handoff must not outrun its stream's delivered prefix), then hand
+        off every slot whose prefill completed. Mid-chunk slots keep
+        chunking; a request that finished ON its first token (budget 1
+        or eos) already freed its slot in the flush and never relays."""
+        emitted = []
+        if self._pending_adm:
+            adm, self._pending_adm = self._pending_adm, []
+            emitted += self._flush_adm(adm)
+        for slot in self._decode_slots():
+            if self.slot_req[slot] is not None:
+                self._handoff(slot)
+        return emitted
 
     def _offload_tick(self) -> None:
         """The step-boundary offload sweep, in three moves:
@@ -1869,6 +1971,33 @@ class LLMEngine:
                 self.queue.popleft()
                 self._swap_in(slot, req, self.swap_pool.pop(req.req_id))
                 continue
+            if self.relay is not None and req.relay_key is not None:
+                # disaggregated restore: a prefill replica's relay entry
+                # stands in for the whole prefill — the same batched h2d
+                # scatter as a swap-in, payload + scales bit-exact. An
+                # entry that vanished with its replica, or whose pool
+                # names do not match this engine's (asymmetric draft
+                # configs), degrades to a full prefill of the identical
+                # context — streams match either way.
+                rent = self.relay.get(req.relay_key)
+                if rent is not None and set(rent.data) == set(self.pools) \
+                        and rent.n_tokens == len(req.prompt) \
+                        + len(req.generated) - 1:
+                    if self._avail_blocks() < max(1, rent.n_blocks):
+                        if idle:
+                            raise RuntimeError(
+                                f"request {req.req_id}: relay restore "
+                                f"needs {rent.n_blocks} blocks but the "
+                                f"pool only has {self.nb - 1} usable")
+                        break            # blocks busy: wait for frees
+                    self.queue.popleft()
+                    self._swap_in(slot, req,
+                                  self.relay.pop(req.relay_key))
+                    _M_DISAGG_HANDOFFS.inc(outcome="restored")
+                    continue
+                self.relay.discard(req.relay_key)
+                req.relay_key = None
+                _M_DISAGG_HANDOFFS.inc(outcome="missing")
             ctx = req.prompt + req.generated   # re-admission continues
             true_len = len(ctx)
             nodes, cached_blocks = [], []

@@ -29,10 +29,11 @@ while the async d2h is still moving) — the engine's device invariant
 stays ``free + backed + cached + squeezed (+ in_flight) == pool size``
 while the host tier tracks its own bytes and blocks. The
 ``serving_kv_swap_{out,in,fallback}_total``,
-``serving_kv_swap_host_bytes``, ``serving_prefix_cache_host_bytes`` and
-``serving_prefix_cache_evictions_total{kind="drop_host_full"}`` metrics
-are kept here as in the reference; the host counters stay. The relay
-kind's ``serving_disagg_*`` metrics come with its role (ROADMAP A7).
+``serving_kv_swap_host_bytes``, ``serving_prefix_cache_host_bytes``,
+``serving_prefix_cache_evictions_total{kind="drop_host_full"}``,
+``serving_disagg_kv_relay_bytes`` and
+``serving_disagg_handoffs_total{outcome="relay_full"}`` metrics are kept
+here as in the reference; the host counters stay.
 """
 from __future__ import annotations
 
@@ -48,6 +49,8 @@ _M_SWAP_FALLBACK = _instrument("serving_kv_swap_fallback_total")
 _M_SWAP_BYTES = _instrument("serving_kv_swap_host_bytes")
 _M_PREFIX_BYTES = _instrument("serving_prefix_cache_host_bytes")
 _M_PREFIX_EVICT = _instrument("serving_prefix_cache_evictions_total")
+_M_RELAY_BYTES = _instrument("serving_disagg_kv_relay_bytes")
+_M_DISAGG_HANDOFFS = _instrument("serving_disagg_handoffs_total")
 
 
 def _nbytes(t) -> int:
@@ -89,9 +92,12 @@ class HostKVPool:
     ``kind`` names the tier: ``"swap"`` (default, preemption swap),
     ``"prefix"`` (the prefix cache's spill tier,
     :mod:`paddle_tpu_torch.serving.prefix_cache`) or ``"relay"`` (the
-    disaggregated handoff tier, ROADMAP A7). A capacity refusal counts in
-    ``refusals`` for each kind — swap: recompute fallbacks, prefix:
-    drops."""
+    disaggregated prefill→decode handoff tier SHARED between replicas —
+    it drives ``serving_disagg_kv_relay_bytes``). A capacity refusal
+    counts in ``refusals`` for each kind — swap: recompute fallbacks,
+    prefix: drops, relay: ``serving_disagg_handoffs_total{outcome=
+    "relay_full"}`` (the decode replica then re-prefills the handed-off
+    context — streams identical, the transfer saving is lost)."""
 
     def __init__(self, capacity_bytes: int, kind: str = "swap"):
         if kind not in ("swap", "prefix", "relay"):
@@ -101,7 +107,7 @@ class HostKVPool:
         self.kind = kind
         self._g_bytes = (_M_SWAP_BYTES if kind == "swap"
                          else _M_PREFIX_BYTES if kind == "prefix"
-                         else None)
+                         else _M_RELAY_BYTES)
         self._entries: Dict = {}
         self._bytes = 0
         # incrementally maintained population counts: block_accounting
@@ -112,7 +118,8 @@ class HostKVPool:
         # by every capacity check so a dispatched transfer always fits
         self._resv: Dict = {}
         self._reserved = 0
-        # capacity refusals — swap: recompute fallbacks, prefix: drops
+        # capacity refusals — swap: recompute fallbacks, prefix: drops,
+        # relay: handoffs the decode side re-prefills
         self.refusals = 0
 
     def _count_refusal(self) -> None:
@@ -121,10 +128,8 @@ class HostKVPool:
             _M_SWAP_FALLBACK.inc(reason="host_pool_full")
         elif self.kind == "prefix":
             _M_PREFIX_EVICT.inc(kind="drop_host_full")
-
-    def _set_bytes_gauge(self) -> None:
-        if self._g_bytes is not None:
-            self._g_bytes.set(self._bytes)
+        else:
+            _M_DISAGG_HANDOFFS.inc(outcome="relay_full")
 
     # -- async-spill reservation protocol ----------------------------------
     def reserve(self, rid, nbytes: int) -> bool:
@@ -179,14 +184,14 @@ class HostKVPool:
         if self._bytes + self._reserved - resv_self + ent.nbytes \
                 > self.capacity_bytes:
             self._count_refusal()
-            self._set_bytes_gauge()
+            self._g_bytes.set(self._bytes)
             return False
         self._entries[rid] = ent
         self._bytes += ent.nbytes
         self._blocks += ent.n_blocks
         if self.kind == "swap":
             _M_SWAP_OUT.inc()
-        self._set_bytes_gauge()
+        self._g_bytes.set(self._bytes)
         return True
 
     def get(self, rid) -> Optional[SwapEntry]:
@@ -202,7 +207,7 @@ class HostKVPool:
             self._blocks -= ent.n_blocks
             if self.kind == "swap":
                 _M_SWAP_IN.inc()
-            self._set_bytes_gauge()
+            self._g_bytes.set(self._bytes)
         return ent
 
     def discard(self, rid) -> None:
@@ -214,7 +219,7 @@ class HostKVPool:
             ent.staged_event = None
             self._bytes -= ent.nbytes
             self._blocks -= ent.n_blocks
-            self._set_bytes_gauge()
+            self._g_bytes.set(self._bytes)
 
     # -- accounting ---------------------------------------------------------
     @property

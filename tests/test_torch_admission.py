@@ -183,10 +183,12 @@ def test_oversize_prompt_mints_no_id_and_queue_full_sheds(model):
     for n, new in ((60, 5), (8, 57)):               # past max_model_len
         with pytest.raises(ValueError):
             eng.add_request([1] * n, max_new_tokens=new)
-    with pytest.raises(NotImplementedError, match="A7"):
-        eng.add_request([1] * 8, relay_key=3)
-    keep = [eng.add_request([1, 2, 3, 4], max_new_tokens=3)
-            for _ in range(2)]
+    # a relay key is carried by the request (this engine has no relay
+    # pool, so it prefills as usual) and is admitted like any other
+    keep = [eng.add_request([1, 2, 3, 4], max_new_tokens=3,
+                            relay_key=3 if i == 0 else None)
+            for i in range(2)]
+    assert eng.queue[0].relay_key == 3
     assert keep == [0, 1] and eng.finish_reasons == {}
     with pytest.raises(ShedError) as ei:
         eng.add_request([5, 6, 7], max_new_tokens=3)

@@ -85,7 +85,14 @@ print("OK")
     "paddle_tpu_torch.observability.numerics",
     "paddle_tpu_torch.observability.request_trace",
     "paddle_tpu_torch.observability.flight_recorder",
-    "paddle_tpu_torch.observability.http_server"])
+    "paddle_tpu_torch.observability.http_server",
+    "paddle_tpu_torch.observability.fleet",
+    "paddle_tpu_torch.observability.timeseries",
+    "paddle_tpu_torch.distributed.watchdog",
+    "paddle_tpu_torch.distributed.resilience.retry",
+    "paddle_tpu_torch.serving.http",
+    "paddle_tpu_torch.serving.router",
+    "paddle_tpu_torch.tools.serve"])
 def test_serving_tier_modules_import_without_jax(module):
     """The flag registry and the serving host tiers are the port's own
     copies: importing one in a fresh process loads no jax and nothing of
@@ -112,6 +119,7 @@ def test_observability_imports_neither_torch_nor_jax():
 import sys
 import paddle_tpu_torch.observability as obs
 obs.request_trace, obs.profiling, obs.numerics, obs.perf
+obs.fleet, obs.timeseries
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("torch", "jax", "jaxlib",
                                        "paddle_tpu"))
@@ -138,6 +146,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from paddle_tpu_torch.examples import llama_pretrain
     with pytest.raises(RuntimeError, match="CUDA"):
         llama_pretrain.main(["--size", "tiny"])
+    from paddle_tpu_torch.tools import serve
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.build_engine(serve.parse_args([]))
     with pytest.raises(RuntimeError, match="CUDA"):
         paddle_tpu_torch.resolve_device("cuda:0")
     with pytest.raises(ValueError):

@@ -191,10 +191,11 @@ def test_unported_arguments_raise(model):
     for kw, err, match in ((dict(kv_dtype="fp8"), ValueError, "kv_dtype"),
                            (dict(kv_offload="bogus", kv_swap_bytes=1),
                             ValueError, "kv_offload"),
-                           (dict(role="prefill"), NotImplementedError,
-                            "A7"),
-                           (dict(relay=object()), NotImplementedError,
-                            "A7"),
+                           (dict(role="prefill"), ValueError,
+                            "requires a relay pool"),
+                           (dict(relay=object()), ValueError,
+                            "HostKVPool"),
+                           (dict(role="colocated"), ValueError, "role"),
                            (dict(mesh=object()), NotImplementedError,
                             "A10")):
         with pytest.raises(err, match=match):
@@ -212,17 +213,25 @@ def test_unported_arguments_raise(model):
                     admission=AdmissionConfig(max_queue=4),
                     injector=FaultInjector("slow_step@1"))
     assert eng.admission.config.max_queue == 4
-    # the reference Request's fields exist (ROADMAP fault C1): the
-    # deadline and the tenant are live, the relay key raises naming A7
+    # the reference Request's fields exist (ROADMAP fault C1) and are
+    # live: the deadline, the tenant and the relay key (carried, and
+    # ignored by an engine with no relay pool)
     rid = eng.add_request([1, 2, 3], deadline_s=30.0, tenant="batch",
                           max_new_tokens=2)
     assert eng.queue[-1].t_deadline is not None
-    with pytest.raises(NotImplementedError, match="A7"):
-        eng.add_request([1, 2, 3], relay_key=7)
+    rid7 = eng.add_request([1, 2, 3], relay_key=7, max_new_tokens=2)
+    assert eng.queue[-1].relay_key == 7
     eng.add_request([1, 2, 3], deadline_s=None, tenant="default",
                     relay_key=None, max_new_tokens=2)
+    # the disaggregated roles construct (ROADMAP A7)
+    from paddle_tpu_torch.serving import HostKVPool
+    relay = HostKVPool(1 << 20, kind="relay")
+    for role in ("prefill", "decode", "both"):
+        e = LLMEngine(tp, tcfg, device="cpu", role=role, relay=relay)
+        assert e.role == role and e.relay is relay
     out = eng.run()
     assert len(out[rid]) == 2 and eng.decode_paths["bucketed"]
+    assert out[rid7] == out[rid]
     assert eng.injector.fired == [("slow_step", 1)]
     with pytest.raises(TypeError):
         LLMEngine(tp, tcfg, device="cpu", no_such_argument=1)

@@ -1835,3 +1835,89 @@ def test_chained_dispatch_with_telemetry_syncs_nothing(dev, kernel):
         obs.disable()
         obs.get_registry().reset()
         obs.numerics.clear()
+
+
+# ---------------------------------------------------------------------------
+# the router's replicas on one card (their step threads share the default
+# stream) and the disaggregated pair
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("kernel", ["mega", "ragged"])
+def test_two_replica_threads_step_concurrently_on_one_card(dev, kernel):
+    """Two replicas' step threads launch on one card at once (B5 is a
+    cooperative launch: it must never share the card with another
+    replica's compute on a second stream) and finish under a time limit
+    with the streams of one engine, f32; a replica killed mid-flight
+    fails its streams over with the same streams."""
+    import time
+    from paddle_tpu_torch.serving import LLMEngine, ReplicaRouter
+    cfg, params, *_ = _mega_inputs(dev, torch.float32, 128, 4, 4)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, 128, size=n).tolist()
+               for n in (5, 40, 17, 30, 9, 22, 60, 11)]
+    kw = dict(max_slots=4, block_size=16, max_model_len=128,
+              prompt_buckets=[64], decode_steps=4, decode_kernel=kernel,
+              device=dev)
+    ref = LLMEngine(params, cfg, **kw)
+    ids = [ref.add_request(p, max_new_tokens=24) for p in prompts]
+    out = ref.run()
+    want = [out[i] for i in ids]
+    for kill in (False, True):
+        router = ReplicaRouter([LLMEngine(params, cfg, **kw)
+                                for _ in range(2)], names=["r0", "r1"])
+        router.start()
+        try:
+            _build.launch_counts.clear()
+            rids = [router.submit(list(p), max_new_tokens=24)
+                    for p in prompts]
+            if kill:
+                # once r0 has delivered a token of a live stream
+                t0 = time.monotonic()
+                while time.monotonic() - t0 < 60:
+                    with router._lock:
+                        if any(r.replica == "r0" and r.delivered
+                               and not r.done.is_set()
+                               for r in router._streams.values()):
+                            router.kill_replica("r0")
+                            break
+                    time.sleep(0.001)
+            got = [router.wait(r, timeout=120) for r in rids]
+        finally:
+            router.stop()
+        assert not any(rep.alive() for rep in router.replicas.values())
+        assert got == want
+        assert set(router.finish_reasons.values()) == {"finished"}
+        name = "mega_decode" if kernel == "mega" else "ragged_decode"
+        assert _build.launch_counts[name] > 0
+
+
+def test_disagg_pair_on_card_equals_colocated_and_relays_bit_exact(dev):
+    """A prefill-role and a decode-role mega engine behind a router on
+    one card emit a colocated engine's f32 streams; every stream hands
+    off once, the relay drains, and the handoff bytes are every prompt's
+    blocks of every pool entry once."""
+    from paddle_tpu_torch.serving import HostKVPool, LLMEngine, ReplicaRouter
+    cfg, params, *_ = _mega_inputs(dev, torch.float32, 128, 4, 4)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, 128, size=n).tolist()
+               for n in (5, 40, 17, 30, 9, 22)]
+    kw = dict(max_slots=4, block_size=16, max_model_len=128,
+              prompt_buckets=[64], decode_steps=4, decode_kernel="mega",
+              device=dev)
+    ref = LLMEngine(params, cfg, **kw)
+    ids = [ref.add_request(p, max_new_tokens=20) for p in prompts]
+    out = ref.run()
+    relay = HostKVPool(1 << 30, kind="relay")
+    pre = LLMEngine(params, cfg, role="prefill", relay=relay, **kw)
+    dec = LLMEngine(params, cfg, role="decode", relay=relay, **kw)
+    router = ReplicaRouter([pre, dec], names=["p0", "d0"]).start()
+    try:
+        rids = [router.submit(list(p), max_new_tokens=20) for p in prompts]
+        got = [router.wait(r, timeout=120) for r in rids]
+    finally:
+        router.stop()
+    assert got == [out[i] for i in ids]
+    assert router.handoff_resumes == len(prompts) and len(relay) == 0
+    per_block = sum(t[:, :1].numel() * t.element_size()
+                    for t in pre.pools.values())
+    assert pre.handoff_bytes == per_block * sum(-(-len(p) // 16)
+                                                for p in prompts)

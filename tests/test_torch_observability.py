@@ -191,29 +191,12 @@ def test_catalog_equals_reference_row_for_row():
 # rows of the catalog no port module instruments yet, by the ROADMAP queue
 # item that brings them; the set shrinks with each slice
 WAITING = {
-    "A7": {
-        "serving_router_dispatch_total", "serving_router_affinity_total",
-        "serving_router_shed_total", "serving_router_failovers_total",
-        "serving_router_resumed_streams_total",
-        "serving_router_dedup_drops_total",
-        "serving_router_state_transitions_total",
-        "serving_router_healthy_replicas",
-        "serving_http_requests_total", "serving_http_active_streams",
-        "serving_http_client_disconnects_total",
-        "serving_http_send_queue_depth", "serving_http_drain_seconds",
-        "serving_fleet_slo_attainment", "serving_fleet_slo_breaches_total",
-        "serving_fleet_scrapes_total", "obs_alerts_total",
-        "obs_ts_samples_total", "obs_ts_ring_size",
-        "obs_ts_window_fallbacks_total",
-        "serving_disagg_handoffs_total", "serving_disagg_kv_relay_bytes",
-        "serving_disagg_handoff_seconds"},
     "A8-train": {
         "train_steps_total", "train_step_seconds", "train_rollbacks_total",
         "train_retries_total", "train_batches_skipped_total",
         "train_checkpoints_total", "train_emergency_saves_total",
         "train_checkpoint_save_seconds", "train_checkpoint_load_seconds",
         "train_mfu", "train_tokens_per_second",
-        "watchdog_heartbeat_age_seconds", "watchdog_timeouts_total",
         "moe_tiling_cache_hits_total", "moe_tiling_cache_misses_total",
         "moe_tiling_autotune_seconds", "moe_tiling_autotune_rejected_total",
         "moe_plan_cache_hits_total", "moe_plan_cache_misses_total",
@@ -266,14 +249,16 @@ def test_port_catalog_contract_no_unregistered_and_named_waiting_set():
 
 
 def test_obs_flags_equal_reference_but_the_fleet_and_timeseries_ones():
-    # load every module that defines a flag, in both packages
+    # load every module that defines a flag, in both packages; the fleet
+    # and time-series flags are ported too, so the sets are equal whole
     for pkg in (jobs, tobs):
         for mod in ("request_trace", "profiling", "numerics", "perf",
-                    "flight_recorder", "goodput"):
+                    "flight_recorder", "goodput", "fleet", "timeseries"):
             getattr(pkg, mod)
-    jent = {k: v for k, v in jflags.flag_entries("obs_").items()
-            if not k.startswith(("obs_fleet_", "obs_ts_"))}
+    jent = jflags.flag_entries("obs_")
     tent = tflags.flag_entries("obs_")
+    assert any(k.startswith("obs_fleet_") for k in tent)
+    assert any(k.startswith("obs_ts_") for k in tent)
     assert sorted(tent) == sorted(jent)
     assert {k: v[1] for k, v in tent.items()} == \
         {k: v[1] for k, v in jent.items()}
@@ -412,6 +397,10 @@ def test_flight_recorder_postmortem_and_goodput_equal_reference(both_on,
                                                                 tmp_path):
     docs = []
     for pkg in (jobs, tobs):
+        # one sampler tick at a fixed clock: the post-mortem embeds the
+        # time-series tail in both packages
+        pkg.timeseries.reset()
+        pkg.timeseries.tick(now=1000.0)
         fr = pkg.flight_recorder
         fr.record("preemption", req_id=3, generated=2, swapped=True)
         fr.record("serving_step_recovered", error="SimulatedCrash: x",
@@ -433,9 +422,12 @@ def test_flight_recorder_postmortem_and_goodput_equal_reference(both_on,
     assert list(t["open_spans"].values()) == [["serving.step"]]
     assert t["error"] == j["error"]
     assert t["goodput"]["seconds"]["compile"] == 0.5
-    # the reference embeds its time-series tail when its sampler ran (an
-    # engine step did); the port's timeseries module comes with A7
-    assert set(t) == set(j) - {"timeseries"}
+    # both embed the time-series tail their sampler wrote
+    assert set(t) == set(j) and "timeseries" in t
+    assert t["timeseries"] == j["timeseries"]
+    assert [e["t"] for e in t["timeseries"]["entries"]] == [1000.0]
+    for pkg in (jobs, tobs):
+        pkg.timeseries.reset()
     names = {f["name"] for f in t["metrics"]["metrics"]}
     assert "t_pm_total" in names and "flight_recorder_dumps_total" in names
 
@@ -506,13 +498,17 @@ def test_decode_flops_and_perf_helpers():
         assert tobs.perf.hbm_stats() == {}
 
 
+FLEET_PAGES = ("/fleet/metrics", "/fleet/replicas.json",
+               "/fleet/placements.json", "/alerts.json")
+
+
 def test_metrics_server_routes(both_on):
     srv = tobs.MetricsServer(port=0)
     base = f"http://127.0.0.1:{srv.port}"
 
-    def get(path):
+    def get(path, root=base):
         try:
-            with urllib.request.urlopen(base + path, timeout=10) as r:
+            with urllib.request.urlopen(root + path, timeout=10) as r:
                 return r.status, r.read().decode()
         except urllib.error.HTTPError as e:
             return e.code, e.read().decode()
@@ -538,10 +534,28 @@ def test_metrics_server_routes(both_on):
         assert code == 200 and json.loads(body)["finished"]
         assert get("/request/99.json")[0] == 404
         assert get("/healthz") == (200, "ok")
-        for path in ("/fleet/metrics", "/fleet/replicas.json",
-                     "/alerts.json"):
-            code, body = get(path)
-            assert code == 404 and "A7" in body
+        # the fleet and alert views serve the reference server's payloads
+        jsrv = jobs.MetricsServer(port=0)
+        pages = []
+        try:
+            for pkg, port in ((jobs, jsrv.port), (tobs, srv.port)):
+                pkg.fleet.get_aggregator().detach_router()
+                pkg.timeseries.reset()
+                pkg.counter("serving_tokens_total").inc(5, replica="r0")
+                pkg.counter("serving_tokens_total").inc(2, replica="r1")
+                pages.append({path: get(path, f"http://127.0.0.1:{port}")
+                              for path in FLEET_PAGES})
+        finally:
+            jsrv.close()
+        jp, tp = pages
+        assert tp["/fleet/metrics"] == jp["/fleet/metrics"]
+        assert "serving_tokens_total 7" in tp["/fleet/metrics"][1]
+        for path in FLEET_PAGES[1:]:
+            assert tp[path][0] == jp[path][0] == 200
+            tdoc, jdoc = json.loads(tp[path][1]), json.loads(jp[path][1])
+            tdoc.pop("unix_time"), jdoc.pop("unix_time")
+            assert tdoc == jdoc, path
+        assert get("/fleet/nowhere")[0] == 404
         code, body = get("/control/profile?steps=2")
         assert code == 200 and json.loads(body)["armed_steps"] == 2
         assert get("/control/profile?steps=1")[0] == 409
