@@ -367,12 +367,36 @@ direct (colocated) run beside them:
      and exit 0 within 60 s (its output in
      ``chip_smoke_out/serve_cli.log``).
 
+The training half of resilience and observability (A8-train), after
+phase 10 ((c1), (c2)) and after (m2)-(m4) ((c3)):
+(c1) ``ResilientTrainLoop`` around ``llama.train_step`` on llama-2.6b at
+     phase 8's shape, observability and numerics on: a clean run of 6
+     steps and a faulted one (``C1_SCHEDULE``: a NaN gradient, a NaN in
+     layer 7's weights, a crash; snapshots every 2 steps, keep 2, the
+     newest corrupted before the relaunch) end allclose at 1e-6 (the
+     differing elements counted), with equal loader positions, the
+     rollback and the post-mortem naming ``llama.layer:7`` and B1-B3
+     launched on every attempt; save, load and validation seconds
+     against the tree's bytes, the steps lost, goodput fractions,
+     ``train_mfu`` beside phase 8's MFU, the loop's step beside the bare
+     ``train_step``; snapshots go to a temp dir with room for 4 of them;
+(c2) ``python -m paddle_tpu_torch.tools.chaos_run --train --device cuda``
+     prints ``CHAOS_PARITY: OK`` (its output in
+     ``chip_smoke_out/chaos_run_train.log``);
+(c3) one ``moe.forward`` at phase 12's state with numerics on under
+     ``torch.cuda.set_sync_debug_mode("error")``: 12 ``moe.layer`` rungs,
+     the router-logit and routed-output probes, the plan-cache and
+     fused-dispatch counters, ``expert_int8``'s gauge; the forward's
+     time numerics on against off.
+
 ``python3 chip_smoke.py --serving`` runs phases 4, 6 (c), (p1)-(p4),
 (r1)-(r3), (o1)-(o3) and (h1)-(h4) alone (no kernel checks, no device
-line).
+line); ``python3 chip_smoke.py --resilience`` runs (c1)-(c3) alone ((c3)
+on a fresh state of phase 12's config).
 
 Before its last line it prints ``serving``, ``serving_tiers``,
-``serving_resilience``, ``observability``, ``front_door``, ``mega``,
+``serving_resilience``, ``observability``, ``front_door``,
+``train_resilience``, ``mega``,
 ``training``,
 ``moe_training`` (with (m1)-(m4) under ``forms``), ``int8``,
 ``training_memory``, ``spec`` and ``generation`` lines (phases 4,
@@ -6920,6 +6944,379 @@ def front_door_phases(llama, LLMEngine, build, dev, card, cfg8, params8,
     return res, launches
 
 
+# ---------------------------------------------------------------------------
+# phases (c1)-(c3): the training half of resilience and observability — the
+# resilient loop around llama-2.6b's train step, chaos_run on the card, the
+# MoE probes at phase 12's state
+# ---------------------------------------------------------------------------
+# (c1)'s faulted schedule: an untargeted NaN gradient, a NaN injected into
+# layer 7's weights (the provenance ladder must name it) and a crash
+C1_SCHEDULE = "nan_grad@2,nan_inject:7@3,crash@5"
+C1_STEPS = 6
+
+
+def ckpt_scratch(need_bytes):
+    """A fresh directory for (c1)'s snapshots on a file system with
+    ``need_bytes`` free: the system temp dir, else ``chip_smoke_out/``
+    beside the script. Returns (path, free bytes where it lies)."""
+    import shutil
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    tried = []
+    for base in (tempfile.gettempdir(), os.path.join(root, "chip_smoke_out")):
+        os.makedirs(base, exist_ok=True)
+        free = shutil.disk_usage(base).free
+        tried.append((base, free))
+        if free >= need_bytes:
+            return tempfile.mkdtemp(prefix="ptt_ckpt_", dir=base), free
+    raise AssertionError(f"(c1): {need_bytes / 1e9:.1f} GB of snapshots "
+                         f"fit nowhere: {tried}")
+
+
+def resilient_train(llama, build, dev, card, phase8=None, lr=3e-5):
+    """(c1) ``ResilientTrainLoop`` around ``llama.train_step`` on
+    llama-2.6b at phase 8's shape (8 x 2048, full remat, adafactor, bf16
+    params; 8 seeded token batches on the card), observability and
+    numerics on in both runs. A clean loop runs ``C1_STEPS`` steps with no
+    checkpoint dir; a faulted one the same steps with ``ckpt_every=2``,
+    ``keep=2`` under ``C1_SCHEDULE``; after the crash the newest snapshot
+    is corrupted and a fresh loop resumes (chaos_run's relaunch). The
+    final parameters must be allclose at 1e-6 (the elements that differ at
+    all are counted), the loader positions equal, the rollback's
+    ``first_bad`` and the post-mortem's provenance ``llama.layer:7``, and
+    every attempt must launch B1 2L times and B2, B3 L times (the forward
+    and the recompute; no plain attention on the card). Measured: save
+    and load seconds against the tree's bytes, one crc validation pass,
+    the steps lost, the goodput fractions, ``train_mfu`` against phase 8's
+    MFU, and the loop's step time (numerics on, and off) against the bare
+    ``train_step`` (3 timed steps each, no faults, no checkpoints)."""
+    import functools
+    import shutil
+    import paddle_tpu_torch.observability as obs
+    from paddle_tpu_torch.distributed.resilience import (
+        FaultInjector, ResilientTrainLoop, ResumableIterator, SimulatedCrash,
+        atomic_ckpt)
+    cfg = llama_2_6b(llama)
+    B, S, L = 8, 2048, cfg.num_layers
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    batches = [torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                             device=dev) for _ in range(8)]
+    step = functools.partial(llama.train_step, config=cfg,
+                             optimizer="adafactor", lr=lr,
+                             adafactor_eps2=0.0)
+
+    def state():
+        return llama.init_train_state(cfg, SEED, optimizer="adafactor",
+                                      param_dtype=torch.bfloat16,
+                                      device=dev)
+
+    def loop(st, **kw):
+        return ResilientTrainLoop(
+            step, st, ResumableIterator(lambda e: iter(batches)), **kw)
+
+    res = {"config": "llama-2.6b (bench.py:89-92), 8 x 2048, full remat, "
+           "adafactor, bf16 params", "schedule": C1_SCHEDULE,
+           "steps": C1_STEPS, "card": card}
+    # the bare step: 1 warm-up and 3 timed steps, synchronized at the ends
+    st = state()
+    st, loss = step(st, batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(3):
+        st, loss = step(st, batches[1 + i])
+    torch.cuda.synchronize()
+    res["bare_step_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+    del st, loss
+    free_memory()
+    # the loop with observability on and numerics off: 4 steps, the
+    # median of the last 3 (the loop's own cost, apart from the ladder)
+    obs_reset(obs)
+    obs.enable()
+    try:
+        loop(state()).run(4)
+    finally:
+        obs.disable()
+    secs = [e["seconds"] for e in obs.flight_recorder.get_recorder()
+            .events() if e["kind"] == "step"]
+    res["loop_numerics_off_step_ms"] = sorted(secs[-3:])[1] * 1e3
+    free_memory()
+
+    obs_reset(obs)
+    obs.goodput.get_tracker().reset()
+    obs.enable()
+    obs.numerics.enable()
+    ckpt_dir = None
+    try:
+        t0 = time.perf_counter()
+        clean_loop = loop(state())
+        clean = clean_loop.run(C1_STEPS)
+        res["clean_s"] = time.perf_counter() - t0
+        secs = [e["seconds"] for e in obs.flight_recorder.get_recorder()
+                .events() if e["kind"] == "step"]
+        res["loop_step_ms"] = sorted(secs[-3:])[1] * 1e3
+        res["loop_step_ms_each"] = [s * 1e3 for s in secs]
+        res["train_mfu"] = obs.get_registry().gauge(
+            "train_mfu").labels().value
+        res["loop_flops_per_step"] = clean_loop._flops
+        Bb, Sb = batches[0].shape[0], batches[0].shape[1] - 1
+        res["flops_per_step_want"] = llama.flops_per_token(cfg, Sb) * Bb * Sb
+        if clean_loop._flops != res["flops_per_step_want"]:
+            raise AssertionError(f"(c1): the loop counted "
+                                 f"{clean_loop._flops} FLOPs a step")
+        clean_pos = clean_loop.data.state_dict()
+        tree_bytes = atomic_ckpt.tree_nbytes({"state": clean})
+        res["tree_bytes"] = tree_bytes
+        ckpt_dir, free = ckpt_scratch(4 * tree_bytes)
+        res["ckpt_fs_free_bytes"] = free
+        log(f"  clean: {C1_STEPS} steps in {res['clean_s']:.1f} s, loop "
+            f"step {res['loop_step_ms']:.1f} ms (numerics off "
+            f"{res['loop_numerics_off_step_ms']:.1f}, bare "
+            f"{res['bare_step_ms']:.1f}), train_mfu "
+            f"{res['train_mfu']:.4f}; snapshot {tree_bytes / 1e9:.3f} GB, "
+            f"{free / 1e9:.1f} GB free at {ckpt_dir}")
+
+        obs_reset(obs)
+        obs.goodput.get_tracker().reset()
+        inj = FaultInjector(C1_SCHEDULE)
+        build.launch_counts.clear()
+        t0 = time.perf_counter()
+        faulted_loop = loop(state(), ckpt_dir=ckpt_dir, ckpt_every=2,
+                            keep=2, injector=inj)
+        try:
+            faulted_loop.run(C1_STEPS)
+            raise AssertionError("(c1): the injected crash never fired")
+        except SimulatedCrash:
+            pass
+        first_events = list(faulted_loop.events)
+        crash_step = faulted_loop.step
+        newest = atomic_ckpt.list_checkpoints(ckpt_dir)[-1]
+        with open(os.path.join(newest[1], "a00000.bin"), "r+b") as f:
+            f.write(b"bitrot!!")
+        del faulted_loop
+        free_memory()
+        relaunched = loop(state(), ckpt_dir=ckpt_dir, ckpt_every=2, keep=2,
+                          injector=inj)
+        faulted = relaunched.run(C1_STEPS)
+        res["faulted_s"] = time.perf_counter() - t0
+        launches = dict(build.launch_counts)
+        events = first_events + relaunched.events
+        attempts = sum(1 for e in events
+                       if e["kind"] in ("rollback",)) + sum(
+            1 for e in obs.flight_recorder.get_recorder().events()
+            if e["kind"] == "step")
+        want = {"flash_fwd": 2 * L * attempts, "flash_dq": L * attempts,
+                "flash_dkv": L * attempts}
+        if any(launches.get(k, 0) != v for k, v in want.items()):
+            raise AssertionError(f"(c1): {attempts} attempts launched "
+                                 f"{launches}, expected {want}")
+        rollbacks = [e for e in events if e["kind"] == "rollback"]
+        named = [e.get("first_bad") for e in rollbacks]
+        pm_path = os.path.join(ckpt_dir, "postmortem.json")
+        obs.flight_recorder.dump(pm_path)
+        with open(pm_path) as f:
+            pm = json.load(f)
+        provenance = (pm.get("numerics") or {}).get("provenance")
+        if named != [None, "llama.layer:7"] \
+                or provenance != "llama.layer:7":
+            raise AssertionError(f"(c1): rollbacks name {named}, the "
+                                 f"post-mortem {provenance!r}")
+        pos = relaunched.data.state_dict()
+        if pos != clean_pos or relaunched.skipped_batches:
+            raise AssertionError(f"(c1): loader {pos} vs {clean_pos}, "
+                                 f"{relaunched.skipped_batches} skipped")
+        n_diff = n_elems = 0
+        max_diff = 0.0
+        close = True
+        for a, b in zip(atomic_ckpt.flatten(clean)[0],
+                        atomic_ckpt.flatten(faulted)[0]):
+            n_elems += a.numel()
+            n_diff += int((a != b).sum())
+            max_diff = max(max_diff,
+                           float((a.float() - b.float()).abs().max()))
+            close = close and torch.allclose(a.float(), b.float(),
+                                             rtol=1e-6, atol=1e-6)
+        if not close:
+            raise AssertionError(f"(c1): final states differ: {n_diff} of "
+                                 f"{n_elems} elements, max {max_diff}")
+        reg = obs.get_registry()
+        save_h = reg.histogram("train_checkpoint_save_seconds").labels()
+        load_h = reg.histogram("train_checkpoint_load_seconds").labels()
+        t1 = time.perf_counter()
+        atomic_ckpt.validate_checkpoint(
+            atomic_ckpt.list_checkpoints(ckpt_dir)[-1][1])
+        res["validate_s"] = time.perf_counter() - t1
+        gp = obs.goodput.get_tracker().report()
+        res.update({
+            "launches": launches, "attempts": attempts,
+            "crash_at_step": crash_step, "resumed_from":
+                relaunched.resumed_from,
+            "steps_lost": attempts - C1_STEPS,
+            "rollbacks": len(rollbacks), "first_bad": named,
+            "postmortem_provenance": provenance,
+            "loader": pos, "elements": n_elems, "elements_differing": n_diff,
+            "max_abs_diff": max_diff,
+            "saves": save_h.count, "save_s_mean": save_h.sum / save_h.count,
+            "loads": load_h.count, "load_s": load_h.sum,
+            "save_gb_per_s": tree_bytes / (save_h.sum / save_h.count) / 1e9,
+            "load_gb_per_s": tree_bytes / load_h.sum / 1e9,
+            "validate_gb_per_s": tree_bytes / res["validate_s"] / 1e9,
+            "goodput_ratio": gp["goodput_ratio"],
+            "goodput_fractions": gp["fractions"],
+            "phase8_mfu": None if phase8 is None else phase8["mfu"],
+            "phase8_step_ms": None if phase8 is None
+            else phase8["step_s"] * 1e3,
+            "kinds": [e["kind"] for e in events]})
+        log(f"  faulted: {attempts} attempts ({res['steps_lost']} lost: "
+            f"{len(rollbacks)} rollbacks, crash at step {crash_step}, "
+            f"resumed from {relaunched.resumed_from}) in "
+            f"{res['faulted_s']:.1f} s; first_bad {named}; "
+            f"{n_diff} of {n_elems} elements differ (max {max_diff}); "
+            f"{save_h.count} saves, {res['save_s_mean']:.2f} s each "
+            f"({res['save_gb_per_s']:.2f} GB/s), load {res['load_s']:.2f} "
+            f"s, validate {res['validate_s']:.2f} s; goodput "
+            f"{gp['goodput_ratio']:.3f}; card: {card}")
+    finally:
+        obs.numerics.disable()
+        obs.disable()
+        obs_reset(obs)
+        if ckpt_dir is not None:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return launches, res
+
+
+def chaos_on_card(card):
+    """(c2) ``python -m paddle_tpu_torch.tools.chaos_run --train --device
+    cuda`` in a subprocess: ``CHAOS_PARITY: OK`` and exit 0 (its output in
+    ``chip_smoke_out/chaos_run_train.log``)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "chip_smoke_out"), exist_ok=True)
+    path = os.path.join(root, "chip_smoke_out", "chaos_run_train.log")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.tools.chaos_run", "--train",
+         "--device", "cuda"], capture_output=True, text=True, cwd=root,
+        env=dict(os.environ, PYTHONPATH=root), timeout=300)
+    secs = time.perf_counter() - t0
+    with open(path, "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    tail = proc.stdout.strip().splitlines()[-3:]
+    if proc.returncode != 0 or "CHAOS_PARITY: OK" not in proc.stdout:
+        raise AssertionError(f"(c2): exit {proc.returncode}, tail {tail}")
+    return {"exit": proc.returncode, "seconds": secs, "tail": tail,
+            "log": path, "card": card}
+
+
+def moe_probes(moe, build, dev, card, hold=None):
+    """(c3) one ``moe.forward`` at phase 12's state (``hold``, or a fresh
+    one of its config: DeepSeekMoE-16B widths, 12 layers, bf16, "outs",
+    the fused form) with numerics on: a warm-up forward, then one under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync inside the
+    forward), after a flush 12 ``moe.layer`` rungs, the router-logit and
+    routed-output probes, the plan-cache and fused-dispatch counters
+    moved; ``quantize_expert_params`` (over the first 2 layers' experts)
+    sets ``expert_int8``'s gauge. The
+    forward's time with numerics on against off (CUDA events, 3 each)."""
+    import dataclasses
+    import paddle_tpu_torch.observability as obs
+    if hold is None:
+        cfg = dataclasses.replace(moe.deepseek_moe_16b(), num_layers=12,
+                                  remat=True, remat_policy="outs",
+                                  dispatch="fused")
+        params = moe.init_params(cfg, SEED, device=dev, dtype=torch.bfloat16)
+        tokens = tokens_for(cfg, 4, 2048, dev)
+    else:
+        cfg, tokens = hold["cfg"], hold["tokens"]
+        params = hold["state"][-1].params
+    toks = tokens[:, :-1]
+    L = cfg.num_layers
+
+    def fwd(i=0):
+        with torch.no_grad():
+            return moe.forward(params, toks, cfg)
+
+    res = {"config": f"phase 12's: DeepSeekMoE-16B widths, {L} layers, "
+           "4 x 2048, bf16, remat outs, fused", "card": card}
+    obs_reset(obs)
+    obs.enable()
+    try:
+        res["off_ms"] = time_ms(fwd, 3)
+        obs.numerics.enable()
+        fwd()
+        obs.numerics.flush()
+        obs_reset(obs)
+        torch.cuda.synchronize()
+        build.launch_counts.clear()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fwd()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        launches = dict(build.launch_counts)
+        obs.numerics.flush()
+        rows = obs.numerics.rows()
+        rungs = [r["layer"] for r in rows if r["site"] == "moe.layer"]
+        sites = sorted({r["site"] for r in rows})
+        reg = obs.get_registry()
+        counters = {
+            "moe_plan_cache_hits_total": reg.counter(
+                "moe_plan_cache_hits_total").labels().value,
+            "moe_plan_cache_misses_total": reg.counter(
+                "moe_plan_cache_misses_total").labels().value,
+            "moe_gmm_fused_dispatch_total{path=padded}": reg.counter(
+                "moe_gmm_fused_dispatch_total").labels(path="padded").value}
+        if rungs != list(range(L)) or not {"moe.router_logits",
+                                           "moe.routed_out"} <= set(sites) \
+                or counters["moe_plan_cache_hits_total"] < 1 \
+                or counters["moe_gmm_fused_dispatch_total{path=padded}"] < 1:
+            raise AssertionError(f"(c3): rungs {rungs}, sites {sites}, "
+                                 f"counters {counters}")
+        res["on_ms"] = time_ms(fwd, 3)
+        obs.numerics.flush()
+        # the probe's f32 temporaries of all 12 layers' experts would take
+        # ~27 GB beside the held state: the first 2 layers' experts
+        cut = dict(params, layers={k: v[:2] for k, v in
+                                   params["layers"].items()})
+        q = moe.quantize_expert_params(cut)
+        obs.numerics.flush()
+        del q, cut
+        qerr = reg.gauge("numerics_quant_error").labels(
+            site="expert_int8").value
+        if not 0 < qerr < 0.1:
+            raise AssertionError(f"(c3): expert_int8 quant error {qerr}")
+        res.update({"host_syncs_in_forward": 0, "rungs": rungs,
+                    "sites": sites, "counters": counters,
+                    "expert_int8_quant_error": qerr, "launches": launches,
+                    "on_over_off": res["on_ms"] / res["off_ms"]})
+        log(f"  (c3): forward {res['off_ms']:.2f} ms numerics off, "
+            f"{res['on_ms']:.2f} on ({res['on_over_off']:.4f}x); no host "
+            f"sync; {len(rungs)} rungs, sites {sites}, counters {counters}, "
+            f"expert_int8 {qerr:.3e}; launches {launches}; card: {card}")
+    finally:
+        obs.numerics.disable()
+        obs.disable()
+        obs_reset(obs)
+    return launches, res
+
+
+def resilience_only(llama, moe, build, dev, card) -> int:
+    """``--resilience``: phases (c1)-(c3) alone ((c1) without phase 8's
+    MFU beside it, (c3) on a fresh state of phase 12's config), then their
+    line; no device line."""
+    log("phase (c1): the resilient loop around llama-2.6b's train step")
+    _, c1 = resilient_train(llama, build, dev, card)
+    free_memory()
+    log("phase (c2): chaos_run --train on the card")
+    c2 = chaos_on_card(card)
+    log(f"  {c2}")
+    log("phase (c3): the MoE probes at phase 12's config")
+    _, c3 = moe_probes(moe, build, dev, card)
+    free_memory()
+    log(json.dumps({"train_resilience": {"c1": c1, "c2": c2, "c3": c3}}))
+    log(f"total {time.perf_counter() - T0:.1f} s")
+    log(card)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6959,6 +7356,8 @@ def main() -> int:
 
     if sys.argv[1:] == ["--serving"]:
         return serving_only(llama, LLMEngine, build, dev, card)
+    if sys.argv[1:] == ["--resilience"]:
+        return resilience_only(llama, moe, build, dev, card)
 
     log("phase 2: B1 flash prefill vs plain")
     check_flash(tfa, dev)
@@ -7147,6 +7546,13 @@ def main() -> int:
     training["card_vs_cpu"] = cross_device_train_step(llama, dev)
     free_memory()
 
+    log("phase (c1): the resilient loop around llama-2.6b's train step")
+    c_launches, c1 = resilient_train(llama, build, dev, card, training)
+    free_memory()
+    log("phase (c2): chaos_run --train on the card")
+    train_resilience = {"c1": c1, "c2": chaos_on_card(card)}
+    log(f"  {train_resilience['c2']}")
+
     log("phase 11: B9 gather_gmm, B10 gmm and tgmm vs plain")
     grouped_errs = check_grouped(tmdisp, tmf, dev)
     free_memory()
@@ -7170,6 +7576,9 @@ def main() -> int:
         "widths, what remat outs keeps (phase 12's state)")
     forms.update(moe_phase12_forms(moe, llama, tmdisp, build, dev, card,
                                    hold, moe_training))
+    log("phase (c3): the MoE probes at phase 12's state")
+    c3_launches, train_resilience["c3"] = moe_probes(moe, build, dev, card,
+                                                     hold)
     del hold
     free_memory()
     forms["m2_cross_device"] = moe_dense_cross_device(
@@ -7309,8 +7718,10 @@ def main() -> int:
              launches=paged_launches.get("paged_append_blocks", 0),
              **paged["b8"]),
     ]
+    tier_launches["c1_faulted"] = c_launches
+    tier_launches["c3_moe_forward"] = c3_launches
     # each kernel's launches in the runs of phases (p1)-(p3), (r1)-(r3),
-    # (o1)-(o3) and (h1)-(h3)
+    # (o1)-(o3), (h1)-(h3), (c1) and (c3)
     for k in kernels:
         k["tier_launches"] = {run: n[k["name"]] for run, n in
                               tier_launches.items() if n.get(k["name"])}
@@ -7330,6 +7741,7 @@ def main() -> int:
     log(json.dumps({"static_schedule": schedules}))
     log(json.dumps({"observability": observed}))
     log(json.dumps({"front_door": front}))
+    log(json.dumps({"train_resilience": train_resilience}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

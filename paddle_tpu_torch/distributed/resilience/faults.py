@@ -12,8 +12,8 @@ Schedules come from code or from the port's flag registry::
 
 Each entry fires ONCE: a retry of the same step does not re-trip the
 fault. The realizations :meth:`FaultInjector.poison` and
-:meth:`FaultInjector.poison_layer` work on nested dicts (and lists or
-tuples) of torch tensors.
+:meth:`FaultInjector.poison_layer` work on nested dicts (and lists,
+tuples or ``TrainState`` s) of torch tensors.
 """
 from __future__ import annotations
 
@@ -95,13 +95,20 @@ def _parse_schedule(spec: str) -> List[Tuple[str, int]]:
 
 
 def _map_leaves(fn, tree, path=()):
-    """``fn(path, leaf)`` over a nested dict/list/tuple; ``path`` holds
-    the keys and indices from the root."""
+    """``fn(path, leaf)`` over a nested dict/list/tuple, or an object with
+    the ``tree_flatten``/``tree_unflatten`` protocol (the models'
+    ``TrainState``); ``path`` holds the keys and indices from the root."""
     if isinstance(tree, dict):
         return {k: _map_leaves(fn, v, path + (k,)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map_leaves(fn, v, path + (i,))
                           for i, v in enumerate(tree))
+    if hasattr(tree, "tree_flatten") and hasattr(type(tree),
+                                                 "tree_unflatten"):
+        children, aux = tree.tree_flatten()
+        return type(tree).tree_unflatten(
+            aux, [_map_leaves(fn, c, path + (i,))
+                  for i, c in enumerate(children)])
     return fn(path, tree)
 
 

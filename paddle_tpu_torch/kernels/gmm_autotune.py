@@ -35,9 +35,9 @@ A candidate is only ever a width the kernels' own argument checks take,
 so no launch error is expected or caught: an error while measuring
 propagates. The reference's metrics (``moe_tiling_cache_{hits,misses}
 _total``, ``moe_tiling_autotune_seconds``,
-``moe_tiling_autotune_rejected_total``) are host counters in
-:data:`counters` until the training half of the port's observability
-(ROADMAP A8-train) wires them.
+``moe_tiling_autotune_rejected_total``) are emitted at the reference's
+sites; :data:`counters` keeps the same counts (and the seconds summed)
+on the host whether observability is on or not.
 """
 from __future__ import annotations
 
@@ -50,6 +50,7 @@ import torch
 
 from ..framework.flags import define_flag, get_flag
 from ..jit import cache as _jcache
+from ..observability.catalog import instrument as _instrument
 
 define_flag("moe_gmm_autotune", True,
             "measure grouped-GEMM tile widths on first encounter of each "
@@ -75,7 +76,12 @@ _NOISE_MARGIN = 0.03
 _TM, _TK = 128, 64          # the kernels' row tile and stage depth
 _WIDTHS = (256, 128)        # the bf16 kernels' output tile widths
 
-# host counters in place of the reference's metrics
+_M_HITS = _instrument("moe_tiling_cache_hits_total")
+_M_MISSES = _instrument("moe_tiling_cache_misses_total")
+_M_TUNE = _instrument("moe_tiling_autotune_seconds")
+_M_REJECTED = _instrument("moe_tiling_autotune_rejected_total")
+
+# the same counts on the host (the seconds summed), observability on or off
 counters: collections.Counter = collections.Counter()
 
 _LOCK = threading.Lock()
@@ -171,6 +177,8 @@ def _ensure_loaded() -> None:
                 }
         _LOADED = True
     counters["moe_tiling_autotune_rejected_total"] += rejected
+    for _ in range(rejected):
+        _M_REJECTED.inc()
 
 
 def _persist() -> None:
@@ -301,8 +309,10 @@ def get_tilings(m: int, k: int, n: int, E: int, dtype, full_rows: bool,
         ent = _CACHE.get(key)
     if ent is not None:
         counters["moe_tiling_cache_hits_total"] += 1
+        _M_HITS.inc()
         return _as_tri(ent)
     counters["moe_tiling_cache_misses_total"] += 1
+    _M_MISSES.inc()
 
     cands = candidate_tilings(m, k, n, itemsize=_ITEMSIZE.get(dtype_s, 2))
     runner = None
@@ -333,8 +343,11 @@ def get_tilings(m: int, k: int, n: int, E: int, dtype, full_rows: bool,
             # a winner inside the heuristic's noise band proves nothing
             best = heur[i]
             counters["moe_tiling_autotune_rejected_total"] += 1
+            _M_REJECTED.inc()
         picked[pass_] = tuple(best)
-    counters["moe_tiling_autotune_seconds"] += time.perf_counter() - t_start
+    tuned = time.perf_counter() - t_start
+    counters["moe_tiling_autotune_seconds"] += tuned
+    _M_TUNE.observe(tuned)
     with _LOCK:
         _CACHE.setdefault(key, {"tilings": picked, "source": "measured"})
         ent = _CACHE[key]

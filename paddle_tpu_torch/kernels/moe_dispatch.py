@@ -51,6 +51,8 @@ import torch
 
 from ..framework.flags import define_flag, get_flag
 from ..jit import cache as _jcache
+from ..observability import numerics as _numerics
+from ..observability.catalog import instrument as _instrument
 from . import _build
 from .gmm_autotune import _device_tag, get_tilings, time_best
 
@@ -70,6 +72,14 @@ __all__ = [
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _f32 = torch.float32
+
+# the reference's dispatch metrics. Of moe_dispatch_fallbacks_total's
+# reasons the port emits dense_buffer_too_big: it has no rewrite to fall
+# back to where B10 cannot take a shape (the wrappers raise there), and
+# ep_shape_mismatch comes with the expert-parallel forms (ROADMAP A10)
+_M_PLAN_HITS = _instrument("moe_plan_cache_hits_total")
+_M_PLAN_MISSES = _instrument("moe_plan_cache_misses_total")
+_M_FALLBACKS = _instrument("moe_dispatch_fallbacks_total")
 
 
 def sort_by_expert(idx):
@@ -121,8 +131,14 @@ def routing_from_logits(logits, top_k: int) -> Routing:
 
 def fused_routing(x, router_w, top_k: int) -> Routing:
     """The dispatch prologue: the f32 router matmul, then
-    :func:`routing_from_logits`."""
-    return routing_from_logits(x.float() @ router_w.float(), top_k)
+    :func:`routing_from_logits`. With numerics on, the router logits are
+    probed (``moe.router_logits``): a diverging router is the classic MoE
+    blowup source, and its NaNs surface here before they smear across
+    every expert. Inside a checkpointed layer the recompute probes them
+    again, as the reference's remat'd bodies do."""
+    logits = x.float() @ router_w.float()
+    _numerics.record_stats("moe.router_logits", logits)
+    return routing_from_logits(logits, top_k)
 
 
 # ---------------------------------------------------------------------------
@@ -156,10 +172,16 @@ def plan_dispatch(T: int, k: int, E: int, h: int, slack: float = 0.125,
     with _PLAN_LOCK:
         plan = _PLAN_CACHE.get(key)
     if plan is not None:
+        _M_PLAN_HITS.inc()
         return plan
+    _M_PLAN_MISSES.inc()
     A = T * k
     Q = min(_round_up(max(int(A / E * (1 + slack)), 1), 128), A)
-    plan = DispatchPlan(T, k, E, h, Q, bool(dense_base) and E * Q <= 4 * A)
+    use_dense = bool(dense_base) and E * Q <= 4 * A
+    if dense_base and not use_dense:
+        # tiny/test shapes: the base buffer would dwarf the real work
+        _M_FALLBACKS.labels(reason="dense_buffer_too_big").inc()
+    plan = DispatchPlan(T, k, E, h, Q, use_dense)
     with _PLAN_LOCK:
         return _PLAN_CACHE.setdefault(key, plan)
 

@@ -24,9 +24,12 @@ the gather of x, B10's ``tgmm`` and the k-way gather into dx.
 for the down projection) whenever :func:`gather_gmm_supported` passes —
 on the CPU always, so the CPU tests run the layout the card runs — and
 otherwise the unpadded one (gather, B10 ``gmm`` twice, gather combine).
-The route is counted in ``fused_paths`` (the JAX package's
-``moe_gmm_fused_dispatch_total{path}``): ``"padded"``, or
-``"unpadded:<reason>"``. No exception is caught on either route.
+The route is counted in ``fused_paths`` and in the reference's
+``moe_gmm_fused_dispatch_total{path}`` under the same ``path`` values:
+``"padded"``, or ``"unpadded:<reason>"`` (the reference's ``pallas`` /
+``xla`` / ``xla_fallback`` name its own routes; no exception is caught on
+either of the port's, so nothing falls back). With numerics on, the
+routed output is probed (``moe.routed_out``).
 
 Expert weights are dense tensors or int8 ``{"q": int8, "s": f32}``
 leaves (``quant_matmul.quantize_grouped``; ``moe.quantize_expert_params``).
@@ -46,6 +49,8 @@ from typing import Optional
 
 import torch
 
+from ..observability import numerics as _numerics
+from ..observability.catalog import instrument as _instrument
 from . import _build
 from .gmm_autotune import get_tilings
 from .moe_dispatch import (_DTYPES, _bn, _check_cuda, _check_index, _wide,
@@ -60,6 +65,7 @@ _KTM = 128
 
 # route of each fused_moe_ffn call: "padded" or "unpadded:<reason>"
 fused_paths: collections.Counter = collections.Counter()
+_M_FUSED = _instrument("moe_gmm_fused_dispatch_total")
 
 
 # ---------------------------------------------------------------------------
@@ -399,12 +405,16 @@ def fused_moe_ffn(x, weights, idx, e_gate, e_up, e_down, routing=None):
     if s_down is None:
         Wd = Wd.to(dt)
     reason = gather_gmm_supported(x, Wcat, A)
+    path = "padded" if reason is None else f"unpadded:{reason}"
+    fused_paths[path] += 1
+    _M_FUSED.labels(path=path).inc()
     if reason is None:
-        fused_paths["padded"] += 1
         y = _fused_padded(x, ws, tok, esorted, gs, inv2d, Wcat, Wd, E, f,
                           dt, s_gu=s_gu, s_down=s_down)
     else:
-        fused_paths[f"unpadded:{reason}"] += 1
         y = _fused_unpadded(x, ws, tok, gs, inv2d, Wcat, Wd, f, dt,
                             s_gu=s_gu, s_down=s_down, esorted=esorted)
+    # routed-output health probe: with int8 experts this is where a blown
+    # scale or a saturating expert first becomes visible
+    _numerics.record_stats("moe.routed_out", y)
     return y.to(dt)

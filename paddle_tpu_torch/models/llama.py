@@ -431,8 +431,21 @@ def hidden_states(params, tokens, config: LlamaConfig):
     # gradients once (indexing [l] would scatter into a zero [L, ...]
     # tensor per layer)
     per_layer = {k: params["layers"][k].unbind(0) for k in LAYER_KEYS}
+    # numerics ladder (the reference's scan ys): one stats rung per layer
+    # output, built under no_grad on the detached output outside the
+    # checkpointed body (a recompute lands no second rung and the rungs
+    # add no backward op), shipped as ONE [L, 5] landing that the NaN
+    # provenance walk reads. Off, not one op is added.
+    ladder = _numerics.active()
+    rungs = []
     for l in range(c.num_layers):
         x = body(x, {k: per_layer[k][l] for k in LAYER_KEYS}, cos, sin, c)
+        if ladder:
+            with torch.no_grad():
+                rungs.append(_numerics.tensor_stats(x.detach()))
+    if ladder:
+        with torch.no_grad():
+            _numerics.ladder_record("llama.layer", torch.stack(rungs))
     return _rms_norm(x, params["final_norm"], c.rms_eps)
 
 
@@ -828,6 +841,16 @@ class TrainState:
     def __init__(self, params, mu, nu, step):
         self.params, self.mu, self.nu, self.step = params, mu, nu, step
 
+    # the JAX package's pytree-node protocol: the checkpoint writer
+    # (distributed/resilience/atomic_ckpt.py) flattens a state as the
+    # custom node (params, mu, nu, step)
+    def tree_flatten(self):
+        return (self.params, self.mu, self.nu, self.step), None
+
+    @classmethod
+    def tree_unflatten(cls, aux, children):
+        return cls(*children)
+
 
 def init_train_state(config: LlamaConfig, seed: int = 0,
                      optimizer: str = "adamw",
@@ -915,6 +938,11 @@ def flops_per_token(config: LlamaConfig, seq_len: int) -> float:
     n = sum(math.prod(shape) for shape, _ in (*top.values(),
                                               *layers.values()))
     return 6.0 * n + 12.0 * c.num_layers * c.hidden_size * seq_len
+
+
+# the host FLOP count the resilient loop's train_mfu reads
+# (observability/perf.py train_step_flops)
+train_step.flops_per_token = flops_per_token
 
 
 # ---------------------------------------------------------------------------

@@ -61,6 +61,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..device import resolve_device
 from ..kernels import moe_dispatch as _md
 from ..kernels import quant_matmul as _qm
+from ..observability import numerics as _numerics
 from ..optimizer.functional import init_moments, tree_leaves
 from . import llama as _llama
 from .llama import (TrainState, _apply_rope, _attention, _rms_norm,
@@ -249,6 +250,13 @@ def quantize_expert_params(params, config: MoEConfig = None):
     layers["e_up"] = _qm.quantize_grouped(params["layers"]["e_up"], 2)
     layers["e_down"] = _qm.quantize_grouped(params["layers"]["e_down"], 3)
     out["layers"] = layers
+    if _numerics.active():
+        # paired pre/post-quant probe for the expert-int8 site: one
+        # aggregated relative-error landing over gate/up/down
+        # (numerics_quant_error{site="expert_int8"})
+        _numerics.record_quant_error("expert_int8", [
+            (params["layers"][k], layers[k]["q"], layers[k]["s"], axis)
+            for k, axis in (("e_gate", 2), ("e_up", 2), ("e_down", 3))])
     return out
 
 
@@ -292,7 +300,8 @@ def top_k_gating(logits, top_k: int):
     return weights, idx, E * (me * ce).sum()
 
 
-def _resolve_form(c: MoEConfig, T: int, x, quantized: bool) -> str:
+def _resolve_form(c: MoEConfig, T: int, x, quantized: bool,
+                  plan=None) -> str:
     """The dropless dispatch form for T tokens like x: int8 leaves take
     "fused"; "auto" is :func:`moe_dispatch.pick_dispatch_form` at the
     routing shape on the card (the dense form a candidate where
@@ -305,7 +314,8 @@ def _resolve_form(c: MoEConfig, T: int, x, quantized: bool) -> str:
     if x.device.type != "cuda":
         return _md._FORM_STATIC
     h, E = c.hidden_size, c.num_experts
-    plan = _md.plan_dispatch(T, c.top_k, E, h)
+    if plan is None:
+        plan = _md.plan_dispatch(T, c.top_k, E, h)
     return _md.pick_dispatch_form(T, c.top_k, E, h, c.moe_intermediate_size,
                                   x.dtype,
                                   dense_ok=c.dense_base and plan.use_dense)
@@ -341,10 +351,14 @@ def moe_ffn(x, router_w, e_gate, e_up, e_down, config: MoEConfig,
             routing = None
             weights, idx, aux = top_k_gating(x.float() @ router_w.float(),
                                              c.top_k)
-        form = _resolve_form(c, x.shape[0], x, quantized)
+        # the routing shape's memoized plan, derived once a shape and
+        # reused by every layer and step after (moe_plan_cache_* counts
+        # it, as in the reference's single-program branch)
+        T, h = x.shape
+        E = (e_gate["q"] if quantized else e_gate).shape[0]
+        plan = _md.plan_dispatch(T, c.top_k, E, h)
+        form = _resolve_form(c, T, x, quantized, plan)
         if form == "dense":
-            T, h = x.shape
-            plan = _md.plan_dispatch(T, c.top_k, e_gate.shape[0], h)
             y = _md.dropless_moe_ffn_dense(x, weights, idx, e_gate, e_up,
                                            e_down, routing=routing,
                                            plan=plan)
@@ -485,9 +499,30 @@ def hidden_states_with_aux(params, tokens, config: MoEConfig):
     for dense in (True, False):
         body = functools.partial(_layer_body, config=c, dense=dense)
         bodies[dense] = _remat(body, c) if c.remat else body
+    # numerics ladder (the reference's scan ys): one stats rung per layer
+    # output, built under no_grad on the detached output outside the
+    # checkpointed body (a recompute lands no second rung and the rungs
+    # add no backward op), shipped as one [n, 5] landing per group —
+    # the dense head at offset 0, the MoE tail at offset
+    # first_dense_layers. Off, not one op is added.
+    ladder = _numerics.active()
+    rungs = []
+    n_dense = c.first_dense_layers
     for l in range(c.num_layers):
-        x, aux = bodies[l < c.first_dense_layers](
+        x, aux = bodies[l < n_dense](
             x, aux, {k: per_layer[k][l] for k in LAYER_KEYS}, cos, sin)
+        if ladder:
+            with torch.no_grad():
+                rungs.append(_numerics.tensor_stats(x.detach()))
+    if ladder:
+        with torch.no_grad():
+            if n_dense > 0:
+                _numerics.ladder_record("moe.layer",
+                                        torch.stack(rungs[:n_dense]))
+            if c.num_layers > n_dense:
+                _numerics.ladder_record("moe.layer",
+                                        torch.stack(rungs[n_dense:]),
+                                        offset=n_dense)
     return _rms_norm(x, params["final_norm"], c.rms_eps), aux
 
 
@@ -540,3 +575,8 @@ def train_step(state: TrainState, tokens, config: MoEConfig, **kw):
     """llama's train step with the MoE loss (cross-entropy + router aux)."""
     return _llama.train_step(state, tokens, config, loss_function=loss_fn,
                              **kw)
+
+
+# the host FLOP count the resilient loop's train_mfu reads
+# (observability/perf.py train_step_flops)
+train_step.flops_per_token = flops_per_token

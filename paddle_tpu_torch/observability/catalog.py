@@ -359,10 +359,12 @@ CATALOG = {
         "encounter)"),
     "moe_gmm_fused_dispatch_total": (
         "counter", ("path",),
-        "fused-dispatch entries by implementation path (pallas = "
-        "gather-fused TPU kernel, xla = portable scatter-free rewrite, "
-        "xla_fallback = kernel failed to build and the rewrite "
-        "answered)"),
+        "fused-dispatch entries by implementation path; the port emits "
+        "padded = the tile-padded pipeline through B9 (the gather-fused "
+        "kernel on the card, its plain version on the CPU) and "
+        "unpadded:<reason> = B9 screened out (dtype / width / rows), "
+        "gather + B10 gmm; the reference's pallas / xla / xla_fallback "
+        "never fire here"),
     "moe_overlap_bypass_total": (
         "counter", (),
         "expert-parallel overlap bypasses: per-rank token slices below "

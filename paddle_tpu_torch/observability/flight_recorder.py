@@ -9,8 +9,9 @@ events (``FLAGS_obs_flight_capacity``, oldest evicted) and dumps a JSON
 post-mortem — events + a full metrics snapshot + open spans + the
 goodput report — on the paths that matter:
 
-- **unhandled exception** escaping ``ResilientTrainLoop.run`` (and,
-  after :func:`install`, any ``sys.excepthook`` exception);
+- **unhandled exception** escaping ``ResilientTrainLoop.run``
+  (``distributed/resilience/train_loop.py``; and, after :func:`install`,
+  any ``sys.excepthook`` exception);
 - **watchdog timeout**, after the emergency hooks have flushed their
   checkpoint (so the dump records the emergency save too);
 - the **SIGTERM emergency path** of the resilience runtime.
@@ -18,7 +19,8 @@ goodput report — on the paths that matter:
 Auto-dumps go to ``FLAGS_obs_postmortem_dir`` (empty = auto-dump off;
 explicit :meth:`FlightRecorder.dump` paths always work) and never raise:
 a failing dump must not mask the crash it is recording. Pretty-print a
-dump with ``python tools/obs_dump.py --postmortem <file>``.
+dump with ``python -m paddle_tpu_torch.tools.obs_dump --postmortem <file>``
+(or the JAX package's ``tools/obs_dump.py``: both read either dump).
 
 Recording is near-zero when ``FLAGS_obs_enabled`` is off (one global
 read) and O(1) when on (dict build + deque append).

@@ -1,7 +1,7 @@
 """Goodput accounting — what fraction of wall-clock actually trained; the
 port's copy of paddle_tpu/observability/goodput.py (the flight recorder's
-post-mortem embeds its report; the training half that feeds its buckets
-comes with ROADMAP A8-train).
+post-mortem embeds its report; ``ResilientTrainLoop`` feeds its train
+buckets).
 
 A fleet operator's first question is not "what is happening right now"
 (the metrics registry answers that) but "of the last N hours, how many

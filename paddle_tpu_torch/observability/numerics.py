@@ -7,17 +7,17 @@ port's copy of paddle_tpu/observability/numerics.py.
 - :func:`record_stats` / :func:`ladder_record` / :func:`record_quant_error`
   ship the resulting stat vector to the host: the vector is copied
   ``non_blocking`` into pinned memory behind a CUDA event and stays
-  *pending* until a readback the engine already does has completed past
+  *pending* until a readback the caller already does has completed past
   it — :func:`land` (called right after each of the serving engine's
-  readbacks) moves every pending vector whose event has completed into a
+  readbacks and the resilient train loop's loss readback) moves every
+  pending vector whose event has completed into a
   bounded ring (``FLAGS_obs_numerics_capacity``). Never ``.item()``,
   never a ``.cpu()`` inside a dispatch: the reference streams the same
   vector through ``jax.debug.callback``, and neither side ever syncs;
 - :func:`record_quant_error` pairs a pre-quant tensor with its int8 form
   and lands the relative RMS reconstruction error in the
   ``numerics_quant_error{site=...}`` gauge — one gauge per int8 site
-  (``weight_only`` / ``kv_int8``; ``expert_int8`` comes with the MoE
-  probes);
+  (``weight_only`` / ``kv_int8`` / ``expert_int8``);
 - :func:`provenance` walks the per-layer stats ladder for the first
   layer whose NaN/Inf count went nonzero.
 
@@ -169,7 +169,10 @@ def record_stats(site: str, x, scale=None, axis: int = -1,
     :func:`active`."""
     if not active():
         return
-    _ship(site, tensor_stats(x, scale=scale, axis=axis), layer)
+    import torch
+
+    with torch.no_grad():      # a probe is never part of the autograd graph
+        _ship(site, tensor_stats(x, scale=scale, axis=axis), layer)
 
 
 def ladder_record(site: str, stats_rows, offset: int = 0) -> None:

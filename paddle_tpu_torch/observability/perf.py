@@ -6,8 +6,9 @@ copy of paddle_tpu/observability/perf.py.
   decode call's FLOPs analytically on the host from what the engine
   already knows (:func:`decode_flops`): two FLOPs per matmul weight
   element per row per step, plus the attention walk over the slots'
-  K/V, divided by measured step time x the card's peak from
-  :data:`DEVICE_SPECS`. The CPU reports against a nominal 1 TFLOP/s peak
+  K/V; and a train step's from the model's ``flops_per_token``
+  (:func:`train_step_flops`). Either is divided by measured step time x
+  the card's peak from :data:`DEVICE_SPECS`. The CPU reports against a nominal 1 TFLOP/s peak
   so MFU stays defined there, as in the reference.
 - **HBM** — ``hbm_used_bytes`` / ``hbm_peak_bytes`` from
   ``torch.cuda.memory_allocated`` / ``max_memory_allocated``: host-side
@@ -34,7 +35,8 @@ from .exposition import _hist_state, fraction_at_or_below, \
     merged_hist_state
 
 __all__ = ["DEVICE_SPECS", "peak_flops", "hbm_bytes", "hbm_bandwidth",
-           "matmul_params", "decode_flops", "mfu", "token_count",
+           "matmul_params", "decode_flops", "train_step_flops", "mfu",
+           "token_count",
            "hbm_stats", "update_hbm_gauges", "slo_attainment",
            "update_serving_slo_gauges"]
 
@@ -126,6 +128,29 @@ def decode_flops(config, rows: int, steps: int, attn_tokens: int) -> int:
     bucket). The in-call ring's few positions are not counted."""
     walk = 4 * config.num_heads * config.head_dim * config.num_layers
     return steps * (2 * matmul_params(config) * rows + walk * attn_tokens)
+
+
+def train_step_flops(step_fn, batch) -> Optional[float]:
+    """FLOPs of one training step, counted on the host for the step
+    functions the port knows: a ``functools.partial`` (nested or not) of a
+    function carrying a ``flops_per_token(config, seq_len)`` attribute
+    (``llama.train_step``, ``moe.train_step``) with ``config=`` bound,
+    over a ``[B, S + 1]`` token batch (B x S trained tokens). ``None``
+    for anything else — the caller passes ``flops_per_step`` then; a
+    wrong count is never made up."""
+    import functools
+
+    fn, kw = step_fn, {}
+    while isinstance(fn, functools.partial):
+        kw = {**fn.keywords, **kw}
+        fn = fn.func
+    count = getattr(fn, "flops_per_token", None)
+    config = kw.get("config")
+    shape = getattr(batch, "shape", None)
+    if count is None or config is None or shape is None or len(shape) != 2:
+        return None
+    B, S = int(shape[0]), int(shape[1]) - 1
+    return float(count(config, S)) * B * S
 
 
 def mfu(flops_per_step: Optional[float], step_seconds: float,

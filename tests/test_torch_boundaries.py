@@ -92,7 +92,13 @@ print("OK")
     "paddle_tpu_torch.distributed.resilience.retry",
     "paddle_tpu_torch.serving.http",
     "paddle_tpu_torch.serving.router",
-    "paddle_tpu_torch.tools.serve"])
+    "paddle_tpu_torch.tools.serve",
+    "paddle_tpu_torch.distributed.resilience.data",
+    "paddle_tpu_torch.distributed.resilience.atomic_ckpt",
+    "paddle_tpu_torch.distributed.resilience.train_loop",
+    "paddle_tpu_torch.tools.chaos_run",
+    "paddle_tpu_torch.tools.obs_dump",
+    "paddle_tpu_torch.tools.ckpt_io"])
 def test_serving_tier_modules_import_without_jax(module):
     """The flag registry and the serving host tiers are the port's own
     copies: importing one in a fresh process loads no jax and nothing of

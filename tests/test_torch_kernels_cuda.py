@@ -1921,3 +1921,134 @@ def test_disagg_pair_on_card_equals_colocated_and_relays_bit_exact(dev):
                     for t in pre.pools.values())
     assert pre.handoff_bytes == per_block * sum(-(-len(p) // 16)
                                                 for p in prompts)
+
+
+def _resilient_run(dev, step, state_fn, batches, steps, **kw):
+    from paddle_tpu_torch.distributed.resilience import (
+        ResilientTrainLoop, ResumableIterator)
+    return ResilientTrainLoop(step, state_fn(),
+                              ResumableIterator(lambda e: iter(batches)),
+                              **kw)
+
+
+def test_resilient_loop_on_card_replays_bit_equal(dev, tmp_path):
+    """The resilient loop around llama.train_step on the card (bf16, full
+    remat, B1-B3): a faulted run (an untargeted NaN, a NaN injected into
+    layer 1, a crash, the newest snapshot corrupted, a relaunch) ends
+    bit-equal to a clean run, the rollback names llama.layer:1, and B1-B3
+    launch on every attempt."""
+    import dataclasses
+    import functools
+    import os
+
+    import paddle_tpu_torch.observability as obs
+    from paddle_tpu_torch.distributed.resilience import (
+        FaultInjector, SimulatedCrash, atomic_ckpt)
+    from paddle_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(
+        llama.tiny_llama(vocab=256, hidden=256, layers=3, heads=2,
+                         kv_heads=1, seq=256, ffn=512),
+        dtype=torch.bfloat16, remat=True)
+    g = torch.Generator(device=dev).manual_seed(3)
+    batches = [torch.randint(0, 256, (2, 129), generator=g, device=dev)
+               for _ in range(8)]
+    step = functools.partial(llama.train_step, config=cfg, lr=1e-3)
+
+    def state():
+        return llama.init_train_state(cfg, 5, param_dtype=torch.bfloat16,
+                                      device=dev)
+
+    obs.enable()
+    obs.numerics.enable()
+    try:
+        _build.launch_counts.clear()
+        clean = _resilient_run(dev, step, state, batches, 6).run(6)
+        assert _build.launch_counts["flash_fwd"] >= 6 * 3 * 2
+        assert _build.launch_counts["flash_dq"] >= 6 * 3
+        assert _build.launch_counts["flash_dkv"] >= 6 * 3
+        inj = FaultInjector("nan_grad@1,nan_inject:1@2,crash@4")
+        d = str(tmp_path)
+        loop = _resilient_run(dev, step, state, batches, 6, ckpt_dir=d,
+                              ckpt_every=2, keep=2, injector=inj)
+        with pytest.raises(SimulatedCrash):
+            loop.run(6)
+        named = [e.get("first_bad") for e in loop.events
+                 if e["kind"] == "rollback"]
+        assert named == [None, "llama.layer:1"]
+        newest = atomic_ckpt.list_checkpoints(d)[-1][1]
+        with open(os.path.join(newest, "a00000.bin"), "r+b") as f:
+            f.write(b"bitrot!!")
+        loop = _resilient_run(dev, step, state, batches, 6, ckpt_dir=d,
+                              ckpt_every=2, keep=2, injector=inj)
+        faulted = loop.run(6)
+        assert loop.resumed_from == 2 and loop.skipped_batches == 0
+        for a, b in zip(atomic_ckpt.flatten(clean)[0],
+                        atomic_ckpt.flatten(faulted)[0]):
+            assert torch.equal(a, b)
+        # one step replayed from the same state is bit-equal
+        s1, l1 = step(clean, batches[0])
+        s2, l2 = step(clean, batches[0])
+        assert torch.equal(l1, l2)
+        for a, b in zip(atomic_ckpt.flatten(s1)[0],
+                        atomic_ckpt.flatten(s2)[0]):
+            assert torch.equal(a, b)
+    finally:
+        obs.numerics.disable()
+        obs.numerics.clear()
+        obs.disable()
+
+
+def test_moe_probes_on_card_sync_nothing_and_land(dev):
+    """moe.forward on the card with numerics on (the fused form: B9 and
+    B10's gmm) runs under torch.cuda.set_sync_debug_mode("error"): no host
+    sync inside the forward; after a flush one moe.layer rung a layer,
+    the router-logit and routed-output probes and the expert_int8 gauge
+    have landed, and the plan-cache and fused-dispatch counters moved."""
+    import dataclasses
+
+    import paddle_tpu_torch.observability as obs
+    from paddle_tpu_torch.models import moe
+
+    cfg = dataclasses.replace(
+        moe.tiny_moe(vocab=256, hidden=256, layers=3, heads=2, experts=8,
+                     top_k=2, seq=512),
+        dtype=torch.bfloat16, dispatch="fused", first_dense_layers=1,
+        use_flash=True)
+    params = moe.init_params(cfg, 0, device=dev, dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, 256, (2, 256), generator=g, device=dev)
+    obs.get_registry().reset()
+    obs.enable()
+    obs.numerics.enable()
+    try:
+        with torch.no_grad():
+            moe.forward(params, toks, cfg)             # warm the caches
+            obs.numerics.flush()
+            obs.numerics.clear()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                moe.forward(params, toks, cfg)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        obs.numerics.flush()
+        rows = obs.numerics.rows()
+        assert [r["layer"] for r in rows if r["site"] == "moe.layer"] \
+            == [0, 1, 2]
+        sites = {r["site"] for r in rows}
+        assert {"moe.router_logits", "moe.routed_out"} <= sites
+        moe.quantize_expert_params(params)
+        obs.numerics.flush()
+        reg = obs.get_registry()
+        assert 0 < reg.gauge("numerics_quant_error").labels(
+            site="expert_int8").value < 0.1
+        assert reg.counter("moe_gmm_fused_dispatch_total").labels(
+            path="padded").value >= 4
+        assert reg.counter("moe_plan_cache_hits_total").labels().value > 0
+        assert _build.launch_counts["gather_gmm"] > 0
+    finally:
+        obs.numerics.disable()
+        obs.numerics.clear()
+        obs.disable()
+        obs.get_registry().reset()

@@ -179,11 +179,23 @@ def test_span_trees_and_chrome_export_equal_reference(both_on, tmp_path):
     assert {e["name"] for e in doc["traceEvents"]} >= {"serving.step"}
 
 
+# rows whose help text the port words for itself, because the label values
+# the port emits differ from the reference's (kind and labels stay equal)
+OWN_HELP = {"moe_gmm_fused_dispatch_total"}
+
+
 def test_catalog_equals_reference_row_for_row():
     from paddle_tpu.observability import catalog as jcat
     from paddle_tpu_torch.observability import catalog as tcat
 
-    assert list(tcat.CATALOG.items()) == list(jcat.CATALOG.items())
+    assert list(tcat.CATALOG) == list(jcat.CATALOG)
+    for name, row in tcat.CATALOG.items():
+        want = jcat.CATALOG[name]
+        if name in OWN_HELP:
+            assert row[:2] == want[:2] and row[2] != want[2], name
+        else:
+            assert row == want, name
+    assert "padded" in tcat.CATALOG["moe_gmm_fused_dispatch_total"][2]
     assert tcat.BUCKETS == jcat.BUCKETS
     assert tcat.SPANS == jcat.SPANS
 
@@ -191,16 +203,6 @@ def test_catalog_equals_reference_row_for_row():
 # rows of the catalog no port module instruments yet, by the ROADMAP queue
 # item that brings them; the set shrinks with each slice
 WAITING = {
-    "A8-train": {
-        "train_steps_total", "train_step_seconds", "train_rollbacks_total",
-        "train_retries_total", "train_batches_skipped_total",
-        "train_checkpoints_total", "train_emergency_saves_total",
-        "train_checkpoint_save_seconds", "train_checkpoint_load_seconds",
-        "train_mfu", "train_tokens_per_second",
-        "moe_tiling_cache_hits_total", "moe_tiling_cache_misses_total",
-        "moe_tiling_autotune_seconds", "moe_tiling_autotune_rejected_total",
-        "moe_plan_cache_hits_total", "moe_plan_cache_misses_total",
-        "moe_dispatch_fallbacks_total", "moe_gmm_fused_dispatch_total"},
     "A10": {"dist_store_connect_retries_total", "dist_init_retries_total",
             "moe_overlap_bypass_total"},
     "A11": {"jit_cache_hits_total", "jit_cache_misses_total",
