@@ -120,7 +120,7 @@ The rest of single-device MoE (``kernels/gmm_autotune.py``, the measured
 Llama generation (``llama.generate``, ``generate_fused``) and the HF
 interchange:
 
-(g1) after (s3), on phase 4's weights: batch 8 of 128-token prompts, 64
+(g1) after (s3), on phase 4's weights: batch 8 of 128-token prompts, 32
      new tokens, greedy and sampled (temperature 0.8, top_k 40, top_p
      0.95) with an eos ending some rows: tokens/s, decode ms a token,
      host syncs and graph replays a token, kernels a token; greedy
@@ -199,7 +199,8 @@ multi-step form ``mega_decode_loop``) and the paged-cache API (B6-B8):
      mega and the ragged path on the card; again with int8 pools;
 (s3) speculative serving on phase 4's Llama-3-8B weights with a
      Llama-3.2-1B-shaped draft (random bf16, seed 1): phase 6(c)'s 8
-     requests through a mega engine at 4 slots (one B5-multi launch a spec
+     requests (``S3_NEW`` = 32 new tokens each) through a mega engine at
+     4 slots (one B5-multi launch a spec
      wave, no single-step B5 inside the waves), through the same with the
      self-draft, and through a ragged engine at 8 slots; tokens/s, waves,
      acceptance and tokens a verify call from a run with no timer in it,
@@ -389,15 +390,36 @@ phase 10 ((c1), (c2)) and after (m2)-(m4) ((c3)):
      fused-dispatch counters, ``expert_int8``'s gauge; the forward's
      time numerics on against off.
 
+Tensor-parallel serving (A10.1), after phase 15:
+(t1) B4's tp form in one process: at the Llama-3-8B decode shape (Hq=32,
+     Hkv=8, D=128, BS=64) in bf16, f32 and int8, q and the pools cut into
+     tp in {2, 4, 8} kv-head slices (``shard_kv_heads``) and
+     ``ragged_decode_shard`` launched on each (a shard walks on the whole
+     launch's schedule); the slices' partials side by side equal the whole
+     launch bit for bit, at phase 3's lengths and at short ones; each
+     shard's time beside the whole launch's;
+(t2) two ranks on the one card, started by ``distributed.spawn(nprocs=2,
+     backend="gloo")``, each an ``LLMEngine(mesh=DeviceMesh("cuda", [0, 1],
+     mesh_dim_names=("tp",)))``: phase 5's cut model (f32) through f32,
+     int8-KV and int8-weight engines and a prefix-cache hit with chunked
+     prefill, each equal to the single-rank engine on the card stream for
+     stream, then Llama-3-8B at full width in bf16 (``TP_BF16_LAYERS``
+     layers) with its first divergence and logit margins; tok/s, B4
+     launches per rank, collectives and readbacks a step;
+(t3) ``decode_kernel="mega"`` under the mesh falls back counted
+     (reason "mesh") with the single-rank ragged streams; spec with a
+     replicated draft equals the unmeshed spec engine.
+
 ``python3 chip_smoke.py --serving`` runs phases 4, 6 (c), (p1)-(p4),
 (r1)-(r3), (o1)-(o3) and (h1)-(h4) alone (no kernel checks, no device
 line); ``python3 chip_smoke.py --resilience`` runs (c1)-(c3) alone ((c3)
-on a fresh state of phase 12's config).
+on a fresh state of phase 12's config); ``python3 chip_smoke.py --tp``
+runs (t1)-(t3) alone.
 
 Before its last line it prints ``serving``, ``serving_tiers``,
 ``serving_resilience``, ``observability``, ``front_door``,
 ``train_resilience``, ``mega``,
-``training``,
+``training``, ``tp``,
 ``moe_training`` (with (m1)-(m4) under ``forms``), ``int8``,
 ``training_memory``, ``spec`` and ``generation`` lines (phases 4,
 (p1)-(p4), 6, 8, 12-15, (a)-(f), (s1)-(s4), (g1)-(g2)), one JSON object
@@ -435,7 +457,9 @@ def log(*a):
     the script started, so the log shows where the run's time goes."""
     if a and isinstance(a[0], str) and a[0].startswith("phase"):
         a = (*a, f"[{time.perf_counter() - T0:.1f} s]")
-    print(*a, flush=True)
+    # one write a line: (t2)'s two ranks print to the same stream
+    sys.stdout.write(" ".join(str(x) for x in a) + "\n")
+    sys.stdout.flush()
 
 
 def nvidia_smi() -> str:
@@ -3014,10 +3038,15 @@ class FnTimer:
         setattr(self.module, self.name, self.inner)
 
 
+# (s3)'s greedy tokens a request, few enough for the whole run to fit
+S3_NEW = 32
+
+
 def serve_spec(LLMEngine, teng, build, dev, card, cfg, params, dcfg, dparams,
                prompts, max_slots, decode_kernel, label, want=None):
     """(s3): ``LLMEngine`` on Llama-3-8B with the draft ``dcfg``/
-    ``dparams`` (spec_tokens=4) serving ``prompts`` (64 greedy tokens each)
+    ``dparams`` (spec_tokens=4) serving ``prompts`` (``S3_NEW`` greedy
+    tokens each)
     through ``decode_kernel``: every decode wave speculates (no plain
     decode call, no counted fallback); the mega draft launches B5's
     multi-step form once a wave and never the single-step form. The run's
@@ -3026,13 +3055,13 @@ def serve_spec(LLMEngine, teng, build, dev, card, cfg, params, dcfg, dparams,
     (each ended by a synchronize, which keeps the host from queueing the verify behind
     the draft, so that run's wall time is not reported), one spec wave
     traced, and the first divergence from ``want`` (the plain mega
-    engine's streams)."""
+    engine's streams, cut to ``S3_NEW`` tokens)."""
     eng = LLMEngine(params, cfg, max_slots=max_slots, block_size=64,
                     max_model_len=2048, prompt_buckets=[128, 512, 1024],
                     decode_steps=16, decode_kernel=decode_kernel, seed=SEED,
                     device=dev, draft_params=dparams, draft_config=dcfg,
                     spec_tokens=4)
-    ids = [eng.add_request(p, max_new_tokens=64) for p in prompts]
+    ids = [eng.add_request(p, max_new_tokens=S3_NEW) for p in prompts]
     torch.cuda.reset_peak_memory_stats(dev)
     build.launch_counts.clear()
     torch.cuda.synchronize()
@@ -3044,7 +3073,7 @@ def serve_spec(LLMEngine, teng, build, dev, card, cfg, params, dcfg, dparams,
     peak = torch.cuda.max_memory_allocated(dev)
     streams = [out[i] for i in ids]
     n_tok = sum(len(s) for s in streams)
-    if any(len(s) != 64 or not all(0 <= t < cfg.vocab_size for t in s)
+    if any(len(s) != S3_NEW or not all(0 <= t < cfg.vocab_size for t in s)
            for s in streams):
         raise AssertionError(f"{label}: bad streams")
     acct = eng.block_accounting()
@@ -3072,7 +3101,7 @@ def serve_spec(LLMEngine, teng, build, dev, card, cfg, params, dcfg, dparams,
         bad.append(f"launches {launches} for {waves} waves")
     # the same requests again, each prefill, draft and verify call timed
     for p in prompts:
-        eng.add_request(p, max_new_tokens=64)
+        eng.add_request(p, max_new_tokens=S3_NEW)
     prefills = CallTimer(eng, "_dispatch_prefill")
     with FnTimer(teng, "_paged_decode", kv_prefix="d") as draft_t, \
             FnTimer(teng, "_spec_verify") as verify_t:
@@ -3100,11 +3129,12 @@ def serve_spec(LLMEngine, teng, build, dev, card, cfg, params, dcfg, dparams,
            "mega_fallbacks": dict(eng.mega_fallbacks),
            "peak_mem_gib": peak / 2**30,
            "first_divergence_vs_plain_mega": (
-               first_divergence(streams, want) if want else None)}
+               first_divergence(streams, [w[:S3_NEW] for w in want])
+               if want else None)}
     # one steady spec wave traced: admit a wave and run its first spec
     # wave, then trace the next
     for p in prompts[:eng.N]:
-        eng.add_request(p, max_new_tokens=48)
+        eng.add_request(p, max_new_tokens=16)
     eng.step()
     torch.cuda.synchronize()
     res["traced_spec_wave"] = traced(eng.step)
@@ -5811,7 +5841,7 @@ def moe_dense_cross_device(moe, llama, tmdisp, tmf, build, dev):
 # ---------------------------------------------------------------------------
 def generation_full_width(llama, LLMEngine, dev, card, cfg, params):
     """(g1) ``generate`` and ``generate_fused`` on Llama-3-8B (phase 4's
-    random bf16 weights), batch 8 of 128-token prompts (numpy seed), 64
+    random bf16 weights), batch 8 of 128-token prompts (numpy seed), 32
     new tokens: greedy without an eos (the eos is then row 0's 17th
     token, which ends some rows early), greedy with it — the two loops'
     streams must be equal — and sampled at temperature 0.8, top_k 40,
@@ -5821,7 +5851,7 @@ def generation_full_width(llama, LLMEngine, dev, card, cfg, params):
     a token and busy share; and the first divergence of the fused greedy
     streams from ``LLMEngine``'s (8 slots, ``SERVE_ENGINE``) on the same
     prompts (bf16 near-ties may differ)."""
-    B, S0, NEW = 8, 128, 64
+    B, S0, NEW = 8, 128, 32
     prompts = np.random.default_rng(SEED + 20).integers(
         0, cfg.vocab_size, (B, S0))
     prompt = torch.as_tensor(prompts, device=dev)
@@ -7298,6 +7328,435 @@ def moe_probes(moe, build, dev, card, hold=None):
     return launches, res
 
 
+# ---------------------------------------------------------------------------
+# phases (t1)-(t3): tensor-parallel serving, two ranks on the one card
+# ---------------------------------------------------------------------------
+TP_SIZES = (2, 4, 8)
+# B4 at phase 3's lengths (long walks cut into parts over many blocks),
+# and at lengths whose tiles all fit the grid (every walk cut at each tile)
+TP_B4_LENS = {"phase3": [0, 1, 64, 2000, 777, 128, 1500, 33],
+              "one_tile_parts": [0, 1, 17, 32, 33, 40, 50, 64]}
+# (t2)'s bf16 run: Llama-3-8B at full width (vocabulary 128256), its depth
+# cut to this many layers to fit the run's time
+TP_BF16_LAYERS = 8
+TP_ENGINE = dict(max_slots=4, block_size=64, max_model_len=1024,
+                 prompt_buckets=[256, 512], decode_steps=4, seed=SEED,
+                 decode_kernel="ragged")
+# (t2)/(t3)'s serving variants: engine arguments, int8 weights, a second
+# round of the first two prompts (prefix-cache hits), a replicated draft
+TP_VARIANTS = {
+    "f32": {},
+    "kv_int8": {"engine": {"kv_dtype": "int8"}},
+    "w_int8": {"w_int8": True},
+    "prefix_chunked": {"engine": {"prefix_cache": True,
+                                  "prefill_chunk": 128}, "again": True},
+    "mega_fallback": {"engine": {"decode_kernel": "mega"}},
+    "spec_replicated_draft": {"spec": True},
+    "bf16": {},
+}
+TP_F32 = [n for n in TP_VARIANTS if n != "bf16"]
+
+
+def b4_tp_inputs(tpa, dev, form, lens, seed, L=4, NB=512, BS=64, Hkv=8,
+                 D=128, G=4):
+    """B4's inputs at the Llama-3-8B decode shape (phase 3's pools): q
+    [N, 32, 128], [4, 512, 64, 8, 128] pools (bf16 or f32; ``int8``:
+    ``quantize_kv`` of bf16 ones, bf16 queries), a random table."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    N, MB = len(lens), 2048 // BS
+    table = torch.as_tensor(rng.permutation(np.arange(1, NB))[:N * MB]
+                            .reshape(N, MB).astype(np.int32), device=dev)
+    dtype = torch.float32 if form == "f32" else torch.bfloat16
+    kp = torch.randn(L, NB, BS, Hkv, D, generator=g, device=dev).to(dtype)
+    vp = torch.randn(L, NB, BS, Hkv, D, generator=g, device=dev).to(dtype)
+    q = torch.randn(N, Hkv * G, D, generator=g, device=dev).to(dtype)
+    kw = {}
+    if form == "int8":
+        kp, vp, ks, vs = int8_pools(kp, vp)
+        kw = dict(ks_pool=ks, vs_pool=vs)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, kp, vp, table, lens_t, kw
+
+
+def b4_shard(tpa, q, kp, vp, kw, tp, r):
+    """Rank r's kv-head slice of B4's inputs when tp ranks split them, and
+    the keywords of its ``ragged_decode_shard`` call."""
+    kw = {k: tpa.shard_kv_heads(v, tp, r, 3) for k, v in kw.items()}
+    return (tpa.shard_kv_heads(q, tp, r, 1), tpa.shard_kv_heads(kp, tp, r, 3),
+            tpa.shard_kv_heads(vp, tp, r, 3), dict(kw, tp=tp, rank=r))
+
+
+def b4_out(part):
+    """The normalized attention of B4's partials (0 where l is 0)."""
+    acc, _m, l = part
+    return torch.where((l > 0)[..., None], acc / l.clamp_min(1e-30)[..., None],
+                       torch.zeros_like(acc))
+
+
+def b4_tp_bound(tokens, N, Hkv, G, D, q_bytes, pool_bytes, scales):
+    """B4's bound at this work: each walked K/V row (and its scales) read
+    once, q read and the partials written once, over 3.35 TB/s; QK and PV
+    over 989 TFLOP/s."""
+    nbytes = 2 * tokens * Hkv * D * pool_bytes + N * Hkv * G * D * q_bytes \
+        + N * Hkv * G * (D + 2) * 4 + (2 * tokens * Hkv * 4 if scales else 0)
+    flops = 4.0 * tokens * Hkv * G * D
+    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                 else "bytes")
+
+
+def check_ragged_tp(tpa, dev):
+    """(t1) B4's tp form in one process: at the Llama-3-8B decode shape
+    (Hq=32, Hkv=8, D=128, BS=64) in bf16, f32 and int8 (bf16 queries), q
+    and the pools cut into tp in {2, 4, 8} contiguous kv-head slices and
+    ``ragged_decode_shard`` launched on each, as each rank's tp form does;
+    the slices' partials side by side must equal the whole launch bit for
+    bit (each shard walks on the whole launch's schedule). The whole
+    launch is held to phase 3's tolerances against the plain version
+    (normalized output, relative to its largest magnitude: bf16 1e-2, f32
+    and int8 1e-5). Each shard's CUDA-event time beside the whole
+    launch's. Returns the results and the kernels-line fields of the tp
+    form (tp=2, rank 0's shard at phase 3's lengths)."""
+    res, line = {}, {}
+    for form in ("bf16", "f32", "int8"):
+        tol = 1e-2 if form == "bf16" else 1e-5
+        for label, lens in TP_B4_LENS.items():
+            q, kp, vp, table, lens_t, kw = b4_tp_inputs(
+                tpa, dev, form, lens, SEED + 40)
+            whole = tpa.ragged_decode_partial(q, kp, vp, table, lens_t,
+                                              layer=1, **kw)
+            plain = tpa.ragged_decode_partial_plain(
+                q, kp, vp, table, lens_t, 1, kw.get("ks_pool"),
+                kw.get("vs_pool"))
+            ref = b4_out(plain)
+            scale = max(ref.abs().max().item(), 1e-30)
+            err = max_err(b4_out(whole), ref) / scale
+            if err > tol:
+                raise AssertionError(f"(t1) B4 {form} {label}: the whole "
+                                     f"launch is {err} from plain")
+            whole_ms = time_ms(lambda i=0: tpa.ragged_decode_partial(
+                q, kp, vp, table, lens_t, layer=1, **kw), 50)
+            row = {"whole_ms": whole_ms}
+            for tp in TP_SIZES:
+                shards = [b4_shard(tpa, q, kp, vp, kw, tp, r)
+                          for r in range(tp)]
+                outs = [tpa.ragged_decode_shard(sq, sk, sv, table, lens_t,
+                                                layer=1, **skw)
+                        for sq, sk, sv, skw in shards]
+                cat = [torch.cat([o[i] for o in outs], dim=1)
+                       for i in range(3)]
+                bit = all(torch.equal(c, w) for c, w in zip(cat, whole))
+                diff = max(max_err(c, w) for c, w in zip(cat, whole))
+                if not bit:
+                    raise AssertionError(
+                        f"(t1) B4 {form} {label} tp={tp}: the shards differ "
+                        f"from the whole launch (max |diff| {diff})")
+                ms = [time_ms(lambda i=0, s=s: tpa.ragged_decode_shard(
+                    s[0], s[1], s[2], table, lens_t, layer=1, **s[3]), 50)
+                      for s in shards]
+                row[f"tp{tp}"] = {"bit_equal": bit, "max_abs_diff": diff,
+                                  "shard_ms": ms}
+                if tp == 2 and label == "phase3":
+                    sq, sk, sv, skw = shards[0]
+                    got = b4_out(outs[0])
+                    want = b4_out(tpa.ragged_decode_partial_plain(
+                        sq, sk, sv, table, lens_t, 1, skw.get("ks_pool"),
+                        skw.get("vs_pool")))
+                    plain_ms = time_ms(
+                        lambda i=0: tpa.ragged_decode_partial_plain(
+                            sq, sk, sv, table, lens_t, 1,
+                            skw.get("ks_pool"), skw.get("vs_pool")), 5)
+                    bound, by = b4_tp_bound(
+                        sum(lens), len(lens), 4, 4, 128,
+                        2 if form != "f32" else 4,
+                        1 if form == "int8" else (2 if form == "bf16"
+                                                  else 4), form == "int8")
+                    line[form] = {
+                        "max_abs_err": max_err(got, want), "ms": ms[0],
+                        "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": by, "library_ms": None,
+                        "whole_launch_ms": whole_ms,
+                        "shape": f"tp=2 rank 0: N=8 sum(len)={sum(lens)} "
+                                 f"Hq=16 Hkv=4 D=128 {form}"}
+            res[f"{form}_{label}"] = row
+            log(f"  (t1) B4 {form} at {label} lengths: whole launch "
+                f"{whole_ms:.4f} ms; " + "; ".join(
+                    f"tp={tp}: bit-equal {row[f'tp{tp}']['bit_equal']}, max "
+                    f"|diff| {row[f'tp{tp}']['max_abs_diff']:.3g}, shards "
+                    f"{[round(m, 4) for m in row[f'tp{tp}']['shard_ms']]} ms"
+                    for tp in TP_SIZES))
+            del q, kp, vp, kw, whole, plain
+            torch.cuda.empty_cache()
+    return res, line
+
+
+def tp_model(llama, full_width):
+    """(t2)'s models, random weights from SEED on the card: phase 5's cut
+    (Llama-3-8B widths, 2 layers, a 32768 vocabulary, f32), or Llama-3-8B
+    at full width in bf16 with ``TP_BF16_LAYERS`` layers."""
+    import dataclasses
+    if full_width:
+        cfg = dataclasses.replace(llama.llama3_8b(),
+                                  num_layers=TP_BF16_LAYERS)
+    else:
+        cfg = dataclasses.replace(llama.llama3_8b(), num_layers=2,
+                                  vocab_size=32768, dtype=torch.float32)
+    return cfg, llama.init_params(cfg, seed=SEED, device="cuda",
+                                  dtype=cfg.dtype)
+
+
+def tp_prompts(cfg, n=8):
+    """(t2)'s requests: n prompts of 100-400 tokens by
+    ``numpy.random.default_rng(SEED + 7)``."""
+    rng = np.random.default_rng(SEED + 7)
+    lens = rng.integers(100, 401, size=n)
+    return [rng.integers(0, cfg.vocab_size, size=int(k)).tolist()
+            for k in lens]
+
+
+def tp_serve(llama, LLMEngine, build, cfg, params, name, mesh=None,
+             new_tokens=24):
+    """One (t2)/(t3) serving run of variant ``name`` (``TP_VARIANTS``) on
+    ``TP_ENGINE``: 8 greedy requests (a second round of the first two with
+    ``again``), the streams, tokens/s over the run's wall time, engine
+    steps, decode calls, readbacks and collectives, and the kernels'
+    launches."""
+    v = TP_VARIANTS[name]
+    kw = dict(TP_ENGINE, **v.get("engine", {}))
+    if v.get("w_int8"):
+        params = llama.quantize_params(params)
+    if v.get("spec"):
+        dcfg = llama.draft_config(cfg, num_layers=1)
+        kw.update(draft_params=llama.init_params(
+            dcfg, seed=SEED + 1, device="cuda", dtype=dcfg.dtype),
+            draft_config=dcfg, spec_tokens=4)
+    eng = LLMEngine(params, cfg, device="cuda", mesh=mesh, **kw)
+    steps = [0]
+    step = eng.step
+
+    def counted():
+        steps[0] += 1
+        return step()
+    eng.step = counted
+    prompts = tp_prompts(cfg)
+    rounds = [prompts] + ([prompts[:2]] if v.get("again") else [])
+    build.launch_counts.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = []
+    for batch in rounds:
+        ids = [eng.add_request(p, max_new_tokens=new_tokens) for p in batch]
+        out = eng.run()
+        streams += [out[i] for i in ids]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    acct = eng.block_accounting()
+    if acct["backed"] != 0:
+        raise AssertionError(f"(t2) {name}: blocks still backed {acct}")
+    calls = sum(eng.decode_paths.values())
+    return {"streams": streams,
+            "tok_s": sum(len(s) for s in streams) / wall, "wall_s": wall,
+            "steps": steps[0], "decode_calls": calls,
+            "decode_paths": dict(eng.decode_paths),
+            "mega_fallbacks": dict(eng.mega_fallbacks),
+            "readbacks": dict(eng.readbacks),
+            "collectives": dict(eng.tp_collectives),
+            "launches": dict(build.launch_counts),
+            "prefix_hits": (eng.prefix_cache.hits
+                            if eng.prefix_cache is not None else None),
+            "spec_waves": eng.spec_waves}
+
+
+def tp_runs(llama, LLMEngine, build, mesh, tag):
+    """Every (t2)/(t3) variant: the f32 ones on the cut model, then bf16
+    at full width; ``mesh`` None is the single-rank engine."""
+    runs = {}
+    for full_width, names in ((False, TP_F32), (True, ["bf16"])):
+        cfg, params = tp_model(llama, full_width)
+        for name in names:
+            if mesh is None and name == "mega_fallback":
+                continue            # held to the single-rank f32 run
+            r = runs[name] = tp_serve(llama, LLMEngine, build, cfg, params,
+                                      name, mesh)
+            log(f"  {tag} {name}: {r['tok_s']:.1f} tok/s, {r['steps']} "
+                f"steps, {r['decode_calls']} decode calls "
+                f"{r['decode_paths']}, readbacks {r['readbacks']}, "
+                f"collectives {r['collectives']}, launches {r['launches']}")
+        del params
+        free_memory()
+    return runs
+
+
+def tp_rank(out_dir):
+    """A rank of (t2)/(t3), started by ``distributed.spawn``: its process
+    group from the env contract (the backend the parent named), a 1-D
+    ``DeviceMesh`` "tp" over the card, then every variant through
+    ``LLMEngine(mesh=)``; its results go to ``out_dir/rank<r>.json``."""
+    torch.cuda.set_device(0)
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from paddle_tpu_torch import distributed as pd
+    from paddle_tpu_torch.kernels import _build as build
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.serving import LLMEngine
+
+    pd.init_parallel_env()
+    rank = pd.get_rank()
+    mesh = DeviceMesh("cuda", list(range(pd.get_world_size())),
+                      mesh_dim_names=("tp",))
+    build.library()          # the parent's build: no rank runs nvcc
+    res = {"rank": rank, "backend": pd.get_backend(),
+           "runs": tp_runs(llama, LLMEngine, build, mesh, f"[rank {rank}]")}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    pd.barrier()
+    pd.destroy_process_group()
+
+
+def logit_margin(llama, cfg, params, prompt, stream, j, other):
+    """At a greedy stream's token j: the top logit's lead over the next
+    and over ``other`` (the token the other engine chose), from one plain
+    forward of prompt + stream[:j] on the card."""
+    toks = torch.tensor([prompt + stream[:j]], device="cuda")
+    with torch.no_grad():
+        logits = llama.forward(params, toks, cfg)[0, -1].float()
+    top = torch.topk(logits, 2).values
+    return {"top1_minus_top2": float(top[0] - top[1]),
+            "chosen_minus_other": float(logits[stream[j]] - logits[other])}
+
+
+def tp_serving(llama, LLMEngine, build, dev, card):
+    """(t2) two ranks on the one card over gloo and (t3) the mega
+    fallback and spec with a replicated draft: the single-rank engine's
+    runs first, then ``distributed.spawn(nprocs=2, backend="gloo")``. The
+    f32 variants must equal the single-rank streams (the mega fallback:
+    the single-rank ragged f32 streams), both ranks' streams must be
+    equal, mega must bow out counted (reason "mesh"), the prefix run must
+    hit, spec must run waves; bf16 reports its first divergence from the
+    single-rank engine and the logit margins there. Two processes
+    time-share one card through host-staged collectives: the numbers are
+    no tp speed."""
+    import tempfile
+
+    from paddle_tpu_torch import distributed as pd
+
+    single = tp_runs(llama, LLMEngine, build, None, "single rank")
+    out_dir = tempfile.mkdtemp(prefix="ptt_tp_")
+    backend = "gloo"
+    log(f"  spawning 2 ranks on the one card, backend={backend!r} (NCCL "
+        f"takes one rank a device)")
+    pd.spawn(tp_rank, args=(out_dir,), nprocs=2, backend=backend)
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    if any(x["backend"] != backend for x in ranks):
+        raise AssertionError(f"(t2) backends {[x['backend'] for x in ranks]}")
+    summary = {"backend": backend, "card": card, "variants": {}}
+    for name in TP_VARIANTS:
+        runs = [x["runs"][name] for x in ranks]
+        if runs[0]["streams"] != runs[1]["streams"]:
+            raise AssertionError(f"(t2) {name}: the ranks' streams differ")
+        want = single["f32" if name == "mega_fallback" else name]
+        div = first_divergence(runs[0]["streams"], want["streams"])
+        b4 = "ragged_decode_int8_tp" if name == "kv_int8" \
+            else "ragged_decode_tp"
+        calls = max(1, runs[0]["decode_calls"])
+        row = {
+            "equal_to_single_rank": div is None, "first_divergence": div,
+            "tok_s": runs[0]["tok_s"], "single_rank_tok_s": want["tok_s"],
+            "b4_tp_launches_per_rank": [x["launches"].get(b4, 0)
+                                        for x in runs],
+            "collectives_per_step": {k: v / runs[0]["steps"] for k, v in
+                                     runs[0]["collectives"].items()},
+            "collectives_per_decode_call": {
+                k: v / calls for k, v in runs[0]["collectives"].items()},
+            "readbacks_per_step": sum(runs[0]["readbacks"].values())
+            / runs[0]["steps"],
+            "readbacks": runs[0]["readbacks"],
+            "steps": runs[0]["steps"], "decode_calls": calls,
+            "decode_paths": runs[0]["decode_paths"],
+            "launches_rank0": runs[0]["launches"]}
+        if name != "spec_replicated_draft" \
+                and not all(x["launches"].get(b4, 0) for x in runs):
+            raise AssertionError(f"(t2) {name}: a rank launched no {b4}")
+        if name == "mega_fallback":
+            if not all(x["mega_fallbacks"].get("mesh", 0) >= 1
+                       and "mega" not in x["decode_paths"] for x in runs):
+                raise AssertionError(f"(t3) mega under the mesh: "
+                                     f"{[x['mega_fallbacks'] for x in runs]}")
+            row["mega_fallbacks"] = runs[0]["mega_fallbacks"]
+        if name == "prefix_chunked" and not all(
+                x["prefix_hits"] >= 1 for x in runs + [want]):
+            raise AssertionError("(t2) the prefix run did not hit")
+        if name == "spec_replicated_draft":
+            if not all(x["spec_waves"] > 0 for x in runs):
+                raise AssertionError("(t3) no spec wave under the mesh")
+            row["spec_waves"] = runs[0]["spec_waves"]
+        if name == "bf16" and div is not None:
+            cfg, params = tp_model(llama, True)
+            i, j = div
+            prompts = tp_prompts(cfg)
+            row["margins"] = logit_margin(
+                llama, cfg, params, prompts[i], want["streams"][i], j,
+                runs[0]["streams"][i][j])
+            del params
+            free_memory()
+        elif div is not None:
+            raise AssertionError(f"(t2) {name}: the tp streams differ from "
+                                 f"the single-rank engine's at {div}")
+        summary["variants"][name] = row
+        log(f"  (t2) {name}: equal to the single-rank engine {div is None}"
+            f"{'' if div is None else f' (first divergence {div}, margins ' + str(row.get('margins')) + ')'}"
+            f"; {row['tok_s']:.1f} tok/s (single rank "
+            f"{row['single_rank_tok_s']:.1f}); {b4} launches per rank "
+            f"{row['b4_tp_launches_per_rank']}; collectives per step "
+            f"{ {k: round(v, 2) for k, v in row['collectives_per_step'].items()} }"
+            f"; readbacks per step {row['readbacks_per_step']:.2f}")
+    summary["bf16_depth"] = TP_BF16_LAYERS
+    return summary
+
+
+def tp_phases(tpa, llama, LLMEngine, build, dev, card):
+    """(t1)-(t3); returns their results and the kernels-line entries of
+    B4's tp form (launches: the bf16 full-width run's, and the int8-KV
+    run's for B4-int8, summed over the ranks)."""
+    log("phase (t1): B4's tp form, the shards against the whole launch")
+    t1, line = check_ragged_tp(tpa, dev)
+    free_memory()
+    log("phase (t2)-(t3): two tp ranks on the one card over gloo")
+    t2 = tp_serving(llama, LLMEngine, build, dev, card)
+    free_memory()
+    v = t2["variants"]
+    kernels = [
+        dict(name="ragged_decode_tp", route="cuda",
+             source="paddle_tpu_torch/kernels/csrc/ragged_decode.cu",
+             replaces="paddle_tpu/kernels/paged_attention.py:506",
+             launches=sum(v["bf16"]["b4_tp_launches_per_rank"]),
+             launches_per_rank=v["bf16"]["b4_tp_launches_per_rank"],
+             **line["bf16"]),
+        dict(name="ragged_decode_int8_tp", route="cuda",
+             source="paddle_tpu_torch/kernels/csrc/ragged_decode.cu",
+             replaces="paddle_tpu/kernels/paged_attention.py:506",
+             launches=sum(v["kv_int8"]["b4_tp_launches_per_rank"]),
+             launches_per_rank=v["kv_int8"]["b4_tp_launches_per_rank"],
+             **line["int8"]),
+    ]
+    return {"t1": t1, "t2_t3": t2}, kernels
+
+
+def tp_only(tpa, llama, LLMEngine, build, dev, card) -> int:
+    """``--tp``: phases (t1)-(t3) alone, then their lines; no device
+    line."""
+    tp, kernels = tp_phases(tpa, llama, LLMEngine, build, dev, card)
+    log(f"total {time.perf_counter() - T0:.1f} s")
+    log(card)
+    log(json.dumps({"tp": tp}))
+    log(json.dumps({"kernels": kernels}))
+    return 0
+
+
 def resilience_only(llama, moe, build, dev, card) -> int:
     """``--resilience``: phases (c1)-(c3) alone ((c1) without phase 8's
     MFU beside it, (c3) on a fresh state of phase 12's config), then their
@@ -7358,6 +7817,8 @@ def main() -> int:
         return serving_only(llama, LLMEngine, build, dev, card)
     if sys.argv[1:] == ["--resilience"]:
         return resilience_only(llama, moe, build, dev, card)
+    if sys.argv[1:] == ["--tp"]:
+        return tp_only(tpa, llama, LLMEngine, build, dev, card)
 
     log("phase 2: B1 flash prefill vs plain")
     check_flash(tfa, dev)
@@ -7622,6 +8083,8 @@ def main() -> int:
                   "tgmm")}
     shape8 = tm_res.pop("b1_b3_8b_shape")
 
+    tp, tp_kernels = tp_phases(tpa, llama, LLMEngine, build, dev, card)
+
     # B5's static schedules: printed apart from the kernels line, whose
     # numbers (bound_ms aside) are measured in this run
     schedules = {"mega_decode": b5.pop("schedule"),
@@ -7718,6 +8181,7 @@ def main() -> int:
              launches=paged_launches.get("paged_append_blocks", 0),
              **paged["b8"]),
     ]
+    kernels += tp_kernels
     tier_launches["c1_faulted"] = c_launches
     tier_launches["c3_moe_forward"] = c3_launches
     # each kernel's launches in the runs of phases (p1)-(p3), (r1)-(r3),
@@ -7742,6 +8206,7 @@ def main() -> int:
     log(json.dumps({"observability": observed}))
     log(json.dumps({"front_door": front}))
     log(json.dumps({"train_resilience": train_resilience}))
+    log(json.dumps({"tp": tp}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

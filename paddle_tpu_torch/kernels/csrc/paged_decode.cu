@@ -168,7 +168,7 @@ struct MaxPass : Pair<bf16, bf16, D, false, kMaxGroup> {
   // the block's part's m slot
   __device__ void merge(const Split<kP>& sp) const {
     const int tid = threadIdx.x, G = args.G;
-    cut_walks(sc, sp, args.Hkv, [&](const Seg& part, int, int, int wa,
+    cut_walks(sc, sp, args, [&](const Seg& part, int, int, int wa,
                                     int wb) {
       if (tid >= G) return;
       const int ws = sc.walk_start(part);
@@ -312,7 +312,7 @@ struct SumPass : Pair<bf16, bf16, D> {
   __device__ void merge(const Split<kP>& sp, int* arrived) const {
     const int tid = threadIdx.x, G = args.G;
     constexpr int kT = 32 * kP;                     // consumer threads
-    cut_walks(sc, sp, args.Hkv, [&](const Seg& part, int, int, int wa,
+    cut_walks(sc, sp, args, [&](const Seg& part, int, int, int wa,
                                     int wb) {
       const int ws = sc.walk_start(part);
       const float* pcs[kP];

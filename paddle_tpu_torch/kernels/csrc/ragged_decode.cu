@@ -253,25 +253,28 @@ struct Walker : Pair<Q, P, D> {
     if (sp.r0 < sp.r1) {
       const Seg w0 = sc.seg(sp.r0, sp.r1);
       early_ws = sc.walk_start(w0);
-      if (early_ws < sp.r0) {   // a contributor's part
+      // a contributor's part (of a walk of this launch's heads)
+      if (early_ws < sp.r0 && args.local(w0.hk) >= 0) {
         early_end = min(early_ws + w0.t, sp.r1);
         for (int q = 0; q <= sp.pair_of(early_end - 1); ++q)
           early_pairs += sp.sub(q) < sp.sub(q + 1);
       }
     }
     int s = 0, k = 0;
-    for (int r = r0; r < r1; ++k) {
+    for (int r = r0; r < r1;) {
       const Seg sg = sc.seg(r, r1);
       r += sg.tb - sg.ta;
+      const int hl = args.local(sg.hk);   // another launch's head
+      if (hl < 0) continue;
       const int len = lens[sg.n];
       const int ws = sc.walk_start(sg);
       // whole: straight to the outputs; else slot 0 (the walk began at or
       // before the sub-range) or 1
       const bool whole = sg.ta == 0 && sg.tb == sg.t;
       float* pc = piece(w, ws <= u0 ? 0 : 1);
-      float* acc_to = whole ? args.acc_of(sg.n, sg.hk, D) : pc;
-      float* m_to = whole ? args.m_of(sg.n, sg.hk, D) : pc + kMaxGroup * D;
-      float* l_to = whole ? args.l_of(sg.n, sg.hk, D)
+      float* acc_to = whole ? args.acc_of(sg.n, hl, D) : pc;
+      float* m_to = whole ? args.m_of(sg.n, hl, D) : pc + kMaxGroup * D;
+      float* l_to = whole ? args.l_of(sg.n, hl, D)
                           : pc + kMaxGroup * D + kMaxGroup;
       {
         float m = kNegInf, l = 0.f, o[DB][4];
@@ -320,10 +323,11 @@ struct Walker : Pair<Q, P, D> {
           // the last ticket: the block's merge merges the walk
           if (lane == 0)
             arrived[1] = last_ticket(
-                args.parts.flags + sg.n * args.Hkv + sg.hk,
+                args.parts.flags + sg.n * args.Hkv + hl,
                 sc.seg(sp.r0, sp.r1).nparts);
         }
       }
+      ++k;
     }
   }
 
@@ -367,15 +371,15 @@ struct Walker : Pair<Q, P, D> {
   __device__ void merge(const Split<kP>& sp, int* arrived) {
     const int tid = threadIdx.x, G = args.G;
     constexpr int kT = 32 * kP;                     // consumer threads
-    cut_walks(sc, sp, args.Hkv, [&](const Seg& part, int lo, int hi, int wa,
-                                    int wb) {
+    cut_walks(sc, sp, args, [&](const Seg& part, int lo, int hi, int wa,
+                                int wb) {
       const int ws = sc.walk_start(part);
+      const int hl = args.local(part.hk);
       const float* pcs[kP];
       const int np = pieces_of(sp, ws, wa, wb, pcs);
       if (part.nparts == 1) {
-        combine(pcs, np, args.acc_of(part.n, part.hk, D),
-                args.m_of(part.n, part.hk, D), args.l_of(part.n, part.hk, D),
-                tid, kT);
+        combine(pcs, np, args.acc_of(part.n, hl, D), args.m_of(part.n, hl, D),
+                args.l_of(part.n, hl, D), tid, kT);
         return;
       }
       // the block's piece of the walk is a part: the block's first walk
@@ -389,14 +393,14 @@ struct Walker : Pair<Q, P, D> {
         ConsumerSync::sync();                       // the part is stored
         if (tid == 0)
           arrived[2] = last_ticket(
-              args.parts.flags + part.n * args.Hkv + part.hk, part.nparts);
+              args.parts.flags + part.n * args.Hkv + hl, part.nparts);
         ConsumerSync::sync();
         if (!arrived[2]) return;
       }
       for (int e = tid * 4; e < G * D; e += kT * 4) {
         float r[4], mx, ls;
         merge_parts<D, 4>(args.parts, sc, part, G, e / D, e % D, r, mx, ls);
-        args.emit<D, 4>(part.n, part.hk, e / D, e % D, r, mx, ls);
+        args.emit<D, 4>(part.n, hl, e / D, e % D, r, mx, ls);
       }
     });
   }
@@ -411,7 +415,7 @@ ragged_decode_kernel(const __grid_constant__ Args a) {
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kOffBar);
   int *start, *lens;
   const Split<kP> sp = pairs_prologue<L>(a, smem, start, lens);
-  const Sched sc(start, a.N, a.Hkv, gridDim.x);
+  const Sched sc(start, a.N, a.heads(), gridDim.x);
   const int warp = threadIdx.x >> 5;
   const int w = warp % kP;                // consumers 0 .., producers kP ..
   Walker<Q, P, D> wk{{a, smem, sc, lens, bars, w}, a};
@@ -524,6 +528,34 @@ extern "C" int ptt_ragged_decode_schedule(const int* lengths, int N, int Hkv,
   return count;
 }
 
+namespace {
+
+// one launch of B4 (see ptt_ragged_decode and ptt_ragged_decode_shard)
+int ragged_launch(const void* q, const void* k_pool, const void* v_pool,
+                  const float* ks_pool, const float* vs_pool,
+                  const int* table, const int* lengths, float* out,
+                  float* scratch, int* flags, int N, int layer, int NB,
+                  int BS, int Hkv, int G, int D, int MB, int Hs, int h0,
+                  int dtype, int pool_dtype, float scale, void* stream) {
+  if (G < 1 || G > ragged::kMaxGroup || N < 1) return cudaErrorInvalidValue;
+  if (Hs != 0 && (h0 < 0 || h0 + Hkv > Hs)) return cudaErrorInvalidValue;
+  if (pool_dtype == kPoolInt8 && (ks_pool == nullptr || vs_pool == nullptr))
+    return cudaErrorInvalidValue;
+  const ragged::Args a{{q, k_pool, v_pool, ks_pool, vs_pool, table, lengths,
+                        N, Hkv, G, layer, NB, BS, MB, scale, Hs, h0},
+                       out,
+                       {scratch, flags, (G * (D + 2) + 3) / 4 * 4}};
+  ragged::Form<ragged::Kernel> f;
+  if (!ragged::find_form(dtype, pool_dtype, D, f)) return cudaErrorInvalidValue;
+  const int grid = ragged::grid_for(f);
+  if (grid == 0) return cudaErrorInvalidConfiguration;
+  f.kernel<<<grid, f.threads, f.smem + (2 * N + 1) * int(sizeof(int)),
+             static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 // q [N, Hkv*G, D] (dtype), pools [L, NB, BS, Hkv, D] (pool_dtype; int8
 // with ks_pool/vs_pool, their [L, NB, BS, Hkv] f32 scales); `out` holds
 // acc [N, Hkv, G, D], m [N, Hkv, G] and l [N, Hkv, G] back to back;
@@ -538,18 +570,23 @@ extern "C" int ptt_ragged_decode(const void* q, const void* k_pool,
                                  int NB, int BS, int Hkv, int G, int D, int MB,
                                  int dtype, int pool_dtype, float scale,
                                  void* stream) {
-  if (G < 1 || G > ragged::kMaxGroup || N < 1) return cudaErrorInvalidValue;
-  if (pool_dtype == kPoolInt8 && (ks_pool == nullptr || vs_pool == nullptr))
-    return cudaErrorInvalidValue;
-  const ragged::Args a{{q, k_pool, v_pool, ks_pool, vs_pool, table, lengths,
-                        N, Hkv, G, layer, NB, BS, MB, scale},
-                       out,
-                       {scratch, flags, (G * (D + 2) + 3) / 4 * 4}};
-  ragged::Form<ragged::Kernel> f;
-  if (!ragged::find_form(dtype, pool_dtype, D, f)) return cudaErrorInvalidValue;
-  const int grid = ragged::grid_for(f);
-  if (grid == 0) return cudaErrorInvalidConfiguration;
-  f.kernel<<<grid, f.threads, f.smem + (2 * N + 1) * int(sizeof(int)),
-             static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+  return ragged_launch(q, k_pool, v_pool, ks_pool, vs_pool, table, lengths,
+                       out, scratch, flags, N, layer, NB, BS, Hkv, G, D, MB,
+                       0, 0, dtype, pool_dtype, scale, stream);
+}
+
+// B4's tensor-parallel form: as ptt_ragged_decode, with the inputs kv heads
+// [h0, h0 + Hkv) of Hs (a rank's slice; q's query heads those heads' groups)
+// walked on the schedule of all Hs heads, so each walk is cut into the parts
+// of the whole launch and its partials are the whole launch's, bit for bit.
+extern "C" int ptt_ragged_decode_shard(
+    const void* q, const void* k_pool, const void* v_pool,
+    const float* ks_pool, const float* vs_pool, const int* table,
+    const int* lengths, float* out, float* scratch, int* flags, int N,
+    int layer, int NB, int BS, int Hkv, int G, int D, int MB, int Hs, int h0,
+    int dtype, int pool_dtype, float scale, void* stream) {
+  if (Hs < Hkv) return cudaErrorInvalidValue;
+  return ragged_launch(q, k_pool, v_pool, ks_pool, vs_pool, table, lengths,
+                       out, scratch, flags, N, layer, NB, BS, Hkv, G, D, MB,
+                       Hs, h0, dtype, pool_dtype, scale, stream);
 }

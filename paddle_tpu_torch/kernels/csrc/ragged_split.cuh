@@ -18,6 +18,11 @@
 // length), plus the walk's queries; a ring slot's full barrier completes
 // when the copies land (cp.async.mbarrier.arrive).
 //
+// A tensor-parallel rank's launch (B4's tp form) holds kv heads [h0, h0 +
+// Hkv) of Hs: it deals the whole launch's schedule (every head's walks)
+// and walks only its own heads' pieces, so each of its walks is cut into
+// the same parts as in the whole launch and merges to the same bits.
+//
 // A walk cut by block ranges leaves one part in each block it crosses, in
 // the block's scratch slot (0 when the walk reaches the block's first
 // tile, else 1: only a block's first and last walks can be parts). Each
@@ -156,6 +161,16 @@ struct Walks {
   const int* lengths;               // [N]
   int N, Hkv, G, layer, NB, BS, MB;
   float scale;                      // the softmax scale, 1 / sqrt(D)
+  // the schedule's kv heads: Hs of which this launch holds [h0, h0 + Hkv)
+  // (a tensor-parallel rank's slice); Hs 0 is Hkv (the whole launch)
+  int Hs = 0, h0 = 0;
+
+  __host__ __device__ int heads() const { return Hs > 0 ? Hs : Hkv; }
+  // this launch's index of the schedule's head hk, -1 for another's
+  __host__ __device__ int local(int hk) const {
+    const int h = hk - h0;
+    return h >= 0 && h < Hkv ? h : -1;
+  }
 };
 
 // The parts' scratch: [grid, 2, pstride] floats, a part's acc [G][D], m
@@ -344,8 +359,8 @@ __device__ __forceinline__ Split<L::kP> pairs_prologue(const Walks& a, unsigned 
     int* arrived = reinterpret_cast<int*>(smem + L::kOffArrived);
     arrived[0] = arrived[1] = 0;
   }
-  build_sched(a.lengths, a.N, a.MB * a.BS, a.Hkv, kTile, start, lens);
-  const int per = Sched(start, a.N, a.Hkv, gridDim.x).per;
+  build_sched(a.lengths, a.N, a.MB * a.BS, a.heads(), kTile, start, lens);
+  const int per = Sched(start, a.N, a.heads(), gridDim.x).per;
   const int r0 = blockIdx.x * per;
   return Split<kP>{r0, min(start[a.N], r0 + per)};
 }
@@ -426,7 +441,7 @@ struct Pair {
     int tb0 = g.ta * kTile / a.BS;
     int ent = entries(g, tb0);
     int s = 0;
-    for (int r = r0, k = 0; r < r1; ++k) {
+    for (int r = r0, k = 0; r < r1;) {
       r += g.tb - g.ta;
       Seg nx{};
       int nx_tb0 = 0, nx_ent = 0;
@@ -435,10 +450,17 @@ struct Pair {
         nx_tb0 = nx.ta * kTile / a.BS;
         nx_ent = entries(nx, nx_tb0);
       }
+      const int hl = a.local(g.hk);   // another launch's head: not walked
+      if (hl < 0) {
+        g = nx;
+        tb0 = nx_tb0;
+        ent = nx_ent;
+        continue;
+      }
       // the walk's queries, into query buffer k % kQw
       if (k >= kQw) mbar_wait(qempty(k), ((k / kQw) - 1) & 1);
       const auto* qn = reinterpret_cast<const unsigned char*>(
-          static_cast<const Q*>(a.q) + (int64_t(g.n) * Hkv + g.hk) * G * D);
+          static_cast<const Q*>(a.q) + (int64_t(g.n) * Hkv + hl) * G * D);
       unsigned char* qs = qbuf(k);
       for (int c = lane; c < G * D * int(sizeof(Q)) / 16; c += 32)
         cp_async16(qs + c * 16, qn + c * 16, true);
@@ -455,7 +477,7 @@ struct Pair {
         const int b = __shfl_sync(kFullMask, ent, live ? pb - tb0 : 0);
         const int o = p - pb * a.BS;
         const int64_t off = live ? layer0 + int64_t(b) * blk
-                                       + int64_t(o) * tok + int64_t(g.hk) * D
+                                       + int64_t(o) * tok + int64_t(hl) * D
                                  : 0;
         if (s >= L::kStagesW)
           mbar_wait(empty(slot), ((s / L::kStagesW) - 1) & 1);
@@ -474,7 +496,7 @@ struct Pair {
         if constexpr (kInt8) {
           float* sc4 = reinterpret_cast<float*>(vs + kTile * L::kRow);
           const int64_t soff =
-              live ? slayer0 + (int64_t(b) * a.BS + o) * Hkv + g.hk : 0;
+              live ? slayer0 + (int64_t(b) * a.BS + o) * Hkv + hl : 0;
           walk::cp_async4(sc4 + lane, a.ks_pool + soff, live);
           walk::cp_async4(sc4 + kTile + lane, a.vs_pool + soff, live);
         }
@@ -483,6 +505,7 @@ struct Pair {
       g = nx;
       tb0 = nx_tb0;
       ent = nx_ent;
+      ++k;
     }
   }
 
@@ -582,22 +605,23 @@ struct Pair {
   }
 };
 
-// The walks a block's merge visits, in order: each walk that a sub-range
-// or range boundary cuts, once. `visit(W, lo, hi, wa, wb)` gets the walk
-// (its piece from its first tile in the block), the block's tiles of it
-// [lo, hi) and the pairs wa .. wb holding them; a walk whole in one pair
-// is not visited.
+// The walks a block's merge visits, in order: each walk of this launch's
+// heads (`a.local`) that a sub-range or range boundary cuts, once.
+// `visit(W, lo, hi, wa, wb)` gets the walk (its piece from its first tile
+// in the block), the block's tiles of it [lo, hi) and the pairs wa .. wb
+// holding them; a walk whole in one pair is not visited.
 template <int kP, class Visit>
-__device__ void cut_walks(const Sched& sc, const Split<kP>& sp, int Hkv,
-                          Visit visit) {
+__device__ void cut_walks(const Sched& sc, const Split<kP>& sp,
+                          const Walks& a, Visit visit) {
   int prev = -1;
   for (int i = 0; i <= kP; ++i) {
     const int r = i < kP ? sp.sub(i) : sp.r1 - 1;
     if (r < sp.r0 || r >= sp.r1) continue;
     const Seg W = sc.seg(r, sp.r1);
-    const int id = W.n * Hkv + W.hk;
+    const int id = W.n * a.heads() + W.hk;
     if (id == prev) continue;
     prev = id;
+    if (a.local(W.hk) < 0) continue;
     const int ws = sc.walk_start(W), we = ws + W.t;
     const int lo = max(ws, sp.r0), hi = min(we, sp.r1);
     const int wa = sp.pair_of(lo), wb = sp.pair_of(hi - 1);
@@ -636,16 +660,19 @@ __device__ __forceinline__ void walk_split(const A a, unsigned char* smem) {
   int* start = reinterpret_cast<int*>(smem + L::kOffSched);
   int* lens = start + a.N + 1;
   const int Hkv = a.Hkv, G = a.G;
-  build_sched(a.lengths, a.N, a.MB * a.BS, Hkv, walk::kTile, start, lens);
-  const Sched sc(start, a.N, Hkv, gridDim.x);
+  build_sched(a.lengths, a.N, a.MB * a.BS, a.heads(), walk::kTile, start,
+              lens);
+  const Sched sc(start, a.N, a.heads(), gridDim.x);
   const int r0 = blockIdx.x * sc.per;
   const int r1 = min(start[a.N], r0 + sc.per);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   for (int r = r0; r < r1;) {
     const Seg sg = sc.seg(r, r1);
     r += sg.tb - sg.ta;
+    const int hl = a.local(sg.hk);   // another launch's head: not walked
+    if (hl < 0) continue;
     const float* qn = static_cast<const float*>(a.q)
-                      + (int64_t(sg.n) * Hkv + sg.hk) * G * D;
+                      + (int64_t(sg.n) * Hkv + hl) * G * D;
     for (int e = tid; e < G * D; e += blockDim.x) Qs[e] = qn[e];
     __syncthreads();
     const int len = lens[sg.n];
@@ -654,11 +681,11 @@ __device__ __forceinline__ void walk_split(const A a, unsigned char* smem) {
         static_cast<const P*>(a.k_pool), static_cast<const P*>(a.v_pool),
         a.ks_pool, a.vs_pool, a.table + int64_t(sg.n) * a.MB,
         min(len, sg.ta * walk::kTile), min(len, sg.tb * walk::kTile),
-        a.layer, a.NB, a.BS, Hkv, sg.hk, G, a.scale, smem, m, l, acc);
+        a.layer, a.NB, a.BS, Hkv, hl, G, a.scale, smem, m, l, acc);
     // warp g < G holds head g: to the outputs, or the block's part of the
     // walk and its ticket
     if (sg.nparts == 1) {
-      if (warp < G) a.template emit<D, DC>(sg.n, sg.hk, warp, lane * DC, acc, m, l);
+      if (warp < G) a.template emit<D, DC>(sg.n, hl, warp, lane * DC, acc, m, l);
     } else {
       float* mine = part_at(a.parts, sc, blockIdx.x, sc.walk_start(sg));
       if (warp < G) {
@@ -672,12 +699,12 @@ __device__ __forceinline__ void walk_split(const A a, unsigned char* smem) {
       int* last = reinterpret_cast<int*>(smem + L::kOffLast);
       __syncthreads();                            // the part is stored
       if (tid == 0)
-        *last = last_ticket(a.parts.flags + sg.n * Hkv + sg.hk, sg.nparts);
+        *last = last_ticket(a.parts.flags + sg.n * Hkv + hl, sg.nparts);
       __syncthreads();
       if (*last && warp < G) {                    // the last ticket merges
         float rr[DC], mx, ls;
         merge_parts<D, DC>(a.parts, sc, sg, G, warp, lane * DC, rr, mx, ls);
-        a.template emit<D, DC>(sg.n, sg.hk, warp, lane * DC, rr, mx, ls);
+        a.template emit<D, DC>(sg.n, hl, warp, lane * DC, rr, mx, ls);
       }
     }
     __syncthreads();

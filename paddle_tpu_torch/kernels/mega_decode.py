@@ -53,6 +53,7 @@ import math
 import torch
 
 from . import _build
+from ..distributed.mesh import axis_size
 from .paged_attention import ragged_decode_partial, ragged_decode_partial_plain
 from .quant_matmul import is_quantized_weight
 from .quant_matmul import weight_only_matmul as _wo_mm
@@ -201,7 +202,7 @@ def mega_supported(params, config, *, n_slots: int, n_steps: int,
     screens the multi-step form (:func:`mega_decode_loop`) as well: its
     head and embedding (``"head_dtype"``, ``"head_width"``: see
     :func:`_head_ok`) and at least one step."""
-    if mesh is not None and dict(getattr(mesh, "shape", {})).get("tp", 1) > 1:
+    if axis_size(mesh, "tp") > 1:
         return False, "mesh"
     lay = params["layers"]
     quant = [is_quantized_weight(lay[k]) for k in _MATS]
@@ -250,11 +251,23 @@ def _layer(params, l):
     return {k: at(params["layers"][k]) for k in LAYER_KEYS}
 
 
-def _mlp(x, p, c):
+def _mlp(x, p, c, tp=None):
+    """The residual FFN block. Under tensor parallelism (``tp``, a
+    ``models.llama.TPPlan``) the weights are this rank's columns of
+    ``w_gate``/``w_up`` and rows of ``w_down``, and the down projection's
+    partial sums meet in an all-reduce before the residual add."""
     dt = c.dtype
     hn = _rms_norm(x, p["mlp_norm"], c.rms_eps)
     gate = torch.nn.functional.silu(_wo_mm(hn, p["w_gate"], dt))
-    return x + _wo_mm(gate * _wo_mm(hn, p["w_up"], dt), p["w_down"], dt)
+    y = _wo_mm(gate * _wo_mm(hn, p["w_up"], dt), p["w_down"], dt)
+    return x + (y if tp is None else tp.mlp_out(y))
+
+
+def _wo(att, p, dt, tp=None):
+    """The attention output projection; under ``tp`` this rank's heads'
+    rows of ``wo``, all-reduced."""
+    y = _wo_mm(att, p["wo"], dt)
+    return y if tp is None else tp.reduce(y)
 
 
 def _rope1(t, ang):
@@ -266,7 +279,7 @@ def _rope1(t, ang):
 
 def decode_layers(params, config, x, *, t: int, lens, block_table,
                   walk_lens, ring_k, ring_v, k_pool, v_pool, ks_pool=None,
-                  vs_pool=None, partial=ragged_decode_partial):
+                  vs_pool=None, partial=ragged_decode_partial, tp=None):
     """One decode step of every layer for x [N, h] (model dtype), the
     ragged path's math: per layer the fresh K/V row lands in ``ring_k``/
     ``ring_v`` [L, N, S, Hkv, D] at index ``t`` (in place), ``partial``
@@ -275,7 +288,12 @@ def decode_layers(params, config, x, *, t: int, lens, block_table,
     [prefix ; ring]. RoPE angles come from ``lens`` (f32). Weights may be
     int8 leaves (``weight_only_matmul``) and the pools int8 with their
     scale pools ``ks_pool``/``vs_pool``; the ring stays in the model
-    dtype. Returns the post-layer-stack hidden state [N, h]."""
+    dtype. Returns the post-layer-stack hidden state [N, h].
+
+    Tensor parallelism (``tp``, a ``models.llama.TPPlan``): ``config`` is
+    the rank's own (its head and FFN counts), the weights, rings and pools
+    hold its heads, ``partial`` runs B4's tp form on the plan's mesh, and
+    the plan all-reduces after ``wo`` and ``w_down``."""
     c = config
     dt = c.dtype
     N = x.shape[0]
@@ -300,7 +318,8 @@ def decode_layers(params, config, x, *, t: int, lens, block_table,
                              ring_k[l].float()) * scale
         s_rng = torch.where(ring_live, s_rng, torch.full_like(s_rng, NEG_INF))
         acc_p, m_p, l_p = partial(q, k_pool, v_pool, block_table, walk_lens,
-                                  layer=l, ks_pool=ks_pool, vs_pool=vs_pool)
+                                  layer=l, ks_pool=ks_pool, vs_pool=vs_pool,
+                                  **({} if tp is None else {"mesh": tp.mesh}))
         # the ring always holds >= 1 live position, so l_tot >= 1
         m_tot = torch.maximum(m_p, s_rng.amax(dim=-1))
         corr = torch.exp(m_p - m_tot)
@@ -309,7 +328,7 @@ def decode_layers(params, config, x, *, t: int, lens, block_table,
         acc = acc_p * corr[..., None] + torch.einsum(
             "nhgs,nshd->nhgd", p_rng, ring_v[l].float())
         att = (acc / l_tot[..., None]).reshape(N, Hkv * G * D).to(dt)
-        x = _mlp(x + _wo_mm(att, p["wo"], dt), p, c)
+        x = _mlp(x + _wo(att, p, dt, tp), p, c, tp)
     return x
 
 

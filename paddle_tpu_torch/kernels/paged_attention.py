@@ -36,8 +36,17 @@ f32 times the softmax scale times the K scale; ``l`` sums the unscaled
 probabilities; the probabilities are not rounded, and the PV product is
 (p * V scale) . v in f32.
 
-Not ported yet: the tensor-parallel ``mesh`` form (ROADMAP A10), which
-raises.
+The tensor-parallel form (``mesh=`` a ``DeviceMesh`` with a ``"tp"`` dim
+of size > 1) is the SPMD reading of the reference's ``shard_map`` over
+'tp': each rank passes ITS contiguous kv-head slice of q and the pools
+(:func:`shard_kv_heads` cuts one; the int8 scale pools sliced like the
+pools) with the block tables and lengths whole, and gets its own heads'
+partials back (:func:`ragged_decode_shard`). Per-kv-head online softmax
+is independent, and the kernel walks a shard on the whole launch's
+schedule (``ptt_ragged_decode_shard``: its blocks deal every head's tiles
+and walk only the shard's), so each walk is cut into the same parts and
+the ranks' partials side by side are the unsharded ones bit for bit.
+Counted as ``ragged_decode_tp`` (``ragged_decode_int8_tp``).
 """
 from __future__ import annotations
 
@@ -50,11 +59,12 @@ import torch
 
 from . import _build
 from ..device import resolve_device
+from ..distributed.mesh import axis_rank, axis_size
 
 __all__ = ["PagedKVCache", "paged_cache_init", "paged_append",
            "paged_attention", "paged_append_token", "paged_append_blocks",
            "paged_decode_attention", "ragged_decode_partial",
-           "ragged_paged_decode"]
+           "ragged_paged_decode", "ragged_decode_shard", "shard_kv_heads"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -191,21 +201,27 @@ def merge_parts(parts):
 def ragged_decode_partial_split_plain(q, k_pool, v_pool, block_table,
                                       lengths, layer: int = 0, ks_pool=None,
                                       vs_pool=None, *, tile=RAGGED_TILE,
-                                      grid=132):
+                                      grid=132, heads=0, h0=0):
     """The kernel's split of the walks across blocks in plain PyTorch:
     each block part of :func:`ragged_schedule` as the plain walk over its
     positions, a walk's parts merged in part order by :func:`merge_parts`
     (inside a block the kernel also walks a part in up to four pieces,
     merged the same way). Equals :func:`ragged_decode_partial_plain` up to
-    the order of f32 sums, and for bf16 pools up to P's rounding."""
+    the order of f32 sums, and for bf16 pools up to P's rounding.
+    ``heads`` > 0: the inputs are kv heads [h0, h0 + Hkv) of ``heads``,
+    split on the schedule of all of them (:func:`ragged_decode_shard`'s
+    kernel); the parts, and so the partials, are the whole split's."""
     ks4, vs4 = _scale_pools(k_pool, ks_pool, vs_pool)
     N = q.shape[0]
     Hkv, BS = _as5d(k_pool).shape[3], _as5d(k_pool).shape[2]
     MB = block_table.shape[1]
     lens = [max(0, min(int(n), MB * BS)) for n in lengths.tolist()]
     walks = {}
-    for _b, n, hk, ta, tb, _t, _np in ragged_schedule(lens, Hkv, MB, BS,
-                                                        tile, grid):
+    for _b, n, hs, ta, tb, _t, _np in ragged_schedule(
+            lens, heads or Hkv, MB, BS, tile, grid):
+        hk = hs - h0
+        if not 0 <= hk < Hkv:
+            continue             # another shard's head
         lo = torch.zeros(N, dtype=torch.int64)
         hi = torch.zeros(N, dtype=torch.int64)
         lo[n], hi[n] = min(lens[n], ta * tile), min(lens[n], tb * tile)
@@ -235,6 +251,8 @@ _work = {}
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 _ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float,
                                                         ctypes.c_void_p]
+_SHARD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 \
+    + [ctypes.c_float, ctypes.c_void_p]
 _MAX_PARTS = 192        # the kernels' largest grid (kMaxParts)
 _MAX_SLOTS = 511        # slots a call (the schedule's shared memory)
 # the parts' scratch: two parts a block of the largest grid, 8 heads of
@@ -376,12 +394,53 @@ def ragged_decode_partial(q, k_pool, v_pool, block_table, lengths, *,
     [NB, BS, Hkv]); block_table [N, MB] int32; lengths [N] int32, read on
     the device. Returns ``(acc [N, Hkv, G, D], m [N, Hkv, G],
     l [N, Hkv, G])`` in f32 (views of one buffer on the card); a length-0
-    slot returns (0, -1e30, 0)."""
+    slot returns (0, -1e30, 0).
+
+    ``mesh``: a ``DeviceMesh``; with a ``"tp"`` dim of size > 1 the
+    inputs are this rank's kv-head slices and so are the partials
+    (:func:`ragged_decode_shard` with the mesh's tp size and this rank's
+    coordinate). Anything but a ``DeviceMesh`` raises ``TypeError``."""
+    tp = axis_size(mesh, "tp")
+    if tp > 1:
+        return ragged_decode_shard(q, k_pool, v_pool, block_table, lengths,
+                                   tp=tp, rank=axis_rank(mesh, "tp"),
+                                   layer=layer, ks_pool=ks_pool,
+                                   vs_pool=vs_pool)
     ks4, vs4 = _scale_pools(k_pool, ks_pool, vs_pool)
-    if mesh is not None:
-        raise NotImplementedError(
-            "the tensor-parallel mesh form is not ported yet "
-            "(ROADMAP queue A10)")
+    return _ragged(q, k_pool, v_pool, block_table, lengths, layer, ks4, vs4)
+
+
+def ragged_decode_shard(q, k_pool, v_pool, block_table, lengths, *, tp: int,
+                        rank: int, layer: int = 0, ks_pool=None,
+                        vs_pool=None):
+    """B4's tensor-parallel form: rank ``rank``'s contiguous slice of a
+    ``tp``-way kv-head split (:func:`shard_kv_heads` cuts one: q's query
+    heads follow their kv heads; the int8 scale pools sliced like the
+    pools), with the block table and lengths whole. The kernel deals the
+    whole launch's schedule (all ``tp`` slices' walks) and walks only this
+    slice's, so each walk is cut into the whole launch's parts: the
+    partials equal the whole launch's for these heads bit for bit, as the
+    reference's shards do (paged_attention.py:499-505). Counted as
+    ``ragged_decode_tp`` (``ragged_decode_int8_tp``). CPU tensors take the
+    plain version."""
+    ks4, vs4 = _scale_pools(k_pool, ks_pool, vs_pool)
+    Hkv = _as5d(k_pool).shape[3]
+    if ks4 is not None and (ks4.shape[-1] != Hkv or vs4.shape != ks4.shape):
+        raise ValueError(
+            "ragged_decode_partial(mesh=): the int8 scale pools must be "
+            "sharded like the pools (this rank's kv-head slice), got "
+            f"{tuple(ks4.shape)} / {tuple(vs4.shape)} for pools "
+            f"{tuple(k_pool.shape)}")
+    if not 0 <= rank < tp:
+        raise ValueError(f"rank {rank} outside a {tp}-way split")
+    return _ragged(q, k_pool, v_pool, block_table, lengths, layer, ks4, vs4,
+                   heads=Hkv * tp, h0=Hkv * rank)
+
+
+def _ragged(q, k_pool, v_pool, block_table, lengths, layer, ks4, vs4,
+            heads=0, h0=0):
+    """One B4 launch (``heads`` > 0: a shard, kv heads [h0, h0 + Hkv) of
+    ``heads`` on their schedule), or the plain version for CPU tensors."""
     qdev = q.device
     where = qdev.type
     if where != "cuda":
@@ -403,7 +462,6 @@ def ragged_decode_partial(q, k_pool, v_pool, block_table, lengths, *,
     pool = dt if ks4 is None else _POOL_INT8
     if (dev, dt, pool, D) not in _grids:
         _grid(dev, dt, pool, D)
-    fn = _build.kernel("ptt_ragged_decode", _ARGS)
     # acc, m and l back to back in one buffer
     a = N * Hkv * G
     out = torch.empty(a * (D + 2), dtype=torch.float32, device=qdev)
@@ -414,17 +472,39 @@ def ragged_decode_partial(q, k_pool, v_pool, block_table, lengths, *,
         return acc, m, l         # an empty grid is no launch
     stream = _stream(dev)
     flags, scratch = _workspace(dev, stream, N * Hkv)
-    err = _on_device(dev, fn, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                     None if ks4 is None else ks4.data_ptr(),
-                     None if vs4 is None else vs4.data_ptr(),
-                     block_table.data_ptr(), lengths.data_ptr(),
-                     out.data_ptr(), scratch.data_ptr(), flags.data_ptr(), N,
-                     layer, NB, BS, Hkv, G, D, block_table.shape[1], dt, pool,
-                     1.0 / math.sqrt(D), stream)
+    args = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+            None if ks4 is None else ks4.data_ptr(),
+            None if vs4 is None else vs4.data_ptr(),
+            block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), flags.data_ptr(), N, layer, NB, BS, Hkv, G, D,
+            block_table.shape[1])
     name = "ragged_decode_int8" if ks4 is not None else "ragged_decode"
+    if heads:
+        name += "_tp"
+        err = _on_device(dev, _build.kernel("ptt_ragged_decode_shard",
+                                            _SHARD_ARGS),
+                         *args, heads, h0, dt, pool, 1.0 / math.sqrt(D),
+                         stream)
+    else:
+        err = _on_device(dev, _build.kernel("ptt_ragged_decode", _ARGS),
+                         *args, dt, pool, 1.0 / math.sqrt(D), stream)
     _build.check(err, name)
     _build.count_launch(name)
     return acc, m, l
+
+
+def shard_kv_heads(x, tp: int, rank: int, dim: int):
+    """Rank ``rank``'s contiguous slice of ``x`` along its kv-head dim
+    ``dim`` when ``tp`` ranks split it — q [N, Hq, D] along dim 1 (its
+    query heads follow their kv heads), the pools [L, NB, BS, Hkv, D]
+    along 3, the scale pools [L, NB, BS, Hkv] along 3 — as a fresh
+    contiguous tensor. Hkv must divide by ``tp`` (the reference's
+    check)."""
+    H = x.shape[dim]
+    if H % tp:
+        raise ValueError(f"tp={tp} must divide num_kv_heads={H}")
+    w = H // tp
+    return x.narrow(dim, rank * w, w).contiguous()
 
 
 def ragged_paged_decode(q, cache: PagedKVCache, layer: int = 0,

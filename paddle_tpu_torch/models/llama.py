@@ -38,7 +38,17 @@ gradient accumulation and the optimizers of ``optimizer/functional.py``;
 ``remat`` recomputes each layer in the backward pass
 (``torch.utils.checkpoint``; selective for the "dots" and "attn"
 policies). Context parallelism and pipeline schedules raise
-``NotImplementedError`` (ROADMAP A10).
+``NotImplementedError`` (ROADMAP A10.3, A10.4).
+
+Sharding (the reference's Megatron recipe): :func:`param_specs`,
+:func:`make_shardings`, :func:`make_serving_shardings` (int8 leaves: ``q``
+takes the dense spec, ``s`` the output axis's) and
+:func:`make_replicated_shardings` give a tree of the port's
+``PartitionSpec``s fitted to a ``DeviceMesh`` (:func:`_fit_spec` drops an
+axis that does not divide its dim, warning once); :func:`shard_params`
+cuts a whole tree to the calling rank's slices; :func:`make_mesh` builds
+the mesh over the job's ranks; :class:`TPPlan` holds the collectives the
+tensor-parallel serving programs run.
 """
 from __future__ import annotations
 
@@ -55,6 +65,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from ..distributed.mesh import P, axis_rank, axis_size
 from ..kernels.pallas_attention import flash_attention
 from ..kernels.quant_matmul import _slices, is_quantized_weight
 from ..kernels.quant_matmul import weight_only_matmul as _wo_mm
@@ -70,7 +81,10 @@ __all__ = ["LlamaConfig", "llama3_8b", "tiny_llama", "draft_config",
            "loss_and_grads", "global_norm", "TrainState",
            "init_train_state", "train_step", "flops_per_token", "generate",
            "generate_fused", "gen_stats", "convert_hf_state_dict",
-           "to_hf_state_dict", "export_for_inference"]
+           "to_hf_state_dict", "export_for_inference", "param_specs",
+           "act_spec", "mesh_shape", "make_mesh", "make_shardings",
+           "make_serving_shardings", "make_replicated_shardings",
+           "shard_params", "TPPlan"]
 
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
               "w_up", "w_down")
@@ -317,6 +331,280 @@ def _wmat(p, name, dt):
     if is_quantized_weight(w):
         return (w["q"].float() * w["s"].float()[..., None, :]).to(dt)
     return w.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# sharding recipe  (mesh axes: 'dp' data, 'sp' sequence, 'tp' model)
+# ---------------------------------------------------------------------------
+
+def param_specs(config: LlamaConfig, fsdp: bool = True) -> Dict[str, Any]:
+    """PartitionSpec per weight. 'tp' shards the Megatron axis (column for
+    qkv/gate/up, row for wo/down, vocab for embed/lm_head); fsdp additionally
+    shards the other matrix axis over 'dp' (ZeRO-3 — reference:
+    DygraphShardingOptimizer V2, dygraph_sharding_optimizer.py:592)."""
+    dp = "dp" if fsdp else None
+    # leading (layer) axis shards over 'pp' when the mesh has one — the
+    # pipeline schedule slices stages from it (dropped on pp-less meshes)
+    specs = {
+        "embed": P("tp", dp),
+        "layers": {
+            "attn_norm": P("pp", None),
+            "wq": P("pp", dp, "tp"),
+            "wk": P("pp", dp, "tp"),
+            "wv": P("pp", dp, "tp"),
+            "wo": P("pp", "tp", dp),
+            "mlp_norm": P("pp", None),
+            "w_gate": P("pp", dp, "tp"),
+            "w_up": P("pp", dp, "tp"),
+            "w_down": P("pp", "tp", dp),
+        },
+        "final_norm": P(None),
+    }
+    if not config.tie_embeddings:
+        specs["lm_head"] = P(dp, "tp")
+    return specs
+
+
+def act_spec() -> P:
+    # activations: [batch, seq, hidden] — batch over dp, sequence over sp
+    return P("dp", "sp", None)
+
+
+def mesh_shape(n: int):
+    """The default (dp, sp, tp) factorization of ``n`` devices: tp gets
+    the largest power-of-two factor up to 8 (innermost, the fastest
+    links), sp up to 2 of the rest, dp what remains — the reference's
+    hybrid order ['dp','pp','sharding','sep','mp'] outside→inside
+    (fleet/base/distributed_strategy.py:1892)."""
+    rem = n
+    tp = 1
+    while tp * 2 <= min(rem, 8) and rem % (tp * 2) == 0:
+        tp *= 2
+    rem //= tp
+    sp = 1
+    while sp * 2 <= min(rem, 2) and rem % (sp * 2) == 0:
+        sp *= 2
+    return (rem // sp, sp, tp)
+
+
+def make_mesh(n_devices=None, axes=("dp", "sp", "tp"), shape=None,
+              device_type=None):
+    """A ``DeviceMesh`` over the job's ranks (one device a rank), shaped
+    by :func:`mesh_shape` unless ``shape`` is given. Needs the process
+    group up (``distributed.init_parallel_env``); ``device_type`` defaults
+    to ``"cuda"`` when CUDA is available. Every rank must call it."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n = n_devices or world
+    if not dist.is_initialized() or n != world:
+        raise ValueError(
+            f"make_mesh({n}) needs a process group of {n} ranks (the "
+            f"world has {world}{'' if dist.is_initialized() else ', none up'})")
+    shape = tuple(shape or mesh_shape(n))
+    dev = device_type or ("cuda" if torch.cuda.is_available() else "cpu")
+    return DeviceMesh(dev, torch.arange(n).reshape(shape),
+                      mesh_dim_names=tuple(axes))
+
+
+_FIT_SPEC_WARNED: set = set()
+
+
+def _fit_spec(spec: P, shape, mesh) -> P:
+    """Drop mesh axes that don't evenly divide the tensor dim (e.g. dp=3
+    fsdp over hidden=128) — falls back to replication on that axis, the
+    same degradation the reference's sharding pass applies to odd shapes.
+    Warns once per dropped (axis, shape) so a typo'd mesh doesn't silently
+    run replicated."""
+    entries = []
+    for d, entry in enumerate(spec):
+        if entry is None:
+            entries.append(None)
+            continue
+        names = entry if isinstance(entry, tuple) else (entry,)
+        keep, size = [], shape[d]
+        for nm in names:
+            ax = axis_size(mesh, nm)  # absent mesh axis → replicate
+            if ax > 1 and size % ax == 0:
+                keep.append(nm)
+                size //= ax
+            elif ax > 1:
+                sig = (nm, ax, d, tuple(shape))
+                if sig not in _FIT_SPEC_WARNED:
+                    _FIT_SPEC_WARNED.add(sig)
+                    import warnings
+                    warnings.warn(
+                        f"sharding axis '{nm}'={ax} does not divide dim {d} "
+                        f"of shape {tuple(shape)} — replicating on that "
+                        "axis (throughput may drop)", stacklevel=3)
+        entries.append(tuple(keep) if len(keep) > 1 else
+                       (keep[0] if keep else None))
+    return P(*entries)
+
+
+def make_shardings(config: LlamaConfig, mesh, fsdp: bool = True):
+    """The fitted spec of every parameter of ``config`` on ``mesh`` (the
+    tree :func:`shard_params` takes; the reference's NamedSharding tree)."""
+    top, layers = _shapes(config)
+    specs = param_specs(config, fsdp)
+    out = {k: _fit_spec(specs[k], top[k][0], mesh) for k in top}
+    out["layers"] = {k: _fit_spec(specs["layers"][k], layers[k][0], mesh)
+                     for k in layers}
+    return out
+
+
+def make_serving_shardings(params, config: LlamaConfig, mesh,
+                           fsdp: bool = False):
+    """``make_shardings`` generalized over the ACTUAL param tree, so int8
+    weight-only params (quantize_params) shard for tp serving: each
+    quantized leaf's ``q`` matrix takes the dense weight's Megatron spec
+    and its per-output-channel ``s`` vector keeps the spec of the OUTPUT
+    axis (sharded over 'tp' for column-parallel qkv/gate/up and lm_head,
+    replicated for row-parallel wo/down whose outputs are not
+    tp-sharded) — the scale always lives with the channels it scales, so
+    the weight-only dot needs no extra collectives."""
+    dense = param_specs(config, fsdp)
+
+    def one(spec, leaf):
+        if isinstance(leaf, dict) and "q" in leaf:
+            s_spec = (P(spec[0], spec[-1]) if leaf["q"].ndim == 3
+                      else P(spec[-1]))
+            return {"q": _fit_spec(spec, leaf["q"].shape, mesh),
+                    "s": _fit_spec(s_spec, leaf["s"].shape, mesh)}
+        return _fit_spec(spec, leaf.shape, mesh)
+
+    out = {"embed": one(dense["embed"], params["embed"]),
+           "layers": {k: one(dense["layers"][k], params["layers"][k])
+                      for k in params["layers"]},
+           "final_norm": one(dense["final_norm"], params["final_norm"])}
+    if "lm_head" in params:
+        out["lm_head"] = one(dense["lm_head"], params["lm_head"])
+    return out
+
+
+def make_replicated_shardings(params, mesh):
+    """A spec tree placing every leaf of ``params`` whole on every rank
+    (spec ``P()``). The serving engine uses it for the speculative DRAFT
+    under tp serving: the draft is small, so replicating it beats
+    sharding a model whose kv heads may not divide the tp size."""
+    return tree_map(lambda _: P(), params)
+
+
+def _cut(t, spec, mesh):
+    """This rank's slice of ``t`` under ``spec``; ``t`` itself when the
+    spec splits nothing."""
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        n, idx = 1, 0
+        for nm in (entry if isinstance(entry, tuple) else (entry,)):
+            size = axis_size(mesh, nm)
+            idx, n = idx * size + axis_rank(mesh, nm), n * size
+        if n == 1:
+            continue
+        if t.shape[d] % n:
+            raise ValueError(f"dim {d} of shape {tuple(t.shape)} does not "
+                             f"split {n} ways ({spec!r})")
+        w = t.shape[d] // n
+        t = t.narrow(d, idx * w, w)
+    return t
+
+
+def shard_params(params, shardings, mesh, device=None):
+    """Cut each leaf of ``params`` to the calling rank's slice under its
+    spec in ``shardings`` (a tree from :func:`make_shardings`,
+    :func:`make_serving_shardings` or :func:`make_replicated_shardings`),
+    as ``jax.device_put`` does with a sharding tree. A cut leaf is a
+    fresh contiguous tensor (the whole one can be freed); a leaf whose
+    spec splits nothing stays whole. ``device`` moves the result (the
+    leaves' own device when None)."""
+    def one(leaf, spec):
+        if isinstance(leaf, dict):
+            return {k: one(v, spec[k]) for k, v in leaf.items()}
+        part = _cut(leaf, spec, mesh)
+        if part is not leaf:
+            part = part.clone(memory_format=torch.contiguous_format)
+        return part if device is None else part.to(device)
+
+    return {k: (one(v, shardings[k]) if k != "layers" else
+                {n: one(w, shardings["layers"][n]) for n, w in v.items()})
+            for k, v in params.items()}
+
+
+class TPPlan:
+    """Where the serving programs meet the other tensor-parallel ranks
+    (Megatron): the vocab-parallel embedding lookup (this rank's rows,
+    zeros elsewhere, then an all-reduce), the all-reduce after each
+    row-parallel product (``wo``; ``w_down`` when the FFN is split), the
+    all-gather of vocab-split logits, and the broadcast of each sampled
+    token from the group's first rank, which makes the ranks agree by
+    construction. Each decision follows the fitted specs: a dim that
+    ``_fit_spec`` left whole runs no collective. ``config`` is the
+    rank's own (its head and FFN counts); ``mesh`` is what B4's tp form
+    takes; ``counts`` counts the collectives by kind."""
+
+    def __init__(self, mesh, config: LlamaConfig, shardings):
+        import torch.distributed as dist
+
+        from ..distributed.collective import Group
+
+        self.mesh = mesh
+        pg = mesh.get_group("tp")
+        self.group = Group(dist.get_process_group_ranks(pg), pg)
+        self.size = axis_size(mesh, "tp")
+        self.rank = axis_rank(mesh, "tp")
+
+        def spec(leaf):
+            return leaf["q"] if isinstance(leaf, dict) else leaf
+        lay = shardings["layers"]
+        self.vocab = spec(shardings["embed"])[0] == "tp"
+        self.head = self.vocab if config.tie_embeddings \
+            else spec(shardings["lm_head"])[-1] == "tp"
+        self.mlp = spec(lay["w_gate"])[-1] == "tp"
+        if spec(lay["wq"])[-1] != "tp" or spec(lay["wk"])[-1] != "tp":
+            raise ValueError("tp serving needs the attention heads split")
+        self.config = dataclasses.replace(
+            config, num_heads=config.num_heads // self.size,
+            num_kv_heads=config.num_kv_heads // self.size,
+            intermediate_size=(config.intermediate_size // self.size
+                               if self.mlp else config.intermediate_size))
+        self.counts = collections.Counter()
+
+    def embed(self, table, ids):
+        """Rows ``ids`` of the embedding whose rows this rank holds."""
+        if not self.vocab:
+            return table[ids.long()]
+        from ..distributed.fleet.layers.mpu.mp_ops import _c_lookup_table
+
+        return self.reduce(_c_lookup_table(
+            table, ids, start_index=self.rank * table.shape[0]))
+
+    def reduce(self, y):
+        """The sum of every rank's partial ``y`` (``_mp_allreduce``)."""
+        from ..distributed.fleet.layers.mpu.mp_ops import _mp_allreduce
+
+        self.counts["all_reduce"] += 1
+        return _mp_allreduce(y, group=self.group)
+
+    def mlp_out(self, y):
+        return self.reduce(y) if self.mlp else y
+
+    def logits(self, lg):
+        """The whole vocabulary's logits from this rank's columns."""
+        if not self.head:
+            return lg
+        from ..distributed.fleet.layers.mpu.mp_ops import _c_concat
+
+        self.counts["all_gather"] += 1
+        return _c_concat(lg, group=self.group)
+
+    def agree(self, ids):
+        """``ids`` as the group's first rank sampled them (in place)."""
+        from ..distributed.collective import broadcast
+
+        self.counts["broadcast"] += 1
+        return broadcast(ids, self.group.ranks[0], self.group)
 
 
 # ---------------------------------------------------------------------------

@@ -117,9 +117,23 @@ the metrics, which mirror them, and so are the disaggregated handoff's
 (``handoffs``, ``handoff_bytes``, ``handoff_seconds``). Each step ends
 with the time-series sampler's tick (``observability.timeseries
 .step_tick``: throttled, and skipped — never waited on — when another
-replica's step thread is sampling). Not ported yet: tensor parallelism
-(``mesh``, ROADMAP A10), whose argument raises ``NotImplementedError``
-naming its queue when set.
+replica's step thread is sampling).
+
+Tensor parallelism (``mesh``, a ``DeviceMesh`` with a ``"tp"`` dim): one
+engine a rank, SPMD — every rank builds the engine with the same whole
+params and makes the same ``add_request``/``step``/``run`` calls (as a
+torchrun program does), because every step meets the other ranks in
+collectives. Each rank keeps its Megatron slice of the target
+(``models.llama.make_serving_shardings``, ``shard_params``) and its
+kv-head slice of the pools, runs B1 and B4 on its own heads, and meets
+the others where ``models.llama.TPPlan`` says: the vocab-parallel
+embedding lookup, after ``wo`` and ``w_down``, the vocab-split logits,
+and the broadcast of each sampled token from the first rank (so the host
+schedulers cannot drift). The speculative draft stays whole on every
+rank. Mega decode bows out counted (``reason="mesh"``). A process group
+that cannot carry the engine's tensors raises at construction. Over gloo
+every collective on a CUDA tensor waits for the card, so the chained
+decode no longer overlaps its readback; ``tp_collectives`` counts them.
 """
 from __future__ import annotations
 
@@ -138,17 +152,20 @@ import torch
 
 from .. import observability as _obs
 from ..device import resolve_device
+from ..distributed.mesh import axis_size, is_mesh
 from ..distributed.resilience.faults import SimulatedCrash
 from ..framework.flags import get_flag
-from ..kernels.mega_decode import (_layer, _mlp, _rope1, decode_layers,
+from ..kernels.mega_decode import (_layer, _mlp, _rope1, _wo, decode_layers,
                                    mega_decode_loop, mega_decode_step,
                                    mega_supported)
 from ..kernels.pallas_attention import flash_attention_fwd
 from ..kernels.quant_matmul import (attn_pv, attn_qk, is_quantized_weight,
                                     quantize_kv)
 from ..kernels.quant_matmul import weight_only_matmul as _wo_mm
-from ..models.llama import (LlamaConfig, _apply_rope, _apply_rope_at,
-                            _rms_norm, _rope_tables, head_weight)
+from ..models.llama import (LlamaConfig, TPPlan, _apply_rope, _apply_rope_at,
+                            _rms_norm, _rope_tables, head_weight,
+                            make_replicated_shardings,
+                            make_serving_shardings, shard_params)
 from ..observability import flight_recorder as _flight
 from ..observability import numerics as _nm
 from ..observability import perf as _perf
@@ -168,9 +185,6 @@ NEG_INF = -1e30
 
 # the span a decode dispatch runs in while observability is off
 _NO_SPAN = contextlib.nullcontext()
-
-# JAX constructor arguments not ported yet -> (default, ROADMAP queue)
-_UNPORTED = {"mesh": (None, "A10")}
 
 # always-on serving telemetry (no-ops until FLAGS_obs_enabled /
 # observability.enable()); the JAX engine's set
@@ -322,7 +336,8 @@ class _Readback:
 def _paged_prefill(params, tokens, blk_ids, true_len, pools, temps, top_ks,
                    top_ps, generator, *, config: LlamaConfig,
                    sample_flags=(True, True, True), kv_prefix: str = "",
-                   hist_len=None, ctx_tbl=None, numerics: bool = False):
+                   hist_len=None, ctx_tbl=None, numerics: bool = False,
+                   tp=None):
     """Prefill a wave of admissions: causal forward over the padded prompt
     batch, each layer's K/V written into the rows' pool blocks (in place;
     pad rows and the bucket's pad tail point at the trash block 0), and
@@ -350,6 +365,9 @@ def _paged_prefill(params, tokens, blk_ids, true_len, pools, temps, top_ks,
     ``numerics`` (int8 pools, ``FLAGS_obs_numerics``): the paired
     pre/post-quant probe of every K/V the wave writes, one
     ``kv_int8`` landing (``observability.numerics``).
+
+    ``tp`` (a ``models.llama.TPPlan``): the rank's slice of the model
+    and pools (``config`` is the rank's own), with the plan's collectives.
     Returns the first tokens [B] int32 (on the device)."""
     c = config
     dt = c.dtype
@@ -358,7 +376,8 @@ def _paged_prefill(params, tokens, blk_ids, true_len, pools, temps, top_ks,
     bs = pools[pk].shape[2]
     Hq, Hkv, D = c.num_heads, c.num_kv_heads, c.head_dim
     flat = blk_ids.reshape(-1).long()
-    x = params["embed"][tokens.long()].to(dt)
+    x = (params["embed"][tokens.long()] if tp is None
+         else tp.embed(params["embed"], tokens)).to(dt)
     dev = tokens.device
     probe = _nm.QuantErrorProbe() if numerics else None
     if ctx_tbl is not None:
@@ -422,15 +441,18 @@ def _paged_prefill(params, tokens, blk_ids, true_len, pools, temps, top_ks,
                    + torch.einsum("bhgst,bthd->bshgd",
                                   probs[..., Pp:].to(dt), v))
             att = att.reshape(B, S, Hq * D).to(dt)
-        x = _mlp(x + _wo_mm(att, p["wo"], dt), p, c)
+        x = _mlp(x + _wo(att, p, dt, tp), p, c, tp)
     if probe is not None:
         probe.ship("kv_int8")
     x = _rms_norm(x, params["final_norm"], c.rms_eps)
     rows = torch.arange(B, device=x.device)
     last_h = x[rows, (true_len.long() - 1).clamp_min(0)]
     logits = _wo_mm(last_h, head_weight(params, c), dt).float()
-    return _sample_rows(logits, generator, temps, top_ks, top_ps,
-                        *sample_flags)
+    if tp is None:
+        return _sample_rows(logits, generator, temps, top_ks, top_ps,
+                            *sample_flags)
+    return tp.agree(_sample_rows(tp.logits(logits), generator, temps, top_ks,
+                                 top_ps, *sample_flags))
 
 
 def _write_pools(pools, index, k, v, prefix: str = "", probe=None):
@@ -455,7 +477,7 @@ def _write_pools(pools, index, k, v, prefix: str = "", probe=None):
 
 
 def _dense_layers(params, config, x, *, t: int, lens, ring_k, ring_v, kd,
-                  vd, ksc, vsc, pre_mask):
+                  vd, ksc, vsc, pre_mask, tp=None):
     """One decode step of every layer for x [N, h], the bucketed path's
     math (the JAX engine's dense body): per layer the fresh K/V row lands
     in the ring at index ``t`` (in place), and one masked softmax runs
@@ -497,7 +519,7 @@ def _dense_layers(params, config, x, *, t: int, lens, ring_k, ring_v, kd,
                + torch.einsum("nhgs,nshd->nhgd", p_rng.float(),
                               ring_v[l].float()).to(dt))
         att = att.reshape(N, Hkv * G * D).to(dt)
-        x = _mlp(x + _wo_mm(att, p["wo"], dt), p, c)
+        x = _mlp(x + _wo(att, p, dt, tp), p, c, tp)
     return x
 
 
@@ -506,7 +528,7 @@ def _paged_decode(params, last_tokens, lengths, done0, budgets, generator,
                   *, config: LlamaConfig, n_steps: int,
                   sample_flags=(True, True, True), mega: bool = False,
                   mega_multistep: bool = False, kv_prefix: str = "",
-                  bucketed: bool = False, numerics: bool = False):
+                  bucketed: bool = False, numerics: bool = False, tp=None):
     """``n_steps`` decode iterations over all slots.
 
     The slot prefixes ``[0, lengths)`` are frozen for the call: every step
@@ -534,6 +556,11 @@ def _paged_decode(params, last_tokens, lengths, done0, budgets, generator,
 
     ``numerics``: the writeback's ``kv_int8`` quant-error probe over the
     ring (int8 pools, ``FLAGS_obs_numerics``).
+
+    ``tp`` (a ``models.llama.TPPlan``): the rank's slice of a
+    tensor-parallel engine (``config`` is the rank's own): B4's tp form on
+    its heads, the plan's collectives, and each step's tokens broadcast
+    from the first rank.
 
     Returns (emitted [n_steps, N] int32 with -1 padding, last, lengths,
     done, budgets)."""
@@ -588,7 +615,8 @@ def _paged_decode(params, last_tokens, lengths, done0, budgets, generator,
         emitted = []
     for t in range(0 if in_kernel else S):
         act = active & ~done
-        x0 = params["embed"][last.long()].to(dt)
+        x0 = (params["embed"][last.long()] if tp is None
+              else tp.embed(params["embed"], last)).to(dt)
         # both write the step's K/V rows into the rings in place
         kw = dict(t=t, block_table=block_table, walk_lens=walk_lens,
                   lens=lens, ring_k=ring_k, ring_v=ring_v, **pools_kw)
@@ -596,13 +624,17 @@ def _paged_decode(params, last_tokens, lengths, done0, budgets, generator,
             x = mega_decode_step(params, c, x0=x0, **kw)[0]
         elif bucketed:
             x = _dense_layers(params, c, x0, t=t, lens=lens, ring_k=ring_k,
-                              ring_v=ring_v, **dense)
+                              ring_v=ring_v, tp=tp, **dense)
         else:
-            x = decode_layers(params, c, x0, **kw)
+            x = decode_layers(params, c, x0, tp=tp, **kw)
         xf = _rms_norm(x, params["final_norm"], c.rms_eps)
         logits = _wo_mm(xf, head_w, dt).float()
-        nxt = _sample_rows(logits, generator, temps, top_ks, top_ps,
-                           *sample_flags)
+        if tp is None:
+            nxt = _sample_rows(logits, generator, temps, top_ks, top_ps,
+                               *sample_flags)
+        else:
+            nxt = tp.agree(_sample_rows(tp.logits(logits), generator, temps,
+                                        top_ks, top_ps, *sample_flags))
         emitted.append(torch.where(act, nxt, torch.full_like(nxt, -1)))
         lens = lens + act.to(lens.dtype)
         rem = rem - act.to(rem.dtype)
@@ -628,7 +660,7 @@ def _paged_decode(params, last_tokens, lengths, done0, budgets, generator,
 
 def _spec_verify(params, block_table, last, draft_toks, lengths, active,
                  pools, *, config: LlamaConfig, n_spec: int,
-                 max_model_len: int, numerics: bool = False):
+                 max_model_len: int, numerics: bool = False, tp=None):
     """Score a speculative wave in ONE target forward: each slot's piece
     ``[last, d_1 .. d_k]`` (k = ``n_spec``; ``draft_toks`` is the draft
     call's [k, N] grid, -1 pads clipped into the vocabulary) runs a
@@ -650,8 +682,9 @@ def _spec_verify(params, block_table, last, draft_toks, lengths, active,
     commits c <= k; later positions are unreadable past the length and
     the next wave overwrites them). Inactive rows and positions past
     ``max_model_len`` go to trash block 0. ``numerics``: the writeback's
-    ``kv_int8`` quant-error probe. Returns the greedy grid [N, k+1]
-    int32."""
+    ``kv_int8`` quant-error probe. ``tp``: the rank's slice of a
+    tensor-parallel engine, as in :func:`_paged_prefill`. Returns the
+    greedy grid [N, k+1] int32."""
     c = config
     dt = c.dtype
     N, nbk = block_table.shape
@@ -667,7 +700,8 @@ def _spec_verify(params, block_table, last, draft_toks, lengths, active,
     tokens = torch.cat([last[:, None].int(), draft_toks.t().int()], dim=1)
     tokens = tokens.clamp(0, c.vocab_size - 1)            # [N, S]
     hist = torch.where(active, lengths.int(), torch.zeros_like(lengths.int()))
-    x = params["embed"].to(dt)[tokens.long()]
+    x = (params["embed"].to(dt)[tokens.long()] if tp is None
+         else tp.embed(params["embed"], tokens).to(dt))
     freq = c.rope_theta ** (-torch.arange(0, D, 2, dtype=torch.float32,
                                           device=dev) / D)
     pos = hist.float()[:, None] + torch.arange(S, dtype=torch.float32,
@@ -725,7 +759,7 @@ def _spec_verify(params, block_table, last, draft_toks, lengths, active,
         att = torch.einsum("bhgsp,bphd->bshgd", probs[..., :Pp].to(dt),
                            vpre) + att_in
         att = att.reshape(N, S, Hq * D).to(dt)
-        x = _mlp(x + _wo_mm(att, p["wo"], dt), p, c)
+        x = _mlp(x + _wo(att, p, dt, tp), p, c, tp)
 
     # positional writeback (the decode ring's scatter at piece width)
     j = torch.arange(S, device=dev)[None, :]
@@ -741,7 +775,9 @@ def _spec_verify(params, block_table, last, draft_toks, lengths, active,
         probe.ship("kv_int8")
     x = _rms_norm(x, params["final_norm"], c.rms_eps)
     logits = _wo_mm(x, head_weight(params, c), dt).float()
-    return logits.argmax(dim=-1).int()
+    if tp is None:
+        return logits.argmax(dim=-1).int()
+    return tp.agree(tp.logits(logits).argmax(dim=-1).int())
 
 
 # ---------------------------------------------------------------------------
@@ -863,16 +899,12 @@ class LLMEngine:
                  prefill_chunk: int = 0, prefix_cache_host_bytes: int = 0,
                  kv_offload: str = "auto", admission=None, injector=None,
                  role: str = "both", relay: Optional[HostKVPool] = None,
-                 **unported):
-        for name, value in unported.items():
-            if name not in _UNPORTED:
-                raise TypeError(f"LLMEngine got an unexpected argument "
-                                f"{name!r}")
-            default, queue = _UNPORTED[name]
-            if value is not default and value != default:
-                raise NotImplementedError(
-                    f"LLMEngine({name}=...) is not ported yet (ROADMAP "
-                    f"queue {queue})")
+                 mesh=None):
+        if mesh is not None and not is_mesh(mesh):
+            raise TypeError(
+                f"mesh must be a torch.distributed.device_mesh.DeviceMesh "
+                f"with a 'tp' dim, got {type(mesh).__name__}")
+        tp = axis_size(mesh, "tp")
         if decode_kernel not in ("auto", "ragged", "bucketed", "mega"):
             raise ValueError(f"decode_kernel must be 'auto', 'ragged', "
                              f"'bucketed' or 'mega', got {decode_kernel!r}")
@@ -899,12 +931,29 @@ class LLMEngine:
             raise ValueError(f"max_model_len {max_model_len} is not a "
                              f"multiple of block_size {block_size}")
         self.device = resolve_device(device)
-        bad = [k for k, t in _tensors(params) if t.device != self.device]
+        c = config
+        if c.num_kv_heads % tp:
+            raise ValueError(
+                f"tp={tp} must divide num_kv_heads={c.num_kv_heads}")
+        # a tp engine takes the whole params on the card or the host and
+        # keeps this rank's slice on the card
+        bad = [k for k, t in _tensors(params) if t.device != self.device
+               and not (tp > 1 and t.device.type == "cpu")]
         if bad:
             raise ValueError(f"params {bad[:3]} are not on {self.device}")
-        c = config
+        self.mesh = mesh
+        self._tp = None
+        if tp > 1:
+            shardings = make_serving_shardings(params, c, mesh, fsdp=False)
+            params = shard_params(params, shardings, mesh,
+                                  device=self.device)
+            self._tp = TPPlan(mesh, c, shardings)
+        # the device programs' config: the rank's own head and FFN counts
+        self._dc = c if self._tp is None else self._tp.config
         self.params = params
         self.config = config
+        if self._tp is not None:
+            self._tp_check()
         self.role = role
         self.relay = relay
         self.decode_kernel = decode_kernel
@@ -926,8 +975,8 @@ class LLMEngine:
             if b % block_size:
                 raise ValueError(f"prompt bucket {b} is not a multiple of "
                                  f"block_size {block_size}")
-        pool_shape = (c.num_layers, self.nb, block_size, c.num_kv_heads,
-                      c.head_dim)
+        pool_shape = (c.num_layers, self.nb, block_size,
+                      self._dc.num_kv_heads, c.head_dim)
         self.kv_int8 = kv_dtype is not None
         if self.kv_int8:
             # int8 payload + f32 per-entry scales (~3% more at D=128)
@@ -962,10 +1011,18 @@ class LLMEngine:
                 raise ValueError(
                     f"spec_tokens must be >= 1, got {spec_tokens}")
             bad = [k for k, t in _tensors(draft_params)
-                   if t.device != self.device]
+                   if t.device != self.device
+                   and not (tp > 1 and t.device.type == "cpu")]
             if bad:
                 raise ValueError(f"draft_params {bad[:3]} are not on "
                                  f"{self.device}")
+            if tp > 1:
+                # the draft stays whole on every rank (its kv heads need
+                # not divide tp); its proposals are broadcast like tokens
+                self.draft_params = shard_params(
+                    draft_params, make_replicated_shardings(draft_params,
+                                                            mesh),
+                    mesh, device=self.device)
             # the draft's pools share the target's block grid (one block
             # backs both models' K/V for its positions, so the allocator,
             # the prefix cache and the swap tier need no new bookkeeping)
@@ -1112,6 +1169,28 @@ class LLMEngine:
         # slots mid-chunked-prefill: slot -> {"ctx", "pos", "rid"};
         # excluded from decode dispatch until the final chunk lands
         self._chunks: Dict[int, Dict] = {}
+
+    def _tp_check(self) -> None:
+        """One all-reduce of the model dtype on the engine's device: a
+        process group that cannot carry the engine's tensors (an NCCL
+        group with CPU tensors, a backend without the dtype) raises here,
+        at construction, never mid-stream."""
+        probe = torch.ones(1, dtype=self.config.dtype, device=self.device)
+        try:
+            self._tp.reduce(probe)
+        except Exception as e:
+            from ..distributed.collective import get_backend
+            raise RuntimeError(
+                f"tp serving: the {get_backend(self._tp.group)!r} process "
+                f"group cannot carry {self.config.dtype} tensors on "
+                f"{self.device} ({e})") from e
+        self._tp.counts.clear()
+
+    @property
+    def tp_collectives(self) -> Counter:
+        """The collectives this rank's programs ran, by kind (empty
+        without a tp mesh)."""
+        return Counter() if self._tp is None else Counter(self._tp.counts)
 
     # -- public api ---------------------------------------------------------
     def add_request(self, prompt: List[int], **kw) -> int:
@@ -2115,9 +2194,9 @@ class LLMEngine:
                         wave=len(rows), prefix_bucket=pnbk * self.bs,
                         request_ids=wave_rids):
             wave = _Readback(_paged_prefill(
-                self.params, *args, self.pools, *knobs, config=self.config,
+                self.params, *args, self.pools, *knobs, config=self._dc,
                 sample_flags=flags, numerics=self.kv_int8 and _nm.active(),
-                **hist_kw))
+                tp=self._tp, **hist_kw))
         if self._spec_on:
             # the same pieces through the draft, so both models' K/V
             # cover every prefilled position; its token is discarded
@@ -2371,12 +2450,12 @@ class LLMEngine:
             return "bucketed"
         want_mega = self.decode_kernel == "mega" or (
             self.decode_kernel == "auto" and self.device.type == "cuda"
-            and self.N <= 4)
+            and self.N <= 4 and self._tp is None)
         if want_mega:
             ok, reason = mega_supported(
                 self.params, self.config, n_slots=self.N,
                 n_steps=self.decode_steps, block_size=self.bs,
-                kv_int8=self.kv_int8)
+                kv_int8=self.kv_int8, mesh=self.mesh)
             if ok:
                 return "mega"
             self.mega_fallbacks[reason] += 1
@@ -2454,10 +2533,10 @@ class LLMEngine:
             toks, *carry = _paged_decode(
                 self.params, c_last, c_len, c_done, c_rem, self._gen, v_act,
                 table, self.pools, v_t, v_k, v_p, v_eos,
-                config=self.config, n_steps=self.decode_steps,
+                config=self._dc, n_steps=self.decode_steps,
                 sample_flags=flags, mega=path == "mega",
                 bucketed=path == "bucketed",
-                numerics=self.kv_int8 and _nm.active())
+                numerics=self.kv_int8 and _nm.active(), tp=self._tp)
         self._carry = tuple(carry)
         self._inflight = {
             "toks": _Readback(toks),
@@ -2670,13 +2749,15 @@ class LLMEngine:
                 sample_flags=(False, False, False), mega=path == "mega",
                 mega_multistep=path == "mega", kv_prefix="d",
                 bucketed=path == "bucketed")
+            if self._tp is not None:
+                self._tp.agree(draft)
         with trace_span("serving.spec_verify", slots=len(active), k=k,
                         prefix_bucket=nbk * self.bs, request_ids=rids):
             verified = _spec_verify(
                 self.params, table[:, :nbk], last_d, draft, lens_d, act_d,
-                self.pools, config=self.config, n_spec=k,
+                self.pools, config=self._dc, n_spec=k,
                 max_model_len=self.max_model_len,
-                numerics=self.kv_int8 and _nm.active())
+                numerics=self.kv_int8 and _nm.active(), tp=self._tp)
         if self.injector is not None and \
                 self.injector.fires("spec_verify_fail", self._step_idx):
             # nothing of this wave is host-visible yet: recovery rolls

@@ -98,7 +98,14 @@ print("OK")
     "paddle_tpu_torch.distributed.resilience.train_loop",
     "paddle_tpu_torch.tools.chaos_run",
     "paddle_tpu_torch.tools.obs_dump",
-    "paddle_tpu_torch.tools.ckpt_io"])
+    "paddle_tpu_torch.tools.ckpt_io",
+    "paddle_tpu_torch.distributed.env",
+    "paddle_tpu_torch.distributed.store",
+    "paddle_tpu_torch.distributed.collective",
+    "paddle_tpu_torch.distributed.communication",
+    "paddle_tpu_torch.distributed.mesh",
+    "paddle_tpu_torch.distributed.fleet",
+    "paddle_tpu_torch.distributed.fleet.layers.mpu"])
 def test_serving_tier_modules_import_without_jax(module):
     """The flag registry and the serving host tiers are the port's own
     copies: importing one in a fresh process loads no jax and nothing of

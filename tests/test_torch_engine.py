@@ -196,8 +196,8 @@ def test_unported_arguments_raise(model):
                            (dict(relay=object()), ValueError,
                             "HostKVPool"),
                            (dict(role="colocated"), ValueError, "role"),
-                           (dict(mesh=object()), NotImplementedError,
-                            "A10")):
+                           (dict(mesh=object()), TypeError,
+                            "DeviceMesh")):
         with pytest.raises(err, match=match):
             LLMEngine(tp, tcfg, device="cpu", **kw)
     # the ported host-tier and prefix arguments construct

@@ -183,6 +183,60 @@ def test_ragged_split_edges_match_plain(dev, name, pools, qdtype):
                 <= 1e-5 * max(1.0, b.abs().max().item())
 
 
+# B4's tp form: each rank launches the kernel on its contiguous kv-head
+# slice, walked on the whole launch's schedule (ragged_decode_shard). At
+# "one_tile_parts" every walk is cut at each 32-position tile; at "long"
+# the long walks are cut into parts over many blocks.
+_TP_LENS = {"one_tile_parts": [0, 1, 17, 32, 33, 40, 50, 64],
+            "long": [0, 1, 64, 2000, 777, 128, 1500, 33]}
+
+
+@pytest.mark.parametrize("tp", [2, 4, 8])
+@pytest.mark.parametrize("form", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("lens", list(_TP_LENS))
+def test_ragged_tp_split_on_card(dev, tp, form, lens):
+    """B4's tp split on the card (Hq=32, Hkv=8, D=128, BS=64): the tp
+    slices launched one by one through ``ragged_decode_shard`` and put side
+    by side equal the whole launch bit for bit, in bf16, f32 and int8;
+    each shard launch counts as ``ragged_decode_tp`` (``_int8_tp``) and
+    equals itself over two launches."""
+    rng = np.random.default_rng(11)
+    L, NB, BS, hkv, G, d = 2, 512, 64, 8, 4, 128
+    N, mb = len(_TP_LENS[lens]), 2048 // BS
+    g = torch.Generator(device=dev).manual_seed(tp)
+    table = torch.as_tensor(rng.permutation(np.arange(1, NB))[:N * mb]
+                            .reshape(N, mb).astype(np.int32), device=dev)
+    lengths = torch.tensor(_TP_LENS[lens], dtype=torch.int32, device=dev)
+    dtype = torch.float32 if form == "f32" else torch.bfloat16
+    kp = torch.randn(L, NB, BS, hkv, d, generator=g, device=dev).to(dtype)
+    vp = torch.randn(L, NB, BS, hkv, d, generator=g, device=dev).to(dtype)
+    q = torch.randn(N, hkv * G, d, generator=g, device=dev).to(dtype)
+    kw = {}
+    if form == "int8":
+        kp, vp, ks, vs = _int8_pools(kp, vp)
+        kw = dict(ks_pool=ks, vs_pool=vs)
+    whole = tpa.ragged_decode_partial(q, kp, vp, table, lengths, layer=1,
+                                      **kw)
+    key = "ragged_decode_int8_tp" if form == "int8" else "ragged_decode_tp"
+    before = _build.launch_counts[key]
+    parts = []
+    for r in range(tp):
+        cut = [tpa.shard_kv_heads(t, tp, r, dim)
+               for t, dim in ((q, 1), (kp, 3), (vp, 3))]
+        skw = {k: tpa.shard_kv_heads(v, tp, r, 3) for k, v in kw.items()}
+        got = [t.clone() for t in tpa.ragged_decode_shard(
+            *cut, table, lengths, tp=tp, rank=r, layer=1, **skw)]
+        again = tpa.ragged_decode_shard(*cut, table, lengths, tp=tp, rank=r,
+                                        layer=1, **skw)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        parts.append(got)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[key] == before + 2 * tp
+    cat = [torch.cat([p[i] for p in parts], dim=1) for i in range(3)]
+    for c, w in zip(cat, whole):
+        assert torch.equal(c, w)
+
+
 @pytest.mark.parametrize("dtype,pool", [(1, 1), (1, 2), (0, 0), (0, 2)])
 def test_ragged_schedule_matches_mirror(dev, dtype, pool):
     """The kernel's own split of the walks (``ptt_ragged_decode_schedule``

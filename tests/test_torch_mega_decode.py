@@ -113,10 +113,12 @@ def test_mega_supported_reasons(model):
     params = tl.init_params(cfg, seed=0, device="cpu")
     assert tmd.mega_supported(params, cfg, **kw) == (True, "ok")
 
-    class Mesh:
-        shape = {"tp": 2}
-    assert tmd.mega_supported(params, cfg, mesh=Mesh(), **kw) \
+    # a mapping of mesh dim sizes (a DeviceMesh is read the same way:
+    # tests/test_torch_tp_serving.py)
+    assert tmd.mega_supported(params, cfg, mesh={"tp": 2}, **kw) \
         == (False, "mesh")
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        tmd.mega_supported(params, cfg, mesh=object(), **kw)
     q8 = {"q": torch.zeros(1, dtype=torch.int8), "s": torch.ones(1)}
     lay = params["layers"]
     mixed = dict(params, layers=dict(lay, wq=q8))

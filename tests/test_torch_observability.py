@@ -203,8 +203,7 @@ def test_catalog_equals_reference_row_for_row():
 # rows of the catalog no port module instruments yet, by the ROADMAP queue
 # item that brings them; the set shrinks with each slice
 WAITING = {
-    "A10": {"dist_store_connect_retries_total", "dist_init_retries_total",
-            "moe_overlap_bypass_total"},
+    "A10": {"moe_overlap_bypass_total"},
     "A11": {"jit_cache_hits_total", "jit_cache_misses_total",
             "jit_compile_seconds", "dataloader_batches_total",
             "dataloader_batch_wait_seconds",

@@ -96,7 +96,7 @@ def test_unported_forms_raise():
     with pytest.raises(ValueError, match="ks_pool/vs_pool"):
         tpa.ragged_decode_partial(q, kp.to(torch.int8), vp.to(torch.int8),
                                   table, lens)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tpa.ragged_decode_partial(q, kp, vp, table, lens, mesh=object())
     with pytest.raises(ValueError):
         tpa.ragged_decode_partial(q.to("meta"), kp, vp, table, lens)
