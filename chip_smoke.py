@@ -371,7 +371,8 @@ direct (colocated) run beside them:
 The training half of resilience and observability (A8-train), after
 phase 10 ((c1), (c2)) and after (m2)-(m4) ((c3)):
 (c1) ``ResilientTrainLoop`` around ``llama.train_step`` on llama-2.6b at
-     phase 8's shape, observability and numerics on: a clean run of 6
+     full width cut to ``C1_LAYERS`` (12) layers, phase 8's shape
+     otherwise, observability and numerics on: a clean run of 6
      steps and a faulted one (``C1_SCHEDULE``: a NaN gradient, a NaN in
      layer 7's weights, a crash; snapshots every 2 steps, keep 2, the
      newest corrupted before the relaunch) end allclose at 1e-6 (the
@@ -410,16 +411,35 @@ Tensor-parallel serving (A10.1), after phase 15:
      (reason "mesh") with the single-rank ragged streams; spec with a
      replicated draft equals the unmeshed spec engine.
 
+Data-parallel and sharded training (A10.2), after (t3): two ranks on
+the one card over gloo (``distributed.spawn(nprocs=2, backend="gloo")``),
+each running ``train_step`` under ``llama.activation_mesh`` on its slices
+of the state and its rows of the batch (``dp_phases``):
+(d1) llama-2.6b at full width cut to ``D1_LAYERS`` layers, batch 8 x
+     2048, f32 adamw, 3 steps at dp=2 with fsdp, tp=2 and dp=2 without
+     fsdp from the single-rank state: losses within 1e-5 relative and
+     slices within the CPU tests' f32 bound of the single-rank step on the
+     card; phase 8's recipe at dp=2 (fsdp) with its loss gap;
+(d2) DeepSeekMoE-16B's widths cut to ``D2_LAYERS`` layers: the same at
+     dp=2 (fsdp) and tp=2, the aux loss equal to the single rank's, and
+     phase 12's recipe at tp=2 with each B9/B10 call's tile width;
+(d3) ``python -m paddle_tpu_torch.examples.llama_pretrain --size 740m
+     --dp 2 --batch-size 4 --steps 2`` prints its loss and tokens/s.
+Per rank: B1-B3 (B9, B10) launches a step, the collectives a step by kind
+and bytes, step seconds (two processes share one card: no parallel
+speed).
+
 ``python3 chip_smoke.py --serving`` runs phases 4, 6 (c), (p1)-(p4),
 (r1)-(r3), (o1)-(o3) and (h1)-(h4) alone (no kernel checks, no device
 line); ``python3 chip_smoke.py --resilience`` runs (c1)-(c3) alone ((c3)
 on a fresh state of phase 12's config); ``python3 chip_smoke.py --tp``
-runs (t1)-(t3) alone.
+runs (t1)-(t3) alone; ``python3 chip_smoke.py --dp`` runs (d1)-(d3)
+alone.
 
 Before its last line it prints ``serving``, ``serving_tiers``,
 ``serving_resilience``, ``observability``, ``front_door``,
 ``train_resilience``, ``mega``,
-``training``, ``tp``,
+``training``, ``tp``, ``dp``,
 ``moe_training`` (with (m1)-(m4) under ``forms``), ``int8``,
 ``training_memory``, ``spec`` and ``generation`` lines (phases 4,
 (p1)-(p4), 6, 8, 12-15, (a)-(f), (s1)-(s4), (g1)-(g2)), one JSON object
@@ -431,6 +451,7 @@ is
 Without a CUDA device, or without the repository beside it, it exits 1
 and prints no result.
 """
+import functools
 import gc
 import json
 import math
@@ -6983,6 +7004,9 @@ def front_door_phases(llama, LLMEngine, build, dev, card, cfg8, params8,
 # layer 7's weights (the provenance ladder must name it) and a crash
 C1_SCHEDULE = "nan_grad@2,nan_inject:7@3,crash@5"
 C1_STEPS = 6
+# (c1)'s depth: llama-2.6b at full width, cut from 24 layers so that the
+# whole run keeps inside its time limit with (d1)-(d3)
+C1_LAYERS = 12
 
 
 def ckpt_scratch(need_bytes):
@@ -7005,8 +7029,9 @@ def ckpt_scratch(need_bytes):
 
 def resilient_train(llama, build, dev, card, phase8=None, lr=3e-5):
     """(c1) ``ResilientTrainLoop`` around ``llama.train_step`` on
-    llama-2.6b at phase 8's shape (8 x 2048, full remat, adafactor, bf16
-    params; 8 seeded token batches on the card), observability and
+    llama-2.6b at full width cut to ``C1_LAYERS`` layers, at phase 8's
+    shape otherwise (8 x 2048, full remat, adafactor, bf16 params; 8
+    seeded token batches on the card), observability and
     numerics on in both runs. A clean loop runs ``C1_STEPS`` steps with no
     checkpoint dir; a faulted one the same steps with ``ckpt_every=2``,
     ``keep=2`` under ``C1_SCHEDULE``; after the crash the newest snapshot
@@ -7026,7 +7051,8 @@ def resilient_train(llama, build, dev, card, phase8=None, lr=3e-5):
     from paddle_tpu_torch.distributed.resilience import (
         FaultInjector, ResilientTrainLoop, ResumableIterator, SimulatedCrash,
         atomic_ckpt)
-    cfg = llama_2_6b(llama)
+    import dataclasses
+    cfg = dataclasses.replace(llama_2_6b(llama), num_layers=C1_LAYERS)
     B, S, L = 8, 2048, cfg.num_layers
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     batches = [torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
@@ -7044,7 +7070,8 @@ def resilient_train(llama, build, dev, card, phase8=None, lr=3e-5):
         return ResilientTrainLoop(
             step, st, ResumableIterator(lambda e: iter(batches)), **kw)
 
-    res = {"config": "llama-2.6b (bench.py:89-92), 8 x 2048, full remat, "
+    res = {"config": f"llama-2.6b (bench.py:89-92) at full width, "
+           f"{C1_LAYERS} of its 24 layers, 8 x 2048, full remat, "
            "adafactor, bf16 params", "schedule": C1_SCHEDULE,
            "steps": C1_STEPS, "card": card}
     # the bare step: 1 warm-up and 3 timed steps, synchronized at the ends
@@ -7776,6 +7803,736 @@ def resilience_only(llama, moe, build, dev, card) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phases (d1)-(d3): data-parallel and sharded training (A10.2), two ranks
+# on the one card over gloo
+# ---------------------------------------------------------------------------
+# (d1): llama-2.6b at full width cut to D1_LAYERS layers, batch 8 x 2048;
+# (d2): DeepSeekMoE-16B's widths cut to D2_LAYERS layers (the first dense,
+# so one MoE layer), batch 4 x 2048; each mesh runs D_STEPS steps
+D1_LAYERS = 1
+D2_LAYERS = 2
+D1_BATCH = (8, 2048)
+D2_BATCH = (4, 2048)
+D_STEPS = 3
+D_LR = 3e-4
+# (dp, tp, fsdp) of each f32 mesh
+D1_MESHES = {"dp2_fsdp": (2, 1, True), "tp2": (1, 2, True),
+             "dp2_no_fsdp": (2, 1, False)}
+D2_MESHES = {"dp2_fsdp": (2, 1, True), "tp2": (1, 2, True)}
+# the bf16 recipes (phase 8's and phase 12's: adafactor, bf16 params,
+# lr 3e-5, eps2 0) on one mesh each
+D1_RECIPE_MESH = "dp2_fsdp"
+D2_RECIPE_MESH = "tp2"
+D_RECIPE = dict(optimizer="adafactor", lr=3e-5, adafactor_eps2=0.0)
+D3_ARGS = ["--size", "740m", "--dp", "2", "--batch-size", "4", "--steps",
+           "2"]
+# the bf16 recipes' loss gap to the single rank's, relative to its loss:
+# 5x the largest gap measured (3.9e-4 at a loss of 10.4: (d2) tp=2)
+D_GAP = 2e-4
+# an f32 slice element's band past 2e-5 of its leaf's largest magnitude,
+# in lr a step (d_compare): 3.9x the largest error measured (0.065 lr a
+# step: 5.82e-5 after 3 steps, (d2) tp=2)
+D_BAND = 0.25
+# B1-B3 and B9/B10 against their plain versions at the ranks' shapes (the
+# card tests' tolerances: flash out/lse absolute, its grads and the
+# grouped GEMMs relative to the plain result's largest magnitude)
+D_FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+D_GROUPED_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+D_MESHES = {}
+
+
+def d_mesh(dp, tp):
+    """The (dp, 1, tp) ``DeviceMesh`` over the two ranks (one object a
+    shape, kept in ``D_MESHES``; both ranks make them in the same
+    order)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if (dp, tp) not in D_MESHES:
+        D_MESHES[dp, tp] = DeviceMesh("cuda", torch.arange(2).reshape(
+            dp, 1, tp), mesh_dim_names=("dp", "sp", "tp"))
+    return D_MESHES[dp, tp]
+
+
+class WidthLog:
+    """The tile width each B9/B10 call resolves (``moe_dispatch._bn``,
+    read by the three wrappers), by kernel and (output width, tile);
+    :meth:`clear` before a step keeps that step's calls (the first
+    step's include the tile measurements)."""
+
+    def __init__(self):
+        from paddle_tpu_torch.kernels import moe_dispatch, moe_fused
+        self.mods, self.seen = (moe_dispatch, moe_fused), Counter()
+        self.orig = moe_dispatch._bn
+
+        def bn(b, n):
+            w = self.orig(b, n)
+            self.seen[f"{sys._getframe(1).f_code.co_name} n={n} bn={w}"] \
+                += 1
+            return w
+        for m in self.mods:
+            m._bn = bn
+
+    def clear(self):
+        self.seen.clear()
+
+    def close(self):
+        for m in self.mods:
+            m._bn = self.orig
+        return dict(self.seen)
+
+
+class NormLog:
+    """Each train step's global gradient norm (``llama.global_norm``, which
+    ``train_step`` calls on the step's whole grads, or under a mesh on its
+    slices), and with ``noise`` the elements whose gradient was f32 noise
+    around 0 in some step (nonzero and below 1e-5 of its leaf's largest:
+    the CPU tests' ``grad_noise``), a tree of bool masks on the host."""
+
+    def __init__(self, llama, noise=False):
+        from paddle_tpu_torch.optimizer.functional import tree_map
+
+        self.llama, self.orig = llama, llama.global_norm
+        self.norms, self.noise = [], None
+
+        def mark(g):
+            a = g.detach().float().abs()
+            return (a > 0) & (a < 1e-5 * a.max())
+
+        def norm(grads, plan=None):
+            out = self.orig(grads, plan)
+            self.norms.append(out.item())
+            if noise:
+                m = tree_map(mark, grads)
+                self.noise = m if self.noise is None else tree_map(
+                    torch.logical_or, self.noise, m)
+            return out
+        llama.global_norm = norm
+
+    def close(self):
+        from paddle_tpu_torch.optimizer.functional import tree_map
+
+        self.llama.global_norm = self.orig
+        if self.noise is not None:
+            self.noise = tree_map(lambda m: m.cpu(), self.noise)
+        return self.norms
+
+
+def d_steps(mod, llama, build, cfg, params0, tokens, mesh, steps, rec, *,
+            fsdp=True, optimizer="adamw", lr=D_LR, adafactor_eps2=1e-3,
+            param_dtype=torch.float32, widths=False):
+    """``steps`` sharded train steps on this rank from the whole state
+    ``params0`` (host or card) cut by ``mod.make_shardings(fsdp=)``, on
+    its rows of ``tokens``: the state, each step's loss and seconds
+    (synchronized), B1-B3/B9/B10 launches a step, the plan's collectives
+    a step by kind and bytes, the aux loss of a MoE model's rows before
+    the first step, each step's global gradient norm, and with ``widths``
+    the tile width of each B9/B10 call of the last step."""
+    from paddle_tpu_torch.optimizer.functional import init_moments, tree_map
+
+    dev = torch.device("cuda", 0)
+    sh = mod.make_shardings(cfg, mesh, fsdp=fsdp)
+    params = tree_map(lambda t: t.to(param_dtype),
+                      llama.shard_params(params0, sh, mesh, device=dev))
+    mu, nu = init_moments(params, optimizer)
+    st = llama.TrainState(params, mu, nu,
+                          torch.zeros((), dtype=torch.int32, device=dev))
+    out = {"losses": [], "step_s": [], "launches_per_step": []}
+    log_w = WidthLog() if widths else None
+    log_n = NormLog(llama)
+    try:
+        with llama.activation_mesh(mesh):
+            rows = llama.shard_batch(tokens)
+            if hasattr(cfg, "num_experts"):
+                with torch.no_grad():
+                    _, aux = mod.hidden_states_with_aux(st.params,
+                                                        rows[:, :-1], cfg)
+                out["aux"] = float(aux)
+            for _ in range(steps):
+                before = dict(build.launch_counts)
+                if log_w is not None:
+                    log_w.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, loss = mod.train_step(
+                    st, rows, cfg, lr=lr, optimizer=optimizer,
+                    adafactor_eps2=adafactor_eps2)
+                out["losses"].append(loss.item())
+                out["step_s"].append(time.perf_counter() - t0)
+                out["launches_per_step"].append({
+                    k: v - before.get(k, 0)
+                    for k, v in build.launch_counts.items()
+                    if v != before.get(k, 0)})
+            plan = llama.train_plan(cfg, st.params)
+    finally:
+        out["gnorms"] = log_n.close()
+        if log_w is not None:
+            out["tile_widths"] = log_w.close()
+    out["collectives_per_step"] = {k: v / plan.steps
+                                   for k, v in plan.counts.items()}
+    out["local_heads"] = (plan.config.num_heads, plan.config.num_kv_heads)
+    rec[0] = st
+    return out, sh
+
+
+def d_reference(mod, llama, cfg, params0, tokens, steps, *,
+                optimizer="adamw", lr=D_LR, adafactor_eps2=1e-3,
+                param_dtype=torch.float32, keep=False):
+    """The single-rank ``train_step`` on the card from the same state and
+    batch: each step's loss and global gradient norm, the aux loss before
+    it (MoE) and, with ``keep``, the final params on the host and where a
+    step's gradient was noise around 0 (:class:`NormLog`)."""
+    from paddle_tpu_torch.optimizer.functional import init_moments, tree_map
+
+    dev = torch.device("cuda", 0)
+    params = tree_map(lambda t: t.to(dev, param_dtype, copy=True), params0)
+    mu, nu = init_moments(params, optimizer)
+    st = llama.TrainState(params, mu, nu,
+                          torch.zeros((), dtype=torch.int32, device=dev))
+    out = {"losses": []}
+    if hasattr(cfg, "num_experts"):
+        with torch.no_grad():
+            out["aux"] = float(mod.hidden_states_with_aux(
+                st.params, tokens[:, :-1], cfg)[1])
+    log_n = NormLog(llama, noise=keep)
+    try:
+        for _ in range(steps):
+            st, loss = mod.train_step(st, tokens, cfg, lr=lr,
+                                      optimizer=optimizer,
+                                      adafactor_eps2=adafactor_eps2)
+            out["losses"].append(loss.item())
+    finally:
+        out["gnorms"] = log_n.close()
+    final = (tree_map(lambda t: t.to("cpu"), st.params), log_n.noise) \
+        if keep else None
+    del st, params, mu, nu, log_n
+    free_memory()
+    return out, final
+
+
+def d_compare(llama, got, want, sh, mesh, lr, steps):
+    """This rank's slices ``got`` after ``steps`` AdamW steps at ``lr``
+    against the cut of the single rank's final params and noise masks
+    ``want`` (:func:`d_reference`): per leaf the largest error over the
+    whole leaf's largest magnitude, the share of elements past 2e-5 of
+    it, and how many elements break the bound. Every element is within
+    2e-5 of its leaf's largest magnitude, or within ``D_BAND`` lr a step
+    (f32 sums in another order perturb a gradient's later steps by a
+    fraction of lr; a gradient whose direction is wrong moves elements by
+    up to 2 lr a step), or, where the single rank's gradient was noise
+    around 0 in some step (the CPU tests' rule: AdamW moves such an
+    element by up to lr a step whatever its sign), within 2 lr a step."""
+    band, cap = D_BAND * lr * steps, 2 * lr * steps
+    final, noise = want
+    rows = {}
+
+    def one(path, g, w, m, spec):
+        part = llama._cut(w, spec, mesh).to(g.device, torch.float32)
+        scale = float(w.float().abs().max())
+        err = (g.float() - part).abs()
+        off = err > 2e-5 * scale
+        noise = llama._cut(m, spec, mesh).to(g.device) & (err <= cap)
+        bad = off & (err > band) & ~noise
+        rows[path] = {"max_rel": float(err.max()) / scale,
+                      "off_share": float(off.float().mean()),
+                      "off_bound": int(bad.sum()),
+                      "max_abs": float(err.max())}
+    for k in final:
+        if isinstance(final[k], dict):
+            for n in final[k]:
+                one(f"{k}.{n}", got[k][n], final[k][n], noise[k][n],
+                    sh[k][n])
+        else:
+            one(k, got[k], final[k], noise[k], sh[k])
+    ok = all(r["off_bound"] == 0 for r in rows.values())
+    worst = max(rows.values(), key=lambda r: r["max_rel"])
+    return ok, {"worst_max_rel": worst["max_rel"],
+                "worst_off_share": max(r["off_share"]
+                                       for r in rows.values()),
+                "worst_max_abs": max(r["max_abs"] for r in rows.values()),
+                "band": band, "leaves": rows}
+
+
+def d_norm_ok(run, ref):
+    """The first step's global gradient norm (from the same params) within
+    1e-5 relative of the single rank's: a gradient off by a factor (a
+    missing 1/dp, a double reduce) moves it, where AdamW's update and the
+    clipped loss may not show it."""
+    return abs(run["gnorms"][0] - ref["gnorms"][0]) \
+        <= 1e-5 * ref["gnorms"][0]
+
+
+def d_gap(run, ref):
+    """A bf16 recipe's loss gap to the single rank's each step, held to
+    ``D_GAP`` of the single rank's loss (``gap_ok``)."""
+    run["single_rank_losses"] = ref["losses"]
+    run["single_rank_gnorms"] = ref["gnorms"]
+    run["loss_gap"] = [a - b for a, b in zip(run["losses"], ref["losses"])]
+    run["gap_ok"] = all(abs(g) <= D_GAP * abs(b)
+                        for g, b in zip(run["loss_gap"], ref["losses"]))
+
+
+def d_tokens(cfg, batch, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B, S = batch
+    return torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                         device=dev)
+
+
+def d1_rank(llama, build, rank, card):
+    """(d1) on this rank (phase docstring at :func:`dp_phases`)."""
+    import dataclasses
+
+    from paddle_tpu_torch import distributed as pd
+
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(llama_2_6b(llama), num_layers=D1_LAYERS,
+                              dtype=torch.float32)
+    params0 = llama.init_params(cfg, SEED, device=dev)
+    tokens = d_tokens(cfg, D1_BATCH, dev, SEED + 1)
+    t0 = time.perf_counter()
+    ref, final = d_reference(llama, llama, cfg, params0, tokens, D_STEPS,
+                             keep=True)
+    res = {"config": f"llama-2.6b widths (bench.py:89-92), {D1_LAYERS} "
+           f"layers, f32, full remat, adamw lr {D_LR}, batch "
+           f"{D1_BATCH[0]} x {D1_BATCH[1]}", "card": card,
+           "single_rank": ref, "single_rank_s": time.perf_counter() - t0,
+           "meshes": {}}
+    for name, (dp, tp, fsdp) in D1_MESHES.items():
+        mesh = d_mesh(dp, tp)
+        box = [None]
+        t0 = time.perf_counter()
+        run, sh = d_steps(llama, llama, build, cfg, params0, tokens, mesh,
+                          D_STEPS, box, fsdp=fsdp)
+        run["wall_s"] = time.perf_counter() - t0
+        loss_ok = all(abs(a - b) <= 1e-5 * abs(b)
+                      for a, b in zip(run["losses"], ref["losses"]))
+        ok, cmp = d_compare(llama, box[0].params, final, sh, mesh, D_LR,
+                            D_STEPS)
+        if ok:
+            cmp.pop("leaves")
+        run.update(loss_within_1e5=loss_ok, slices_ok=ok, slices=cmp,
+                   gnorm_within_1e5=d_norm_ok(run, ref))
+        res["meshes"][name] = run
+        del box
+        free_memory()
+        pd.barrier()
+    del final
+    free_memory()
+    # phase 8's recipe on one mesh beside the single rank's
+    dp, tp, fsdp = D1_MESHES[D1_RECIPE_MESH]
+    cfg16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    ref16, _ = d_reference(llama, llama, cfg16, params0, tokens, D_STEPS,
+                           param_dtype=torch.bfloat16, **D_RECIPE)
+    box = [None]
+    t0 = time.perf_counter()
+    run16, _ = d_steps(llama, llama, build, cfg16, params0, tokens,
+                       d_mesh(dp, tp), D_STEPS, box, fsdp=fsdp,
+                       param_dtype=torch.bfloat16, **D_RECIPE)
+    run16["wall_s"] = time.perf_counter() - t0
+    d_gap(run16, ref16)
+    res["recipe_bf16"] = {"mesh": D1_RECIPE_MESH, **run16}
+    del box, params0
+    free_memory()
+    pd.barrier()
+    return res
+
+
+def d2_rank(moe, llama, build, rank, card):
+    """(d2) on this rank: the single-rank f32 reference runs one rank at
+    a time (its adamw state is ~26 GB), the meshes on both."""
+    import dataclasses
+
+    from paddle_tpu_torch import distributed as pd
+
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(moe.deepseek_moe_16b(), num_layers=D2_LAYERS,
+                              dtype=torch.float32, remat=False,
+                              dispatch="fused")
+    params0 = moe.init_params(cfg, SEED, device=dev)
+    params0 = {k: ({n: t.cpu() for n, t in v.items()}
+                   if isinstance(v, dict) else v.cpu())
+               for k, v in params0.items()}
+    free_memory()
+    tokens = d_tokens(cfg, D2_BATCH, dev, SEED + 3)
+    t0 = time.perf_counter()
+    for turn in range(2):
+        if turn == rank:
+            ref, final = d_reference(moe, llama, cfg, params0, tokens,
+                                     D_STEPS, keep=True)
+        pd.barrier()
+    res = {"config": f"DeepSeekMoE-16B widths (64 experts, top-6, expert "
+           f"width 1408), {D2_LAYERS} layers (the first dense), f32, no "
+           f"remat, the fused dispatch, adamw lr {D_LR}, batch "
+           f"{D2_BATCH[0]} x {D2_BATCH[1]}", "card": card,
+           "single_rank": ref, "single_rank_s": time.perf_counter() - t0,
+           "meshes": {}}
+    for name, (dp, tp, fsdp) in D2_MESHES.items():
+        mesh = d_mesh(dp, tp)
+        box = [None]
+        t0 = time.perf_counter()
+        run, sh = d_steps(moe, llama, build, cfg, params0, tokens, mesh,
+                          D_STEPS, box, fsdp=fsdp)
+        run["wall_s"] = time.perf_counter() - t0
+        run["loss_within_1e5"] = all(
+            abs(a - b) <= 1e-5 * abs(b)
+            for a, b in zip(run["losses"], ref["losses"]))
+        run["aux_within_1e5"] = abs(run["aux"] - ref["aux"]) \
+            <= 1e-5 * abs(ref["aux"])
+        ok, cmp = d_compare(llama, box[0].params, final, sh, mesh, D_LR,
+                            D_STEPS)
+        if ok:
+            cmp.pop("leaves")
+        run.update(slices_ok=ok, slices=cmp,
+                   gnorm_within_1e5=d_norm_ok(run, ref))
+        res["meshes"][name] = run
+        del box
+        free_memory()
+        pd.barrier()
+    del final
+    free_memory()
+    dp, tp, fsdp = D2_MESHES[D2_RECIPE_MESH]
+    cfg16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    ref16, _ = d_reference(moe, llama, cfg16, params0, tokens, D_STEPS,
+                           param_dtype=torch.bfloat16, **D_RECIPE)
+    box = [None]
+    t0 = time.perf_counter()
+    run16, _ = d_steps(moe, llama, build, cfg16, params0, tokens,
+                       d_mesh(dp, tp), D_STEPS, box, fsdp=fsdp,
+                       param_dtype=torch.bfloat16, widths=True, **D_RECIPE)
+    run16["wall_s"] = time.perf_counter() - t0
+    d_gap(run16, ref16)
+    res["recipe_bf16"] = {"mesh": D2_RECIPE_MESH, **run16}
+    del box, params0
+    free_memory()
+    pd.barrier()
+    return res
+
+
+def d_kernel_shapes(llama, moe):
+    """The shapes and dtypes the (d1)/(d2) ranks give B1-B3 ((B, S, Hq,
+    Hkv, D): a rank's batch rows and heads) and B9/B10 ((T, h, f, E, k):
+    a rank's tokens and expert width), f32 on every mesh and bf16 on the
+    recipes' meshes, each with the meshes that give it."""
+    flash, grouped = {}, {}
+    for ph, c, (B, S), meshes, recipe in (
+            ("d1", llama_2_6b(llama), D1_BATCH, D1_MESHES, D1_RECIPE_MESH),
+            ("d2", moe.deepseek_moe_16b(), D2_BATCH, D2_MESHES,
+             D2_RECIPE_MESH)):
+        for name, (dp, tp, _) in meshes.items():
+            fs = (B // dp, S, c.num_heads // tp, c.num_kv_heads // tp,
+                  c.head_dim)
+            gs = (B // dp * S, c.hidden_size, c.moe_intermediate_size // tp,
+                  c.num_experts, c.top_k) if ph == "d2" else None
+            for dt in ((torch.float32, torch.bfloat16) if name == recipe
+                       else (torch.float32,)):
+                flash.setdefault((fs, dt), []).append(f"{ph} {name}")
+                if gs is not None:
+                    grouped.setdefault((gs, dt), []).append(f"{ph} {name}")
+    return flash, grouped
+
+
+def d_check_flash(tfa, dev, shape, dt):
+    """B1 forward and B2/B3 backward (causal) at ``shape`` against their
+    plain versions: the largest errors (out and lse absolute, the grads
+    relative to the plain grad's largest magnitude)."""
+    B, S, hq, hkv, D = shape
+    g = torch.Generator(device=dev).manual_seed(S + hq + B)
+    q, k, v, do = (torch.randn(sh, generator=g, device=dev).to(dt)
+                   for sh in ((B, S, hq, D), (B, S, hkv, D), (B, S, hkv, D),
+                              (B, S, hq, D)))
+    out, lse = tfa.flash_attention_fwd(q, k, v, True)
+    ref, ref_lse = tfa.flash_attention_fwd_plain(q, k, v, True)
+    err = {"flash_fwd": max(max_err(out, ref), max_err(lse, ref_lse))}
+    del ref, ref_lse
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do, True)
+    want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, do, True)
+    err["flash_dq"] = rel_err(got[0], want[0])
+    err["flash_dkv"] = max(rel_err(got[1], want[1]), rel_err(got[2], want[2]))
+    return err
+
+
+def d_check_grouped(tmdisp, tmf, dev, shape, dt):
+    """Every B9/B10 call of the fused dispatch's forward and backward at
+    ``shape`` (the tile-padded layout of a skewed top-k routing), at both
+    tile widths, against their plain versions: the largest error of each
+    kernel relative to the plain result's largest magnitude. B9's gate|up
+    (n = 2f); gmm's down projection (N = h), its dgrad (N = f) and
+    gate|up's dgrad (N = h); tgmm's gate|up and down wgrads."""
+    T, h, f, E, k = shape
+    g = torch.Generator(device=dev).manual_seed(T + f)
+    logits = torch.randn(T, E, generator=g, device=dev)
+    logits[:, 0] += 1.0
+    r = tmdisp.routing_from_logits(logits, k)
+    inv2d = tmf._inverse_permutation(r.order).reshape(T, k)
+    tok_pad, _, _, _, gs_pad = tmf._pad_layout(
+        r.gs, r.tok, r.weights.reshape(-1)[r.order], r.flat_e[r.order],
+        inv2d, E)
+    gid = tmf._tile_gids(gs_pad, tok_pad.shape[0], 128)
+    rows = tok_pad.shape[0]
+
+    def rnd(*sh, scale=1.0):
+        return (torch.randn(sh, generator=g, device=dev) * scale).to(dt)
+    x = rnd(T, h)
+    wcat, wd = rnd(E, h, 2 * f, scale=h ** -0.5), rnd(E, f, h,
+                                                      scale=f ** -0.5)
+    zw, dys, dgu = rnd(rows, f), rnd(rows, h), rnd(rows, 2 * f)
+    xs = x.index_select(0, tok_pad)
+    calls = {
+        "gather_gmm": [(tmf.gather_gmm, tmf.gather_gmm_plain,
+                        (x, tok_pad, wcat, gid))],
+        "gmm": [(tmdisp.gmm, tmdisp.gmm_plain, (zw, wd, gs_pad, False)),
+                (tmdisp.gmm, tmdisp.gmm_plain, (dys, wd, gs_pad, True)),
+                (tmdisp.gmm, tmdisp.gmm_plain, (dgu, wcat, gs_pad, True))],
+        "tgmm": [(tmdisp.tgmm, tmdisp.tgmm_plain, (xs.t(), dgu, gs_pad, dt)),
+                 (tmdisp.tgmm, tmdisp.tgmm_plain, (zw.t(), dys, gs_pad, dt))]}
+    err = {}
+    for name, runs in calls.items():
+        for kern, plain, args in runs:
+            want = plain(*args)
+            for bn in (128, 256):
+                err[name] = max(err.get(name, 0.0),
+                                rel_err(kern(*args, bn=bn), want))
+            del want
+    return err
+
+
+def d_kernel_checks(dev):
+    """B1-B3, B9 and B10 called on the card at each shape and dtype that
+    (d1)/(d2)'s ranks give them (:func:`d_kernel_shapes`: 12/4 and 8/8
+    heads at tp=2, expert width 704 at tp=2, whose last column tile is
+    ragged at both tile widths) against their plain versions within
+    ``D_FLASH_TOL``/``D_GROUPED_TOL``; raises on a miss. These launches
+    are no (d) rank's."""
+    from paddle_tpu_torch.kernels import moe_dispatch as tmdisp
+    from paddle_tpu_torch.kernels import moe_fused as tmf
+    from paddle_tpu_torch.kernels import pallas_attention as tfa
+    from paddle_tpu_torch.models import llama, moe
+
+    flash, grouped = d_kernel_shapes(llama, moe)
+    out = []
+    for table, check, tol in (
+            (flash, functools.partial(d_check_flash, tfa), D_FLASH_TOL),
+            (grouped, functools.partial(d_check_grouped, tmdisp, tmf),
+             D_GROUPED_TOL)):
+        for (shape, dt), runs in table.items():
+            err = check(dev, shape, dt)
+            free_memory()
+            row = {"shape": list(shape), "dtype": str(dt).split(".")[-1],
+                   "runs": runs, "max_err": err, "tol": tol[dt]}
+            out.append(row)
+            if any(e > tol[dt] for e in err.values()):
+                raise AssertionError(f"(d) kernel against plain: {row}")
+    return out
+
+
+def dp_rank(out_dir, card):
+    """A rank of (d1)-(d2), started by ``distributed.spawn``: the card,
+    then the gloo group (the backend the parent named), then the phases;
+    its results go to ``out_dir/rank<r>.json``."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch import distributed as pd
+    from paddle_tpu_torch.kernels import _build as build
+    from paddle_tpu_torch.models import llama, moe
+
+    pd.init_parallel_env()
+    rank = pd.get_rank()
+    build.library()          # the parent's build: no rank runs nvcc
+    res = {"rank": rank, "backend": pd.get_backend()}
+    t0 = time.perf_counter()
+    res["d1"] = d1_rank(llama, build, rank, card)
+    res["d1"]["seconds"] = time.perf_counter() - t0
+    log(f"  [rank {rank}] (d1) done in {res['d1']['seconds']:.1f} s")
+    t0 = time.perf_counter()
+    res["d2"] = d2_rank(moe, llama, build, rank, card)
+    res["d2"]["seconds"] = time.perf_counter() - t0
+    log(f"  [rank {rank}] (d2) done in {res['d2']['seconds']:.1f} s")
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    pd.barrier()
+    pd.destroy_process_group()
+
+
+def start_example():
+    """(d3)'s command started in the background: ``python -m
+    paddle_tpu_torch.examples.llama_pretrain`` with ``D3_ARGS`` under
+    ``PADDLE_DISTRI_BACKEND=gloo`` (it starts its two ranks itself; its
+    output goes to ``chip_smoke_out/llama_pretrain_dp2.log``)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "chip_smoke_out"), exist_ok=True)
+    path = os.path.join(root, "chip_smoke_out", "llama_pretrain_dp2.log")
+    f = open(path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.examples.llama_pretrain",
+         *D3_ARGS], stdout=f, stderr=subprocess.STDOUT, text=True, cwd=root,
+        env=dict(os.environ, PYTHONPATH=root, PADDLE_DISTRI_BACKEND="gloo"))
+    return proc, f, path, time.perf_counter()
+
+
+def finish_example(started, card):
+    """(d3): exit 0 and the example's loss and tokens/s lines."""
+    proc, f, path, t0 = started
+    try:
+        proc.wait(timeout=400)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        f.close()
+    secs = time.perf_counter() - t0
+    with open(path) as g:
+        out = g.read().splitlines()
+    lines = [x for x in out if x.startswith("loss ") or "tokens/s over" in x]
+    if proc.returncode != 0 or len(lines) != 2:
+        raise AssertionError(f"(d3): exit {proc.returncode}, lines {lines}, "
+                             f"tail {out[-3:]}")
+    loss = float(lines[0].split()[1])
+    if not math.isfinite(loss):
+        raise AssertionError(f"(d3): loss {loss}")
+    return {"command": "python -m paddle_tpu_torch.examples.llama_pretrain "
+            + " ".join(D3_ARGS), "backend": "gloo", "lines": lines,
+            "loss": loss, "seconds": secs, "log": path, "card": card}
+
+
+def dp_phases(build, card):
+    """(d1)-(d3). Two ranks share the one card over gloo
+    (``distributed.spawn(nprocs=2, backend="gloo")``; NCCL takes one rank
+    a device), each running ``train_step`` under ``llama.activation_mesh``
+    on its slices and rows:
+
+    (d1) llama-2.6b at full width (hidden 3072, 24/8 heads, vocab 32768,
+         full remat) cut to ``D1_LAYERS`` layers, batch 8 x 2048, f32
+         adamw: ``D_STEPS`` steps at dp=2 with fsdp, tp=2, and dp=2
+         without fsdp from the single-rank state and batch; each rank's
+         losses within 1e-5 relative of the single-rank ``train_step`` on
+         the card and its slices within the CPU tests' f32 bound (every
+         element within 2e-5 of its leaf's largest magnitude, or within
+         2 lr a step for at most one in a thousand, AdamW's noise around
+         0); then phase 8's recipe (adafactor, bf16 params, lr 3e-5) at
+         dp=2 with fsdp, its loss gap against the single rank's;
+    (d2) DeepSeekMoE-16B's widths (64 experts, top-6, width 1408) cut to
+         ``D2_LAYERS`` layers (the first dense), batch 4 x 2048, the same
+         checks at dp=2 (fsdp) and tp=2, the aux loss of each rank's rows
+         equal to the single rank's, then phase 12's recipe at tp=2 (the
+         experts' width 704 a rank), with the tile width each B9/B10 call
+         ran at;
+    (d3) ``examples/llama_pretrain.py --size 740m --dp 2 --batch-size 4
+         --steps 2`` (its full depth) prints its loss and tokens/s.
+
+    Per rank: B1-B3 (B9/B10) launches a step, the collectives a step by
+    kind and bytes, step seconds. (d3) runs beside (d1)-(d2) (its two
+    ranks and theirs share the card and the host). Processes that
+    time-share one card through host-staged collectives: the times are
+    no dp or tp speed."""
+    import tempfile
+
+    from paddle_tpu_torch import distributed as pd
+
+    out_dir = tempfile.mkdtemp(prefix="ptt_dp_")
+    log("phase (d1)-(d3): two ranks on the one card over gloo: llama-2.6b "
+        "and DeepSeekMoE-16B widths, sharded train steps against the "
+        "single rank's; beside them examples/llama_pretrain.py --size "
+        "740m --dp 2")
+    example = start_example()
+    try:
+        t0 = time.perf_counter()
+        checks = d_kernel_checks(torch.device("cuda", 0))
+        log(f"  (d) B1-B3, B9, B10 at the ranks' shapes vs plain in "
+            f"{time.perf_counter() - t0:.1f} s: "
+            f"{json.dumps([(c['runs'], c['dtype'], c['max_err']) for c in checks])}")
+        pd.spawn(dp_rank, args=(out_dir, card), nprocs=2, backend="gloo")
+    except BaseException:
+        example[0].kill()
+        example[0].wait()
+        example[1].close()
+        raise
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    if any(x["backend"] != "gloo" for x in ranks):
+        raise AssertionError(f"(d) backends {[x['backend'] for x in ranks]}")
+    summary = {"backend": "gloo", "card": card, "kernel_checks": checks}
+    for phase, kernels in (("d1", ("flash_fwd", "flash_dq", "flash_dkv")),
+                           ("d2", ("flash_fwd", "flash_dq", "flash_dkv",
+                                   "gather_gmm", "gmm", "tgmm"))):
+        rows = {"config": ranks[0][phase]["config"],
+                "single_rank": ranks[0][phase]["single_rank"],
+                "seconds_per_rank": [x[phase]["seconds"] for x in ranks],
+                "single_rank_s_per_rank": [x[phase]["single_rank_s"]
+                                           for x in ranks],
+                "meshes": {}}
+        runs = dict(ranks[0][phase]["meshes"],
+                    recipe_bf16=ranks[0][phase]["recipe_bf16"])
+        for name in runs:
+            per = [x[phase]["meshes"][name] if name != "recipe_bf16"
+                   else x[phase]["recipe_bf16"] for x in ranks]
+            launches = [{k: v for k, v in p["launches_per_step"][-1].items()
+                         if k in kernels} for p in per]
+            if not all(all(ln.get(k, 0) > 0 for k in kernels)
+                       for ln in launches):
+                raise AssertionError(f"({phase}) {name}: a rank launched "
+                                     f"none of a kernel: {launches}")
+            if per[0]["losses"] != per[1]["losses"]:
+                raise AssertionError(f"({phase}) {name}: the ranks' losses "
+                                     f"differ: {[p['losses'] for p in per]}")
+            if name != "recipe_bf16":
+                bad = [p for p in per if not (p["loss_within_1e5"]
+                                              and p["gnorm_within_1e5"]
+                                              and p["slices_ok"]
+                                              and p.get("aux_within_1e5",
+                                                        True))]
+                if bad:
+                    raise AssertionError(
+                        f"({phase}) {name}: against the single rank "
+                        f"{rows['single_rank']}: "
+                        f"{[{k: p.get(k) for k in ('losses', 'gnorms', 'aux', 'slices')} for p in bad]}")
+            elif not all(p["gap_ok"] for p in per):
+                raise AssertionError(
+                    f"({phase}) {name}: loss gap {per[0]['loss_gap']} past "
+                    f"{D_GAP} of the single rank's losses "
+                    f"{per[0]['single_rank_losses']}")
+            rows["meshes"][name] = {
+                "losses": per[0]["losses"],
+                "gnorms": per[0]["gnorms"],
+                "launches_per_step_per_rank": launches,
+                "collectives_per_step": per[0]["collectives_per_step"],
+                "step_s_per_rank": [p["step_s"] for p in per],
+                "wall_s_per_rank": [p.get("wall_s") for p in per],
+                **{k: per[0][k] for k in ("aux", "slices", "loss_gap",
+                                          "single_rank_losses",
+                                          "single_rank_gnorms",
+                                          "local_heads")
+                   if k in per[0]},
+                **({"tile_widths_per_rank": [p["tile_widths"]
+                                             for p in per]}
+                   if "tile_widths" in per[0] else {})}
+            log(f"  ({phase}) {name}: losses {per[0]['losses']} (single "
+                f"rank {per[0].get('single_rank_losses', rows['single_rank']['losses'])}); "
+                f"launches a step per rank {launches}; collectives a step "
+                f"{ {k: round(v, 1) for k, v in per[0]['collectives_per_step'].items()} }; "
+                f"gnorms {per[0]['gnorms']}; "
+                f"step s {[round(s, 2) for s in per[0]['step_s']]}")
+        summary[phase] = rows
+    summary["d3"] = finish_example(example, card)
+    log(f"  (d3): {summary['d3']['lines']} in "
+        f"{summary['d3']['seconds']:.1f} s")
+    return summary
+
+
+def dp_only(build, card) -> int:
+    """``--dp``: phases (d1)-(d3) alone, then their line; no device
+    line."""
+    dp = dp_phases(build, card)
+    log(f"total {time.perf_counter() - T0:.1f} s")
+    log(card)
+    log(json.dumps({"dp": dp}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7819,6 +8576,8 @@ def main() -> int:
         return resilience_only(llama, moe, build, dev, card)
     if sys.argv[1:] == ["--tp"]:
         return tp_only(tpa, llama, LLMEngine, build, dev, card)
+    if sys.argv[1:] == ["--dp"]:
+        return dp_only(build, card)
 
     log("phase 2: B1 flash prefill vs plain")
     check_flash(tfa, dev)
@@ -8084,6 +8843,8 @@ def main() -> int:
     shape8 = tm_res.pop("b1_b3_8b_shape")
 
     tp, tp_kernels = tp_phases(tpa, llama, LLMEngine, build, dev, card)
+    free_memory()
+    dp = dp_phases(build, card)
 
     # B5's static schedules: printed apart from the kernels line, whose
     # numbers (bound_ms aside) are measured in this run
@@ -8182,6 +8943,26 @@ def main() -> int:
              **paged["b8"]),
     ]
     kernels += tp_kernels
+    # each kernel's launches a step per rank in (d1)/(d2)'s runs, and the
+    # tile width each B9/B10 call of (d2)'s bf16 run resolved
+    for k in kernels:
+        for ph in ("d1", "d2"):
+            per = {m: [n.get(k["name"], 0)
+                       for n in row["launches_per_step_per_rank"]]
+                   for m, row in dp[ph]["meshes"].items()}
+            if any(any(v) for v in per.values()):
+                k[f"{ph}_launches_per_step_per_rank"] = per
+        errs = {f"{'/'.join(row['runs'])} {row['dtype']}":
+                row["max_err"][k["name"]] for row in dp["kernel_checks"]
+                if k["name"] in row["max_err"]}
+        if errs:
+            k["d_max_err_vs_plain"] = errs
+        if k["name"] in ("gather_gmm", "gmm", "tgmm"):
+            k["d2_tile_widths_per_rank"] = [
+                {w: n for w, n in widths.items()
+                 if w.startswith(k["name"] + " ")}
+                for widths in dp["d2"]["meshes"]["recipe_bf16"]
+                ["tile_widths_per_rank"]]
     tier_launches["c1_faulted"] = c_launches
     tier_launches["c3_moe_forward"] = c3_launches
     # each kernel's launches in the runs of phases (p1)-(p3), (r1)-(r3),
@@ -8207,6 +8988,7 @@ def main() -> int:
     log(json.dumps({"front_door": front}))
     log(json.dumps({"train_resilience": train_resilience}))
     log(json.dumps({"tp": tp}))
+    log(json.dumps({"dp": dp}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,11 +17,15 @@ loaded on first use, so importing the package (or its torch-free
 ``watchdog`` and ``resilience`` modules) does not load
 ``torch.distributed``.
 
-Not ported yet: data parallel and sharded training (ROADMAP A10.2),
-pipeline (A10.3), context parallel (A10.4), expert parallel (A10.5), and
-the sharded checkpoint, launch, ps and rpc (A10.6) — among them
-``distributed.checkpoint``, which re-exports the atomic checkpoint API
-beside the sharded checkpoint.
+- :mod:`parallel`: ``DataParallel`` over a ``torch.nn.Module`` (the
+  sharded functional train steps live with the models:
+  ``models.llama.activation_mesh``).
+
+Not ported yet: ``auto_parallel``, ``shard_utils`` and ``sharding``
+(ROADMAP A10.2b), pipeline (A10.3), context parallel (A10.4), expert
+parallel (A10.5), and the sharded checkpoint, launch, ps and rpc (A10.6)
+— among them ``distributed.checkpoint``, which re-exports the atomic
+checkpoint API beside the sharded checkpoint.
 """
 import importlib
 
@@ -36,10 +40,11 @@ _EXPORTS = {
                    "new_group", "recv", "reduce", "reduce_scatter",
                    "scatter", "scatter_object_list", "send", "wait"),
     "store": ("TCPStore",),
+    "parallel": ("DataParallel",),
 }
 _NAME_TO_MODULE = {n: m for m, names in _EXPORTS.items() for n in names}
 _SUBMODULES = ("env", "collective", "communication", "store", "fleet",
-               "resilience", "watchdog")
+               "resilience", "watchdog", "parallel")
 
 __all__ = sorted(_NAME_TO_MODULE) + ["spawn", "stream"] + list(_SUBMODULES)
 

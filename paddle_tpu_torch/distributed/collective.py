@@ -21,9 +21,17 @@ all-reduce / all-gather), ``reduce_scatter`` takes the list form, and
 ``all_reduce``, ``all_gather``, ``broadcast`` and point-to-point for the
 tensor ops (gloo does on the CPU and on CUDA tensors); ``all_to_all`` rides
 ``all_to_all_single``.
+
+:data:`traffic` counts every collective this process took part in, by
+kind (``all_reduce``, ``all_gather``, ``broadcast``, ``reduce_scatter``,
+``all_to_all``) and its payload bytes under ``<kind>_bytes`` (this rank's
+input; ``broadcast`` the tensor). :func:`all_gather_dim` and
+:func:`reduce_scatter_dim` are the sharded train step's gather and
+reduce-scatter along a tensor dim.
 """
 from __future__ import annotations
 
+import collections
 from typing import List, Optional
 
 import torch
@@ -37,7 +45,18 @@ __all__ = ["ReduceOp", "Group", "new_group", "get_group", "is_available",
            "reduce", "scatter", "reduce_scatter", "all_to_all", "alltoall",
            "alltoall_single", "send", "recv", "isend", "irecv", "barrier",
            "wait", "destroy_process_group", "get_backend", "gather",
-           "broadcast_object_list", "scatter_object_list"]
+           "broadcast_object_list", "scatter_object_list",
+           "all_gather_dim", "reduce_scatter_dim", "traffic"]
+
+
+# every collective of this process: calls and payload bytes by kind
+traffic: collections.Counter = collections.Counter()
+
+
+def _count(kind: str, tensor=None) -> None:
+    traffic[kind] += 1
+    if tensor is not None:
+        traffic[kind + "_bytes"] += tensor.numel() * tensor.element_size()
 
 
 class ReduceOp:
@@ -166,6 +185,7 @@ def all_reduce(tensor: torch.Tensor, op=ReduceOp.SUM,
     """Reduce ``tensor`` over the group, in place; returns it."""
     if _skip(group):
         return tensor
+    _count("all_reduce", tensor)
     with _guarded("allreduce_rendezvous"):
         dist.all_reduce(tensor, getattr(dist.ReduceOp, _TORCH_OP[op]),
                         group=_pg(group))
@@ -181,6 +201,7 @@ def all_reduce(tensor: torch.Tensor, op=ReduceOp.SUM,
 def _gather_list(tensor, group):
     outs = [torch.empty_like(tensor)
             for _ in range((group or _get_default_group()).nranks)]
+    _count("all_gather", tensor)
     # every eager rendezvous is watchdog-guarded here, one level below the
     # public API (distributed/watchdog.py)
     with _guarded("allgather_rendezvous"):
@@ -213,6 +234,7 @@ def broadcast(tensor: torch.Tensor, src: int = 0,
     """``tensor`` of global rank ``src`` to every member, in place."""
     if _skip(group):
         return tensor
+    _count("broadcast", tensor)
     with _guarded("broadcast_rendezvous"):
         dist.broadcast(tensor, src, group=_pg(group))
     return tensor
@@ -260,6 +282,99 @@ def reduce_scatter(tensor: torch.Tensor, tensor_list: List[torch.Tensor],
     return tensor
 
 
+def _exchange(sends, group: Group):
+    """Point-to-point exchange with every other member: ``sends[j]`` (this
+    rank's tensor for group rank ``j``; this rank's own entry unused) goes
+    to member j, and member j's tensor for this rank comes back as
+    ``out[j]`` (``out[rank]`` None), on the sends' device. CUDA tensors
+    are staged through pinned host memory (a backend such as gloo carries
+    host buffers between processes); every send and receive is posted
+    before any is waited on."""
+    me = group.rank
+    dev = next(t for j, t in enumerate(sends) if j != me).device
+    staged = {}
+    for j, t in enumerate(sends):
+        if j == me:
+            continue
+        t = t.contiguous()
+        if t.is_cuda:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            staged[j] = h.copy_(t, non_blocking=True)
+        else:
+            staged[j] = t
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+    recv = {j: torch.empty(t.shape, dtype=t.dtype,
+                           pin_memory=dev.type == "cuda")
+            for j, t in staged.items()}
+    with _guarded("exchange_rendezvous"):
+        works = []
+        for j in sorted(staged):
+            peer = group.ranks[j]
+            works.append(dist.isend(staged[j], peer, group=_pg(group)))
+            works.append(dist.irecv(recv[j], peer, group=_pg(group)))
+        for w in works:
+            w.wait()
+    return [None if j == me else recv[j].to(dev, non_blocking=True)
+            for j in range(group.nranks)]
+
+
+def all_gather_dim(tensor: torch.Tensor, dim: int,
+                   group: Optional[Group] = None) -> torch.Tensor:
+    """Every member's ``tensor`` concatenated along ``dim`` in group rank
+    order (a new tensor). NCCL runs ``all_gather_into_tensor``; another
+    backend exchanges the blocks point to point (:func:`_exchange`: CUDA
+    tensors staged through pinned host memory, which gloo's own all-gather
+    of CUDA tensors runs at half the rate of on one host)."""
+    if _skip(group):
+        return tensor.contiguous()
+    g = group or _get_default_group()
+    _count("all_gather", tensor)
+    if dist.get_backend(_pg(group)) == "nccl":
+        src = tensor.movedim(dim, 0).contiguous()
+        out = torch.empty((g.nranks * src.shape[0],) + tuple(src.shape[1:]),
+                          dtype=tensor.dtype, device=tensor.device)
+        with _guarded("allgather_rendezvous"):
+            dist.all_gather_into_tensor(out, src, group=_pg(group))
+        return out.movedim(0, dim).contiguous()
+    got = _exchange([tensor] * g.nranks, g)
+    return torch.cat([tensor if t is None else t for t in got], dim)
+
+
+def reduce_scatter_dim(tensor: torch.Tensor, dim: int,
+                       group: Optional[Group] = None) -> torch.Tensor:
+    """This member's block of the sum over the group of ``tensor``, cut in
+    ``nranks`` equal blocks along ``dim`` (group rank order): a new
+    contiguous tensor. NCCL runs ``reduce_scatter_tensor``; another
+    backend (gloo has no reduce-scatter) sends each member its block point
+    to point (:func:`_exchange`) and sums the blocks it gets in group rank
+    order."""
+    if _skip(group):
+        return tensor.contiguous()
+    g = group or _get_default_group()
+    n = g.nranks
+    if tensor.shape[dim] % n:
+        raise ValueError(f"dim {dim} of shape {tuple(tensor.shape)} does "
+                         f"not split {n} ways")
+    _count("reduce_scatter", tensor)
+    w = tensor.shape[dim] // n
+    if dist.get_backend(_pg(group)) == "nccl":
+        src = tensor.movedim(dim, 0).contiguous()
+        out = torch.empty((w,) + tuple(src.shape[1:]), dtype=tensor.dtype,
+                          device=tensor.device)
+        with _guarded("reduce_scatter_rendezvous"):
+            dist.reduce_scatter_tensor(out, src, group=_pg(group))
+        return out.movedim(0, dim).contiguous()
+    blocks = list(tensor.split(w, dim))
+    got = _exchange(blocks, g)
+    out = None
+    for j in range(n):
+        part = blocks[j] if j == g.rank else got[j]
+        out = part.clone(memory_format=torch.contiguous_format) \
+            if out is None else out.add_(part)
+    return out
+
+
 def all_to_all(out_tensor_list: List[torch.Tensor],
                in_tensor_list: List[torch.Tensor],
                group: Optional[Group] = None, sync_op: bool = True):
@@ -299,6 +414,7 @@ def alltoall_single(out_tensor, in_tensor, in_split_sizes=None,
     if _skip(group):
         out_tensor.copy_(in_tensor)
         return out_tensor
+    _count("all_to_all", in_tensor)
     with _guarded("alltoall_rendezvous"):
         dist.all_to_all_single(out_tensor, in_tensor.contiguous(),
                                output_split_sizes=out_split_sizes,
@@ -419,6 +535,7 @@ def broadcast_object_list(object_list, src=0, group=None):
     """parity: communication/broadcast.py broadcast_object_list."""
     if _skip(group):
         return
+    _count("broadcast_object")
     with _guarded("broadcast_object_rendezvous"):
         dist.broadcast_object_list(object_list, src, group=_pg(group))
 

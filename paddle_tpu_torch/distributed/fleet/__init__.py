@@ -11,10 +11,15 @@ fleet/base/distributed_strategy.py:1892-1931), a dp degree left at 1 (or
 :class:`~.topology.HybridCommunicateGroup` creates every axis's process
 groups on every rank.
 
-Not ported yet: ``distributed_model`` and ``distributed_optimizer``
-(data parallel and sharded training, ROADMAP A10.2) and the
-parameter-server half (``init_server``, ``run_server``, ``init_worker``,
-``stop_worker``; A10.6); each raises naming its item.
+``distributed_model`` wraps a model by the hybrid group's sizes (pipe
+first: ``PipelineParallel``, which raises naming ROADMAP A10.3; then model
+parallel: ``TensorParallel``; then data parallel: ``DataParallel`` over
+the data-parallel group) and ``distributed_optimizer`` in a
+``HybridParallelOptimizer``, as the reference's fleet.py does.
+
+Not ported yet: the parameter-server half (``init_server``,
+``run_server``, ``init_worker``, ``stop_worker``; A10.6), which raises
+naming its item.
 """
 from __future__ import annotations
 
@@ -129,10 +134,35 @@ class _Fleet:
         return os.environ.get("PADDLE_TRAINER_ENDPOINTS", "").split(",")
 
     def distributed_model(self, model):
-        _unported("distributed_model", "A10.2")
+        """parity: fleet/model.py:33 — ``model`` wrapped by the hybrid
+        group's sizes (as it is before ``init`` or on one rank)."""
+        from ..parallel import DataParallel
+        from .meta_parallel import PipelineParallel, TensorParallel
+
+        hcg = self._hcg
+        if hcg is None:
+            return model
+        if hcg.get_pipe_parallel_world_size() > 1:
+            if not isinstance(model, PipelineParallel):
+                model = PipelineParallel(model, hcg, self._strategy)
+            return model
+        if hcg.get_model_parallel_world_size() > 1:
+            return TensorParallel(model, hcg, self._strategy)
+        if hcg.get_data_parallel_world_size() > 1:
+            return DataParallel(model, group=hcg.get_data_parallel_group())
+        return model
 
     def distributed_optimizer(self, optimizer, strategy=None):
-        _unported("distributed_optimizer", "A10.2")
+        """parity: fleet.py:1448 — ``optimizer`` in a
+        ``HybridParallelOptimizer`` (as it is before ``init``)."""
+        from .hybrid_optimizer import HybridParallelOptimizer
+
+        self._user_defined_optimizer = optimizer
+        if self._hcg is None:
+            return optimizer
+        return HybridParallelOptimizer(
+            optimizer, self._hcg,
+            strategy or self._strategy or DistributedStrategy())
 
     # -- parameter-server mode (ROADMAP A10.6) ------------------------------
     def is_server(self):

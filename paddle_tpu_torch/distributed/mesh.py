@@ -9,12 +9,16 @@ of a sharded tensor and runs the same program on it; :func:`axis_size` and
 :class:`PartitionSpec` is the port's own small copy of jax's: a tuple with
 one entry per tensor dim — ``None`` (whole), a mesh dim name, or a tuple of
 names — used by ``models.llama``'s sharding recipe and ``shard_params``.
+:func:`axis_group` is the port's ``collective.Group`` over a mesh dim's
+process group (the ranks that differ only along it), and :func:`spec_axes`
+the mesh dims a spec entry names.
 """
 from __future__ import annotations
 
 from collections.abc import Mapping
 
-__all__ = ["PartitionSpec", "P", "axis_size", "axis_rank", "is_mesh"]
+__all__ = ["PartitionSpec", "P", "axis_size", "axis_rank", "is_mesh",
+           "axis_group", "spec_axes"]
 
 
 class PartitionSpec(tuple):
@@ -65,3 +69,31 @@ def axis_rank(mesh, name: str) -> int:
         return 0
     names = _names(mesh)
     return int(mesh.get_local_rank(name)) if name in names else 0
+
+
+def spec_axes(entry) -> tuple:
+    """The mesh dim names of one spec entry (``None``, a name or a tuple
+    of names)."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+_GROUPS: dict = {}
+
+
+def axis_group(mesh, name: str):
+    """The ``collective.Group`` of this rank along mesh dim ``name``: its
+    members' global ranks and the dim's torch process group (one object
+    per (mesh, dim), kept for the process's life)."""
+    key = (id(mesh), name)
+    g = _GROUPS.get(key)
+    if g is None or g[0] is not mesh:
+        import torch.distributed as dist
+
+        from .collective import Group
+
+        pg = mesh.get_group(name)
+        g = _GROUPS[key] = (mesh, Group(dist.get_process_group_ranks(pg),
+                                        pg))
+    return g[1]

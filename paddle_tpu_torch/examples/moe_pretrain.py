@@ -12,17 +12,26 @@ It builds random weights from a seed and one random token batch, runs
 ``moe.train_step`` ``--steps`` times on that batch and prints every
 step's loss and the tokens/s of the steps after the first (which builds
 the kernels). ``--size tiny`` runs ``moe.tiny_moe()``; ``--device cpu``
-runs the kernels' plain versions. Meshes (``--dp/--ep/--tp`` above 1)
-are not ported yet and raise.
+runs the kernels' plain versions.
+
+``--dp``/``--tp`` above 1 run on ``dp * tp`` ranks, as
+``examples/llama_pretrain.py`` does (spawned unless launched; the backend
+from ``PADDLE_DISTRI_BACKEND``): each rank builds the (dp, 1, tp) mesh,
+its slices with ``moe.init_sharded_train_state`` and its rows of one
+global batch, and runs ``moe.train_step`` under ``llama.activation_mesh``
+(each expert split over tp). ``--ep`` above 1 (expert parallelism,
+ROADMAP A10.5) is not ported yet and raises.
 """
 import argparse
 import dataclasses
-import time
 
 import torch
 
 from paddle_tpu_torch.device import resolve_device
-from paddle_tpu_torch.models import moe
+from paddle_tpu_torch.examples.llama_pretrain import (on_mesh, rank_mesh,
+                                                      report_mesh,
+                                                      timed_steps)
+from paddle_tpu_torch.models import llama, moe
 
 SIZES = {"tiny": moe.tiny_moe, "16b": moe.deepseek_moe_16b}
 
@@ -50,17 +59,46 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    mesh = {k: getattr(args, k) for k in ("dp", "ep", "tp")}
-    if any(n > 1 for n in mesh.values()):
-        raise NotImplementedError(
-            f"device meshes ({mesh}) are not ported yet (ROADMAP A10)")
-    dev = resolve_device(args.device)
+def config(args):
     cfg = SIZES[args.size]()
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
-    seq = args.seq or cfg.max_seq_len
+    return cfg, args.seq or cfg.max_seq_len
+
+
+def mesh_rank(argv):
+    """One rank of the ``--dp``/``--tp`` run (module docstring)."""
+    args = parse_args(argv)
+    dev, mesh = rank_mesh(args)
+    cfg, seq = config(args)
+    state = moe.init_sharded_train_state(
+        cfg, 0, moe.make_shardings(cfg, mesh, fsdp=True),
+        optimizer=args.optimizer,
+        param_dtype=torch.bfloat16 if args.bf16_params else torch.float32,
+        device=dev, mesh=mesh)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (args.batch_size, seq + 1),
+                           generator=gen, device=dev)
+    with llama.activation_mesh(mesh):
+        rows = llama.shard_batch(tokens)
+        _, losses, dt = timed_steps(
+            lambda st: moe.train_step(st, rows, cfg, lr=args.lr,
+                                      optimizer=args.optimizer,
+                                      adafactor_eps2=args.adafactor_eps2),
+            state, args.steps, dev)
+    return report_mesh(args, seq, losses, dt, args.dp * args.tp)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.ep > 1:
+        raise NotImplementedError(
+            "expert parallelism (--ep > 1) is not ported yet "
+            "(ROADMAP A10.5)")
+    if args.dp * args.tp > 1:
+        return on_mesh(args, argv, mesh_rank)
+    dev = resolve_device(args.device)
+    cfg, seq = config(args)
     state = moe.init_train_state(
         cfg, 0, optimizer=args.optimizer,
         param_dtype=torch.bfloat16 if args.bf16_params else torch.float32,
@@ -69,24 +107,13 @@ def main(argv=None):
     tokens = torch.randint(0, cfg.vocab_size, (args.batch_size, seq + 1),
                            generator=gen, device=dev)
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
     def step(st):
         return moe.train_step(st, tokens, cfg, lr=args.lr,
                               optimizer=args.optimizer,
                               adafactor_eps2=args.adafactor_eps2)
 
-    state, loss = step(state)
-    losses = [loss]
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(args.steps - 1):
-        state, loss = step(state)
-        losses.append(loss)
-    sync()
-    dt = time.perf_counter() - t0
+    state, losses, dt = timed_steps(step, state, args.steps, dev)
+    loss = losses[-1]
     print(f"losses {[round(x.item(), 4) for x in losses]}")
     print(f"loss {loss.item():.4f}")
     if args.steps > 1:

@@ -110,8 +110,11 @@ class Routing(NamedTuple):
     gs: torch.Tensor        # [E] int32 per-expert assignment counts
 
 
-def routing_from_logits(logits, top_k: int) -> Routing:
-    """Gating and sort metadata from router logits (f32)."""
+def routing_from_logits(logits, top_k: int, global_mean=None) -> Routing:
+    """Gating and sort metadata from router logits (f32). ``global_mean``
+    (sharded training: the mean over the data-parallel ranks) takes the
+    per-expert ``mean(probs)`` and top-1 ``mean(onehot)`` before their
+    product, so the aux loss is the global batch's."""
     probs = torch.softmax(logits.float(), dim=-1)                 # [T, E]
     weights, idx = torch.topk(probs, top_k, dim=-1)               # [T, k]
     weights = weights / weights.sum(-1, keepdim=True)
@@ -124,12 +127,14 @@ def routing_from_logits(logits, top_k: int) -> Routing:
     me = probs.mean(0)
     # rows 0, k, 2k, ... of the flat one-hot are the top-1 assignments
     ce = onehot.reshape(T, top_k, E)[:, 0].float().mean(0)
+    if global_mean is not None:
+        me, ce = global_mean(me), global_mean(ce)
     aux = E * (me * ce).sum()
     order = torch.argsort(flat_e, stable=True)
     return Routing(weights, idx, aux, order, order // top_k, flat_e, gs)
 
 
-def fused_routing(x, router_w, top_k: int) -> Routing:
+def fused_routing(x, router_w, top_k: int, global_mean=None) -> Routing:
     """The dispatch prologue: the f32 router matmul, then
     :func:`routing_from_logits`. With numerics on, the router logits are
     probed (``moe.router_logits``): a diverging router is the classic MoE
@@ -138,7 +143,7 @@ def fused_routing(x, router_w, top_k: int) -> Routing:
     again, as the reference's remat'd bodies do."""
     logits = x.float() @ router_w.float()
     _numerics.record_stats("moe.router_logits", logits)
-    return routing_from_logits(logits, top_k)
+    return routing_from_logits(logits, top_k, global_mean)
 
 
 # ---------------------------------------------------------------------------

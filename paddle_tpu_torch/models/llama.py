@@ -38,7 +38,7 @@ gradient accumulation and the optimizers of ``optimizer/functional.py``;
 ``remat`` recomputes each layer in the backward pass
 (``torch.utils.checkpoint``; selective for the "dots" and "attn"
 policies). Context parallelism and pipeline schedules raise
-``NotImplementedError`` (ROADMAP A10.3, A10.4).
+``NotImplementedError`` (ROADMAP A10.4, A10.3).
 
 Sharding (the reference's Megatron recipe): :func:`param_specs`,
 :func:`make_shardings`, :func:`make_serving_shardings` (int8 leaves: ``q``
@@ -49,6 +49,16 @@ axis that does not divide its dim, warning once); :func:`shard_params`
 cuts a whole tree to the calling rank's slices; :func:`make_mesh` builds
 the mesh over the job's ranks; :class:`TPPlan` holds the collectives the
 tensor-parallel serving programs run.
+
+Sharded training (data parallel with fsdp, and tensor parallel, over a
+(dp, sp, tp) ``DeviceMesh``; one process a device): under
+:class:`activation_mesh` every training function takes this rank's
+slices of the state (:func:`init_sharded_train_state`,
+:func:`put_train_state`) and its rows of the batch (:func:`shard_batch`)
+and meets the other ranks through the collectives of a
+:class:`TrainPlan` (:func:`train_plan`): each step's loss, gradients,
+global norm and update are the global batch's. ``sp`` > 1 raises naming
+ROADMAP A10.4, ``pp`` > 1 A10.3, ``ep`` > 1 A10.5.
 """
 from __future__ import annotations
 
@@ -57,7 +67,7 @@ import dataclasses
 import functools
 import math
 import re
-from typing import Any, Dict
+from typing import Any, Callable, Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -65,13 +75,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
-from ..distributed.mesh import P, axis_rank, axis_size
+from ..distributed.mesh import P, axis_group, axis_rank, axis_size, spec_axes
 from ..kernels.pallas_attention import flash_attention
 from ..kernels.quant_matmul import _slices, is_quantized_weight
 from ..kernels.quant_matmul import weight_only_matmul as _wo_mm
 from ..observability import numerics as _numerics
-from ..optimizer.functional import (init_moments, optimizer_update,
-                                    tree_leaves, tree_map)
+from ..optimizer.functional import (init_moments, moment_shardings,
+                                    optimizer_update, tree_leaves, tree_map)
 
 __all__ = ["LlamaConfig", "llama3_8b", "tiny_llama", "draft_config",
            "init_params",
@@ -84,7 +94,9 @@ __all__ = ["LlamaConfig", "llama3_8b", "tiny_llama", "draft_config",
            "to_hf_state_dict", "export_for_inference", "param_specs",
            "act_spec", "mesh_shape", "make_mesh", "make_shardings",
            "make_serving_shardings", "make_replicated_shardings",
-           "shard_params", "TPPlan"]
+           "shard_params", "TPPlan", "activation_mesh", "TrainPlan",
+           "train_plan", "shard_batch", "init_sharded_train_state",
+           "put_train_state"]
 
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
               "w_up", "w_down")
@@ -113,7 +125,7 @@ class LlamaConfig:
     # kept for the JAX package's configs; attention always runs through
     # the flash kernels (module docstring)
     use_flash: bool = True
-    # not ported (ROADMAP A10): raise NotImplementedError when set
+    # not ported (ROADMAP A10.4, A10.3): raise NotImplementedError when set
     context_parallel: bool = False
     pipeline_microbatches: int = 0
     pipeline_chunks: int = 1
@@ -167,13 +179,13 @@ def _check_supported(c) -> None:
     if c.context_parallel:
         raise NotImplementedError(
             "context_parallel (ring attention over an 'sp' mesh axis) is "
-            "not ported yet (ROADMAP A10)")
+            "not ported yet (ROADMAP A10.4)")
     if getattr(c, "pipeline_microbatches", 0) > 0 \
             or getattr(c, "pipeline_chunks", 1) != 1 \
             or getattr(c, "pipeline_schedule", "gpipe") != "gpipe":
         raise NotImplementedError(
             "pipeline schedules (GPipe, 1F1B, ZB, VPP chunks) are not "
-            "ported yet (ROADMAP A10)")
+            "ported yet (ROADMAP A10.3)")
 
 
 def _shapes(c: LlamaConfig):
@@ -608,6 +620,436 @@ class TPPlan:
 
 
 # ---------------------------------------------------------------------------
+# sharded training: one process a device, each holding its slices
+# ---------------------------------------------------------------------------
+
+_ACT_MESH = None
+
+
+class activation_mesh:
+    """Context declaring the ``DeviceMesh`` (dims among ``dp``, ``sp``,
+    ``tp``, ``pp``, ``ep``) that the training functions run under — the
+    reference's ``_ACT_MESH``, read by :func:`hidden_states`,
+    :func:`forward`, :func:`loss_fn`, :func:`loss_and_grads`,
+    :func:`train_step` and MoE's. Under it every rank passes its own slices
+    of the parameters (:func:`put_train_state`,
+    :func:`init_sharded_train_state`) and of the batch
+    (:func:`shard_batch`), and the functions meet the other ranks in real
+    collectives (:class:`TrainPlan`). ``sp`` > 1 (context parallelism)
+    raises naming ROADMAP A10.4, ``pp`` > 1 (pipelines) A10.3 and ``ep``
+    > 1 (expert parallelism) A10.5."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.plans: Dict[Any, "TrainPlan"] = {}
+
+    def __enter__(self):
+        global _ACT_MESH
+        self._prev, _ACT_MESH = _ACT_MESH, self
+        return self.mesh
+
+    def __exit__(self, *exc):
+        global _ACT_MESH
+        _ACT_MESH = self._prev
+
+
+def _active_mesh(mesh=None):
+    if mesh is not None:
+        return mesh
+    if _ACT_MESH is None or _ACT_MESH.mesh is None:
+        raise ValueError("no mesh: pass mesh= or run under "
+                         "llama.activation_mesh(mesh)")
+    return _ACT_MESH.mesh
+
+
+class _TrainRecipe(NamedTuple):
+    """What the sharded train path needs to know of a model: its
+    ``_shapes`` and ``make_shardings``, and ``tp_mlp(config, shardings,
+    tp)`` -> (whether tp splits its MLP, the rank's FFN width as config
+    fields)."""
+
+    shapes: Callable
+    make_shardings: Callable
+    tp_mlp: Callable
+
+
+def _tp_mlp(config, shardings, tp):
+    mlp = shardings["layers"]["w_gate"][-1] == "tp"
+    return mlp, dict(intermediate_size=config.intermediate_size
+                     // (tp if mlp else 1))
+
+
+# the recipe of each config class; a model module built on this one adds
+# its own (moe's MoEConfig)
+_TRAIN_RECIPES: Dict[type, _TrainRecipe] = {
+    LlamaConfig: _TrainRecipe(_shapes, make_shardings, _tp_mlp)}
+
+
+def _train_recipe(config) -> _TrainRecipe:
+    recipe = _TRAIN_RECIPES.get(type(config))
+    if recipe is None:
+        raise ValueError(f"{type(config).__name__} has no sharded-training "
+                         "recipe (a model registers one in "
+                         "llama._TRAIN_RECIPES)")
+    return recipe
+
+
+def _check_mesh(mesh) -> None:
+    """Raise for a mesh dim whose parallelism is not ported."""
+    for ax, item, what in (("sp", "A10.4", "context parallelism"),
+                           ("pp", "A10.3", "pipeline parallelism"),
+                           ("ep", "A10.5", "expert parallelism")):
+        if axis_size(mesh, ax) > 1:
+            raise NotImplementedError(
+                f"{what} (a mesh with {ax} > 1) is not ported yet "
+                f"(ROADMAP {item})")
+
+
+def _local_shape(shape, spec, mesh):
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        for nm in spec_axes(entry):
+            out[d] //= axis_size(mesh, nm)
+    return tuple(out)
+
+
+def _infer_shardings(recipe, config, params, mesh):
+    """The fitted spec tree (fsdp on, else off) whose slices have the
+    shapes of ``params`` on ``mesh``."""
+    top, layers = recipe.shapes(config)
+    whole = dict({k: v[0] for k, v in top.items()},
+                 layers={k: v[0] for k, v in layers.items()})
+    got = tree_map(lambda t: tuple(t.shape), params)
+    for fsdp in (True, False):
+        sh = recipe.make_shardings(config, mesh, fsdp=fsdp)
+        want = tree_map(lambda shape, spec: _local_shape(shape, spec, mesh),
+                        whole, sh)
+        if want == got:
+            return sh
+    raise ValueError(
+        "the parameters are not this rank's slices under the active mesh "
+        f"(shapes {got}); cut them with put_train_state or build them with "
+        "init_sharded_train_state")
+
+
+def train_plan(config, params):
+    """The :class:`TrainPlan` of the active :class:`activation_mesh` for
+    ``config`` and the slices in ``params`` (their shapes say whether
+    fsdp splits them), made once and kept by the context; None with no
+    mesh active."""
+    ctx = _ACT_MESH
+    if ctx is None or ctx.mesh is None:
+        return None
+    _check_mesh(ctx.mesh)
+    key = (config, tuple(tuple(t.shape) for t in tree_leaves(params)))
+    plan = ctx.plans.get(key)
+    if plan is None:
+        recipe = _train_recipe(config)
+        plan = ctx.plans[key] = TrainPlan(
+            ctx.mesh, config,
+            _infer_shardings(recipe, config, params, ctx.mesh),
+            recipe.tp_mlp)
+    return plan
+
+
+class _FsdpGather(torch.autograd.Function):
+    """fsdp: a weight's ``dp``-split dim gathered whole before its use;
+    the backward reduce-scatters the gradient over ``dp`` (every rank's
+    contribution summed, this rank's block kept)."""
+
+    @staticmethod
+    def forward(ctx, w, dim, group):
+        from ..distributed.collective import all_gather_dim
+
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(w, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..distributed.collective import reduce_scatter_dim
+
+        return reduce_scatter_dim(g, ctx.dim, ctx.group), None, None
+
+
+class _DpMean(torch.autograd.Function):
+    """The mean over the ``dp`` group of a tensor each rank computed from
+    its batch rows; the adjoint is the same mean of the gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from ..distributed.collective import ReduceOp, all_reduce
+
+        ctx.group = group
+        return all_reduce(x.detach().clone(), ReduceOp.AVG, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..distributed.collective import ReduceOp, all_reduce
+
+        return all_reduce(g.contiguous().clone(), ReduceOp.AVG,
+                          ctx.group), None
+
+
+class _LayerWeights:
+    """One layer's weights under a :class:`TrainPlan`: each read gathers
+    the weight's ``dp``-split dim (once a layer call; again in a
+    recompute), so a layer whose body skips a weight (a MoE model's dense
+    layers skip the experts) moves none of it."""
+
+    def __init__(self, plan, p):
+        self.plan, self.p, self.got = plan, p, {}
+
+    def __getitem__(self, k):
+        if k not in self.got:
+            spec = self.plan.shardings["layers"][k]
+            self.got[k] = self.plan.gather(self.p[k], P(*spec[1:]))
+        return self.got[k]
+
+
+class TrainPlan:
+    """Where the sharded train step meets the other ranks of its mesh
+    (``dp`` x ``tp``; ``shardings`` is the fitted spec tree of the
+    parameters, from :func:`make_shardings` or moe's):
+
+    - fsdp: a weight whose spec names ``dp`` is gathered whole over ``dp``
+      (:class:`_FsdpGather`, a layer at a time inside the layer's body, so
+      a recompute gathers again) and its gradient reduce-scattered back;
+      every other leaf's gradient is all-reduced over ``dp``
+      (:meth:`reduce_grads`). Each rank's loss is its rows' mean divided
+      by ``dp``, so the sums are the global batch's gradient.
+    - tp (Megatron, the mpu ops): column-parallel inputs through
+      ``_c_identity`` (:meth:`enter`), row-parallel outputs through
+      ``_mp_allreduce`` (:meth:`exit`), the vocab-parallel embedding
+      (``_c_lookup_table`` and an all-reduce), the vocab-split logits into
+      ``_c_softmax_with_cross_entropy``. The attention heads must be split.
+    - the global norm counts each distinct slice once
+      (:meth:`global_norm`).
+
+    ``tp_mlp`` is the model's (:class:`_TrainRecipe`); ``config`` is the
+    rank's own (its heads and FFN widths); ``counts``
+    holds the collectives of the steps run under the plan by kind, and
+    their bytes (``<kind>_bytes``), over ``steps`` steps."""
+
+    def __init__(self, mesh, config, shardings, tp_mlp=_tp_mlp):
+        _check_mesh(mesh)
+        self.mesh, self.shardings = mesh, shardings
+        self.dp, self.tp = axis_size(mesh, "dp"), axis_size(mesh, "tp")
+        self.dp_group = axis_group(mesh, "dp") if self.dp > 1 else None
+        self.tp_group = axis_group(mesh, "tp") if self.tp > 1 else None
+        self.tp_rank = axis_rank(mesh, "tp")
+        self.dp_rank = axis_rank(mesh, "dp")
+        lay = shardings["layers"]
+        if self.tp > 1 and (lay["wq"][-1] != "tp" or lay["wk"][-1] != "tp"
+                            or config.num_heads % self.tp
+                            or config.num_kv_heads % self.tp):
+            raise ValueError("tp training needs the attention heads split "
+                             "(tp must divide num_heads and num_kv_heads)")
+        self.vocab = shardings["embed"][0] == "tp"
+        self.tied = getattr(config, "tie_embeddings", False)
+        self.head = self.vocab if self.tied \
+            else shardings["lm_head"][-1] == "tp"
+        self.mlp, width = tp_mlp(config, shardings, self.tp)
+        self.config = dataclasses.replace(
+            config, num_heads=config.num_heads // self.tp,
+            num_kv_heads=config.num_kv_heads // self.tp, **width)
+        self.counts = collections.Counter()
+        self.steps = 0
+        self.agreed: Dict[Any, Any] = {}
+
+    # -- fsdp -------------------------------------------------------------
+    def gather(self, w, spec):
+        """``w`` whole along its ``dp``-split dim (none: ``w``)."""
+        for d, entry in enumerate(spec):
+            if "dp" in spec_axes(entry) and self.dp > 1:
+                return _FsdpGather.apply(w, d, self.dp_group)
+        return w
+
+    def leaf(self, params, name):
+        return self.gather(params[name], self.shardings[name])
+
+    def layer(self, p):
+        """A layer's weight slices as gathered weights (read lazily)."""
+        return _LayerWeights(self, p)
+
+    # -- tp ---------------------------------------------------------------
+    def enter(self, x, split: bool = True):
+        """A column-parallel product's input: its gradient all-reduced
+        over ``tp`` (``_c_identity``)."""
+        if self.tp == 1 or not split:
+            return x
+        from ..distributed.fleet.layers.mpu.mp_ops import _c_identity
+
+        return _c_identity(x, group=self.tp_group)
+
+    def exit(self, y, split: bool = True):
+        """A row-parallel product's partial sums, all-reduced over ``tp``
+        (``_mp_allreduce``)."""
+        if self.tp == 1 or not split:
+            return y
+        from ..distributed.fleet.layers.mpu.mp_ops import _mp_allreduce
+
+        return _mp_allreduce(y, group=self.tp_group)
+
+    def embed(self, params, ids, dtype):
+        """Rows ``ids`` of the embedding (vocab-parallel over ``tp``)."""
+        table = self.leaf(params, "embed").to(dtype)
+        if not self.vocab or self.tp == 1:
+            return table[ids.long()]
+        from ..distributed.fleet.layers.mpu.mp_ops import _c_lookup_table
+
+        return self.exit(_c_lookup_table(
+            table, ids, start_index=self.tp_rank * table.shape[0]))
+
+    def head_weight(self, params, config):
+        """The output projection [h, vocab / tp] (gathered over ``dp``)."""
+        if self.tied:
+            return self.leaf(params, "embed").t()
+        return self.leaf(params, "lm_head")
+
+    # -- data parallel ----------------------------------------------------
+    def dp_mean(self, x):
+        """The mean over ``dp`` of a per-rank statistic, differentiable."""
+        return x if self.dp == 1 else _DpMean.apply(x, self.dp_group)
+
+    def dp_offsets(self, counts):
+        """The sums of ``counts`` over the lower ``dp`` ranks (the global
+        position of this rank's rows in a running count)."""
+        if self.dp == 1:
+            return torch.zeros_like(counts)
+        from ..distributed.collective import all_gather
+
+        parts = []
+        all_gather(parts, counts.contiguous(), self.dp_group)
+        return sum(parts[:self.dp_rank], torch.zeros_like(counts))
+
+    def sum_dp(self, t):
+        """``t`` summed over ``dp`` (a new tensor)."""
+        if self.dp == 1:
+            return t
+        from ..distributed.collective import all_reduce
+
+        return all_reduce(t.detach().clone(), group=self.dp_group)
+
+    def reduce_grads(self, grads):
+        """Every gradient leaf no ``dp`` axis splits, summed over ``dp``
+        (the split ones were reduce-scattered by their gathers)."""
+        if self.dp == 1:
+            return grads
+        from ..distributed.collective import all_reduce
+
+        def one(g, spec):
+            if any("dp" in spec_axes(e) for e in spec):
+                return g
+            return all_reduce(g.contiguous(), group=self.dp_group)
+        return tree_map(one, grads, self.shardings)
+
+    def agree(self, key, pick):
+        """``pick()`` on the world's first rank, the same answer on every
+        rank (kept per ``key``): a decision whose ranks must run one
+        program."""
+        if key not in self.agreed:
+            from ..distributed.collective import broadcast_object_list
+            from ..distributed.env import get_rank
+
+            box = [pick() if get_rank() == 0 else None]
+            broadcast_object_list(box, 0)
+            self.agreed[key] = box[0]
+        return self.agreed[key]
+
+    def global_norm(self, grads):
+        """The f32 L2 norm of the whole gradient tree from this rank's
+        slices: each leaf's sum of squares divided by the number of ranks
+        that hold the same slice, summed over the mesh."""
+        from ..distributed.collective import all_reduce
+
+        world = self.dp * self.tp
+
+        def part(g, spec):
+            n = math.prod(axis_size(self.mesh, a) for e in spec
+                          for a in spec_axes(e))
+            return g.float().square().sum() * (n / world)
+        total = torch.stack(tree_leaves(tree_map(part, grads,
+                                                 self.shardings))).sum()
+        for g in (self.dp_group, self.tp_group):
+            if g is not None:
+                total = all_reduce(total, group=g)
+        return total.sqrt()
+
+
+def shard_batch(tokens, mesh=None):
+    """This rank's rows of a global batch [B, ...]: the cut by
+    ``P("dp", None)`` (``mesh`` defaults to the active one)."""
+    mesh = _active_mesh(mesh)
+    return _cut(tokens, P("dp", *([None] * (tokens.dim() - 1))),
+                mesh).contiguous()
+
+
+def _init_sharded(shapes, config, seed, param_shardings, param_dtype,
+                  device, mesh):
+    """Each leaf of ``shapes`` (a model's ``_shapes``) drawn whole on the
+    host from the seeded CPU stream, in ``init_params``' order, then cut
+    to this rank's slice on ``device``: ``shard_params(init_params(config,
+    seed, device="cpu", dtype=param_dtype), ...)`` bit for bit, with one
+    whole leaf at a time in host memory and only slices on the card."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    top, layers = shapes(config)
+
+    def make(shape, scale, spec):
+        if scale is None:
+            whole = torch.ones(shape, dtype=param_dtype)
+        else:
+            whole = torch.randn(shape, generator=gen,
+                                dtype=param_dtype).mul_(scale)
+        return _cut(whole, spec, mesh).to(
+            dev, memory_format=torch.contiguous_format, copy=True)
+
+    params = {k: make(*top[k], param_shardings[k]) for k in top}
+    params["layers"] = {k: make(*layers[k], param_shardings["layers"][k])
+                        for k in layers}
+    return params
+
+
+def init_sharded_train_state(config: LlamaConfig, seed: int = 0,
+                             param_shardings=None,
+                             optimizer: str = "adamw",
+                             param_dtype=torch.float32, device="cuda", *,
+                             moment_dtype=torch.float32,
+                             mesh=None) -> TrainState:
+    """The train state built directly as this rank's slices: each
+    parameter leaf drawn whole on the host from a CPU generator seeded
+    with ``seed`` (one leaf at a time) and cut by ``param_shardings``
+    (default ``make_shardings(config, mesh)``), so no rank ever holds a
+    whole tree on the card; the moments are zeros of the slices' shapes
+    (``moment_shardings``' cut). The slices equal
+    ``shard_params(init_params(config, seed, device="cpu",
+    dtype=param_dtype), param_shardings, mesh)`` bit for bit (a CUDA
+    generator draws other values). ``mesh`` defaults to the active
+    :class:`activation_mesh`'s."""
+    mesh = _active_mesh(mesh)
+    if param_shardings is None:
+        param_shardings = make_shardings(config, mesh)
+    params = _init_sharded(_shapes, config, seed, param_shardings,
+                           param_dtype, device, mesh)
+    mu, nu = init_moments(params, optimizer, moment_dtype)
+    step = torch.zeros((), dtype=torch.int32, device=params["embed"].device)
+    return TrainState(params, mu, nu, step)
+
+
+def put_train_state(state: TrainState, param_shardings,
+                    optimizer: str = "adamw", *, mesh=None) -> TrainState:
+    """A whole train state cut to this rank's slices: the params by
+    ``param_shardings``, the moments by ``moment_shardings`` (adafactor's
+    scalar mu and factored nu are not param-shaped); the step as it is.
+    ``mesh`` defaults to the active :class:`activation_mesh`'s."""
+    mesh = _active_mesh(mesh)
+    mu_sh, nu_sh = moment_shardings(param_shardings, state.params, optimizer)
+    return TrainState(shard_params(state.params, param_shardings, mesh),
+                      shard_params(state.mu, mu_sh, mesh),
+                      shard_params(state.nu, nu_sh, mesh), state.step)
+
+
+# ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
@@ -651,22 +1093,40 @@ def _attention(q, k, v, config: LlamaConfig):
     return flash_attention.apply(q, k, v, True)
 
 
-def _layer_body(x, p, cos, sin, config: LlamaConfig):
+def _attention_block(x, p, cos, sin, config, plan=None):
+    """x + the attention sublayer's output; under a :class:`TrainPlan`
+    on this rank's heads, with the tp collectives around it."""
     c = config
     B, S, _ = x.shape
     dt = c.dtype
     hn = _rms_norm(x, p["attn_norm"], c.rms_eps)
+    if plan is not None:
+        hn = plan.enter(hn)
     q = (hn @ p["wq"].to(dt)).reshape(B, S, c.num_heads, c.head_dim)
     k = (hn @ p["wk"].to(dt)).reshape(B, S, c.num_kv_heads, c.head_dim)
     v = (hn @ p["wv"].to(dt)).reshape(B, S, c.num_kv_heads, c.head_dim)
     q = _apply_rope(q, cos, sin)
     k = _apply_rope(k, cos, sin)
     att = _attention(q, k, v, c).reshape(B, S, c.num_heads * c.head_dim)
-    x = x + att @ p["wo"].to(dt)
+    o = att @ p["wo"].to(dt)
+    return x + (o if plan is None else plan.exit(o))
+
+
+def _layer_body(x, p, cos, sin, config: LlamaConfig, plan=None):
+    """One decoder layer. Under a :class:`TrainPlan` ``p`` holds the
+    layer's slices, gathered here (again in a recompute)."""
+    c = config
+    dt = c.dtype
+    if plan is not None:
+        p = plan.layer(p)
+    x = _attention_block(x, p, cos, sin, c, plan)
     hn = _rms_norm(x, p["mlp_norm"], c.rms_eps)
+    if plan is not None:
+        hn = plan.enter(hn, plan.mlp)
     gate = torch.nn.functional.silu(hn @ p["w_gate"].to(dt))
     up = hn @ p["w_up"].to(dt)
-    return x + (gate * up) @ p["w_down"].to(dt)
+    y = (gate * up) @ p["w_down"].to(dt)
+    return x + (y if plan is None else plan.exit(y, plan.mlp))
 
 
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -706,15 +1166,27 @@ def _remat(body, config: LlamaConfig):
     return functools.partial(checkpoint, body, use_reentrant=False)
 
 
+def _embed_rows(params, tokens, config, plan=None):
+    if plan is None:
+        return params["embed"].to(config.dtype)[tokens.long()]
+    return plan.embed(params, tokens, config.dtype)
+
+
 def hidden_states(params, tokens, config: LlamaConfig):
     """tokens [B, S] int -> final-norm hidden states [B, S, h] (model
-    dtype)."""
+    dtype). Under an :class:`activation_mesh` ``params`` and ``tokens``
+    are this rank's slices (:class:`TrainPlan`)."""
     c = config
     _check_supported(c)
+    plan = train_plan(c, params)
+    if plan is not None:
+        c = plan.config
     S = tokens.shape[1]
-    x = params["embed"].to(c.dtype)[tokens.long()]
+    x = _embed_rows(params, tokens, c, plan)
     cos, sin = _rope_tables(S, c.head_dim, c.rope_theta, tokens.device)
-    body = _remat(_layer_body, c) if c.remat else _layer_body
+    body = _layer_body if plan is None else functools.partial(
+        _layer_body, plan=plan)
+    body = _remat(body, c) if c.remat else body
     # one unbind per stacked weight: its backward stacks the L layer
     # gradients once (indexing [l] would scatter into a zero [L, ...]
     # tensor per layer)
@@ -739,9 +1211,26 @@ def hidden_states(params, tokens, config: LlamaConfig):
 
 def forward(params, tokens, config: LlamaConfig):
     """tokens [B, S] int -> logits [B, S, vocab] (f32); an int8 ``lm_head``
-    leaf goes through ``weight_only_matmul``."""
+    leaf goes through ``weight_only_matmul``. Under an
+    :class:`activation_mesh`, this rank's rows with the whole vocabulary
+    (the vocab-split logits gathered over ``tp``)."""
+    plan = train_plan(config, params)
     x = hidden_states(params, tokens, config)
-    return _wo_mm(x, head_weight(params, config), config.dtype).float()
+    if plan is None:
+        return _wo_mm(x, head_weight(params, config), config.dtype).float()
+    return _plan_logits(plan, x, plan.head_weight(params, config),
+                       config.dtype)
+
+
+def _plan_logits(plan, x, head, dtype):
+    """Whole-vocabulary f32 logits of hidden states ``x`` through this
+    rank's ``head`` columns under ``plan``."""
+    lg = (plan.enter(x, plan.head) @ head.to(dtype)).float()
+    if not plan.head or plan.tp == 1:
+        return lg
+    from ..distributed.fleet.layers.mpu.mp_ops import _c_concat
+
+    return _c_concat(lg, group=plan.tp_group)
 
 
 # ---------------------------------------------------------------------------
@@ -1087,10 +1576,34 @@ def _ce_sum(x, targets, head):
     return (torch.logsumexp(logits, dim=-1) - gold).sum()
 
 
-def _chunked_ce_sum(x, targets, head, n_chunks: int):
+def _ce_sum_split(x, targets, head, group):
+    """:func:`_ce_sum` with ``head`` this rank's vocab columns: the rows'
+    cross-entropy over the whole vocabulary from the split logits
+    (``_c_softmax_with_cross_entropy`` over ``group``)."""
+    from ..distributed.fleet.layers.mpu.mp_ops import \
+        _c_softmax_with_cross_entropy
+
+    logits = (x @ head).float()
+    return _c_softmax_with_cross_entropy(logits, targets, group=group).sum()
+
+
+def _ce_total(x, targets, head, n_chunks: int, plan=None):
+    """The summed next-token CE of hidden states ``x`` through ``head``,
+    in ``n_chunks`` sequence chunks when > 1; under a :class:`TrainPlan`
+    with a vocab-split head, from the split logits."""
+    ce = _ce_sum
+    if plan is not None and plan.head and plan.tp > 1:
+        x = plan.enter(x)
+        ce = functools.partial(_ce_sum_split, group=plan.tp_group)
+    if n_chunks > 1:
+        return _chunked_ce_sum(x, targets, head, n_chunks, ce)
+    return ce(x, targets, head)
+
+
+def _chunked_ce_sum(x, targets, head, n_chunks: int, ce=None):
     """Summed next-token CE over [B, S, h] hidden states without ever
     materializing [B, S, vocab] logits: S/n_chunks-long chunks, each
-    recomputed in the backward pass."""
+    recomputed in the backward pass (``ce``, default :func:`_ce_sum`)."""
     B, S, h = x.shape
     if S % n_chunks:
         raise ValueError(
@@ -1100,22 +1613,24 @@ def _chunked_ce_sum(x, targets, head, n_chunks: int):
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for xi, ti in zip(x.chunk(n_chunks, dim=1),
                       targets.chunk(n_chunks, dim=1)):
-        total = total + checkpoint(_ce_sum, xi, ti, head,
+        total = total + checkpoint(ce or _ce_sum, xi, ti, head,
                                    use_reentrant=False)
     return total
 
 
 def loss_fn(params, tokens, config: LlamaConfig):
-    """Next-token cross-entropy, mean over positions (f32)."""
+    """Next-token cross-entropy, mean over positions (f32). Under an
+    :class:`activation_mesh` (``params`` and ``tokens`` this rank's
+    slices), this rank's share of the global mean: its rows' mean over
+    ``dp`` (the ranks' shares sum to the global batch's loss)."""
     c = config
+    plan = train_plan(c, params)
     x = hidden_states(params, tokens[:, :-1], c)
-    head = head_weight(params, c).to(c.dtype)
-    targets = tokens[:, 1:]
-    if c.loss_chunks > 1:
-        total = _chunked_ce_sum(x, targets, head, c.loss_chunks)
-    else:
-        total = _ce_sum(x, targets, head)
-    return total / (x.shape[0] * x.shape[1])
+    head = (head_weight(params, c) if plan is None
+            else plan.head_weight(params, c)).to(c.dtype)
+    total = _ce_total(x, tokens[:, 1:], head, c.loss_chunks, plan)
+    loss = total / (x.shape[0] * x.shape[1])
+    return loss if plan is None else loss / plan.dp
 
 
 # ---------------------------------------------------------------------------
@@ -1154,20 +1669,30 @@ def init_train_state(config: LlamaConfig, seed: int = 0,
     return TrainState(params, mu, nu, step)
 
 
-def loss_and_grads(params, tokens, config: LlamaConfig, loss_function=None):
+def loss_and_grads(params, tokens, config: LlamaConfig, loss_function=None,
+                   _reduce=True):
     """(loss, grads) of ``loss_function(params, tokens, config)`` (default
     :func:`loss_fn`), the grads a tree like ``params`` in the parameters'
-    dtypes (``jax.value_and_grad``)."""
+    dtypes (``jax.value_and_grad``). Under an :class:`activation_mesh`:
+    the global batch's loss (the same on every rank) and this rank's
+    slices of its gradients."""
     lf = loss_function or loss_fn
+    plan = train_plan(config, params)
     with torch.enable_grad():
         tracked = tree_map(lambda t: t.detach().requires_grad_(True), params)
         loss = lf(tracked, tokens, config)
         grads = iter(torch.autograd.grad(loss, tree_leaves(tracked)))
-    return loss.detach(), tree_map(lambda _: next(grads), params)
+    grads = tree_map(lambda _: next(grads), params)
+    if plan is not None and _reduce:
+        return plan.sum_dp(loss.detach()), plan.reduce_grads(grads)
+    return loss.detach(), grads
 
 
-def global_norm(grads):
-    """The f32 L2 norm over every leaf of ``grads`` (a 0-d tensor)."""
+def global_norm(grads, plan=None):
+    """The f32 L2 norm over every leaf of ``grads`` (a 0-d tensor); with
+    a :class:`TrainPlan`, of the whole tree whose slices ``grads`` are."""
+    if plan is not None:
+        return plan.global_norm(grads)
     return torch.stack([g.float().square().sum()
                         for g in tree_leaves(grads)]).sum().sqrt()
 
@@ -1183,8 +1708,17 @@ def train_step(state: TrainState, tokens, config: LlamaConfig,
     llama loss. ``accum_steps`` > 1 runs forward and backward over batch
     slices, accumulating grads in f32. ``adafactor_eps2`` floors
     adafactor's step size (optimizer_update). Returns (new_state, loss); the
-    state's tensors are new, the input state is left as it was."""
+    state's tensors are new, the input state is left as it was.
+
+    Under an :class:`activation_mesh` the state is this rank's slices and
+    ``tokens`` its rows (:func:`shard_batch`); the step's grads, global
+    norm, update and loss are the global batch's, and its collectives
+    count in the plan (:func:`train_plan`)."""
+    from ..distributed import collective as _coll
+
     _check_supported(config)
+    plan = train_plan(config, state.params)
+    before = collections.Counter(_coll.traffic) if plan is not None else None
     if accum_steps > 1:
         if not isinstance(tokens, torch.Tensor):
             raise ValueError(
@@ -1200,20 +1734,28 @@ def train_step(state: TrainState, tokens, config: LlamaConfig,
                          state.params)
         for mb in tokens.reshape((accum_steps, B // accum_steps)
                                  + tuple(tokens.shape[1:])):
-            l, g = loss_and_grads(state.params, mb, config, loss_function)
+            l, g = loss_and_grads(state.params, mb, config, loss_function,
+                                  _reduce=False)
             loss = loss + l
             tree_map(lambda a, b: a.add_(b.float()), grads, g)
         loss = loss / accum_steps
         grads = tree_map(lambda g: g / accum_steps, grads)
+        if plan is not None:
+            loss, grads = plan.sum_dp(loss), plan.reduce_grads(grads)
     else:
         loss, grads = loss_and_grads(state.params, tokens, config,
                                      loss_function)
 
-    scale = (clip_norm / (global_norm(grads) + 1e-6)).clamp(max=1.0)
+    scale = (clip_norm / (global_norm(grads, plan) + 1e-6)).clamp(max=1.0)
     new_p, new_m, new_n = optimizer_update(
         state.params, grads, state.mu, state.nu, state.step,
         optimizer=optimizer, lr=lr, beta1=beta1, beta2=beta2, eps=eps,
-        wd=wd, scale=scale, adafactor_eps2=adafactor_eps2)
+        wd=wd, scale=scale, adafactor_eps2=adafactor_eps2,
+        mesh=None if plan is None else plan.mesh,
+        specs=None if plan is None else plan.shardings)
+    if plan is not None:
+        plan.counts.update(collections.Counter(_coll.traffic) - before)
+        plan.steps += 1
     return TrainState(new_p, new_m, new_n, state.step + 1), loss
 
 

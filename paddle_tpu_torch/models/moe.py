@@ -1,5 +1,5 @@
 """Mixture-of-Experts (DeepSeekMoE class) — the port of
-paddle_tpu/models/moe (single device).
+paddle_tpu/models/moe.
 
 Parameters are a plain dictionary under the JAX package's keys and
 layouts: ``embed`` [vocab, h]; per-layer weights stacked on a leading [L]
@@ -14,17 +14,32 @@ package) and run the shared FFN alone as their MLP — the JAX package's
 dense layer, whose width is n_shared*f rather than the config's
 ``intermediate_size``. :func:`params_from_numpy` carries a JAX tree over.
 
-The routed FFN (:func:`moe_ffn`) runs on one device: ``routing=
-"dropless"`` through ``kernels.moe_dispatch`` (``dispatch="fused"``,
-``"gmm"`` or ``"dense"``; B9 and B10 on the card) or ``routing=
-"capacity"``, GShard's fixed-capacity einsum dispatch. ``dispatch="auto"``
+The routed FFN (:func:`moe_ffn`) runs ``routing="dropless"`` through
+``kernels.moe_dispatch`` (``dispatch="fused"``, ``"gmm"`` or ``"dense"``;
+B9 and B10 on the card) or ``routing="capacity"``, GShard's
+fixed-capacity einsum dispatch. ``dispatch="auto"``
 is ``moe_dispatch.pick_dispatch_form`` at the batch's routing shape: on the
 card the forms measured forward and backward once per shape (the dense
 form a candidate where ``dense_base`` and the shape's plan allow it), the
 winner persisted; on the CPU the static default "fused", as the reference
 answers off a TPU. A model resolves "auto" once per forward, before its
-layers run. Not ported yet: a mesh with ``ep > 1`` raises
-``NotImplementedError`` (A10).
+layers run.
+
+Sharded training (``llama.activation_mesh`` over a ``(dp, tp)`` mesh;
+:func:`param_specs`, :func:`make_shardings`,
+:func:`init_sharded_train_state`, ``llama.put_train_state``): each rank
+holds its slices and its batch rows (``llama.TrainPlan``). Each routed
+and shared expert is split Megatron-style over ``tp`` (gate|up by
+columns, down by rows), and one all-reduce over ``tp`` sums the
+combined [T, h] output; the router is gathered over ``dp`` and routes
+the rank's tokens identically on every ``tp`` rank, its combine weights'
+gradient all-reduced over ``tp``. The aux loss is the global batch's:
+the per-expert ``mean(probs)`` and ``mean(onehot)`` are averaged over
+``dp`` before their product. Capacity routing takes its capacity from
+the global T and offsets each token's slot by the counts of the lower
+``dp`` ranks, so it drops what the global routing drops. "auto"'s pick
+is made on the world's first rank and broadcast. Not ported yet: a mesh
+with ``ep > 1`` raises ``NotImplementedError`` (ROADMAP A10.5).
 
 int8 routed experts: :func:`quantize_expert_params` turns ``e_gate``,
 ``e_up`` and ``e_down`` into ``{"q": int8, "s": f32}`` leaves
@@ -59,20 +74,21 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from ..distributed.mesh import P
 from ..kernels import moe_dispatch as _md
 from ..kernels import quant_matmul as _qm
 from ..observability import numerics as _numerics
 from ..optimizer.functional import init_moments, tree_leaves
 from . import llama as _llama
-from .llama import (TrainState, _apply_rope, _attention, _rms_norm,
-                    _rope_tables)
+from .llama import TrainState, _attention_block, _rms_norm, _rope_tables
 
 __all__ = [
     "MoEConfig", "deepseek_moe_16b", "tiny_moe", "init_params",
     "params_from_numpy", "forward", "loss_fn", "moe_ffn", "top_k_gating",
     "TrainState", "init_train_state", "train_step", "num_params",
     "active_params_per_token", "flops_per_token", "quantize_expert_params",
-    "hidden_states_with_aux",
+    "hidden_states_with_aux", "param_specs", "make_shardings",
+    "init_sharded_train_state",
 ]
 
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "router",
@@ -96,7 +112,7 @@ class MoEConfig:
     # "dropless" (sorted grouped GEMMs, nothing dropped) or "capacity"
     # (GShard fixed-capacity einsums, tokens past capacity dropped)
     routing: str = "dropless"
-    # expert-parallel strategy under an ep>1 mesh: not ported (A10)
+    # expert-parallel strategy under an ep>1 mesh: not ported (A10.5)
     ep_strategy: str = "auto"
     # "auto" (measured on the card, "fused" on the CPU), "fused", "gmm",
     # "dense"
@@ -118,7 +134,7 @@ class MoEConfig:
     # kept for the JAX package's configs; attention always runs through
     # the flash kernels (llama's module docstring)
     use_flash: bool = True
-    # not ported (A10): raises when set
+    # not ported (A10.4): raises when set
     context_parallel: bool = False
     # >1: the cross-entropy in sequence chunks (llama._chunked_ce_sum)
     loss_chunks: int = 8
@@ -222,6 +238,61 @@ def params_from_numpy(tree, device="cuda", dtype=None) -> Dict[str, Any]:
     return out
 
 
+def param_specs(config: MoEConfig, fsdp: bool = True) -> Dict[str, Any]:
+    """PartitionSpec per weight: 'ep' shards the expert axis, 'tp' the
+    Megatron axis of each expert and of the dense sublayers, fsdp ('dp')
+    the remaining matrix axis (the reference's recipe)."""
+    dp = "dp" if fsdp else None
+    return {
+        "embed": P("tp", dp),
+        "layers": {
+            "attn_norm": P(None, None),
+            "wq": P(None, dp, "tp"),
+            "wk": P(None, dp, "tp"),
+            "wv": P(None, dp, "tp"),
+            "wo": P(None, "tp", dp),
+            "mlp_norm": P(None, None),
+            "router": P(None, dp, None),
+            "e_gate": P(None, "ep", dp, "tp"),
+            "e_up": P(None, "ep", dp, "tp"),
+            "e_down": P(None, "ep", "tp", dp),
+            "s_gate": P(None, dp, "tp"),
+            "s_up": P(None, dp, "tp"),
+            "s_down": P(None, "tp", dp),
+        },
+        "final_norm": P(None),
+        "lm_head": P(dp, "tp"),
+    }
+
+
+def make_shardings(config: MoEConfig, mesh, fsdp: bool = True):
+    """The fitted spec of every parameter of ``config`` on ``mesh``
+    (``llama._fit_spec``; the reference's NamedSharding tree)."""
+    top, layers = _shapes(config)
+    specs = param_specs(config, fsdp)
+    out = {k: _llama._fit_spec(specs[k], top[k][0], mesh) for k in top}
+    out["layers"] = {k: _llama._fit_spec(specs["layers"][k], layers[k][0],
+                                         mesh) for k in layers}
+    return out
+
+
+def _tp_mlp(config: MoEConfig, shardings, tp: int):
+    """(whether tp splits the experts, the rank's expert width): the
+    sharded train path's MLP split (``llama._TrainRecipe``)."""
+    lay = shardings["layers"]
+    mlp = lay["e_gate"][-1] == "tp"
+    if mlp != (lay["s_gate"][-1] == "tp"):
+        raise ValueError(
+            "tp must split the routed and the shared experts alike (tp "
+            "divides moe_intermediate_size and n_shared * it, or neither)")
+    return mlp, dict(moe_intermediate_size=config.moe_intermediate_size
+                     // (tp if mlp else 1))
+
+
+_llama._TRAIN_RECIPES[MoEConfig] = _llama._TrainRecipe(
+    _shapes, make_shardings, _tp_mlp)
+
+
 def num_params(params) -> int:
     return sum(t.numel() for t in tree_leaves(params))
 
@@ -288,15 +359,18 @@ def flops_per_token(config: MoEConfig, seq_len: int) -> float:
 # routing and expert compute
 # ---------------------------------------------------------------------------
 
-def top_k_gating(logits, top_k: int):
+def top_k_gating(logits, top_k: int, global_mean=None):
     """Top-k softmax router. Returns (weights [T, k], indices [T, k],
-    aux_loss) with the load-balance aux loss (GShard eq. (4))."""
+    aux_loss) with the load-balance aux loss (GShard eq. (4));
+    ``global_mean`` as in ``moe_dispatch.routing_from_logits``."""
     probs = torch.softmax(logits.float(), dim=-1)                 # [T, E]
     weights, idx = torch.topk(probs, top_k, dim=-1)
     weights = weights / weights.sum(-1, keepdim=True)
     E = logits.shape[-1]
     me = probs.mean(0)
     ce = torch.nn.functional.one_hot(idx[:, 0], E).float().mean(0)
+    if global_mean is not None:
+        me, ce = global_mean(me), global_mean(ce)
     return weights, idx, E * (me * ce).sum()
 
 
@@ -322,35 +396,48 @@ def _resolve_form(c: MoEConfig, T: int, x, quantized: bool,
 
 
 def moe_ffn(x, router_w, e_gate, e_up, e_down, config: MoEConfig,
-            shared_weights=None, mesh=None):
+            shared_weights=None, mesh=None, tplan=None):
     """Routed-expert FFN over flattened tokens x [T, h], dispatched by
     ``config.routing`` (and ``config.dispatch``: "auto" resolves here
     unless the caller resolved it); returns (y [T, h], aux). With
     ``shared_weights=(s_gate, s_up, s_down)`` y is routed + shared.
     ``mesh`` (axis name -> size) with ``ep > 1`` raises: expert
-    parallelism is ROADMAP A10."""
+    parallelism is ROADMAP A10.5. ``tplan`` (a ``llama.TrainPlan``): x is
+    this rank's tokens and the experts its tp slices (module docstring);
+    y is whole and aux the global batch's."""
     c = config
     _check_supported(c)
     if mesh is not None and mesh.get("ep", 1) > 1:
         raise NotImplementedError(
             "expert parallelism (a mesh with ep > 1) is not ported yet "
-            "(ROADMAP A10)")
+            "(ROADMAP A10.5)")
     quantized = _qm.is_quantized_weight(e_gate)
     if quantized and c.routing != "dropless":
         raise ValueError(
             "int8 expert weights (quantize_expert_params) require "
             "routing='dropless' — the capacity einsum path has no "
             "quantized form")
+    if tplan is not None and quantized:
+        raise ValueError("int8 expert weights are frozen: sharded "
+                         "training takes dense experts")
+    # under a plan: the router on the whole x (the same on every tp rank),
+    # the experts on the rank's f columns, their inputs and combine
+    # weights through _c_identity, one all-reduce of the routed + shared sum
+    global_mean = None if tplan is None else tplan.dp_mean
+    xt = x if tplan is None else tplan.enter(x, tplan.mlp)
     shared = None if shared_weights is None else _md._shared_swiglu(
-        x, *shared_weights, x.dtype)
+        xt, *shared_weights, x.dtype)
     if c.routing == "dropless":
         if c.fused_router:
-            routing = _md.fused_routing(x, router_w, c.top_k)
+            routing = _md.fused_routing(x, router_w, c.top_k,
+                                        global_mean=global_mean)
             weights, idx, aux = routing.weights, routing.idx, routing.aux
         else:
             routing = None
             weights, idx, aux = top_k_gating(x.float() @ router_w.float(),
-                                             c.top_k)
+                                             c.top_k, global_mean)
+        if tplan is not None:
+            weights = tplan.enter(weights, tplan.mlp)
         # the routing shape's memoized plan, derived once a shape and
         # reused by every layer and step after (moe_plan_cache_* counts
         # it, as in the reference's single-program branch)
@@ -359,28 +446,40 @@ def moe_ffn(x, router_w, e_gate, e_up, e_down, config: MoEConfig,
         plan = _md.plan_dispatch(T, c.top_k, E, h)
         form = _resolve_form(c, T, x, quantized, plan)
         if form == "dense":
-            y = _md.dropless_moe_ffn_dense(x, weights, idx, e_gate, e_up,
+            y = _md.dropless_moe_ffn_dense(xt, weights, idx, e_gate, e_up,
                                            e_down, routing=routing,
                                            plan=plan)
         else:
             ffn = (_md.dropless_moe_ffn_fused if form == "fused"
                    else _md.dropless_moe_ffn)
-            y = ffn(x, weights, idx, e_gate, e_up, e_down, routing=routing)
+            y = ffn(xt, weights, idx, e_gate, e_up, e_down, routing=routing)
     else:
-        y, aux = _capacity_ffn(x, router_w, e_gate, e_up, e_down, c)
-    return (y if shared is None else y + shared), aux
+        y, aux = _capacity_ffn(x, router_w, e_gate, e_up, e_down, c, tplan)
+    y = y if shared is None else y + shared
+    return (y if tplan is None else tplan.exit(y, tplan.mlp)), aux
 
 
-def _capacity_ffn(x, router_w, e_gate, e_up, e_down, c: MoEConfig):
+def _capacity_ffn(x, router_w, e_gate, e_up, e_down, c: MoEConfig,
+                  tplan=None):
     """GShard fixed-capacity one-hot einsum dispatch [T, E, C]; tokens past
-    capacity are dropped."""
-    weights, idx, aux = top_k_gating(x.float() @ router_w.float(), c.top_k)
+    capacity are dropped. Under ``tplan`` x is this rank's tokens: the
+    capacity counts the global batch's and the slots follow the lower dp
+    ranks' (what the global routing keeps), the experts are tp slices
+    (their output partial sums; the caller all-reduces)."""
+    weights, idx, aux = top_k_gating(
+        x.float() @ router_w.float(), c.top_k,
+        None if tplan is None else tplan.dp_mean)
     T, h = x.shape
     E, k, dt = c.num_experts, c.top_k, x.dtype
-    C = max(1, int(c.capacity_factor * T * k / E))
+    n = 1 if tplan is None else tplan.dp
+    C = max(1, int(c.capacity_factor * T * n * k / E))
     onehot = torch.nn.functional.one_hot(idx, E).to(torch.int32)  # [T,k,E]
     flat = onehot.reshape(T * k, E)
     pos = (torch.cumsum(flat, 0) - flat).reshape(T, k, E)    # rank per expert
+    if tplan is not None:
+        pos = pos + tplan.dp_offsets(flat.sum(0))[None, None]
+        weights = tplan.enter(weights, tplan.mlp)
+        x = tplan.enter(x, tplan.mlp)
     pos = (pos * onehot).sum(-1)                              # [T, k]
     keep = pos < C                                            # overflow drop
     w = weights * keep.to(weights.dtype)
@@ -401,27 +500,28 @@ def _capacity_ffn(x, router_w, e_gate, e_up, e_down, c: MoEConfig):
 # layers
 # ---------------------------------------------------------------------------
 
-def _layer_body(x, aux, p, cos, sin, config: MoEConfig, dense: bool):
+def _layer_body(x, aux, p, cos, sin, config: MoEConfig, dense: bool,
+                tplan=None):
     c = config
     B, S, h = x.shape
     dt = c.dtype
-    hn = _rms_norm(x, p["attn_norm"], c.rms_eps)
-    q = (hn @ p["wq"].to(dt)).reshape(B, S, c.num_heads, c.head_dim)
-    k = (hn @ p["wk"].to(dt)).reshape(B, S, c.num_kv_heads, c.head_dim)
-    v = (hn @ p["wv"].to(dt)).reshape(B, S, c.num_kv_heads, c.head_dim)
-    q = _apply_rope(q, cos, sin)
-    k = _apply_rope(k, cos, sin)
-    att = _attention(q, k, v, c).reshape(B, S, c.num_heads * c.head_dim)
-    x = x + att @ p["wo"].to(dt)
+    if tplan is not None:
+        p = tplan.layer(p)        # gathered over dp (again in a recompute)
+    x = _attention_block(x, p, cos, sin, c, tplan)
     hn = _rms_norm(x, p["mlp_norm"], c.rms_eps)
     if dense:
         # the dense layers' MLP is the shared FFN alone
+        if tplan is not None:
+            hn = tplan.enter(hn, tplan.mlp)
         sg = torch.nn.functional.silu(hn @ p["s_gate"].to(dt))
         y = (sg * (hn @ p["s_up"].to(dt))) @ p["s_down"].to(dt)
+        if tplan is not None:
+            y = tplan.exit(y, tplan.mlp)
     else:
         y, a = moe_ffn(hn.reshape(B * S, h), p["router"], p["e_gate"],
                        p["e_up"], p["e_down"], c,
-                       shared_weights=(p["s_gate"], p["s_up"], p["s_down"]))
+                       shared_weights=(p["s_gate"], p["s_up"], p["s_down"]),
+                       tplan=tplan)
         if c.remat and c.remat_policy == "outs":
             y = routed_out(y)          # the one [T, h] tensor "outs" keeps
         y = y.reshape(B, S, h)
@@ -479,25 +579,35 @@ def _remat(body, config: MoEConfig):
 
 def hidden_states_with_aux(params, tokens, config: MoEConfig):
     """tokens [B, S] -> (final-norm hidden states [B, S, h], the router aux
-    loss summed over the MoE layers)."""
+    loss summed over the MoE layers). Under ``llama.activation_mesh``
+    ``params`` and ``tokens`` are this rank's slices (module docstring)."""
     c = config
     _check_supported(c)
     _llama._check_supported(c)
+    tplan = _llama.train_plan(c, params)
+    if tplan is not None:
+        c = tplan.config
     B, S = tokens.shape
-    x = params["embed"].to(c.dtype)[tokens.long()]
+    x = _llama._embed_rows(params, tokens, c, tplan)
     # "auto" resolves once, outside the checkpointed layers (its first
-    # encounter of a shape measures the forms on the card)
+    # encounter of a shape measures the forms on the card); under a mesh
+    # on the world's first rank, every rank running its pick
     if c.routing == "dropless" and c.dispatch == "auto":
         quantized = _qm.is_quantized_weight(params["layers"]["e_gate"])
-        c = dataclasses.replace(c, dispatch=_resolve_form(c, B * S, x,
-                                                          quantized))
+
+        def pick():
+            return _resolve_form(c, B * S, x, quantized)
+        form = pick() if tplan is None else tplan.agree(
+            ("dispatch", B * S, x.dtype, x.device.type), pick)
+        c = dataclasses.replace(c, dispatch=form)
     cos, sin = _rope_tables(S, c.head_dim, c.rope_theta, tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     # one unbind per stacked weight (its backward stacks the L gradients)
     per_layer = {k: _unbind(params["layers"][k]) for k in LAYER_KEYS}
     bodies = {}
     for dense in (True, False):
-        body = functools.partial(_layer_body, config=c, dense=dense)
+        body = functools.partial(_layer_body, config=c, dense=dense,
+                                 tplan=tplan)
         bodies[dense] = _remat(body, c) if c.remat else body
     # numerics ladder (the reference's scan ys): one stats rung per layer
     # output, built under no_grad on the detached output outside the
@@ -536,28 +646,33 @@ def _unbind(w):
 
 
 def forward(params, tokens, config: MoEConfig, return_aux=False):
-    """tokens [B, S] -> logits [B, S, vocab] (f32), and the aux loss."""
+    """tokens [B, S] -> logits [B, S, vocab] (f32), and the aux loss
+    (under a mesh, this rank's rows with the whole vocabulary)."""
+    tplan = _llama.train_plan(config, params)
     x, aux = hidden_states_with_aux(params, tokens, config)
-    logits = (x @ params["lm_head"].to(config.dtype)).float()
+    if tplan is None:
+        logits = (x @ params["lm_head"].to(config.dtype)).float()
+    else:
+        logits = _llama._plan_logits(tplan, x, tplan.leaf(params, "lm_head"),
+                                    config.dtype)
     return (logits, aux) if return_aux else logits
 
 
 def loss_fn(params, tokens, config: MoEConfig):
     """Next-token cross-entropy (mean, f32) plus router_aux_coef * aux; the
     cross-entropy in ``loss_chunks`` sequence chunks when they divide the
-    sequence."""
+    sequence. Under ``llama.activation_mesh``, this rank's share of the
+    global batch's loss (llama.loss_fn)."""
     c = config
-    if c.loss_chunks > 1 and (tokens.shape[1] - 1) % c.loss_chunks == 0:
-        x, aux = hidden_states_with_aux(params, tokens[:, :-1], c)
-        total = _llama._chunked_ce_sum(x, tokens[:, 1:],
-                                       params["lm_head"].to(c.dtype),
-                                       c.loss_chunks)
-        return total / (x.shape[0] * x.shape[1]) + c.router_aux_coef * aux
-    logits, aux = forward(params, tokens[:, :-1], c, return_aux=True)
-    targets = tokens[:, 1:].long()
-    gold = logits.gather(-1, targets[..., None])[..., 0]
-    ce = (torch.logsumexp(logits, dim=-1) - gold).mean()
-    return ce + c.router_aux_coef * aux
+    tplan = _llama.train_plan(c, params)
+    x, aux = hidden_states_with_aux(params, tokens[:, :-1], c)
+    n = c.loss_chunks if c.loss_chunks > 1 \
+        and x.shape[1] % c.loss_chunks == 0 else 1
+    head = params["lm_head"] if tplan is None \
+        else tplan.leaf(params, "lm_head")
+    total = _llama._ce_total(x, tokens[:, 1:], head.to(c.dtype), n, tplan)
+    loss = total / (x.shape[0] * x.shape[1]) + c.router_aux_coef * aux
+    return loss if tplan is None else loss / tplan.dp
 
 
 def init_train_state(config: MoEConfig, seed: int = 0,
@@ -566,6 +681,27 @@ def init_train_state(config: MoEConfig, seed: int = 0,
     """Parameters in ``param_dtype`` and the moments of ``optimizer`` (as
     llama.init_train_state)."""
     params = init_params(config, seed, device=device, dtype=param_dtype)
+    mu, nu = init_moments(params, optimizer, moment_dtype)
+    step = torch.zeros((), dtype=torch.int32, device=params["embed"].device)
+    return TrainState(params, mu, nu, step)
+
+
+def init_sharded_train_state(config: MoEConfig, seed: int = 0,
+                             param_shardings=None,
+                             optimizer: str = "adamw",
+                             param_dtype=torch.float32, device="cuda", *,
+                             moment_dtype=torch.float32,
+                             mesh=None) -> TrainState:
+    """The train state built directly as this rank's slices
+    (``llama.init_sharded_train_state`` with this model's shapes; default
+    shardings :func:`make_shardings`): equal to
+    ``shard_params(init_params(config, seed, device="cpu",
+    dtype=param_dtype), ...)`` bit for bit."""
+    mesh = _llama._active_mesh(mesh)
+    if param_shardings is None:
+        param_shardings = make_shardings(config, mesh)
+    params = _llama._init_sharded(_shapes, config, seed, param_shardings,
+                                  param_dtype, device, mesh)
     mu, nu = init_moments(params, optimizer, moment_dtype)
     step = torch.zeros((), dtype=torch.int32, device=params["embed"].device)
     return TrainState(params, mu, nu, step)

@@ -101,6 +101,27 @@ def test_collective_ops(world, name):
         _assert_same(r[name], _expected(name, n, rank))
 
 
+def test_gather_and_reduce_scatter_along_a_dim(world):
+    """all_gather_dim concatenates every rank's tensor along the dim in
+    rank order; reduce_scatter_dim leaves each rank its block of the sum
+    (rank-scaled inputs: the sum is the input times n(n+1)/2), f32 and
+    bf16 (its sums of small integers exact)."""
+    n, res = world
+    ins = [rank_input(r).numpy() for r in range(n)]
+    big = np.arange(4 * n * 3, dtype=np.float32).reshape(4 * n, 3)
+    total = big * (n * (n + 1) // 2)
+    for r, out in enumerate(res):
+        np.testing.assert_array_equal(out["all_gather_dim"][0],
+                                      np.concatenate(ins, 0))
+        np.testing.assert_array_equal(out["all_gather_dim"][1],
+                                      np.concatenate(ins, 1))
+        mine = total[4 * r:4 * r + 4]
+        f32, cols, bf16 = out["reduce_scatter_dim"]
+        np.testing.assert_array_equal(f32, mine)
+        np.testing.assert_array_equal(cols, mine.T)
+        np.testing.assert_array_equal(bf16, mine)
+
+
 def test_env_and_backend(world):
     n, res = world
     for rank, r in enumerate(res):

@@ -81,7 +81,19 @@ def test_fleet_init_groups_equal_reference_topology(inits, i):
 
 
 def test_unported_fleet_calls_name_their_item(inits):
+    """The parameter-server calls still raise naming A10.6; the model and
+    optimizer wrappers are ported: by the hybrid group's sizes, pipe
+    first (PipelineParallel, which raises naming A10.3), then model
+    parallel (TensorParallel around the module), and the optimizer in a
+    HybridParallelOptimizer over this rank's group."""
     errs = inits[0]["errors"]
-    assert len(errs) == 5
-    assert all("A10.2" in e for e in errs[:2])
-    assert all("A10.6" in e for e in errs[2:])
+    assert len(errs) == 3
+    assert all("A10.6" in e for e in errs)
+    for res in inits:
+        tp_dp, tp_pp, tp_only = (x["wrapped"] for x in res["inits"])
+        for got in (tp_dp, tp_only):
+            assert got["model"] == "TensorParallel" and got["inner"]
+        assert "A10.3" in tp_pp["model_error"]
+        for got in (tp_dp, tp_pp, tp_only):
+            assert got["optimizer"] == ("HybridParallelOptimizer", True,
+                                        "SGD")

@@ -2106,3 +2106,113 @@ def test_moe_probes_on_card_sync_nothing_and_land(dev):
         obs.numerics.clear()
         obs.disable()
         obs.get_registry().reset()
+
+
+# ---------------------------------------------------------------------------
+# the sharded train step's shapes: a rank's slice at tp = 2
+# ---------------------------------------------------------------------------
+# (hq, hkv): llama-2.6b's 24/8 heads and DeepSeekMoE's 16/16 at tp = 2
+_TP_HEADS = {"llama_2_6b_tp2": (12, 4), "deepseek_moe_tp2": (8, 8)}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("S", [1000, 2048])
+@pytest.mark.parametrize("heads", list(_TP_HEADS))
+def test_flash_at_tp_split_heads_matches_plain(dev, heads, S, dtype, tol):
+    """B1 forward and B2/B3 backward on a tp = 2 rank's heads (12/4:
+    llama-2.6b, 8/8: DeepSeekMoE), causal, D = 128, B = 2, against their
+    plain versions: out and lse within ``tol``, each gradient within
+    ``tol`` of its largest magnitude; one launch of each a call, and two
+    calls agree bit for bit."""
+    hq, hkv = _TP_HEADS[heads]
+    g = torch.Generator(device=dev).manual_seed(S + hq)
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                   for shape in ((2, S, hq, 128), (2, S, hkv, 128),
+                                 (2, S, hkv, 128), (2, S, hq, 128)))
+    before = {n: _build.launch_counts[n]
+              for n in ("flash_fwd", "flash_dq", "flash_dkv")}
+    out, lse = tfa.flash_attention_fwd(q, k, v, True)
+    ref, ref_lse = tfa.flash_attention_fwd_plain(q, k, v, True)
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do, True)
+    again = tfa.flash_attention_bwd(q, k, v, out, lse, do, True)
+    want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    assert {n: _build.launch_counts[n] - b for n, b in before.items()} \
+        == {"flash_fwd": 1, "flash_dq": 2, "flash_dkv": 2}
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= tol
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, again):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        assert _rel(a, b) <= tol, name
+        assert torch.equal(a, c), name
+
+
+def _tp_routing(dev, T, E, k, seed):
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.randn(T, E, generator=g, device=dev)
+    logits[:, 0] += 1.0
+    return md.routing_from_logits(logits, k), g
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_grouped_gemms_at_tp_split_width_match_plain(dev, dtype, tol):
+    """B9 and B10 at DeepSeekMoE's expert width split over tp = 2 (f =
+    704: a multiple of 8, not of 128, so the last column tile is ragged
+    at every tile width): B9's gate|up (n = 2f = 1408) and half of it (n
+    = 704) over the tile-padded layout of a top-6 routing of 1024 tokens
+    to 64 experts (h = 2048), gmm's down projection (K = 704, N = 2048)
+    and its dgrad (transpose_rhs: N = 704), tgmm's wgrads ([E, 2048, 704]
+    and [E, 704, 2048]), each against its plain version within ``tol`` of
+    the plain result's largest magnitude, every call equal to itself bit
+    for bit over two calls."""
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+    from paddle_tpu_torch.kernels import moe_fused as mf
+    T, h, f, E, k = 1024, 2048, 704, 64, 6
+    r, g = _tp_routing(dev, T, E, k, 31)
+    x = torch.randn(T, h, generator=g, device=dev).to(dtype)
+    inv2d = mf._inverse_permutation(r.order).reshape(T, k)
+    tok_pad, _, _, _, gs_pad = mf._pad_layout(
+        r.gs, r.tok, r.weights.reshape(-1)[r.order], r.flat_e[r.order],
+        inv2d, E)
+    gid = mf._tile_gids(gs_pad, tok_pad.shape[0], 128)
+    for n in (2 * f, f):
+        rhs = (torch.randn(E, h, n, generator=g, device=dev) / h ** 0.5) \
+            .to(dtype)
+        before = _build.launch_counts["gather_gmm"]
+        out = mf.gather_gmm(x, tok_pad, rhs, gid)
+        again = mf.gather_gmm(x, tok_pad, rhs, gid)
+        ref = mf.gather_gmm_plain(x, tok_pad, rhs, gid)
+        torch.cuda.synchronize()
+        assert _build.launch_counts["gather_gmm"] == before + 2
+        assert out.shape == (tok_pad.shape[0], n)
+        assert _rel(out, ref) <= tol, n
+        assert torch.equal(out, again), n
+    A = T * k
+    z = torch.randn(A, f, generator=g, device=dev).to(dtype)
+    down = (torch.randn(E, f, h, generator=g, device=dev) / f ** 0.5) \
+        .to(dtype)
+    dy = torch.randn(A, h, generator=g, device=dev).to(dtype)
+    for lhs, rhs, tr in ((z, down, False), (dy, down, True)):
+        before = _build.launch_counts["gmm"]
+        out = md.gmm(lhs, rhs, r.gs, tr)
+        again = md.gmm(lhs, rhs, r.gs, tr)
+        ref = md.gmm_plain(lhs, rhs, r.gs, tr)
+        torch.cuda.synchronize()
+        assert _build.launch_counts["gmm"] == before + 2
+        assert out.shape == (A, f if tr else h)
+        assert _rel(out, ref) <= tol, tr
+        assert torch.equal(out, again), tr
+    xs = x.index_select(0, r.tok)
+    for lhs, rhs in ((xs, z), (z, dy)):
+        before = _build.launch_counts["tgmm"]
+        out = md.tgmm(lhs.t(), rhs, r.gs)
+        again = md.tgmm(lhs.t(), rhs, r.gs)
+        ref = md.tgmm_plain(lhs.t(), rhs, r.gs)
+        torch.cuda.synchronize()
+        assert _build.launch_counts["tgmm"] == before + 2
+        assert out.shape == (E, lhs.shape[1], rhs.shape[1])
+        assert _rel(out, ref) <= (1e-5 if dtype == torch.float32 else 1e-2)
+        assert torch.equal(out, again)

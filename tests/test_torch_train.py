@@ -431,8 +431,10 @@ def test_pretrain_entry_point_runs_on_cpu_and_rejects_unported_flags(
     assert np.isfinite(loss)
     out = capsys.readouterr().out
     assert "loss" in out and "tokens/s on cpu" in out
-    for flags, queue in ((["--tp", "2"], "A10"), (["--pp", "2"], "A10"),
-                         (["--microbatches", "4"], "A10")):
+    # --dp/--tp run on a mesh (tests/test_torch_data_parallel.py); the
+    # axes not ported yet raise naming their queue
+    for flags, queue in ((["--sp", "2"], "A10.4"), (["--pp", "2"], "A10.3"),
+                         (["--microbatches", "4"], "A10.3")):
         with pytest.raises(NotImplementedError, match=queue):
             llama_pretrain.main(["--size", "tiny", "--device", "cpu",
                                  *flags])

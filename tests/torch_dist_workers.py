@@ -3,7 +3,7 @@
 ``spawn_ranks(fn, nprocs, workdir, *args)`` runs ``fn(rank, world, *args)``
 in ``nprocs`` fresh processes joined in one gloo process group (a
 ``file://`` rendezvous under ``workdir``), and returns each rank's result,
-rank order. The rank workers live in this module, which imports torch and
+rank order (``start_ranks`` starts them and returns at once). The rank workers live in this module, which imports torch and
 the port but never jax, so a rank starts in about a second; a test module
 runs one spawn for all its cases (a module-scoped fixture) and checks the
 ranks' results against the JAX package in the test process.
@@ -39,31 +39,52 @@ def _entry(rank, world, init_file, out_dir, fn, args):
         raise SystemExit(1)
 
 
+class Ranks:
+    """``fn(rank, world, *args)`` running on ``nprocs`` gloo ranks, started
+    by :func:`start_ranks`; :meth:`results` waits for them."""
+
+    def __init__(self, fn, nprocs, workdir, args):
+        self.nprocs, self.workdir = nprocs, str(workdir)
+        os.makedirs(self.workdir, exist_ok=True)
+        init_file = os.path.join(self.workdir, "rdv")
+        if os.path.exists(init_file):
+            os.remove(init_file)
+        self.ctx = mp.start_processes(
+            _entry, args=(nprocs, init_file, self.workdir, fn, args),
+            nprocs=nprocs, join=False, start_method="spawn")
+
+    def results(self):
+        """Each rank's result (picklable), rank order. A rank that raised
+        fails the call with its traceback."""
+        try:
+            while not self.ctx.join():
+                pass
+        except mp.ProcessRaisedException as e:
+            raise RuntimeError(f"a rank failed:\n{e}") from None
+        except mp.ProcessExitedException:
+            pass              # the rank's own traceback is in its file
+        out = []
+        for r in range(self.nprocs):
+            with open(os.path.join(self.workdir, f"rank{r}.pkl"), "rb") as f:
+                payload = pickle.load(f)
+            if "error" in payload:
+                raise RuntimeError(f"rank {r} failed:\n{payload['error']}")
+            out.append(payload["ok"])
+        return out
+
+
+def start_ranks(fn, nprocs, workdir, *args):
+    """Start ``fn(rank, world, *args)`` on ``nprocs`` gloo ranks and
+    return at once (:class:`Ranks`), so the test process can compute its
+    side meanwhile."""
+    return Ranks(fn, nprocs, workdir, args)
+
+
 def spawn_ranks(fn, nprocs, workdir, *args):
     """``fn(rank, world, *args)`` on ``nprocs`` gloo ranks; their results
     (picklable), rank order. A rank that raises fails the call with its
     traceback."""
-    workdir = str(workdir)
-    os.makedirs(workdir, exist_ok=True)
-    init_file = os.path.join(workdir, "rdv")
-    if os.path.exists(init_file):
-        os.remove(init_file)
-    try:
-        mp.start_processes(_entry, args=(nprocs, init_file, workdir, fn,
-                                         args),
-                           nprocs=nprocs, join=True, start_method="spawn")
-    except mp.ProcessRaisedException as e:
-        raise RuntimeError(f"a rank failed:\n{e}") from None
-    except mp.ProcessExitedException:
-        pass                  # the rank's own traceback is in its file
-    out = []
-    for r in range(nprocs):
-        with open(os.path.join(workdir, f"rank{r}.pkl"), "rb") as f:
-            payload = pickle.load(f)
-        if "error" in payload:
-            raise RuntimeError(f"rank {r} failed:\n{payload['error']}")
-        out.append(payload["ok"])
-    return out
+    return start_ranks(fn, nprocs, workdir, *args).results()
 
 
 def to_numpy(tree):
@@ -291,6 +312,19 @@ def collective_worker(rank, world):
     out["scatter_object_list"] = objs
     pd.barrier()
     pd.wait(rank_input(rank))
+    # the sharded train step's gather and reduce-scatter along a dim
+    # (point to point on gloo), f32 and bf16
+    from paddle_tpu_torch.distributed import collective as pdc
+
+    t = rank_input(rank)
+    out["all_gather_dim"] = [pdc.all_gather_dim(t, d).numpy()
+                             for d in (0, 1)]
+    big = torch.arange(4 * world * 3, dtype=torch.float32).reshape(
+        4 * world, 3) * (rank + 1)
+    out["reduce_scatter_dim"] = [
+        pdc.reduce_scatter_dim(big, 0).numpy(),
+        pdc.reduce_scatter_dim(big.t().contiguous(), 1).numpy(),
+        pdc.reduce_scatter_dim(big.to(torch.bfloat16), 0).float().numpy()]
     # subgroups: every rank creates every group, in the same order
     groups = [pd.new_group([0, 1])]
     if world == 4:
@@ -432,12 +466,11 @@ def hcg_worker(rank, world, strategies):
             util=(fleet.UtilBase().all_reduce([rank, 1], mode="sum").tolist(),
                   fleet.UtilBase().all_reduce([rank], mode="max").tolist(),
                   fleet.UtilBase().all_gather(rank))))
+        out[-1]["wrapped"] = fleet_wrappers(fleet, hcg)
         fleet.barrier_worker()
         fleet.UtilBase().barrier()
     errors = []
-    for call in (lambda: fleet.distributed_model(None),
-                 lambda: fleet.distributed_optimizer(None),
-                 lambda: fleet.fleet.init_server(),
+    for call in (lambda: fleet.fleet.init_server(),
                  lambda: fleet.fleet.run_server(),
                  lambda: fleet.fleet.init_worker()):
         try:
@@ -445,6 +478,26 @@ def hcg_worker(rank, world, strategies):
         except NotImplementedError as e:
             errors.append(str(e))
     return {"inits": out, "errors": errors}
+
+
+def fleet_wrappers(fleet, hcg):
+    """What ``distributed_model`` and ``distributed_optimizer`` make of a
+    small module and its SGD under the hybrid group: the wrappers' class
+    names and groups, or the error a wrapper raises."""
+    model = torch.nn.Linear(4, 2)
+    try:
+        m = fleet.distributed_model(model)
+        got = {"model": type(m).__name__, "inner": m is model or
+               getattr(m, "_layers", None) is model,
+               "group": (m._group.ranks if getattr(m, "_group", None)
+                         is not None else None)}
+    except NotImplementedError as e:
+        got = {"model_error": str(e)}
+    opt = fleet.distributed_optimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1))
+    got["optimizer"] = (type(opt).__name__, opt._hcg is hcg,
+                        type(opt._inner_opt).__name__)
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -523,4 +576,229 @@ def mpu_worker(rank, world, data):
         inside2 = torch.rand(3)
     out["rng"] = (outside.numpy(), inside.numpy(), inside2.numpy(),
                   torch.rand(3).numpy())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sharded training (tests/test_torch_sharded_train.py,
+# tests/test_torch_moe_sharded.py)
+# ---------------------------------------------------------------------------
+TRAIN_AXES = ("dp", "sp", "tp")
+
+
+TRAIN_MESHES = {}
+
+
+def train_mesh(world, dp, tp):
+    """The CPU ``DeviceMesh`` (dp, sp=1, tp) over the world's ranks, one a
+    shape kept in ``TRAIN_MESHES`` (every rank makes the meshes in the
+    same order)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    key = (world, dp, tp)
+    if key not in TRAIN_MESHES:
+        TRAIN_MESHES[key] = DeviceMesh(
+            "cpu", torch.arange(world).reshape(dp, 1, tp),
+            mesh_dim_names=TRAIN_AXES)
+    return TRAIN_MESHES[key]
+
+
+def mesh_coords(rank, dp, tp):
+    """Rank ``rank``'s coordinates on ``train_mesh``'s (dp, 1, tp)."""
+    return {"dp": rank // tp, "sp": 0, "tp": rank % tp}
+
+
+def _train_model(case):
+    from paddle_tpu_torch.models import llama as tl
+    from paddle_tpu_torch.models import moe as tm
+
+    return (tm, tm.loss_fn) if case.get("model") == "moe" else (tl, None)
+
+
+def _spec_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _spec_tree(v) for k, v in tree.items()}
+    return tuple(tree)
+
+
+def sharded_train_case(rank, world, tree, toks, cfg, case):
+    """One case of the sharded-train tests on this rank: the whole numpy
+    state cut by the case's shardings, then ``steps`` train steps on this
+    rank's rows, each after a ``loss_and_grads`` and the plan's global
+    norm; the losses, norms, final slices, specs and the plan's
+    collectives."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import llama as tl
+    from paddle_tpu_torch.optimizer import functional as tf
+
+    mod, lf = _train_model(case)
+    cfg = dataclasses.replace(cfg, **case.get("config", {}))
+    dp, tp = case["mesh"]
+    mesh = train_mesh(world, dp, tp)
+    opt = case["optimizer"]
+    params = mod.params_from_numpy(tree, device="cpu")
+    mu, nu = tf.init_moments(params, opt)
+    state = tl.TrainState(params, mu, nu, torch.zeros((), dtype=torch.int32))
+    sh = mod.make_shardings(cfg, mesh, fsdp=case["fsdp"])
+    out = {"losses": [], "gnorms": [], "coords": mesh_coords(rank, dp, tp),
+           "specs": _spec_tree(sh)}
+    with tl.activation_mesh(mesh):
+        state = tl.put_train_state(state, sh, opt)
+        rows = tl.shard_batch(torch.as_tensor(toks))
+        if case.get("aux"):
+            _, aux = mod.forward(state.params, rows[:, :-1], cfg,
+                                 return_aux=True)
+            out["aux"] = float(aux)
+        for _ in range(case.get("steps", 2)):
+            _, grads = tl.loss_and_grads(state.params, rows, cfg, lf)
+            plan = tl.train_plan(cfg, state.params)
+            out["gnorms"].append(float(plan.global_norm(grads)))
+            state, loss = mod.train_step(
+                state, rows, cfg, lr=case.get("lr", 3e-4), optimizer=opt,
+                accum_steps=case.get("accum", 1))
+            out["losses"].append(float(loss))
+        plan = tl.train_plan(cfg, state.params)
+        out["counts"] = dict(plan.counts)
+        out["plan_steps"] = plan.steps
+        out["local_config"] = (plan.config.num_heads, plan.config.num_kv_heads)
+    mu_sh, nu_sh = tf.moment_shardings(sh, state.params, opt)
+    out["moment_specs"] = (_spec_tree(mu_sh), _spec_tree(nu_sh))
+    out["state"] = to_numpy({"params": state.params, "mu": state.mu,
+                             "nu": state.nu})
+    return out
+
+
+def sharded_init_check(rank, world, cfg, case):
+    """``init_sharded_train_state`` against ``shard_params(init_params)``
+    (bit for bit) and ``put_train_state``'s moments (shapes), for one
+    model, mesh, fsdp and optimizer."""
+    from paddle_tpu_torch.models import llama as tl
+    from paddle_tpu_torch.optimizer import functional as tf
+
+    mod, _ = _train_model(case)
+    dp, tp = case["mesh"]
+    mesh = train_mesh(world, dp, tp)
+    opt = case["optimizer"]
+    sh = mod.make_shardings(cfg, mesh, fsdp=case["fsdp"])
+    st = mod.init_sharded_train_state(cfg, 3, sh, opt, device="cpu",
+                                      mesh=mesh)
+    whole = mod.init_params(cfg, 3, device="cpu")
+    want = tl.shard_params(whole, sh, mesh)
+    mu, nu = tf.init_moments(whole, opt)
+    put = tl.put_train_state(tl.TrainState(whole, mu, nu, st.step), sh, opt,
+                             mesh=mesh)
+    equal = all(torch.equal(a, b) for a, b in zip(
+        tf.tree_leaves(st.params), tf.tree_leaves(want)))
+    shapes = [tuple(t.shape)
+              for t in tf.tree_leaves({"mu": st.mu, "nu": st.nu})]
+    put_shapes = [tuple(t.shape)
+                  for t in tf.tree_leaves({"mu": put.mu, "nu": put.nu})]
+    cut = any(a.shape != b.shape for a, b in zip(
+        tf.tree_leaves(st.params), tf.tree_leaves(whole)))
+    return {"equal": equal, "moment_shapes": shapes == put_shapes,
+            "cut": cut, "step": int(st.step)}
+
+
+def sharded_train_worker(rank, world, tree, toks, cfg, cases, inits,
+                         refusals=()):
+    """Every case of a sharded-train test module on this rank (module
+    docstrings of the tests), the init checks, and the refusals: each
+    ``(mesh shape, axes, config)`` of ``refusals`` with the error a train
+    step raises under it."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from paddle_tpu_torch.models import llama as tl
+    from paddle_tpu_torch.optimizer import functional as tf
+
+    out = {"cases": {name: sharded_train_case(rank, world, tree, toks, cfg,
+                                               case)
+                     for name, case in cases.items()},
+           "inits": {name: sharded_init_check(rank, world, cfg, case)
+                     for name, case in inits.items()},
+           "refusals": []}
+    for shape, axes, model in refusals:
+        mesh = DeviceMesh("cpu", torch.arange(world).reshape(shape),
+                          mesh_dim_names=axes)
+        mod, lf = _train_model({"model": model})
+        c = cfg if model != "moe" else _moe_refusal_config()
+        params = mod.init_params(c, 0, device="cpu")
+        mu, nu = tf.init_moments(params)
+        st = tl.TrainState(params, mu, nu, torch.zeros((), dtype=torch.int32))
+        try:
+            with tl.activation_mesh(mesh):
+                mod.train_step(st, torch.as_tensor(toks), c)
+            out["refusals"].append(None)
+        except NotImplementedError as e:
+            out["refusals"].append(str(e))
+    return out
+
+
+def _moe_refusal_config():
+    from paddle_tpu_torch.models import moe as tm
+
+    return tm.tiny_moe(vocab=64, hidden=32, layers=1, heads=4, experts=4,
+                       seq=64)
+
+
+# ---------------------------------------------------------------------------
+# the eager data-parallel wrappers (tests/test_torch_data_parallel.py)
+# ---------------------------------------------------------------------------
+def mlp_from_numpy(w):
+    """Linear(8, 16) -> tanh -> Linear(16, 4) with the numpy weights
+    ``w`` (torch's [out, in] layout)."""
+    m = torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.Tanh(),
+                            torch.nn.Linear(16, 4))
+    with torch.no_grad():
+        for (name, p), a in zip(m.named_parameters(), w):
+            p.copy_(torch.as_tensor(a))
+    return m
+
+
+def mlp_loss(m, x, t):
+    return ((m(torch.as_tensor(x)) - torch.as_tensor(t)) ** 2).mean()
+
+
+def data_parallel_worker(rank, world, w, x, t, lr):
+    """DataParallel's averaged grads on this rank's rows, its no_sync
+    grads, and fleet's wrappers (dp=2): one HybridParallelOptimizer step
+    and one ``minimize``, with the pass-throughs."""
+    from paddle_tpu_torch.distributed import DataParallel, fleet
+
+    n = x.shape[0] // world
+    rows = slice(rank * n, (rank + 1) * n)
+    out = {}
+    dpm = DataParallel(mlp_from_numpy(w))
+    mlp_loss(dpm, x[rows], t[rows]).backward()
+    dpm.apply_collective_grads()
+    out["avg"] = [p.grad.numpy().copy() for p in dpm.parameters()]
+    for p in dpm.parameters():
+        p.grad = None
+    with dpm.no_sync():
+        mlp_loss(dpm, x[rows], t[rows]).backward()
+        dpm.apply_collective_grads()
+    out["no_sync"] = [p.grad.numpy().copy() for p in dpm.parameters()]
+    out["names"] = (list(dpm.state_dict()), [k for k, _ in
+                                             dpm.named_parameters()])
+
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = dict(strategy.hybrid_configs, dp_degree=world)
+    fleet.init(is_collective=True, strategy=strategy)
+    model = fleet.distributed_model(mlp_from_numpy(w))
+    opt = fleet.distributed_optimizer(
+        torch.optim.SGD(model.parameters(), lr=lr))
+    out["wrappers"] = (type(model).__name__, model._group.ranks,
+                       type(opt).__name__)
+    # the model's own backward is local: the optimizer averages
+    mlp_loss(model._layers, x[rows], t[rows]).backward()
+    opt.step()
+    out["step"] = [p.detach().numpy().copy() for p in model.parameters()]
+    opt.clear_grad()
+    out["cleared"] = all(p.grad is None for p in model.parameters())
+    opt.minimize(mlp_loss(model._layers, x[rows], t[rows]))
+    out["minimize"] = [p.detach().numpy().copy()
+                       for p in model.parameters()]
+    opt.set_lr(lr / 2)
+    out["lr"] = (opt.get_lr(), opt._learning_rate,
+                 sorted(opt.state_dict()), opt.param_groups[0]["lr"])
     return out
